@@ -1,0 +1,315 @@
+"""RetrievalBackend registry — the port's seam for ANN backends.
+
+Port of ``repro/core/backend.py`` for the IVF family.  A backend is a
+frozen dataclass holding its knobs (h, nprobe, alpha, …); the index is
+an argument.  ``register`` / ``get`` / ``make`` behave as the
+reference's (strict and lenient knob checking).  Only ``"ivf"`` is
+registered in this slice: ``make("ivf_pq")``, ``make("hnsw")`` and
+``make("exact")`` raise the reference's unknown-backend error until
+those backends are ported (ROADMAP Queue 1).
+
+The Eq. 1 session machinery is written once (``_ivf_family_*``) and
+parameterised by ``list_scan``.  Where the reference gates the refresh
+with ``lax.cond`` on a traced predicate, the port syncs the predicate
+to the host (``if bool(...)``): one host sync per follow-up turn when
+TopLoc_IVF+ is on.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, ClassVar, Dict, Tuple, Type
+
+import numpy as np
+import torch
+
+from repro_torch.core import ivf as _ivf
+from repro_torch.core import toploc as _tl
+from repro_torch.core.topk import intersect_count, topk
+from repro_torch.kernels import ref as _kref
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Type["RetrievalBackend"]] = {}
+
+
+def register(cls: Type["RetrievalBackend"]) -> Type["RetrievalBackend"]:
+    """Class decorator: make ``cls`` resolvable by ``get``/``make``."""
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+def names() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def get(name: str) -> Type["RetrievalBackend"]:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown retrieval backend {name!r}; registered: "
+            f"{', '.join(names())}") from None
+
+
+def _knob_fields(cls: Type["RetrievalBackend"]) -> set:
+    return {f.name for f in dataclasses.fields(cls)}
+
+
+def make(name: str, *, strict: bool = False,
+         **knobs: Any) -> "RetrievalBackend":
+    """Build a backend from a flat knob mapping; knobs the backend does
+    not declare are ignored unless ``strict``, but a knob that no
+    registered backend declares raises (a typo, not a cross-backend
+    knob)."""
+    cls = get(name)
+    fields = _knob_fields(cls)
+    if strict:
+        unknown = sorted(set(knobs) - fields)
+        if unknown:
+            raise TypeError(
+                f"make({name!r}, strict=True): unknown knob(s) "
+                f"{', '.join(unknown)}; {cls.__name__} declares "
+                f"{', '.join(sorted(fields))}")
+        return cls(**knobs)
+    union = set().union(*(_knob_fields(c) for c in _REGISTRY.values()))
+    unknown = sorted(set(knobs) - union)
+    if unknown:
+        raise TypeError(
+            f"make({name!r}): knob(s) {', '.join(unknown)} match no "
+            f"registered backend's fields (likely a typo); known knobs: "
+            f"{', '.join(sorted(union))}")
+    return cls(**{k: v for k, v in knobs.items() if k in fields})
+
+
+# ---------------------------------------------------------------------------
+# shared IVF-family implementation
+#
+# ``list_scan(index, q (B,d), sel (B,np), k)`` -> (top_v (B,k),
+# top_i (B,k), list_dists (B,), code_dists (B,)).
+# ---------------------------------------------------------------------------
+
+
+def _i32(x, dev) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.int32, device=dev)
+
+
+def _full(b: int, x, dev, dtype=torch.int32) -> torch.Tensor:
+    return torch.full((b,), x, dtype=dtype, device=dev)
+
+
+def _refresh_threshold(alpha: float, nprobe: int) -> float:
+    # the reference compares |I0| with jnp.asarray(alpha * nprobe), a
+    # float32: round the same way so an integer-adjacent product
+    # (e.g. 0.1 * 30) refreshes on the same turns
+    return float(np.float32(alpha * nprobe))
+
+
+def _ivf_family_start(index, q0, *, h, nprobe, k, list_scan):
+    """First utterance: full centroid scan, C0 = top_h(q0, C), answer."""
+    dev = q0.device
+    cache_ids, cache_vecs = _ivf.make_cache(index, q0, h=h)
+    # top_np(q0, C0) == top_np(q0, C): C0 holds q0's h best centroids
+    anchor_sel = cache_ids[:nprobe]
+    top_v, top_i, list_d, code_d = list_scan(index, q0[None],
+                                             anchor_sel[None], k)
+    sess = _tl.IVFSession(cache_ids, cache_vecs, anchor_sel, _i32(0, dev),
+                          _i32(1, dev))
+    stats = _tl.TurnStats(
+        centroid_dists=_i32(index.p, dev), list_dists=list_d[0],
+        graph_dists=_i32(0, dev), code_dists=code_d[0],
+        i0=_i32(-1, dev), refreshed=torch.tensor(True, device=dev))
+    return top_v[0], top_i[0], sess, stats
+
+
+def _ivf_family_step(index, sess, q, *, nprobe, k, alpha, list_scan):
+    """Follow-up utterance: cached centroid selection, Eq. 1 drift check
+    (``alpha < 0`` static cache, ``alpha >= 0`` refresh), one list scan.
+    A refreshed turn pays (h + p) centroid distances but one scan."""
+    dev = q.device
+    h = sess.cache_ids.shape[0]
+    # 1. centroid selection against the cached set C0  (cost: h)
+    _, sel_local = topk(sess.cache_vecs @ q, nprobe)
+    sel_cached = sess.cache_ids[sel_local]
+    # 2. drift proxy |I0| = |top_np(qj, C0) ∩ top_np(q0, C0)|   (Eq. 1)
+    i0 = intersect_count(sel_cached, sess.anchor_sel)
+    need_refresh = alpha >= 0.0 and bool(
+        i0 < _refresh_threshold(alpha, nprobe))
+    # 3. optional refresh: rescan the full centroid set, re-anchor on qj
+    if need_refresh:
+        cache_ids, cache_vecs = _ivf.make_cache(index, q, h=h)
+        anchor_sel = sel = cache_ids[:nprobe]
+    else:
+        cache_ids, cache_vecs = sess.cache_ids, sess.cache_vecs
+        anchor_sel, sel = sess.anchor_sel, sel_cached
+    # 4. one posting-list scan with the final selection
+    top_v, top_i, list_d, code_d = list_scan(index, q[None], sel[None], k)
+    new_sess = _tl.IVFSession(cache_ids, cache_vecs, anchor_sel,
+                              sess.refreshes + int(need_refresh),
+                              sess.turn + 1)
+    stats = _tl.TurnStats(
+        centroid_dists=_i32(h + int(need_refresh) * index.p, dev),
+        list_dists=list_d[0], graph_dists=_i32(0, dev),
+        code_dists=code_d[0], i0=i0,
+        refreshed=torch.tensor(need_refresh, device=dev))
+    return top_v[0], top_i[0], new_sess, stats
+
+
+def _ivf_family_start_batch(index, q0, *, h, nprobe, k, list_scan):
+    """Batched first utterances."""
+    b, dev = q0.shape[0], q0.device
+    cache_ids, cache_vecs = _tl.make_cache_batch(index, q0, h=h)
+    anchor_sel = cache_ids[:, :nprobe]
+    top_v, top_i, list_d, code_d = list_scan(index, q0, anchor_sel, k)
+    sess = _tl.IVFSession(cache_ids, cache_vecs, anchor_sel,
+                          _full(b, 0, dev), _full(b, 1, dev))
+    stats = _tl.TurnStats(
+        centroid_dists=_full(b, index.p, dev), list_dists=list_d,
+        graph_dists=_full(b, 0, dev), code_dists=code_d,
+        i0=_full(b, -1, dev), refreshed=_full(b, True, dev, torch.bool))
+    return top_v, top_i, sess, stats
+
+
+def _ivf_family_step_batch(index, sess, q, *, nprobe, k, alpha, is_first,
+                           list_scan):
+    """Batched follow-ups over B concurrent conversations.
+
+    ``is_first`` rows ignore the slot contents, pay a full centroid scan
+    and re-anchor (first-turn semantics as a forced refresh).  Per-row
+    logic is select-only; the refresh scan runs only when some row of
+    the batch needs it (one host sync).
+    """
+    b, h = sess.cache_ids.shape
+    dev = q.device
+    _, sel_local = topk(_kref.gemv_rows(sess.cache_vecs, q), nprobe)
+    sel_cached = sess.cache_ids.gather(1, sel_local)
+    i0 = intersect_count(sel_cached, sess.anchor_sel)
+    drift = (i0 < _refresh_threshold(alpha, nprobe)) if alpha >= 0.0 \
+        else torch.zeros(b, dtype=torch.bool, device=dev)
+    first = (torch.zeros(b, dtype=torch.bool, device=dev)
+             if is_first is None else is_first.to(torch.bool))
+    refresh = first | drift
+
+    cache_ids, cache_vecs = sess.cache_ids, sess.cache_vecs
+    anchor_sel, sel = sess.anchor_sel, sel_cached
+    if (is_first is not None or alpha >= 0.0) and bool(refresh.any()):
+        fresh_ids, fresh_vecs = _tl.make_cache_batch(index, q, h=h)
+        r1 = refresh[:, None]
+        cache_ids = torch.where(r1, fresh_ids, cache_ids)
+        cache_vecs = torch.where(r1[..., None], fresh_vecs, cache_vecs)
+        anchor_sel = torch.where(r1, fresh_ids[:, :nprobe], anchor_sel)
+        sel = torch.where(r1, fresh_ids[:, :nprobe], sel)
+
+    top_v, top_i, list_d, code_d = list_scan(index, q, sel, k)
+
+    step_refresh = (drift & ~first).to(torch.int32)  # first turns don't count
+    new_sess = _tl.IVFSession(
+        cache_ids, cache_vecs, anchor_sel,
+        torch.where(first, 0, sess.refreshes + step_refresh).to(torch.int32),
+        torch.where(first, 1, sess.turn + 1).to(torch.int32))
+    stats = _tl.TurnStats(
+        centroid_dists=torch.where(first, index.p,
+                                   h + step_refresh * index.p
+                                   ).to(torch.int32),
+        list_dists=list_d, graph_dists=_full(b, 0, dev), code_dists=code_d,
+        i0=torch.where(first, -1, i0).to(torch.int32), refreshed=refresh)
+    return top_v, top_i, new_sess, stats
+
+
+def _ivf_family_plain_batch(index, q, *, nprobe, k, list_scan):
+    """Stateless baseline turn: full centroid scan, one list scan."""
+    b, dev = q.shape[0], q.device
+    _, sel = topk(_tl._bcast_centroid_scores(index.centroids, q), nprobe)
+    top_v, top_i, list_d, code_d = list_scan(index, q, sel, k)
+    stats = _tl.TurnStats(
+        centroid_dists=_full(b, index.p, dev), list_dists=list_d,
+        graph_dists=_full(b, 0, dev), code_dists=code_d,
+        i0=_full(b, -1, dev), refreshed=_full(b, False, dev, torch.bool))
+    return top_v, top_i, stats
+
+
+# ---------------------------------------------------------------------------
+# backends
+# ---------------------------------------------------------------------------
+
+
+class RetrievalBackend:
+    """Shared glue for registered backends.  Subclasses are frozen
+    dataclasses exposing ``start / step / plain_batch / start_batch /
+    step_batch`` as in the reference; the reference's hooks for the
+    session store and the result cache (``session_template``,
+    ``corpus_vectors``, ``query_dim``, ``fetch_limit``) come with those
+    layers (ROADMAP Queue 1, item 1)."""
+
+    name: ClassVar[str] = "?"
+    index_kwarg: ClassVar[str] = "?"       # engine kwarg holding the index
+    stateful: ClassVar[bool] = True        # has per-conversation sessions
+
+    def plain(self, index, q, *, k):
+        """Single-query plain turn: B=1 through the batch-size-stable
+        batched path."""
+        v, i, st = self.plain_batch(index, q[None], k=k)
+        return v[0], i[0], _tl.TurnStats(*(x[0] for x in st))
+
+
+@register
+@dataclasses.dataclass(frozen=True)
+class IVFBackend(RetrievalBackend):
+    """TopLoc_IVF / TopLoc_IVF+ over float posting lists.
+
+    ``alpha < 0`` → static centroid cache (TopLoc_IVF); ``alpha >= 0`` →
+    Eq. 1 refresh at ``|I0| < alpha·nprobe`` (TopLoc_IVF+).  ``fused``
+    (a ``toploc.FusedTurn``) routes the scan — and, on the stateless
+    path, the whole turn — through the fused CUDA kernels.
+    """
+
+    name: ClassVar[str] = "ivf"
+    index_kwarg: ClassVar[str] = "ivf_index"
+
+    h: int = 1024
+    nprobe: int = 64
+    alpha: float = -1.0
+    fused: Any = None
+
+    def _list_scan(self, index, q, sel, k):
+        if self.fused is not None:
+            v, i, real = self.fused.list_scan_ivf(index, q, sel, k)
+        else:
+            v, i, real = _ivf._scan_lists(index, q, sel, k)
+        return v, i, real, torch.zeros_like(real)
+
+    def start(self, index, q0, *, k):
+        return _ivf_family_start(index, q0, h=self.h, nprobe=self.nprobe,
+                                 k=k, list_scan=self._list_scan)
+
+    def step(self, index, sess, q, *, k):
+        return _ivf_family_step(index, sess, q, nprobe=self.nprobe, k=k,
+                                alpha=self.alpha, list_scan=self._list_scan)
+
+    def start_batch(self, index, q0, *, k):
+        return _ivf_family_start_batch(index, q0, h=self.h,
+                                       nprobe=self.nprobe, k=k,
+                                       list_scan=self._list_scan)
+
+    def step_batch(self, index, sess, q, *, k, is_first=None):
+        return _ivf_family_step_batch(index, sess, q, nprobe=self.nprobe,
+                                      k=k, alpha=self.alpha,
+                                      is_first=is_first,
+                                      list_scan=self._list_scan)
+
+    def plain_batch(self, index, q, *, k):
+        if self.fused is not None:
+            # whole turn in the fused kernels: centroid scoring, probe
+            # selection and list scan/merge
+            b, dev = q.shape[0], q.device
+            v, i, _sel, real = self.fused.turn_ivf(index, q,
+                                                   nprobe=self.nprobe, k=k)
+            stats = _tl.TurnStats(
+                centroid_dists=_full(b, index.p, dev), list_dists=real,
+                graph_dists=_full(b, 0, dev), code_dists=_full(b, 0, dev),
+                i0=_full(b, -1, dev),
+                refreshed=_full(b, False, dev, torch.bool))
+            return v, i, stats
+        return _ivf_family_plain_batch(index, q, nprobe=self.nprobe, k=k,
+                                       list_scan=self._list_scan)

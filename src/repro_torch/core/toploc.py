@@ -1,0 +1,194 @@
+"""TopLoc — the paper's session logic, shared by the registered backends.
+
+Port of ``repro/core/toploc.py`` for the IVF family:
+
+  * the session state ``IVFSession`` and the ``TurnStats`` work counters
+    of the paper's cost model;
+  * the batch-size-stable centroid scoring (``_bcast_centroid_scores``,
+    ``make_cache_batch``) that keeps sequential and batched serving
+    bit-identical;
+  * ``FusedTurn``, the plugin that routes IVF turns through the fused
+    CUDA kernels (``kernels.ops.fused_turn`` / ``fused_scan``);
+  * the drivers ``start / step / plain (+_batch) / conversation``.
+
+PyTorch runs eagerly, so the drivers are plain functions (the
+reference jit-compiles one program per backend); ``lax.scan`` becomes a
+Python loop.  Each driver takes ``device`` (default cuda, see
+``repro_torch.device``) and refuses inputs that live elsewhere.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.core import ivf as _ivf
+from repro_torch.core.topk import topk
+from repro_torch.kernels import ops as _kops
+from repro_torch.kernels import ref as _kref
+
+
+class IVFSession(NamedTuple):
+    """Per-conversation TopLoc_IVF state (device resident)."""
+    cache_ids: torch.Tensor     # (h,) int32 — global centroid ids of C0
+    cache_vecs: torch.Tensor    # (h, d)     — gathered centroid vectors
+    anchor_sel: torch.Tensor    # (np,) int32 — top_np(q0, C0), for Eq. 1
+    refreshes: torch.Tensor     # () int32
+    turn: torch.Tensor          # () int32
+
+
+class TurnStats(NamedTuple):
+    centroid_dists: torch.Tensor  # () int32
+    list_dists: torch.Tensor      # () int32 — float doc distances
+    graph_dists: torch.Tensor     # () int32
+    code_dists: torch.Tensor      # () int32 — PQ ADC evaluations
+    i0: torch.Tensor              # () int32 — |I0| (IVF+ only; -1 otherwise)
+    refreshed: torch.Tensor       # () bool
+
+
+def stack_stats(stats) -> TurnStats:
+    """Stack a sequence of per-turn ``TurnStats`` along a new first axis."""
+    return TurnStats(*(torch.stack([getattr(s, f) for s in stats])
+                       for f in TurnStats._fields))
+
+
+# ---------------------------------------------------------------------------
+# batch-size-stable centroid scoring
+#
+# A (B, d) @ (d, p) matmul picks its algorithm (and so its reduction
+# order) by shape, so scores would drift bitwise with batch size.  Each
+# row is instead scored by the same matrix–vector product the
+# sequential path runs (``kernels.ref.gemv_rows``): identical operand
+# shapes at any B, hence identical bits.
+# ---------------------------------------------------------------------------
+
+
+def _bcast_centroid_scores(centroids: torch.Tensor, q: torch.Tensor
+                           ) -> torch.Tensor:
+    """(B, p) centroid scores, bit-identical per row to ``centroids @ q_b``."""
+    return _kref.gemv_rows(centroids, q)
+
+
+def make_cache_batch(index: _ivf.IVFIndex, q: torch.Tensor, *, h: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched ``ivf.make_cache``: C0 = top_h(q, C) per row. q (B, d)."""
+    _, ids = topk(_bcast_centroid_scores(index.centroids, q), h)
+    ids = ids.to(torch.int32)
+    return ids, index.centroids[ids]
+
+
+# ---------------------------------------------------------------------------
+# fused turn plugin (kernels.fused_turn)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedTurn:
+    """Routes IVF turns through the fused CUDA kernels.
+
+    The stateless plain turn runs whole in ``ops.fused_turn`` (centroid
+    top-nprobe + list scan); sessioned turns keep the centroid cache and
+    the Eq. 1 drift check in plain PyTorch and scan with
+    ``ops.fused_scan``.  ``precision="f32"`` is the only ported
+    precision: ids, ``sel`` and every ``TurnStats`` counter equal the
+    unfused path; scores agree within the summation-order tolerance.
+    The device of the tensors picks the path (``kernels.ops``): kernel
+    on CUDA tensors, plain version on CPU tensors.
+    """
+
+    precision: str = "f32"
+
+    def __post_init__(self):
+        _kops.check_precision(self.precision)
+
+    def turn_ivf(self, index: _ivf.IVFIndex, q: torch.Tensor, *,
+                 nprobe: int, k: int):
+        """Whole turn: returns (v, i, sel, list_dists)."""
+        v, i, sel = _kops.fused_turn(
+            q, index.centroids, index.list_vecs, index.list_ids,
+            nprobe=nprobe, k=k, precision=self.precision, device=q.device)
+        real = index.list_sizes[sel].sum(-1).to(torch.int32)
+        return v, i, sel, real
+
+    def list_scan_ivf(self, index: _ivf.IVFIndex, q: torch.Tensor,
+                      sel: torch.Tensor, k: int):
+        """Drop-in for ``ivf._scan_lists``: (v, i, real_dists)."""
+        v, i, _pos = _kops.fused_scan(
+            q, index.list_vecs, index.list_ids, sel, k,
+            precision=self.precision, device=q.device)
+        real = index.list_sizes[sel].sum(-1).to(torch.int32)
+        return v, i, real
+
+
+# ---------------------------------------------------------------------------
+# drivers
+# ---------------------------------------------------------------------------
+
+
+def _on(device, index, *tensors) -> None:
+    _device.require(device, index.centroids, *tensors)
+
+
+def start(backend, index, q0: torch.Tensor, *, k: int, device=None):
+    """First utterance. q0 (d,). Returns (scores (k,), ids (k,), session,
+    stats)."""
+    _on(device, index, q0)
+    return backend.start(index, q0, k=k)
+
+
+def step(backend, index, sess, q: torch.Tensor, *, k: int, device=None):
+    """Follow-up utterance. Returns (scores, ids, session, stats)."""
+    _on(device, index, q)
+    return backend.step(index, sess, q, k=k)
+
+
+def plain(backend, index, q: torch.Tensor, *, k: int, device=None):
+    """Stateless baseline turn. q (d,). Returns (scores, ids, stats)."""
+    _on(device, index, q)
+    return backend.plain(index, q, k=k)
+
+
+def start_batch(backend, index, q0: torch.Tensor, *, k: int, device=None):
+    """B first utterances at once. q0 (B, d)."""
+    _on(device, index, q0)
+    return backend.start_batch(index, q0, k=k)
+
+
+def step_batch(backend, index, sess, q: torch.Tensor, *, k: int,
+               is_first: Optional[torch.Tensor] = None, device=None):
+    """Follow-ups of B concurrent conversations; session fields carry a
+    leading batch dim and ``is_first`` ((B,) bool) marks rows that run
+    first-turn semantics as a forced refresh."""
+    _on(device, index, q)
+    return backend.step_batch(index, sess, q, k=k, is_first=is_first)
+
+
+def plain_batch(backend, index, q: torch.Tensor, *, k: int, device=None):
+    """Batched stateless baseline turn. q (B, d)."""
+    _on(device, index, q)
+    return backend.plain_batch(index, q, k=k)
+
+
+def conversation(backend, index, utterances: torch.Tensor, *, k: int,
+                 mode: str = "toploc", device=None):
+    """Run a (T, d) conversation through one strategy.
+
+    mode 'toploc' (sessioned) or 'plain' (stateless, all turns as one
+    batch — bit-identical to per-turn dispatch).  Returns (scores (T, k),
+    ids (T, k), stats stacked over turns).
+    """
+    _on(device, index, utterances)
+    if mode == "plain":
+        return backend.plain_batch(index, utterances, k=k)
+    if mode != "toploc":
+        raise ValueError(f"mode must be 'toploc' or 'plain', got {mode!r}")
+    v0, i0, sess, st0 = backend.start(index, utterances[0], k=k)
+    vs, is_, sts = [v0], [i0], [st0]
+    for q in utterances[1:]:
+        v, i, sess, st = backend.step(index, sess, q, k=k)
+        vs.append(v)
+        is_.append(i)
+        sts.append(st)
+    return torch.stack(vs), torch.stack(is_), stack_stats(sts)

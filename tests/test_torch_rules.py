@@ -1,0 +1,157 @@
+"""The port's ground rules, checked on the CPU.
+
+* ``repro_torch`` imports neither JAX nor the reference package.
+* Entry points default to cuda and raise without it; they never drift
+  to the CPU behind the caller's back.
+* ``mode="kernel"`` on CPU tensors raises (the kernel has no CPU mode);
+  unported precisions and serving knobs raise ``NotImplementedError``;
+  unported backends raise the reference's unknown-backend error.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.serving import engine as reng
+from repro_torch import convert
+from repro_torch.core import backend as tbackend
+from repro_torch.core import ivf as tivf
+from repro_torch.core import toploc as ttl
+from repro_torch.kernels import ops as tops
+from repro_torch.serving import engine as teng
+
+SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+
+
+def test_import_pulls_in_no_jax_and_no_reference():
+    code = (
+        "import sys, repro_torch, repro_torch.convert, repro_torch.device, "
+        "repro_torch.core, repro_torch.kernels, repro_torch.kernels.ops, "
+        "repro_torch.kernels.fused_turn, repro_torch.kernels._build, "
+        "repro_torch.serving, repro_torch.data.synthetic\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True).stdout.strip()
+    assert out == ""
+
+
+def test_tf32_is_off():
+    assert repro_torch is not None
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    rng = np.random.default_rng(0)
+    p, lmax, d = 4, 5, 8
+    idx = convert.ivf_index_from_numpy(
+        rng.normal(size=(p, d)), rng.normal(size=(p, lmax, d)),
+        np.arange(p * lmax).reshape(p, lmax), np.full(p, lmax),
+        device="cpu")
+    return idx, torch.from_numpy(rng.normal(size=(2, d)).astype(np.float32))
+
+
+ENTRY_POINTS = {
+    "ivf.build": lambda idx, q: tivf.build(
+        np.zeros((8, 4), np.float32), 2),
+    "convert": lambda idx, q: convert.ivf_index_from_numpy(*idx),
+    "toploc.start": lambda idx, q: ttl.start(
+        tbackend.IVFBackend(h=2, nprobe=1), idx, q[0], k=2),
+    "toploc.plain_batch": lambda idx, q: ttl.plain_batch(
+        tbackend.IVFBackend(nprobe=1), idx, q, k=2),
+    "ops.fused_turn": lambda idx, q: tops.fused_turn(
+        q, idx.centroids, idx.list_vecs, idx.list_ids, nprobe=1, k=2),
+    "ops.fused_scan": lambda idx, q: tops.fused_scan(
+        q, idx.list_vecs, idx.list_ids,
+        torch.zeros((2, 1), dtype=torch.int32), 2),
+    "engine": lambda idx, q: teng.ConversationalSearchEngine(
+        teng.ServingConfig(), ivf_index=idx),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_raise_without_cuda(no_cuda, tiny, name):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ENTRY_POINTS[name](*tiny)
+
+
+@pytest.mark.parametrize("op", ["fused_turn", "fused_scan"])
+def test_kernel_mode_on_cpu_tensors_raises(tiny, op):
+    idx, q = tiny
+    with pytest.raises(ValueError, match="kernel"):
+        if op == "fused_turn":
+            tops.fused_turn(q, idx.centroids, idx.list_vecs, idx.list_ids,
+                            nprobe=1, k=2, mode="kernel", device="cpu")
+        else:
+            tops.fused_scan(q, idx.list_vecs, idx.list_ids,
+                            torch.zeros((2, 1), dtype=torch.int32), 2,
+                            mode="kernel", device="cpu")
+
+
+def test_cpu_tensors_with_cuda_entry_point_are_refused(tiny):
+    idx, q = tiny
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA to ask for it explicitly")
+    with pytest.raises(ValueError, match="move the inputs"):
+        ttl.plain_batch(tbackend.IVFBackend(nprobe=1), idx, q, k=2,
+                        device="cuda")
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_unported_precisions_raise(tiny, precision):
+    idx, q = tiny
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.fused_turn(q, idx.centroids, idx.list_vecs, idx.list_ids,
+                        nprobe=1, k=2, precision=precision, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ttl.FusedTurn(precision=precision)
+    with pytest.raises(NotImplementedError):
+        teng.ConversationalSearchEngine(
+            teng.ServingConfig(fused=True, precision=precision),
+            ivf_index=idx, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [dict(shards=2), dict(mesh=object()),
+                                  dict(segment_cap=8),
+                                  dict(cache_threshold=0.5)])
+def test_unported_serving_knobs_raise(tiny, knob):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        teng.ConversationalSearchEngine(teng.ServingConfig(**knob),
+                                        ivf_index=tiny[0], device="cpu")
+
+
+def test_serving_config_keeps_the_reference_fields_and_defaults():
+    ref = {f.name: f.default for f in dataclasses.fields(reng.ServingConfig)}
+    port = {f.name: f.default
+            for f in dataclasses.fields(teng.ServingConfig)}
+    assert port == ref
+
+
+@pytest.mark.parametrize("name", ["ivf_pq", "hnsw", "exact"])
+def test_unported_backends_raise_unknown_backend(name):
+    with pytest.raises(ValueError, match="unknown retrieval backend"):
+        tbackend.make(name)
+
+
+def test_make_checks_knobs_like_the_reference():
+    assert tbackend.make("ivf", nprobe=3).nprobe == 3
+    with pytest.raises(TypeError, match="typo"):
+        tbackend.make("ivf", nprob=3)
+    with pytest.raises(TypeError, match="strict"):
+        tbackend.make("ivf", strict=True, rerank=3)
+    assert tbackend.names() == ("ivf",)
