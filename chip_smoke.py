@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's main path — TopLoc_IVF conversations served by
-``ConversationalSearchEngine`` through the hand-written ``fused_scan`` /
-``fused_turn`` CUDA kernels — at the size its users run: an MS MARCO
+Drives the port's two serving paths through
+``ConversationalSearchEngine`` at the size its users run: TopLoc_IVF
+(float lists, the hand-written ``fused_scan`` / ``fused_turn`` CUDA
+kernels) and TopLoc_IVFPQ (PQ lists, the ``pq_adc_scan`` /
+``fused_scan_pq`` / ``fused_turn_pq`` kernels), over an MS MARCO
 passage-scale corpus (8,841,823 docs, d = 768, the width of the dragon
 BERT-base dual encoder) drawn on the device from a seed after the
-synthetic workload's recipe, an IVF index of 16,384 lists, and the
-``ServingConfig`` defaults (k = 10, nprobe = 64, h = 1024, alpha = 0.1)
-over 25 conversations x 10 turns.
+synthetic workload's recipe, an IVF index of 16,384 lists, PQ codes of
+m = 48 subquantizers x 256 codewords, and the ``ServingConfig`` defaults
+(k = 10, nprobe = 64, h = 1024, alpha = 0.1, rerank = 64) over 25
+conversations x 10 turns.
 
-Phases (one line each; any failure raises and exits non-zero):
+Phases (one line each, [serve] one per path; any failure raises and
+exits non-zero):
   1 card      nvidia-smi name and power limit, versions, TF32 off
-  2 build     nvcc of kernels/csrc (seconds, registers, spills)
+  2 build     nvcc of every kernels/csrc source (seconds; registers and
+              spills per kernel)
   3 exact     integer inputs: kernels == plain versions bit for bit
   4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25
   5 index     the port's ivf.build at full size + exact top-10
-  6 serve     toploc+ / toploc / plain fused, toploc+ unfused
-  7 batched   start_batch / step_batch == the sequential engine
-  8 times     CUDA-event kernel times (L2 flushed) beside their bounds
+  6 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
+  7 serve     per backend: toploc+ / toploc / plain fused, toploc+
+              unfused; each backend's launch counts start at 0
+  8 batched   start_batch / step_batch == the sequential engine
+  9 times     CUDA-event kernel times (L2 flushed) beside their bounds
 then a JSON line of kernels, the card line, and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Size flags
@@ -43,6 +50,15 @@ TOL = 1e-5                     # |score| agreement across summation orders
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SCAN_SRC = "src/repro_torch/kernels/csrc/fused_turn.cu"
+PQ_SRC = "src/repro_torch/kernels/csrc/pq_adc.cu"
+PQ_M, PQ_ITERS, RERANK = 48, 8, 64
+IVF_KERNELS = ("fused_scan", "fused_turn")
+PQ_KERNELS = ("pq_adc_scan", "fused_scan_pq", "fused_turn_pq")
+REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
+            "fused_turn": "src/repro/kernels/fused_turn.py:406",
+            "pq_adc_scan": "src/repro/kernels/pq_adc.py:79",
+            "fused_scan_pq": "src/repro/kernels/fused_turn.py:686",
+            "fused_turn_pq": "src/repro/kernels/fused_turn.py:445"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -98,14 +114,19 @@ def compare(what, got_v, got_i, want_v, want_i, true_score, n_ids):
     return err, int(mism.sum())
 
 
-def dot_rows(rows, q, slot=None):
+def dot_rows(rows, q):
     """``true_score`` over the rows of ``rows``: ids (B, k) -> the float64
-    dot product of each id's row (``rows[slot[id]]`` where a ``slot``
-    map is given) with its query q[b]."""
+    dot product of each id's row with its query q[b]."""
     def score(ids):
-        r = rows[ids if slot is None else slot[ids]]
-        return (r.double() * q.double()[:, None]).sum(-1)
+        return (rows[ids].double() * q.double()[:, None]).sum(-1)
     return score
+
+
+def equal(what, got, want, names):
+    import torch
+    for name, g, w in zip(names, got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {name} differs")
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +160,29 @@ EXACT_SHAPES = [(6, 10, 16, 3, 3, 4),      # p, lmax, d, B, nprobe, k
                 (300, 200, 32, 9, 64, 10),  # non-tile-multiple p, lmax
                 (1000, 130, 8, 25, 64, 10)]  # dense ties, B not / 8
 
+# p, lmax, d, B, nprobe, k, m, n_codes, rerank
+# (tests/test_torch_kernels.py PQ_SHAPES)
+PQ_EXACT_SHAPES = [(6, 10, 16, 3, 3, 4, 4, 16, 6),      # r 6 < r_pad 8
+                   (4, 3, 8, 2, 2, 8, 8, 256, 8),       # 6 slots, k = 8
+                   (9, 600, 32, 4, 2, 4, 48, 256, 64),  # 2 ADC blocks
+                   (300, 200, 32, 9, 64, 10, 48, 256, 64),
+                   (1000, 130, 8, 25, 64, 10, 8, 256, 20)]  # dense ties
+
+
+def pq_int_inputs(shape, dev):
+    """Integer LUTs, codes and corpus rows (200, ids repeat) over the
+    lists of ``int_inputs``."""
+    import torch
+    p, lmax, d, b, nprobe, k, m, c, _ = shape
+    q, cents, _, li, own = int_inputs((p, lmax, d, b, nprobe, k), dev)
+    rng = np.random.default_rng(p * 10 + m)
+    tables = rng.integers(-4, 5, size=(b, m, c)).astype(np.float32)
+    codes = rng.integers(0, c, size=(p, lmax, m)).astype(np.uint8)
+    corpus = rng.integers(-4, 5, size=(200, d)).astype(np.float32)
+    return [q, cents] + [torch.from_numpy(x).to(dev) for x in
+                         (tables, codes)] + [
+        li, torch.from_numpy(corpus).to(dev), own]
+
 
 def phase_exact(dev):
     import torch
@@ -148,16 +192,34 @@ def phase_exact(dev):
         nprobe, k = shape[4], shape[5]
         got = ops.fused_turn(q, cents, lv, li, nprobe=nprobe, k=k)
         want = ref.fused_turn_ivf(q, cents, lv, li, nprobe=nprobe, k=k)
-        for name, g, w in zip(("v", "ids", "sel"), got, want):
-            if not torch.equal(g, w):
-                raise AssertionError(f"fused_turn {shape}: {name} differs")
+        equal(f"fused_turn {shape}", got, want, ("v", "ids", "sel"))
         got = ops.fused_scan(q, lv, li, want[2], k, own=own)
         want = ref.fused_scan_ivf(q, lv, li, want[2], own, k=k)
-        for name, g, w in zip(("v", "ids", "pos"), got, want):
-            if not torch.equal(g, w):
-                raise AssertionError(f"fused_scan {shape}: {name} differs")
+        equal(f"fused_scan {shape}", got, want, ("v", "ids", "pos"))
+    for shape in PQ_EXACT_SHAPES:
+        q, cents, tables, codes, li, corpus, own = pq_int_inputs(shape, dev)
+        nprobe, k, rerank = shape[4], shape[5], shape[8]
+        r = max(k, min(rerank, nprobe * shape[1]))
+        got = ops.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                                nprobe=nprobe, k=k, rerank=rerank)
+        want = ref.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                                 nprobe=nprobe, k=k, r=r)
+        equal(f"fused_turn_pq {shape}", got, want, ("v", "ids", "sel"))
+        sel = want[2]
+        equal(f"pq_adc_scan {shape}",
+              ops.pq_adc_scan(tables, codes, li, sel, r),
+              ref.pq_adc_scan_batch(tables, codes, li, sel, r),
+              ("v", "ids"))
+        for fuse in (True, False):
+            equal(f"fused_scan_pq rerank={fuse} {shape}",
+                  ops.fused_scan_pq(tables, q, codes, li, sel, corpus, k,
+                                    rerank=rerank, own=own,
+                                    fuse_rerank=fuse),
+                  ref.fused_scan_pq(tables, q, codes, li, sel, own, corpus,
+                                    k=k, r=r, rerank=fuse),
+                  ("v", "ids", "pos"))
     torch.cuda.synchronize()
-    return len(EXACT_SHAPES)
+    return len(EXACT_SHAPES), len(PQ_EXACT_SHAPES)
 
 
 # ---------------------------------------------------------------------------
@@ -189,24 +251,37 @@ def realistic_lists(p, lmax, d, gen, dev):
 
 
 def phase_realistic(args, dev, errs):
+    """Float IVF lists, then PQ lists over the same slots: random uint8
+    codes of m = 48, random codebooks, the float rows as re-rank
+    source (doc id = flat slot)."""
     import torch
+    from repro_torch.core import pq, toploc
     from repro_torch.core.topk import topk
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    p, lmax, d = args.lists, args.lmax, args.d
+    p, lmax, d, k = args.lists, args.lmax, args.d, args.k
     cents = unit(torch.randn((p, d), generator=gen, device=dev))
     lv, li = realistic_lists(p, lmax, d, gen, dev)
     qs = unit(torch.randn((25, d), generator=gen, device=dev))
-    ties = {"fused_turn": 0, "fused_scan": 0, "sel": 0}
+    rows = lv.view(p * lmax, d)
+    pqi = pq.IVFPQIndex(
+        cents, torch.randn((PQ_M, 256, d // PQ_M), generator=gen,
+                           device=dev) / math.sqrt(d // PQ_M),
+        torch.randint(0, 256, (p, lmax, PQ_M), generator=gen, device=dev,
+                      dtype=torch.uint8),
+        li, (li >= 0).sum(1).to(torch.int32), rows)
+    r = max(k, min(RERANK, args.nprobe * lmax))
+    ties = dict.fromkeys(("fused_turn", "fused_scan", "sel", "fused_turn_pq",
+                          "fused_scan_pq", "sel_pq"), 0)
     for b in (1, 25):
         q = qs[:b].contiguous()
         cs = ref.gemv_rows(cents, q)
         _, sel = topk(cs, args.nprobe)
         sel = sel.to(torch.int32)
+        docs = dot_rows(rows, q)
         # fused_scan against its plain version on the same selection
-        got = ops.fused_scan(q, lv, li, sel, args.k)
-        want = ref.fused_scan_ivf(q, lv, li, sel, None, k=args.k)
-        docs = dot_rows(lv.view(p * lmax, d), q)
+        got = ops.fused_scan(q, lv, li, sel, k)
+        want = ref.fused_scan_ivf(q, lv, li, sel, None, k=k)
         err, n = compare(f"fused_scan B={b}", got[0], got[1], want[0],
                          want[1], docs, p * lmax)
         errs["fused_scan"] = max(errs["fused_scan"], err)
@@ -214,24 +289,56 @@ def phase_realistic(args, dev, errs):
         # fused_turn: stage 1's probe set under the tie rule, stage 2
         # against the plain scan of the probe set the kernel chose
         gv, gi, gsel = ops.fused_turn(q, cents, lv, li, nprobe=args.nprobe,
-                                      k=args.k)
+                                      k=k)
         _, n = compare(f"fused_turn sel B={b}", cs.gather(1, gsel.long()),
                        gsel, cs.gather(1, sel.long()), sel,
                        dot_rows(cents, q), p)
         ties["sel"] += n
-        want = ref.fused_scan_ivf(q, lv, li, gsel, None, k=args.k)
+        want = ref.fused_scan_ivf(q, lv, li, gsel, None, k=k)
         err, n = compare(f"fused_turn B={b}", gv, gi, want[0], want[1],
                          docs, p * lmax)
         errs["fused_turn"] = max(errs["fused_turn"], err)
         ties["fused_turn"] += n
+        # PQ: ADC candidates bit-equal (same sum order), exact re-rank
+        # within TOL under the tie rule
+        tables = toploc._adc_tables(pqi, q)
+        codes = pqi.list_codes
+        equal(f"pq_adc_scan B={b}", ops.pq_adc_scan(tables, codes, li, sel, r),
+              ref.pq_adc_scan_batch(tables, codes, li, sel, r), ("v", "ids"))
+        equal(f"fused_scan_pq ADC top-r B={b}",
+              ops.fused_scan_pq(tables, q, codes, li, sel, rows, k,
+                                rerank=RERANK, fuse_rerank=False),
+              ref.fused_scan_pq(tables, q, codes, li, sel, None, rows, k=k,
+                                r=r, rerank=False), ("v", "ids", "pos"))
+        got = ops.fused_scan_pq(tables, q, codes, li, sel, rows, k,
+                                rerank=RERANK)
+        want = ref.fused_scan_pq(tables, q, codes, li, sel, None, rows, k=k,
+                                 r=r, rerank=True)
+        err, n = compare(f"fused_scan_pq B={b}", got[0], got[1], want[0],
+                         want[1], docs, p * lmax)
+        errs["fused_scan_pq"] = max(errs["fused_scan_pq"], err)
+        ties["fused_scan_pq"] += n
+        gv, gi, gsel = ops.fused_turn_pq(q, cents, tables, codes, li, rows,
+                                         nprobe=args.nprobe, k=k,
+                                         rerank=RERANK)
+        _, n = compare(f"fused_turn_pq sel B={b}", cs.gather(1, gsel.long()),
+                       gsel, cs.gather(1, sel.long()), sel,
+                       dot_rows(cents, q), p)
+        ties["sel_pq"] += n
+        want = ref.fused_scan_pq(tables, q, codes, li, gsel, None, rows, k=k,
+                                 r=r, rerank=True)
+        err, n = compare(f"fused_turn_pq B={b}", gv, gi, want[0], want[1],
+                         docs, p * lmax)
+        errs["fused_turn_pq"] = max(errs["fused_turn_pq"], err)
+        ties["fused_turn_pq"] += n
     torch.cuda.synchronize()
-    del lv, li
+    del lv, li, rows, pqi
     torch.cuda.empty_cache()
     return ties
 
 
 # ---------------------------------------------------------------------------
-# phases 5-7: index, serving, sequential == batched
+# phases 5-8: index, PQ index, serving, sequential == batched
 # ---------------------------------------------------------------------------
 
 
@@ -257,6 +364,8 @@ def phase_index(args, dev):
     flat = torch.from_numpy(convs.reshape(-1, args.d)).to(dev)
     _, exact = ivf.exact_search(corpus.doc_vecs, flat, args.k)
     exact = exact.cpu().numpy().reshape(convs.shape[0], convs.shape[1], -1)
+    # the corpus stays: it is the IVF-PQ index's re-rank source
+    docs = corpus.doc_vecs
     del corpus, flat
     torch.cuda.empty_cache()
     log("index", f"n_docs={args.n_docs} d={args.d} p={args.lists} "
@@ -265,44 +374,7 @@ def phase_index(args, dev):
         f"max_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f}")
     if index.n_docs != args.n_docs:
         raise AssertionError("the index lost documents")
-    return index, convs, exact
-
-
-SERVE = [("toploc+ fused", dict(strategy="toploc+", fused=True)),
-         ("toploc fused", dict(strategy="toploc", fused=True)),
-         ("plain fused", dict(strategy="plain", fused=True)),
-         ("toploc+ unfused", dict(strategy="toploc+", fused=False))]
-
-
-def serve(index, convs, exact, name, knobs, quiet=False):
-    from repro_torch.kernels import ops
-    from repro_torch.serving.engine import (ConversationalSearchEngine,
-                                            ServingConfig)
-    eng = ConversationalSearchEngine(
-        ServingConfig(backend="ivf", precision="f32", **knobs),
-        ivf_index=index)
-    before = (ops.fused_scan.launches, ops.fused_turn.launches)
-    n_conv, turns = convs.shape[:2]
-    vs = np.zeros((n_conv, turns, eng.cfg.k), np.float32)
-    ids = np.zeros((n_conv, turns, eng.cfg.k), np.int64)
-    for c in range(n_conv):
-        for t in range(turns):
-            vs[c, t], ids[c, t] = eng.query(f"c{c}", convs[c, t])
-    lat = np.asarray([r.latency_s for r in eng.records]) * 1e3
-    s = eng.summary()
-    recall = np.mean([len(set(ids[c, t]) & set(exact[c, t])) / eng.cfg.k
-                      for c in range(n_conv) for t in range(turns)])
-    launches = (ops.fused_scan.launches - before[0],
-                ops.fused_turn.launches - before[1])
-    if not quiet:
-        p50, p95 = np.percentile(lat, [50, 95])
-        log("serve", f"{name}: turns={s['turns']} p50_ms={p50:.3f} "
-            f"p95_ms={p95:.3f} mean_centroid_dists={s['mean_centroid_dists']:.1f} "
-            f"mean_list_dists={s['mean_list_dists']:.1f} "
-            f"refresh_rate={s['refresh_rate']:.3f} recall@10={recall:.4f} "
-            f"fused_scan_launches={launches[0]} "
-            f"fused_turn_launches={launches[1]}")
-    return eng, vs, ids
+    return index, docs, convs, exact
 
 
 def doc_slots(index):
@@ -315,6 +387,84 @@ def doc_slots(index):
     return slot
 
 
+def phase_pq(args, index, docs, dev):
+    """The port's build_ivf_pq at full size: train (k-means++ and 8
+    Lloyd passes per subquantizer), then encode and pack."""
+    import torch
+    from repro_torch.core import pq
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    book = pq.train(docs, PQ_M, iters=PQ_ITERS, generator=gen)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pqi = pq.build_ivf_pq(index, docs, book)
+    torch.cuda.synchronize()
+    t_encode = time.perf_counter() - t0
+    if pqi.doc_vecs.data_ptr() != docs.data_ptr():
+        raise AssertionError("IVFPQIndex.doc_vecs copied the corpus")
+    n_rows = int((pqi.list_ids >= 0).sum())
+    if n_rows != args.n_docs or pqi.n_docs != args.n_docs:
+        raise AssertionError(f"{n_rows} code rows for {args.n_docs} docs")
+    # every sampled doc's code row is its own encoding
+    sample = torch.randperm(args.n_docs, generator=gen, device=dev)[:8192]
+    rows = pqi.list_codes.view(-1, PQ_M)[doc_slots(index)[sample]]
+    if not torch.equal(rows, pq.encode(book, docs[sample])):
+        raise AssertionError("a doc's code row is not its encoding")
+    log("pq", f"m={PQ_M} n_codes=256 d_sub={args.d // PQ_M} "
+        f"iters={PQ_ITERS} train_s={t_train:.1f} encode_s={t_encode:.1f} "
+        f"code_rows={n_rows} list_codes_gb={pqi.list_codes.numel() / 1e9:.2f}"
+        f" max_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f}")
+    return pqi
+
+
+SERVE = [("toploc+ fused", dict(strategy="toploc+", fused=True)),
+         ("toploc fused", dict(strategy="toploc", fused=True)),
+         ("plain fused", dict(strategy="plain", fused=True)),
+         ("toploc+ unfused", dict(strategy="toploc+", fused=False))]
+BACKENDS = (("ivf", IVF_KERNELS), ("ivf_pq", PQ_KERNELS))
+
+
+def launch_counts():
+    from repro_torch.kernels import ops
+    return {name: getattr(ops, name).launches
+            for name in IVF_KERNELS + PQ_KERNELS}
+
+
+def serve(backend, index, convs, exact, name, knobs, quiet=False):
+    from repro_torch.serving.engine import (ConversationalSearchEngine,
+                                            ServingConfig)
+    eng = ConversationalSearchEngine(
+        ServingConfig(backend=backend, precision="f32", **knobs),
+        **{f"{backend}_index": index})
+    before = launch_counts()
+    n_conv, turns = convs.shape[:2]
+    vs = np.zeros((n_conv, turns, eng.cfg.k), np.float32)
+    ids = np.zeros((n_conv, turns, eng.cfg.k), np.int64)
+    for c in range(n_conv):
+        for t in range(turns):
+            vs[c, t], ids[c, t] = eng.query(f"c{c}", convs[c, t])
+    lat = np.asarray([r.latency_s for r in eng.records]) * 1e3
+    s = eng.summary()
+    recall = np.mean([len(set(ids[c, t]) & set(exact[c, t])) / eng.cfg.k
+                      for c in range(n_conv) for t in range(turns)])
+    after = launch_counts()
+    launches = " ".join(f"{n}_launches={after[n] - before[n]}"
+                        for n in dict(BACKENDS)[backend])
+    if not quiet:
+        p50, p95 = np.percentile(lat, [50, 95])
+        log("serve", f"{backend} {name}: turns={s['turns']} "
+            f"p50_ms={p50:.3f} p95_ms={p95:.3f} "
+            f"mean_centroid_dists={s['mean_centroid_dists']:.1f} "
+            f"mean_list_dists={s['mean_list_dists']:.1f} "
+            f"mean_code_dists={s['mean_code_dists']:.1f} "
+            f"refresh_rate={s['refresh_rate']:.3f} recall@10={recall:.4f} "
+            f"{launches}")
+    return eng, vs, ids
+
+
 STAT_FIELDS = ("centroid_dists", "list_dists", "graph_dists", "code_dists",
                "i0", "refreshed")
 
@@ -322,6 +472,43 @@ STAT_FIELDS = ("centroid_dists", "list_dists", "graph_dists", "code_dists",
 def same_records(a, b):
     return [[getattr(r, f) for f in STAT_FIELDS] for r in a.records] == \
         [[getattr(r, f) for f in STAT_FIELDS] for r in b.records]
+
+
+def phase_serve(indexes, docs, convs, exact, dev):
+    """Each backend's four paths after a warm-up, its launch counts set
+    to 0 just before and read just after; fused == unfused toploc+."""
+    import torch
+    runs, launches = {}, {}
+    q = torch.from_numpy(convs.reshape(-1, convs.shape[-1])).to(dev)
+    for backend, kernels in BACKENDS:
+        index = indexes[backend]
+        # warm every path (cuBLAS handles, allocator) outside the counted run
+        for name, knobs in SERVE:
+            serve(backend, index, convs[:1, :2], exact[:1, :2], name, knobs,
+                  quiet=True)
+        from repro_torch.kernels import ops
+        ops.reset_launches()
+        runs[backend] = {name: serve(backend, index, convs, exact, name,
+                                     knobs) for name, knobs in SERVE}
+        counts = launch_counts()
+        launches.update({n: counts[n] for n in kernels})
+        if min(counts[n] for n in kernels) == 0:
+            raise AssertionError(f"{backend}: a kernel was not launched: "
+                                 f"{counts}")
+        fused, unfused = (runs[backend][n] for n in ("toploc+ fused",
+                                                     "toploc+ unfused"))
+        flat = [torch.from_numpy(x.reshape(-1, x.shape[-1])).to(dev)
+                for x in (fused[1], fused[2], unfused[1], unfused[2])]
+        err, n = compare(f"{backend} fused vs unfused toploc+", *flat,
+                         dot_rows(docs, q), docs.shape[0])
+        if not same_records(fused[0], unfused[0]):
+            raise AssertionError(f"{backend}: fused and unfused toploc+ "
+                                 f"TurnStats differ")
+        log("serve", f"{backend} launches "
+            f"{ {n: counts[n] for n in kernels} }; fused == unfused "
+            f"toploc+: stats equal, max |dscore| {err:.3g}, near-tie id "
+            f"mismatches {n}")
+    return runs, launches
 
 
 def phase_batched(index, convs, run, dev):
@@ -357,7 +544,7 @@ def phase_batched(index, convs, run, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: kernel times beside their bounds
+# phase 9: kernel times beside their bounds
 # ---------------------------------------------------------------------------
 
 
@@ -394,6 +581,26 @@ def scan_bound(index, q, sel, r_pad):
     return nbytes, 2 * rows * index.d
 
 
+def adc_bound(pqi, q, sel, r, out_w, rerank):
+    """(bytes, flops) of the ADC scan of these inputs: the code rows of
+    the probed lists' real docs, their ids, the (B, m, 256) LUTs, the
+    selection and the (B, out_w) outputs; ``m`` adds per real row.  With
+    ``rerank``, the query and the corpus rows of each query's min(r,
+    real rows) candidates, and their dot products."""
+    b, nprobe = sel.shape
+    real = pqi.list_sizes[sel.long()].sum(-1)
+    rows = int(real.sum())
+    nbytes = (rows * pqi.m + b * nprobe * pqi.lmax * 4
+              + b * pqi.codewords.shape[:2].numel() * 4 + sel.numel() * 4
+              + b * out_w * 12)
+    flops = rows * pqi.m
+    if rerank:
+        cand = int(real.clamp(max=r).sum())
+        nbytes += q.numel() * 4 + cand * pqi.d * 4
+        flops += 2 * cand * pqi.d
+    return nbytes, flops
+
+
 def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOP_PER_S
@@ -401,63 +608,94 @@ def bound_ms(nbytes, flops):
                                        else "operations")
 
 
-def phase_times(args, index, convs, dev):
+def timed(kernel_calls, plain_calls, works, flush):
+    """One kernel's row: kernel and plain-version times, mean bound."""
+    return dict(ms=event_ms(kernel_calls, flush, spin=True),
+                plain_ms=event_ms(plain_calls, flush, spin=False),
+                bound_ms=float(np.mean([bound_ms(*w)[0] for w in works])),
+                bound_by=bound_ms(*works[0])[1])
+
+
+def phase_times(args, index, pqi, convs, dev):
     import torch
+    from repro_torch.core import toploc
     from repro_torch.core.topk import topk
     from repro_torch.kernels import ops, ref, tiling
     reps = 25
-    r_pad = tiling.next_pow2(args.k)
+    k, nprobe = args.k, args.nprobe
+    r_pad = tiling.next_pow2(k)
+    r = max(k, min(RERANK, nprobe * pqi.lmax))
     qs = torch.from_numpy(np.ascontiguousarray(convs[:, 0])).to(dev)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    lv, li, c = index.list_vecs, index.list_ids, index.centroids
+    codes, docs = pqi.list_codes, pqi.doc_vecs
     out = {}
     for b in (1, 25):
         batches = ([qs[j:j + 1] for j in range(reps)] if b == 1
                    else [qs] * 5)
-        sels = [topk(ref.gemv_rows(index.centroids, q), args.nprobe)[1]
-                .to(torch.int32) for q in batches]
-        lv, li, c = index.list_vecs, index.list_ids, index.centroids
-
-        def scan_k(q, s):
-            return lambda: ops.fused_scan(q, lv, li, s, args.k)
-
-        def scan_p(q, s):
-            return lambda: ref.fused_scan_ivf(q, lv, li, s, None, k=args.k)
-
-        def turn_k(q):
-            return lambda: ops.fused_turn(q, c, lv, li, nprobe=args.nprobe,
-                                          k=args.k)
-
-        def turn_p(q):
-            return lambda: ref.fused_turn_ivf(q, c, lv, li,
-                                              nprobe=args.nprobe, k=args.k)
-
-        sw = [scan_bound(index, q, s, r_pad) for q, s in zip(batches, sels)]
-        # fused_turn adds the centroid table, read once, and its products
-        tw = [(nb + index.p * index.d * 4,
-               fl + 2 * q.shape[0] * index.p * index.d)
-              for (nb, fl), q in zip(sw, batches)]
-        scans = [scan_k(q, s) for q, s in zip(batches, sels)]
-        turns = [turn_k(q) for q in batches]
-        event_ms(scans[:2] + turns[:2], flush, spin=True)     # warm-up
-        row = {
-            "fused_scan": dict(
-                ms=event_ms(scans, flush, spin=True),
-                plain_ms=event_ms([scan_p(q, s)
-                                   for q, s in zip(batches, sels)],
-                                  flush, spin=False),
-                bound_ms=float(np.mean([bound_ms(*w)[0] for w in sw])),
-                bound_by=bound_ms(*sw[0])[1]),
-            "fused_turn": dict(
-                ms=event_ms(turns, flush, spin=True),
-                plain_ms=event_ms([turn_p(q) for q in batches], flush,
-                                  spin=False),
-                bound_ms=float(np.mean([bound_ms(*w)[0] for w in tw])),
-                bound_by=bound_ms(*tw[0])[1]),
+        sels = [topk(ref.gemv_rows(c, q), nprobe)[1].to(torch.int32)
+                for q in batches]
+        tabs = [toploc._adc_tables(pqi, q) for q in batches]
+        args_ = list(zip(batches, sels, tabs))
+        calls = {
+            "fused_scan": (
+                [lambda q=q, s=s: ops.fused_scan(q, lv, li, s, k)
+                 for q, s, _ in args_],
+                [lambda q=q, s=s: ref.fused_scan_ivf(q, lv, li, s, None, k=k)
+                 for q, s, _ in args_]),
+            "fused_turn": (
+                [lambda q=q: ops.fused_turn(q, c, lv, li, nprobe=nprobe, k=k)
+                 for q in batches],
+                [lambda q=q: ref.fused_turn_ivf(q, c, lv, li, nprobe=nprobe,
+                                                k=k) for q in batches]),
+            "pq_adc_scan": (
+                [lambda t=t, s=s: ops.pq_adc_scan(t, codes, li, s, r)
+                 for _, s, t in args_],
+                [lambda t=t, s=s: ref.pq_adc_scan_batch(t, codes, li, s, r)
+                 for _, s, t in args_]),
+            "fused_scan_pq": (
+                [lambda q=q, s=s, t=t: ops.fused_scan_pq(
+                    t, q, codes, li, s, docs, k, rerank=RERANK)
+                 for q, s, t in args_],
+                [lambda q=q, s=s, t=t: ref.fused_scan_pq(
+                    t, q, codes, li, s, None, docs, k=k, r=r, rerank=True)
+                 for q, s, t in args_]),
+            "fused_turn_pq": (
+                [lambda q=q, t=t: ops.fused_turn_pq(
+                    q, c, t, codes, li, docs, nprobe=nprobe, k=k,
+                    rerank=RERANK) for q, _, t in args_],
+                [lambda q=q, t=t: ref.fused_turn_pq(
+                    q, c, t, codes, li, docs, nprobe=nprobe, k=k, r=r)
+                 for q, _, t in args_]),
         }
-        for name, r in row.items():
-            log("times", f"{name} B={b}: ms={r['ms']:.4f} "
-                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f}"
-                f" ({r['bound_by']}) share={r['bound_ms'] / r['ms']:.3f}")
+        scan_w = [scan_bound(index, q, s, r_pad) for q, s, _ in args_]
+        centroids = [(index.p * index.d * 4 + q.numel() * 4,
+                      2 * q.shape[0] * index.p * index.d) for q in batches]
+        works = {
+            "fused_scan": scan_w,
+            # fused_turn adds the centroid table, read once, and its products
+            "fused_turn": [(nb + cb - q.numel() * 4, fl + cf) for
+                           (nb, fl), (cb, cf), q in
+                           zip(scan_w, centroids, batches)],
+            "pq_adc_scan": [adc_bound(pqi, q, s, r, tiling.next_pow2(r),
+                                      False) for q, s, _ in args_],
+            "fused_scan_pq": [adc_bound(pqi, q, s, r, r_pad, True)
+                              for q, s, _ in args_],
+            "fused_turn_pq": [(nb + cb - q.numel() * 4, fl + cf) for
+                              (nb, fl), (cb, cf), q in zip(
+                                  [adc_bound(pqi, q, s, r, r_pad, True)
+                                   for q, s, _ in args_],
+                                  centroids, batches)],
+        }
+        for kern, plain in calls.values():                     # warm-up
+            event_ms(kern[:2], flush, spin=True)
+        row = {name: timed(kern, plain, works[name], flush)
+               for name, (kern, plain) in calls.items()}
+        for name, rr in row.items():
+            log("times", f"{name} B={b}: ms={rr['ms']:.4f} "
+                f"plain_ms={rr['plain_ms']:.4f} "
+                f"bound_ms={rr['bound_ms']:.4f} ({rr['bound_by']}) "
+                f"share={rr['bound_ms'] / rr['ms']:.3f}")
         out[b] = row
     return out
 
@@ -480,7 +718,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (sets TF32 off)
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build
     dev = torch.device("cuda")
     t_all = time.perf_counter()
 
@@ -493,62 +731,47 @@ def main() -> int:
         f"{torch.cuda.device_count()} | tf32 off")
 
     _build.lib()
-    ptxas = [ln.strip() for ln in str(_build.last_build["log"]).splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", f"nvcc {_build.last_build['seconds']:.1f}s from "
-        f"{_build.CSRC.relative_to(ROOT)} | " + " | ".join(ptxas))
+    log("build", f"nvcc {_build.last_build['seconds']:.1f}s, one per source "
+        f"in parallel, from {_build.CSRC.relative_to(ROOT)}")
+    for src, lines in _build.last_build["ptxas"].items():
+        log("build", f"{src}: " + " | ".join(lines))
 
-    log("exact", f"{phase_exact(dev)} shapes: fused_turn (v, ids, sel) and "
-        f"fused_scan (v, ids, pos) bit-equal to their plain versions")
+    n_ivf, n_pq = phase_exact(dev)
+    log("exact", f"{n_ivf} shapes: fused_turn (v, ids, sel) and fused_scan "
+        f"(v, ids, pos); {n_pq} PQ shapes: fused_turn_pq (v, ids, sel), "
+        f"pq_adc_scan (v, ids), fused_scan_pq with and without re-rank "
+        f"(v, ids, pos): bit-equal to their plain versions")
 
-    errs = {"fused_scan": 0.0, "fused_turn": 0.0}
+    errs = dict.fromkeys(IVF_KERNELS + PQ_KERNELS, 0.0)
     ties = phase_realistic(args, dev, errs)
-    log("realistic", f"p={args.lists} lmax={args.lmax} d={args.d} B=1,25: "
-        f"max_abs_err scan={errs['fused_scan']:.3g} "
-        f"turn={errs['fused_turn']:.3g} (tol {TOL}); near-tie id "
-        f"mismatches scan={ties['fused_scan']} turn={ties['fused_turn']} "
-        f"sel={ties['sel']}")
+    log("realistic", f"p={args.lists} lmax={args.lmax} d={args.d} "
+        f"m={PQ_M} B=1,25: ADC candidates (pq_adc_scan, fused_scan_pq "
+        f"top-r) bit-equal; max_abs_err " + " ".join(
+            f"{n}={e:.3g}" for n, e in errs.items()) + f" (tol {TOL}); "
+        f"near-tie id mismatches " + " ".join(
+            f"{n}={v}" for n, v in ties.items()))
 
-    index, convs, exact = phase_index(args, dev)
+    index, docs, convs, exact = phase_index(args, dev)
+    pqi = phase_pq(args, index, docs, dev)
+    indexes = {"ivf": index, "ivf_pq": pqi}
+    runs, launches = phase_serve(indexes, docs, convs, exact, dev)
 
-    # warm every path (cuBLAS handles, allocator) outside the counted run
-    for name, knobs in SERVE:
-        serve(index, convs[:1, :2], exact[:1, :2], name, knobs, quiet=True)
-    ops.reset_launches()
-    runs = {name: serve(index, convs, exact, name, knobs)
-            for name, knobs in SERVE}
-    launches = {"fused_scan": ops.fused_scan.launches,
-                "fused_turn": ops.fused_turn.launches}
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    (_, fv, fi), (_, uv, ui) = runs["toploc+ fused"], runs["toploc+ unfused"]
-    flat = [torch.from_numpy(x.reshape(-1, x.shape[-1])).to(dev)
-            for x in (fv, fi, uv, ui)]
-    err, n = compare("fused vs unfused toploc+", *flat,
-                     dot_rows(index.list_vecs.view(-1, args.d),
-                              torch.from_numpy(convs.reshape(-1, args.d))
-                              .to(dev), doc_slots(index)), index.n_docs)
-    if not same_records(runs["toploc+ fused"][0], runs["toploc+ unfused"][0]):
-        raise AssertionError("fused and unfused toploc+ TurnStats differ")
-    log("serve", f"launches {launches}; fused == unfused toploc+: stats "
-        f"equal, max |dscore| {err:.3g}, near-tie id mismatches {n}")
-
-    for name in ("toploc+ fused", "toploc+ unfused"):
-        phase_batched(index, convs, runs[name], dev)
+    for backend, _ in BACKENDS:
+        for name in ("toploc+ fused", "toploc+ unfused"):
+            phase_batched(indexes[backend], convs, runs[backend][name], dev)
     log("batched", "start_batch/step_batch over 25 conversations == the "
         "sequential engine (ids, scores, TurnStats, sessions), fused and "
-        "unfused toploc+")
+        "unfused toploc+, ivf and ivf_pq")
 
-    times = phase_times(args, index, convs, dev)
-    replaces = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
-                "fused_turn": "src/repro/kernels/fused_turn.py:406"}
-    kernels = [dict(name=name, route="cuda", source=SCAN_SRC,
-                    replaces=replaces[name], launches=launches[name],
+    times = phase_times(args, index, pqi, convs, dev)
+    kernels = [dict(name=name, route="cuda",
+                    source=SCAN_SRC if name in IVF_KERNELS else PQ_SRC,
+                    replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], ms=times[1][name]["ms"],
                     plain_ms=times[1][name]["plain_ms"],
                     bound_ms=times[1][name]["bound_ms"],
                     bound_by=times[1][name]["bound_by"], library_ms=None)
-               for name in ("fused_scan", "fused_turn")]
+               for name in IVF_KERNELS + PQ_KERNELS]
     log("done", f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,14 @@
 """Core library of the port: TopLoc sessions and the IVF substrate.
 
-  backend  — RetrievalBackend registry (``IVFBackend`` in this slice)
+  backend  — RetrievalBackend registry (``IVFBackend``, ``IVFPQBackend``)
   ivf      — bucketed-padded IVF index (build / search / search_cached)
+  pq       — product quantisation, ``IVFPQIndex`` / ``build_ivf_pq``
   toploc   — TopLoc sessions, ``FusedTurn`` and the generic drivers
-  kmeans   — balanced k-means, chunked over points (index build)
+  kmeans   — balanced k-means, chunked over points (index build; ++
+             seeding for the PQ codebooks)
   topk     — top-k selection in ``lax.top_k`` order
 """
-from repro_torch.core import backend, ivf, kmeans, topk, toploc  # noqa: F401
-from repro_torch.core.backend import IVFBackend, RetrievalBackend  # noqa: F401
+from repro_torch.core import (  # noqa: F401
+    backend, ivf, kmeans, pq, topk, toploc)
+from repro_torch.core.backend import (  # noqa: F401
+    IVFBackend, IVFPQBackend, RetrievalBackend)

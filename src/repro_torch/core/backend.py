@@ -3,16 +3,16 @@
 Port of ``repro/core/backend.py`` for the IVF family.  A backend is a
 frozen dataclass holding its knobs (h, nprobe, alpha, …); the index is
 an argument.  ``register`` / ``get`` / ``make`` behave as the
-reference's (strict and lenient knob checking).  Only ``"ivf"`` is
-registered in this slice: ``make("ivf_pq")``, ``make("hnsw")`` and
-``make("exact")`` raise the reference's unknown-backend error until
-those backends are ported (ROADMAP Queue 1).
+reference's (strict and lenient knob checking).  ``"ivf"`` and
+``"ivf_pq"`` are registered: ``make("hnsw")`` and ``make("exact")``
+raise the reference's unknown-backend error until those backends are
+ported (ROADMAP Queue 1).
 
 The Eq. 1 session machinery is written once (``_ivf_family_*``) and
-parameterised by ``list_scan``.  Where the reference gates the refresh
-with ``lax.cond`` on a traced predicate, the port syncs the predicate
-to the host (``if bool(...)``): one host sync per follow-up turn when
-TopLoc_IVF+ is on.
+parameterised by ``list_scan``: float lists and PQ lists differ only
+there.  Where the reference gates the refresh with ``lax.cond`` on a
+traced predicate, the port syncs the predicate to the host (``if
+bool(...)``): one host sync per follow-up turn when TopLoc_IVF+ is on.
 """
 from __future__ import annotations
 
@@ -308,6 +308,49 @@ class IVFBackend(RetrievalBackend):
             stats = _tl.TurnStats(
                 centroid_dists=_full(b, index.p, dev), list_dists=real,
                 graph_dists=_full(b, 0, dev), code_dists=_full(b, 0, dev),
+                i0=_full(b, -1, dev),
+                refreshed=_full(b, False, dev, torch.bool))
+            return v, i, stats
+        return _ivf_family_plain_batch(index, q, nprobe=self.nprobe, k=k,
+                                       list_scan=self._list_scan)
+
+
+@register
+@dataclasses.dataclass(frozen=True)
+class IVFPQBackend(IVFBackend):
+    """TopLoc_IVFPQ: the same session machinery over PQ-compressed lists.
+
+    Lists are ADC-scanned (``kernels.ops.pq_adc_scan``, or
+    ``fused_scan_pq`` / ``fused_turn_pq`` through ``fused``) and the top
+    ``R = max(k, min(rerank, nprobe·Lmax))`` candidates exact-re-ranked
+    against the float corpus; ``list_dists`` counts the R re-rank dots,
+    ``code_dists`` the ADC table sums.
+    """
+
+    name: ClassVar[str] = "ivf_pq"
+    index_kwarg: ClassVar[str] = "ivf_pq_index"
+
+    rerank: int = 64
+
+    def _list_scan(self, index, q, sel, k):
+        if self.fused is not None:
+            v, i, code_d, rerank_d = self.fused.list_scan_pq(
+                index, q, sel, k, self.rerank)
+        else:
+            v, i, code_d, rerank_d = _tl._scan_lists_pq(index, q, sel, k,
+                                                        self.rerank)
+        return v, i, rerank_d, code_d
+
+    def plain_batch(self, index, q, *, k):
+        if self.fused is not None:
+            # whole turn in the fused kernels: centroid scoring, probe
+            # selection, ADC scan/merge and exact re-rank
+            b, dev = q.shape[0], q.device
+            v, i, _sel, code_d, rerank_d = self.fused.turn_pq(
+                index, q, nprobe=self.nprobe, k=k, rerank=self.rerank)
+            stats = _tl.TurnStats(
+                centroid_dists=_full(b, index.p, dev), list_dists=rerank_d,
+                graph_dists=_full(b, 0, dev), code_dists=code_d,
                 i0=_full(b, -1, dev),
                 refreshed=_full(b, False, dev, torch.bool))
             return v, i, stats

@@ -1,12 +1,12 @@
 """Balanced k-means for IVF index construction, chunked over points.
 
 Port of ``repro/core/kmeans.py``: Lloyd iterations under dot-product
-similarity with random initialisation and respawn of empty clusters,
-then a capacity-constrained assignment that spills points to their
-next-nearest centroids.  Unlike the reference, nothing here holds an
-``(n, p)`` matrix: similarities are formed ``chunk`` points at a time,
-which is what lets the index build run at collection scale (8.8M × 16K
-scores would be 580 GB).
+similarity with random or k-means++ initialisation and respawn of
+empty clusters, then a capacity-constrained assignment that spills
+points to their next-nearest centroids.  Unlike the reference, nothing
+here holds an ``(n, p)`` matrix: similarities are formed ``chunk``
+points at a time, which is what lets the index build run at collection
+scale (8.8M × 16K scores would be 580 GB).
 
 ``torch.Generator`` replaces ``jax.random``: the two give different
 numbers from one seed, so the port's k-means is held to the reference
@@ -48,22 +48,56 @@ def assign(points: torch.Tensor, centroids: torch.Tensor, *,
     return out
 
 
+def _plusplus_init(points: torch.Tensor, p: int,
+                   generator: torch.Generator) -> torch.Tensor:
+    """k-means++ seeding (Arthur & Vassilvitskii), as the reference's
+    ``_plusplus_init``: each next seed is drawn with probability
+    proportional to its squared L2 distance from the nearest seed so far.
+    Holds (n,) vectors only; ``torch.multinomial`` draws on the device
+    (up to 2^24 points), so the p draws need no host sync.  Where every
+    distance is 0 (fewer distinct points than seeds) the draw is uniform.
+    """
+    n = points.shape[0]
+    dev = points.device
+    sq = (points * points).sum(-1)
+    d2 = torch.full((n,), float("inf"), device=dev)
+    seeds = torch.empty(p, dtype=torch.int64, device=dev)
+    idx = torch.randint(0, n, (1,), generator=generator, device=dev)
+    for t in range(p):
+        seeds[t:t + 1] = idx
+        if t == p - 1:
+            break
+        c = points[idx][0]
+        d2 = torch.minimum(d2, sq + (c * c).sum() - 2.0 * (points @ c))
+        probs = d2.clamp_min(0.0)
+        probs = probs + (probs.sum() <= 0).to(probs.dtype)
+        idx = torch.multinomial(probs, 1, generator=generator)
+    return points[seeds]
+
+
 def kmeans_fit(points: torch.Tensor, p: int, *, iters: int = 10,
-               generator: torch.Generator, chunk: int = CHUNK
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               generator: torch.Generator, chunk: int = CHUNK,
+               init: str = "random") -> Tuple[torch.Tensor, torch.Tensor]:
     """Lloyd iterations; returns (centroids (p, d), assignment (n,)).
 
-    Centroid sums use ``index_add_``, whose float atomics make the bits
-    of a card build vary from run to run (the reference's segment_sum is
-    deterministic); the index's quality does not depend on them.
+    ``init``: ``"random"`` (p distinct points) or ``"++"`` (k-means++
+    seeding, the PQ codebooks' choice).  Centroid sums use
+    ``index_add_``, whose float atomics make the bits of a card build
+    vary from run to run (the reference's segment_sum is deterministic);
+    the index's quality does not depend on them.
     """
     n, d = points.shape
     dev = points.device
-    if n >= p:
-        init = torch.randperm(n, generator=generator, device=dev)[:p]
+    if init == "++":
+        centroids = _plusplus_init(points, p, generator)
+    elif init != "random":
+        raise ValueError(f"init must be 'random' or '++', got {init!r}")
+    elif n >= p:
+        centroids = points[torch.randperm(n, generator=generator,
+                                          device=dev)[:p]].clone()
     else:
-        init = torch.randint(0, n, (p,), generator=generator, device=dev)
-    centroids = points[init].clone()
+        centroids = points[torch.randint(0, n, (p,), generator=generator,
+                                         device=dev)].clone()
     for _ in range(iters):
         a = assign(points, centroids, chunk=chunk)
         sums = torch.zeros((p, d), dtype=points.dtype, device=dev)

@@ -1,14 +1,18 @@
 """TopLoc — the paper's session logic, shared by the registered backends.
 
-Port of ``repro/core/toploc.py`` for the IVF family:
+Port of ``repro/core/toploc.py`` for the IVF family (float and PQ
+lists):
 
   * the session state ``IVFSession`` and the ``TurnStats`` work counters
     of the paper's cost model;
   * the batch-size-stable centroid scoring (``_bcast_centroid_scores``,
-    ``make_cache_batch``) that keeps sequential and batched serving
-    bit-identical;
-  * ``FusedTurn``, the plugin that routes IVF turns through the fused
-    CUDA kernels (``kernels.ops.fused_turn`` / ``fused_scan``);
+    ``make_cache_batch``) and ADC tables (``_adc_tables``) that keep
+    sequential and batched serving bit-identical;
+  * ``_scan_lists_pq``, the unfused IVF-PQ list scan (ADC scan kernel
+    ``kernels.ops.pq_adc_scan`` + exact re-rank);
+  * ``FusedTurn``, the plugin that routes IVF / IVF-PQ turns through the
+    fused CUDA kernels (``kernels.ops.fused_turn`` / ``fused_scan`` /
+    ``fused_turn_pq`` / ``fused_scan_pq``);
   * the drivers ``start / step / plain (+_batch) / conversation``.
 
 PyTorch runs eagerly, so the drivers are plain functions (the
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import ivf as _ivf
+from repro_torch.core import pq as _pq
 from repro_torch.core.topk import topk
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels import ref as _kref
@@ -79,6 +84,42 @@ def make_cache_batch(index: _ivf.IVFIndex, q: torch.Tensor, *, h: int
     return ids, index.centroids[ids]
 
 
+def _adc_tables(index: _pq.IVFPQIndex, q: torch.Tensor) -> torch.Tensor:
+    """Per-query ADC lookup tables, (B, m, n_codes).
+
+    Each row is the same (m, n_codes, d_sub) x (m, d_sub, 1) batched
+    product at any B (cf. ``_bcast_centroid_scores``), so a row's tables
+    are bit-identical whether it is served alone or in a batch.
+    """
+    m, _, d_sub = index.codewords.shape
+    rows = [torch.bmm(index.codewords, q[b].reshape(m, d_sub, 1))[..., 0]
+            for b in range(q.shape[0])]
+    if not rows:
+        return q.new_empty((0,) + index.codewords.shape[:2])
+    return torch.stack(rows)
+
+
+def _scan_lists_pq(index: _pq.IVFPQIndex, q: torch.Tensor,
+                   sel: torch.Tensor, k: int, rerank: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """ADC-scan the selected PQ lists, exact-re-rank the top R.
+
+    q (B, d); sel (B, np).  Returns (top_v (B, k), top_i (B, k),
+    code_dists (B,), rerank_dists (B,)).  The re-rank is the plain
+    per-row matrix–vector product of ``kernels.ref.rerank_exact`` (the
+    reference runs it in XLA), so a row's scores do not depend on B.
+    """
+    r = _kops._fused_depth(k, sel.shape[1] * index.lmax, rerank=rerank)
+    tables = _adc_tables(index, q)
+    _, cand_ids = _kops.pq_adc_scan(tables, index.list_codes,
+                                    index.list_ids, sel, r, device=q.device)
+    top_v, top_i, _ = _kref.rerank_exact(q, index.doc_vecs, cand_ids, k)
+    code_d = index.list_sizes[sel].sum(-1).to(torch.int32)
+    rerank_d = (cand_ids >= 0).sum(-1).to(torch.int32)
+    return top_v, top_i, code_d, rerank_d
+
+
 # ---------------------------------------------------------------------------
 # fused turn plugin (kernels.fused_turn)
 # ---------------------------------------------------------------------------
@@ -86,12 +127,13 @@ def make_cache_batch(index: _ivf.IVFIndex, q: torch.Tensor, *, h: int
 
 @dataclasses.dataclass(frozen=True)
 class FusedTurn:
-    """Routes IVF turns through the fused CUDA kernels.
+    """Routes IVF and IVF-PQ turns through the fused CUDA kernels.
 
-    The stateless plain turn runs whole in ``ops.fused_turn`` (centroid
-    top-nprobe + list scan); sessioned turns keep the centroid cache and
-    the Eq. 1 drift check in plain PyTorch and scan with
-    ``ops.fused_scan``.  ``precision="f32"`` is the only ported
+    The stateless plain turn runs whole in ``ops.fused_turn`` /
+    ``ops.fused_turn_pq`` (centroid top-nprobe + list scan, + exact
+    re-rank for PQ); sessioned turns keep the centroid cache and the
+    Eq. 1 drift check in plain PyTorch and scan with ``ops.fused_scan``
+    / ``ops.fused_scan_pq``.  ``precision="f32"`` is the only ported
     precision: ids, ``sel`` and every ``TurnStats`` counter equal the
     unfused path; scores agree within the summation-order tolerance.
     The device of the tensors picks the path (``kernels.ops``): kernel
@@ -120,6 +162,33 @@ class FusedTurn:
             precision=self.precision, device=q.device)
         real = index.list_sizes[sel].sum(-1).to(torch.int32)
         return v, i, real
+
+    def turn_pq(self, index: _pq.IVFPQIndex, q: torch.Tensor, *,
+                nprobe: int, k: int, rerank: int):
+        """Whole PQ turn: returns (v, i, sel, code_d, rerank_d)."""
+        tables = _adc_tables(index, q)
+        v, i, sel = _kops.fused_turn_pq(
+            q, index.centroids, tables, index.list_codes, index.list_ids,
+            index.doc_vecs, nprobe=nprobe, k=k, rerank=rerank,
+            precision=self.precision, device=q.device)
+        code_d = index.list_sizes[sel].sum(-1).to(torch.int32)
+        # every valid ADC candidate outranks the -inf pads, so the
+        # re-ranked count is exactly min(r, candidates available)
+        r = _kops._fused_depth(k, nprobe * index.lmax, rerank=rerank)
+        return v, i, sel, code_d, code_d.clamp(max=r)
+
+    def list_scan_pq(self, index: _pq.IVFPQIndex, q: torch.Tensor,
+                     sel: torch.Tensor, k: int, rerank: int):
+        """Drop-in for ``_scan_lists_pq``: (v, i, code_d, rerank_d)."""
+        tables = _adc_tables(index, q)
+        v, i, _rank = _kops.fused_scan_pq(
+            tables, q, index.list_codes, index.list_ids, sel,
+            index.doc_vecs, k, rerank=rerank, precision=self.precision,
+            device=q.device)
+        code_d = index.list_sizes[sel].sum(-1).to(torch.int32)
+        r = _kops._fused_depth(k, sel.shape[1] * index.lmax,
+                               rerank=rerank)
+        return v, i, code_d, code_d.clamp(max=r)
 
 
 # ---------------------------------------------------------------------------

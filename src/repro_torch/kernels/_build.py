@@ -1,18 +1,20 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc → shared library → ctypes).
 
-Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` for
-``sm_90a`` into ``build/repro_torch/`` at the repository root, under a
-name that carries a hash of the sources, so an edited kernel is never
-served from a stale library.  The sources have a plain C interface and
-include no PyTorch header, which keeps a build to seconds.  The build
-runs at first use (``lib()``), inside the process that launches the
-kernels; nothing is built at import.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all at once, and the objects are linked into one shared library in
+``build/repro_torch/`` at the repository root, under a name that carries
+a hash of the sources, so an edited kernel is never served from a stale
+library.  The sources have a plain C interface and include no PyTorch
+header, which keeps a build to seconds.  The build runs at first use
+(``lib()``), inside the process that launches the kernels; nothing is
+built at import.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,22 +23,33 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-# C signatures of the entry points (csrc/fused_turn.cu)
+# C signatures of the entry points (csrc/fused_turn.cu, csrc/pq_adc.cu)
 SIGNATURES = {
     "fused_scan_ivf_f32": [P, P, P, I, P, I, P, I, I, I, I, I,
                            P, P, P, P, P, P, P],
     "fused_turn_ivf_f32": [P, P, P, P, I, I, I, I, I, I, I,
                            P, P, P, P, P, P, P, P, P, P, P],
+    "pq_adc_scan_f32": [P, I, I, P, P, I, P, I, I, I, I,
+                        P, P, P, P, P, P, P],
+    "fused_scan_pq_f32": [P, P, I, I, P, P, I, P, I, P, P,
+                          I, I, I, I, I, I, I, I,
+                          P, P, P, P, P, P, P, P, P, P],
+    "fused_turn_pq_f32": [P, P, P, I, I, P, P, I, P,
+                          I, I, I, I, I, I, I, I,
+                          P, P, P, P, P, P, P, P, P, P, P, P, P, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
-#: seconds the last build took and what ptxas said (registers, spills)
+#: seconds the last build took and, per source, ptxas's lines that name
+#: each kernel and give its registers and spills
 last_build: Dict[str, object] = {}
+PTXAS_LINE = re.compile(r"Compiling entry function|Used \d+ registers|spill")
 
 
 def nvcc() -> str:
@@ -65,21 +78,40 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile ``csrc/fused_turn.cu`` (once per source hash); return the .so."""
-    out = BUILD_DIR / f"libfused_turn_{_digest()}.so"
+    """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
+    them into one library, once per source hash; return the .so."""
+    out = BUILD_DIR / f"libreprotorch_{_digest()}.so"
     if out.is_file():
-        last_build.update(seconds=0.0, log="(cached)")
+        last_build.update(seconds=0.0, ptxas={})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "fused_turn.cu")]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs[src.name] = (obj, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {name: proc.communicate()[0] for name, (_, proc) in jobs.items()}
+    failed = [n for n, (_, proc) in jobs.items() if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    tmp = out.with_suffix(f".{tag}")
+    res = subprocess.run([nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                          *(str(obj) for obj, _ in jobs.values())],
+                         capture_output=True, text=True)
+    for obj, _ in jobs.values():
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, out)
     last_build.update(seconds=time.perf_counter() - t0,
-                      log=res.stdout + res.stderr)
+                      ptxas={n: [ln.strip() for ln in log.splitlines()
+                                 if PTXAS_LINE.search(ln)]
+                             for n, log in logs.items()})
     return out
 
 

@@ -40,6 +40,7 @@
 #include <cmath>
 #include <cstddef>
 
+#include "fused_common.cuh"
 #include "topk_tie.cuh"
 
 namespace {
@@ -49,53 +50,8 @@ constexpr int CENTROID_CHUNK = 128;  // centroids per stage-1 block
 constexpr int QTILE = 8;             // queries per stage-1 block
 constexpr int ROW_THREADS = 256;     // 8 warps, one row at a time each
 constexpr int MERGE_THREADS = 512;
-constexpr int UNROLL = 8;            // float4 loads in flight per lane
 
-// Scores one row against nq <= NQ queries staged in shared memory (query t
-// at qs4 + t * d4), by one warp, in a fixed order: per lane, FMAs over the
-// float4 columns lane, lane + 32, ... in ascending order, then an
-// xor-shuffle tree.  The order for a (row, query) pair depends on neither
-// NQ nor nq.  All 32 lanes must call it and all end with the scores.
-template <int NQ>
-__device__ __forceinline__ void warp_row_dots(const float4* __restrict__ row,
-                                              const float4* qs4, int d4,
-                                              int nq, float (&out)[NQ]) {
-  const int lane = threadIdx.x & 31;
-  float acc[NQ];
-#pragma unroll
-  for (int t = 0; t < NQ; ++t) acc[t] = 0.f;
-  for (int base = 0; base < d4; base += 32 * UNROLL) {
-    float4 x[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int c = base + u * 32 + lane;
-      x[u] = c < d4 ? __ldg(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int t = 0; t < NQ; ++t) {
-      if (t < nq) {
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int c = base + u * 32 + lane;
-          if (c < d4) {
-            const float4 y = qs4[t * d4 + c];
-            acc[t] = fmaf(x[u].x, y.x, acc[t]);
-            acc[t] = fmaf(x[u].y, y.y, acc[t]);
-            acc[t] = fmaf(x[u].z, y.z, acc[t]);
-            acc[t] = fmaf(x[u].w, y.w, acc[t]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < NQ; ++t) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], o);
-    out[t] = acc[t];
-  }
-}
+using fused_common::warp_row_dots;
 
 // grid (nprobe * nsplit, B).  Block (j, s) of query b scores rows
 // [s*SCAN_ROWS, (s+1)*SCAN_ROWS) of list sel[b, j] and writes its top
@@ -247,9 +203,13 @@ merge_kernel(const float* __restrict__ cand_v, const int* cand_i,
   }
 }
 
-int launch_merge(const float* cand_v, const int* cand_i, const int* cand_p,
-                 int B, int n_lists, int w, float* out_v, int* out_i,
-                 int* out_p, cudaStream_t stream) {
+}  // namespace
+
+extern "C" {
+
+int merge_topk_f32(const float* cand_v, const int* cand_i, const int* cand_p,
+                   int B, int n_lists, int w, float* out_v, int* out_i,
+                   int* out_p, cudaStream_t stream) {
   const int smem = n_lists * w * (int)(sizeof(float) + 2 * sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(
       merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -259,9 +219,23 @@ int launch_merge(const float* cand_v, const int* cand_i, const int* cand_p,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
+int select_probes_f32(const float* q, const float* cents, int p, int B,
+                      int d, int np_pad, float* s1_v, int* s1_i,
+                      float* sel_v, int* sel, cudaStream_t stream) {
+  const int nchunks = (p + CENTROID_CHUNK - 1) / CENTROID_CHUNK;
+  const int qsmem = QTILE * d * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      centroid_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      qsmem);
+  if (err != cudaSuccess) return (int)err;
+  centroid_chunk_kernel<<<dim3(nchunks, (B + QTILE - 1) / QTILE),
+                          ROW_THREADS, qsmem, stream>>>(q, cents, B, p, d,
+                                                        np_pad, s1_v, s1_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return merge_topk_f32(s1_v, s1_i, s1_i, B, nchunks, np_pad, sel_v, sel,
+                        nullptr, stream);
+}
 
 // Stage 2 alone.  q (B, d); list_vecs (p, lmax, d); list_ids (p, lmax);
 // sel (B, sel_stride) of which the first nprobe columns are probed;
@@ -281,8 +255,8 @@ int fused_scan_ivf_f32(const float* q, const float* list_vecs,
       nsplit, r_pad, cand_v, cand_i, cand_p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_merge(cand_v, cand_i, cand_p, B, nprobe * nsplit, r_pad,
-                      out_v, out_i, out_p, st);
+  return merge_topk_f32(cand_v, cand_i, cand_p, B, nprobe * nsplit, r_pad,
+                        out_v, out_i, out_p, st);
 }
 
 // Stages 1 + 2.  cents (p, d).  Scratch s1_* holds B * nchunks * np_pad
@@ -294,20 +268,9 @@ int fused_turn_ivf_f32(const float* q, const float* cents,
                        int r_pad, float* s1_v, int* s1_i, float* sel_v,
                        int* sel, float* cand_v, int* cand_i, int* cand_p,
                        float* out_v, int* out_i, int* out_p, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nchunks = (p + CENTROID_CHUNK - 1) / CENTROID_CHUNK;
-  const int qsmem = QTILE * d * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      centroid_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      qsmem);
-  if (err != cudaSuccess) return (int)err;
-  centroid_chunk_kernel<<<dim3(nchunks, (B + QTILE - 1) / QTILE),
-                          ROW_THREADS, qsmem, st>>>(q, cents, B, p, d,
-                                                    np_pad, s1_v, s1_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int e = launch_merge(s1_v, s1_i, s1_i, B, nchunks, np_pad, sel_v,
-                             sel, nullptr, st);
+  const int e = select_probes_f32(q, cents, p, B, d, np_pad, s1_v, s1_i,
+                                 sel_v, sel,
+                                 static_cast<cudaStream_t>(stream));
   if (e != 0) return e;
   return fused_scan_ivf_f32(q, list_vecs, list_ids, p, sel, np_pad, nullptr,
                             B, nprobe, lmax, d, r_pad, cand_v, cand_i,

@@ -10,7 +10,8 @@
 // total and the kernels' outputs do not depend on the launch shape.
 //
 // All functions work on three parallel arrays in shared memory (value, id,
-// position); every thread of the block must call them.
+// position); every thread of the block must call them.  They are inline
+// because several sources of the one library include this header.
 #pragma once
 
 #include <climits>
@@ -34,7 +35,7 @@ __device__ __forceinline__ void swap3(float* v, int* id, int* pos, int a,
 
 // In-place bitonic sort of n entries (n a power of two), best first.
 // Synchronises before it starts and after it ends.
-__device__ void block_sort(float* v, int* id, int* pos, int n) {
+__device__ inline void block_sort(float* v, int* id, int* pos, int n) {
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       __syncthreads();
@@ -60,7 +61,7 @@ __device__ void block_sort(float* v, int* id, int* pos, int n) {
 // and sorts the folded lists with a half-cleaner network: log2(w) + 1
 // steps per round, ceil(log2(n_lists)) rounds.  The caller synchronises
 // after filling the lists; this synchronises after every step.
-__device__ void merge_lists(float* v, int* id, int* pos, int n_lists,
+__device__ inline void merge_lists(float* v, int* id, int* pos, int n_lists,
                            int w) {
   for (int m = n_lists; m > 1;) {
     const int half = (m + 1) >> 1;

@@ -1,12 +1,12 @@
 """Padding contract and shared-memory caps of the CUDA kernels.
 
 The Pallas kernels of the reference split their streamed axes by VMEM
-bytes; the Hopper kernels in ``csrc/fused_turn.cu`` instead take a
-fixed number of rows per thread block and mask the ragged edge
-themselves, so no operand is padded in memory.  What stays is the
-power-of-two contract of the top-k networks and the per-block
-shared-memory budget of the merge kernel, which this module owns —
-``ops.py`` asks it how to split and what fits.
+bytes; the Hopper kernels in ``csrc/`` instead take a fixed number of
+rows per thread block and mask the ragged edge themselves, so no
+operand is padded in memory.  What stays is the power-of-two contract
+of the top-k networks and the per-block shared-memory budgets of the
+merge kernel and the ADC block's LUT, which this module owns —
+``ops.py`` and the launch modules ask it how to split and what fits.
 """
 from __future__ import annotations
 
@@ -22,6 +22,14 @@ SMEM_DEFAULT_BYTES = 48 * 1024
 SCAN_ROWS = 128
 CENTROID_CHUNK = 128
 QTILE = 8
+
+# Rows of one probed PQ list scored by one block of the ADC scan
+# (csrc/pq_adc.cu PQ_ROWS): 512 rows are 24 KB of codes at m = 48, and
+# two blocks cover a list of the smoke's Lmax 702, so the merge of the
+# blocks' top-64 fits one block's shared memory (128 x 64 x 12 B).
+PQ_ROWS = 512
+# Codewords per subquantizer: codes are uint8.
+MAX_CODES = 256
 
 # Widest running top-k (r_pad) and probe set (np_pad) this slice's
 # kernels take: each block keeps its top entries out of at most
@@ -45,6 +53,30 @@ def next_pow2(n: int) -> int:
 def scan_split(lmax: int) -> int:
     """Blocks per probed list: each takes ``SCAN_ROWS`` consecutive rows."""
     return max(1, -(-lmax // SCAN_ROWS))
+
+
+def pq_split(lmax: int) -> int:
+    """Blocks per probed PQ list: each takes ``PQ_ROWS`` consecutive rows."""
+    return max(1, -(-lmax // PQ_ROWS))
+
+
+def lut_bytes(m: int, n_codes: int) -> int:
+    """Shared memory of one query's ADC lookup table, (m, n_codes) f32."""
+    return m * n_codes * 4
+
+
+def check_lut(m: int, n_codes: int) -> None:
+    """The ADC block holds its query's whole LUT in shared memory beside
+    the sort arrays of its ``PQ_ROWS`` scores; above 48 KB the LUT is
+    opt-in dynamic shared memory (m = 48 x 256 codes is 49,152 B)."""
+    if not 0 < n_codes <= MAX_CODES:
+        raise ValueError(f"n_codes={n_codes}: codes are uint8, at most "
+                         f"{MAX_CODES} codewords")
+    need = lut_bytes(m, n_codes) + PQ_ROWS * MERGE_ENTRY_BYTES
+    if m <= 0 or need > SMEM_BLOCK_BYTES:
+        raise ValueError(f"an ADC block for m={m} x {n_codes} codes needs "
+                         f"{need} B of shared memory; one block has "
+                         f"{SMEM_BLOCK_BYTES}")
 
 
 def centroid_chunks(p: int) -> int:

@@ -23,6 +23,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import backend as _backend
 from repro_torch.core import ivf as _ivf
+from repro_torch.core import pq as _pq
 from repro_torch.core import toploc
 
 
@@ -37,7 +38,7 @@ class ServingConfig:
     alpha: float = 0.1            # refresh threshold (TopLoc_IVF+)
     rerank: int = 64              # exact re-rank depth (IVF-PQ)
     # fused turn (core.toploc.FusedTurn over the CUDA kernels of
-    # kernels/csrc/fused_turn.cu); "f32" is the only ported precision
+    # kernels/csrc/); "f32" is the only ported precision
     fused: bool = False
     precision: str = "f32"
     # HNSW
@@ -87,12 +88,14 @@ def _refuse_unported(cfg: ServingConfig) -> None:
 class ConversationalSearchEngine:
     """One turn per call, sessions in a Python dict.
 
-    ``ivf_index`` must live on ``device`` (default cuda); queries may be
+    The index (``ivf_index`` for ``backend="ivf"``, ``ivf_pq_index`` for
+    ``"ivf_pq"``) must live on ``device`` (default cuda); queries may be
     numpy arrays or tensors and are moved there.
     """
 
     def __init__(self, config: ServingConfig, *,
                  ivf_index: Optional[_ivf.IVFIndex] = None,
+                 ivf_pq_index: Optional[_pq.IVFPQIndex] = None,
                  device=None):
         _refuse_unported(config)
         self.cfg = config
@@ -101,15 +104,20 @@ class ConversationalSearchEngine:
         fused = (toploc.FusedTurn(precision=config.precision)
                  if config.fused else None)
         # the ported registry holds the IVF family only: pass its knobs
-        # (rerank / ef_search / up belong to backends not yet ported)
+        # (ef_search / up belong to backends not yet ported); make()
+        # drops rerank for "ivf", as the reference's does
         self.backend = _backend.make(config.backend, h=config.h,
                                      nprobe=config.nprobe, alpha=alpha,
-                                     fused=fused)
-        self.index = {"ivf_index": ivf_index}.get(self.backend.index_kwarg)
+                                     rerank=config.rerank, fused=fused)
+        self.index = {"ivf_index": ivf_index,
+                      "ivf_pq_index": ivf_pq_index
+                      }.get(self.backend.index_kwarg)
         if self.index is None:
             raise ValueError(f"{config.backend} backend needs "
                              f"{self.backend.index_kwarg}")
         _device.require(self.device, self.index.centroids)
+        if isinstance(self.index, _pq.IVFPQIndex):
+            _pq.check_index(self.index)
         self.sessions: Dict[str, Any] = {}
         self.turn_count: Dict[str, int] = {}
         self.records: List[TurnRecord] = []

@@ -17,10 +17,12 @@ import pytest
 import torch
 
 import repro_torch
+from repro.core import backend as rbackend
 from repro.serving import engine as reng
 from repro_torch import convert
 from repro_torch.core import backend as tbackend
 from repro_torch.core import ivf as tivf
+from repro_torch.core import pq as tpq
 from repro_torch.core import toploc as ttl
 from repro_torch.kernels import ops as tops
 from repro_torch.serving import engine as teng
@@ -33,6 +35,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import sys, repro_torch, repro_torch.convert, repro_torch.device, "
         "repro_torch.core, repro_torch.kernels, repro_torch.kernels.ops, "
         "repro_torch.kernels.fused_turn, repro_torch.kernels._build, "
+        "repro_torch.kernels.pq_adc, repro_torch.core.pq, "
         "repro_torch.serving, repro_torch.data.synthetic\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
@@ -66,10 +69,34 @@ def tiny():
     return idx, torch.from_numpy(rng.normal(size=(2, d)).astype(np.float32))
 
 
+@pytest.fixture(scope="module")
+def tiny_pq(tiny):
+    """An IVF-PQ index over ``tiny``'s lists (m = 2, 4 codewords) and its
+    queries' ADC tables."""
+    idx, q = tiny
+    rng = np.random.default_rng(1)
+    p, lmax, d = idx.list_vecs.shape
+    pqi = convert.ivf_pq_index_from_numpy(
+        idx.centroids, rng.normal(size=(2, 4, d // 2)),
+        rng.integers(0, 4, size=(p, lmax, 2)), idx.list_ids,
+        idx.list_sizes, rng.normal(size=(p * lmax, d)), device="cpu")
+    return pqi, q, torch.from_numpy(rng.normal(size=(2, 2, 4)).astype(
+        np.float32))
+
+
+SEL = torch.zeros((2, 1), dtype=torch.int32)
+
 ENTRY_POINTS = {
     "ivf.build": lambda idx, q: tivf.build(
         np.zeros((8, 4), np.float32), 2),
+    "pq.build_ivf_pq": lambda idx, q: tpq.build_ivf_pq(
+        idx, np.zeros((20, 8), np.float32),
+        tpq.train(torch.zeros((20, 8)), 2, n_codes=4,
+                  generator=torch.Generator().manual_seed(0))),
     "convert": lambda idx, q: convert.ivf_index_from_numpy(*idx),
+    "convert.ivf_pq": lambda idx, q: convert.ivf_pq_index_from_numpy(
+        idx.centroids, np.zeros((2, 4, 4)), np.zeros((4, 5, 2)),
+        idx.list_ids, idx.list_sizes, np.zeros((20, 8))),
     "toploc.start": lambda idx, q: ttl.start(
         tbackend.IVFBackend(h=2, nprobe=1), idx, q[0], k=2),
     "toploc.plain_batch": lambda idx, q: ttl.plain_batch(
@@ -79,8 +106,20 @@ ENTRY_POINTS = {
     "ops.fused_scan": lambda idx, q: tops.fused_scan(
         q, idx.list_vecs, idx.list_ids,
         torch.zeros((2, 1), dtype=torch.int32), 2),
+    "ops.pq_adc_scan": lambda idx, q: tops.pq_adc_scan(
+        torch.zeros((2, 2, 4)), torch.zeros((4, 5, 2), dtype=torch.uint8),
+        idx.list_ids, SEL, 2),
+    "ops.fused_scan_pq": lambda idx, q: tops.fused_scan_pq(
+        torch.zeros((2, 2, 4)), q, torch.zeros((4, 5, 2), dtype=torch.uint8),
+        idx.list_ids, SEL, torch.zeros((20, 8)), 2, rerank=4),
+    "ops.fused_turn_pq": lambda idx, q: tops.fused_turn_pq(
+        q, idx.centroids, torch.zeros((2, 2, 4)),
+        torch.zeros((4, 5, 2), dtype=torch.uint8), idx.list_ids,
+        torch.zeros((20, 8)), nprobe=1, k=2, rerank=4),
     "engine": lambda idx, q: teng.ConversationalSearchEngine(
         teng.ServingConfig(), ivf_index=idx),
+    "engine.ivf_pq": lambda idx, q: teng.ConversationalSearchEngine(
+        teng.ServingConfig(backend="ivf_pq"), ivf_pq_index=idx),
 }
 
 
@@ -103,6 +142,25 @@ def test_kernel_mode_on_cpu_tensors_raises(tiny, op):
                             mode="kernel", device="cpu")
 
 
+PQ_OPS = {
+    "pq_adc_scan": lambda pqi, q, t, **kw: tops.pq_adc_scan(
+        t, pqi.list_codes, pqi.list_ids, SEL, 2, **kw),
+    "fused_scan_pq": lambda pqi, q, t, **kw: tops.fused_scan_pq(
+        t, q, pqi.list_codes, pqi.list_ids, SEL, pqi.doc_vecs, 2, rerank=4,
+        **kw),
+    "fused_turn_pq": lambda pqi, q, t, **kw: tops.fused_turn_pq(
+        q, pqi.centroids, t, pqi.list_codes, pqi.list_ids, pqi.doc_vecs,
+        nprobe=1, k=2, rerank=4, **kw),
+}
+
+
+@pytest.mark.parametrize("op", sorted(PQ_OPS))
+def test_pq_kernel_mode_on_cpu_tensors_raises(tiny_pq, op):
+    PQ_OPS[op](*tiny_pq, device="cpu")           # the plain version runs
+    with pytest.raises(ValueError, match="kernel"):
+        PQ_OPS[op](*tiny_pq, mode="kernel", device="cpu")
+
+
 def test_cpu_tensors_with_cuda_entry_point_are_refused(tiny):
     idx, q = tiny
     if not torch.cuda.is_available():
@@ -113,11 +171,14 @@ def test_cpu_tensors_with_cuda_entry_point_are_refused(tiny):
 
 
 @pytest.mark.parametrize("precision", ["bf16", "int8"])
-def test_unported_precisions_raise(tiny, precision):
+def test_unported_precisions_raise(tiny, tiny_pq, precision):
     idx, q = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops.fused_turn(q, idx.centroids, idx.list_vecs, idx.list_ids,
                         nprobe=1, k=2, precision=precision, device="cpu")
+    for op in ("fused_scan_pq", "fused_turn_pq"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PQ_OPS[op](*tiny_pq, precision=precision, device="cpu")
     with pytest.raises(NotImplementedError):
         ttl.FusedTurn(precision=precision)
     with pytest.raises(NotImplementedError):
@@ -142,7 +203,7 @@ def test_serving_config_keeps_the_reference_fields_and_defaults():
     assert port == ref
 
 
-@pytest.mark.parametrize("name", ["ivf_pq", "hnsw", "exact"])
+@pytest.mark.parametrize("name", ["hnsw", "exact"])
 def test_unported_backends_raise_unknown_backend(name):
     with pytest.raises(ValueError, match="unknown retrieval backend"):
         tbackend.make(name)
@@ -154,4 +215,20 @@ def test_make_checks_knobs_like_the_reference():
         tbackend.make("ivf", nprob=3)
     with pytest.raises(TypeError, match="strict"):
         tbackend.make("ivf", strict=True, rerank=3)
-    assert tbackend.names() == ("ivf",)
+    # lenient make drops the PQ knob for the float backend
+    assert not hasattr(tbackend.make("ivf", rerank=3), "rerank")
+    assert tbackend.make("ivf_pq", rerank=3).rerank == 3
+    assert tbackend.names() == ("ivf", "ivf_pq")
+
+
+def test_make_ivf_pq_defaults_match_the_reference():
+    """``make("ivf_pq")`` gives the reference's knobs and defaults; the
+    reference's ``scan`` (the sharded-scan hook) is not ported."""
+    ref, port = rbackend.make("ivf_pq"), tbackend.make("ivf_pq")
+    rf = {f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}
+    pf = {f.name: getattr(port, f.name) for f in dataclasses.fields(port)}
+    assert set(rf) - set(pf) == {"scan"} and set(pf) <= set(rf)
+    assert pf == {n: rf[n] for n in pf}
+    assert (type(port).name, type(port).index_kwarg) == \
+        ("ivf_pq", "ivf_pq_index")
+    assert isinstance(port, tbackend.IVFBackend)
