@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's two serving paths through
-``ConversationalSearchEngine`` at the size its users run: TopLoc_IVF
-(float lists, the hand-written ``fused_scan`` / ``fused_turn`` CUDA
-kernels) and TopLoc_IVFPQ (PQ lists, the ``pq_adc_scan`` /
-``fused_scan_pq`` / ``fused_turn_pq`` kernels), over an MS MARCO
-passage-scale corpus (8,841,823 docs, d = 768, the width of the dragon
-BERT-base dual encoder) drawn on the device from a seed after the
-synthetic workload's recipe, an IVF index of 16,384 lists, PQ codes of
-m = 48 subquantizers x 256 codewords, and the ``ServingConfig`` defaults
-(k = 10, nprobe = 64, h = 1024, alpha = 0.1, rerank = 64) over 25
-conversations x 10 turns.
+Drives the port's serving paths through ``ConversationalSearchEngine``
+at the size its users run: TopLoc_IVF (float lists, the hand-written
+``fused_scan`` / ``fused_turn`` CUDA kernels) and TopLoc_IVFPQ (PQ
+lists, the ``pq_adc_scan`` / ``fused_scan_pq`` / ``fused_turn_pq``
+kernels), over an MS MARCO passage-scale corpus (8,841,823 docs, d =
+768, the width of the dragon BERT-base dual encoder) drawn on the device
+from a seed after the synthetic workload's recipe, an IVF index of
+16,384 lists, PQ codes of m = 48 subquantizers x 256 codewords, and the
+``ServingConfig`` defaults (k = 10, nprobe = 64, h = 1024, alpha = 0.1,
+rerank = 64) over 25 conversations x 10 turns.  Then the paper's own
+pipeline, text to answers: the dragon dual encoder at full width and
+depth (random weights from a seed; its attention is the hand-written
+``flash_attention`` kernel) encodes a 65,536-doc text corpus, the port
+indexes the embeddings, and each served turn encodes its query before
+``engine.query``.
 
 Phases (one line each, [serve] one per path; any failure raises and
 exits non-zero):
@@ -20,16 +24,21 @@ exits non-zero):
               spills per kernel)
   3 exact     integer inputs: kernels == plain versions bit for bit
   4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25
-  5 index     the port's ivf.build at full size + exact top-10
-  6 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
-  7 serve     per backend: toploc+ / toploc / plain fused, toploc+
+  5 attn      flash_attention == its plain version within 1e-5
+  6 encode    dragon encodes 65,536 text docs (snowflake one query
+              batch); then [serve] encoder lines: IVF over the doc
+              embeddings, each turn's query encoded at B = 1
+  7 index     the port's ivf.build at full size + exact top-10
+  8 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
+  9 serve     per backend: toploc+ / toploc / plain fused, toploc+
               unfused; each backend's launch counts start at 0
-  8 batched   start_batch / step_batch == the sequential engine
-  9 times     CUDA-event kernel times (L2 flushed) beside their bounds
+ 10 batched   start_batch / step_batch == the sequential engine
+ 11 times     CUDA-event kernel times (L2 flushed) beside their bounds
 then a JSON line of kernels, the card line, and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Size flags
-(``--n-docs``, ``--lists``, ``--iters``) cut the run for a quick check.
+(``--n-docs``, ``--lists``, ``--iters``, ``--enc-docs``) cut the run for
+a quick check.
 """
 from __future__ import annotations
 
@@ -51,14 +60,25 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SCAN_SRC = "src/repro_torch/kernels/csrc/fused_turn.cu"
 PQ_SRC = "src/repro_torch/kernels/csrc/pq_adc.cu"
+FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PQ_M, PQ_ITERS, RERANK = 48, 8, 64
 IVF_KERNELS = ("fused_scan", "fused_turn")
 PQ_KERNELS = ("pq_adc_scan", "fused_scan_pq", "fused_turn_pq")
+ENC_KERNELS = ("flash_attention",)
+SOURCES = {**dict.fromkeys(IVF_KERNELS, SCAN_SRC),
+           **dict.fromkeys(PQ_KERNELS, PQ_SRC),
+           "flash_attention": FA_SRC}
 REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "fused_turn": "src/repro/kernels/fused_turn.py:406",
             "pq_adc_scan": "src/repro/kernels/pq_adc.py:79",
             "fused_scan_pq": "src/repro/kernels/fused_turn.py:686",
-            "fused_turn_pq": "src/repro/kernels/fused_turn.py:445"}
+            "fused_turn_pq": "src/repro/kernels/fused_turn.py:445",
+            "flash_attention": "src/repro/kernels/flash_attention.py:89"}
+# the encoder path: docs of the text corpus, queries of Q_LEN tokens
+# padded to max_len, DOC_BATCH docs per doc-tower call ([attn] and
+# [times] hold and time the kernel at that batch too)
+ENC_DOCS, DOC_BATCH, Q_LEN = 65_536, 64, 16
+MSMARCO_DOCS = 8_841_823
 
 
 def log(phase: str, msg: str) -> None:
@@ -338,7 +358,264 @@ def phase_realistic(args, dev, errs):
 
 
 # ---------------------------------------------------------------------------
-# phases 5-8: index, PQ index, serving, sequential == batched
+# phase 5: flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+# B, H, Hkv, S, Skv, D, Dv, causal
+ATTN_SHAPES = [(2, 8, 8, 256, 256, 64, 64, True),      # MHA
+               (2, 8, 2, 256, 256, 64, 64, True),      # GQA
+               (2, 8, 2, 128, 384, 64, 64, True),      # causal S < Skv
+               (2, 8, 2, 256, 256, 64, 64, False),
+               (2, 8, 2, 100, 200, 64, 64, False),     # ragged S, Skv
+               (2, 8, 2, 100, 200, 64, 64, True),
+               (2, 8, 2, 128, 128, 48, 32, True),      # Dv != D
+               (1, 12, 12, 256, 256, 64, 64, False),   # dragon query
+               (DOC_BATCH, 12, 12, 256, 256, 64, 64, False),  # dragon docs
+               (1, 16, 16, 256, 256, 64, 64, False)]   # snowflake
+
+
+def attn_inputs(shape, gen, dev):
+    import torch
+    b, h, hkv, s, skv, d, dv, _ = shape
+    return [torch.randn(sh, generator=gen, device=dev) for sh in
+            ((b, h, s, d), (b, hkv, skv, d), (b, hkv, skv, dv))]
+
+
+def phase_attn(args, dev, errs):
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    for shape in ATTN_SHAPES:
+        q, k, v = attn_inputs(shape, gen, dev)
+        got = ops.flash_attention(q, k, v, causal=shape[-1])
+        want = ref.mha_attention(q, k, v, causal=shape[-1])
+        err = float((got - want).abs().max())
+        if got.shape != want.shape or not err <= TOL:
+            raise AssertionError(f"flash_attention {shape}: max |d| {err}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the bi-encoder: encode the text corpus, serve encoded queries
+# ---------------------------------------------------------------------------
+
+
+def pad_queries(tok, max_len):
+    """Queries padded to max_len, as the reference's pipeline pads them
+    (padding keys take part in attention: the length is part of the
+    function)."""
+    return np.pad(tok, [(0, 0)] * (tok.ndim - 1) + [(0, max_len - tok.shape[-1])])
+
+
+def set_attention(enc, fn):
+    """Run every attention layer of ``enc`` through ``fn`` (None: the
+    ``flash_attention`` kernel)."""
+    from repro_torch.models.layers import Attention
+    for m in enc.modules():
+        if isinstance(m, Attention):
+            m.attention = fn
+
+
+def profile_query_tower(enc, q, reps=5):
+    """Device time of the query tower at B = 1 from a torch.profiler trace
+    of ``reps`` encodes: the union of kernel intervals (busy), kernel
+    time by class (cuBLAS GEMMs, ``flash_attention``, the rest) and
+    kernels per query.  The host's own time is read without the profiler
+    (the encoder ``[serve]`` lines), as tracing slows the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        enc.encode_queries(q, q > 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            enc.encode_queries(q, q > 0)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no device kernels")
+    busy, end = 0.0, float("-inf")
+    split = dict.fromkeys(("gemm", "flash_attention", "other"), 0.0)
+    for a, b, name in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        cls = ("flash_attention" if "flash_fwd" in name else
+               "gemm" if "gemm" in name or "splitK" in name else "other")
+        split[cls] += b - a
+    out = {"reps": reps, "busy_ms": busy / reps / 1e3,
+           "kernels": len(spans) // reps}
+    out.update({f"{k}_ms": v / reps / 1e3 for k, v in split.items()})
+    return out
+
+
+def phase_encode(args, dev, cfg, errs):
+    """The doc tower over the text corpus in batches, the plain-attention
+    check on the card, and one snowflake query batch."""
+    import torch
+    from repro_torch.configs import encoders as C
+    from repro_torch.data import synthetic as SY
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import encoder as E
+    t0 = time.perf_counter()
+    wl = SY.make_workload(SY.WorkloadConfig(
+        n_docs=args.enc_docs, d=args.d, n_topics=256, doc_spread=0.35,
+        n_conversations=25, turns_per_conversation=10, query_drift=0.15,
+        walk_step=0.05, shift_prob=0.15, seed=args.seed))
+    docs_tok, conv_tok = SY.make_text_corpus(
+        wl, vocab=cfg.vocab, doc_len=cfg.max_len, query_len=Q_LEN,
+        seed=args.seed + 1)
+    t_text = time.perf_counter() - t0
+    enc = E.init_params(cfg, seed=args.seed, device=dev)
+    tok = torch.from_numpy(docs_tok).to(dev)
+    embs = torch.empty((args.enc_docs, cfg.d_out), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, args.enc_docs, DOC_BATCH):
+        batch = tok[s:s + DOC_BATCH]
+        embs[s:s + DOC_BATCH] = enc.encode_docs(batch, batch > 0)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    calls = -(-args.enc_docs // DOC_BATCH)
+    launches = ops.flash_attention.launches
+    if launches != cfg.n_layers * calls:
+        raise AssertionError(f"flash_attention launched {launches} times "
+                             f"for {calls} doc-tower calls")
+    norms = embs.norm(dim=-1)
+    if not bool(torch.isfinite(embs).all()) or \
+            float((norms - 1).abs().max()) > 1e-4:
+        raise AssertionError("doc embeddings not finite and unit-norm")
+    # the kernel path against the same towers with the plain attention,
+    # at the served shapes: four queries one at a time, one doc batch
+    qs = torch.from_numpy(pad_queries(conv_tok[:4, 0], cfg.max_len)).to(dev)
+    checks = {}
+    for side, batches in (("queries", qs.split(1)),
+                          ("docs", [tok[:DOC_BATCH]])):
+        fn = getattr(enc, f"encode_{side}")
+        got = [fn(t, t > 0) for t in batches]
+        set_attention(enc, ref.mha_attention)
+        want = [fn(t, t > 0) for t in batches]
+        set_attention(enc, None)
+        checks[side] = max(float((g - w).abs().max())
+                           for g, w in zip(got, want))
+        if not checks[side] <= TOL:
+            raise AssertionError(f"{side}: kernel vs plain attention "
+                                 f"{checks[side]}")
+    errs["flash_attention"] = max(errs["flash_attention"], *checks.values())
+    prof = profile_query_tower(enc, qs[:1])
+    log("encode", f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+        f"H={cfg.n_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+        f"max_len={cfg.max_len} params={cfg.param_count() / 1e6:.1f}M: "
+        f"{args.enc_docs} docs of {cfg.max_len} tokens (cut: "
+        f"{args.enc_docs:,} of {MSMARCO_DOCS:,} MS MARCO passages) in "
+        f"batches of {DOC_BATCH}: text_s={t_text:.1f} encode_s={t_enc:.1f} "
+        f"docs_per_s={args.enc_docs / t_enc:.1f} "
+        f"max_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f} "
+        f"flash_attention_launches={launches} (= {cfg.n_layers} x {calls} "
+        f"tower calls); kernel vs plain attention, same towers: "
+        f"4 queries at B=1 max_abs_err={checks['queries']:.3g}, "
+        f"{DOC_BATCH} docs max_abs_err={checks['docs']:.3g} (tol {TOL})")
+    log("profile", f"{cfg.name} query tower, B=1, {Q_LEN} tokens padded to "
+        f"{cfg.max_len} (torch.profiler, {prof.pop('reps')} encodes; device "
+        f"ms per query): " + " ".join(f"{k}={v:.3f}" if isinstance(v, float)
+                                      else f"{k}={v}"
+                                      for k, v in prof.items()))
+    # the second config: one query batch through the shared tower
+    scfg = C.snowflake_config()
+    snow = E.init_params(scfg, seed=args.seed, device=dev)
+    sq = torch.from_numpy(pad_queries(conv_tok[:, 0], scfg.max_len)).to(dev)
+    before = ops.flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = snow.encode_queries(sq, sq > 0)
+    torch.cuda.synchronize()
+    t_snow = time.perf_counter() - t0
+    if out.shape != (sq.shape[0], scfg.d_out) or \
+            not bool(torch.isfinite(out).all()) or \
+            float((out.norm(dim=-1) - 1).abs().max()) > 1e-4:
+        raise AssertionError("snowflake embeddings not finite and unit-norm")
+    log("encode", f"{scfg.name} L={scfg.n_layers} d={scfg.d_model} "
+        f"H={scfg.n_heads} shared towers={snow.query is snow.doc}: "
+        f"{sq.shape[0]} queries in {t_snow * 1e3:.1f} ms, "
+        f"flash_attention_launches={ops.flash_attention.launches - before}")
+    del snow, out, tok
+    torch.cuda.empty_cache()
+    return enc, embs, wl, conv_tok, launches
+
+
+def phase_encode_serve(args, dev, enc, embs, wl, conv_tok):
+    """An IVF over the doc embeddings; each turn encodes its query at
+    B = 1, as a live assistant would, then calls ``engine.query``."""
+    import torch
+    from repro_torch.core import ivf
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import (ConversationalSearchEngine,
+                                            ServingConfig)
+    t0 = time.perf_counter()
+    index = ivf.build(embs, args.enc_lists, iters=args.iters, seed=args.seed,
+                      capacity_factor=1.3)
+    torch.cuda.synchronize()
+    log("serve", f"encoder index: {args.enc_docs} dragon doc embeddings, "
+        f"p={args.enc_lists} lmax={index.lmax} build_s="
+        f"{time.perf_counter() - t0:.1f}")
+    q_tok = torch.from_numpy(pad_queries(conv_tok, enc.cfg.max_len)).to(dev)
+    n_conv, turns = conv_tok.shape[:2]
+
+    def run(knobs, n_conv, turns):
+        eng = ConversationalSearchEngine(
+            ServingConfig(backend="ivf", precision="f32", **knobs),
+            ivf_index=index)
+        enc_ms, hits = [], 0
+        for c in range(n_conv):
+            for t in range(turns):
+                tok = q_tok[c, t][None]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                qv = enc.encode_queries(tok, tok > 0)[0]
+                torch.cuda.synchronize()
+                enc_ms.append((time.perf_counter() - t0) * 1e3)
+                _, ids = eng.query(f"c{c}", qv)
+                hits += int(wl.doc_topic[ids[0]] == wl.conv_topics[c, t])
+        return eng, np.asarray(enc_ms), hits
+
+    for _, knobs in SERVE:                       # warm every path
+        run(knobs, 1, 2)
+    counts = {}
+    for name, knobs in SERVE:
+        ops.reset_launches()
+        eng, enc_ms, hits = run(knobs, n_conv, turns)
+        n = launch_counts()
+        counts = {k: counts.get(k, 0) + n[k] for k in n}
+        if n["flash_attention"] != enc.cfg.n_layers * n_conv * turns:
+            raise AssertionError(f"encoder {name}: {n['flash_attention']} "
+                                 f"flash_attention launches")
+        ret_ms = np.asarray([r.latency_s for r in eng.records]) * 1e3
+        s = eng.summary()
+        log("serve", f"encoder ivf {name}: turns={s['turns']} "
+            f"encode_p50_ms={np.percentile(enc_ms, 50):.3f} "
+            f"encode_p95_ms={np.percentile(enc_ms, 95):.3f} "
+            f"retrieval_p50_ms={np.percentile(ret_ms, 50):.3f} "
+            f"retrieval_p95_ms={np.percentile(ret_ms, 95):.3f} "
+            f"mean_centroid_dists={s['mean_centroid_dists']:.1f} "
+            f"mean_list_dists={s['mean_list_dists']:.1f} "
+            f"refresh_rate={s['refresh_rate']:.3f} "
+            f"topic_p@1={hits / s['turns']:.3f} " + " ".join(
+                f"{k}_launches={n[k]}" for k in ENC_KERNELS + IVF_KERNELS))
+    if min(counts[k] for k in ENC_KERNELS + IVF_KERNELS) == 0:
+        raise AssertionError(f"encoder path: a kernel was not launched: "
+                             f"{counts}")
+    del index, q_tok
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
+# phases 7-10: index, PQ index, serving, sequential == batched
 # ---------------------------------------------------------------------------
 
 
@@ -430,7 +707,7 @@ BACKENDS = (("ivf", IVF_KERNELS), ("ivf_pq", PQ_KERNELS))
 def launch_counts():
     from repro_torch.kernels import ops
     return {name: getattr(ops, name).launches
-            for name in IVF_KERNELS + PQ_KERNELS}
+            for name in IVF_KERNELS + PQ_KERNELS + ENC_KERNELS}
 
 
 def serve(backend, index, convs, exact, name, knobs, quiet=False):
@@ -544,7 +821,7 @@ def phase_batched(index, convs, run, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: kernel times beside their bounds
+# phase 11: kernel times beside their bounds
 # ---------------------------------------------------------------------------
 
 
@@ -553,8 +830,9 @@ def event_ms(calls, flush, *, spin):
     (``flush`` overwritten) before each.  With ``spin`` a spin kernel
     queued first lets the host enqueue every call before the device
     starts them, so host overhead does not show as device time; calls
-    that synchronise with the host themselves (the plain versions) run
-    without it and their time includes that overhead."""
+    that synchronise with the host themselves (the plain versions of the
+    retrieval kernels) run without it and their time includes that
+    overhead."""
     import torch
     marks = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in calls]
@@ -608,10 +886,12 @@ def bound_ms(nbytes, flops):
                                        else "operations")
 
 
-def timed(kernel_calls, plain_calls, works, flush):
-    """One kernel's row: kernel and plain-version times, mean bound."""
+def timed(kernel_calls, plain_calls, works, flush, plain_syncs=True):
+    """One kernel's row: kernel and plain-version times, mean bound.
+    A plain version that never waits for the host (``plain_syncs``
+    False) is timed behind the spin too, so its time is the device's."""
     return dict(ms=event_ms(kernel_calls, flush, spin=True),
-                plain_ms=event_ms(plain_calls, flush, spin=False),
+                plain_ms=event_ms(plain_calls, flush, spin=not plain_syncs),
                 bound_ms=float(np.mean([bound_ms(*w)[0] for w in works])),
                 bound_by=bound_ms(*works[0])[1])
 
@@ -700,6 +980,48 @@ def phase_times(args, index, pqi, convs, dev):
     return out
 
 
+def attn_bound(q, k, v):
+    """(bytes, flops) of attention over these inputs: q, k, v read once,
+    the output written once; QK^T and PV products."""
+    b, h, s, d = q.shape
+    skv, dv = k.shape[2], v.shape[3]
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + b * h * s * dv)
+    return nbytes, 2 * b * h * s * skv * (d + dv)
+
+
+def phase_attn_times(args, dev):
+    """flash_attention at dragon's query (B = 1) and doc-batch (B =
+    DOC_BATCH) shapes, beside its plain version (no host sync: device
+    time, as the kernel's) and, timed only, PyTorch's
+    ``scaled_dot_product_attention`` on the same float32 tensors."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for b, reps in ((1, 25), (DOC_BATCH, 5)):
+        qkv = [attn_inputs((b, 12, 12, 256, 256, 64, 64, False), gen, dev)
+               for _ in range(reps)]
+        kern = [lambda x=x: ops.flash_attention(*x, causal=False)
+                for x in qkv]
+        plain = [lambda x=x: ref.mha_attention(*x, causal=False)
+                 for x in qkv]
+        lib = [lambda x=x: sdpa(*x) for x in qkv]
+        for calls in (kern, plain, lib):                    # warm-up
+            event_ms(calls[:2], flush, spin=True)
+        row = timed(kern, plain, [attn_bound(*x) for x in qkv], flush,
+                    plain_syncs=False)
+        row["library_ms"] = event_ms(lib, flush, spin=True)
+        log("times", f"flash_attention B={b} H=12 S=256 D=64: "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"sdpa_ms={row['library_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"share={row['bound_ms'] / row['ms']:.3f}")
+        out[b] = row
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -709,9 +1031,12 @@ def main() -> int:
     ap.add_argument("--lists", type=int, default=16_384)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--enc-docs", type=int, default=ENC_DOCS)
     args = ap.parse_args()
     args.d, args.k, args.nprobe = 768, 10, 64
     args.lmax = math.ceil(1.3 * args.n_docs / args.lists)
+    # 16 sqrt(N) lists, FAISS's upper end: 4,096 at 65,536 docs
+    args.enc_lists = 16 * math.isqrt(args.enc_docs)
 
     import torch
     if not torch.cuda.is_available():
@@ -751,6 +1076,21 @@ def main() -> int:
         f"near-tie id mismatches " + " ".join(
             f"{n}={v}" for n, v in ties.items()))
 
+    errs["flash_attention"] = 0.0
+    phase_attn(args, dev, errs)
+    log("attn", f"{len(ATTN_SHAPES)} shapes (MHA, GQA, causal S == Skv and "
+        f"S < Skv, non-causal, ragged S/Skv, Dv != D, dragon B = 1 and "
+        f"{DOC_BATCH}, "
+        f"snowflake): flash_attention max_abs_err="
+        f"{errs['flash_attention']:.3g} (tol {TOL})")
+
+    from repro_torch.configs.encoders import dragon_config
+    enc, embs, wl, conv_tok, enc_launches = phase_encode(
+        args, dev, dragon_config(), errs)
+    enc_launches += phase_encode_serve(args, dev, enc, embs, wl, conv_tok)
+    del enc, embs
+    torch.cuda.empty_cache()
+
     index, docs, convs, exact = phase_index(args, dev)
     pqi = phase_pq(args, index, docs, dev)
     indexes = {"ivf": index, "ivf_pq": pqi}
@@ -764,14 +1104,16 @@ def main() -> int:
         "unfused toploc+, ivf and ivf_pq")
 
     times = phase_times(args, index, pqi, convs, dev)
-    kernels = [dict(name=name, route="cuda",
-                    source=SCAN_SRC if name in IVF_KERNELS else PQ_SRC,
+    times[1]["flash_attention"] = phase_attn_times(args, dev)[1]
+    launches["flash_attention"] = enc_launches
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], ms=times[1][name]["ms"],
                     plain_ms=times[1][name]["plain_ms"],
                     bound_ms=times[1][name]["bound_ms"],
-                    bound_by=times[1][name]["bound_by"], library_ms=None)
-               for name in IVF_KERNELS + PQ_KERNELS]
+                    bound_by=times[1][name]["bound_by"],
+                    library_ms=times[1][name].get("library_ms"))
+               for name in IVF_KERNELS + PQ_KERNELS + ENC_KERNELS]
     log("done", f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

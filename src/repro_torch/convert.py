@@ -3,12 +3,14 @@
 The JAX package and the port share their index and session layouts
 field for field, so a reference-built ``IVFIndex`` / ``IVFPQIndex`` /
 ``IVFSession`` becomes the port's by handing each field over as a numpy
-array (``np.asarray(field)``); ``to_numpy`` goes the other way.
+array (``np.asarray(field)``); ``to_numpy`` goes the other way.  The
+bi-encoder's parameter tree converts leaf for leaf, its stacked layers
+unstacked (``encoder_params_from_numpy``).
 Nothing here imports the reference: the arrays are the interface.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -17,6 +19,7 @@ from repro_torch import device as _device
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.pq import IVFPQIndex, check_index
 from repro_torch.core.toploc import IVFSession
+from repro_torch.models.encoder import DualEncoder, EncoderConfig, Tower
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -55,6 +58,35 @@ def ivf_session_from_numpy(cache_ids, cache_vecs, anchor_sel, refreshes,
     return IVFSession(_i32(cache_ids, dev), _f32(cache_vecs, dev),
                       _i32(anchor_sel, dev), _i32(refreshes, dev),
                       _i32(turn, dev))
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def encoder_params_from_numpy(params: Dict[str, Any], cfg: EncoderConfig,
+                              device=None) -> DualEncoder:
+    """A ``DualEncoder`` on ``device`` (default cuda) from the reference's
+    ``init_params`` tree as numpy arrays (``{"query": tower, "doc":
+    tower}``).  Each tower's ``layers`` leaves are stacked along a leading
+    ``n_layers`` axis (the reference's ``vmap``/``scan`` layout) and are
+    unstacked into one tree per layer.  With ``cfg.shared_towers`` the
+    reference's two entries are one tower, and so is the port's: one
+    ``Tower`` module serves both sides."""
+    dev = _device.resolve(device)
+
+    def tower(p):
+        t = _tree(lambda a: _f32(a, dev),
+                  {k: v for k, v in p.items() if k != "layers"})
+        t["layers"] = [_tree(lambda a, i=i: _f32(np.asarray(a)[i], dev),
+                             p["layers"]) for i in range(cfg.n_layers)]
+        return Tower(cfg, t)
+
+    query = tower(params["query"])
+    doc = query if cfg.shared_towers else tower(params["doc"])
+    return DualEncoder(cfg, query, doc)
 
 
 def to_numpy(x: Any) -> Any:

@@ -1,2 +1,3 @@
-"""Synthetic CAsT-like workload (numpy copy of the reference's recipe)."""
-from repro_torch.data import synthetic  # noqa: F401
+"""Synthetic CAsT-like workload, its token view, and the hash tokenizer
+(numpy copies of the reference's recipes)."""
+from repro_torch.data import synthetic, tokenizer  # noqa: F401

@@ -12,6 +12,10 @@ documents are drawn on the device from a seeded ``torch.Generator``
 (so they differ from the numpy stream), the topic centres and the
 conversations come from numpy exactly as in ``make_workload``.  Qrels
 are left to the caller, who can run an exact search on the device.
+
+``topic_text`` / ``make_text_corpus`` are the token view the bi-encoder
+encodes (reference ``:145-172``), copied with the same draw order, so a
+workload gives the same token arrays in both packages.
 """
 from __future__ import annotations
 
@@ -132,6 +136,42 @@ def make_device_corpus(cfg: WorkloadConfig, device, *,
         x.mul_(cfg.doc_spread).add_(c[doc_topic[s:e]])
         docs[s:e] = x / x.norm(dim=-1, keepdim=True).clamp_min(1e-9)
     return DeviceCorpus(docs, doc_topic, centers, convs, conv_topics)
+
+
+# ---------------------------------------------------------------------------
+# text view (for the bi-encoder pipeline)
+# ---------------------------------------------------------------------------
+
+
+def topic_text(rng: np.random.Generator, topic: int, n_topics: int,
+               vocab: int, length: int, signal: float = 0.7) -> np.ndarray:
+    """Token sequence: topic-specific band of the vocab + common noise."""
+    band = vocab // (2 * n_topics)
+    lo = vocab // 2 + topic * band
+    topical = rng.integers(lo, lo + band, size=length)
+    common = rng.integers(2, vocab // 2, size=length)
+    use = rng.uniform(size=length) < signal
+    toks = np.where(use, topical, common)
+    toks[0] = 1                                    # CLS
+    return toks.astype(np.int32)
+
+
+def make_text_corpus(workload: Workload, vocab: int = 32768,
+                     doc_len: int = 64, query_len: int = 16, seed: int = 1
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Token views of docs (n_docs, doc_len) int32 + conversation queries
+    (n_conv, turns, query_len) int32, the workload's topic structure."""
+    rng = np.random.default_rng(seed)
+    n_topics = workload.topic_centers.shape[0]
+    docs = np.stack([
+        topic_text(rng, int(t), n_topics, vocab, doc_len)
+        for t in workload.doc_topic])
+    queries = np.stack([
+        np.stack([topic_text(rng, int(workload.conv_topics[c, t]),
+                             n_topics, vocab, query_len)
+                  for t in range(workload.conv_topics.shape[1])])
+        for c in range(workload.conv_topics.shape[0])])
+    return docs, queries
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-# C signatures of the entry points (csrc/fused_turn.cu, csrc/pq_adc.cu)
+F = ctypes.c_float
+# C signatures of the entry points (csrc/fused_turn.cu, csrc/pq_adc.cu,
+# csrc/flash_attention.cu)
 SIGNATURES = {
     "fused_scan_ivf_f32": [P, P, P, I, P, I, P, I, I, I, I, I,
                            P, P, P, P, P, P, P],
@@ -43,6 +45,7 @@ SIGNATURES = {
     "fused_turn_pq_f32": [P, P, P, I, I, P, P, I, P,
                           I, I, I, I, I, I, I, I,
                           P, P, P, P, P, P, P, P, P, P, P, P, P, P],
+    "flash_attention_f32": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -2,22 +2,25 @@
 
 Each op has two execution paths, picked by the device of its tensors:
 
-  * ``"kernel"`` — the CUDA kernel (``fused_turn.py`` / ``pq_adc.py`` →
-                   ``csrc/``), the only path for CUDA tensors;
+  * ``"kernel"`` — the CUDA kernel (``fused_turn.py`` / ``pq_adc.py`` /
+                   ``flash_attention.py`` → ``csrc/``), the only path for
+                   CUDA tensors;
   * ``"ref"``    — the plain PyTorch version (``ref.py``), the only path
                    for CPU tensors.
 
 There is no fallback between them: ``mode="kernel"`` on CPU tensors and
 ``mode="ref"`` on CUDA tensors raise, a failed build raises, a refused
 launch raises.  The wrappers keep the reference's signatures and
-return shapes (``repro/kernels/ops.py:95-114``, ``:130-196`` and
-``:209-290``, without the TPU tile knobs), own the power-of-two padding
-of k / nprobe / the re-rank depth, and count their launches in a plain
-int on the wrapper (``fused_turn.launches``), so a run can show that
-its path went through the kernels.
+return shapes (``repro/kernels/ops.py:95-114``, ``:130-196``,
+``:209-290`` and ``:331-340``, without the TPU tile knobs), own the
+power-of-two padding of k / nprobe / the re-rank depth, and count their
+launches in a plain int on the wrapper (``fused_turn.launches``), so a
+run can show that its path went through the kernels.
 
-Only ``precision="f32"`` is ported; the bf16/int8 variants (stage-3
-in-kernel re-rank) are ROADMAP Queue 1, item 3.
+The retrieval ops port only ``precision="f32"``; their bf16/int8
+variants (stage-3 in-kernel re-rank) are ROADMAP Queue 1, item 3.
+``flash_attention`` ports the forward: its backward comes with training
+(ROADMAP Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import device as _device
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_turn as _ft
 from repro_torch.kernels import pq_adc as _pq
 from repro_torch.kernels import ref
@@ -213,6 +217,40 @@ def fused_scan_pq(tables: torch.Tensor, queries: torch.Tensor,
 fused_scan_pq.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# flash attention (forward)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, mode: Optional[str] = None,
+                    device=None) -> torch.Tensor:
+    """Attention forward. q (B, H, S, D), k (B, Hkv, Skv, D), v (B, Hkv,
+    Skv, Dv); Hkv divides H; returns (B, H, S, Dv) float32.
+
+    Causal masking is bottom-right (queries are the last S positions).
+    Unlike the reference, which drops to its plain math when S or Skv is
+    not a multiple of 128, every CUDA call runs the kernel: it masks
+    ragged tails itself.  The kernel has no backward yet, so it refuses
+    inputs that require grad.
+    """
+    dev = _device.require(device, q, k, v)
+    _fa.check_shapes(q, k, v, causal=causal)
+    if _mode(mode, dev) == "ref":
+        return ref.mha_attention(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernel is forward only; its backward "
+            "comes with training (ROADMAP Queue 1, item 7)")
+    f32 = [t.to(torch.float32).contiguous() for t in (q, k, v)]
+    out = _fa.flash_attention(*f32, causal=causal)
+    flash_attention.launches += int(out.numel() > 0)
+    return out.to(q.dtype)
+
+
+flash_attention.launches = 0
+
+
 def reset_launches() -> None:
     """Set every op's launch count to 0."""
     fused_turn.launches = 0
@@ -220,3 +258,4 @@ def reset_launches() -> None:
     pq_adc_scan.launches = 0
     fused_turn_pq.launches = 0
     fused_scan_pq.launches = 0
+    flash_attention.launches = 0

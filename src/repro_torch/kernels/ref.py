@@ -26,9 +26,14 @@ value is ``-inf``, the pads here carry the kernels' convention
 ``(-inf, -1, PAD_POS)``, so kernel and plain version agree bit for bit
 on every lane.  After an exact re-rank the position is the candidate's
 ADC rank, on every lane, as in the reference.
+
+``mha_attention`` is the plain version of the flash attention kernel
+(``repro/kernels/ref.py:317-346``): the full (S, Skv) score matrix,
+float32 softmax, bottom-right causal mask.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -191,3 +196,31 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
     v, i, _ = fused_scan_pq(tables, queries, list_codes, list_ids, sel,
                             None, corpus, k=k, r=r, rerank=True)
     return v, i, sel
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """Plain attention. q (B, H, S, D), k (B, Hkv, Skv, D), v (B, Hkv,
+    Skv, Dv); Hkv divides H; returns (B, H, S, Dv) in q's dtype.
+
+    ``repro/kernels/ref.py:317-346``: the softmax accumulates in float32
+    whatever the input dtype, and causal masking is bottom-right (the
+    queries are the last S positions of the Skv timeline).
+    """
+    b, h, s, d = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    qg = q.float().reshape(b, hkv, h // hkv, s, d)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qg, k.float()) / math.sqrt(d)
+    if causal:
+        qpos = torch.arange(s, device=q.device) + (skv - s)
+        kpos = torch.arange(skv, device=q.device)
+        logits = logits.masked_fill(qpos[:, None] < kpos[None, :],
+                                    float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bhtd->bhgsd", probs, v.float())
+    return out.reshape(b, h, s, dv).to(q.dtype)

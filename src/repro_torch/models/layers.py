@@ -1,0 +1,207 @@
+"""Building blocks of the bi-encoder, as ``nn.Module``s.
+
+Port of the parts of ``repro/models/layers.py`` the encoder uses:
+RMSNorm (float32, eps 1e-6, ``:42-46``), RoPE in the split-halves
+convention (``:66-79``), GQA attention with optional qkv bias and qk-norm
+(``AttnConfig``, ``_project_qkv`` + ``attn_apply``, ``:86-146``) and the
+SwiGLU MLP (``:177-186``).  The LM-only parts (decode, MoE, MLA) are not
+ported.
+
+Parameters keep the reference's layout (``x @ w`` with ``w`` of shape
+(d_in, d_out)), so a reference parameter tree converts leaf for leaf.
+Each module is built from a dict of tensors: ``*_init(gen, ...)`` draws
+one from a ``torch.Generator`` at the reference's scales, and
+``convert.encoder_params_from_numpy`` makes one from the reference's
+arrays.  Parameters do not require grad: this slice serves, and the
+attention kernel has no backward yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+
+Params = Dict[str, object]
+#: an attention function (q, k, v, *, causal) -> out, in place of the kernel
+AttentionFn = Callable[..., torch.Tensor]
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """A parameter that requires no grad."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# initialisers / norms
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, scale: Optional[float] = None
+               ) -> torch.Tensor:
+    """Normal times (1 / d_in)^½ unless ``scale`` is given, on the
+    generator's device."""
+    scale = scale if scale is not None else (1.0 / d_in) ** 0.5
+    return (torch.randn((d_in, d_out), generator=gen, device=gen.device)
+            * scale).to(dtype)
+
+
+def rmsnorm_init(d: int, device, dtype=torch.float32) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+class RMSNorm(nn.Module):
+    """x · rsqrt(mean(x²) + eps) · scale, computed in float32."""
+
+    def __init__(self, params: Params, eps: float = 1e-6):
+        super().__init__()
+        self.scale = frozen(params["scale"])
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + self.eps)
+        return (out * self.scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(d_head: int, theta: float = 10000.0, device=None
+               ) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x (..., S, d_head); positions (..., S) integer (broadcastable).
+    Split halves: (x1, x2) -> (x1 cos - x2 sin, x2 cos + x1 sin)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    ang = positions[..., None].float() * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention (covers MHA; optional qkv bias / qk-norm)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    causal: bool = True
+
+
+def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32
+              ) -> Params:
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dev = gen.device
+    p: Params = {"wq": dense_init(gen, d, h * dh, dtype),
+                 "wk": dense_init(gen, d, hkv * dh, dtype),
+                 "wv": dense_init(gen, d, hkv * dh, dtype),
+                 "wo": dense_init(gen, h * dh, d, dtype)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * dh), ("bk", hkv * dh),
+                            ("bv", hkv * dh)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(dh, dev, dtype)
+        p["k_norm"] = rmsnorm_init(dh, dev, dtype)
+    return p
+
+
+class Attention(nn.Module):
+    """Full-sequence attention through ``ops.flash_attention``, or through
+    ``attention`` where an instance sets it (e.g. to
+    ``kernels.ref.mha_attention``, to hold the kernel to its plain
+    version inside a model)."""
+
+    attention: Optional[AttentionFn] = None
+
+    def __init__(self, cfg: AttnConfig, params: Params):
+        super().__init__()
+        self.cfg = cfg
+        for name in ("wq", "wk", "wv", "wo"):
+            setattr(self, name, frozen(params[name]))
+        if cfg.qkv_bias:
+            for name in ("bq", "bk", "bv"):
+                setattr(self, name, frozen(params[name]))
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(params["q_norm"])
+            self.k_norm = RMSNorm(params["k_norm"])
+
+    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """x (B, S, d) -> q (B, H, S, dh), k and v (B, Hkv, S, dh)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if cfg.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
+        k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+        v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+        if cfg.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        pos = positions[:, None]
+        q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta)
+        k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta)
+        return q, k, v.transpose(1, 2)
+
+    def forward(self, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, S, d) -> (B, S, d)."""
+        b, s, _ = x.shape
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        q, k, v = self.project_qkv(x, positions)
+        if self.attention is None:
+            out = ops.flash_attention(q, k, v, causal=self.cfg.causal,
+                                      device=q.device)
+        else:
+            out = self.attention(q, k, v, causal=self.cfg.causal)
+        out = out.transpose(1, 2).reshape(b, s,
+                                          self.cfg.n_heads * self.cfg.d_head)
+        return out @ self.wo
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def swiglu_init(gen: torch.Generator, d: int, d_ff: int,
+                dtype=torch.float32) -> Params:
+    return {"w_gate": dense_init(gen, d, d_ff, dtype),
+            "w_up": dense_init(gen, d, d_ff, dtype),
+            "w_down": dense_init(gen, d_ff, d, dtype)}
+
+
+class SwiGLU(nn.Module):
+    """(silu(x w_gate) · x w_up) w_down."""
+
+    def __init__(self, params: Params):
+        super().__init__()
+        self.w_gate = frozen(params["w_gate"])
+        self.w_up = frozen(params["w_up"])
+        self.w_down = frozen(params["w_down"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (torch.nn.functional.silu(x @ self.w_gate) * (x @ self.w_up)
+                ) @ self.w_down

@@ -3,14 +3,18 @@
 ``make_workload`` is a numpy copy (same recipe, same random stream), so
 every array and every qrel must be equal, and the IR metrics must give
 the same numbers.  ``make_device_corpus`` follows the recipe with a
-``torch.Generator`` on the device and is held to its properties.
+``torch.Generator`` on the device and is held to its properties.  The
+token view (``topic_text`` / ``make_text_corpus``) and the hash
+tokenizer are copies too, so their arrays must be equal.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro.data import synthetic as RSY
+from repro.data import tokenizer as RTK
 from repro_torch.data import synthetic as TSY
+from repro_torch.data import tokenizer as TTK
 
 CFG = dict(n_docs=700, d=24, n_topics=9, n_conversations=3,
            turns_per_conversation=4, shift_prob=0.3, seed=5)
@@ -68,3 +72,45 @@ def test_device_corpus_follows_the_recipe():
     sims = a.doc_vecs @ c.T
     own = sims.gather(1, a.doc_topic[:, None])[:, 0]
     assert float(own.mean()) > float(sims.mean())
+
+
+# ---------------------------------------------------------------------------
+# the token view and the tokenizer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("vocab,doc_len,query_len", [(1024, 32, 8),
+                                                     (32768, 256, 16)])
+def test_text_corpus_matches_reference(both, vocab, doc_len, query_len):
+    ref, port = both
+    rd, rq = RSY.make_text_corpus(ref, vocab=vocab, doc_len=doc_len,
+                                  query_len=query_len, seed=4)
+    td, tq = TSY.make_text_corpus(port, vocab=vocab, doc_len=doc_len,
+                                  query_len=query_len, seed=4)
+    assert td.dtype == rd.dtype == np.int32
+    np.testing.assert_array_equal(td, rd)
+    np.testing.assert_array_equal(tq, rq)
+    assert tq.shape == (CFG["n_conversations"],
+                        CFG["turns_per_conversation"], query_len)
+
+
+def test_topic_text_matches_reference():
+    for seed in range(3):
+        a = RSY.topic_text(np.random.default_rng(seed), 5, 9, 4096, 40)
+        b = TSY.topic_text(np.random.default_rng(seed), 5, 9, 4096, 40)
+        np.testing.assert_array_equal(a, b)
+        assert b[0] == 1
+
+
+TEXTS = ["what is topical locality", "Dense Retrieval with IVF indexes",
+         "", "a " * 40, "naïve café résumé"]
+
+
+@pytest.mark.parametrize("max_len", [4, 16, 64])
+def test_tokenizer_matches_reference(max_len):
+    ids, mask = TTK.encode_batch(TEXTS, 32768, max_len)
+    rids, rmask = RTK.encode_batch(TEXTS, 32768, max_len)
+    np.testing.assert_array_equal(ids, rids)
+    np.testing.assert_array_equal(mask, rmask)
+    assert ids.dtype == np.int32 and mask.dtype == bool
+    assert (ids[:, 0] == TTK.CLS).all()

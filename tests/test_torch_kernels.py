@@ -9,7 +9,11 @@ equal the plain versions bit for bit: values, ids, ``sel`` and
 positions, pads ``(-inf, -1, PAD_POS)`` included.  The IVF-PQ shapes
 add code rows of 16-byte loads (m = 48) and of byte loads (m = 8, 4),
 lists longer than one ADC block (Lmax > 512), fewer slots than k, and a
-re-rank depth below its power-of-two padding.
+re-rank depth below its power-of-two padding.  Flash attention runs on
+float inputs: its plain version is pinned to a float64 numpy softmax
+and the kernel to the plain version, both within 1e-5 (summation
+order), over MHA/GQA, causal with S == Skv and S < Skv, Dv != D, ragged
+S and Skv, and the encoders' shapes.
 """
 import numpy as np
 import pytest
@@ -306,3 +310,78 @@ def test_cuda_pq_empty_batch_launches_nothing(cuda_device):
     assert v.shape == (0, 4) and s.shape == (0, 2)
     assert (ops.pq_adc_scan.launches, ops.fused_scan_pq.launches,
             ops.fused_turn_pq.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention: float inputs, held within ATTN_TOL (summation order)
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = 1e-5
+# B, H, Hkv, S, Skv, D, Dv, causal
+ATTN_SHAPES = [(1, 4, 4, 128, 128, 32, 32, True),
+               (2, 8, 2, 256, 256, 64, 64, True),     # GQA
+               (1, 4, 1, 128, 128, 64, 64, False),
+               (1, 4, 4, 128, 128, 48, 32, True),     # Dv != D (MLA)
+               (2, 8, 2, 64, 192, 64, 64, True),      # S < Skv, bottom-right
+               (1, 4, 2, 100, 200, 64, 64, False),    # ragged S and Skv
+               (1, 4, 2, 100, 200, 64, 64, True),
+               (3, 2, 1, 7, 300, 16, 8, False),       # tails of both tiles
+               (1, 2, 2, 16, 16, 128, 128, False),    # widest head
+               (1, 12, 12, 256, 256, 64, 64, False),  # dragon, one query
+               (1, 16, 16, 256, 256, 64, 64, False)]  # snowflake
+
+
+def _attn_inputs(shape, dev="cpu"):
+    b, h, hkv, s, skv, d, dv, _ = shape
+    rng = np.random.default_rng(s * 1000 + skv + d)
+    return [torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dev)
+            for sh in ((b, h, s, d), (b, hkv, skv, d), (b, hkv, skv, dv))]
+
+
+def _attn_float64(q, k, v, causal):
+    """Softmax attention in float64 numpy, GQA by head // (H / Hkv),
+    causal bottom-right."""
+    q, k, v = (x.double().numpy() for x in (q, k, v))
+    b, h, s, d = q.shape
+    skv = k.shape[2]
+    kk = np.repeat(k, h // k.shape[1], axis=1)
+    vv = np.repeat(v, h // v.shape[1], axis=1)
+    logits = np.einsum("bhsd,bhtd->bhst", q, kk) / np.sqrt(d)
+    if causal:
+        mask = (np.arange(s)[:, None] + skv - s) < np.arange(skv)[None]
+        logits = np.where(mask, -np.inf, logits)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    return np.einsum("bhst,bhtd->bhsd", p / p.sum(-1, keepdims=True), vv)
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES[:9])
+def test_plain_attention_matches_float64(shape):
+    q, k, v = _attn_inputs(shape)
+    got = ops.flash_attention(q, k, v, causal=shape[-1], device="cpu")
+    np.testing.assert_allclose(got.numpy(),
+                               _attn_float64(q, k, v, shape[-1]),
+                               rtol=0, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_cuda_flash_attention_equals_plain_version(cuda_device, shape):
+    q, k, v = _attn_inputs(shape, cuda_device)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=shape[-1])
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = ref.mha_attention(q, k, v, causal=shape[-1])
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= ATTN_TOL
+
+
+@pytest.mark.cuda_only
+def test_cuda_flash_attention_refuses_grad_and_empty_launches_nothing(
+        cuda_device):
+    q, k, v = _attn_inputs(ATTN_SHAPES[0], cuda_device)
+    before = ops.flash_attention.launches
+    assert ops.flash_attention(q[:0], k[:0], v[:0]).shape == (0, 4, 128, 32)
+    assert ops.flash_attention.launches == before
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)

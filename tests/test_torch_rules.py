@@ -20,11 +20,13 @@ import repro_torch
 from repro.core import backend as rbackend
 from repro.serving import engine as reng
 from repro_torch import convert
+from repro_torch.configs import encoders as tconfigs
 from repro_torch.core import backend as tbackend
 from repro_torch.core import ivf as tivf
 from repro_torch.core import pq as tpq
 from repro_torch.core import toploc as ttl
 from repro_torch.kernels import ops as tops
+from repro_torch.models import encoder as tenc
 from repro_torch.serving import engine as teng
 
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
@@ -36,7 +38,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.core, repro_torch.kernels, repro_torch.kernels.ops, "
         "repro_torch.kernels.fused_turn, repro_torch.kernels._build, "
         "repro_torch.kernels.pq_adc, repro_torch.core.pq, "
-        "repro_torch.serving, repro_torch.data.synthetic\n"
+        "repro_torch.serving, repro_torch.data.synthetic, "
+        "repro_torch.kernels.flash_attention, repro_torch.models, "
+        "repro_torch.models.layers, repro_torch.models.encoder, "
+        "repro_torch.configs.encoders, repro_torch.data.tokenizer\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n")
@@ -116,6 +121,13 @@ ENTRY_POINTS = {
         q, idx.centroids, torch.zeros((2, 2, 4)),
         torch.zeros((4, 5, 2), dtype=torch.uint8), idx.list_ids,
         torch.zeros((20, 8)), nprobe=1, k=2, rerank=4),
+    "ops.flash_attention": lambda idx, q: tops.flash_attention(
+        torch.zeros((1, 2, 4, 8)), torch.zeros((1, 1, 4, 8)),
+        torch.zeros((1, 1, 4, 8))),
+    "encoder.init_params": lambda idx, q: tenc.init_params(
+        tconfigs.tiny_encoder_config()),
+    "convert.encoder": lambda idx, q: convert.encoder_params_from_numpy(
+        {}, tconfigs.tiny_encoder_config()),
     "engine": lambda idx, q: teng.ConversationalSearchEngine(
         teng.ServingConfig(), ivf_index=idx),
     "engine.ivf_pq": lambda idx, q: teng.ConversationalSearchEngine(
