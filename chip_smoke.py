@@ -15,7 +15,13 @@ pipeline, text to answers: the dragon dual encoder at full width and
 depth (random weights from a seed; its attention is the hand-written
 ``flash_attention`` kernel) encodes a 65,536-doc text corpus, the port
 indexes the embeddings, and each served turn encodes its query before
-``engine.query``.
+``engine.query``.  Then two-tower retrieval at its full published width
+(``repro/configs/two_tower_retrieval.py``: embed 256, MLP 1024-512-256,
+1,048,576 users and 2,097,152 items in one 3.22 GB table, history 50;
+random weights from a seed): the item tower encodes the retrieval_cand
+corpus of 10^6 items, the port indexes it (p = 1,024), and user sessions
+are served with TopLoc, each request's history bag through the
+hand-written ``embedding_bag`` kernel.
 
 Phases (one line each, [serve] one per path; any failure raises and
 exits non-zero):
@@ -23,22 +29,29 @@ exits non-zero):
   2 build     nvcc of every kernels/csrc source (seconds; registers and
               spills per kernel)
   3 exact     integer inputs: kernels == plain versions bit for bit
-  4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25
+              (retrieval top-k up to 128, merges past one block;
+              embedding_bag at B = 1, 512, 262,144)
+  4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25, and
+              at the two-tower retrieval_cand shape
   5 attn      flash_attention == its plain version within 1e-5
   6 encode    dragon encodes 65,536 text docs (snowflake one query
               batch); then [serve] encoder lines: IVF over the doc
               embeddings, each turn's query encoded at B = 1
-  7 index     the port's ivf.build at full size + exact top-10
-  8 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
-  9 serve     per backend: toploc+ / toploc / plain fused, toploc+
+  7 twotower  the full-width model, the item corpus, its IVF; then
+              [recsys serve] (100 users x 10 requests per path, user
+              tower at B = 1 then engine.query), [pairwise] (serve_p99
+              and serve_bulk) and the embedding_bag [times]
+  8 index     the port's ivf.build at full size + exact top-10
+  9 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
+ 10 serve     per backend: toploc+ / toploc / plain fused, toploc+
               unfused; each backend's launch counts start at 0
- 10 batched   start_batch / step_batch == the sequential engine
- 11 times     CUDA-event kernel times (L2 flushed) beside their bounds
+ 11 batched   start_batch / step_batch == the sequential engine
+ 12 times     CUDA-event kernel times (L2 flushed) beside their bounds
 then a JSON line of kernels, the card line, and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Size flags
-(``--n-docs``, ``--lists``, ``--iters``, ``--enc-docs``) cut the run for
-a quick check.
+(``--n-docs``, ``--lists``, ``--iters``, ``--enc-docs``, ``--tt-items``,
+``--tt-users``) cut the run for a quick check.
 """
 from __future__ import annotations
 
@@ -61,19 +74,23 @@ F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SCAN_SRC = "src/repro_torch/kernels/csrc/fused_turn.cu"
 PQ_SRC = "src/repro_torch/kernels/csrc/pq_adc.cu"
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+EB_SRC = "src/repro_torch/kernels/csrc/embedding_bag.cu"
 PQ_M, PQ_ITERS, RERANK = 48, 8, 64
 IVF_KERNELS = ("fused_scan", "fused_turn")
 PQ_KERNELS = ("pq_adc_scan", "fused_scan_pq", "fused_turn_pq")
 ENC_KERNELS = ("flash_attention",)
+REC_KERNELS = ("embedding_bag",)
 SOURCES = {**dict.fromkeys(IVF_KERNELS, SCAN_SRC),
            **dict.fromkeys(PQ_KERNELS, PQ_SRC),
-           "flash_attention": FA_SRC}
+           "flash_attention": FA_SRC, "embedding_bag": EB_SRC}
 REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "fused_turn": "src/repro/kernels/fused_turn.py:406",
             "pq_adc_scan": "src/repro/kernels/pq_adc.py:79",
             "fused_scan_pq": "src/repro/kernels/fused_turn.py:686",
             "fused_turn_pq": "src/repro/kernels/fused_turn.py:445",
-            "flash_attention": "src/repro/kernels/flash_attention.py:89"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:89",
+            "embedding_bag": "src/repro/kernels/embedding_bag.py:49"}
+BAG_TOL = 1e-6                 # embedding_bag on random floats
 # the encoder path: docs of the text corpus, queries of Q_LEN tokens
 # padded to max_len, DOC_BATCH docs per doc-tower call ([attn] and
 # [times] hold and time the kernel at that batch too)
@@ -178,7 +195,12 @@ EXACT_SHAPES = [(6, 10, 16, 3, 3, 4),      # p, lmax, d, B, nprobe, k
                 (5, 7, 8, 1, 5, 8),        # k > candidates available
                 (9, 16, 32, 4, 2, 4),
                 (300, 200, 32, 9, 64, 10),  # non-tile-multiple p, lmax
-                (1000, 130, 8, 25, 64, 10)]  # dense ties, B not / 8
+                (1000, 130, 8, 25, 64, 10),  # dense ties, B not / 8
+                # r_pad 128, merges in groups (tiling.merge_plan): the
+                # two-tower retrieval_cand shape (k 100, nprobe 32, Lmax
+                # 1,220), then np_pad 128 (nine groups)
+                (64, 1220, 8, 2, 32, 100),
+                (300, 1220, 8, 3, 128, 128)]
 
 # p, lmax, d, B, nprobe, k, m, n_codes, rerank
 # (tests/test_torch_kernels.py PQ_SHAPES)
@@ -186,7 +208,10 @@ PQ_EXACT_SHAPES = [(6, 10, 16, 3, 3, 4, 4, 16, 6),      # r 6 < r_pad 8
                    (4, 3, 8, 2, 2, 8, 8, 256, 8),       # 6 slots, k = 8
                    (9, 600, 32, 4, 2, 4, 48, 256, 64),  # 2 ADC blocks
                    (300, 200, 32, 9, 64, 10, 48, 256, 64),
-                   (1000, 130, 8, 25, 64, 10, 8, 256, 20)]  # dense ties
+                   (1000, 130, 8, 25, 64, 10, 8, 256, 20),  # dense ties
+                   # re-rank depth 128 (r_pad 128), one and three groups
+                   (64, 1220, 16, 2, 32, 100, 16, 256, 128),
+                   (300, 1220, 16, 2, 128, 100, 16, 256, 128)]
 
 
 def pq_int_inputs(shape, dev):
@@ -205,8 +230,9 @@ def pq_int_inputs(shape, dev):
 
 
 def phase_exact(dev):
+    """Returns the shape counts and the most merge passes a shape took."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, tiling
     for shape in EXACT_SHAPES:
         q, cents, lv, li, own = int_inputs(shape, dev)
         nprobe, k = shape[4], shape[5]
@@ -239,7 +265,64 @@ def phase_exact(dev):
                                     k=k, r=r, rerank=fuse),
                   ("v", "ids", "pos"))
     torch.cuda.synchronize()
-    return len(EXACT_SHAPES), len(PQ_EXACT_SHAPES)
+    passes = max(len(tiling.merge_plan(sh[4] * tiling.scan_split(sh[1]),
+                                       tiling.next_pow2(sh[5])))
+                 for sh in EXACT_SHAPES)
+    return len(EXACT_SHAPES), len(PQ_EXACT_SHAPES), passes
+
+
+# embedding_bag: V rows of the two-tower width, bags of the history length
+BAG_V, BAG_D, BAG_L = 100_000, 256, 50
+BAG_BATCHES = (1, 512, 262_144)     # a request, serve_p99, serve_bulk
+
+
+def bag_inputs(b, integer, gen, dev):
+    """B bags of BAG_L ids in [-1, V), about one in ten a pad, the last
+    row V - 1 in every bag, bag 0 all pads when B > 1; an integer-valued
+    table and weights, or floats at the two-tower table's scale (normal
+    x d^-1/2) and normal weights."""
+    import torch
+    ids = torch.randint(0, BAG_V, (b, BAG_L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[torch.rand((b, BAG_L), generator=gen, device=dev) < 0.1] = -1
+    ids[:, -1] = BAG_V - 1
+    if b > 1:
+        ids[0] = -1
+    if integer:
+        table = torch.randint(-4, 5, (BAG_V, BAG_D), generator=gen,
+                              device=dev).float()
+        w = torch.randint(-3, 4, (b, BAG_L), generator=gen,
+                          device=dev).float()
+    else:
+        table = torch.randn((BAG_V, BAG_D), generator=gen, device=dev
+                            ) * BAG_D ** -0.5
+        w = torch.randn((b, BAG_L), generator=gen, device=dev)
+    return table, ids, w
+
+
+def phase_exact_bag(dev, errs):
+    """embedding_bag against its plain version, sum and mean, weighted
+    and not: bit for bit on integer inputs, within BAG_TOL on floats."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for b in BAG_BATCHES:
+        for integer in (True, False):
+            table, ids, w = bag_inputs(b, integer, gen, dev)
+            for weights in (None, w):
+                for agg in ("sum", "mean"):
+                    got = ops.embedding_bag(table, ids, weights, agg=agg)
+                    want = ref.embedding_bag(table, ids, weights, mode=agg)
+                    what = (f"embedding_bag B={b} integer={integer} "
+                            f"weighted={weights is not None} {agg}")
+                    if integer:
+                        equal(what, (got,), (want,), ("out",))
+                        continue
+                    err = float((got - want).abs().max())
+                    if got.shape != want.shape or not err <= BAG_TOL:
+                        raise AssertionError(f"{what}: max |d| {err}")
+                    errs["embedding_bag"] = max(errs["embedding_bag"], err)
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -270,13 +353,47 @@ def realistic_lists(p, lmax, d, gen, dev):
     return lv, li
 
 
+def realistic_ivf(tag, q, cents, lv, li, nprobe, k, errs, ties):
+    """fused_scan and fused_turn against their plain versions on float
+    lists, under the tie rule; returns the plain probe set, the centroid
+    scores and the doc scorer for the PQ checks."""
+    import torch
+    from repro_torch.core.topk import topk
+    from repro_torch.kernels import ops, ref
+    p, lmax, d = lv.shape
+    rows = lv.view(p * lmax, d)
+    cs = ref.gemv_rows(cents, q)
+    _, sel = topk(cs, nprobe)
+    sel = sel.to(torch.int32)
+    docs = dot_rows(rows, q)
+    # fused_scan against its plain version on the same selection
+    got = ops.fused_scan(q, lv, li, sel, k)
+    want = ref.fused_scan_ivf(q, lv, li, sel, None, k=k)
+    err, n = compare(f"fused_scan {tag}", got[0], got[1], want[0], want[1],
+                     docs, p * lmax)
+    errs["fused_scan"] = max(errs["fused_scan"], err)
+    ties["fused_scan"] += n
+    # fused_turn: stage 1's probe set under the tie rule, stage 2
+    # against the plain scan of the probe set the kernel chose
+    gv, gi, gsel = ops.fused_turn(q, cents, lv, li, nprobe=nprobe, k=k)
+    _, n = compare(f"fused_turn sel {tag}", cs.gather(1, gsel.long()),
+                   gsel, cs.gather(1, sel.long()), sel, dot_rows(cents, q),
+                   p)
+    ties["sel"] += n
+    want = ref.fused_scan_ivf(q, lv, li, gsel, None, k=k)
+    err, n = compare(f"fused_turn {tag}", gv, gi, want[0], want[1], docs,
+                     p * lmax)
+    errs["fused_turn"] = max(errs["fused_turn"], err)
+    ties["fused_turn"] += n
+    return sel, cs, docs
+
+
 def phase_realistic(args, dev, errs):
     """Float IVF lists, then PQ lists over the same slots: random uint8
     codes of m = 48, random codebooks, the float rows as re-rank
     source (doc id = flat slot)."""
     import torch
     from repro_torch.core import pq, toploc
-    from repro_torch.core.topk import topk
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     p, lmax, d, k = args.lists, args.lmax, args.d, args.k
@@ -295,30 +412,8 @@ def phase_realistic(args, dev, errs):
                           "fused_scan_pq", "sel_pq"), 0)
     for b in (1, 25):
         q = qs[:b].contiguous()
-        cs = ref.gemv_rows(cents, q)
-        _, sel = topk(cs, args.nprobe)
-        sel = sel.to(torch.int32)
-        docs = dot_rows(rows, q)
-        # fused_scan against its plain version on the same selection
-        got = ops.fused_scan(q, lv, li, sel, k)
-        want = ref.fused_scan_ivf(q, lv, li, sel, None, k=k)
-        err, n = compare(f"fused_scan B={b}", got[0], got[1], want[0],
-                         want[1], docs, p * lmax)
-        errs["fused_scan"] = max(errs["fused_scan"], err)
-        ties["fused_scan"] += n
-        # fused_turn: stage 1's probe set under the tie rule, stage 2
-        # against the plain scan of the probe set the kernel chose
-        gv, gi, gsel = ops.fused_turn(q, cents, lv, li, nprobe=args.nprobe,
-                                      k=k)
-        _, n = compare(f"fused_turn sel B={b}", cs.gather(1, gsel.long()),
-                       gsel, cs.gather(1, sel.long()), sel,
-                       dot_rows(cents, q), p)
-        ties["sel"] += n
-        want = ref.fused_scan_ivf(q, lv, li, gsel, None, k=k)
-        err, n = compare(f"fused_turn B={b}", gv, gi, want[0], want[1],
-                         docs, p * lmax)
-        errs["fused_turn"] = max(errs["fused_turn"], err)
-        ties["fused_turn"] += n
+        sel, cs, docs = realistic_ivf(f"B={b}", q, cents, lv, li,
+                                      args.nprobe, k, errs, ties)
         # PQ: ADC candidates bit-equal (same sum order), exact re-rank
         # within TOL under the tie rule
         tables = toploc._adc_tables(pqi, q)
@@ -355,6 +450,27 @@ def phase_realistic(args, dev, errs):
     del lv, li, rows, pqi
     torch.cuda.empty_cache()
     return ties
+
+
+def phase_realistic_cand(args, dev, errs, ties):
+    """fused_scan / fused_turn at the two-tower retrieval_cand shape
+    through TopLoc_IVF: p = 1,024 lists of Lmax 1,220 at d = 256, k =
+    100, nprobe = 32 (r_pad 128, a merge of two passes), B = 1 and 25."""
+    import torch
+    from repro_torch.configs import two_tower_retrieval as TT
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    shape = TT.SHAPE_PARAMS["retrieval_cand"]
+    p, nprobe = TT.TOPLOC_IVF["partitions"], TT.TOPLOC_IVF["nprobe"]
+    lmax = TT.toploc_lmax(shape["n_candidates"], p)
+    d, k = TT.full_config().tower_mlp[-1], shape["k"]
+    cents = unit(torch.randn((p, d), generator=gen, device=dev))
+    lv, li = realistic_lists(p, lmax, d, gen, dev)
+    qs = unit(torch.randn((25, d), generator=gen, device=dev))
+    for b in (1, 25):
+        realistic_ivf(f"two-tower B={b}", qs[:b].contiguous(), cents, lv,
+                      li, nprobe, k, errs, ties)
+    torch.cuda.synchronize()
+    return p, lmax, d, nprobe, k
 
 
 # ---------------------------------------------------------------------------
@@ -615,7 +731,313 @@ def phase_encode_serve(args, dev, enc, embs, wl, conv_tok):
 
 
 # ---------------------------------------------------------------------------
-# phases 7-10: index, PQ index, serving, sequential == batched
+# phase 7: two-tower retrieval at full width, served with TopLoc
+# ---------------------------------------------------------------------------
+
+TT_CHUNK = 65_536       # items per item-tower call while encoding the corpus
+TT_REQS = 10            # requests per user session
+
+
+def phase_twotower(args, dev, cfg):
+    """The model from a seeded CUDA generator; embedding_bag held to its
+    plain version on the full table at its last rows (byte offsets past
+    2^31) and the user tower at B = 512 held to the same tower with the
+    plain bag; the item tower over the retrieval_cand corpus; its IVF."""
+    import torch
+    from repro_torch.configs import two_tower_retrieval as TT
+    from repro_torch.core import ivf
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys as R
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = R.two_tower_init(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    rows = model.table.shape[0]
+    ids = torch.randint(rows - 4096, rows, (512, cfg.history_len),
+                        generator=gen, device=dev, dtype=torch.int32)
+    ids[:, 0] = rows - 1
+    top_err = float((ops.embedding_bag(model.table, ids, agg="mean")
+                     - ref.embedding_bag(model.table, ids, mode="mean")
+                     ).abs().max())
+    uid = torch.randint(0, cfg.user_vocab, (512,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    hist = torch.randint(-1, cfg.item_vocab, (512, cfg.history_len),
+                         generator=gen, device=dev, dtype=torch.int32)
+    shifted = torch.where(hist >= 0, hist + model.offsets[1], -1)
+    plain = unit(model.user_mlp(torch.cat(
+        [model.table[uid.long()],
+         ref.embedding_bag(model.table, shifted, mode="mean")], -1)))
+    tower_err = float((model.user_tower(uid, hist) - plain).abs().max())
+    if not (top_err <= BAG_TOL and tower_err <= TOL):
+        raise AssertionError(f"two-tower: embedding_bag at the last rows "
+                             f"{top_err}, user tower {tower_err}")
+    n_items = args.tt_items
+    if n_items > cfg.item_vocab:
+        raise ValueError(f"{n_items} items > item_vocab {cfg.item_vocab}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus = torch.empty((n_items, cfg.tower_mlp[-1]), device=dev)
+    for s in range(0, n_items, TT_CHUNK):
+        e = min(n_items, s + TT_CHUNK)
+        corpus[s:e] = model.item_tower(
+            torch.arange(s, e, device=dev, dtype=torch.int32))
+    torch.cuda.synchronize()
+    t_items = time.perf_counter() - t0
+    if not bool(torch.isfinite(corpus).all()) or \
+            float((corpus.norm(dim=-1) - 1).abs().max()) > 1e-4:
+        raise AssertionError("item vectors not finite and unit-norm")
+    p = TT.TOPLOC_IVF["partitions"]
+    t0 = time.perf_counter()
+    index = ivf.build(corpus, p, iters=args.iters, seed=args.seed,
+                      capacity_factor=1.25)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if index.n_docs != n_items:
+        raise AssertionError("the item index lost items")
+    log("twotower", f"{cfg.name} embed={cfg.embed_dim} mlp="
+        f"{'-'.join(map(str, cfg.tower_mlp))} users={cfg.user_vocab:,} "
+        f"items={cfg.item_vocab:,} history={cfg.history_len} "
+        f"params={cfg.param_count() / 1e6:.1f}M table_gb="
+        f"{model.table.numel() * 4 / 1e9:.2f}: init_s={t_init:.2f}; "
+        f"embedding_bag at rows [V-4096, V) of the table, B=512: "
+        f"max_abs_err={top_err:.3g} (tol {BAG_TOL}); user tower B=512 vs "
+        f"the plain bag: max_abs_err={tower_err:.3g} (tol {TOL}); "
+        f"item tower over {n_items:,} items in calls of {TT_CHUNK:,}: "
+        f"items_s={t_items:.2f} ({n_items / t_items:,.0f} items/s); "
+        f"ivf.build p={p} capacity 1.25 iters={args.iters}: "
+        f"build_s={t_build:.2f} lmax={index.lmax} "
+        f"max_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    return model, corpus, index
+
+
+def recsys_sessions(cfg, n_users, n_items, seed):
+    """User sessions after examples/recsys_retrieval.py: each user has an
+    id and a base history of cfg.history_len items; request r rolls the
+    history by r and replaces its first item.  Host numpy, as requests
+    arrive: [(user, user_id (1,), history (1, L))], user-major."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for u in range(n_users):
+        uid = np.asarray([rng.integers(cfg.user_vocab)], np.int32)
+        base = rng.integers(0, n_items, cfg.history_len)
+        for r in range(TT_REQS):
+            hist = np.roll(base, r)
+            hist[0] = rng.integers(0, n_items)
+            out.append((u, uid, hist[None].astype(np.int32)))
+    return out
+
+
+def phase_recsys_serve(args, dev, model, corpus, index):
+    """Each request: the user tower at B = 1 (one embedding_bag launch),
+    then engine.query with the two-tower TopLoc_IVF knobs, one session
+    per user.  Per path (after a warm-up; launch counts set to 0 just
+    before, read just after): tower and retrieval p50/p95, the counters,
+    recall@k against the brute-force retrieval_cand step; then fused ==
+    unfused toploc+.  Returns the summed launch counts and the toploc+
+    fused run's user vectors."""
+    import torch
+    from repro_torch.configs import two_tower_retrieval as TT
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import (ConversationalSearchEngine,
+                                            ServingConfig)
+    k = TT.SHAPE_PARAMS["retrieval_cand"]["k"]
+    knobs0 = dict(backend="ivf", k=k, nprobe=TT.TOPLOC_IVF["nprobe"],
+                  h=TT.TOPLOC_IVF["h"], alpha=0.1, precision="f32")
+    reqs = recsys_sessions(model.cfg, args.tt_users, corpus.shape[0],
+                           args.seed)
+    gold = [TT.retrieval_step(model, uid, hist, corpus, k)[1][0].cpu()
+            .numpy() for _, uid, hist in reqs]
+
+    def run(knobs, reqs):
+        eng = ConversationalSearchEngine(ServingConfig(**knobs0, **knobs),
+                                         ivf_index=index)
+        tower_ms, vecs, vs, ids = [], [], [], []
+        for u, uid, hist in reqs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            uv = model.user_tower(uid, hist)[0]
+            torch.cuda.synchronize()
+            tower_ms.append((time.perf_counter() - t0) * 1e3)
+            v, i = eng.query(f"u{u}", uv)
+            vecs.append(uv)
+            vs.append(v)
+            ids.append(i)
+        return eng, np.asarray(tower_ms), torch.stack(vecs), np.stack(vs), \
+            np.stack(ids)
+
+    for _, knobs in SERVE:                       # warm every path
+        run(knobs, reqs[:2])
+    runs, counts = {}, {}
+    for name, knobs in SERVE:
+        ops.reset_launches()
+        eng, tower_ms, vecs, vs, ids = run(knobs, reqs)
+        n = launch_counts()
+        counts = {kk: counts.get(kk, 0) + n[kk] for kk in n}
+        if n["embedding_bag"] != len(reqs):
+            raise AssertionError(f"recsys {name}: {n['embedding_bag']} "
+                                 f"embedding_bag launches for {len(reqs)} "
+                                 f"requests")
+        recall = np.mean([len(set(i) & set(g)) / k
+                          for i, g in zip(ids, gold)])
+        ret_ms = np.asarray([r.latency_s for r in eng.records]) * 1e3
+        s = eng.summary()
+        log("recsys serve", f"ivf {name}: users={args.tt_users} "
+            f"requests={s['turns']} k={k} nprobe={knobs0['nprobe']} "
+            f"h={knobs0['h']} tower_p50_ms={np.percentile(tower_ms, 50):.3f} "
+            f"tower_p95_ms={np.percentile(tower_ms, 95):.3f} "
+            f"retrieval_p50_ms={np.percentile(ret_ms, 50):.3f} "
+            f"retrieval_p95_ms={np.percentile(ret_ms, 95):.3f} "
+            f"mean_centroid_dists={s['mean_centroid_dists']:.1f} "
+            f"mean_list_dists={s['mean_list_dists']:.1f} "
+            f"refresh_rate={s['refresh_rate']:.3f} recall@{k}={recall:.4f} "
+            + " ".join(f"{kk}_launches={n[kk]}"
+                       for kk in REC_KERNELS + IVF_KERNELS))
+        runs[name] = (eng, vecs, vs, ids)
+    if min(counts[kk] for kk in REC_KERNELS + IVF_KERNELS) == 0:
+        raise AssertionError(f"recsys path: a kernel was not launched: "
+                             f"{counts}")
+    fused, unfused = runs["toploc+ fused"], runs["toploc+ unfused"]
+    flat = [torch.from_numpy(x).to(dev) for x in
+            (fused[2], fused[3], unfused[2], unfused[3])]
+    err, n = compare("recsys fused vs unfused toploc+", *flat,
+                     dot_rows(corpus, fused[1]), corpus.shape[0])
+    if not same_records(fused[0], unfused[0]):
+        raise AssertionError("recsys: fused and unfused toploc+ TurnStats "
+                             "differ")
+    log("recsys serve", "launches "
+        f"{ {kk: counts[kk] for kk in REC_KERNELS + IVF_KERNELS} }; "
+        f"fused == unfused toploc+: stats equal, max |dscore| {err:.3g}, "
+        f"near-tie id mismatches {n}")
+    return counts, fused[1]
+
+
+def phase_pairwise(args, dev, model):
+    """serve_p99 (B = 512) and serve_bulk (B = 262,144): user and item
+    towers, then the (B,) dot products; ids drawn on the card (valid by
+    construction).  Returns the embedding_bag launches."""
+    import torch
+    from repro_torch.configs import two_tower_retrieval as TT
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    total = 0
+    for shape, reps in (("serve_p99", 20), ("serve_bulk", 3)):
+        b = TT.SHAPE_PARAMS[shape]["batch"]
+
+        def draw(hi, size):
+            return torch.randint(0, hi, size, generator=gen, device=dev,
+                                 dtype=torch.int32)
+        uid, items = draw(cfg.user_vocab, (b,)), draw(cfg.item_vocab, (b,))
+        hist = draw(cfg.item_vocab, (b, cfg.history_len))
+        TT.pairwise_step(model, uid, hist, items)          # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = TT.pairwise_step(model, uid, hist, items)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = ops.embedding_bag.launches
+        if n != reps or out.shape != (b,) or \
+                not bool(torch.isfinite(out).all()) or \
+                float(out.abs().max()) > 1 + 1e-5:
+            raise AssertionError(f"{shape}: {n} launches, scores "
+                                 f"{tuple(out.shape)} not finite in [-1, 1]")
+        total += n
+        log("pairwise", f"{shape} B={b}: {reps} steps, ms_per_step="
+            f"{dt / reps * 1e3:.3f} requests_per_s={b * reps / dt:,.0f} "
+            f"embedding_bag_launches={n}")
+    return total
+
+
+def bag_bound(ids, d):
+    """(bytes, flops) of an unweighted bag sum over these ids: each real
+    id's row read once, the ids read once, the (B, d) output written
+    once; a product and a sum per element of a real row."""
+    rows = int((ids >= 0).sum())
+    return (rows * d * 4 + ids.numel() * 4 + ids.shape[0] * d * 4,
+            2 * rows * d)
+
+
+def phase_bag_times(args, dev, model):
+    """embedding_bag on the two-tower table at B = 1, 512 and 262,144
+    (L = 50 history ids of the item field, unweighted sum), L2 flushed:
+    the kernel, its plain version (device time: it never syncs) and,
+    timed only, ``torch.nn.functional.embedding_bag`` on the same ids."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    cfg, table = model.cfg, model.table
+    lo = model.offsets[1]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    lib_fn = torch.nn.functional.embedding_bag
+    out = {}
+    for b, reps in zip(BAG_BATCHES, (25, 25, 5)):
+        idss = [torch.randint(lo, lo + cfg.item_vocab, (b, cfg.history_len),
+                              generator=gen, device=dev, dtype=torch.int32)
+                for _ in range(reps)]
+        kern = [lambda x=x: ops.embedding_bag(table, x) for x in idss]
+        plain = [lambda x=x: ref.embedding_bag(table, x) for x in idss]
+        lib = [lambda x=x: lib_fn(x, table, mode="sum") for x in idss]
+        for calls in (kern, plain, lib):                    # warm-up
+            event_ms(calls[:2], flush, spin=True)
+        row = timed(kern, plain, [bag_bound(x, table.shape[1]) for x in idss],
+                    flush, plain_syncs=False)
+        row["library_ms"] = event_ms(lib, flush, spin=True)
+        log("times", f"embedding_bag B={b} L={cfg.history_len} "
+            f"d={table.shape[1]} (table {table.shape[0]:,} rows): "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"F.embedding_bag_ms={row['library_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+            f"share={row['bound_ms'] / row['ms']:.3f}")
+        out[b] = row
+    return out
+
+
+def phase_cand_times(args, dev, index, vecs):
+    """fused_scan and fused_turn at the two-tower TopLoc shape (k 100,
+    nprobe 32, p 1,024, B = 1, the served user vectors), L2 flushed."""
+    import torch
+    from repro_torch.configs import two_tower_retrieval as TT
+    from repro_torch.core.topk import topk
+    from repro_torch.kernels import ops, ref, tiling
+    k = TT.SHAPE_PARAMS["retrieval_cand"]["k"]
+    nprobe = TT.TOPLOC_IVF["nprobe"]
+    lv, li, c = index.list_vecs, index.list_ids, index.centroids
+    qs = [vecs[j:j + 1].contiguous() for j in range(min(25, len(vecs)))]
+    sels = [topk(ref.gemv_rows(c, q), nprobe)[1].to(torch.int32) for q in qs]
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    scan_w = [scan_bound(index, q, s, tiling.next_pow2(k))
+              for q, s in zip(qs, sels)]
+    calls = {
+        "fused_scan": (
+            [lambda q=q, s=s: ops.fused_scan(q, lv, li, s, k)
+             for q, s in zip(qs, sels)],
+            [lambda q=q, s=s: ref.fused_scan_ivf(q, lv, li, s, None, k=k)
+             for q, s in zip(qs, sels)], scan_w),
+        "fused_turn": (
+            [lambda q=q: ops.fused_turn(q, c, lv, li, nprobe=nprobe, k=k)
+             for q in qs],
+            [lambda q=q: ref.fused_turn_ivf(q, c, lv, li, nprobe=nprobe,
+                                            k=k) for q in qs],
+            [(nb + index.p * index.d * 4, fl + 2 * index.p * index.d)
+             for nb, fl in scan_w]),
+    }
+    for name, (kern, plain, works) in calls.items():
+        event_ms(kern[:2], flush, spin=True)                # warm-up
+        row = timed(kern, plain, works, flush)
+        log("times", f"{name} two-tower B=1 k={k} nprobe={nprobe} "
+            f"p={index.p} lmax={index.lmax} d={index.d}: "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"share={row['bound_ms'] / row['ms']:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# phases 8-11: index, PQ index, serving, sequential == batched
 # ---------------------------------------------------------------------------
 
 
@@ -706,8 +1128,8 @@ BACKENDS = (("ivf", IVF_KERNELS), ("ivf_pq", PQ_KERNELS))
 
 def launch_counts():
     from repro_torch.kernels import ops
-    return {name: getattr(ops, name).launches
-            for name in IVF_KERNELS + PQ_KERNELS + ENC_KERNELS}
+    names = IVF_KERNELS + PQ_KERNELS + ENC_KERNELS + REC_KERNELS
+    return {name: getattr(ops, name).launches for name in names}
 
 
 def serve(backend, index, convs, exact, name, knobs, quiet=False):
@@ -821,7 +1243,7 @@ def phase_batched(index, convs, run, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: kernel times beside their bounds
+# phase 12: kernel times beside their bounds
 # ---------------------------------------------------------------------------
 
 
@@ -1032,6 +1454,10 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--enc-docs", type=int, default=ENC_DOCS)
+    ap.add_argument("--tt-items", type=int, default=1_000_000,
+                    help="two-tower retrieval_cand corpus size")
+    ap.add_argument("--tt-users", type=int, default=100,
+                    help="two-tower user sessions per serving path")
     args = ap.parse_args()
     args.d, args.k, args.nprobe = 768, 10, 64
     args.lmax = math.ceil(1.3 * args.n_docs / args.lists)
@@ -1043,7 +1469,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (sets TF32 off)
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, tiling
     dev = torch.device("cuda")
     t_all = time.perf_counter()
 
@@ -1061,20 +1487,41 @@ def main() -> int:
     for src, lines in _build.last_build["ptxas"].items():
         log("build", f"{src}: " + " | ".join(lines))
 
-    n_ivf, n_pq = phase_exact(dev)
+    n_ivf, n_pq, passes = phase_exact(dev)
     log("exact", f"{n_ivf} shapes: fused_turn (v, ids, sel) and fused_scan "
         f"(v, ids, pos); {n_pq} PQ shapes: fused_turn_pq (v, ids, sel), "
         f"pq_adc_scan (v, ids), fused_scan_pq with and without re-rank "
-        f"(v, ids, pos): bit-equal to their plain versions")
+        f"(v, ids, pos): bit-equal to their plain versions (k and the "
+        f"re-rank depth up to 128, merges of up to {passes} passes)")
+    errs = dict.fromkeys(IVF_KERNELS + PQ_KERNELS + REC_KERNELS, 0.0)
+    phase_exact_bag(dev, errs)
+    log("exact", f"embedding_bag V={BAG_V} d={BAG_D} L={BAG_L} B="
+        f"{','.join(map(str, BAG_BATCHES))}, pads, all-pad bags, ids at "
+        f"V-1, sum and mean, weighted and not: bit-equal to its plain "
+        f"version on integer inputs; on floats max_abs_err="
+        f"{errs['embedding_bag']:.3g} (tol {BAG_TOL})")
 
-    errs = dict.fromkeys(IVF_KERNELS + PQ_KERNELS, 0.0)
     ties = phase_realistic(args, dev, errs)
     log("realistic", f"p={args.lists} lmax={args.lmax} d={args.d} "
         f"m={PQ_M} B=1,25: ADC candidates (pq_adc_scan, fused_scan_pq "
         f"top-r) bit-equal; max_abs_err " + " ".join(
-            f"{n}={e:.3g}" for n, e in errs.items()) + f" (tol {TOL}); "
-        f"near-tie id mismatches " + " ".join(
+            f"{n}={errs[n]:.3g}" for n in IVF_KERNELS + PQ_KERNELS) +
+        f" (tol {TOL}); near-tie id mismatches " + " ".join(
             f"{n}={v}" for n, v in ties.items()))
+    cand_ties = dict.fromkeys(("fused_turn", "fused_scan", "sel"), 0)
+    cand_errs = dict.fromkeys(IVF_KERNELS, 0.0)
+    p, lmax, d, nprobe, k = phase_realistic_cand(args, dev, cand_errs,
+                                                 cand_ties)
+    for n in IVF_KERNELS:
+        errs[n] = max(errs[n], cand_errs[n])
+    plan = tiling.merge_plan(nprobe * tiling.scan_split(lmax),
+                             tiling.next_pow2(k))
+    log("realistic", f"two-tower retrieval_cand shape p={p} lmax={lmax} "
+        f"d={d} nprobe={nprobe} k={k} B=1,25 (merge passes, lists in and "
+        f"groups out: {plan}): max_abs_err " + " ".join(
+            f"{n}={e:.3g}" for n, e in cand_errs.items()) +
+        f" (tol {TOL}); near-tie id mismatches " + " ".join(
+            f"{n}={v}" for n, v in cand_ties.items()))
 
     errs["flash_attention"] = 0.0
     phase_attn(args, dev, errs)
@@ -1091,6 +1538,16 @@ def main() -> int:
     del enc, embs
     torch.cuda.empty_cache()
 
+    from repro_torch.configs import two_tower_retrieval as TT
+    model, corpus, tindex = phase_twotower(args, dev, TT.full_config())
+    rec_counts, rec_vecs = phase_recsys_serve(args, dev, model, corpus,
+                                              tindex)
+    rec_counts["embedding_bag"] += phase_pairwise(args, dev, model)
+    bag_times = phase_bag_times(args, dev, model)
+    phase_cand_times(args, dev, tindex, rec_vecs)
+    del model, corpus, tindex, rec_vecs
+    torch.cuda.empty_cache()
+
     index, docs, convs, exact = phase_index(args, dev)
     pqi = phase_pq(args, index, docs, dev)
     indexes = {"ivf": index, "ivf_pq": pqi}
@@ -1105,7 +1562,10 @@ def main() -> int:
 
     times = phase_times(args, index, pqi, convs, dev)
     times[1]["flash_attention"] = phase_attn_times(args, dev)[1]
+    times[1]["embedding_bag"] = bag_times[1]
     launches["flash_attention"] = enc_launches
+    for name in IVF_KERNELS + REC_KERNELS:
+        launches[name] = launches.get(name, 0) + rec_counts[name]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], ms=times[1][name]["ms"],
@@ -1113,7 +1573,8 @@ def main() -> int:
                     bound_ms=times[1][name]["bound_ms"],
                     bound_by=times[1][name]["bound_by"],
                     library_ms=times[1][name].get("library_ms"))
-               for name in IVF_KERNELS + PQ_KERNELS + ENC_KERNELS]
+               for name in IVF_KERNELS + PQ_KERNELS + ENC_KERNELS +
+               REC_KERNELS]
     log("done", f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,2 +1,2 @@
 """Model configurations of the port."""
-from repro_torch.configs import encoders  # noqa: F401
+from repro_torch.configs import encoders, two_tower_retrieval  # noqa: F401

@@ -5,7 +5,8 @@ field for field, so a reference-built ``IVFIndex`` / ``IVFPQIndex`` /
 ``IVFSession`` becomes the port's by handing each field over as a numpy
 array (``np.asarray(field)``); ``to_numpy`` goes the other way.  The
 bi-encoder's parameter tree converts leaf for leaf, its stacked layers
-unstacked (``encoder_params_from_numpy``).
+unstacked (``encoder_params_from_numpy``); so does the two-tower model's
+(``two_tower_params_from_numpy``).
 Nothing here imports the reference: the arrays are the interface.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.pq import IVFPQIndex, check_index
 from repro_torch.core.toploc import IVFSession
 from repro_torch.models.encoder import DualEncoder, EncoderConfig, Tower
+from repro_torch.models.recsys import TwoTower, TwoTowerConfig
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -63,6 +65,8 @@ def ivf_session_from_numpy(cache_ids, cache_vecs, anchor_sel, refreshes,
 def _tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -87,6 +91,15 @@ def encoder_params_from_numpy(params: Dict[str, Any], cfg: EncoderConfig,
     query = tower(params["query"])
     doc = query if cfg.shared_towers else tower(params["doc"])
     return DualEncoder(cfg, query, doc)
+
+
+def two_tower_params_from_numpy(params: Dict[str, Any], cfg: TwoTowerConfig,
+                                device=None) -> TwoTower:
+    """A ``TwoTower`` on ``device`` (default cuda) from the reference's
+    ``two_tower_init`` tree as numpy arrays (``emb.table``, ``user_mlp``
+    and ``item_mlp`` with their ``layers`` lists of ``w`` / ``b``)."""
+    dev = _device.resolve(device)
+    return TwoTower(cfg, _tree(lambda a: _f32(a, dev), params))
 
 
 def to_numpy(x: Any) -> Any:

@@ -6,8 +6,10 @@
   pq_adc           ctypes launches of ``csrc/pq_adc.cu`` (IVF-PQ)
   flash_attention  ctypes launch of ``csrc/flash_attention.cu`` (the
                    bi-encoder's attention, forward)
+  embedding_bag    ctypes launch of ``csrc/embedding_bag.cu`` (the
+                   two-tower user history bag, forward)
   ref              plain PyTorch versions of the kernels
   sorting          the tie-aware top-k order the kernels keep
-  tiling           padding contract and shared-memory caps
+  tiling           padding contract, shared-memory caps, merge plan
 """
 from repro_torch.kernels import ops, ref, sorting, tiling  # noqa: F401

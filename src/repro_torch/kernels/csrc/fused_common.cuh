@@ -66,16 +66,20 @@ extern "C" {
 
 // Merges each query's n_lists sorted lists of w candidates (cand_*, laid
 // out (B, n_lists, w)) into its best w (out_*, (B, w)) under (value desc,
-// position asc).  cand_p may alias cand_i; out_p may be null.
-int merge_topk_f32(const float* cand_v, const int* cand_i, const int* cand_p,
-                   int B, int n_lists, int w, float* out_v, int* out_i,
+// position asc).  A block holds at most `group` lists (>= 2); more lists
+// are merged group by group, in place in cand_*, over several passes
+// (tiling.merge_plan), which leaves the order of a one-block merge.
+// cand_p may alias cand_i; out_p may be null.
+int merge_topk_f32(float* cand_v, int* cand_i, int* cand_p, int B,
+                   int n_lists, int w, int group, float* out_v, int* out_i,
                    int* out_p, cudaStream_t stream);
 
 // Stage 1: scores the p centroids (p, d) against q (B, d) and writes each
 // query's tie-aware top np_pad to sel_v / sel (B, np_pad), through the
-// scratch s1_* of B * ceil(p / 128) * np_pad entries.
+// scratch s1_* of B * ceil(p / 128) * np_pad entries, merged `group`
+// lists a block.
 int select_probes_f32(const float* q, const float* cents, int p, int B,
-                      int d, int np_pad, float* s1_v, int* s1_i,
+                      int d, int np_pad, int group, float* s1_v, int* s1_i,
                       float* sel_v, int* sel, cudaStream_t stream);
 
 }  // extern "C"

@@ -26,7 +26,10 @@
 //  * stage 1: one block per (128-centroid chunk, 8 queries) reads each
 //    centroid row once for all 8 queries;
 //  * only each block's top r_pad / np_pad candidates leave the SM; a small
-//    second kernel merges a query's sorted lists pairwise in shared memory.
+//    second kernel merges a query's sorted lists pairwise in shared memory,
+//    in groups that fit one block and in as many passes as needed
+//    (tiling.merge_plan): at the two-tower shape, 32 probes x 10 slices of
+//    top-128 lists are 491,520 B, two groups' worth.
 // Scores are reduced in one fixed order (lane-strided FMAs, then a fixed
 // xor-shuffle tree) that does not depend on the batch, the grid or the
 // slice a row falls in, so a row scores the same at any B.
@@ -174,32 +177,39 @@ centroid_chunk_kernel(const float* __restrict__ q,
   }
 }
 
-// grid (B).  Merges query b's n_lists sorted lists of w entries into its
-// best w.  cand_p may alias cand_i (stage 1, where the id is the tie key);
-// out_p may be null.
+// grid (B, groups).  Block (b, g) merges lists [g*group, (g+1)*group) of
+// the n lists of query b, list j at list offset j*stride of the query's
+// row of `row` entries, into their best w, and writes it to dst at
+// b*dst_row + g*dst_group.  The first pass reads the scan blocks' lists
+// (stride 1); a pass with more than one group writes each group's best w
+// over the group's first list (which only this block reads), and the
+// next pass reads those at stride * group; the last pass has one group
+// and writes the output.  cand_p may alias cand_i (stage 1, where the id
+// is the tie key, so both stores write the same value); dst_p may be null.
 __global__ void __launch_bounds__(MERGE_THREADS)
-merge_kernel(const float* __restrict__ cand_v, const int* cand_i,
-             const int* cand_p, int n_lists, int w,
-             float* __restrict__ out_v, int* __restrict__ out_i,
-             int* __restrict__ out_p) {
+merge_kernel(float* cand_v, int* cand_i, int* cand_p, size_t row, int n,
+             int stride, int group, int w, float* dst_v, int* dst_i,
+             int* dst_p, size_t dst_row, size_t dst_group) {
   extern __shared__ float smem[];
-  const int n = n_lists * w;
+  const int first = blockIdx.y * group;
+  const int m = min(group, n - first) * w;
   float* sv = smem;
-  int* si = reinterpret_cast<int*>(sv + n);
-  int* sp = si + n;
-  const size_t in = (size_t)blockIdx.x * n;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    sv[t] = cand_v[in + t];
-    si[t] = cand_i[in + t];
-    sp[t] = cand_p[in + t];
+  int* si = reinterpret_cast<int*>(sv + m);
+  int* sp = si + m;
+  const size_t in = (size_t)blockIdx.x * row;
+  for (int t = threadIdx.x; t < m; t += blockDim.x) {
+    const size_t src = in + (size_t)(first + t / w) * stride * w + t % w;
+    sv[t] = cand_v[src];
+    si[t] = cand_i[src];
+    sp[t] = cand_p[src];
   }
   __syncthreads();
-  topk_tie::merge_lists(sv, si, sp, n_lists, w);
-  const size_t out = (size_t)blockIdx.x * w;
+  topk_tie::merge_lists(sv, si, sp, m / w, w);
+  const size_t out = (size_t)blockIdx.x * dst_row + blockIdx.y * dst_group;
   for (int t = threadIdx.x; t < w; t += blockDim.x) {
-    out_v[out + t] = sv[t];
-    out_i[out + t] = si[t];
-    if (out_p != nullptr) out_p[out + t] = sp[t];
+    dst_v[out + t] = sv[t];
+    dst_i[out + t] = si[t];
+    if (dst_p != nullptr) dst_p[out + t] = sp[t];
   }
 }
 
@@ -207,20 +217,36 @@ merge_kernel(const float* __restrict__ cand_v, const int* cand_i,
 
 extern "C" {
 
-int merge_topk_f32(const float* cand_v, const int* cand_i, const int* cand_p,
-                   int B, int n_lists, int w, float* out_v, int* out_i,
+int merge_topk_f32(float* cand_v, int* cand_i, int* cand_p, int B,
+                   int n_lists, int w, int group, float* out_v, int* out_i,
                    int* out_p, cudaStream_t stream) {
-  const int smem = n_lists * w * (int)(sizeof(float) + 2 * sizeof(int));
+  if (group < 2 || w < 1) return (int)cudaErrorInvalidValue;
+  const int smem = (n_lists < group ? n_lists : group) * w *
+                   (int)(sizeof(float) + 2 * sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(
       merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<B, MERGE_THREADS, smem, stream>>>(
-      cand_v, cand_i, cand_p, n_lists, w, out_v, out_i, out_p);
+  const size_t row = (size_t)n_lists * w;
+  int n = n_lists;
+  int stride = 1;
+  while (n > group) {  // grouped passes, in place (tiling.merge_plan)
+    const int groups = (n + group - 1) / group;
+    merge_kernel<<<dim3(B, groups), MERGE_THREADS, smem, stream>>>(
+        cand_v, cand_i, cand_p, row, n, stride, group, w, cand_v, cand_i,
+        cand_p, row, (size_t)group * stride * w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    n = groups;
+    stride *= group;
+  }
+  merge_kernel<<<dim3(B, 1), MERGE_THREADS, smem, stream>>>(
+      cand_v, cand_i, cand_p, row, n, stride, group, w, out_v, out_i, out_p,
+      (size_t)w, 0);
   return (int)cudaGetLastError();
 }
 
 int select_probes_f32(const float* q, const float* cents, int p, int B,
-                      int d, int np_pad, float* s1_v, int* s1_i,
+                      int d, int np_pad, int group, float* s1_v, int* s1_i,
                       float* sel_v, int* sel, cudaStream_t stream) {
   const int nchunks = (p + CENTROID_CHUNK - 1) / CENTROID_CHUNK;
   const int qsmem = QTILE * d * (int)sizeof(float);
@@ -233,20 +259,21 @@ int select_probes_f32(const float* q, const float* cents, int p, int B,
                                                         np_pad, s1_v, s1_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return merge_topk_f32(s1_v, s1_i, s1_i, B, nchunks, np_pad, sel_v, sel,
-                        nullptr, stream);
+  return merge_topk_f32(s1_v, s1_i, s1_i, B, nchunks, np_pad, group, sel_v,
+                        sel, nullptr, stream);
 }
 
 // Stage 2 alone.  q (B, d); list_vecs (p, lmax, d); list_ids (p, lmax);
 // sel (B, sel_stride) of which the first nprobe columns are probed;
 // own (B, nprobe) or null.  Scratch cand_* holds B * nprobe * nsplit *
-// r_pad entries (nsplit = ceil(lmax / 128)); out_* is (B, r_pad).
+// r_pad entries (nsplit = ceil(lmax / 128)) and is merged in place, group
+// lists a block (tiling.merge_group); out_* is (B, r_pad).
 int fused_scan_ivf_f32(const float* q, const float* list_vecs,
                        const int* list_ids, int p, const int* sel,
                        int sel_stride, const int* own, int B, int nprobe,
-                       int lmax, int d, int r_pad, float* cand_v, int* cand_i,
-                       int* cand_p, float* out_v, int* out_i, int* out_p,
-                       void* stream) {
+                       int lmax, int d, int r_pad, int group, float* cand_v,
+                       int* cand_i, int* cand_p, float* out_v, int* out_i,
+                       int* out_p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nsplit = (lmax + SCAN_ROWS - 1) / SCAN_ROWS;
   scan_lists_kernel<<<dim3(nprobe * nsplit, B), ROW_THREADS,
@@ -256,24 +283,26 @@ int fused_scan_ivf_f32(const float* q, const float* list_vecs,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return merge_topk_f32(cand_v, cand_i, cand_p, B, nprobe * nsplit, r_pad,
-                        out_v, out_i, out_p, st);
+                        group, out_v, out_i, out_p, st);
 }
 
 // Stages 1 + 2.  cents (p, d).  Scratch s1_* holds B * nchunks * np_pad
-// entries (nchunks = ceil(p / 128)); sel_v / sel (B, np_pad) receive the
-// probe set; the rest as fused_scan_ivf_f32.
+// entries (nchunks = ceil(p / 128)), merged s1_group lists a block;
+// sel_v / sel (B, np_pad) receive the probe set; the rest as
+// fused_scan_ivf_f32.
 int fused_turn_ivf_f32(const float* q, const float* cents,
                        const float* list_vecs, const int* list_ids, int p,
                        int B, int nprobe, int np_pad, int lmax, int d,
-                       int r_pad, float* s1_v, int* s1_i, float* sel_v,
-                       int* sel, float* cand_v, int* cand_i, int* cand_p,
-                       float* out_v, int* out_i, int* out_p, void* stream) {
-  const int e = select_probes_f32(q, cents, p, B, d, np_pad, s1_v, s1_i,
-                                 sel_v, sel,
-                                 static_cast<cudaStream_t>(stream));
+                       int r_pad, int s1_group, int group, float* s1_v,
+                       int* s1_i, float* sel_v, int* sel, float* cand_v,
+                       int* cand_i, int* cand_p, float* out_v, int* out_i,
+                       int* out_p, void* stream) {
+  const int e = select_probes_f32(q, cents, p, B, d, np_pad, s1_group, s1_v,
+                                  s1_i, sel_v, sel,
+                                  static_cast<cudaStream_t>(stream));
   if (e != 0) return e;
   return fused_scan_ivf_f32(q, list_vecs, list_ids, p, sel, np_pad, nullptr,
-                            B, nprobe, lmax, d, r_pad, cand_v, cand_i,
+                            B, nprobe, lmax, d, r_pad, group, cand_v, cand_i,
                             cand_p, out_v, out_i, out_p, stream);
 }
 

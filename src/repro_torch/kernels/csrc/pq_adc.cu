@@ -34,7 +34,8 @@
 //    shared memory), a thread scores a code row from 16-byte loads, and a
 //    pad row (id -1) is never loaded;
 //  * only each block's top r_pad leaves the SM; fused_turn.cu's merge
-//    kernel (merge_topk_f32) folds a query's sorted lists;
+//    kernel (merge_topk_f32) folds a query's sorted lists, group by group
+//    where they do not fit one block;
 //  * re-rank: one block per query gathers the merged candidates' corpus
 //    rows by doc id, one warp per row in fused_turn.cu's fixed order
 //    (warp_row_dots), so a row scores the same at any B; ranks >= r (the
@@ -61,7 +62,7 @@ namespace {
 constexpr int PQ_ROWS = 512;         // rows of a probed list per block
 constexpr int ADC_THREADS = 256;
 constexpr int RERANK_THREADS = 512;  // 16 warps, one candidate row each
-constexpr int MAX_R = 64;            // widest candidate set (r_pad)
+constexpr int MAX_R = 128;           // widest candidate set (r_pad)
 
 using fused_common::warp_row_dots;
 
@@ -188,11 +189,12 @@ rerank_kernel(const float* __restrict__ q, const float* __restrict__ corpus,
   }
 }
 
-// ADC scan + merge: a query's top r_pad (out_*, (B, r_pad)).
+// ADC scan + merge (group lists a merge block): a query's top r_pad
+// (out_*, (B, r_pad)).
 int adc_scan_merge(const float* tables, int m, int n_codes,
                    const uint8_t* codes, const int* list_ids, int p,
                    const int* sel, int sel_stride, const int* own, int B,
-                   int nprobe, int lmax, int r_pad, float* cand_v,
+                   int nprobe, int lmax, int r_pad, int group, float* cand_v,
                    int* cand_i, int* cand_p, float* out_v, int* out_i,
                    int* out_p, cudaStream_t st) {
   const int nsplit = (lmax + PQ_ROWS - 1) / PQ_ROWS;
@@ -206,7 +208,7 @@ int adc_scan_merge(const float* tables, int m, int n_codes,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return merge_topk_f32(cand_v, cand_i, cand_p, B, nprobe * nsplit, r_pad,
-                        out_v, out_i, out_p, st);
+                        group, out_v, out_i, out_p, st);
 }
 
 }  // namespace
@@ -215,16 +217,17 @@ extern "C" {
 
 // ADC scan alone.  tables (B, m, n_codes); codes (p, lmax, m) uint8;
 // list_ids (p, lmax); sel (B, nprobe).  Scratch cand_* holds
-// B * nprobe * nsplit * r_pad entries (nsplit = ceil(lmax / 512)); out_*
-// is (B, r_pad): ADC values, doc ids, flat positions.
+// B * nprobe * nsplit * r_pad entries (nsplit = ceil(lmax / 512)), merged
+// in place, group lists a block; out_* is (B, r_pad): ADC values, doc
+// ids, flat positions.
 int pq_adc_scan_f32(const float* tables, int m, int n_codes,
                     const uint8_t* codes, const int* list_ids, int p,
                     const int* sel, int B, int nprobe, int lmax, int r_pad,
-                    float* cand_v, int* cand_i, int* cand_p, float* out_v,
-                    int* out_i, int* out_p, void* stream) {
+                    int group, float* cand_v, int* cand_i, int* cand_p,
+                    float* out_v, int* out_i, int* out_p, void* stream) {
   return adc_scan_merge(tables, m, n_codes, codes, list_ids, p, sel, nprobe,
-                        nullptr, B, nprobe, lmax, r_pad, cand_v, cand_i,
-                        cand_p, out_v, out_i, out_p,
+                        nullptr, B, nprobe, lmax, r_pad, group, cand_v,
+                        cand_i, cand_p, out_v, out_i, out_p,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -237,17 +240,17 @@ int fused_scan_pq_f32(const float* tables, const float* q, int m,
                       int n_codes, const uint8_t* codes, const int* list_ids,
                       int p, const int* sel, int sel_stride, const int* own,
                       const float* corpus, int B, int nprobe, int lmax, int d,
-                      int r, int r_pad, int kp, int rerank, float* cand_v,
-                      int* cand_i, int* cand_p, float* mid_v, int* mid_i,
-                      int* mid_p, float* out_v, int* out_i, int* out_p,
-                      void* stream) {
+                      int r, int r_pad, int kp, int rerank, int group,
+                      float* cand_v, int* cand_i, int* cand_p, float* mid_v,
+                      int* mid_i, int* mid_p, float* out_v, int* out_i,
+                      int* out_p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!rerank)
     return adc_scan_merge(tables, m, n_codes, codes, list_ids, p, sel,
-                          sel_stride, own, B, nprobe, lmax, r_pad, cand_v,
-                          cand_i, cand_p, out_v, out_i, out_p, st);
+                          sel_stride, own, B, nprobe, lmax, r_pad, group,
+                          cand_v, cand_i, cand_p, out_v, out_i, out_p, st);
   const int e = adc_scan_merge(tables, m, n_codes, codes, list_ids, p, sel,
-                               sel_stride, own, B, nprobe, lmax, r_pad,
+                               sel_stride, own, B, nprobe, lmax, r_pad, group,
                                cand_v, cand_i, cand_p, mid_v, mid_i, mid_p,
                                st);
   if (e != 0) return e;
@@ -257,25 +260,26 @@ int fused_scan_pq_f32(const float* tables, const float* q, int m,
 }
 
 // Whole IVF-PQ turn.  cents (p, d); scratch s1_* holds B * ceil(p / 128) *
-// np_pad entries; sel_v / sel (B, np_pad) receive the probe set, of which
-// the first nprobe are scanned; the rest as fused_scan_pq_f32 with rerank.
+// np_pad entries, merged s1_group lists a block; sel_v / sel (B, np_pad)
+// receive the probe set, of which the first nprobe are scanned; the rest
+// as fused_scan_pq_f32 with rerank.
 int fused_turn_pq_f32(const float* q, const float* cents,
                       const float* tables, int m, int n_codes,
                       const uint8_t* codes, const int* list_ids, int p,
                       const float* corpus, int B, int nprobe, int np_pad,
-                      int lmax, int d, int r, int r_pad, int kp, float* s1_v,
-                      int* s1_i, float* sel_v, int* sel, float* cand_v,
-                      int* cand_i, int* cand_p, float* mid_v, int* mid_i,
-                      int* mid_p, float* out_v, int* out_i, int* out_p,
-                      void* stream) {
-  const int e = select_probes_f32(q, cents, p, B, d, np_pad, s1_v, s1_i,
-                                  sel_v, sel,
+                      int lmax, int d, int r, int r_pad, int kp, int s1_group,
+                      int group, float* s1_v, int* s1_i, float* sel_v,
+                      int* sel, float* cand_v, int* cand_i, int* cand_p,
+                      float* mid_v, int* mid_i, int* mid_p, float* out_v,
+                      int* out_i, int* out_p, void* stream) {
+  const int e = select_probes_f32(q, cents, p, B, d, np_pad, s1_group, s1_v,
+                                  s1_i, sel_v, sel,
                                   static_cast<cudaStream_t>(stream));
   if (e != 0) return e;
   return fused_scan_pq_f32(tables, q, m, n_codes, codes, list_ids, p, sel,
                            np_pad, nullptr, corpus, B, nprobe, lmax, d, r,
-                           r_pad, kp, 1, cand_v, cand_i, cand_p, mid_v,
-                           mid_i, mid_p, out_v, out_i, out_p, stream);
+                           r_pad, kp, 1, group, cand_v, cand_i, cand_p,
+                           mid_v, mid_i, mid_p, out_v, out_i, out_p, stream);
 }
 
 }  // extern "C"

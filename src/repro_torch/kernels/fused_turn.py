@@ -61,7 +61,6 @@ def _check_lists(queries: torch.Tensor, list_vecs: torch.Tensor,
         raise ValueError(f"batch {queries.shape[0]} > {tiling.MAX_GRID_Y}")
     if nprobe * lmax >= PAD_POS:
         raise ValueError("flat scan positions overflow int32")
-    tiling.check_merge(nprobe * tiling.scan_split(lmax), r_pad)
 
 
 def _scan_buffers(b: int, nprobe: int, lmax: int, r_pad: int, dev
@@ -99,7 +98,8 @@ def fused_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
     with torch.cuda.device(queries.device):
         err = _build.lib().fused_scan_ivf_f32(
             _ptr(queries), _ptr(list_vecs), _ptr(list_ids), p, _ptr(sel),
-            nprobe, _ptr(own), b, nprobe, lmax, d, r_pad, *map(_ptr, cand),
+            nprobe, _ptr(own), b, nprobe, lmax, d, r_pad,
+            tiling.merge_group(r_pad), *map(_ptr, cand),
             *map(_ptr, out), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "fused_scan_ivf_f32")
     return out
@@ -121,7 +121,6 @@ def fused_turn(queries: torch.Tensor, centroids: torch.Tensor,
     if not 0 < nprobe <= min(p, np_pad) or np_pad > tiling.CENTROID_CHUNK:
         raise ValueError(f"nprobe={nprobe}, np_pad={np_pad}, p={p}")
     nchunks = tiling.centroid_chunks(p)
-    tiling.check_merge(nchunks, np_pad)
     dev = queries.device
     s1_v = torch.empty(b * nchunks * np_pad, dtype=torch.float32, device=dev)
     s1_i = torch.empty(b * nchunks * np_pad, dtype=torch.int32, device=dev)
@@ -133,7 +132,8 @@ def fused_turn(queries: torch.Tensor, centroids: torch.Tensor,
     with torch.cuda.device(dev):
         err = _build.lib().fused_turn_ivf_f32(
             _ptr(queries), _ptr(centroids), _ptr(list_vecs), _ptr(list_ids),
-            p, b, nprobe, np_pad, lmax, d, r_pad, _ptr(s1_v), _ptr(s1_i),
+            p, b, nprobe, np_pad, lmax, d, r_pad, tiling.merge_group(np_pad),
+            tiling.merge_group(r_pad), _ptr(s1_v), _ptr(s1_i),
             _ptr(sel_v), _ptr(sel), *map(_ptr, cand), *map(_ptr, out),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "fused_turn_ivf_f32")

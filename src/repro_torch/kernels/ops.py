@@ -3,8 +3,8 @@
 Each op has two execution paths, picked by the device of its tensors:
 
   * ``"kernel"`` — the CUDA kernel (``fused_turn.py`` / ``pq_adc.py`` /
-                   ``flash_attention.py`` → ``csrc/``), the only path for
-                   CUDA tensors;
+                   ``flash_attention.py`` / ``embedding_bag.py`` →
+                   ``csrc/``), the only path for CUDA tensors;
   * ``"ref"``    — the plain PyTorch version (``ref.py``), the only path
                    for CPU tensors.
 
@@ -12,15 +12,17 @@ There is no fallback between them: ``mode="kernel"`` on CPU tensors and
 ``mode="ref"`` on CUDA tensors raise, a failed build raises, a refused
 launch raises.  The wrappers keep the reference's signatures and
 return shapes (``repro/kernels/ops.py:95-114``, ``:130-196``,
-``:209-290`` and ``:331-340``, without the TPU tile knobs), own the
+``:209-290``, ``:331-340`` and ``:386-399``, without the TPU tile
+knobs), own the
 power-of-two padding of k / nprobe / the re-rank depth, and count their
 launches in a plain int on the wrapper (``fused_turn.launches``), so a
 run can show that its path went through the kernels.
 
 The retrieval ops port only ``precision="f32"``; their bf16/int8
 variants (stage-3 in-kernel re-rank) are ROADMAP Queue 1, item 3.
-``flash_attention`` ports the forward: its backward comes with training
-(ROADMAP Queue 1, item 7).
+``flash_attention`` and ``embedding_bag`` port the forward: their
+backwards come with training (ROADMAP Queue 1, item 7), so the kernel
+path refuses inputs that require grad.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import device as _device
+from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_turn as _ft
 from repro_torch.kernels import pq_adc as _pq
@@ -238,10 +241,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _fa.check_shapes(q, k, v, causal=causal)
     if _mode(mode, dev) == "ref":
         return ref.mha_attention(q, k, v, causal=causal)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention: the CUDA kernel is forward only; its backward "
-            "comes with training (ROADMAP Queue 1, item 7)")
+    refuse_grad("flash_attention", q, k, v)
     f32 = [t.to(torch.float32).contiguous() for t in (q, k, v)]
     out = _fa.flash_attention(*f32, causal=causal)
     flash_attention.launches += int(out.numel() > 0)
@@ -249,6 +249,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """The CUDA kernels run forward only: refuse inputs that need grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel is forward only; its backward comes "
+            f"with training (ROADMAP Queue 1, item 7)")
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag (forward)
+# ---------------------------------------------------------------------------
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None, agg: str = "sum",
+                  *, mode: Optional[str] = None, device=None
+                  ) -> torch.Tensor:
+    """EmbeddingBag: table (V, d), bags ids (B, L) int (negative = pad),
+    weights (B, L) or None -> (B, d) in the table's dtype.
+
+    ``agg="mean"`` divides the bag's sum by max(Σ mask·w, 1), the
+    reference's rule, on both paths.  The kernel takes float32 tables
+    and refuses inputs that require grad.  On CUDA tensors, ids must be
+    < V: the caller checks them on the host, where they come in
+    (``models/recsys.py``).
+    """
+    if agg not in ("sum", "mean"):
+        raise ValueError(f"agg must be 'sum' or 'mean', got {agg!r}")
+    dev = _device.require(device, table, ids, weights)
+    if ids.dim() != 2 or table.dim() != 2 or (
+            weights is not None and weights.shape != ids.shape):
+        raise ValueError(f"need table (V, d), ids (B, L) and weights like "
+                         f"ids: table {tuple(table.shape)}, ids "
+                         f"{tuple(ids.shape)}")
+    if _mode(mode, dev) == "ref":
+        return ref.embedding_bag(table, ids, weights, mode=agg)
+    refuse_grad("embedding_bag", table, weights)
+    if table.dtype != torch.float32:
+        raise NotImplementedError(
+            f"embedding_bag: the CUDA kernel takes float32 tables, got "
+            f"{table.dtype}")
+    w32 = None if weights is None else weights.to(torch.float32).contiguous()
+    out = _eb.embedding_bag(table.contiguous(),
+                            ids.to(torch.int32).contiguous(), w32)
+    embedding_bag.launches += int(ids.shape[0] > 0)
+    return ref.bag_mean(out, ids, w32) if agg == "mean" else out
+
+
+embedding_bag.launches = 0
 
 
 def reset_launches() -> None:
@@ -259,3 +311,4 @@ def reset_launches() -> None:
     fused_turn_pq.launches = 0
     fused_scan_pq.launches = 0
     flash_attention.launches = 0
+    embedding_bag.launches = 0

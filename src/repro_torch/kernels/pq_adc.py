@@ -43,9 +43,7 @@ def _check_scan(tables: torch.Tensor, list_codes: torch.Tensor,
         raise ValueError(f"batch {b} > {tiling.MAX_GRID_Y}")
     if nprobe * lmax >= PAD_POS:
         raise ValueError("flat scan positions overflow int32")
-    if r_pad > tiling.PQ_ROWS:
-        raise ValueError(f"r_pad={r_pad} > {tiling.PQ_ROWS} rows per block")
-    tiling.check_merge(nprobe * tiling.pq_split(lmax), r_pad)
+    tiling.check_pad("r_pad", r_pad)
 
 
 def _check_rerank(queries: torch.Tensor, corpus: torch.Tensor, b: int
@@ -99,7 +97,7 @@ def pq_adc_scan(tables: torch.Tensor, list_codes: torch.Tensor,
         err = _build.lib().pq_adc_scan_f32(
             _ptr(tables), m, tables.shape[2], _ptr(list_codes),
             _ptr(list_ids), p, _ptr(sel), b, nprobe, lmax, r_pad,
-            *map(_ptr, cand), *map(_ptr, out),
+            tiling.merge_group(r_pad), *map(_ptr, cand), *map(_ptr, out),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "pq_adc_scan_f32")
     return out
@@ -136,7 +134,8 @@ def fused_scan_pq(tables: torch.Tensor, queries: Optional[torch.Tensor],
             _ptr(tables), _ptr(queries if rerank else None), m,
             tables.shape[2], _ptr(list_codes), _ptr(list_ids), p, _ptr(sel),
             nprobe, _ptr(own), _ptr(corpus if rerank else None), b, nprobe,
-            lmax, d, r, r_pad, kp, int(rerank), *map(_ptr, cand),
+            lmax, d, r, r_pad, kp, int(rerank), tiling.merge_group(r_pad),
+            *map(_ptr, cand),
             *map(_ptr, mid), *map(_ptr, out),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "fused_scan_pq_f32")
@@ -165,7 +164,6 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
         raise ValueError(f"need kp <= r_pad and r <= r_pad: kp={kp}, r={r}, "
                          f"r_pad={r_pad}")
     nchunks = tiling.centroid_chunks(p)
-    tiling.check_merge(nchunks, np_pad)
     dev = queries.device
     s1_v = torch.empty(b * nchunks * np_pad, dtype=torch.float32, device=dev)
     s1_i = torch.empty(b * nchunks * np_pad, dtype=torch.int32, device=dev)
@@ -179,7 +177,8 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
         err = _build.lib().fused_turn_pq_f32(
             _ptr(queries), _ptr(centroids), _ptr(tables), m, tables.shape[2],
             _ptr(list_codes), _ptr(list_ids), p, _ptr(corpus), b, nprobe,
-            np_pad, lmax, d, r, r_pad, kp, _ptr(s1_v), _ptr(s1_i),
+            np_pad, lmax, d, r, r_pad, kp, tiling.merge_group(np_pad),
+            tiling.merge_group(r_pad), _ptr(s1_v), _ptr(s1_i),
             _ptr(sel_v), _ptr(sel), *map(_ptr, cand), *map(_ptr, mid),
             *map(_ptr, out), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "fused_turn_pq_f32")

@@ -30,6 +30,10 @@ ADC rank, on every lane, as in the reference.
 ``mha_attention`` is the plain version of the flash attention kernel
 (``repro/kernels/ref.py:317-346``): the full (S, Skv) score matrix,
 float32 softmax, bottom-right causal mask.
+
+``embedding_bag`` is the plain version of the EmbeddingBag kernel
+(``repro/kernels/ref.py:435-456``), summed in the Pallas kernel's order:
+sequential over the bag, ``acc = acc + row * w`` in float32.
 """
 from __future__ import annotations
 
@@ -224,3 +228,47 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgst,bhtd->bhgsd", probs, v.float())
     return out.reshape(b, h, s, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag
+# ---------------------------------------------------------------------------
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None,
+                  mode: str = "sum") -> torch.Tensor:
+    """EmbeddingBag over fixed-width bags: table (V, d), ids (B, L) int
+    (negative = pad), weights (B, L) or None; returns (B, d) in the
+    table's dtype.  mode "sum" or "mean" (``bag_mean``).
+
+    The sum runs in float32 and in bag order, one product and one sum
+    per step (``embedding_bag.py:28-42``'s ``acc + row * valid``), so it
+    rounds as the Pallas and CUDA kernels do.  A pad adds ``row * 0``
+    (±0), which leaves the sum as it is: the kernel skips it.
+    """
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
+    w = _bag_weights(ids, weights)
+    acc = torch.zeros((ids.shape[0], table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    for l in range(ids.shape[1]):
+        rows = table[ids[:, l].clamp_min(0).long()].to(torch.float32)
+        acc = acc + rows * w[:, l, None]
+    if mode == "mean":
+        acc = bag_mean(acc, ids, weights)
+    return acc.to(table.dtype)
+
+
+def _bag_weights(ids: torch.Tensor, weights: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    valid = (ids >= 0).to(torch.float32)
+    return valid if weights is None else valid * weights.to(torch.float32)
+
+
+def bag_mean(total: torch.Tensor, ids: torch.Tensor,
+             weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's mean rule (``repro/kernels/ops.py:392-398``): a
+    bag's float32 sum over max(Σ mask·w, 1)."""
+    return total / _bag_weights(ids, weights).sum(-1, keepdim=True
+                                                   ).clamp_min(1.0)

@@ -1,14 +1,18 @@
-"""Padding contract and shared-memory caps of the CUDA kernels.
+"""Padding contract, shared-memory caps and merge plan of the CUDA kernels.
 
 The Pallas kernels of the reference split their streamed axes by VMEM
 bytes; the Hopper kernels in ``csrc/`` instead take a fixed number of
 rows per thread block and mask the ragged edge themselves, so no
 operand is padded in memory.  What stays is the power-of-two contract
-of the top-k networks and the per-block shared-memory budgets of the
-merge kernel and the ADC block's LUT, which this module owns —
-``ops.py`` and the launch modules ask it how to split and what fits.
+of the top-k networks, the ADC block's LUT budget, and the plan of the
+candidate merge (``merge_plan``): a query's sorted candidate lists are
+folded in groups that fit one block's shared memory, pass after pass,
+until one group is left.  ``ops.py`` and the launch modules ask this
+module how to split, what fits and how many lists a merge block takes.
 """
 from __future__ import annotations
+
+from typing import List, Tuple
 
 # Shared memory one thread block may use on Hopper (sm_90): 227 KB of
 # the SM's 256 KB, above 48 KB only as opt-in dynamic shared memory.
@@ -25,16 +29,16 @@ QTILE = 8
 
 # Rows of one probed PQ list scored by one block of the ADC scan
 # (csrc/pq_adc.cu PQ_ROWS): 512 rows are 24 KB of codes at m = 48, and
-# two blocks cover a list of the smoke's Lmax 702, so the merge of the
-# blocks' top-64 fits one block's shared memory (128 x 64 x 12 B).
+# two blocks cover a list of the smoke's Lmax 702.
 PQ_ROWS = 512
 # Codewords per subquantizer: codes are uint8.
 MAX_CODES = 256
 
-# Widest running top-k (r_pad) and probe set (np_pad) this slice's
-# kernels take: each block keeps its top entries out of at most
-# SCAN_ROWS / CENTROID_CHUNK candidates.
-MAX_PAD = 64
+# Widest running top-k (r_pad), probe set (np_pad) and re-rank depth
+# the kernels take: a scan block keeps its top entries out of SCAN_ROWS
+# rows, a stage-1 block out of CENTROID_CHUNK centroids, and the re-rank
+# block sorts at most this many candidates (csrc/pq_adc.cu MAX_R).
+MAX_PAD = 128
 
 # One merge candidate in shared memory: value f32, id i32, position i32.
 MERGE_ENTRY_BYTES = 12
@@ -83,14 +87,32 @@ def centroid_chunks(p: int) -> int:
     return max(1, -(-p // CENTROID_CHUNK))
 
 
-def check_merge(n_lists: int, width: int) -> None:
-    """Refuse a merge whose ``n_lists`` sorted lists of ``width`` entries
-    would not fit one block's shared memory."""
-    need = n_lists * width * MERGE_ENTRY_BYTES
-    if need > SMEM_BLOCK_BYTES:
-        raise ValueError(
-            f"merging {n_lists} lists of {width} candidates needs {need} B "
-            f"of shared memory; one block has {SMEM_BLOCK_BYTES}")
+def merge_group(width: int) -> int:
+    """Sorted lists of ``width`` candidates one merge block holds in
+    shared memory (the ``group`` argument of csrc ``merge_topk_f32``)."""
+    if not 0 < width <= MAX_PAD:
+        raise ValueError(f"merge width {width}: the kernels keep at most "
+                         f"{MAX_PAD}")
+    return SMEM_BLOCK_BYTES // (width * MERGE_ENTRY_BYTES)
+
+
+def merge_plan(n_lists: int, width: int) -> List[Tuple[int, int]]:
+    """The passes of the candidate merge, as (lists in, groups out) per
+    query: each pass merges groups of up to ``merge_group(width)``
+    consecutive lists into each group's best ``width``, in place, until
+    a pass has one group (its output is the query's top ``width``).
+    Every pass ranks by (value desc, flat position asc), so the result
+    is a one-block merge's, bit for bit."""
+    if n_lists < 1:
+        raise ValueError(f"n_lists={n_lists}")
+    group = merge_group(width)
+    passes, n = [], n_lists
+    while True:
+        groups = -(-n // group)
+        passes.append((n, groups))
+        if groups == 1:
+            return passes
+        n = groups
 
 
 def check_width(d: int) -> None:
@@ -103,9 +125,11 @@ def check_width(d: int) -> None:
 
 
 def check_pad(name: str, n: int) -> int:
-    """Pad a top-k width to a power of two within the kernels' cap."""
+    """Pad a top-k width to a power of two within the kernels' cap
+    (wider top-k is ROADMAP Queue 3)."""
     n_pad = next_pow2(n)
     if n_pad > MAX_PAD:
         raise ValueError(f"{name}={n} pads to {n_pad}; the CUDA kernels "
-                         f"keep at most {MAX_PAD}")
+                         f"keep at most {MAX_PAD} (wider top-k: ROADMAP "
+                         f"Queue 3)")
     return n_pad

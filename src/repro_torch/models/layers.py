@@ -1,19 +1,20 @@
-"""Building blocks of the bi-encoder, as ``nn.Module``s.
+"""Building blocks of the bi-encoder and the recsys towers, as ``nn.Module``s.
 
-Port of the parts of ``repro/models/layers.py`` the encoder uses:
-RMSNorm (float32, eps 1e-6, ``:42-46``), RoPE in the split-halves
-convention (``:66-79``), GQA attention with optional qkv bias and qk-norm
-(``AttnConfig``, ``_project_qkv`` + ``attn_apply``, ``:86-146``) and the
-SwiGLU MLP (``:177-186``).  The LM-only parts (decode, MoE, MLA) are not
-ported.
+Port of the parts of ``repro/models/layers.py`` the encoder and the
+two-tower model use: RMSNorm (float32, eps 1e-6, ``:42-46``), RoPE in
+the split-halves convention (``:66-79``), GQA attention with optional
+qkv bias and qk-norm (``AttnConfig``, ``_project_qkv`` + ``attn_apply``,
+``:86-146``), the SwiGLU MLP (``:177-186``) and the plain MLP tower
+(``mlp_init`` / ``mlp_apply``, ``:189-210``).  The LM-only parts
+(decode, MoE, MLA) are not ported.
 
 Parameters keep the reference's layout (``x @ w`` with ``w`` of shape
 (d_in, d_out)), so a reference parameter tree converts leaf for leaf.
 Each module is built from a dict of tensors: ``*_init(gen, ...)`` draws
 one from a ``torch.Generator`` at the reference's scales, and
 ``convert.encoder_params_from_numpy`` makes one from the reference's
-arrays.  Parameters do not require grad: this slice serves, and the
-attention kernel has no backward yet.
+arrays.  Parameters do not require grad: these slices serve, and the
+attention and EmbeddingBag kernels have no backward yet.
 """
 from __future__ import annotations
 
@@ -205,3 +206,41 @@ class SwiGLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (torch.nn.functional.silu(x @ self.w_gate) * (x @ self.w_up)
                 ) @ self.w_down
+
+
+def mlp_init(gen: torch.Generator, dims, dtype=torch.float32,
+             bias: bool = True) -> Params:
+    """Plain MLP tower (recsys): dims = [in, h1, ..., out]; dense weights
+    at the reference's scale, zero biases."""
+    layers = []
+    for d_in, d_out in zip(dims[:-1], dims[1:]):
+        lp = {"w": dense_init(gen, d_in, d_out, dtype)}
+        if bias:
+            lp["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+        layers.append(lp)
+    return {"layers": layers}
+
+
+class MLP(nn.Module):
+    """x @ w (+ b) per layer, ReLU between layers and, with
+    ``final_act``, after the last."""
+
+    def __init__(self, params: Params, final_act: bool = False):
+        super().__init__()
+        self.weights = nn.ParameterList(frozen(lp["w"])
+                                        for lp in params["layers"])
+        self.biases = nn.ParameterList(
+            frozen(lp["b"]) for lp in params["layers"] if "b" in lp)
+        if len(self.biases) not in (0, len(self.weights)):
+            raise ValueError("either every layer has a bias or none has")
+        self.final_act = final_act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = len(self.weights)
+        for i, w in enumerate(self.weights):
+            x = x @ w
+            if len(self.biases):
+                x = x + self.biases[i]
+            if i < n - 1 or self.final_act:
+                x = torch.relu(x)
+        return x

@@ -180,35 +180,87 @@ def test_plain_versions_match_brute_force(shape):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+# top-k past one merge block: the two-tower retrieval_cand shape (k 100,
+# nprobe 32, Lmax 1220: two merge passes), 128-wide probes and top-k
+# (nine groups), and a three-pass merge (22,912-row lists)
+WIDE_SHAPES = [(64, 1220, 8, 2, 32, 100),
+               (300, 1220, 8, 3, 128, 128),
+               (128, 22_912, 4, 1, 128, 128)]
+WIDE_PQ_SHAPES = [(64, 1220, 16, 2, 32, 100, 16, 256, 128),
+                  (300, 1220, 16, 2, 128, 100, 16, 256, 128)]
+
+
+def test_plain_versions_match_brute_force_past_one_block_merge():
+    test_plain_versions_match_brute_force(WIDE_SHAPES[0])
+
+
 def test_wrapper_limits():
-    """What the kernels do not take is refused before any launch."""
+    """What the kernels do not take is refused before any launch: top-k
+    wider than 128 (ROADMAP Queue 3) and rows that are not float4."""
     assert tiling.check_pad("k", 10) == 16
-    with pytest.raises(ValueError, match="at most 64"):
-        tiling.check_pad("nprobe", 65)
-    with pytest.raises(ValueError, match="shared memory"):
-        tiling.check_merge(64 * 200, 16)
+    assert tiling.check_pad("k", 100) == 128
+    with pytest.raises(ValueError, match="at most 128"):
+        tiling.check_pad("nprobe", 129)
+    with pytest.raises(ValueError, match="at most 128"):
+        tiling.merge_group(256)
     with pytest.raises(ValueError, match="float4"):
         tiling.check_width(6)
-    tiling.check_merge(64 * tiling.scan_split(702), 16)   # the smoke's merge
-    tiling.check_merge(tiling.centroid_chunks(16_384), 64)
+    # the smoke's merges take one pass
+    assert tiling.merge_plan(64 * tiling.scan_split(702), 16) == [(384, 1)]
+    assert len(tiling.merge_plan(tiling.centroid_chunks(16_384), 64)) == 1
     tiling.check_width(768)
 
 
 def test_pq_wrapper_limits():
     """The ADC block's LUT and the PQ merge at the smoke's shapes fit;
-    wider ones are refused before any launch."""
+    wider LUTs are refused before any launch, wider merges take groups."""
     assert tiling.pq_split(702) == 2 and tiling.pq_split(512) == 1
-    tiling.check_merge(64 * tiling.pq_split(702), 64)   # the smoke's merge
+    assert tiling.merge_plan(64 * tiling.pq_split(702), 64) == [(128, 1)]
     tiling.check_lut(48, 256)
     assert tiling.lut_bytes(48, 256) == 49_152
     with pytest.raises(ValueError, match="uint8"):
         tiling.check_lut(8, 512)
     with pytest.raises(ValueError, match="shared memory"):
         tiling.check_lut(256, 256)
-    with pytest.raises(ValueError, match="shared memory"):
-        tiling.check_merge(64 * tiling.pq_split(4096), 64)
-    with pytest.raises(ValueError, match="at most 64"):
-        tiling.check_pad("rerank depth", 100)
+    assert len(tiling.merge_plan(64 * tiling.pq_split(4096), 64)) == 2
+    assert tiling.check_pad("rerank depth", 100) == 128
+    with pytest.raises(ValueError, match="at most 128"):
+        tiling.check_pad("rerank depth", 200)
+
+
+# the two-tower retrieval_cand shape through TopLoc_IVF
+# (repro/configs/two_tower_retrieval.py:31-32, :194-198): k = 100,
+# nprobe = 32, p = 1,024, lmax = (10^6 // 1024) * 5 // 4
+CAND_LMAX = (1_000_000 // 1024) * 5 // 4
+
+
+@pytest.mark.parametrize("k", [100, 64])
+def test_merge_plan_at_the_retrieval_cand_shape(k):
+    """The merge of 32 probes x 10 scan slices of top-k_pad lists does
+    not fit one block (491,520 B at k 100, 245,760 B at k 64): the plan
+    merges groups that fit, then the groups; every block fits."""
+    assert CAND_LMAX == 1220
+    n_lists, w = 32 * tiling.scan_split(CAND_LMAX), tiling.next_pow2(k)
+    assert n_lists * w * tiling.MERGE_ENTRY_BYTES > tiling.SMEM_BLOCK_BYTES
+    plan = tiling.merge_plan(n_lists, w)
+    assert plan[0][0] == n_lists and plan[-1][1] == 1 and len(plan) == 2
+    group = tiling.merge_group(w)
+    for n, groups in plan:
+        assert groups == -(-n // group)
+        assert min(n, group) * w * tiling.MERGE_ENTRY_BYTES <= \
+            tiling.SMEM_BLOCK_BYTES
+    # stage 1 at p = 1,024: 8 chunks of top-32, one pass
+    assert tiling.merge_plan(tiling.centroid_chunks(1024), 32) == [(8, 1)]
+
+
+def test_merge_plan_passes_until_one_group():
+    group = tiling.merge_group(128)
+    assert group == 151
+    assert tiling.merge_plan(1, 128) == [(1, 1)]
+    assert tiling.merge_plan(group, 128) == [(group, 1)]
+    assert tiling.merge_plan(group + 1, 128) == [(group + 1, 2), (2, 1)]
+    assert tiling.merge_plan(group * group + 1, 128) == \
+        [(group * group + 1, group + 1), (group + 1, 2), (2, 1)]
 
 
 @pytest.fixture
@@ -233,6 +285,17 @@ def test_cuda_kernels_equal_plain_versions(cuda_device, shape):
         assert torch.equal(g, w)
     assert (ops.fused_turn.launches, ops.fused_scan.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_cuda_kernels_equal_plain_versions_past_one_block_merge(
+        cuda_device, shape):
+    """k up to 128 and merges that take groups (``tiling.merge_plan``):
+    bit-equal to the plain versions, as a one-block merge is."""
+    assert len(tiling.merge_plan(shape[4] * tiling.scan_split(shape[1]),
+                                 tiling.next_pow2(shape[5]))) >= 2
+    test_cuda_kernels_equal_plain_versions(cuda_device, shape)
 
 
 @pytest.mark.cuda_only
@@ -291,6 +354,14 @@ def test_cuda_pq_kernels_equal_plain_versions(cuda_device, shape):
     assert (ops.pq_adc_scan.launches, ops.fused_scan_pq.launches,
             ops.fused_turn_pq.launches) == \
         (before[0] + 1, before[1] + 2, before[2] + 1)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("shape", WIDE_PQ_SHAPES)
+def test_cuda_pq_kernels_equal_plain_versions_at_depth_128(cuda_device,
+                                                           shape):
+    """A re-rank depth of 128 (r_pad 128), one and three merge groups."""
+    test_cuda_pq_kernels_equal_plain_versions(cuda_device, shape)
 
 
 @pytest.mark.cuda_only
@@ -385,3 +456,92 @@ def test_cuda_flash_attention_refuses_grad_and_empty_launches_nothing(
     assert ops.flash_attention.launches == before
     with pytest.raises(NotImplementedError, match="backward"):
         ops.flash_attention(q.requires_grad_(), k, v)
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag
+# ---------------------------------------------------------------------------
+
+# V, d, B, L: the two-tower user history (d 256, L 50) at B = 1 and 512,
+# bags longer than one 32-id chunk, the smoke config's d = 16, a width
+# that takes the scalar path (d = 6)
+BAG_SHAPES = [(1000, 256, 1, 50), (1000, 256, 512, 50), (300, 16, 9, 70),
+              (50, 6, 5, 3)]
+
+
+def _bag_inputs(shape, integer, dev="cpu"):
+    """Ids in [-1, V) with pads, the last row V - 1 in every bag but the
+    all-pad bag 0, and weights; integer-valued table and weights, or
+    floats at the two-tower table's scale (normal x d^-1/2) and normal
+    weights."""
+    v, d, b, bag = shape
+    rng = np.random.default_rng(v + d + b + bag)
+    if integer:
+        table = rng.integers(-4, 5, size=(v, d)).astype(np.float32)
+        w = rng.integers(-3, 4, size=(b, bag)).astype(np.float32)
+    else:
+        table = (rng.normal(size=(v, d)) * d ** -0.5).astype(np.float32)
+        w = rng.normal(size=(b, bag)).astype(np.float32)
+    ids = rng.integers(-1, v, size=(b, bag)).astype(np.int32)
+    ids[:, -1] = v - 1
+    ids[0] = -1
+    return [torch.from_numpy(x).to(dev) for x in (table, ids, w)]
+
+
+@pytest.mark.parametrize("agg", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_plain_embedding_bag_matches_float64(agg, weighted):
+    """The plain version against a float64 numpy sum, within the error
+    bound of a float32 sum in bag order (L x 2^-24 x the sum of |row x
+    w| per element), and its sum bit for bit against a float32 numpy
+    loop in bag order."""
+    table, ids, w = _bag_inputs(BAG_SHAPES[2], integer=False)
+    got = ref.embedding_bag(table, ids, w if weighted else None, mode=agg)
+    tn, idn = table.numpy(), ids.numpy()
+    wn = (idn >= 0) * (w.numpy() if weighted else 1.0)
+    rows = tn[np.maximum(idn, 0)].astype(np.float64)
+    want = np.einsum("bld,bl->bd", rows, wn)
+    bound = ids.shape[1] * 2.0 ** -24 * np.einsum("bld,bl->bd",
+                                                  np.abs(rows), np.abs(wn))
+    if agg == "mean":
+        den = np.maximum(wn.sum(-1, keepdims=True), 1)
+        want, bound = want / den, bound / den + 2.0 ** -24 * np.abs(want)
+    assert (np.abs(got.numpy() - want) <= bound).all()
+    assert not got[0].any()                       # the all-pad bag
+    if agg == "sum":
+        acc = np.zeros((ids.shape[0], tn.shape[1]), np.float32)
+        for col in range(ids.shape[1]):
+            acc = acc + tn[np.maximum(idn[:, col], 0)] * \
+                wn[:, col, None].astype(np.float32)
+        np.testing.assert_array_equal(got.numpy(), acc)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("shape", BAG_SHAPES)
+def test_cuda_embedding_bag_equals_plain_version(cuda_device, shape,
+                                                  integer):
+    """Bit-equal on every input: both sum in bag order, one rounding
+    after each product and each sum."""
+    table, ids, w = _bag_inputs(shape, integer, cuda_device)
+    for weights in (None, w):
+        for agg in ("sum", "mean"):
+            before = ops.embedding_bag.launches
+            got = ops.embedding_bag(table, ids, weights, agg=agg)
+            assert ops.embedding_bag.launches == before + 1
+            want = ref.embedding_bag(table, ids, weights, mode=agg)
+            assert torch.equal(got, want)
+    assert not got[0].any()
+
+
+@pytest.mark.cuda_only
+def test_cuda_embedding_bag_refuses_grad_and_empty_launches_nothing(
+        cuda_device):
+    table, ids, w = _bag_inputs(BAG_SHAPES[0], True, cuda_device)
+    before = ops.embedding_bag.launches
+    assert ops.embedding_bag(table, ids[:0]).shape == (0, 256)
+    assert ops.embedding_bag.launches == before
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.embedding_bag(table.requires_grad_(), ids)
+    with torch.no_grad():
+        ops.embedding_bag(table, ids)

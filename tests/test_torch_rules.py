@@ -21,12 +21,14 @@ from repro.core import backend as rbackend
 from repro.serving import engine as reng
 from repro_torch import convert
 from repro_torch.configs import encoders as tconfigs
+from repro_torch.configs import two_tower_retrieval as ttt
 from repro_torch.core import backend as tbackend
 from repro_torch.core import ivf as tivf
 from repro_torch.core import pq as tpq
 from repro_torch.core import toploc as ttl
 from repro_torch.kernels import ops as tops
 from repro_torch.models import encoder as tenc
+from repro_torch.models import recsys as trec
 from repro_torch.serving import engine as teng
 
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
@@ -41,7 +43,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.serving, repro_torch.data.synthetic, "
         "repro_torch.kernels.flash_attention, repro_torch.models, "
         "repro_torch.models.layers, repro_torch.models.encoder, "
-        "repro_torch.configs.encoders, repro_torch.data.tokenizer\n"
+        "repro_torch.configs.encoders, repro_torch.data.tokenizer, "
+        "repro_torch.kernels.embedding_bag, repro_torch.models.recsys, "
+        "repro_torch.configs.two_tower_retrieval\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n")
@@ -128,6 +132,12 @@ ENTRY_POINTS = {
         tconfigs.tiny_encoder_config()),
     "convert.encoder": lambda idx, q: convert.encoder_params_from_numpy(
         {}, tconfigs.tiny_encoder_config()),
+    "ops.embedding_bag": lambda idx, q: tops.embedding_bag(
+        torch.zeros((4, 8)), torch.zeros((2, 3), dtype=torch.int32)),
+    "recsys.two_tower_init": lambda idx, q: trec.two_tower_init(
+        ttt.smoke_config()),
+    "convert.two_tower": lambda idx, q: convert.two_tower_params_from_numpy(
+        {}, ttt.smoke_config()),
     "engine": lambda idx, q: teng.ConversationalSearchEngine(
         teng.ServingConfig(), ivf_index=idx),
     "engine.ivf_pq": lambda idx, q: teng.ConversationalSearchEngine(
