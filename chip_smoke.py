@@ -21,7 +21,13 @@ indexes the embeddings, and each served turn encodes its query before
 random weights from a seed): the item tower encodes the retrieval_cand
 corpus of 10^6 items, the port indexes it (p = 1,024), and user sessions
 are served with TopLoc, each request's history bag through the
-hand-written ``embedding_bag`` kernel.
+hand-written ``embedding_bag`` kernel.  Then retrieval-augmented answers
+(``examples/rag_serving.py``): the encoder path's retriever feeds Yi-9B
+at full width and depth (``repro/configs/yi_9b.py``, bf16, random
+weights from a seed), which prefills the retrieved docs and the query
+and decodes greedily through the hand-written ``flash_decode`` kernel;
+and the ``decode_32k`` serve shape of that model, cut from B = 128 to B
+= 8 (at B = 128 the K/V cache would be 412 GB).
 
 Phases (one line each, [serve] one per path; any failure raises and
 exits non-zero):
@@ -29,24 +35,43 @@ exits non-zero):
   2 build     nvcc of every kernels/csrc source (seconds; registers and
               spills per kernel)
   3 exact     integer inputs: kernels == plain versions bit for bit
-              (retrieval top-k up to 128, merges past one block;
-              embedding_bag at B = 1, 512, 262,144)
+              (retrieval top-k and re-rank depth up to 1,000, nprobe up
+              to 256, merges past one block; embedding_bag at B = 1,
+              512, 262,144)
   4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25, and
               at the two-tower retrieval_cand shape
-  5 attn      flash_attention == its plain version within 1e-5
-  6 encode    dragon encodes 65,536 text docs (snowflake one query
+  5 attn      flash_attention == its plain version within 1e-5, Yi-9B's
+              RAG prefill shape (S = 784, D = 128, GQA 8, causal) on
+              bf16 inputs too, its bf16 output within one bf16 ulp
+  6 decode    flash_decode == its plain version: f32 results within
+              1e-5, bf16 outputs within one bf16 ulp of the row's
+              largest |out|; GQA groups 1, 5, 8, S = 1,000 / 1,024 /
+              32,768, B = 1 and 8, ragged cache_len with 1, S and S + 1
+  7 encode    dragon encodes 65,536 text docs (snowflake one query
               batch); then [serve] encoder lines: IVF over the doc
               embeddings, each turn's query encoded at B = 1
-  7 twotower  the full-width model, the item corpus, its IVF; then
+  8 rag       Yi-9B answers 4 conversations x 4 turns: query tower at
+              B = 1, fused toploc+ (k = 3) over the encoder path's IVF,
+              prefill of 3 docs x 256 + 16 query tokens (first held
+              to a prefill through the plain attention), 32 greedy
+              tokens; encode / retrieval / prefill p50 and p95, ms a
+              token, 24,576 flash_decode launches, finite logits
+  9 twotower  the full-width model, the item corpus, its IVF; then
               [recsys serve] (100 users x 10 requests per path, user
               tower at B = 1 then engine.query), [pairwise] (serve_p99
               and serve_bulk) and the embedding_bag [times]
-  8 index     the port's ivf.build at full size + exact top-10
-  9 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
- 10 serve     per backend: toploc+ / toploc / plain fused, toploc+
+ 10 index     the port's ivf.build at full size + exact top-10
+ 11 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
+ 12 serve     per backend: toploc+ / toploc / plain fused, toploc+
               unfused; each backend's launch counts start at 0
- 11 batched   start_batch / step_batch == the sequential engine
- 12 times     CUDA-event kernel times (L2 flushed) beside their bounds
+ 13 batched   start_batch / step_batch == the sequential engine
+ 14 times     CUDA-event kernel times (L2 flushed) beside their bounds
+ 15 decode32k once the retrieval objects are freed: Yi-9B at decode_32k
+              (S = 32,768) cut from B = 128 to B = 8 (412 GB of cache
+              at B = 128; 25.8 GB at B = 8), ragged cache_len; step ms
+              and tokens/s against the step's bytes over 3.35 TB/s;
+              then flash_decode's [times] at B = 1, S = 1,024 and B = 8,
+              S = 32,768 beside its plain version and SDPA
 then a JSON line of kernels, the card line, and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Size flags
@@ -75,21 +100,26 @@ SCAN_SRC = "src/repro_torch/kernels/csrc/fused_turn.cu"
 PQ_SRC = "src/repro_torch/kernels/csrc/pq_adc.cu"
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 EB_SRC = "src/repro_torch/kernels/csrc/embedding_bag.cu"
+FD_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 PQ_M, PQ_ITERS, RERANK = 48, 8, 64
 IVF_KERNELS = ("fused_scan", "fused_turn")
 PQ_KERNELS = ("pq_adc_scan", "fused_scan_pq", "fused_turn_pq")
 ENC_KERNELS = ("flash_attention",)
 REC_KERNELS = ("embedding_bag",)
+LM_KERNELS = ("flash_decode",)
 SOURCES = {**dict.fromkeys(IVF_KERNELS, SCAN_SRC),
            **dict.fromkeys(PQ_KERNELS, PQ_SRC),
-           "flash_attention": FA_SRC, "embedding_bag": EB_SRC}
+           "flash_attention": FA_SRC, "embedding_bag": EB_SRC,
+           "flash_decode": FD_SRC}
 REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "fused_turn": "src/repro/kernels/fused_turn.py:406",
             "pq_adc_scan": "src/repro/kernels/pq_adc.py:79",
             "fused_scan_pq": "src/repro/kernels/fused_turn.py:686",
             "fused_turn_pq": "src/repro/kernels/fused_turn.py:445",
             "flash_attention": "src/repro/kernels/flash_attention.py:89",
-            "embedding_bag": "src/repro/kernels/embedding_bag.py:49"}
+            "embedding_bag": "src/repro/kernels/embedding_bag.py:49",
+            "flash_decode": "src/repro/kernels/flash_attention.py:180"}
 BAG_TOL = 1e-6                 # embedding_bag on random floats
 # the encoder path: docs of the text corpus, queries of Q_LEN tokens
 # padded to max_len, DOC_BATCH docs per doc-tower call ([attn] and
@@ -200,7 +230,11 @@ EXACT_SHAPES = [(6, 10, 16, 3, 3, 4),      # p, lmax, d, B, nprobe, k
                 # two-tower retrieval_cand shape (k 100, nprobe 32, Lmax
                 # 1,220), then np_pad 128 (nine groups)
                 (64, 1220, 8, 2, 32, 100),
-                (300, 1220, 8, 3, 128, 128)]
+                (300, 1220, 8, 3, 128, 128),
+                # k = 1,000 (r_pad 1,024, 18 lists a merge block): the
+                # smoke's nprobe and Lmax (three passes), then nprobe 256
+                (1000, 702, 8, 2, 64, 1000),
+                (600, 40, 8, 3, 256, 1000)]
 
 # p, lmax, d, B, nprobe, k, m, n_codes, rerank
 # (tests/test_torch_kernels.py PQ_SHAPES)
@@ -211,7 +245,11 @@ PQ_EXACT_SHAPES = [(6, 10, 16, 3, 3, 4, 4, 16, 6),      # r 6 < r_pad 8
                    (1000, 130, 8, 25, 64, 10, 8, 256, 20),  # dense ties
                    # re-rank depth 128 (r_pad 128), one and three groups
                    (64, 1220, 16, 2, 32, 100, 16, 256, 128),
-                   (300, 1220, 16, 2, 128, 100, 16, 256, 128)]
+                   (300, 1220, 16, 2, 128, 100, 16, 256, 128),
+                   # nprobe 256; a re-rank depth of 1,000 (r_pad 1,024,
+                   # past the 512 rows an ADC block keeps)
+                   (600, 40, 16, 2, 256, 100, 16, 256, 1000),
+                   (64, 1220, 16, 1, 8, 1000, 16, 256, 1000)]
 
 
 def pq_int_inputs(shape, dev):
@@ -487,7 +525,11 @@ ATTN_SHAPES = [(2, 8, 8, 256, 256, 64, 64, True),      # MHA
                (2, 8, 2, 128, 128, 48, 32, True),      # Dv != D
                (1, 12, 12, 256, 256, 64, 64, False),   # dragon query
                (DOC_BATCH, 12, 12, 256, 256, 64, 64, False),  # dragon docs
-               (1, 16, 16, 256, 256, 64, 64, False)]   # snowflake
+               (1, 16, 16, 256, 256, 64, 64, False),   # snowflake
+               (1, 32, 4, 784, 784, 128, 128, True)]   # yi-9b RAG prefill
+# shapes whose inputs are bf16, as the LM's prefill gives them: the op
+# casts them to float32 for the kernel and its output back to bf16
+ATTN_BF16 = {(1, 32, 4, 784, 784, 128, 128, True)}
 
 
 def attn_inputs(shape, gen, dev):
@@ -498,22 +540,135 @@ def attn_inputs(shape, gen, dev):
 
 
 def phase_attn(args, dev, errs):
+    """flash_attention against its plain version at every ATTN_SHAPES
+    shape: the kernel's float32 result within TOL; at an ATTN_BF16 shape
+    (bf16 inputs) also the op's bf16 output within one bf16 ulp of its
+    row's largest |out| (each side rounds its own f32 result).  Returns
+    that largest |d| in ulps."""
     import torch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    row_ulps = 0.0
     for shape in ATTN_SHAPES:
+        causal = shape[-1]
         q, k, v = attn_inputs(shape, gen, dev)
-        got = ops.flash_attention(q, k, v, causal=shape[-1])
-        want = ref.mha_attention(q, k, v, causal=shape[-1])
+        if shape in ATTN_BF16:
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            got = ops.flash_attention(q, k, v, causal=causal)
+            want = ref.mha_attention(q, k, v, causal=causal)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"flash_attention {shape}: {got.shape} "
+                                     f"{got.dtype}")
+            _, row_ulp = bf16_ulp(want.float())
+            worst = float(((got.float() - want.float()).abs()
+                           / row_ulp).max())
+            if not worst <= 1.0:
+                raise AssertionError(f"flash_attention {shape} bf16: {worst} "
+                                     f"bf16 ulps of the row's largest |out|")
+            row_ulps = max(row_ulps, worst)
+            q, k, v = (t.float() for t in (q, k, v))
+            got = FA.flash_attention(q, k, v, causal=causal)
+        else:
+            got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.mha_attention(q, k, v, causal=causal)
         err = float((got - want).abs().max())
         if got.shape != want.shape or not err <= TOL:
             raise AssertionError(f"flash_attention {shape}: max |d| {err}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
     torch.cuda.synchronize()
+    return row_ulps
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the bi-encoder: encode the text corpus, serve encoded queries
+# phase 6: flash decode against its plain version
+# ---------------------------------------------------------------------------
+
+# B, H, Hkv, S, D: GQA groups 1, 5 (qwen3-14b) and 8 (yi-9b); S = 1,000
+# (not a multiple of 128), 1,024 (the RAG cache) and 32,768 (decode_32k);
+# B = 1 and 8
+DECODE_SHAPES = [(1, 4, 4, 1000, 128), (8, 4, 4, 1024, 128),
+                 (1, 40, 8, 1024, 128), (8, 40, 8, 32_768, 128),
+                 (1, 32, 4, 1000, 128), (8, 32, 4, 1024, 128),
+                 (1, 32, 4, 32_768, 128), (8, 32, 4, 32_768, 128)]
+
+
+def decode_lens(b, s, dev):
+    """cache_len per row: at B = 8, 1, S, S + 1 (a full cache's dropped
+    write) and values between; at B = 1 each of 1, S, S + 1 and S/2 in
+    turn."""
+    import torch
+    if b == 1:
+        return [torch.tensor([n], dtype=torch.int32, device=dev)
+                for n in (1, s, s + 1, s // 2)]
+    return [torch.tensor([1, s, s + 1, s // 2 + 3, s - 1, 17, s // 3,
+                          s - 100][:b], dtype=torch.int32,
+                         device=dev).clamp_min(1)]
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significant bits), and one at the
+    largest |x| of each row (last axis)."""
+    import torch
+    tiny = torch.finfo(torch.float32).tiny
+    top = x.abs().amax(-1, keepdim=True).clamp_min(tiny)
+    return (torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(tiny))) - 7),
+            torch.exp2(torch.floor(torch.log2(top)) - 7))
+
+
+def phase_decode(args, dev, errs):
+    """flash_decode against its plain version at every DECODE_SHAPES
+    shape and cache_len set, on a float32 and a bfloat16 cache: the
+    kernel's float32 result within TOL of the plain version's; with a
+    bf16 query, the op's bf16 output within one bf16 ulp of its row's
+    largest |out| (each side rounds its own f32 result).  Returns (calls,
+    the largest |d| in ulps of the row's largest |out|, and in ulps of
+    |out| itself)."""
+    import torch
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+    calls, row_ulps, elem_ulps = 0, 0.0, 0.0
+    for shape in DECODE_SHAPES:
+        b, h, hkv, s, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, h, d), generator=gen, device=dev)
+            k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev
+                                ).to(dtype) for _ in range(2))
+            for lens in decode_lens(b, s, dev):
+                what = f"flash_decode {shape} {dtype} cache_len {lens.tolist()}"
+                err = float((FD.flash_decode(q, k, v, lens)
+                             - ref.decode_attention(q, k, v, lens)
+                             ).abs().max())
+                if not err <= TOL:
+                    raise AssertionError(f"{what}: f32 max |d| {err}")
+                errs["flash_decode"] = max(errs["flash_decode"], err)
+                qd = q.to(dtype)
+                got = ops.flash_decode(qd, k, v, lens)
+                want = ref.decode_attention(qd, k, v, lens)
+                calls += 1
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    raise AssertionError(f"{what}: {got.shape} {got.dtype}")
+                diff = (got.float() - want.float()).abs()
+                if dtype == torch.float32:
+                    if not float(diff.max()) <= TOL:
+                        raise AssertionError(f"{what}: {float(diff.max())}")
+                    continue
+                ulp, row_ulp = bf16_ulp(want.float())
+                worst = float((diff / row_ulp).max())
+                if not worst <= 1.0:
+                    raise AssertionError(f"{what}: {worst} bf16 ulps of the "
+                                         f"row's largest |out|")
+                row_ulps = max(row_ulps, worst)
+                elem_ulps = max(elem_ulps, float((diff / ulp).max()))
+            del q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return calls, row_ulps, elem_ulps
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the bi-encoder: encode the text corpus, serve encoded queries
 # ---------------------------------------------------------------------------
 
 
@@ -524,30 +679,37 @@ def pad_queries(tok, max_len):
     return np.pad(tok, [(0, 0)] * (tok.ndim - 1) + [(0, max_len - tok.shape[-1])])
 
 
-def set_attention(enc, fn):
-    """Run every attention layer of ``enc`` through ``fn`` (None: the
-    ``flash_attention`` kernel)."""
+def set_attention(model, fn, which="attention"):
+    """Run every attention layer of ``model`` through ``fn`` (None: the
+    kernel); ``which`` is "attention" (``flash_attention``) or
+    "decode_attention" (``flash_decode``)."""
     from repro_torch.models.layers import Attention
-    for m in enc.modules():
+    for m in model.modules():
         if isinstance(m, Attention):
-            m.attention = fn
+            setattr(m, which, fn)
 
 
-def profile_query_tower(enc, q, reps=5):
-    """Device time of the query tower at B = 1 from a torch.profiler trace
-    of ``reps`` encodes: the union of kernel intervals (busy), kernel
-    time by class (cuBLAS GEMMs, ``flash_attention``, the rest) and
-    kernels per query.  The host's own time is read without the profiler
-    (the encoder ``[serve]`` lines), as tracing slows the host."""
+# name fragments of cuBLAS / cuBLASLt matrix-product kernels (sm90's
+# nvjet and xmma kernels, older gemm / gemv / splitK ones)
+GEMM_NAMES = ("gemm", "gemv", "splitK", "nvjet", "xmma")
+
+
+def profile_device(run, reps, classes):
+    """Device time of ``run()`` from a torch.profiler trace of ``reps``
+    runs after two warm-ups: the union of kernel intervals (busy),
+    kernel time by class (the first of ``classes``, (name, substrings),
+    whose substring is in the kernel's name; else "other") and kernels
+    per run.  The host's own time is read without the profiler, as
+    tracing slows the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
-        enc.encode_queries(q, q > 0)
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            enc.encode_queries(q, q > 0)
+            run()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
@@ -555,17 +717,31 @@ def profile_query_tower(enc, q, reps=5):
     if not spans:
         raise AssertionError("the profiler saw no device kernels")
     busy, end = 0.0, float("-inf")
-    split = dict.fromkeys(("gemm", "flash_attention", "other"), 0.0)
+    split = dict.fromkeys([c for c, _ in classes] + ["other"], 0.0)
+    other = {}
     for a, b, name in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-        cls = ("flash_attention" if "flash_fwd" in name else
-               "gemm" if "gemm" in name or "splitK" in name else "other")
+        cls = next((c for c, subs in classes
+                    if any(x in name for x in subs)), "other")
         split[cls] += b - a
+        if cls == "other":
+            other[name[:40]] = other.get(name[:40], 0.0) + b - a
     out = {"reps": reps, "busy_ms": busy / reps / 1e3,
            "kernels": len(spans) // reps}
     out.update({f"{k}_ms": v / reps / 1e3 for k, v in split.items()})
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
+    out["top_other"] = ", ".join(f"{n} {t / reps / 1e3:.3f}"
+                                 for n, t in top)
     return out
+
+
+def profile_query_tower(enc, q, reps=5):
+    """The query tower at B = 1: device busy time, cuBLAS GEMMs,
+    ``flash_attention`` and the rest (``profile_device``)."""
+    return profile_device(lambda: enc.encode_queries(q, q > 0), reps,
+                          (("flash_attention", ("flash_fwd",)),
+                           ("gemm", GEMM_NAMES)))
 
 
 def phase_encode(args, dev, cfg, errs):
@@ -661,12 +837,13 @@ def phase_encode(args, dev, cfg, errs):
         f"flash_attention_launches={ops.flash_attention.launches - before}")
     del snow, out, tok
     torch.cuda.empty_cache()
-    return enc, embs, wl, conv_tok, launches
+    return enc, embs, wl, docs_tok, conv_tok, launches
 
 
 def phase_encode_serve(args, dev, enc, embs, wl, conv_tok):
     """An IVF over the doc embeddings; each turn encodes its query at
-    B = 1, as a live assistant would, then calls ``engine.query``."""
+    B = 1, as a live assistant would, then calls ``engine.query``.
+    Returns the index and the launch counts summed over the paths."""
     import torch
     from repro_torch.core import ivf
     from repro_torch.kernels import ops
@@ -725,13 +902,194 @@ def phase_encode_serve(args, dev, enc, embs, wl, conv_tok):
     if min(counts[k] for k in ENC_KERNELS + IVF_KERNELS) == 0:
         raise AssertionError(f"encoder path: a kernel was not launched: "
                              f"{counts}")
-    del index, q_tok
+    del q_tok
     torch.cuda.empty_cache()
-    return counts["flash_attention"]
+    return index, counts
 
 
 # ---------------------------------------------------------------------------
-# phase 7: two-tower retrieval at full width, served with TopLoc
+# phase 8: retrieval-augmented answers: the encoder path's retriever feeds
+# Yi-9B at full width and depth
+# ---------------------------------------------------------------------------
+
+RAG_CONVS, RAG_TURNS, RAG_K = 4, 4, 3     # 16 turns; 3 docs a prompt
+RAG_MAX_LEN, RAG_GEN = 1024, 32           # cache positions; greedy steps
+DECODE32K_B, DECODE32K_STEPS = 8, 10      # decode_32k cut from B = 128
+
+
+def rag_turn(enc, eng, lm, conv, q_tok, q_host, docs_tok, times=None):
+    """One turn of examples/rag_serving.py: encode the query (B = 1),
+    retrieve with the conversation's session, prefill the retrieved docs'
+    tokens and the query's, decode RAG_GEN greedy steps.  Returns a
+    device flag: every logit finite."""
+    import torch
+    clock = time.perf_counter
+    torch.cuda.synchronize()
+    t0 = clock()
+    qv = enc.encode_queries(q_tok[None], q_tok[None] > 0)[0]
+    torch.cuda.synchronize()
+    t1 = clock()
+    _, ids = eng.query(conv, qv)
+    prompt = np.concatenate([docs_tok[i] for i in ids[:RAG_K]] + [q_host])
+    torch.cuda.synchronize()
+    t2 = clock()
+    logits, cache, clen = lm.prefill(prompt[None], RAG_MAX_LEN)
+    torch.cuda.synchronize()
+    t3 = clock()
+    ok = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    for _ in range(RAG_GEN):
+        logits, cache = lm.decode_step(cache, tok, clen)
+        clen = clen + 1
+        ok &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t4 = clock()
+    if times is not None:
+        for name, t in (("encode", t1 - t0), ("prefill", t3 - t2),
+                        ("token", (t4 - t3) / RAG_GEN)):
+            times[name].append(t * 1e3)
+    return ok, prompt.shape[0]
+
+
+def phase_rag(args, dev, enc, index, docs_tok, conv_tok):
+    """Yi-9B at full width and depth (bf16, random weights from a seeded
+    CUDA generator) answers RAG_CONVS conversations x RAG_TURNS turns:
+    each turn's query goes through the dragon query tower at B = 1 and
+    fused toploc+ over the encoder path's IVF (k = 3), the 3 docs (256
+    tokens each) and the 16 query tokens are prefilled (784 tokens,
+    cache max_len 1,024) and RAG_GEN tokens decoded greedily.  First,
+    outside the counted run: the prefill of a 784-token prompt through
+    the plain attention against flash_attention (logits and both caches
+    within 5e-2 of the plain side's largest |value|), then one decode
+    step through the plain decode attention against the kernel's, the
+    same 48 layers.  Launch counts
+    are set to 0 just before the 16 turns and read just after."""
+    import torch
+    from repro_torch.configs import yi_9b
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving.engine import (ConversationalSearchEngine,
+                                            ServingConfig)
+    cfg = yi_9b.full_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = TF.init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    q_tok = torch.from_numpy(pad_queries(conv_tok, enc.cfg.max_len)).to(dev)
+    knobs = dict(backend="ivf", strategy="toploc+", fused=True, k=RAG_K,
+                 precision="f32")
+    # warm-up turn, then the kernel against the plain decode attention
+    warm = ConversationalSearchEngine(ServingConfig(**knobs),
+                                      ivf_index=index)
+    rag_turn(enc, warm, lm, "warm", q_tok[0, 0], conv_tok[0, 0], docs_tok)
+    _, ids = warm.query("warm", enc.encode_queries(
+        q_tok[0, 1][None], q_tok[0, 1][None] > 0)[0])
+    prompt = np.concatenate([docs_tok[i] for i in ids[:RAG_K]]
+                            + [conv_tok[0, 1]])
+    set_attention(lm, ref.mha_attention)
+    want_pre = lm.prefill(prompt[None], RAG_MAX_LEN)[:2]
+    set_attention(lm, None)
+    logits, cache, clen = lm.prefill(prompt[None], RAG_MAX_LEN)
+    pre_err = {}
+    for name, got_t, want_t in (("logits", logits, want_pre[0]),
+                                ("k", cache["k"], want_pre[1]["k"]),
+                                ("v", cache["v"], want_pre[1]["v"])):
+        d = float((got_t.float() - want_t.float()).abs().max())
+        top = float(want_t.float().abs().max())
+        pre_err[name] = d / top
+        if not (bool(torch.isfinite(got_t).all()) and d <= 5e-2 * top):
+            raise AssertionError(f"yi-9b prefill of {prompt.shape[0]} tokens, "
+                                 f"kernel vs plain attention: {name} max |d| "
+                                 f"{d} of {top}")
+    del want_pre
+    tok = logits.argmax(-1)
+    got, _ = lm.decode_step(cache, tok, clen)
+    set_attention(lm, ref.decode_attention, "decode_attention")
+    want, _ = lm.decode_step(cache, tok, clen)
+    set_attention(lm, None, "decode_attention")
+    scale = float(want.abs().max())
+    step_err = float((got - want).abs().max())
+    if not (bool(torch.isfinite(got).all()) and step_err <= 5e-2 * scale):
+        raise AssertionError(f"yi-9b decode step, kernel vs plain decode "
+                             f"attention: max |d logit| {step_err} of "
+                             f"{scale}")
+    same_top = bool((got.argmax(-1) == want.argmax(-1)).all())
+    del logits, cache, got, want
+    eng = ConversationalSearchEngine(ServingConfig(**knobs), ivf_index=index)
+    times = {"encode": [], "prefill": [], "token": []}
+    ops.reset_launches()
+    ok, plen = None, 0
+    for c in range(RAG_CONVS):
+        for t in range(RAG_TURNS):
+            flag, plen = rag_turn(enc, eng, lm, f"c{c}", q_tok[c, t],
+                                  conv_tok[c, t], docs_tok, times)
+            ok = flag if ok is None else ok & flag
+    n = launch_counts()
+    turns = RAG_CONVS * RAG_TURNS
+    if not bool(ok):
+        raise AssertionError("rag: a logit is not finite")
+    want_fd = cfg.n_layers * RAG_GEN * turns
+    if n["flash_decode"] != want_fd:
+        raise AssertionError(f"rag: {n['flash_decode']} flash_decode "
+                             f"launches, want {want_fd}")
+    if n["flash_attention"] != (cfg.n_layers + enc.cfg.n_layers) * turns:
+        raise AssertionError(f"rag: {n['flash_attention']} flash_attention "
+                             f"launches")
+    if n["fused_scan"] + n["fused_turn"] == 0:
+        raise AssertionError("rag: retrieval launched no kernel")
+    # the device's share of a decode step at B = 1 (after the counted run)
+    logits, cache, clen = lm.prefill(prompt[None], RAG_MAX_LEN)
+    tok = logits.argmax(-1)
+    prof = profile_device(lambda: lm.decode_step(cache, tok, clen), 5,
+                          (("flash_decode", ("decode_split",
+                                             "decode_combine")),
+                           ("gemm", GEMM_NAMES)))
+    del logits, cache
+    ret = np.asarray([r.latency_s for r in eng.records]) * 1e3
+    pct = {name: np.percentile(v, [50, 95]) for name, v in
+           (("encode", times["encode"]), ("retrieval", ret),
+            ("prefill", times["prefill"]), ("token", times["token"]))}
+    log("rag", f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+        f"H={cfg.n_heads} kv={cfg.n_kv_heads} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} params={cfg.param_count():,} bf16 "
+        f"(init_s={t_init:.2f}); retriever dragon query tower B=1 + ivf "
+        f"toploc+ fused p={index.p} k={RAG_K}; {RAG_CONVS} conversations x "
+        f"{RAG_TURNS} turns, prompt {plen} tokens ({RAG_K} docs x "
+        f"{docs_tok.shape[1]} + {Q_LEN}), max_len {RAG_MAX_LEN}, "
+        f"{RAG_GEN} greedy tokens a turn: " + " ".join(
+            f"{name}_p50_ms={v[0]:.3f} {name}_p95_ms={v[1]:.3f}"
+            for name, v in pct.items() if name != "token") +
+        f" ms_per_token_p50={pct['token'][0]:.3f} "
+        f"ms_per_token_p95={pct['token'][1]:.3f} "
+        f"flash_decode_launches={n['flash_decode']} (= {cfg.n_layers} x "
+        f"{RAG_GEN} x {turns}) flash_attention_launches="
+        f"{n['flash_attention']} (prefill {cfg.n_layers * turns} + query "
+        f"tower {enc.cfg.n_layers * turns}) fused_scan_launches="
+        f"{n['fused_scan']} fused_turn_launches={n['fused_turn']} "
+        f"logits finite; prefill through flash_attention vs the plain "
+        f"attention, all layers: max |d| / max |plain| " + " ".join(
+            f"{n}={e:.4g}" for n, e in pre_err.items()) + " (tol 5e-2); "
+        f"kernel vs plain decode attention, one step "
+        f"through all layers: max |d logit| {step_err:.4g} of "
+        f"{scale:.4g}, same top-1 {same_top} "
+        f"max_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    log("profile", f"{cfg.name} decode step, B=1, cache_len "
+        f"{prompt.shape[0]} "
+        f"(torch.profiler, {prof.pop('reps')} steps; device ms per step): "
+        + " ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+                   for k, v in prof.items())
+        + f"; host-clock ms a token p50 {pct['token'][0]:.3f}, so the "
+        f"card idles {1 - prof['busy_ms'] / pct['token'][0]:.3f} of it")
+    del lm, q_tok
+    torch.cuda.empty_cache()
+    return n
+
+
+# ---------------------------------------------------------------------------
+# phase 9: two-tower retrieval at full width, served with TopLoc
 # ---------------------------------------------------------------------------
 
 TT_CHUNK = 65_536       # items per item-tower call while encoding the corpus
@@ -1037,7 +1395,7 @@ def phase_cand_times(args, dev, index, vecs):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-11: index, PQ index, serving, sequential == batched
+# phases 10-13: index, PQ index, serving, sequential == batched
 # ---------------------------------------------------------------------------
 
 
@@ -1128,7 +1486,7 @@ BACKENDS = (("ivf", IVF_KERNELS), ("ivf_pq", PQ_KERNELS))
 
 def launch_counts():
     from repro_torch.kernels import ops
-    names = IVF_KERNELS + PQ_KERNELS + ENC_KERNELS + REC_KERNELS
+    names = IVF_KERNELS + PQ_KERNELS + ENC_KERNELS + REC_KERNELS + LM_KERNELS
     return {name: getattr(ops, name).launches for name in names}
 
 
@@ -1243,7 +1601,7 @@ def phase_batched(index, convs, run, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: kernel times beside their bounds
+# phases 14-15: kernel times beside their bounds; the LM at decode_32k
 # ---------------------------------------------------------------------------
 
 
@@ -1301,9 +1659,11 @@ def adc_bound(pqi, q, sel, r, out_w, rerank):
     return nbytes, flops
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_rate=F32_FLOP_PER_S):
+    """The least time for this work: bytes over the memory rate or
+    operations over the peak rate of the inputs' type, the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1402,6 +1762,142 @@ def phase_times(args, index, pqi, convs, dev):
     return out
 
 
+def decode_bound(q, k, lens):
+    """(bytes, flops) of decode attention over these inputs: each row's
+    first min(cache_len, S) rows of K and V read once, q and cache_len
+    read once, the output written once; 4 FLOP per cache element per
+    query head of the group."""
+    b, h, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    rows = int(lens.clamp(max=s).sum())
+    nbytes = (2 * rows * hkv * d * k.element_size() + 2 * q.numel()
+              * q.element_size() + lens.numel() * 4)
+    return nbytes, 4 * rows * h * d
+
+
+def phase_decode_times(args, dev):
+    """flash_decode at the RAG shape (B = 1, S = 1,024) and the
+    decode_32k shape cut to B = 8 (S = 32,768), Yi-9B's heads (32 query,
+    4 kv, D = 128), bf16, every row's cache full, L2 flushed; beside its
+    plain version (device time: it never syncs) and, timed only,
+    ``scaled_dot_product_attention`` on q as (B, H, 1, D) with
+    ``enable_gqa`` and the cache_len mask."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for b, s, reps in ((1, RAG_MAX_LEN, 25), (8, 32_768, 10)):
+        q = torch.randn((b, 32, 128), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        k, v = (torch.randn((b, 4, s, 128), generator=gen, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+        lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+        mask = (torch.arange(s, device=dev)[None] < lens[:, None]
+                )[:, None, None]
+        kern = [lambda: ops.flash_decode(q, k, v, lens)] * reps
+        plain = [lambda: ref.decode_attention(q, k, v, lens)] * reps
+        lib = [lambda: sdpa(q[:, :, None], k, v, attn_mask=mask,
+                            enable_gqa=True)] * reps
+        for calls in (kern, plain, lib):                    # warm-up
+            event_ms(calls[:2], flush, spin=True)
+        nbytes, flops = decode_bound(q, k, lens)
+        row = timed(kern, plain, [(nbytes, flops, BF16_FLOP_PER_S)] * reps,
+                    flush, plain_syncs=False)
+        row["library_ms"] = event_ms(lib, flush, spin=True)
+        log("times", f"flash_decode B={b} H=32 Hkv=4 S={s} D=128 bf16, "
+            f"cache full: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"sdpa_ms={row['library_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, "
+            f"{nbytes / 1e6:.1f} MB) share={row['bound_ms'] / row['ms']:.3f}")
+        out[b] = row
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_decode32k(args, dev):
+    """The decode_32k serve shape (configs/common.py LM_SHAPE_PARAMS:
+    seq 32,768, batch 128) cut to B = DECODE32K_B: B = 128 would need
+    412 GB of cache.  Yi-9B at full width and depth, bf16, random
+    weights; the (48, 8, 4, 32,768, 128) K and V caches (25.8 GB) drawn
+    from the generator; cache_len per row in [16,384, 32,767].  Step ms
+    against the step's bytes over 3.35 TB/s (weights + each row's K/V
+    up to cache_len): arithmetic, not a measurement.  Launch counts are
+    set to 0 just before the timed steps and read just after."""
+    import torch
+    from repro_torch.configs import common, yi_9b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TF
+    cfg = yi_9b.full_config()
+    shape = common.LM_SHAPE_PARAMS["decode_32k"]
+    s, b_full = shape["seq_len"], shape["global_batch"]
+    b = DECODE32K_B
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm = TF.init_params(cfg, seed=args.seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    t0 = time.perf_counter()
+    cache = lm.init_cache(b, s)
+    for name in ("k", "v"):
+        for layer in range(cfg.n_layers):
+            cache[name][layer].normal_(generator=gen)
+    lens = torch.randint(s // 2, s, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    tok = torch.randint(0, cfg.vocab, (b,), generator=gen, device=dev)
+    logits, cache = lm.decode_step(cache, tok, lens)           # warm-up
+    torch.cuda.synchronize()
+    steps = DECODE32K_STEPS
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = lm.decode_step(cache, logits.argmax(-1), lens + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    n = launch_counts()
+    if n["flash_decode"] != cfg.n_layers * steps or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"decode32k: {n['flash_decode']} flash_decode "
+                             f"launches, logits finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    prof = profile_device(
+        lambda: lm.decode_step(cache, tok, lens + steps), 3,
+        (("flash_decode", ("decode_split", "decode_combine")),
+         ("gemm", GEMM_NAMES)))
+    # the weights a step reads: all but the embedding table, of which it
+    # gathers B rows
+    w_bytes = (cfg.param_count() - cfg.vocab * cfg.d_model
+               + b * cfg.d_model) * 2
+    # step i attends to min(cache_len + i + 1, S) positions a row
+    rows = sum(int((lens + i + 1).clamp(max=s).sum()) for i in range(steps))
+    kv_bytes = rows / steps * cfg.kv_bytes_per_token()
+    bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    full = (w_bytes + b * s * cfg.kv_bytes_per_token()) / HBM_BYTES_PER_S * 1e3
+    log("decode32k", f"{cfg.name} decode_32k seq={s} batch {b_full} cut to "
+        f"B={b} (B={b_full} needs {b_full * s * cfg.kv_bytes_per_token() / 1e9:.0f} "
+        f"GB of cache): cache {cache['k'].numel() * 4 / 1e9:.1f} GB bf16 "
+        f"filled in {t_fill:.2f} s, cache_len in [{int(lens.min())}, "
+        f"{int(lens.max())}]; {steps} steps: step_ms={step_ms:.3f} "
+        f"tokens_per_s={b / step_ms * 1e3:.1f} "
+        f"flash_decode_launches={n['flash_decode']}; the step's bytes "
+        f"(weights {w_bytes / 1e9:.2f} GB + K/V to cache_len "
+        f"{kv_bytes / 1e9:.2f} GB) / 3.35 TB/s = {bound:.3f} ms "
+        f"(share {bound / step_ms:.3f}; {full:.3f} ms with every row full, "
+        f"arithmetic) max_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    log("profile", f"{cfg.name} decode_32k step, B={b} (torch.profiler, "
+        f"{prof.pop('reps')} steps; device ms per step): " + " ".join(
+            f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in prof.items())
+        + f"; the card idles {1 - prof['busy_ms'] / step_ms:.3f} of a step")
+    del lm, cache, logits
+    torch.cuda.empty_cache()
+    return n
+
+
 def attn_bound(q, k, v):
     """(bytes, flops) of attention over these inputs: q, k, v read once,
     the output written once; QK^T and PV products."""
@@ -1492,7 +1988,8 @@ def main() -> int:
         f"(v, ids, pos); {n_pq} PQ shapes: fused_turn_pq (v, ids, sel), "
         f"pq_adc_scan (v, ids), fused_scan_pq with and without re-rank "
         f"(v, ids, pos): bit-equal to their plain versions (k and the "
-        f"re-rank depth up to 128, merges of up to {passes} passes)")
+        f"re-rank depth up to 1,000, nprobe up to 256, merges of up to "
+        f"{passes} passes)")
     errs = dict.fromkeys(IVF_KERNELS + PQ_KERNELS + REC_KERNELS, 0.0)
     phase_exact_bag(dev, errs)
     log("exact", f"embedding_bag V={BAG_V} d={BAG_D} L={BAG_L} B="
@@ -1524,18 +2021,32 @@ def main() -> int:
             f"{n}={v}" for n, v in cand_ties.items()))
 
     errs["flash_attention"] = 0.0
-    phase_attn(args, dev, errs)
+    attn_ulps = phase_attn(args, dev, errs)
     log("attn", f"{len(ATTN_SHAPES)} shapes (MHA, GQA, causal S == Skv and "
         f"S < Skv, non-causal, ragged S/Skv, Dv != D, dragon B = 1 and "
-        f"{DOC_BATCH}, "
-        f"snowflake): flash_attention max_abs_err="
-        f"{errs['flash_attention']:.3g} (tol {TOL})")
+        f"{DOC_BATCH}, snowflake, yi-9b's RAG prefill H=32 Hkv=4 S=784 "
+        f"D=128 causal bf16): flash_attention max_abs_err="
+        f"{errs['flash_attention']:.3g} (tol {TOL}); bf16 outputs max |d| "
+        f"{attn_ulps:.3g} bf16 ulp of the row's largest |out| (tol 1)")
+    errs["flash_decode"] = 0.0
+    calls, row_ulps, elem_ulps = phase_decode(args, dev, errs)
+    log("decode", f"{len(DECODE_SHAPES)} shapes (GQA groups 1, 5, 8; S = "
+        f"1,000, 1,024, 32,768; B = 1, 8; cache_len 1, S, S + 1 and "
+        f"between), float32 and bfloat16 caches, {calls} calls: "
+        f"flash_decode's f32 result max_abs_err={errs['flash_decode']:.3g} "
+        f"(tol {TOL}) on both caches; bf16 outputs max |d| "
+        f"{row_ulps:.3g} bf16 ulp of the row's largest |out| (tol 1), "
+        f"{elem_ulps:.3g} ulp of |out| itself (not a gate: near-zero "
+        f"outputs are cancellations)")
 
     from repro_torch.configs.encoders import dragon_config
-    enc, embs, wl, conv_tok, enc_launches = phase_encode(
+    enc, embs, wl, docs_tok, conv_tok, enc_launches = phase_encode(
         args, dev, dragon_config(), errs)
-    enc_launches += phase_encode_serve(args, dev, enc, embs, wl, conv_tok)
-    del enc, embs
+    enc_index, enc_counts = phase_encode_serve(args, dev, enc, embs, wl,
+                                               conv_tok)
+    rag_counts = phase_rag(args, dev, enc, enc_index, docs_tok, conv_tok)
+    enc_launches += enc_counts["flash_attention"]
+    del enc, embs, enc_index
     torch.cuda.empty_cache()
 
     from repro_torch.configs import two_tower_retrieval as TT
@@ -1563,7 +2074,14 @@ def main() -> int:
     times = phase_times(args, index, pqi, convs, dev)
     times[1]["flash_attention"] = phase_attn_times(args, dev)[1]
     times[1]["embedding_bag"] = bag_times[1]
-    launches["flash_attention"] = enc_launches
+    # the LM at decode_32k runs once the retrieval objects are freed
+    del index, pqi, docs, indexes, runs
+    torch.cuda.empty_cache()
+    d32_counts = phase_decode32k(args, dev)
+    times[1]["flash_decode"] = phase_decode_times(args, dev)[1]
+    launches["flash_attention"] = enc_launches + rag_counts["flash_attention"]
+    launches["flash_decode"] = (rag_counts["flash_decode"]
+                                + d32_counts["flash_decode"])
     for name in IVF_KERNELS + REC_KERNELS:
         launches[name] = launches.get(name, 0) + rec_counts[name]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
@@ -1574,7 +2092,7 @@ def main() -> int:
                     bound_by=times[1][name]["bound_by"],
                     library_ms=times[1][name].get("library_ms"))
                for name in IVF_KERNELS + PQ_KERNELS + ENC_KERNELS +
-               REC_KERNELS]
+               REC_KERNELS + LM_KERNELS]
     log("done", f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

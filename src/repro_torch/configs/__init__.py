@@ -1,2 +1,3 @@
 """Model configurations of the port."""
-from repro_torch.configs import encoders, two_tower_retrieval  # noqa: F401
+from repro_torch.configs import (common, encoders,  # noqa: F401
+                                 two_tower_retrieval, yi_9b)

@@ -5,8 +5,9 @@ field for field, so a reference-built ``IVFIndex`` / ``IVFPQIndex`` /
 ``IVFSession`` becomes the port's by handing each field over as a numpy
 array (``np.asarray(field)``); ``to_numpy`` goes the other way.  The
 bi-encoder's parameter tree converts leaf for leaf, its stacked layers
-unstacked (``encoder_params_from_numpy``); so does the two-tower model's
-(``two_tower_params_from_numpy``).
+unstacked (``encoder_params_from_numpy``); so do the two-tower model's
+(``two_tower_params_from_numpy``) and the LM's
+(``lm_params_from_numpy``, bfloat16 carried bit for bit).
 Nothing here imports the reference: the arrays are the interface.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ from repro_torch.core.pq import IVFPQIndex, check_index
 from repro_torch.core.toploc import IVFSession
 from repro_torch.models.encoder import DualEncoder, EncoderConfig, Tower
 from repro_torch.models.recsys import TwoTower, TwoTowerConfig
+from repro_torch.models.transformer import LM, LMConfig
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -100,6 +102,31 @@ def two_tower_params_from_numpy(params: Dict[str, Any], cfg: TwoTowerConfig,
     and ``item_mlp`` with their ``layers`` lists of ``w`` / ``b``)."""
     dev = _device.resolve(device)
     return TwoTower(cfg, _tree(lambda a: _f32(a, dev), params))
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    """A numpy array as a tensor, bit for bit: float32 as float32, and
+    bfloat16 (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses)
+    through its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a, copy=True).view(np.uint16))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.tensor(a, device=dev)
+
+
+def lm_params_from_numpy(params: Dict[str, Any], cfg: LMConfig,
+                         device=None) -> LM:
+    """An ``LM`` on ``device`` (default cuda) from the reference's
+    ``init_params`` tree as numpy arrays; the ``layers`` leaves, stacked
+    along a leading ``n_layers`` axis, are unstacked into one tree per
+    layer.  Every leaf keeps its dtype and bits (bfloat16 included)."""
+    dev = _device.resolve(device)
+    tree = _tree(lambda a: _tensor(a, dev),
+                 {k: v for k, v in params.items() if k != "layers"})
+    tree["layers"] = [_tree(lambda a, i=i: _tensor(np.asarray(a)[i], dev),
+                            params["layers"]) for i in range(cfg.n_layers)]
+    return LM(cfg, tree)
 
 
 def to_numpy(x: Any) -> Any:

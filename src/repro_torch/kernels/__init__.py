@@ -6,6 +6,8 @@
   pq_adc           ctypes launches of ``csrc/pq_adc.cu`` (IVF-PQ)
   flash_attention  ctypes launch of ``csrc/flash_attention.cu`` (the
                    bi-encoder's attention, forward)
+  flash_decode     ctypes launch of ``csrc/flash_decode.cu`` (the LM's
+                   decode attention over its KV cache)
   embedding_bag    ctypes launch of ``csrc/embedding_bag.cu`` (the
                    two-tower user history bag, forward)
   ref              plain PyTorch versions of the kernels

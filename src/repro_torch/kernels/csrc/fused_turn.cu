@@ -25,11 +25,13 @@
 //    the first FMA, so a warp keeps a 4 KB row in flight;
 //  * stage 1: one block per (128-centroid chunk, 8 queries) reads each
 //    centroid row once for all 8 queries;
-//  * only each block's top r_pad / np_pad candidates leave the SM; a small
-//    second kernel merges a query's sorted lists pairwise in shared memory,
-//    in groups that fit one block and in as many passes as needed
-//    (tiling.merge_plan): at the two-tower shape, 32 probes x 10 slices of
-//    top-128 lists are 491,520 B, two groups' worth.
+//  * only each block's top r_pad / np_pad candidates leave the SM (a block
+//    holds 128 rows or centroids, so past 128 the rest of its list is
+//    pads); a small second kernel merges a query's sorted lists pairwise
+//    in shared memory, in groups that fit one block and in as many passes
+//    as needed (tiling.merge_plan): at the two-tower shape, 32 probes x
+//    10 slices of top-128 lists are 491,520 B, two groups' worth; lists
+//    of 1,024 (k = 1,000) go 18 a block.
 // Scores are reduced in one fixed order (lane-strided FMAs, then a fixed
 // xor-shuffle tree) that does not depend on the batch, the grid or the
 // slice a row falls in, so a row scores the same at any B.
@@ -110,11 +112,13 @@ scan_lists_kernel(const float* __restrict__ q,
     }
   }
   topk_tie::block_sort(sv, si, sp, SCAN_ROWS);
+  // the block's best min(r_pad, SCAN_ROWS), then pads up to r_pad
   const size_t out = ((size_t)b * gridDim.x + blockIdx.x) * r_pad;
   for (int t = threadIdx.x; t < r_pad; t += blockDim.x) {
-    cand_v[out + t] = sv[t];
-    cand_i[out + t] = si[t];
-    cand_p[out + t] = sp[t];
+    const bool kept = t < SCAN_ROWS;
+    cand_v[out + t] = kept ? sv[t] : -INFINITY;
+    cand_i[out + t] = kept ? si[t] : -1;
+    cand_p[out + t] = kept ? sp[t] : topk_tie::PAD_POS;
   }
 }
 
@@ -167,13 +171,15 @@ centroid_chunk_kernel(const float* __restrict__ q,
   }
   for (int t = 0; t < nq; ++t)
     topk_tie::block_sort(sv[t], si[t], sp[t], CENTROID_CHUNK);
+  // each query's best min(np_pad, CENTROID_CHUNK), then pads up to np_pad
   for (int e = threadIdx.x; e < nq * np_pad; e += blockDim.x) {
     const int t = e / np_pad;
     const int i = e % np_pad;
     const size_t out =
         ((size_t)(b0 + t) * gridDim.x + blockIdx.x) * np_pad + i;
-    cand_v[out] = sv[t][i];
-    cand_i[out] = si[t][i];
+    const bool kept = i < CENTROID_CHUNK;
+    cand_v[out] = kept ? sv[t][i] : -INFINITY;
+    cand_i[out] = kept ? si[t][i] : topk_tie::PAD_POS;
   }
 }
 

@@ -39,7 +39,8 @@
 //  * re-rank: one block per query gathers the merged candidates' corpus
 //    rows by doc id, one warp per row in fused_turn.cu's fixed order
 //    (warp_row_dots), so a row scores the same at any B; ranks >= r (the
-//    power-of-two padding) never re-enter.
+//    power-of-two padding) never re-enter; up to 1,024 candidates sort in
+//    dynamic shared memory.
 // Simple first: no TMA, no persistence, the LUT reads may conflict on
 // shared-memory banks.
 //
@@ -62,7 +63,7 @@ namespace {
 constexpr int PQ_ROWS = 512;         // rows of a probed list per block
 constexpr int ADC_THREADS = 256;
 constexpr int RERANK_THREADS = 512;  // 16 warps, one candidate row each
-constexpr int MAX_R = 128;           // widest candidate set (r_pad)
+constexpr int MAX_R = 1024;          // widest candidate set (r_pad)
 
 using fused_common::warp_row_dots;
 
@@ -137,26 +138,29 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
     sp[r] = pos;
   }
   topk_tie::block_sort(sv, si, sp, PQ_ROWS);
+  // the block's best min(r_pad, PQ_ROWS), then pads up to r_pad
   const size_t out = ((size_t)b * gridDim.x + blockIdx.x) * r_pad;
   for (int t = threadIdx.x; t < r_pad; t += blockDim.x) {
-    cand_v[out + t] = sv[t];
-    cand_i[out + t] = si[t];
-    cand_p[out + t] = sp[t];
+    const bool kept = t < PQ_ROWS;
+    cand_v[out + t] = kept ? sv[t] : -INFINITY;
+    cand_i[out + t] = kept ? si[t] : -1;
+    cand_p[out + t] = kept ? sp[t] : topk_tie::PAD_POS;
   }
 }
 
 // grid (B).  Re-ranks query b's r_pad merged ADC candidates (ids cand_i[b])
 // by their exact score against corpus rows, ranks >= r and pad ids
-// excluded, and writes the top kp: (exact score, id, ADC rank).
+// excluded, and writes the top kp: (exact score, id, ADC rank).  Dynamic
+// shared memory: the query (d floats), then the r_pad-entry sort arrays.
 __global__ void __launch_bounds__(RERANK_THREADS)
 rerank_kernel(const float* __restrict__ q, const float* __restrict__ corpus,
               int d, const int* __restrict__ cand_i, int r_pad, int r,
               int kp, float* __restrict__ out_v, int* __restrict__ out_i,
               int* __restrict__ out_p) {
   extern __shared__ float4 qs4[];
-  __shared__ float sv[MAX_R];
-  __shared__ int si[MAX_R];
-  __shared__ int sp[MAX_R];
+  float* sv = reinterpret_cast<float*>(qs4) + d;
+  int* si = reinterpret_cast<int*>(sv + r_pad);
+  int* sp = si + r_pad;
 
   const int b = blockIdx.x;
   const int d4 = d >> 2;
@@ -254,7 +258,13 @@ int fused_scan_pq_f32(const float* tables, const float* q, int m,
                                cand_v, cand_i, cand_p, mid_v, mid_i, mid_p,
                                st);
   if (e != 0) return e;
-  rerank_kernel<<<B, RERANK_THREADS, d * sizeof(float), st>>>(
+  if (r_pad > MAX_R) return (int)cudaErrorInvalidValue;
+  const int smem = d * (int)sizeof(float) +
+                   r_pad * (int)(sizeof(float) + 2 * sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      rerank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  rerank_kernel<<<B, RERANK_THREADS, smem, st>>>(
       q, corpus, d, mid_i, r_pad, r, kp, out_v, out_i, out_p);
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,10 @@
 // total and the kernels' outputs do not depend on the launch shape.
 //
 // All functions work on three parallel arrays in shared memory (value, id,
-// position); every thread of the block must call them.  They are inline
-// because several sources of the one library include this header.
+// position), static or dynamic, of any power-of-two width (the kernels
+// sort and merge up to 1,024 entries a list); every thread of the block
+// must call them.  They are inline because several sources of the one
+// library include this header.
 #pragma once
 
 #include <climits>

@@ -118,7 +118,7 @@ def fused_turn(queries: torch.Tensor, centroids: torch.Tensor,
     if tuple(centroids.shape) != (p, d):
         raise ValueError(f"centroids {tuple(centroids.shape)} do not match "
                          f"{p} lists of width {d}")
-    if not 0 < nprobe <= min(p, np_pad) or np_pad > tiling.CENTROID_CHUNK:
+    if not 0 < nprobe <= min(p, np_pad) or np_pad > tiling.MAX_PAD:
         raise ValueError(f"nprobe={nprobe}, np_pad={np_pad}, p={p}")
     nchunks = tiling.centroid_chunks(p)
     dev = queries.device

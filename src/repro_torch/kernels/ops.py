@@ -3,8 +3,9 @@
 Each op has two execution paths, picked by the device of its tensors:
 
   * ``"kernel"`` — the CUDA kernel (``fused_turn.py`` / ``pq_adc.py`` /
-                   ``flash_attention.py`` / ``embedding_bag.py`` →
-                   ``csrc/``), the only path for CUDA tensors;
+                   ``flash_attention.py`` / ``flash_decode.py`` /
+                   ``embedding_bag.py`` → ``csrc/``), the only path for
+                   CUDA tensors;
   * ``"ref"``    — the plain PyTorch version (``ref.py``), the only path
                    for CPU tensors.
 
@@ -12,7 +13,7 @@ There is no fallback between them: ``mode="kernel"`` on CPU tensors and
 ``mode="ref"`` on CUDA tensors raise, a failed build raises, a refused
 launch raises.  The wrappers keep the reference's signatures and
 return shapes (``repro/kernels/ops.py:95-114``, ``:130-196``,
-``:209-290``, ``:331-340`` and ``:386-399``, without the TPU tile
+``:209-290``, ``:331-356`` and ``:386-399``, without the TPU tile
 knobs), own the
 power-of-two padding of k / nprobe / the re-rank depth, and count their
 launches in a plain int on the wrapper (``fused_turn.launches``), so a
@@ -22,7 +23,8 @@ The retrieval ops port only ``precision="f32"``; their bf16/int8
 variants (stage-3 in-kernel re-rank) are ROADMAP Queue 1, item 3.
 ``flash_attention`` and ``embedding_bag`` port the forward: their
 backwards come with training (ROADMAP Queue 1, item 7), so the kernel
-path refuses inputs that require grad.
+path refuses inputs that require grad, as ``flash_decode`` (serving
+only, no backward in the reference either) does.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import fused_turn as _ft
 from repro_torch.kernels import pq_adc as _pq
 from repro_torch.kernels import ref
@@ -251,6 +254,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cache_len: torch.Tensor, *, mode: Optional[str] = None,
+                 device=None) -> torch.Tensor:
+    """Decode attention (serving only). q (B, H, D), k and v (B, Hkv, S,
+    D), cache_len (B,) integer; returns (B, H, D) in q's dtype.
+
+    Positions >= cache_len are masked; a cache_len past S counts as S
+    (the reference passes ``cache_len + 1`` after a write it dropped on a
+    full cache).  cache_len must be >= 1: a row with none attends to
+    nothing, so a CPU cache_len is checked; on the card it is the
+    caller's contract.  Unlike the reference,
+    which drops to its plain math unless S is a multiple of 128, every
+    CUDA call runs the kernel on any S, reading a float32 or bfloat16
+    cache in its own dtype.
+    """
+    dev = _device.require(device, q, k, v, cache_len)
+    _fd.check_shapes(q, k, v, cache_len)
+    if _mode(mode, dev) == "ref":
+        return ref.decode_attention(q, k, v, cache_len)
+    refuse_grad("flash_decode", q, k, v)
+    out = _fd.flash_decode(q.to(torch.float32).contiguous(), k.contiguous(),
+                           v.contiguous(),
+                           cache_len.to(torch.int32).contiguous())
+    flash_decode.launches += int(q.shape[0] > 0)
+    return out.to(q.dtype)
+
+
+flash_decode.launches = 0
+
+
 def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
     """The CUDA kernels run forward only: refuse inputs that need grad."""
     if torch.is_grad_enabled() and any(
@@ -311,4 +344,5 @@ def reset_launches() -> None:
     fused_turn_pq.launches = 0
     fused_scan_pq.launches = 0
     flash_attention.launches = 0
+    flash_decode.launches = 0
     embedding_bag.launches = 0

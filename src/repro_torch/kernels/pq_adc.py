@@ -158,7 +158,7 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
     if tuple(centroids.shape) != (p, d):
         raise ValueError(f"centroids {tuple(centroids.shape)} do not match "
                          f"{p} lists of width {d}")
-    if not 0 < nprobe <= min(p, np_pad) or np_pad > tiling.CENTROID_CHUNK:
+    if not 0 < nprobe <= min(p, np_pad) or np_pad > tiling.MAX_PAD:
         raise ValueError(f"nprobe={nprobe}, np_pad={np_pad}, p={p}")
     if not 0 < kp <= r_pad or not 0 < r <= r_pad:
         raise ValueError(f"need kp <= r_pad and r <= r_pad: kp={kp}, r={r}, "

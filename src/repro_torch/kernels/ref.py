@@ -31,6 +31,10 @@ ADC rank, on every lane, as in the reference.
 (``repro/kernels/ref.py:317-346``): the full (S, Skv) score matrix,
 float32 softmax, bottom-right causal mask.
 
+``decode_attention`` is the plain version of the flash decode kernel
+(``repro/kernels/ref.py:347-365``): one query token per row against a
+KV cache, positions >= ``cache_len`` masked, float32 softmax.
+
 ``embedding_bag`` is the plain version of the EmbeddingBag kernel
 (``repro/kernels/ref.py:435-456``), summed in the Pallas kernel's order:
 sequential over the bag, ``acc = acc + row * w`` in float32.
@@ -228,6 +232,28 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgst,bhtd->bhgsd", probs, v.float())
     return out.reshape(b, h, s, dv).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_len: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Plain single-token decode attention.  q (B, H, D), k (B, Hkv, S,
+    D), v (B, Hkv, S, Dv); Hkv divides H; ``cache_len`` (B,) masks
+    positions >= cache_len.  Returns (B, H, Dv) in q's dtype.
+
+    ``repro/kernels/ref.py:347-365``: float32 einsums over the cache in
+    its own dtype cast up, masked logits -inf, float32 softmax.
+    """
+    b, h, d = q.shape
+    hkv, s, dv = k.shape[1], k.shape[2], v.shape[-1]
+    qg = q.float().reshape(b, hkv, h // hkv, d)
+    logits = torch.einsum("bhgd,bhtd->bhgt", qg, k.float()) / math.sqrt(d)
+    if cache_len is not None:
+        mask = torch.arange(s, device=q.device)[None] < cache_len[:, None]
+        logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgt,bhtd->bhgd", probs, v.float())
+    return out.reshape(b, h, dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -35,10 +35,12 @@ PQ_ROWS = 512
 MAX_CODES = 256
 
 # Widest running top-k (r_pad), probe set (np_pad) and re-rank depth
-# the kernels take: a scan block keeps its top entries out of SCAN_ROWS
-# rows, a stage-1 block out of CENTROID_CHUNK centroids, and the re-rank
-# block sorts at most this many candidates (csrc/pq_adc.cu MAX_R).
-MAX_PAD = 128
+# the kernels take (csrc/pq_adc.cu MAX_R): a scan block keeps its best
+# min(r_pad, SCAN_ROWS) rows, a stage-1 block its best min(np_pad,
+# CENTROID_CHUNK) centroids, and pads the rest of its list; the merge
+# takes lists of this width (merge_group(1024) = 18 a block) and the
+# re-rank block sorts this many candidates in dynamic shared memory.
+MAX_PAD = 1024
 
 # One merge candidate in shared memory: value f32, id i32, position i32.
 MERGE_ENTRY_BYTES = 12
@@ -126,7 +128,7 @@ def check_width(d: int) -> None:
 
 def check_pad(name: str, n: int) -> int:
     """Pad a top-k width to a power of two within the kernels' cap
-    (wider top-k is ROADMAP Queue 3)."""
+    (top-k past 1,024 is ROADMAP Queue 3)."""
     n_pad = next_pow2(n)
     if n_pad > MAX_PAD:
         raise ValueError(f"{name}={n} pads to {n_pad}; the CUDA kernels "

@@ -1,12 +1,13 @@
-"""Building blocks of the bi-encoder and the recsys towers, as ``nn.Module``s.
+"""Building blocks of the bi-encoder, the recsys towers and the LM, as ``nn.Module``s.
 
-Port of the parts of ``repro/models/layers.py`` the encoder and the
-two-tower model use: RMSNorm (float32, eps 1e-6, ``:42-46``), RoPE in
-the split-halves convention (``:66-79``), GQA attention with optional
-qkv bias and qk-norm (``AttnConfig``, ``_project_qkv`` + ``attn_apply``,
-``:86-146``), the SwiGLU MLP (``:177-186``) and the plain MLP tower
-(``mlp_init`` / ``mlp_apply``, ``:189-210``).  The LM-only parts
-(decode, MoE, MLA) are not ported.
+Port of the parts of ``repro/models/layers.py`` the encoder, the
+two-tower model and the dense LMs use: RMSNorm (float32, eps 1e-6,
+``:42-46``), RoPE in the split-halves convention (``:66-79``), GQA
+attention with optional qkv bias and qk-norm (``AttnConfig``,
+``_project_qkv`` + ``attn_apply``, ``:86-146``) and its one-token decode
+against a KV cache (``attn_decode``, ``:149-171``), the SwiGLU MLP
+(``:177-186``) and the plain MLP tower (``mlp_init`` / ``mlp_apply``,
+``:189-210``).  MoE and MLA are not ported (ROADMAP Queue 1, item 7).
 
 Parameters keep the reference's layout (``x @ w`` with ``w`` of shape
 (d_in, d_out)), so a reference parameter tree converts leaf for leaf.
@@ -27,7 +28,8 @@ from torch import nn
 from repro_torch.kernels import ops
 
 Params = Dict[str, object]
-#: an attention function (q, k, v, *, causal) -> out, in place of the kernel
+#: an attention function (q, k, v, *, causal) -> out, or a decode attention
+#: function (q, k, v, cache_len) -> out, in place of the kernel
 AttentionFn = Callable[..., torch.Tensor]
 
 
@@ -132,9 +134,12 @@ class Attention(nn.Module):
     """Full-sequence attention through ``ops.flash_attention``, or through
     ``attention`` where an instance sets it (e.g. to
     ``kernels.ref.mha_attention``, to hold the kernel to its plain
-    version inside a model)."""
+    version inside a model); one-token decode through
+    ``ops.flash_decode``, or ``decode_attention`` where set (e.g. to
+    ``kernels.ref.decode_attention``)."""
 
     attention: Optional[AttentionFn] = None
+    decode_attention: Optional[AttentionFn] = None
 
     def __init__(self, cfg: AttnConfig, params: Params):
         super().__init__()
@@ -168,6 +173,13 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, S, d) -> (B, S, d)."""
+        return self.forward_kv(x, positions)[0]
+
+    def forward_kv(self, x: torch.Tensor,
+                   positions: Optional[torch.Tensor] = None):
+        """``forward``, also returning the keys and values it attended to:
+        (out (B, S, d), k (B, Hkv, S, dh), v (B, Hkv, S, dh)), the LM's
+        prefill writes them to its cache."""
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
@@ -179,7 +191,40 @@ class Attention(nn.Module):
             out = self.attention(q, k, v, causal=self.cfg.causal)
         out = out.transpose(1, 2).reshape(b, s,
                                           self.cfg.n_heads * self.cfg.d_head)
-        return out @ self.wo
+        return out @ self.wo, k, v
+
+    def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, cache_len: torch.Tensor):
+        """One-token decode: x (B, 1, d), caches (B, Hkv, S, dh), cache_len
+        (B,) the current fill.  Returns (out (B, 1, d), k_cache, v_cache).
+
+        Each row's new key and value go to position ``cache_len`` (RoPE at
+        that position), in place; a row whose cache is full (cache_len >=
+        S) writes nothing, as the reference's ``mode="drop"`` scatter,
+        and attends to its S cached positions.  Then ``ops.flash_decode``
+        over ``cache_len + 1`` positions.
+        """
+        cfg = self.cfg
+        b = x.shape[0]
+        hkv, s = k_cache.shape[1], k_cache.shape[2]
+        q, k, v = self.project_qkv(x, cache_len[:, None])
+        # the drop without a host sync: a full row writes back what it
+        # holds at S - 1
+        keep = (cache_len < s)[:, None, None]
+        pos = cache_len.clamp(max=s - 1).long()[:, None]
+        b_ix = torch.arange(b, device=x.device)[:, None]
+        h_ix = torch.arange(hkv, device=x.device)[None, :]
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache[b_ix, h_ix, pos] = torch.where(
+                keep, new[:, :, 0].to(cache.dtype), cache[b_ix, h_ix, pos])
+        if self.decode_attention is None:
+            out = ops.flash_decode(q[:, :, 0], k_cache, v_cache,
+                                   cache_len + 1, device=x.device)
+        else:
+            out = self.decode_attention(q[:, :, 0], k_cache, v_cache,
+                                        cache_len + 1)
+        return (out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ self.wo,
+                k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------

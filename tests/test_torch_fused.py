@@ -117,3 +117,30 @@ def test_fused_turn_all_probed_lists_empty():
     assert bool((i == -1).all()) and bool(torch.isneginf(v).all())
     _, _, pos = tops.fused_scan(*_t(q, lv, li), sel, 4, device="cpu")
     assert bool((pos == PAD_POS).all())
+
+
+# k = 1,000 (the depth TREC CAsT runs are scored at) with nprobe 64 and
+# 256: the reference's jnp oracle (its Pallas kernels, in interpret mode,
+# are too slow at this width on the CPU)
+THOUSAND = [(300, 40, 8, 2, 64, 1000), (600, 20, 8, 1, 256, 1000)]
+
+
+@pytest.mark.parametrize("shape", THOUSAND)
+def test_fused_turn_and_scan_match_reference_at_k_1000(shape):
+    p, lmax, d, b, nprobe, k = shape
+    q, cents, lv, li, own = _inputs(p, lmax, d, b, nprobe)
+    rv, ri, rs = rops.fused_turn(jnp.asarray(q), jnp.asarray(cents),
+                                 jnp.asarray(lv), jnp.asarray(li),
+                                 nprobe=nprobe, k=k, mode="ref")
+    tv, ti, ts = tops.fused_turn(*_t(q, cents, lv, li), nprobe=nprobe, k=k,
+                                 device="cpu")
+    _eq(rv, tv, "values")
+    _eq(ri, ti, "ids")
+    _eq(rs, ts, "sel")
+    rv, ri, _ = rops.fused_scan(jnp.asarray(q), jnp.asarray(lv),
+                                jnp.asarray(li), jnp.asarray(np.array(rs)),
+                                k, own=jnp.asarray(own), mode="ref")
+    tv, ti, _ = tops.fused_scan(*_t(q, lv, li), ts, k,
+                                own=torch.from_numpy(own), device="cpu")
+    _eq(rv, tv, "scan values")
+    _eq(ri, ti, "scan ids")

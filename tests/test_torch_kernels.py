@@ -22,6 +22,8 @@ import torch
 from repro_torch.core import kmeans
 from repro_torch.core.topk import topk
 from repro_torch.kernels import ops, ref, tiling
+from repro_torch.kernels.flash_decode import flash_decode as \
+    flash_decode_launch
 from repro_torch.kernels.sorting import PAD_POS
 
 SHAPES = [(6, 10, 16, 3, 3, 4),        # p, lmax, d, B, nprobe, k
@@ -196,13 +198,15 @@ def test_plain_versions_match_brute_force_past_one_block_merge():
 
 def test_wrapper_limits():
     """What the kernels do not take is refused before any launch: top-k
-    wider than 128 (ROADMAP Queue 3) and rows that are not float4."""
+    wider than 1,024 (ROADMAP Queue 3) and rows that are not float4."""
     assert tiling.check_pad("k", 10) == 16
     assert tiling.check_pad("k", 100) == 128
-    with pytest.raises(ValueError, match="at most 128"):
-        tiling.check_pad("nprobe", 129)
-    with pytest.raises(ValueError, match="at most 128"):
-        tiling.merge_group(256)
+    assert tiling.check_pad("k", 1000) == 1024
+    assert tiling.check_pad("nprobe", 256) == 256
+    with pytest.raises(ValueError, match="at most 1024"):
+        tiling.check_pad("nprobe", 1025)
+    with pytest.raises(ValueError, match="at most 1024"):
+        tiling.merge_group(2048)
     with pytest.raises(ValueError, match="float4"):
         tiling.check_width(6)
     # the smoke's merges take one pass
@@ -224,8 +228,9 @@ def test_pq_wrapper_limits():
         tiling.check_lut(256, 256)
     assert len(tiling.merge_plan(64 * tiling.pq_split(4096), 64)) == 2
     assert tiling.check_pad("rerank depth", 100) == 128
-    with pytest.raises(ValueError, match="at most 128"):
-        tiling.check_pad("rerank depth", 200)
+    assert tiling.check_pad("rerank depth", 1000) == 1024
+    with pytest.raises(ValueError, match="at most 1024"):
+        tiling.check_pad("rerank depth", 1025)
 
 
 # the two-tower retrieval_cand shape through TopLoc_IVF
@@ -261,6 +266,37 @@ def test_merge_plan_passes_until_one_group():
     assert tiling.merge_plan(group + 1, 128) == [(group + 1, 2), (2, 1)]
     assert tiling.merge_plan(group * group + 1, 128) == \
         [(group * group + 1, group + 1), (group + 1, 2), (2, 1)]
+
+
+def test_merge_plan_at_width_1024():
+    """Lists of 1,024 (k = 1,000) go 18 a block: 232,448 // 12,288; the
+    smoke's k = 1,000 scan (64 probes x 6 slices) takes three passes."""
+    assert tiling.merge_group(1024) == 18
+    assert 18 * 1024 * tiling.MERGE_ENTRY_BYTES <= tiling.SMEM_BLOCK_BYTES
+    assert tiling.merge_plan(64 * tiling.scan_split(702), 1024) == \
+        [(384, 22), (22, 2), (2, 1)]
+    # stage 1 at p = 16,384 and nprobe 256: 128 chunks of 256, one group
+    assert tiling.merge_group(256) == 75
+    assert tiling.merge_plan(tiling.centroid_chunks(16_384), 256) == \
+        [(128, 2), (2, 1)]
+
+
+# k = 1,000 and nprobe = 256 / a re-rank depth of 1,000: each block keeps
+# its best 128 (scan, stage 1) or 512 (ADC) and pads the rest of its list
+THOUSAND_SHAPES = [(300, 200, 8, 2, 64, 1000),
+                   (600, 40, 8, 2, 256, 1000)]
+THOUSAND_PQ_SHAPES = [(600, 40, 16, 2, 256, 100, 16, 256, 1000),
+                      (64, 1220, 16, 1, 8, 1000, 16, 256, 1000)]
+
+
+@pytest.mark.parametrize("shape", THOUSAND_SHAPES)
+def test_plain_versions_match_brute_force_at_k_1000(shape):
+    test_plain_versions_match_brute_force(shape)
+
+
+@pytest.mark.parametrize("shape", THOUSAND_PQ_SHAPES)
+def test_pq_plain_versions_match_brute_force_at_depth_1000(shape):
+    test_pq_plain_versions_match_brute_force(shape)
 
 
 @pytest.fixture
@@ -361,6 +397,23 @@ def test_cuda_pq_kernels_equal_plain_versions(cuda_device, shape):
 def test_cuda_pq_kernels_equal_plain_versions_at_depth_128(cuda_device,
                                                            shape):
     """A re-rank depth of 128 (r_pad 128), one and three merge groups."""
+    test_cuda_pq_kernels_equal_plain_versions(cuda_device, shape)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("shape", THOUSAND_SHAPES)
+def test_cuda_kernels_equal_plain_versions_at_k_1000(cuda_device, shape):
+    """k = 1,000 (r_pad 1,024, merges of 18 lists a block) and nprobe =
+    256 (np_pad 256): bit-equal to the plain versions."""
+    test_cuda_kernels_equal_plain_versions(cuda_device, shape)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("shape", THOUSAND_PQ_SHAPES)
+def test_cuda_pq_kernels_equal_plain_versions_at_depth_1000(cuda_device,
+                                                            shape):
+    """nprobe = 256 and a re-rank depth of 1,000 (r_pad 1,024): the
+    re-rank sorts 1,024 candidates in dynamic shared memory."""
     test_cuda_pq_kernels_equal_plain_versions(cuda_device, shape)
 
 
@@ -545,3 +598,119 @@ def test_cuda_embedding_bag_refuses_grad_and_empty_launches_nothing(
         ops.embedding_bag(table.requires_grad_(), ids)
     with torch.no_grad():
         ops.embedding_bag(table, ids)
+
+
+# ---------------------------------------------------------------------------
+# flash decode: one query token per row against a KV cache
+# ---------------------------------------------------------------------------
+
+# B, H, Hkv, S, D: GQA groups 1, 5 and 8; S not a multiple of 128, 1,024
+# and 32,768 (decode_32k); B = 1 and 8
+DECODE_SHAPES = [(1, 4, 4, 1000, 64), (8, 40, 8, 1000, 128),
+                 (1, 32, 4, 1024, 128), (8, 32, 4, 1024, 128),
+                 (8, 32, 4, 32_768, 128), (2, 10, 2, 300, 16)]
+
+
+def _decode_inputs(shape, dtype, dev="cpu"):
+    """q (B, H, D) float32, the cache in ``dtype``, and cache_len per row
+    cycling through 1, S, S + 1 (a full cache's dropped write) and values
+    between."""
+    b, h, hkv, s, d = shape
+    g = torch.Generator().manual_seed(s + h + b)
+    q = torch.randn((b, h, d), generator=g)
+    k, v = (torch.randn((b, hkv, s, d), generator=g).to(dtype)
+            for _ in range(2))
+    lens = torch.tensor([1, s, s + 1, s // 2 + 3, s - 1, 17, s // 3,
+                         s - 100][:b], dtype=torch.int32)
+    return [x.to(dev) for x in (q, k, v, lens.clamp_min(1))]
+
+
+def _decode_float64(q, k, v, lens):
+    q, k, v = (x.double().numpy() for x in (q, k, v))
+    b, h, d = q.shape
+    out = np.zeros_like(q)
+    for row in range(b):
+        n = min(int(lens[row]), k.shape[2])
+        for head in range(h):
+            kv = head // (h // k.shape[1])
+            s = k[row, kv, :n] @ q[row, head] / np.sqrt(d)
+            p = np.exp(s - s.max())
+            out[row, head] = p @ v[row, kv, :n] / p.sum()
+    return out
+
+
+@pytest.mark.parametrize("shape", [DECODE_SHAPES[i] for i in (0, 1, 5)])
+def test_plain_decode_matches_float64(shape):
+    q, k, v, lens = _decode_inputs(shape, torch.float32)
+    got = ref.decode_attention(q, k, v, lens)
+    np.testing.assert_allclose(got.numpy(), _decode_float64(q, k, v, lens),
+                               rtol=0, atol=ATTN_TOL)
+
+
+def _bf16_row_ulp(x):
+    """One bfloat16 ulp at the largest |x| of each (b, h) row."""
+    top = x.abs().amax(-1, keepdim=True).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_cuda_flash_decode_equals_plain_version(cuda_device, shape, dtype):
+    """The kernel's float32 result within 1e-5 of the plain version's,
+    on a float32 or a bfloat16 cache; with a bf16 query the op's bf16
+    output within one bf16 ulp of its row's largest |out| (each side
+    rounds its own f32 result; an output near 0 is a cancellation, where
+    the summation order moves more bits than one ulp of it)."""
+    q, k, v, lens = _decode_inputs(shape, dtype, cuda_device)
+    f32 = flash_decode_launch(q, k, v, lens)
+    err = float((f32 - ref.decode_attention(q, k, v, lens)).abs().max())
+    assert err <= ATTN_TOL
+    q = q.to(dtype)
+    before = ops.flash_decode.launches
+    got = ops.flash_decode(q, k, v, lens)
+    want = ref.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 1
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= ATTN_TOL
+    else:
+        assert bool((diff <= _bf16_row_ulp(want.float())).all())
+
+
+@pytest.mark.cuda_only
+def test_cuda_flash_decode_ignores_the_batch_and_unread_rows(cuda_device):
+    """A row's output is the same bits alone or in a batch, and whatever
+    lies past its cache_len is never read (NaN there changes nothing)."""
+    q, k, v, lens = _decode_inputs(DECODE_SHAPES[3], torch.bfloat16,
+                                   cuda_device)
+    full = ops.flash_decode(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    for row, n in enumerate(lens.tolist()):
+        k2[row, :, n:] = float("nan")
+        v2[row, :, n:] = float("nan")
+    assert torch.equal(ops.flash_decode(q, k2, v2, lens), full)
+    for row in (0, 5):
+        one = ops.flash_decode(q[row:row + 1], k[row:row + 1].contiguous(),
+                               v[row:row + 1].contiguous(),
+                               lens[row:row + 1])
+        assert torch.equal(one[0], full[row])
+
+
+@pytest.mark.cuda_only
+def test_cuda_flash_decode_refuses_grad_and_empty_launches_nothing(
+        cuda_device):
+    q, k, v, lens = _decode_inputs(DECODE_SHAPES[0], torch.float32,
+                                   cuda_device)
+    before = ops.flash_decode.launches
+    out = ops.flash_decode(q[:0], k[:0], v[:0], lens[:0])
+    assert out.shape == (0, 4, 64) and ops.flash_decode.launches == before
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ops.flash_decode(q.requires_grad_(), k, v, lens)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_decode(q.detach()[..., :60].contiguous(),
+                         k[..., :60].to(torch.bfloat16).contiguous(),
+                         v[..., :60].to(torch.bfloat16).contiguous(), lens)

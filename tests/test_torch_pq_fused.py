@@ -155,3 +155,22 @@ def test_fused_turn_pq_matches_reference(shape, mode):
         _eq(ri, ti, "ids")
         _eq(rs, ts, "sel")
         assert ti.dtype == ts.dtype == torch.int32
+
+
+@pytest.mark.parametrize("rerank", [1000, 100])
+def test_fused_turn_pq_matches_reference_at_nprobe_256(rerank):
+    """nprobe = 256 and a re-rank depth up to 1,000 (the reference's jnp
+    oracle: its interpret mode is too slow at this width on the CPU)."""
+    shape = (300, 12, 16, 2, 256, 100, 4, 16)
+    p, lmax, d, b, nprobe, k, m, c = shape
+    q, cents, tables, codes, li, corpus, _ = _inputs(shape)
+    rv, ri, rs = rops.fused_turn_pq(
+        jnp.asarray(q), jnp.asarray(cents), jnp.asarray(tables),
+        jnp.asarray(codes), jnp.asarray(li), jnp.asarray(corpus),
+        nprobe=nprobe, k=k, rerank=rerank, mode="ref")
+    tv, ti, ts = tops.fused_turn_pq(
+        *_t(q, cents, tables, codes, li, corpus), nprobe=nprobe, k=k,
+        rerank=rerank, device="cpu")
+    _eq(rv, tv, "values")
+    _eq(ri, ti, "ids")
+    _eq(rs, ts, "sel")

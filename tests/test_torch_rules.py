@@ -28,7 +28,9 @@ from repro_torch.core import pq as tpq
 from repro_torch.core import toploc as ttl
 from repro_torch.kernels import ops as tops
 from repro_torch.models import encoder as tenc
+from repro_torch.configs import yi_9b as tyi
 from repro_torch.models import recsys as trec
+from repro_torch.models import transformer as ttf
 from repro_torch.serving import engine as teng
 
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
@@ -45,7 +47,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.models.layers, repro_torch.models.encoder, "
         "repro_torch.configs.encoders, repro_torch.data.tokenizer, "
         "repro_torch.kernels.embedding_bag, repro_torch.models.recsys, "
-        "repro_torch.configs.two_tower_retrieval\n"
+        "repro_torch.configs.two_tower_retrieval, "
+        "repro_torch.kernels.flash_decode, repro_torch.models.transformer, "
+        "repro_torch.configs.yi_9b, repro_torch.configs.common\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n")
@@ -138,6 +142,13 @@ ENTRY_POINTS = {
         ttt.smoke_config()),
     "convert.two_tower": lambda idx, q: convert.two_tower_params_from_numpy(
         {}, ttt.smoke_config()),
+    "ops.flash_decode": lambda idx, q: tops.flash_decode(
+        torch.zeros((1, 2, 8)), torch.zeros((1, 1, 4, 8)),
+        torch.zeros((1, 1, 4, 8)), torch.ones(1, dtype=torch.int32)),
+    "transformer.init_params": lambda idx, q: ttf.init_params(
+        tyi.smoke_config()),
+    "convert.lm": lambda idx, q: convert.lm_params_from_numpy(
+        {}, tyi.smoke_config()),
     "engine": lambda idx, q: teng.ConversationalSearchEngine(
         teng.ServingConfig(), ivf_index=idx),
     "engine.ivf_pq": lambda idx, q: teng.ConversationalSearchEngine(
@@ -254,3 +265,16 @@ def test_make_ivf_pq_defaults_match_the_reference():
     assert (type(port).name, type(port).index_kwarg) == \
         ("ivf_pq", "ivf_pq_index")
     assert isinstance(port, tbackend.IVFBackend)
+
+
+@pytest.mark.parametrize("unported", [dict(attn_kind="mla"),
+                                      dict(n_experts=8),
+                                      dict(logit_soft_cap=30.0)])
+def test_unported_lm_features_raise(unported):
+    """MLA, MoE and the logit soft cap are ROADMAP Queue 1, item 7: the
+    config is refused before any parameter is drawn or converted."""
+    cfg = dataclasses.replace(tyi.smoke_config(), **unported)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+        ttf.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+        ttf.LM(cfg, {})
