@@ -36,10 +36,12 @@ exits non-zero):
               spills per kernel)
   3 exact     integer inputs: kernels == plain versions bit for bit
               (retrieval top-k and re-rank depth up to 1,000, nprobe up
-              to 256, merges past one block; embedding_bag at B = 1,
-              512, 262,144)
-  4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25, and
-              at the two-tower retrieval_cand shape
+              to 256, merges past one block; the bf16 and int8 fused
+              ops too, r = 2,000 and several int8 groups a list; +0.0
+              above -0.0 in core.topk; embedding_bag at B = 1, 512,
+              262,144)
+  4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25, f32,
+              bf16 and int8, and at the two-tower retrieval_cand shape
   5 attn      flash_attention == its plain version within 1e-5, Yi-9B's
               RAG prefill shape (S = 784, D = 128, GQA 8, causal) on
               bf16 inputs too, its bf16 output within one bf16 ulp
@@ -63,9 +65,15 @@ exits non-zero):
  10 index     the port's ivf.build at full size + exact top-10
  11 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
  12 serve     per backend: toploc+ / toploc / plain fused, toploc+
-              unfused; each backend's launch counts start at 0
+              unfused; each backend's launch counts start at 0; then
+              the quantised turn, ServingConfig(fused=True, precision=
+              "bf16" / "int8") x toploc+ / toploc / plain, counts from 0
+              again, recall@10 and counters against the f32 fused path
+    fig8      the reference's recall gate: quantised vs f32 fused turn
+              >= 0.95 at fig8's 20,000 docs, d = 64, p = 2,048
  13 batched   start_batch / step_batch == the sequential engine
- 14 times     CUDA-event kernel times (L2 flushed) beside their bounds
+ 14 times     CUDA-event kernel times (L2 flushed) beside their bounds,
+              rows 4-7 at f32, bf16 and int8
  15 decode32k once the retrieval objects are freed: Yi-9B at decode_32k
               (S = 32,768) cut from B = 128 to B = 8 (412 GB of cache
               at B = 128; 25.8 GB at B = 8), ragged cache_len; step ms
@@ -105,11 +113,18 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 PQ_M, PQ_ITERS, RERANK = 48, 8, 64
 IVF_KERNELS = ("fused_scan", "fused_turn")
 PQ_KERNELS = ("pq_adc_scan", "fused_scan_pq", "fused_turn_pq")
+# the quantised fused turn: bf16 and int8 instances of rows 4-7, named
+# "op[precision]" in the kernels line
+QUANT = ("bf16", "int8")
+QUANT_OPS = ("fused_scan", "fused_turn", "fused_scan_pq", "fused_turn_pq")
+QUANT_KERNELS = tuple(f"{op}[{prec}]" for op in QUANT_OPS for prec in QUANT)
 ENC_KERNELS = ("flash_attention",)
 REC_KERNELS = ("embedding_bag",)
 LM_KERNELS = ("flash_decode",)
 SOURCES = {**dict.fromkeys(IVF_KERNELS, SCAN_SRC),
            **dict.fromkeys(PQ_KERNELS, PQ_SRC),
+           **{f"{op}[{prec}]": SCAN_SRC if op in IVF_KERNELS else PQ_SRC
+              for op in QUANT_OPS for prec in QUANT},
            "flash_attention": FA_SRC, "embedding_bag": EB_SRC,
            "flash_decode": FD_SRC}
 REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
@@ -120,6 +135,8 @@ REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "flash_attention": "src/repro/kernels/flash_attention.py:89",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:49",
             "flash_decode": "src/repro/kernels/flash_attention.py:180"}
+REPLACES.update({f"{op}[{prec}]": REPLACES[op] for op in QUANT_OPS
+                 for prec in QUANT})
 BAG_TOL = 1e-6                 # embedding_bag on random floats
 # the encoder path: docs of the text corpus, queries of Q_LEN tokens
 # padded to max_len, DOC_BATCH docs per doc-tower call ([attn] and
@@ -309,6 +326,98 @@ def phase_exact(dev):
     return len(EXACT_SHAPES), len(PQ_EXACT_SHAPES), passes
 
 
+# several int8 scale groups a list (d = 1,024, Lmax > 1,024), then r =
+# 2,000 (r_pad 2,048) wider than that byte-capped group of 1,024 rows
+GROUP_SHAPES = [(8, 1100, 1024, 2, 3, 4), (8, 1100, 1024, 2, 3, 1000)]
+SIGNED_ZEROS = [-0.0, 0.0, -0.0, 0.0, 1.0, -1.0]
+BF16_STEP = 2.0 ** -9
+
+
+def bf16_split(tensors, seed):
+    """Integer tensors (|x| <= 4) with BF16_STEP added to the magnitude
+    of about half their nonzero entries: bf16 (8 significant bits)
+    rounds each back to its integer and float32 keeps it, so bf16 scores
+    and float32 scores order the rows differently.  Against integer
+    queries every float32 sum stays exact (terms are multiples of 2^-9,
+    sums below 2^15 at d <= 1,024), and so do the ADC sums of m <= 48
+    such LUT entries."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return [t + t.sign() * BF16_STEP * torch.from_numpy(
+        rng.integers(0, 2, size=tuple(t.shape)).astype(np.float32)).to(
+            t.device) for t in tensors]
+
+
+def phase_exact_quant(dev):
+    """bf16 and int8 fused ops == their plain versions, bit for bit:
+    values, ids, sel and candidate ranks, at the IVF and PQ shapes of
+    phase_exact (k = 1,000: r = 2,000, r_pad 2,048) and GROUP_SHAPES.
+    First on integer inputs (|x| <= 4: bf16 rounds nothing, int8 is
+    exact), then with the centroids, lists, LUTs and corpus rows of
+    ``bf16_split`` (integer queries), on which a kernel that skipped
+    bf16's rounding at any stage would order candidates as float32 does.
+    Then +0.0 above -0.0 in ``core.topk`` on the card (no fused kernel
+    emits -0.0: every sum starts at +0.0)."""
+    import torch
+    from repro_torch.core.topk import topk
+    for rounded in (False, True):
+        exact_quant(dev, rounded)
+    x = torch.tensor(SIGNED_ZEROS, device=dev)
+    got = topk(x[None].repeat(4, 1), 6)[1].tolist()
+    if got != [[4, 1, 3, 0, 2, 5]] * 4:
+        raise AssertionError(f"core.topk on the card orders +-0 as {got}")
+    torch.cuda.synchronize()
+    return len(EXACT_SHAPES) + len(GROUP_SHAPES), len(PQ_EXACT_SHAPES)
+
+
+def exact_quant(dev, rounded):
+    """phase_exact_quant's checks on integer inputs, or on ``bf16_split``
+    ones if ``rounded``."""
+    from repro_torch.kernels import ops, ref
+    for prec in QUANT:
+        for shape in EXACT_SHAPES + GROUP_SHAPES:
+            q, cents, lv, li, own = int_inputs(shape, dev)
+            if rounded:
+                cents, lv = bf16_split((cents, lv), shape[0])
+            tag = f"[{prec}]{' bf16-split' if rounded else ''} {shape}"
+            nprobe, k = shape[4], shape[5]
+            r = ops._fused_depth(k, nprobe * shape[1], 2 * k)
+            got = ops.fused_turn(q, cents, lv, li, nprobe=nprobe, k=k,
+                                 precision=prec)
+            want = ref.fused_turn_ivf(q, cents, lv, li, nprobe=nprobe, k=k,
+                                      precision=prec, r=r)
+            equal(f"fused_turn{tag}", got, want, ("v", "ids", "sel"))
+            got = ops.fused_scan(q, lv, li, want[2], k, own=own,
+                                 precision=prec)
+            want = ref.fused_scan_ivf(q, lv, li, want[2], own, k=k,
+                                      precision=prec, r=r)
+            equal(f"fused_scan{tag}", got, want, ("v", "ids", "rank"))
+        for shape in PQ_EXACT_SHAPES:
+            q, cents, tables, codes, li, corpus, own = pq_int_inputs(shape,
+                                                                     dev)
+            if rounded:
+                cents, tables, corpus = bf16_split((cents, tables, corpus),
+                                                   shape[0])
+            tag = f"[{prec}]{' bf16-split' if rounded else ''} {shape}"
+            nprobe, k, rerank = shape[4], shape[5], shape[8]
+            r = max(k, min(rerank, nprobe * shape[1]))
+            got = ops.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                                    nprobe=nprobe, k=k, rerank=rerank,
+                                    precision=prec)
+            want = ref.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                                     nprobe=nprobe, k=k, r=r, precision=prec)
+            equal(f"fused_turn_pq{tag}", got, want, ("v", "ids", "sel"))
+            for fuse in (True, False):
+                equal(f"fused_scan_pq{tag} rerank={fuse}",
+                      ops.fused_scan_pq(tables, q, codes, li, want[2],
+                                        corpus, k, rerank=rerank, own=own,
+                                        fuse_rerank=fuse, precision=prec),
+                      ref.fused_scan_pq(tables, q, codes, li, want[2], own,
+                                        corpus, k=k, r=r, rerank=fuse,
+                                        precision=prec),
+                      ("v", "ids", "pos"))
+
+
 # embedding_bag: V rows of the two-tower width, bags of the history length
 BAG_V, BAG_D, BAG_L = 100_000, 256, 50
 BAG_BATCHES = (1, 512, 262_144)     # a request, serve_p99, serve_bulk
@@ -426,6 +535,115 @@ def realistic_ivf(tag, q, cents, lv, li, nprobe, k, errs, ties):
     return sel, cs, docs
 
 
+def check_ranks(what, got, want, q, lv, li, sel, prec, r):
+    """A quantised fused_scan's candidate ranks (its third output, the
+    rank in the quantised order) against the plain quantised order: in
+    each row the finite lanes' ranks are distinct and below r, and each
+    returned id's plain quantised score lies within TOL of the plain
+    version's score at the rank the kernel gave it.  So a rank may
+    differ from the plain version's only where two quantised scores tie
+    within TOL.  Returns the number of ranks that differ."""
+    import torch
+    from repro_torch.kernels import ref, tiling
+    gv, gi, grank = got
+    fin = torch.isfinite(gv)
+    if bool(((grank < 0) | (grank >= r))[fin].any()):
+        raise AssertionError(f"{what}: a candidate rank out of [0, {r})")
+    lane = torch.arange(grank.shape[-1], device=grank.device)
+    srt = grank.long().where(fin, -1 - lane).sort(-1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise AssertionError(f"{what}: a candidate rank repeats in a row")
+    flat_i = li[sel.long()].reshape(sel.shape[0], -1)
+    flat_v = torch.where(flat_i >= 0, ref.list_scores(
+        q, lv, sel, prec, tiling.next_pow2(r)), float("-inf"))
+    cand_v = ref._top_candidates(flat_v, flat_i, r)[0]
+    # each returned id's flat position (ids are unique in these lists)
+    pos = (flat_i[:, :, None] == gi[:, None, :]).int().argmax(1)
+    own = flat_v.gather(1, pos)
+    at = cand_v.gather(1, grank.long().clamp(0, r - 1))
+    off = (own - at).abs().where(fin, torch.zeros_like(own))
+    if bool((off > TOL).any()):
+        raise AssertionError(f"{what}: an id sits at a candidate rank whose "
+                             f"quantised score is {float(off.max())} from "
+                             f"its own")
+    return int(((grank != want[2]) & fin).sum())
+
+
+def realistic_quant(tag, prec, q, cents, lv, li, sel, docs, tables, codes,
+                    rows, nprobe, k, r, errs, ties):
+    """The bf16 / int8 fused ops against their plain versions on float
+    lists under the tie rule: the quantised candidates and the ADC top r
+    are the plain version's (int8 exactly, bf16 up to summation order),
+    the float32 re-rank within TOL; fused_scan's candidate ranks under
+    the tie rule of the plain quantised scores (``check_ranks``), on the
+    plain probe set and on fused_turn's, whose stage 2 is that scan
+    (``csrc/fused_turn.cu`` fused_scan_ivf) and returns its bits; stage
+    1's probe set under the tie rule of the plain quantised centroid
+    scores."""
+    import torch
+    from repro_torch.core.topk import topk
+    from repro_torch.kernels import ops, ref, tiling
+    p, lmax, _ = lv.shape
+    r_ivf = ops._fused_depth(k, nprobe * lmax, 2 * k)
+    cq = ref.centroid_scores(q, cents, prec, tiling.next_pow2(nprobe))
+    _, qsel = topk(cq, nprobe)
+    qsel = qsel.to(torch.int32)
+
+    def cscore(ids):
+        return cq.gather(1, ids).double()
+
+    def check(name, got, want):
+        err, n = compare(f"{name}[{prec}] {tag}", got[0], got[1], want[0],
+                         want[1], docs, p * lmax)
+        key = f"{name}[{prec}]"
+        errs[key] = max(errs.get(key, 0.0), err)
+        ties[key] += n
+
+    got = ops.fused_scan(q, lv, li, sel, k, precision=prec)
+    want = ref.fused_scan_ivf(q, lv, li, sel, None, k=k, precision=prec,
+                              r=r_ivf)
+    check("fused_scan", got, want)
+    ties["rank"] += check_ranks(f"fused_scan[{prec}] ranks {tag}", got,
+                                want, q, lv, li, sel, prec, r_ivf)
+    gv, gi, gsel = ops.fused_turn(q, cents, lv, li, nprobe=nprobe, k=k,
+                                  precision=prec)
+    _, n = compare(f"fused_turn[{prec}] sel {tag}", cq.gather(1, gsel.long()),
+                   gsel, cq.gather(1, qsel.long()), qsel, cscore, p)
+    ties["sel"] += n
+    want = ref.fused_scan_ivf(q, lv, li, gsel, None, k=k, precision=prec,
+                              r=r_ivf)
+    check("fused_turn", (gv, gi), want)
+    # stage 2 of fused_turn is fused_scan on its probe set: the same bits,
+    # and that scan's candidate ranks under the tie rule
+    got = ops.fused_scan(q, lv, li, gsel, k, precision=prec)
+    equal(f"fused_turn[{prec}] stage 2 {tag}", (gv, gi), got[:2],
+          ("v", "ids"))
+    ties["rank"] += check_ranks(f"fused_turn[{prec}] ranks {tag}", got,
+                                want, q, lv, li, gsel, prec, r_ivf)
+    equal(f"fused_scan_pq[{prec}] ADC top-r {tag}",
+          ops.fused_scan_pq(tables, q, codes, li, sel, rows, k,
+                            rerank=RERANK, fuse_rerank=False,
+                            precision=prec),
+          ref.fused_scan_pq(tables, q, codes, li, sel, None, rows, k=k, r=r,
+                            rerank=False, precision=prec),
+          ("v", "ids", "pos"))
+    check("fused_scan_pq", ops.fused_scan_pq(tables, q, codes, li, sel, rows,
+                                             k, rerank=RERANK,
+                                             precision=prec),
+          ref.fused_scan_pq(tables, q, codes, li, sel, None, rows, k=k, r=r,
+                            rerank=True, precision=prec))
+    gv, gi, gsel = ops.fused_turn_pq(q, cents, tables, codes, li, rows,
+                                     nprobe=nprobe, k=k, rerank=RERANK,
+                                     precision=prec)
+    _, n = compare(f"fused_turn_pq[{prec}] sel {tag}",
+                   cq.gather(1, gsel.long()), gsel, cq.gather(1, qsel.long()),
+                   qsel, cscore, p)
+    ties["sel_pq"] += n
+    check("fused_turn_pq", (gv, gi), ref.fused_scan_pq(
+        tables, q, codes, li, gsel, None, rows, k=k, r=r, rerank=True,
+        precision=prec))
+
+
 def phase_realistic(args, dev, errs):
     """Float IVF lists, then PQ lists over the same slots: random uint8
     codes of m = 48, random codebooks, the float rows as re-rank
@@ -447,7 +665,8 @@ def phase_realistic(args, dev, errs):
         li, (li >= 0).sum(1).to(torch.int32), rows)
     r = max(k, min(RERANK, args.nprobe * lmax))
     ties = dict.fromkeys(("fused_turn", "fused_scan", "sel", "fused_turn_pq",
-                          "fused_scan_pq", "sel_pq"), 0)
+                          "fused_scan_pq", "sel_pq", "rank") +
+                         QUANT_KERNELS, 0)
     for b in (1, 25):
         q = qs[:b].contiguous()
         sel, cs, docs = realistic_ivf(f"B={b}", q, cents, lv, li,
@@ -484,6 +703,10 @@ def phase_realistic(args, dev, errs):
                          docs, p * lmax)
         errs["fused_turn_pq"] = max(errs["fused_turn_pq"], err)
         ties["fused_turn_pq"] += n
+        for prec in QUANT:
+            realistic_quant(f"B={b}", prec, q, cents, lv, li, sel, docs,
+                            tables, codes, rows, args.nprobe, k, r, errs,
+                            ties)
     torch.cuda.synchronize()
     del lv, li, rows, pqi
     torch.cuda.empty_cache()
@@ -1494,7 +1717,7 @@ def serve(backend, index, convs, exact, name, knobs, quiet=False):
     from repro_torch.serving.engine import (ConversationalSearchEngine,
                                             ServingConfig)
     eng = ConversationalSearchEngine(
-        ServingConfig(backend=backend, precision="f32", **knobs),
+        ServingConfig(**{"backend": backend, "precision": "f32", **knobs}),
         **{f"{backend}_index": index})
     before = launch_counts()
     n_conv, turns = convs.shape[:2]
@@ -1566,6 +1789,115 @@ def phase_serve(indexes, docs, convs, exact, dev):
             f"toploc+: stats equal, max |dscore| {err:.3g}, near-tie id "
             f"mismatches {n}")
     return runs, launches
+
+
+QSERVE = (("toploc+", "toploc+ fused"), ("toploc", "toploc fused"),
+          ("plain", "plain fused"))
+
+
+def phase_serve_quant(indexes, convs, exact, runs):
+    """``ServingConfig(fused=True, precision=...)`` for bf16 and int8 x
+    toploc+ / toploc / plain, per backend, after a warm-up, the launch
+    counts set to 0 just before each precision's runs and read just
+    after.  Each path against
+    the f32 fused path on the same turns: recall@10, and the TurnStats
+    counters, equal on the sessioned paths (their stage 1, cache and
+    drift check stay f32); the plain path's quantised stage 1 may probe
+    other lists.  Returns the launches per quantised kernel."""
+    from repro_torch.kernels import ops
+    launches = {}
+    for backend, _ in BACKENDS:
+        index = indexes[backend]
+        for prec in QUANT:
+            for strat, _ in QSERVE:
+                serve(backend, index, convs[:1, :2], exact[:1, :2], "", dict(
+                    strategy=strat, fused=True, precision=prec), quiet=True)
+        ops_kernels = (("fused_scan", "fused_turn") if backend == "ivf"
+                       else ("fused_scan_pq", "fused_turn_pq"))
+        for prec in QUANT:
+            ops.reset_launches()
+            for strat, f32_name in QSERVE:
+                eng, _, ids = serve(backend, index, convs, exact,
+                                    f"{strat} fused {prec}",
+                                    dict(strategy=strat, fused=True,
+                                         precision=prec))
+                f32_eng, _, f32_ids = runs[backend][f32_name]
+                k = eng.cfg.k
+                rec = np.mean([len(set(a) & set(b)) / k for a, b in zip(
+                    ids.reshape(-1, k), f32_ids.reshape(-1, k))])
+                same = [[getattr(r, f) for f in STAT_FIELDS] == [
+                    getattr(g, f) for f in STAT_FIELDS]
+                    for r, g in zip(eng.records, f32_eng.records)]
+                cents = all(r.centroid_dists == g.centroid_dists for r, g in
+                            zip(eng.records, f32_eng.records))
+                if strat != "plain" and not all(same):
+                    raise AssertionError(f"{backend} {strat} {prec}: "
+                                         f"TurnStats differ from f32's")
+                if not cents:
+                    raise AssertionError(f"{backend} {strat} {prec}: "
+                                         f"centroid_dists differ")
+                log("serve", f"{backend} {strat} fused {prec} vs f32 fused: "
+                    f"recall@10={rec:.4f} TurnStats equal on "
+                    f"{sum(same)}/{len(same)} turns (centroid_dists on all)")
+            for op in ops_kernels:
+                n = getattr(ops, op).launches
+                if n == 0:
+                    raise AssertionError(f"{op}[{prec}] was not launched")
+                launches[f"{op}[{prec}]"] = n
+        log("serve", f"{backend} quantised launches " + str(
+            {n: c for n, c in launches.items() if n.split("[")[0] in
+             ops_kernels}))
+    return launches
+
+
+def phase_fig8(dev):
+    """The reference's own recall gate (``benchmarks/fig8_fused.py``):
+    20,000 synthetic docs at d = 64, IVF p = 2,048, nprobe 16, k 10, the
+    first 32 utterances; recall@10 of the quantised fused turn against
+    the f32 fused turn on the card must be >= 0.95 (fused_turn); the PQ
+    turn (m = 8, rerank 64) is reported."""
+    import torch
+    from repro_torch.core import ivf, pq, toploc
+    from repro_torch.data import synthetic as SY
+    from repro_torch.kernels import ops
+    wl = SY.make_workload(SY.WorkloadConfig(
+        n_docs=20_000, d=64, n_topics=32, n_conversations=8,
+        turns_per_conversation=8, seed=8))
+    docs = torch.from_numpy(wl.doc_vecs).to(dev)
+    idx = ivf.build(docs, 2048, iters=4, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pqi = pq.build_ivf_pq(idx, docs, pq.train(docs, 8, iters=4,
+                                              generator=gen))
+    q = torch.from_numpy(wl.conversations.reshape(-1, 64)[:32]).to(dev)
+    tables = toploc._adc_tables(pqi, q)
+
+    def run(prec):
+        ivf_ids = ops.fused_turn(q, idx.centroids, idx.list_vecs,
+                                 idx.list_ids, nprobe=16, k=10,
+                                 precision=prec)[1].cpu().numpy()
+        pq_ids = ops.fused_turn_pq(q, pqi.centroids, tables, pqi.list_codes,
+                                   pqi.list_ids, pqi.doc_vecs, nprobe=16,
+                                   k=10, rerank=64,
+                                   precision=prec)[1].cpu().numpy()
+        return ivf_ids, pq_ids
+
+    def recall(a, b):
+        return float(np.mean([len(set(x) & set(y)) / 10
+                              for x, y in zip(a, b)]))
+
+    base = run("f32")
+    out = {}
+    for prec in QUANT:
+        got = run(prec)
+        out[prec] = (recall(got[0], base[0]), recall(got[1], base[1]))
+        log("fig8", f"{prec}: recall@10 vs the f32 fused turn: ivf "
+            f"{out[prec][0]:.3f} (floor 0.95), ivf_pq {out[prec][1]:.3f} "
+            f"(reported); 20,000 docs d=64 p=2048 lmax={idx.lmax} "
+            f"nprobe=16 k=10, 32 queries")
+        if out[prec][0] < 0.95:
+            raise AssertionError(f"fig8 {prec} recall@10 {out[prec][0]} "
+                                 f"< 0.95")
+    return out
 
 
 def phase_batched(index, convs, run, dev):
@@ -1749,17 +2081,84 @@ def phase_times(args, index, pqi, convs, dev):
                                    for q, s, _ in args_],
                                   centroids, batches)],
         }
+        design = {}
+        r_q = ops._fused_depth(k, nprobe * index.lmax, 2 * k)
+        for prec in QUANT:
+            calls.update(quant_calls(prec, index, pqi, args_, batches, k,
+                                     nprobe, r, r_q))
+            for op in QUANT_OPS:
+                # the function reads each input once whatever the
+                # precision: the f32 row's bound
+                works[f"{op}[{prec}]"] = works[op]
+                design[f"{op}[{prec}]"] = float(np.mean([
+                    bound_ms(nb + quant_extra(op, prec, index, s, q, r_q),
+                             0)[0] for (nb, _), (q, s, _) in
+                    zip(works[op], args_)]))
         for kern, plain in calls.values():                     # warm-up
             event_ms(kern[:2], flush, spin=True)
         row = {name: timed(kern, plain, works[name], flush)
                for name, (kern, plain) in calls.items()}
         for name, rr in row.items():
+            extra = (f" design_bound_ms={design[name]:.4f} (scale pass and "
+                     f"re-rank rows)" if name in design else "")
             log("times", f"{name} B={b}: ms={rr['ms']:.4f} "
                 f"plain_ms={rr['plain_ms']:.4f} "
                 f"bound_ms={rr['bound_ms']:.4f} ({rr['bound_by']}) "
-                f"share={rr['bound_ms'] / rr['ms']:.3f}")
+                f"share={rr['bound_ms'] / rr['ms']:.3f}{extra}")
         out[b] = row
     return out
+
+
+def quant_calls(prec, index, pqi, args_, batches, k, nprobe, r, r_q):
+    """Kernel and plain-version calls of rows 4-7 at ``prec``."""
+    from repro_torch.kernels import ops, ref
+    lv, li, c = index.list_vecs, index.list_ids, index.centroids
+    codes, docs = pqi.list_codes, pqi.doc_vecs
+    return {
+        f"fused_scan[{prec}]": (
+            [lambda q=q, s=s: ops.fused_scan(q, lv, li, s, k, precision=prec)
+             for q, s, _ in args_],
+            [lambda q=q, s=s: ref.fused_scan_ivf(q, lv, li, s, None, k=k,
+                                                 precision=prec, r=r_q)
+             for q, s, _ in args_]),
+        f"fused_turn[{prec}]": (
+            [lambda q=q: ops.fused_turn(q, c, lv, li, nprobe=nprobe, k=k,
+                                        precision=prec) for q in batches],
+            [lambda q=q: ref.fused_turn_ivf(q, c, lv, li, nprobe=nprobe, k=k,
+                                            precision=prec, r=r_q)
+             for q in batches]),
+        f"fused_scan_pq[{prec}]": (
+            [lambda q=q, s=s, t=t: ops.fused_scan_pq(
+                t, q, codes, li, s, docs, k, rerank=RERANK, precision=prec)
+             for q, s, t in args_],
+            [lambda q=q, s=s, t=t: ref.fused_scan_pq(
+                t, q, codes, li, s, None, docs, k=k, r=r, rerank=True,
+                precision=prec) for q, s, t in args_]),
+        f"fused_turn_pq[{prec}]": (
+            [lambda q=q, t=t: ops.fused_turn_pq(
+                q, c, t, codes, li, docs, nprobe=nprobe, k=k, rerank=RERANK,
+                precision=prec) for q, _, t in args_],
+            [lambda q=q, t=t: ref.fused_turn_pq(
+                q, c, t, codes, li, docs, nprobe=nprobe, k=k, r=r,
+                precision=prec) for q, _, t in args_]),
+    }
+
+
+def quant_extra(op, prec, index, sel, q, r_q):
+    """Bytes the quantised kernels' design moves beyond the function's
+    own: int8 reads the probed lists' rows (pads too, every row below
+    Lmax: they enter the group scales) a second time, and the turns the
+    centroids; the IVF re-rank reads r candidate rows again."""
+    b, nprobe = sel.shape
+    extra = 0
+    if prec == "int8":
+        if op in ("fused_scan", "fused_turn"):
+            extra += b * nprobe * index.lmax * index.d * 4
+        if op in ("fused_turn", "fused_turn_pq"):
+            extra += index.p * index.d * 4
+    if op in ("fused_scan", "fused_turn"):
+        extra += b * r_q * index.d * 4
+    return extra
 
 
 def decode_bound(q, k, lens):
@@ -1990,7 +2389,16 @@ def main() -> int:
         f"(v, ids, pos): bit-equal to their plain versions (k and the "
         f"re-rank depth up to 1,000, nprobe up to 256, merges of up to "
         f"{passes} passes)")
-    errs = dict.fromkeys(IVF_KERNELS + PQ_KERNELS + REC_KERNELS, 0.0)
+    n_ivf, n_pq = phase_exact_quant(dev)
+    log("exact", f"bf16 and int8: {n_ivf} shapes fused_turn (v, ids, sel) "
+        f"and fused_scan (v, ids, rank), {n_pq} PQ shapes fused_turn_pq and "
+        f"fused_scan_pq with and without re-rank: bit-equal to their plain "
+        f"versions (k = 1,000: r = 2,000, r_pad 2,048; two int8 groups a "
+        f"list at d = 1,024, Lmax 1,100; r_pad 2,048 above the byte-capped "
+        f"group), on integer inputs and on bf16-split ones; core.topk on "
+        f"the card ranks +0.0 above -0.0")
+    errs = dict.fromkeys(IVF_KERNELS + PQ_KERNELS + REC_KERNELS
+                         + QUANT_KERNELS, 0.0)
     phase_exact_bag(dev, errs)
     log("exact", f"embedding_bag V={BAG_V} d={BAG_D} L={BAG_L} B="
         f"{','.join(map(str, BAG_BATCHES))}, pads, all-pad bags, ids at "
@@ -2004,7 +2412,15 @@ def main() -> int:
         f"top-r) bit-equal; max_abs_err " + " ".join(
             f"{n}={errs[n]:.3g}" for n in IVF_KERNELS + PQ_KERNELS) +
         f" (tol {TOL}); near-tie id mismatches " + " ".join(
-            f"{n}={v}" for n, v in ties.items()))
+            f"{n}={v}" for n, v in ties.items()
+            if "[" not in n and n != "rank"))
+    log("realistic", "bf16 / int8 at the same shapes (candidates and ADC "
+        "top-r as the plain version's, fused_scan's candidate ranks and the "
+        "f32 re-rank under the tie rule): max_abs_err " + " ".join(
+            f"{n}={errs[n]:.3g}" for n in QUANT_KERNELS) +
+        f" (tol {TOL}); near-tie id mismatches " + " ".join(
+            f"{n}={ties[n]}" for n in QUANT_KERNELS) +
+        f"; near-tie candidate rank mismatches {ties['rank']}")
     cand_ties = dict.fromkeys(("fused_turn", "fused_scan", "sel"), 0)
     cand_errs = dict.fromkeys(IVF_KERNELS, 0.0)
     p, lmax, d, nprobe, k = phase_realistic_cand(args, dev, cand_errs,
@@ -2063,6 +2479,8 @@ def main() -> int:
     pqi = phase_pq(args, index, docs, dev)
     indexes = {"ivf": index, "ivf_pq": pqi}
     runs, launches = phase_serve(indexes, docs, convs, exact, dev)
+    launches.update(phase_serve_quant(indexes, convs, exact, runs))
+    phase_fig8(dev)
 
     for backend, _ in BACKENDS:
         for name in ("toploc+ fused", "toploc+ unfused"):
@@ -2091,8 +2509,8 @@ def main() -> int:
                     bound_ms=times[1][name]["bound_ms"],
                     bound_by=times[1][name]["bound_by"],
                     library_ms=times[1][name].get("library_ms"))
-               for name in IVF_KERNELS + PQ_KERNELS + ENC_KERNELS +
-               REC_KERNELS + LM_KERNELS]
+               for name in IVF_KERNELS + PQ_KERNELS + QUANT_KERNELS +
+               ENC_KERNELS + REC_KERNELS + LM_KERNELS]
     log("done", f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

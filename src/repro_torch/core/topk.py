@@ -1,17 +1,38 @@
 """Top-k selection in ``lax.top_k`` order.
 
 Everything here operates on similarity scores (higher is better).  The
-reference's ``lax.top_k`` resolves equal values by the lower index;
-``torch.topk`` promises no order among ties.  ``topk`` therefore takes
-a stable descending sort of the whole row and keeps its first k: ties
-stay in index order, which is exactly ``lax.top_k``'s result, with no
-host sync.
+reference's ``lax.top_k`` resolves equal values by the lower index and
+ranks +0.0 above -0.0 (it orders floats by their bits); ``torch.topk``
+promises no order among ties and ``torch.sort`` compares -0.0 == +0.0.
+``topk`` therefore sorts the whole row by ``order_key`` (the float's
+bit pattern mapped to a monotone integer, so -0.0 < +0.0), descending
+and stable, and keeps its first k: ties stay in index order, which is
+exactly ``lax.top_k``'s result, with no host sync.  NaN is out of
+scope, as it is for the kernels.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+_INT_OF = {torch.float64: torch.int64, torch.float32: torch.int32,
+           torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """An integer tensor that orders like ``scores`` with -0.0 below
+    +0.0: the float's bits, with the magnitude bits of negatives
+    flipped (``csrc/topk_tie.cuh`` ``order_key`` for float32).  Integer
+    scores are their own key."""
+    itype = _INT_OF.get(scores.dtype)
+    if itype is None:
+        return scores
+    bits = scores.view(itype)
+    key = bits >> (bits.element_size() * 8 - 1)      # -1 on negatives
+    key &= torch.iinfo(itype).max
+    key ^= bits
+    return key
 
 
 def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -20,8 +41,9 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     n = scores.shape[-1]
     if k > n:
         raise ValueError(f"top-{k} of {n} elements")
-    v, i = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
+    i = torch.sort(order_key(scores), dim=-1, descending=True,
+                   stable=True).indices[..., :k]
+    return scores.gather(-1, i), i
 
 
 def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int

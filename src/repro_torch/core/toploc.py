@@ -110,7 +110,7 @@ def _scan_lists_pq(index: _pq.IVFPQIndex, q: torch.Tensor,
     per-row matrix–vector product of ``kernels.ref.rerank_exact`` (the
     reference runs it in XLA), so a row's scores do not depend on B.
     """
-    r = _kops._fused_depth(k, sel.shape[1] * index.lmax, rerank=rerank)
+    r = _kops._fused_depth(k, sel.shape[1] * index.lmax, rerank)
     tables = _adc_tables(index, q)
     _, cand_ids = _kops.pq_adc_scan(tables, index.list_codes,
                                     index.list_ids, sel, r, device=q.device)
@@ -132,15 +132,20 @@ class FusedTurn:
     The stateless plain turn runs whole in ``ops.fused_turn`` /
     ``ops.fused_turn_pq`` (centroid top-nprobe + list scan, + exact
     re-rank for PQ); sessioned turns keep the centroid cache and the
-    Eq. 1 drift check in plain PyTorch and scan with ``ops.fused_scan``
-    / ``ops.fused_scan_pq``.  ``precision="f32"`` is the only ported
-    precision: ids, ``sel`` and every ``TurnStats`` counter equal the
-    unfused path; scores agree within the summation-order tolerance.
-    The device of the tensors picks the path (``kernels.ops``): kernel
-    on CUDA tensors, plain version on CPU tensors.
+    Eq. 1 drift check in plain PyTorch (float32 at every precision) and
+    scan with ``ops.fused_scan`` / ``ops.fused_scan_pq``.
+    ``precision="f32"``: ids, ``sel`` and every ``TurnStats`` counter
+    equal the unfused path; scores agree within the summation-order
+    tolerance.  ``"bf16"`` / ``"int8"`` score the scan (and the plain
+    turn's stage 1) quantised and re-rank the top ``k·over`` IVF
+    candidates (PQ: the usual ``rerank``) in float32 inside the kernel,
+    so returned scores are exact dots.  The device of the tensors picks
+    the path (``kernels.ops``): kernel on CUDA tensors, plain version on
+    CPU tensors.
     """
 
     precision: str = "f32"
+    over: int = 2            # quantised IVF candidate depth: r = k·over
 
     def __post_init__(self):
         _kops.check_precision(self.precision)
@@ -150,7 +155,8 @@ class FusedTurn:
         """Whole turn: returns (v, i, sel, list_dists)."""
         v, i, sel = _kops.fused_turn(
             q, index.centroids, index.list_vecs, index.list_ids,
-            nprobe=nprobe, k=k, precision=self.precision, device=q.device)
+            nprobe=nprobe, k=k, over=self.over, precision=self.precision,
+            device=q.device)
         real = index.list_sizes[sel].sum(-1).to(torch.int32)
         return v, i, sel, real
 
@@ -158,7 +164,7 @@ class FusedTurn:
                       sel: torch.Tensor, k: int):
         """Drop-in for ``ivf._scan_lists``: (v, i, real_dists)."""
         v, i, _pos = _kops.fused_scan(
-            q, index.list_vecs, index.list_ids, sel, k,
+            q, index.list_vecs, index.list_ids, sel, k, over=self.over,
             precision=self.precision, device=q.device)
         real = index.list_sizes[sel].sum(-1).to(torch.int32)
         return v, i, real
@@ -174,7 +180,7 @@ class FusedTurn:
         code_d = index.list_sizes[sel].sum(-1).to(torch.int32)
         # every valid ADC candidate outranks the -inf pads, so the
         # re-ranked count is exactly min(r, candidates available)
-        r = _kops._fused_depth(k, nprobe * index.lmax, rerank=rerank)
+        r = _kops._fused_depth(k, nprobe * index.lmax, rerank)
         return v, i, sel, code_d, code_d.clamp(max=r)
 
     def list_scan_pq(self, index: _pq.IVFPQIndex, q: torch.Tensor,
@@ -186,8 +192,7 @@ class FusedTurn:
             index.doc_vecs, k, rerank=rerank, precision=self.precision,
             device=q.device)
         code_d = index.list_sizes[sel].sum(-1).to(torch.int32)
-        r = _kops._fused_depth(k, sel.shape[1] * index.lmax,
-                               rerank=rerank)
+        r = _kops._fused_depth(k, sel.shape[1] * index.lmax, rerank)
         return v, i, code_d, code_d.clamp(max=r)
 
 

@@ -33,18 +33,20 @@ F = ctypes.c_float
 # C signatures of the entry points (csrc/fused_turn.cu, csrc/pq_adc.cu,
 # csrc/flash_attention.cu, csrc/embedding_bag.cu, csrc/flash_decode.cu)
 SIGNATURES = {
-    "fused_scan_ivf_f32": [P, P, P, I, P, I, P, I, I, I, I, I, I,
-                           P, P, P, P, P, P, P],
-    "fused_turn_ivf_f32": [P, P, P, P, I, I, I, I, I, I, I, I, I,
-                           P, P, P, P, P, P, P, P, P, P, P],
+    "fused_scan_ivf": [P, P, P, I, P, I, P, I, I, I, I,
+                       I, I, I, P, I, I, I, I,
+                       P, P, P, P, P, P, P, P, P, P],
+    "fused_turn_ivf": [P, P, P, P, I, I, I, I, I, I,
+                       I, I, I, P, I, I, P, I, I, I, I, I,
+                       P, P, P, P, P, P, P, P, P, P, P, P, P, P],
     "pq_adc_scan_f32": [P, I, I, P, P, I, P, I, I, I, I, I,
                         P, P, P, P, P, P, P],
-    "fused_scan_pq_f32": [P, P, I, I, P, P, I, P, I, P, P,
-                          I, I, I, I, I, I, I, I, I,
-                          P, P, P, P, P, P, P, P, P, P],
-    "fused_turn_pq_f32": [P, P, P, I, I, P, P, I, P,
-                          I, I, I, I, I, I, I, I, I, I,
-                          P, P, P, P, P, P, P, P, P, P, P, P, P, P],
+    "fused_scan_pq": [P, P, I, I, P, P, I, P, I, P, P,
+                      I, I, I, I, I, I, I, I, I, I,
+                      P, P, P, P, P, P, P, P, P, P],
+    "fused_turn_pq": [P, P, P, I, I, P, P, I, P,
+                      I, I, I, I, I, I, I, I, P, I, I, I, I, I,
+                      P, P, P, P, P, P, P, P, P, P, P, P, P, P],
     "flash_attention_f32": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
     "embedding_bag_f32": [P, I, P, P, I, I, P, P],
     "flash_decode_f32": [P, P, P, P, I, I, I, I, I, I, I, F, P, P, P, P, P],

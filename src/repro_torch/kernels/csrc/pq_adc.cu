@@ -1,24 +1,29 @@
-// IVF-PQ kernels of TopLoc_IVFPQ for Hopper (sm_90a), float32.
+// IVF-PQ kernels of TopLoc_IVFPQ for Hopper (sm_90a): float32, bf16 and
+// int8 ADC.
 //
 // pq_adc_scan_f32 replaces the Pallas kernel pq_adc_scan of
 //   src/repro/kernels/pq_adc.py:79 (body _kernel :41, pallas_call :112):
 //   ADC scores of the probed lists' uint8 codes, -1 pads masked, top r.
-// fused_scan_pq_f32 replaces fused_scan_pq (family pq, f32) of
+// fused_scan_pq replaces fused_scan_pq (family pq) of
 //   src/repro/kernels/fused_turn.py:686 (body _scan_kernel :482,
 //   pallas_call :618): the ADC scan with the caller's selection and an
 //   `own` mask, then either the exact re-rank of the ADC top r against the
 //   float corpus (-> top k, position = ADC rank) or the ADC top r itself
 //   with flat positions probe*lmax + offset.
-// fused_turn_pq_f32 replaces fused_turn_pq (f32) of
+// fused_turn_pq replaces fused_turn_pq of
 //   src/repro/kernels/fused_turn.py:445 (body _turn_kernel :169,
-//   pallas_call :368): stage 1 of fused_turn.cu (centroids -> sel), the
-//   ADC scan of sel, the exact re-rank.
+//   pallas_call :368): stage 1 of fused_turn.cu (centroids -> sel, at the
+//   turn's precision), the ADC scan of sel, the exact re-rank.
 //
 // ADC score of a code row: acc = 0; acc += lut[j][code_j] for j = 0..m-1,
 // in float32 and in that order: the Pallas kernels' order (one one-hot dot
 // per subquantizer) and that of the plain versions (kernels/ref.py
-// adc_sum), so candidate sets agree bit for bit.  Candidates are ordered
-// by (value desc, flat position asc), lax.top_k's order (topk_tie.cuh).
+// adc_sum), so candidate sets agree bit for bit.  bf16 rounds the LUT to
+// bfloat16 first; int8 quantises it with one scale per (m, n_codes) table
+// (adc_score_tile :117), sums the int8 entries in int32 (exact) and
+// divides once by the scale.  The re-rank is float32 whatever the
+// precision.  Candidates are ordered by (value desc, flat position asc),
+// lax.top_k's order (topk_tie.cuh).
 //
 // Bound on this card: device-memory bytes and launch latency.  A query
 // reads the code rows of its nprobe probed lists (at most 64 x 702 x 48 B
@@ -36,11 +41,11 @@
 //  * only each block's top r_pad leaves the SM; fused_turn.cu's merge
 //    kernel (merge_topk_f32) folds a query's sorted lists, group by group
 //    where they do not fit one block;
-//  * re-rank: one block per query gathers the merged candidates' corpus
-//    rows by doc id, one warp per row in fused_turn.cu's fixed order
-//    (warp_row_dots), so a row scores the same at any B; ranks >= r (the
-//    power-of-two padding) never re-enter; up to 1,024 candidates sort in
-//    dynamic shared memory.
+//  * re-rank: fused_turn.cu's rerank_rows, one block per query, gathers
+//    the merged candidates' corpus rows by doc id, one warp per row in a
+//    fixed order (warp_row_dots), so a row scores the same at any B; ranks
+//    >= r (the power-of-two padding) never re-enter; up to 2,048
+//    candidates sort in dynamic shared memory.
 // Simple first: no TMA, no persistence, the LUT reads may conflict on
 // shared-memory banks.
 //
@@ -54,6 +59,7 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "fused_common.cuh"
 #include "topk_tie.cuh"
@@ -62,15 +68,18 @@ namespace {
 
 constexpr int PQ_ROWS = 512;         // rows of a probed list per block
 constexpr int ADC_THREADS = 256;
-constexpr int RERANK_THREADS = 512;  // 16 warps, one candidate row each
-constexpr int MAX_R = 1024;          // widest candidate set (r_pad)
 
-using fused_common::warp_row_dots;
+using fused_common::P_BF16;
+using fused_common::P_F32;
+using fused_common::P_INT8;
 
 // grid (nprobe * nsplit, B).  Block (j, s) of query b scores rows
 // [s*PQ_ROWS, (s+1)*PQ_ROWS) of list sel[b, j] with the LUT tables[b]
-// (m, n_codes) and writes its top r_pad to cand[b, j*nsplit + s, :].  A
-// list outside [0, p) or not owned scans as an empty list.
+// (m, n_codes) at precision P and writes its top r_pad to
+// cand[b, j*nsplit + s, :].  A list outside [0, p) or not owned scans as
+// an empty list.  The LUT is staged in shared memory as float (f32,
+// bf16-rounded) or as its int8 values in int slots.
+template <int P>
 __global__ void __launch_bounds__(ADC_THREADS)
 adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
                 const uint8_t* __restrict__ codes,
@@ -79,17 +88,28 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
                 const int* __restrict__ own, int nprobe, int lmax,
                 int nsplit, int r_pad, float* __restrict__ cand_v,
                 int* __restrict__ cand_i, int* __restrict__ cand_p) {
+  using Acc = typename std::conditional<P == P_INT8, int, float>::type;
   extern __shared__ float lut[];
   __shared__ float sv[PQ_ROWS];
   __shared__ int si[PQ_ROWS];
   __shared__ int sp[PQ_ROWS];
+  __shared__ float red[32];
 
   const int b = blockIdx.y;
   const int j = blockIdx.x / nsplit;
   const int s = blockIdx.x % nsplit;
   const int lut_n = m * n_codes;
   const float* tb = tables + (size_t)b * lut_n;
-  for (int t = threadIdx.x; t < lut_n; t += blockDim.x) lut[t] = tb[t];
+  Acc* tab = reinterpret_cast<Acc*>(lut);
+  float st = 0.f;  // int8: the table's scale
+  if constexpr (P == P_INT8) {
+    st = fused_common::int8_scale(fused_common::block_amax(tb, lut_n, red));
+    for (int t = threadIdx.x; t < lut_n; t += blockDim.x)
+      tab[t] = fused_common::quant8(tb[t], st);
+  } else {
+    for (int t = threadIdx.x; t < lut_n; t += blockDim.x)
+      tab[t] = P == P_BF16 ? fused_common::bf16_round(tb[t]) : tb[t];
+  }
 
   const int list = sel[(size_t)b * sel_stride + j];
   const bool owned = list >= 0 && list < p &&
@@ -110,7 +130,7 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
       const int rid = list_ids[row];
       if (rid >= 0) {
         const uint8_t* c = codes + row * m;
-        float acc = 0.f;
+        Acc acc = 0;
         if (vec16) {
           for (int j0 = 0; j0 < m; j0 += 16) {
             const uint4 w = __ldg(reinterpret_cast<const uint4*>(c + j0));
@@ -120,15 +140,18 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
 #pragma unroll
               for (int by = 0; by < 4; ++by) {
                 const int sub = j0 + wi * 4 + by;
-                acc += lut[sub * n_codes + ((words[wi] >> (8 * by)) & 0xffu)];
+                acc += tab[sub * n_codes + ((words[wi] >> (8 * by)) & 0xffu)];
               }
             }
           }
         } else {
           for (int sub = 0; sub < m; ++sub)
-            acc += lut[sub * n_codes + __ldg(c + sub)];
+            acc += tab[sub * n_codes + __ldg(c + sub)];
         }
-        v = acc;
+        if constexpr (P == P_INT8)
+          v = __fdiv_rn(__int2float_rn(acc), st);
+        else
+          v = acc;
         id = rid;
         pos = j * lmax + row0 + r;
       }
@@ -148,68 +171,23 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
   }
 }
 
-// grid (B).  Re-ranks query b's r_pad merged ADC candidates (ids cand_i[b])
-// by their exact score against corpus rows, ranks >= r and pad ids
-// excluded, and writes the top kp: (exact score, id, ADC rank).  Dynamic
-// shared memory: the query (d floats), then the r_pad-entry sort arrays.
-__global__ void __launch_bounds__(RERANK_THREADS)
-rerank_kernel(const float* __restrict__ q, const float* __restrict__ corpus,
-              int d, const int* __restrict__ cand_i, int r_pad, int r,
-              int kp, float* __restrict__ out_v, int* __restrict__ out_i,
-              int* __restrict__ out_p) {
-  extern __shared__ float4 qs4[];
-  float* sv = reinterpret_cast<float*>(qs4) + d;
-  int* si = reinterpret_cast<int*>(sv + r_pad);
-  int* sp = si + r_pad;
-
-  const int b = blockIdx.x;
-  const int d4 = d >> 2;
-  const float4* q4 = reinterpret_cast<const float4*>(q + (size_t)b * d);
-  for (int c = threadIdx.x; c < d4; c += blockDim.x) qs4[c] = q4[c];
-  for (int t = threadIdx.x; t < r_pad; t += blockDim.x) {
-    sv[t] = -INFINITY;
-    si[t] = cand_i[(size_t)b * r_pad + t];
-    sp[t] = t;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int t = warp; t < r_pad; t += nwarps) {
-    const int id = si[t];
-    if (id < 0 || t >= r) continue;  // warp-uniform, never loaded
-    float sc[1];
-    warp_row_dots<1>(reinterpret_cast<const float4*>(corpus + (size_t)id * d),
-                     qs4, d4, 1, sc);
-    if (lane == 0) sv[t] = sc[0];
-  }
-  topk_tie::block_sort(sv, si, sp, r_pad);
-  const size_t out = (size_t)b * kp;
-  for (int t = threadIdx.x; t < kp; t += blockDim.x) {
-    out_v[out + t] = sv[t];
-    out_i[out + t] = si[t];
-    out_p[out + t] = sp[t];
-  }
-}
-
-// ADC scan + merge (group lists a merge block): a query's top r_pad
-// (out_*, (B, r_pad)).
+// ADC scan at `precision` + merge (group lists a merge block): a query's
+// top r_pad (out_*, (B, r_pad)).
 int adc_scan_merge(const float* tables, int m, int n_codes,
                    const uint8_t* codes, const int* list_ids, int p,
                    const int* sel, int sel_stride, const int* own, int B,
-                   int nprobe, int lmax, int r_pad, int group, float* cand_v,
-                   int* cand_i, int* cand_p, float* out_v, int* out_i,
-                   int* out_p, cudaStream_t st) {
+                   int nprobe, int lmax, int r_pad, int precision, int group,
+                   float* cand_v, int* cand_i, int* cand_p, float* out_v,
+                   int* out_i, int* out_p, cudaStream_t st) {
   const int nsplit = (lmax + PQ_ROWS - 1) / PQ_ROWS;
-  const int smem = m * n_codes * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      adc_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  adc_scan_kernel<<<dim3(nprobe * nsplit, B), ADC_THREADS, smem, st>>>(
-      tables, m, n_codes, codes, list_ids, p, sel, sel_stride, own, nprobe,
-      lmax, nsplit, r_pad, cand_v, cand_i, cand_p);
-  err = cudaGetLastError();
+  const cudaError_t err = fused_common::launch(
+      fused_common::by_precision(precision, adc_scan_kernel<P_F32>,
+                                 adc_scan_kernel<P_BF16>,
+                                 adc_scan_kernel<P_INT8>),
+      dim3(nprobe * nsplit, B), ADC_THREADS,
+      m * n_codes * (int)sizeof(float), st, tables, m, n_codes, codes,
+      list_ids, p, sel, sel_stride, own, nprobe, lmax, nsplit, r_pad, cand_v,
+      cand_i, cand_p);
   if (err != cudaSuccess) return (int)err;
   return merge_topk_f32(cand_v, cand_i, cand_p, B, nprobe * nsplit, r_pad,
                         group, out_v, out_i, out_p, st);
@@ -230,66 +208,62 @@ int pq_adc_scan_f32(const float* tables, int m, int n_codes,
                     int group, float* cand_v, int* cand_i, int* cand_p,
                     float* out_v, int* out_i, int* out_p, void* stream) {
   return adc_scan_merge(tables, m, n_codes, codes, list_ids, p, sel, nprobe,
-                        nullptr, B, nprobe, lmax, r_pad, group, cand_v,
+                        nullptr, B, nprobe, lmax, r_pad, P_F32, group, cand_v,
                         cand_i, cand_p, out_v, out_i, out_p,
                         static_cast<cudaStream_t>(stream));
 }
 
-// ADC scan with the caller's sel (B, sel_stride) and own (B, nprobe) or
-// null.  rerank != 0: mid_* (B, r_pad) receives the ADC top r_pad and
-// out_* (B, kp) the exact top kp of its first r candidates, against q
-// (B, d) and corpus (N, d).  rerank == 0: out_* (B, r_pad) is the ADC top
-// r_pad (mid_* unused; q and corpus may be null).
-int fused_scan_pq_f32(const float* tables, const float* q, int m,
-                      int n_codes, const uint8_t* codes, const int* list_ids,
-                      int p, const int* sel, int sel_stride, const int* own,
-                      const float* corpus, int B, int nprobe, int lmax, int d,
-                      int r, int r_pad, int kp, int rerank, int group,
-                      float* cand_v, int* cand_i, int* cand_p, float* mid_v,
-                      int* mid_i, int* mid_p, float* out_v, int* out_i,
-                      int* out_p, void* stream) {
+// ADC scan at `precision` with the caller's sel (B, sel_stride) and own
+// (B, nprobe) or null.  rerank != 0: mid_* (B, r_pad) receives the ADC
+// top r_pad and out_* (B, kp) the exact float32 top kp of its first r
+// candidates, against q (B, d) and corpus (N, d).  rerank == 0: out_*
+// (B, r_pad) is the ADC top r_pad (mid_* unused; q and corpus may be
+// null).
+int fused_scan_pq(const float* tables, const float* q, int m, int n_codes,
+                  const uint8_t* codes, const int* list_ids, int p,
+                  const int* sel, int sel_stride, const int* own,
+                  const float* corpus, int B, int nprobe, int lmax, int d,
+                  int precision, int r, int r_pad, int kp, int rerank,
+                  int group, float* cand_v, int* cand_i, int* cand_p,
+                  float* mid_v, int* mid_i, int* mid_p, float* out_v,
+                  int* out_i, int* out_p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!rerank)
     return adc_scan_merge(tables, m, n_codes, codes, list_ids, p, sel,
-                          sel_stride, own, B, nprobe, lmax, r_pad, group,
-                          cand_v, cand_i, cand_p, out_v, out_i, out_p, st);
+                          sel_stride, own, B, nprobe, lmax, r_pad, precision,
+                          group, cand_v, cand_i, cand_p, out_v, out_i, out_p,
+                          st);
   const int e = adc_scan_merge(tables, m, n_codes, codes, list_ids, p, sel,
-                               sel_stride, own, B, nprobe, lmax, r_pad, group,
-                               cand_v, cand_i, cand_p, mid_v, mid_i, mid_p,
-                               st);
+                               sel_stride, own, B, nprobe, lmax, r_pad,
+                               precision, group, cand_v, cand_i, cand_p,
+                               mid_v, mid_i, mid_p, st);
   if (e != 0) return e;
-  if (r_pad > MAX_R) return (int)cudaErrorInvalidValue;
-  const int smem = d * (int)sizeof(float) +
-                   r_pad * (int)(sizeof(float) + 2 * sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      rerank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  rerank_kernel<<<B, RERANK_THREADS, smem, st>>>(
-      q, corpus, d, mid_i, r_pad, r, kp, out_v, out_i, out_p);
-  return (int)cudaGetLastError();
+  return rerank_rows(q, corpus, d, nullptr, 0, 0, mid_i, mid_p, B, r_pad, r,
+                     kp, out_v, out_i, out_p, st);
 }
 
 // Whole IVF-PQ turn.  cents (p, d); scratch s1_* holds B * ceil(p / 128) *
 // np_pad entries, merged s1_group lists a block; sel_v / sel (B, np_pad)
-// receive the probe set, of which the first nprobe are scanned; the rest
-// as fused_scan_pq_f32 with rerank.
-int fused_turn_pq_f32(const float* q, const float* cents,
-                      const float* tables, int m, int n_codes,
-                      const uint8_t* codes, const int* list_ids, int p,
-                      const float* corpus, int B, int nprobe, int np_pad,
-                      int lmax, int d, int r, int r_pad, int kp, int s1_group,
-                      int group, float* s1_v, int* s1_i, float* sel_v,
-                      int* sel, float* cand_v, int* cand_i, int* cand_p,
-                      float* mid_v, int* mid_i, int* mid_p, float* out_v,
-                      int* out_i, int* out_p, void* stream) {
-  const int e = select_probes_f32(q, cents, p, B, d, np_pad, s1_group, s1_v,
-                                  s1_i, sel_v, sel,
-                                  static_cast<cudaStream_t>(stream));
+// receive the probe set (int8: centroid groups of blk_p rows, reduced
+// into c_amax, n_cgroups ints), of which the first nprobe are scanned;
+// the rest as fused_scan_pq with rerank.
+int fused_turn_pq(const float* q, const float* cents, const float* tables,
+                  int m, int n_codes, const uint8_t* codes,
+                  const int* list_ids, int p, const float* corpus, int B,
+                  int nprobe, int np_pad, int lmax, int d, int precision,
+                  int blk_p, int n_cgroups, int* c_amax, int r, int r_pad,
+                  int kp, int s1_group, int group, float* s1_v, int* s1_i,
+                  float* sel_v, int* sel, float* cand_v, int* cand_i,
+                  int* cand_p, float* mid_v, int* mid_i, int* mid_p,
+                  float* out_v, int* out_i, int* out_p, void* stream) {
+  const int e = select_probes(q, cents, p, B, d, np_pad, precision, blk_p,
+                              n_cgroups, c_amax, s1_group, s1_v, s1_i, sel_v,
+                              sel, static_cast<cudaStream_t>(stream));
   if (e != 0) return e;
-  return fused_scan_pq_f32(tables, q, m, n_codes, codes, list_ids, p, sel,
-                           np_pad, nullptr, corpus, B, nprobe, lmax, d, r,
-                           r_pad, kp, 1, group, cand_v, cand_i, cand_p,
-                           mid_v, mid_i, mid_p, out_v, out_i, out_p, stream);
+  return fused_scan_pq(tables, q, m, n_codes, codes, list_ids, p, sel, np_pad,
+                       nullptr, corpus, B, nprobe, lmax, d, precision, r,
+                       r_pad, kp, 1, group, cand_v, cand_i, cand_p, mid_v,
+                       mid_i, mid_p, out_v, out_i, out_p, stream);
 }
 
 }  // extern "C"

@@ -5,13 +5,16 @@
 // bitonic_sort_desc_tie, merge_topk_desc_tie, block_topk_desc_tie).
 // Candidates are ordered by the composite key (value desc, position asc):
 // lax.top_k's order over a flat row, ties going to the smaller source
-// position.  Pads carry (-inf, id -1, PAD_POS) and never displace a real
-// candidate.  Every real candidate has its own position, so the order is
-// total and the kernels' outputs do not depend on the launch shape.
+// position.  Values compare as lax.top_k compares them, by their bits mapped
+// to a monotone integer (order_key), so +0.0 ranks above -0.0 (core/topk.py
+// order_key is the same map); NaN is out of scope.  Pads carry (-inf, id -1,
+// PAD_POS) and never displace a real candidate.  Every real candidate has
+// its own position, so the order is total and the kernels' outputs do not
+// depend on the launch shape.
 //
 // All functions work on three parallel arrays in shared memory (value, id,
 // position), static or dynamic, of any power-of-two width (the kernels
-// sort and merge up to 1,024 entries a list); every thread of the block
+// sort and merge up to 2,048 entries a list); every thread of the block
 // must call them.  They are inline because several sources of the one
 // library include this header.
 #pragma once
@@ -22,10 +25,19 @@ namespace topk_tie {
 
 constexpr int PAD_POS = INT_MAX;
 
+// The float's bits with the magnitude bits of negatives flipped: an int
+// that orders like the float, -0.0 (-1) below +0.0 (0).
+__device__ __forceinline__ int order_key(float v) {
+  const int b = __float_as_int(v);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
 // True when (va, pa) ranks strictly before (vb, pb).
 __device__ __forceinline__ bool ranks_before(float va, int pa, float vb,
                                              int pb) {
-  return va > vb || (va == vb && pa < pb);
+  const int ka = order_key(va);
+  const int kb = order_key(vb);
+  return ka > kb || (ka == kb && pa < pb);
 }
 
 __device__ __forceinline__ void swap3(float* v, int* id, int* pos, int a,

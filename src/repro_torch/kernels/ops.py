@@ -19,12 +19,14 @@ power-of-two padding of k / nprobe / the re-rank depth, and count their
 launches in a plain int on the wrapper (``fused_turn.launches``), so a
 run can show that its path went through the kernels.
 
-The retrieval ops port only ``precision="f32"``; their bf16/int8
-variants (stage-3 in-kernel re-rank) are ROADMAP Queue 1, item 3.
-``flash_attention`` and ``embedding_bag`` port the forward: their
-backwards come with training (ROADMAP Queue 1, item 7), so the kernel
-path refuses inputs that require grad, as ``flash_decode`` (serving
-only, no backward in the reference either) does.
+The fused retrieval ops take the reference's ``precision``: "f32", or
+"bf16" / "int8" scoring with a float32 re-rank of the top ``r``
+candidates inside the kernel (``kernels/ref.py`` states the contract);
+any other precision raises ``ValueError``.  ``flash_attention`` and
+``embedding_bag`` port the forward: their backwards come with training
+(ROADMAP Queue 1, item 7), so the kernel path refuses inputs that
+require grad, as ``flash_decode`` (serving only, no backward in the
+reference either) does.
 """
 from __future__ import annotations
 
@@ -59,34 +61,47 @@ def _mode(mode: Optional[str], device: torch.device) -> str:
     return mode
 
 
+PRECISIONS = _ft.PRECISIONS
+
+
 def check_precision(precision: str) -> None:
-    if precision != "f32":
-        raise NotImplementedError(
-            f"precision={precision!r}: only the float32 fused kernels are "
-            f"ported; the bf16/int8 variants are ROADMAP Queue 1, item 3")
+    """The one check of a fused op's ``precision``."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}: the fused ops "
+                         f"take one of {PRECISIONS}")
+
+
+def _fused_depth(k: int, cap: int, want: int) -> int:
+    """Exact candidate depth r: ``want`` (k·over for quantised IVF, the
+    re-rank depth for PQ) clamped to the scannable candidate count
+    ``cap`` and floored at k (``repro/kernels/ops.py:122-127``)."""
+    return max(k, min(want, cap))
 
 
 def fused_turn(queries: torch.Tensor, centroids: torch.Tensor,
                list_vecs: torch.Tensor, list_ids: torch.Tensor, *,
                nprobe: int, k: int, over: int = 2, precision: str = "f32",
                mode: Optional[str] = None, device=None) -> Triple:
-    """Whole IVF turn: centroid top-nprobe + probed-list scan.
+    """Whole IVF turn: centroid top-nprobe + probed-list scan (+ the
+    float32 re-rank of the top ``k·over`` when quantised).
 
     Returns (values (B, k), ids (B, k), sel (B, nprobe)); ids and sel
-    int32.  ``over`` is the quantised candidate depth of the unported
-    precisions, kept for the reference's signature.
+    int32.
     """
-    del over
     check_precision(precision)
     dev = _device.require(device, queries, centroids, list_vecs, list_ids)
+    r = k if precision == "f32" else _fused_depth(
+        k, nprobe * list_vecs.shape[1], k * over)
     if _mode(mode, dev) == "ref":
         return ref.fused_turn_ivf(queries, centroids, list_vecs, list_ids,
-                                  nprobe=nprobe, k=k)
+                                  nprobe=nprobe, k=k, precision=precision,
+                                  r=r)
     np_pad = tiling.check_pad("nprobe", nprobe)
-    r_pad = tiling.check_pad("k", k)
+    r_pad = tiling.check_pad("k" if precision == "f32" else "k·over", r)
     v, i, s = _ft.fused_turn(queries.contiguous(), centroids, list_vecs,
                              list_ids, nprobe=nprobe, np_pad=np_pad,
-                             r_pad=r_pad)
+                             r_pad=r_pad, precision=precision, r=r,
+                             kp=tiling.next_pow2(k))
     fused_turn.launches += int(queries.shape[0] > 0)
     return v[:, :k], i[:, :k], s[:, :nprobe]
 
@@ -101,22 +116,26 @@ def fused_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
                device=None) -> Triple:
     """IVF list scan with a caller-supplied selection ``sel`` (B, nprobe).
 
-    Returns (values (B, k), ids (B, k), pos (B, k)): ``pos`` is the flat
-    scan position ``probe·lmax + offset`` (the tie-break key of the
-    reference's ``distributed_topk_ordered``), ``PAD_POS`` on -inf
-    lanes.  ``own`` masks lists this shard does not own.
+    Returns (values (B, k), ids (B, k), pos (B, k)).  f32: ``pos`` is the
+    flat scan position ``probe·lmax + offset`` (the tie-break key of the
+    reference's ``distributed_topk_ordered``), ``PAD_POS`` on -inf lanes.
+    bf16 / int8: the float32 top-k of the quantised top ``k·over``, and
+    ``pos`` the candidate rank (single-device use).  ``own`` masks lists
+    this shard does not own.
     """
-    del over
     check_precision(precision)
     dev = _device.require(device, queries, list_vecs, list_ids, sel, own)
+    r = k if precision == "f32" else _fused_depth(
+        k, sel.shape[1] * list_vecs.shape[1], k * over)
     if _mode(mode, dev) == "ref":
         return ref.fused_scan_ivf(queries, list_vecs, list_ids, sel, own,
-                                  k=k)
-    r_pad = tiling.check_pad("k", k)
+                                  k=k, precision=precision, r=r)
+    r_pad = tiling.check_pad("k" if precision == "f32" else "k·over", r)
     own32 = None if own is None else own.to(torch.int32).contiguous()
     v, i, pp = _ft.fused_scan(queries.contiguous(), list_vecs, list_ids,
                               sel.to(torch.int32).contiguous(), own32,
-                              r_pad=r_pad)
+                              r_pad=r_pad, precision=precision, r=r,
+                              kp=tiling.next_pow2(k))
     fused_scan.launches += int(queries.shape[0] > 0)
     return v[:, :k], i[:, :k], pp[:, :k]
 
@@ -127,13 +146,6 @@ fused_scan.launches = 0
 # ---------------------------------------------------------------------------
 # IVF-PQ: ADC scan, fused scan (+ exact re-rank), whole turn
 # ---------------------------------------------------------------------------
-
-
-def _fused_depth(k: int, cap: int, *, rerank: int) -> int:
-    """Exact candidate depth r: the PQ re-rank depth, clamped to the
-    scannable candidate count and floored at k (the reference's clamp,
-    ``repro/kernels/ops.py:122-127``)."""
-    return max(k, min(rerank, cap))
 
 
 def pq_adc_scan(tables: torch.Tensor, list_codes: torch.Tensor,
@@ -164,21 +176,23 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
                   mode: Optional[str] = None, device=None) -> Triple:
     """Whole IVF-PQ turn: centroid top-nprobe + ADC scan + exact re-rank
     of the ADC top ``r = max(k, min(rerank, nprobe·lmax))`` against
-    ``corpus`` rows.  Returns (values (B, k), ids (B, k), sel (B,
-    nprobe)); ids and sel int32."""
+    ``corpus`` rows, whatever the precision (bf16 / int8 score the
+    centroids and the ADC quantised).  Returns (values (B, k), ids
+    (B, k), sel (B, nprobe)); ids and sel int32."""
     check_precision(precision)
     dev = _device.require(device, queries, centroids, tables, list_codes,
                           list_ids, corpus)
-    r = _fused_depth(k, nprobe * list_codes.shape[1], rerank=rerank)
+    r = _fused_depth(k, nprobe * list_codes.shape[1], rerank)
     if _mode(mode, dev) == "ref":
         return ref.fused_turn_pq(queries, centroids, tables, list_codes,
-                                 list_ids, corpus, nprobe=nprobe, k=k, r=r)
+                                 list_ids, corpus, nprobe=nprobe, k=k, r=r,
+                                 precision=precision)
     np_pad = tiling.check_pad("nprobe", nprobe)
     r_pad = tiling.check_pad("rerank depth", r)
     v, i, s = _pq.fused_turn_pq(
         queries.contiguous(), centroids, tables.to(torch.float32).contiguous(),
         list_codes, list_ids, corpus, nprobe=nprobe, np_pad=np_pad, r=r,
-        r_pad=r_pad, kp=tiling.next_pow2(k))
+        r_pad=r_pad, kp=tiling.next_pow2(k), precision=precision)
     fused_turn_pq.launches += int(queries.shape[0] > 0)
     return v[:, :k], i[:, :k], s[:, :nprobe]
 
@@ -198,15 +212,17 @@ def fused_scan_pq(tables: torch.Tensor, queries: torch.Tensor,
     ADC top r, (values (B, k), ids (B, k), ADC ranks (B, k)).  Without
     (the sharded merge): the ADC top r, (values (B, r), ids (B, r), flat
     positions ``probe·lmax + offset``, ``PAD_POS`` on -inf lanes).
-    ``own`` masks lists this shard does not own.
+    ``own`` masks lists this shard does not own.  bf16 / int8 score the
+    ADC quantised; the re-rank is float32.
     """
     check_precision(precision)
     dev = _device.require(device, tables, queries, list_codes, list_ids,
                           sel, corpus, own)
-    r = _fused_depth(k, sel.shape[1] * list_codes.shape[1], rerank=rerank)
+    r = _fused_depth(k, sel.shape[1] * list_codes.shape[1], rerank)
     if _mode(mode, dev) == "ref":
         return ref.fused_scan_pq(tables, queries, list_codes, list_ids, sel,
-                                 own, corpus, k=k, r=r, rerank=fuse_rerank)
+                                 own, corpus, k=k, r=r, rerank=fuse_rerank,
+                                 precision=precision)
     r_pad = tiling.check_pad("rerank depth", r)
     own32 = None if own is None else own.to(torch.int32).contiguous()
     v, i, pp = _pq.fused_scan_pq(
@@ -214,7 +230,7 @@ def fused_scan_pq(tables: torch.Tensor, queries: torch.Tensor,
         queries.contiguous() if fuse_rerank else None, list_codes, list_ids,
         sel.to(torch.int32).contiguous(), own32,
         corpus if fuse_rerank else None, r=r, r_pad=r_pad,
-        kp=tiling.next_pow2(k), rerank=fuse_rerank)
+        kp=tiling.next_pow2(k), rerank=fuse_rerank, precision=precision)
     fused_scan_pq.launches += int(sel.shape[0] > 0)
     w = k if fuse_rerank else r
     return v[:, :w], i[:, :w], pp[:, :w]

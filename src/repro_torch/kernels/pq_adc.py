@@ -2,12 +2,12 @@
 
 Counterpart of ``repro/kernels/pq_adc.py`` (``pq_adc_scan``) and of the
 pq family of ``repro/kernels/fused_turn.py`` (``fused_scan_pq``,
-``fused_turn_pq``, f32).  As in ``fused_turn.py``: CUDA tensors only,
-every operand checked (device, dtype, shape, contiguity, 16-byte rows),
-outputs and scratch allocated here, one launch sequence on PyTorch's
-current stream without synchronising, and a refused launch raises.
-Padding and the choice between kernel and plain version belong to
-``ops.py``.
+``fused_turn_pq``, f32 / bf16 / int8).  As in ``fused_turn.py``: CUDA
+tensors only, every operand checked (device, dtype, shape, contiguity,
+16-byte rows), outputs and scratch allocated here, one launch sequence
+on PyTorch's current stream without synchronising, and a refused launch
+raises.  Padding and the choice between kernel and plain version belong
+to ``ops.py``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import tiling
-from repro_torch.kernels.fused_turn import _check, _ptr, _raise_on
+from repro_torch.kernels.fused_turn import (PRECISION_CODE, _buffers, _check,
+                                           _ptr, _raise_on, centroid_scratch,
+                                           check_depth)
 from repro_torch.kernels.sorting import PAD_POS
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -56,12 +58,6 @@ def _check_rerank(queries: torch.Tensor, corpus: torch.Tensor, b: int
     if queries.device != corpus.device:
         raise ValueError("queries and corpus lie on different devices")
     tiling.check_width(corpus.shape[1])
-
-
-def _buffers(shape, dev) -> Triple:
-    return (torch.empty(shape, dtype=torch.float32, device=dev),
-            torch.empty(shape, dtype=torch.int32, device=dev),
-            torch.empty(shape, dtype=torch.int32, device=dev))
 
 
 def _cand(b: int, nprobe: int, lmax: int, r_pad: int, dev) -> Triple:
@@ -107,21 +103,19 @@ def fused_scan_pq(tables: torch.Tensor, queries: Optional[torch.Tensor],
                   list_codes: torch.Tensor, list_ids: torch.Tensor,
                   sel: torch.Tensor, own: Optional[torch.Tensor],
                   corpus: Optional[torch.Tensor], *, r: int, r_pad: int,
-                  kp: int, rerank: bool) -> Triple:
+                  kp: int, rerank: bool, precision: str = "f32") -> Triple:
     """ADC scan of ``sel`` (B, nprobe) with ``own`` (B, nprobe) int32 or
-    None.  With ``rerank``: the exact top ``kp`` of the ADC top ``r``
-    against ``corpus`` rows (values, ids, ADC ranks); without: the ADC
-    top ``r_pad`` (values, ids, flat positions).  A B of 0 launches
-    nothing."""
+    None, at ``precision``.  With ``rerank``: the exact top ``kp`` of the
+    ADC top ``r`` against ``corpus`` rows (values, ids, ADC ranks);
+    without: the ADC top ``r_pad`` (values, ids, flat positions).  A B
+    of 0 launches nothing."""
     b, nprobe = sel.shape
     p, lmax, m = list_codes.shape
     _check_scan(tables, list_codes, list_ids, b, nprobe, r_pad)
     _sel_check(sel, b, own)
     if rerank:
         _check_rerank(queries, corpus, b)
-        if not 0 < kp <= r_pad or not 0 < r <= r_pad:
-            raise ValueError(f"need kp <= r_pad and r <= r_pad: kp={kp}, "
-                             f"r={r}, r_pad={r_pad}")
+        check_depth(r, r_pad, kp)
     dev = tables.device
     cand = _cand(b, nprobe, lmax, r_pad, dev)
     mid = _buffers((b, r_pad), dev) if rerank else (None, None, None)
@@ -130,26 +124,25 @@ def fused_scan_pq(tables: torch.Tensor, queries: Optional[torch.Tensor],
         return out
     d = corpus.shape[1] if rerank else 0
     with torch.cuda.device(dev):
-        err = _build.lib().fused_scan_pq_f32(
+        err = _build.lib().fused_scan_pq(
             _ptr(tables), _ptr(queries if rerank else None), m,
             tables.shape[2], _ptr(list_codes), _ptr(list_ids), p, _ptr(sel),
             nprobe, _ptr(own), _ptr(corpus if rerank else None), b, nprobe,
-            lmax, d, r, r_pad, kp, int(rerank), tiling.merge_group(r_pad),
-            *map(_ptr, cand),
-            *map(_ptr, mid), *map(_ptr, out),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "fused_scan_pq_f32")
+            lmax, d, PRECISION_CODE[precision], r, r_pad, kp, int(rerank),
+            tiling.merge_group(r_pad), *map(_ptr, cand), *map(_ptr, mid),
+            *map(_ptr, out), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, f"fused_scan_pq ({precision})")
     return out
 
 
 def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
                   tables: torch.Tensor, list_codes: torch.Tensor,
                   list_ids: torch.Tensor, corpus: torch.Tensor, *,
-                  nprobe: int, np_pad: int, r: int, r_pad: int, kp: int
-                  ) -> Triple:
-    """Whole IVF-PQ turn: returns (values (B, kp), ids (B, kp), sel
-    (B, np_pad)); the first ``nprobe`` probes are scanned and the ADC
-    top ``r`` re-ranked.  A B of 0 launches nothing."""
+                  nprobe: int, np_pad: int, r: int, r_pad: int, kp: int,
+                  precision: str = "f32") -> Triple:
+    """Whole IVF-PQ turn at ``precision``: returns (values (B, kp), ids
+    (B, kp), sel (B, np_pad)); the first ``nprobe`` probes are scanned
+    and the ADC top ``r`` re-ranked.  A B of 0 launches nothing."""
     b, d = queries.shape
     p, lmax, m = list_codes.shape
     _check_scan(tables, list_codes, list_ids, b, nprobe, r_pad)
@@ -160,26 +153,22 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
                          f"{p} lists of width {d}")
     if not 0 < nprobe <= min(p, np_pad) or np_pad > tiling.MAX_PAD:
         raise ValueError(f"nprobe={nprobe}, np_pad={np_pad}, p={p}")
-    if not 0 < kp <= r_pad or not 0 < r <= r_pad:
-        raise ValueError(f"need kp <= r_pad and r <= r_pad: kp={kp}, r={r}, "
-                         f"r_pad={r_pad}")
-    nchunks = tiling.centroid_chunks(p)
+    check_depth(r, r_pad, kp)
     dev = queries.device
-    s1_v = torch.empty(b * nchunks * np_pad, dtype=torch.float32, device=dev)
-    s1_i = torch.empty(b * nchunks * np_pad, dtype=torch.int32, device=dev)
-    sel_v = torch.empty((b, np_pad), dtype=torch.float32, device=dev)
-    sel = torch.empty((b, np_pad), dtype=torch.int32, device=dev)
+    s1_v, s1_i, sel_v, sel, c_amax, blk_p, n_cgroups = centroid_scratch(
+        b, p, np_pad, precision, dev)
     cand = _cand(b, nprobe, lmax, r_pad, dev)
     mid, out = _buffers((b, r_pad), dev), _buffers((b, kp), dev)
     if b == 0:
         return out[0], out[1], sel
     with torch.cuda.device(dev):
-        err = _build.lib().fused_turn_pq_f32(
+        err = _build.lib().fused_turn_pq(
             _ptr(queries), _ptr(centroids), _ptr(tables), m, tables.shape[2],
             _ptr(list_codes), _ptr(list_ids), p, _ptr(corpus), b, nprobe,
-            np_pad, lmax, d, r, r_pad, kp, tiling.merge_group(np_pad),
+            np_pad, lmax, d, PRECISION_CODE[precision], blk_p, n_cgroups,
+            _ptr(c_amax), r, r_pad, kp, tiling.merge_group(np_pad),
             tiling.merge_group(r_pad), _ptr(s1_v), _ptr(s1_i),
             _ptr(sel_v), _ptr(sel), *map(_ptr, cand), *map(_ptr, mid),
             *map(_ptr, out), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "fused_turn_pq_f32")
+    _raise_on(err, f"fused_turn_pq ({precision})")
     return out[0], out[1], sel

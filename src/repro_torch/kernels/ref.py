@@ -1,13 +1,28 @@
-"""Plain PyTorch versions of the port's kernels (float32).
+"""Plain PyTorch versions of the port's kernels.
 
 Mirror ``repro/kernels/ref.py``: ``fused_turn_ivf`` / ``fused_scan_ivf``
-(:182-263, ``precision="f32"``: centroid scores → top ``nprobe`` →
-gather of the probed lists → masked scores → top-k in ``lax.top_k``
-order) and the IVF-PQ oracles ``pq_adc_scan_batch`` (:92),
-``fused_turn_pq`` (:213) and ``fused_scan_pq`` (:266): ADC scores of the
-probed lists' uint8 codes → top ``r`` → exact re-rank of those ``r``
-against the float corpus → top-k.  The CPU runs these;
-``chip_smoke.py`` holds the CUDA kernels against them on the card.
+(:182-263: centroid scores → top ``nprobe`` → gather of the probed
+lists → masked scores → top-k in ``lax.top_k`` order) and the IVF-PQ
+oracles ``pq_adc_scan_batch`` (:92), ``fused_turn_pq`` (:213) and
+``fused_scan_pq`` (:266): ADC scores of the probed lists' uint8 codes →
+top ``r`` → exact re-rank of those ``r`` against the float corpus →
+top-k.  The CPU runs these; ``chip_smoke.py`` holds the CUDA kernels
+against them on the card.
+
+The fused ops take the reference's ``precision`` (``score_tile`` /
+``adc_score_tile``, ``repro/kernels/fused_turn.py:81-150``).  "bf16"
+rounds both operands to bfloat16 (nearest even) and sums their exact
+products in float32.  "int8" quantises symmetrically (``quantize_sym``:
+scale = 127 / max(amax, 1e-30), round half to even, clip to ±127), the
+query with one scale per row and the scored operand with one scale per
+group of ``tiling.centroid_groups`` / ``tiling.list_groups`` (the
+reference's tiles), the ADC table with one scale per query; the
+integer dot is exact (summed here in float64) and dequantised as
+``f32(acc) / (sq · st)`` (ADC: ``/ st``).  A quantised IVF scan keeps
+the top ``r = k·over`` candidates by (quantised score desc, flat
+position asc) and re-ranks them in float32 from the list rows
+(``rerank_lists``): top k by (exact score desc, candidate rank asc),
+position = candidate rank.  Quantised PQ changes only the ADC scores.
 
 Every score is a per-row matrix–vector product (``gemv_rows``): one
 query at a time, with the same operand shapes at any batch size, so a
@@ -47,6 +62,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.topk import topk
+from repro_torch.kernels import tiling
 from repro_torch.kernels.sorting import PAD_POS
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -64,30 +80,98 @@ def gemv_rows(mat: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (nearest even), back in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """127 / max(amax, 1e-30), one IEEE divide (``127.0 / t`` in torch
+    is ``t.reciprocal() * 127``, which rounds twice)."""
+    return torch.full_like(amax, 127.0) / amax.clamp_min(1e-30)
+
+
+def quantize_sym(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantisation over ``dims``: (integer values as
+    float32, scale), ``repro/kernels/fused_turn.py:81`` ``quantize_sym``."""
+    scale = int8_scale(x.abs().amax(dim=dims, keepdim=True))
+    return torch.round(x * scale).clamp(-127.0, 127.0), scale
+
+
+def _int_dots(mat: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """``gemv_rows`` of integer-valued operands, exact (float64), as
+    float32: the int32 dot of the kernels, rounded once."""
+    return gemv_rows(mat.double(), queries.double()).to(torch.float32)
+
+
+def centroid_scores(queries: torch.Tensor, centroids: torch.Tensor,
+                    precision: str, np_pad: int) -> torch.Tensor:
+    """(B, p) stage-1 scores under ``precision``; int8 groups the
+    centroids by ``tiling.centroid_groups(p, np_pad)``."""
+    if precision == "f32":
+        return gemv_rows(centroids, queries)
+    if precision == "bf16":
+        return gemv_rows(bf16_round(centroids), bf16_round(queries))
+    p, d = centroids.shape
+    blk, ng = tiling.centroid_groups(p, np_pad)
+    amax = torch.stack([centroids[g * blk:(g + 1) * blk].abs().amax()
+                        for g in range(ng)])
+    st = int8_scale(amax).repeat_interleave(blk)[:p]
+    qi, sq = quantize_sym(queries, (1,))
+    ti = torch.round(centroids * st[:, None]).clamp(-127.0, 127.0)
+    return _int_dots(ti, qi) / (sq * st[None])
+
+
 def list_scores(queries: torch.Tensor, list_vecs: torch.Tensor,
-                sel: torch.Tensor) -> torch.Tensor:
+                sel: torch.Tensor, precision: str = "f32",
+                r_pad: int = 1) -> torch.Tensor:
     """Scores of every slot of the probed lists, (B, nprobe·lmax), flat
-    position ``probe·lmax + offset``."""
-    d = list_vecs.shape[-1]
-    rows = [list_vecs[sel[b]].reshape(-1, d) @ queries[b]
-            for b in range(queries.shape[0])]
-    if not rows:
-        return queries.new_empty((0, sel.shape[1] * list_vecs.shape[1]))
+    position ``probe·lmax + offset``, under ``precision``; int8 groups
+    each list's rows by ``tiling.list_groups(lmax, d, r_pad)``."""
+    b, (_, lmax, d) = queries.shape[0], list_vecs.shape
+    if b == 0:
+        return queries.new_empty((0, sel.shape[1] * lmax))
+    if precision == "int8":
+        blk, ng = tiling.list_groups(lmax, d, r_pad)
+        qi, sq = quantize_sym(queries, (1,))
+    rows = []
+    for row in range(b):
+        lv = list_vecs[sel[row].long()]                   # (np, lmax, d)
+        if precision == "f32":
+            rows.append(lv.reshape(-1, d) @ queries[row])
+        elif precision == "bf16":
+            rows.append(bf16_round(lv).reshape(-1, d)
+                        @ bf16_round(queries[row]))
+        else:
+            amax = torch.stack([lv[:, g * blk:(g + 1) * blk].abs()
+                                .amax((1, 2)) for g in range(ng)], 1)
+            st = int8_scale(amax).repeat_interleave(blk, 1)[:, :lmax]
+            ti = torch.round(lv * st[..., None]).clamp(-127.0, 127.0)
+            acc = _int_dots(ti.reshape(1, -1, d), qi[row:row + 1])[0]
+            rows.append(acc / (sq[row] * st.reshape(-1)))
     return torch.stack(rows)
 
 
 def fused_scan_ivf(queries: torch.Tensor, list_vecs: torch.Tensor,
                    list_ids: torch.Tensor, sel: torch.Tensor,
-                   own: Optional[torch.Tensor], *, k: int) -> Triple:
+                   own: Optional[torch.Tensor], *, k: int,
+                   precision: str = "f32", r: Optional[int] = None
+                   ) -> Triple:
     """Plain version of the fused IVF scan: (values (B, k), ids (B, k),
-    flat positions (B, k)), int32 ids/positions."""
+    flat positions (B, k)), int32 ids/positions.  Quantised: the exact
+    top-k of the top ``r`` candidates, positions = candidate ranks."""
     b = queries.shape[0]
-    ids = list_ids[sel]                                  # (B, np, lmax)
+    ids = list_ids[sel.long()]                           # (B, np, lmax)
     if own is not None:
         ids = torch.where(own[..., None] > 0, ids, -1)
     flat_i = ids.reshape(b, -1)
-    flat_v = torch.where(flat_i >= 0, list_scores(queries, list_vecs, sel),
-                         float("-inf"))
+    r_pad = tiling.next_pow2(r or k)
+    flat_v = torch.where(flat_i >= 0,
+                         list_scores(queries, list_vecs, sel, precision,
+                                     r_pad), float("-inf"))
+    if precision != "f32":
+        _, ci, cp = _top_candidates(flat_v, flat_i, r)
+        return rerank_lists(queries, list_vecs, sel, ci, cp, k)
     v, pos = topk(flat_v, k)
     i = flat_i.gather(-1, pos)
     pos = torch.where(torch.isneginf(v), PAD_POS, pos)
@@ -96,12 +180,15 @@ def fused_scan_ivf(queries: torch.Tensor, list_vecs: torch.Tensor,
 
 def fused_turn_ivf(queries: torch.Tensor, centroids: torch.Tensor,
                    list_vecs: torch.Tensor, list_ids: torch.Tensor, *,
-                   nprobe: int, k: int) -> Triple:
+                   nprobe: int, k: int, precision: str = "f32",
+                   r: Optional[int] = None) -> Triple:
     """Plain version of the whole IVF turn: (values (B, k), ids (B, k),
     sel (B, nprobe)), int32 ids/sel."""
-    _, sel = topk(gemv_rows(centroids, queries), nprobe)
+    _, sel = topk(centroid_scores(queries, centroids, precision,
+                                  tiling.next_pow2(nprobe)), nprobe)
     sel = sel.to(torch.int32)
-    v, i, _ = fused_scan_ivf(queries, list_vecs, list_ids, sel, None, k=k)
+    v, i, _ = fused_scan_ivf(queries, list_vecs, list_ids, sel, None, k=k,
+                             precision=precision, r=r)
     return v, i, sel
 
 
@@ -122,9 +209,24 @@ def adc_sum(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def adc_tables(tables: torch.Tensor, precision: str
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LUTs an ADC sum reads under ``precision`` and the divisor of
+    the sum: f32 as they are; bf16 rounded; int8 quantised with one
+    scale per (m, n_codes) table (its integer sums are exact in f32,
+    ``repro/kernels/fused_turn.py:117`` ``adc_score_tile``)."""
+    one = tables.new_ones((tables.shape[0], 1))
+    if precision == "f32":
+        return tables, one
+    if precision == "bf16":
+        return bf16_round(tables), one
+    ti, st = quantize_sym(tables, (1, 2))
+    return ti, st.reshape(-1, 1)
+
+
 def _probed_adc(tables: torch.Tensor, list_codes: torch.Tensor,
                 list_ids: torch.Tensor, sel: torch.Tensor,
-                own: Optional[torch.Tensor]
+                own: Optional[torch.Tensor], precision: str = "f32"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked ADC scores and ids of every slot of the probed lists,
     (B, nprobe·lmax) at flat position ``probe·lmax + offset``."""
@@ -135,8 +237,10 @@ def _probed_adc(tables: torch.Tensor, list_codes: torch.Tensor,
         ids = torch.where(own[..., None] > 0, ids, -1)
     flat_i = ids.reshape(b, -1)
     codes = list_codes[sel].reshape(b, flat_i.shape[1], -1)
-    flat_v = torch.where(flat_i >= 0, adc_sum(tables, codes),
-                         float("-inf"))
+    lut, div = adc_tables(tables, precision)
+    acc = adc_sum(lut, codes)
+    flat_v = torch.where(flat_i >= 0, acc if precision != "int8"
+                         else acc / div, float("-inf"))
     return flat_v, flat_i
 
 
@@ -156,16 +260,36 @@ def _top_candidates(flat_v: torch.Tensor, flat_i: torch.Tensor, r: int
     return v, i.to(torch.int32), pos.to(torch.int32)
 
 
-def rerank_exact(queries: torch.Tensor, corpus: torch.Tensor,
+def _rerank_rows(queries: torch.Tensor, rows: torch.Tensor,
                  cand_i: torch.Tensor, k: int) -> Triple:
-    """Exact top-k of the candidates ``cand_i`` (B, r) (-1 = pad), each
-    row scored against the float corpus by one matrix–vector product per
-    query: (values (B, k), ids (B, k), ADC ranks (B, k))."""
-    rows = corpus[cand_i.long().clamp_min(0)]            # (B, r, d)
+    """Exact top-k of the candidates ``cand_i`` (B, r) (-1 = pad) with
+    their float rows (B, r, d), one matrix–vector product per query:
+    (values (B, k), ids (B, k), candidate ranks (B, k))."""
     exact = torch.where(cand_i >= 0, gemv_rows(rows, queries),
                         float("-inf"))
     v, rank = topk(exact, k)
     return v, cand_i.gather(-1, rank), rank.to(torch.int32)
+
+
+def rerank_exact(queries: torch.Tensor, corpus: torch.Tensor,
+                 cand_i: torch.Tensor, k: int) -> Triple:
+    """Exact top-k of the candidates ``cand_i`` (B, r) (-1 = pad), each
+    row scored against the float corpus: (values (B, k), ids (B, k), ADC
+    ranks (B, k))."""
+    return _rerank_rows(queries, corpus[cand_i.long().clamp_min(0)],
+                        cand_i, k)
+
+
+def rerank_lists(queries: torch.Tensor, list_vecs: torch.Tensor,
+                 sel: torch.Tensor, cand_i: torch.Tensor,
+                 cand_p: torch.Tensor, k: int) -> Triple:
+    """Exact top-k of IVF candidates at flat positions ``cand_p`` (B, r):
+    each row read from the float lists at ``(sel[b, pos // lmax], pos %
+    lmax)`` (``repro/kernels/fused_turn.py:311-316``)."""
+    lmax = list_vecs.shape[1]
+    pos = torch.where(cand_i >= 0, cand_p, 0).long()
+    lists = sel.long().gather(1, pos // lmax)
+    return _rerank_rows(queries, list_vecs[lists, pos % lmax], cand_i, k)
 
 
 def pq_adc_scan_batch(tables: torch.Tensor, list_codes: torch.Tensor,
@@ -181,13 +305,13 @@ def pq_adc_scan_batch(tables: torch.Tensor, list_codes: torch.Tensor,
 def fused_scan_pq(tables: torch.Tensor, queries: torch.Tensor,
                   list_codes: torch.Tensor, list_ids: torch.Tensor,
                   sel: torch.Tensor, own: Optional[torch.Tensor],
-                  corpus: torch.Tensor, *, k: int, r: int, rerank: bool
-                  ) -> Triple:
+                  corpus: torch.Tensor, *, k: int, r: int, rerank: bool,
+                  precision: str = "f32") -> Triple:
     """Plain version of the fused PQ scan.  With ``rerank``: the exact
     top-k of the ADC top ``r`` (values, ids, ADC ranks); without: the
     ADC top ``r`` with flat positions (``queries``/``corpus`` unused)."""
     cv, ci, cp = _top_candidates(*_probed_adc(tables, list_codes, list_ids,
-                                              sel, own), r)
+                                              sel, own, precision), r)
     if not rerank:
         return cv, ci, cp
     return rerank_exact(queries, corpus, ci, k)
@@ -196,13 +320,16 @@ def fused_scan_pq(tables: torch.Tensor, queries: torch.Tensor,
 def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
                   tables: torch.Tensor, list_codes: torch.Tensor,
                   list_ids: torch.Tensor, corpus: torch.Tensor, *,
-                  nprobe: int, k: int, r: int) -> Triple:
+                  nprobe: int, k: int, r: int, precision: str = "f32"
+                  ) -> Triple:
     """Plain version of the whole IVF-PQ turn: (values (B, k), ids
     (B, k), sel (B, nprobe)), int32 ids/sel."""
-    _, sel = topk(gemv_rows(centroids, queries), nprobe)
+    _, sel = topk(centroid_scores(queries, centroids, precision,
+                                  tiling.next_pow2(nprobe)), nprobe)
     sel = sel.to(torch.int32)
     v, i, _ = fused_scan_pq(tables, queries, list_codes, list_ids, sel,
-                            None, corpus, k=k, r=r, rerank=True)
+                            None, corpus, k=k, r=r, rerank=True,
+                            precision=precision)
     return v, i, sel
 
 

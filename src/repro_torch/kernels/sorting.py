@@ -4,8 +4,9 @@ The reference keeps its running top-k inside Pallas kernels with
 bitonic compare-exchange networks (``repro/kernels/sorting.py``) that
 order candidates by the composite key (value desc, position asc) — the
 order ``lax.top_k`` gives over a flat row, ties going to the smaller
-source position.  Pads carry ``(-inf, id -1, PAD_POS)`` and so can never
-displace a real candidate.
+source position, and +0.0 above -0.0 (``core.topk.order_key``).  Pads
+carry ``(-inf, id -1, PAD_POS)`` and so can never displace a real
+candidate.
 
 On the card that order is realised by the device functions of
 ``csrc/topk_tie.cuh``.  Here it is the plain PyTorch version: a stable
@@ -29,9 +30,11 @@ def block_topk_desc_tie(vals: torch.Tensor, ids: torch.Tensor,
                         pos: torch.Tensor, k: int) -> Triple:
     """Top-k under (value desc, position asc); counterpart of
     ``repro.kernels.sorting.block_topk_desc_tie``."""
+    # imported here: repro_torch.core imports this module's package
+    from repro_torch.core.topk import order_key
     o1 = torch.sort(pos, dim=-1, stable=True).indices
-    o2 = torch.sort(vals.gather(-1, o1), dim=-1, descending=True,
-                    stable=True).indices
+    o2 = torch.sort(order_key(vals.gather(-1, o1)), dim=-1,
+                    descending=True, stable=True).indices
     order = o1.gather(-1, o2)[..., :k]
     return vals.gather(-1, order), ids.gather(-1, order), pos.gather(-1, order)
 

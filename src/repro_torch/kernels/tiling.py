@@ -38,9 +38,11 @@ MAX_CODES = 256
 # the kernels take (csrc/pq_adc.cu MAX_R): a scan block keeps its best
 # min(r_pad, SCAN_ROWS) rows, a stage-1 block its best min(np_pad,
 # CENTROID_CHUNK) centroids, and pads the rest of its list; the merge
-# takes lists of this width (merge_group(1024) = 18 a block) and the
-# re-rank block sorts this many candidates in dynamic shared memory.
-MAX_PAD = 1024
+# takes lists of this width (merge_group(2048) = 9 a block) and the
+# re-rank block sorts this many candidates in dynamic shared memory
+# (24 KB at 2,048, beside the query).  2,048 holds the quantised depth
+# r = k x over = 2,000 at TREC CAsT's k = 1,000.
+MAX_PAD = 2048
 
 # One merge candidate in shared memory: value f32, id i32, position i32.
 MERGE_ENTRY_BYTES = 12
@@ -128,10 +130,55 @@ def check_width(d: int) -> None:
 
 def check_pad(name: str, n: int) -> int:
     """Pad a top-k width to a power of two within the kernels' cap
-    (top-k past 1,024 is ROADMAP Queue 3)."""
+    (top-k past 2,048 is ROADMAP Queue 3)."""
     n_pad = next_pow2(n)
     if n_pad > MAX_PAD:
         raise ValueError(f"{name}={n} pads to {n_pad}; the CUDA kernels "
-                         f"keep at most {MAX_PAD} (wider top-k: ROADMAP "
-                         f"Queue 3)")
+                         f"keep at most {MAX_PAD} (top-k past 2,048: "
+                         f"ROADMAP Queue 3)")
     return n_pad
+
+
+# ---------------------------------------------------------------------------
+# int8 scale groups
+#
+# The int8 contract (``repro/kernels/fused_turn.py`` ``score_tile``)
+# quantises a query with one scale per row and the scored operand with
+# one scale per tile of the reference's Pallas grid: ``blk_p`` rows of
+# the zero-padded centroids (``repro/kernels/tiling.py``
+# ``centroid_tile``) and ``blk_l``-row sub-tiles of each posting list
+# zero-padded to ``lpad`` (``list_tile``, byte-capped by the 4 MiB tile
+# budget, never narrower than the candidate depth).  Those groups are
+# part of the numbers, not of the CUDA tiling, so the port keeps the
+# reference's policy and constants here; the kernels reduce each group's
+# largest |x| before they score (csrc/fused_turn.cu).
+# ---------------------------------------------------------------------------
+
+#: bytes of one streamed list tile in the reference (its VMEM slice)
+GROUP_TILE_BYTES = 4 * 1024 * 1024
+#: most rows of a list group, and rows of a centroid group
+GROUP_MAX_ROWS = 2048
+CENTROID_GROUP_ROWS = 512
+
+
+def _pow2_floor(n: int) -> int:
+    return max(next_pow2(n + 1) // 2, 1)
+
+
+def list_groups(lmax: int, d: int, r_pad: int) -> Tuple[int, int]:
+    """``(blk_l, n_groups)``: rows of one int8 scale group of a posting
+    list of float32 rows of width d, and groups per list (``lpad //
+    blk_l`` of the reference's ``list_tile(lmax, 4 d, kp=r_pad)``)."""
+    lpad = next_pow2(lmax)
+    blk = min(lpad, GROUP_MAX_ROWS,
+              _pow2_floor(GROUP_TILE_BYTES // max(4 * d, 1)))
+    blk = max(blk, r_pad)
+    return blk, -(-lpad // blk)
+
+
+def centroid_groups(p: int, np_pad: int) -> Tuple[int, int]:
+    """``(blk_p, n_groups)``: centroids of one int8 scale group and
+    groups over the p centroids (the reference's ``centroid_tile(p,
+    np_pad, blk_p=512)``)."""
+    blk = max(min(CENTROID_GROUP_ROWS, next_pow2(p)), np_pad)
+    return blk, -(-p // blk)

@@ -38,7 +38,8 @@ class ServingConfig:
     alpha: float = 0.1            # refresh threshold (TopLoc_IVF+)
     rerank: int = 64              # exact re-rank depth (IVF-PQ)
     # fused turn (core.toploc.FusedTurn over the CUDA kernels of
-    # kernels/csrc/); "f32" is the only ported precision
+    # kernels/csrc/): "f32" equals the unfused path; "bf16" / "int8"
+    # score quantised and re-rank in float32 inside the kernel
     fused: bool = False
     precision: str = "f32"
     # HNSW

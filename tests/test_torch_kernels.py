@@ -9,19 +9,27 @@ equal the plain versions bit for bit: values, ids, ``sel`` and
 positions, pads ``(-inf, -1, PAD_POS)`` included.  The IVF-PQ shapes
 add code rows of 16-byte loads (m = 48) and of byte loads (m = 8, 4),
 lists longer than one ADC block (Lmax > 512), fewer slots than k, and a
-re-rank depth below its power-of-two padding.  Flash attention runs on
+re-rank depth below its power-of-two padding.  The bf16 and int8
+precisions of the fused ops are held the same way: on these inputs bf16
+rounds nothing and the int8 dots are exact, so kernel and plain version
+agree bit for bit, at several int8 scale groups per list and per
+centroid table, a candidate depth of 2,000 (r_pad 2,048) and a row
+alone or in a batch.  Flash attention runs on
 float inputs: its plain version is pinned to a float64 numpy softmax
 and the kernel to the plain version, both within 1e-5 (summation
 order), over MHA/GQA, causal with S == Skv and S < Skv, Dv != D, ragged
 S and Skv, and the encoders' shapes.
 """
+import ctypes
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import kmeans
 from repro_torch.core.topk import topk
-from repro_torch.kernels import ops, ref, tiling
+from repro_torch.kernels import _build, ops, ref, tiling
 from repro_torch.kernels.flash_decode import flash_decode as \
     flash_decode_launch
 from repro_torch.kernels.sorting import PAD_POS
@@ -198,15 +206,17 @@ def test_plain_versions_match_brute_force_past_one_block_merge():
 
 def test_wrapper_limits():
     """What the kernels do not take is refused before any launch: top-k
-    wider than 1,024 (ROADMAP Queue 3) and rows that are not float4."""
+    wider than 2,048 (ROADMAP Queue 3) and rows that are not float4."""
     assert tiling.check_pad("k", 10) == 16
     assert tiling.check_pad("k", 100) == 128
     assert tiling.check_pad("k", 1000) == 1024
+    assert tiling.check_pad("k", 2000) == 2048
     assert tiling.check_pad("nprobe", 256) == 256
-    with pytest.raises(ValueError, match="at most 1024"):
-        tiling.check_pad("nprobe", 1025)
-    with pytest.raises(ValueError, match="at most 1024"):
-        tiling.merge_group(2048)
+    with pytest.raises(ValueError, match="at most 2048"):
+        tiling.check_pad("nprobe", 2049)
+    with pytest.raises(ValueError, match="at most 2048"):
+        tiling.merge_group(4096)
+    assert tiling.merge_group(2048) == 9
     with pytest.raises(ValueError, match="float4"):
         tiling.check_width(6)
     # the smoke's merges take one pass
@@ -229,8 +239,43 @@ def test_pq_wrapper_limits():
     assert len(tiling.merge_plan(64 * tiling.pq_split(4096), 64)) == 2
     assert tiling.check_pad("rerank depth", 100) == 128
     assert tiling.check_pad("rerank depth", 1000) == 1024
-    with pytest.raises(ValueError, match="at most 1024"):
-        tiling.check_pad("rerank depth", 1025)
+    assert tiling.check_pad("rerank depth", 2000) == 2048
+    with pytest.raises(ValueError, match="at most 2048"):
+        tiling.check_pad("rerank depth", 2049)
+
+
+@pytest.mark.parametrize("lmax,d,r_pad,want", [
+    (702, 768, 32, (1024, 1)),      # the smoke: one group a list
+    (702, 768, 2048, (2048, 1)),    # r_pad wider than the byte cap
+    (1500, 1024, 32, (1024, 2)),    # byte-capped: two groups a list
+    (1500, 1024, 2048, (2048, 1)),
+    (10, 16, 8, (16, 1)), (10, 16, 2, (16, 1)), (5000, 8, 16, (2048, 4))])
+def test_int8_list_groups(lmax, d, r_pad, want):
+    """The reference's list tiles (``list_tile(lmax, 4 d, kp=r_pad,
+    max_tile=2048)`` under a 4 MiB tile) as int8 scale groups."""
+    assert tiling.list_groups(lmax, d, r_pad) == want
+
+
+def test_int8_scale_is_one_ieee_divide():
+    """The plain versions' int8 scale is 127 / max(amax, 1e-30) rounded
+    once, as the kernels' ``__fdiv_rn`` and the reference's jnp divide
+    round it (torch's ``127.0 / t`` multiplies by a reciprocal)."""
+    amax = torch.from_numpy(np.random.default_rng(0).uniform(
+        1e-3, 10.0, 4096).astype(np.float32))
+    amax[0] = 0.0
+    want = np.float32(127.0) / np.maximum(amax.numpy(), np.float32(1e-30))
+    np.testing.assert_array_equal(ref.int8_scale(amax).numpy(), want)
+    _, scale = ref.quantize_sym(amax.reshape(64, 64), (1,))
+    np.testing.assert_array_equal(
+        scale[:, 0].numpy(),
+        np.float32(127.0) / amax.reshape(64, 64).abs().amax(1).numpy())
+
+
+@pytest.mark.parametrize("p,np_pad,want", [
+    (16_384, 64, (512, 32)), (6, 4, (8, 1)), (1000, 64, (512, 2)),
+    (600, 1024, (1024, 1)), (300, 2048, (2048, 1))])
+def test_int8_centroid_groups(p, np_pad, want):
+    assert tiling.centroid_groups(p, np_pad) == want
 
 
 # the two-tower retrieval_cand shape through TopLoc_IVF
@@ -279,6 +324,16 @@ def test_merge_plan_at_width_1024():
     assert tiling.merge_group(256) == 75
     assert tiling.merge_plan(tiling.centroid_chunks(16_384), 256) == \
         [(128, 2), (2, 1)]
+
+
+def test_merge_plan_at_width_2048():
+    """Lists of 2,048 (r = k·over = 2,000 at k = 1,000) go 9 a block; the
+    smoke's quantised k = 1,000 scan (64 probes x 6 slices) takes three
+    passes."""
+    assert tiling.merge_group(2048) == 9
+    assert 9 * 2048 * tiling.MERGE_ENTRY_BYTES <= tiling.SMEM_BLOCK_BYTES
+    assert tiling.merge_plan(64 * tiling.scan_split(702), 2048) == \
+        [(384, 43), (43, 5), (5, 1)]
 
 
 # k = 1,000 and nprobe = 256 / a re-rank depth of 1,000: each block keeps
@@ -434,6 +489,299 @@ def test_cuda_pq_empty_batch_launches_nothing(cuda_device):
     assert v.shape == (0, 4) and s.shape == (0, 2)
     assert (ops.pq_adc_scan.launches, ops.fused_scan_pq.launches,
             ops.fused_turn_pq.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# bf16 / int8 fused ops: kernel == plain version on integer inputs
+# ---------------------------------------------------------------------------
+
+QUANT = ("bf16", "int8")
+# several int8 groups a list (d = 1,024, Lmax > 1,024), then r = 2,000
+# (r_pad 2,048) wider than the byte-capped group of 1,024 rows
+GROUP_SHAPES = [(8, 1100, 1024, 2, 3, 4), (8, 1100, 1024, 2, 3, 1000)]
+
+
+def _ivf_quant(q, cents, lv, li, own, nprobe, k, precision):
+    """(kernel, plain) results of fused_turn and of fused_scan (own
+    mask) at ``precision``."""
+    r = ops._fused_depth(k, nprobe * lv.shape[1], 2 * k)
+    got = ops.fused_turn(q, cents, lv, li, nprobe=nprobe, k=k,
+                         precision=precision)
+    want = ref.fused_turn_ivf(q, cents, lv, li, nprobe=nprobe, k=k,
+                              precision=precision, r=r)
+    sel = want[2]
+    got_s = ops.fused_scan(q, lv, li, sel, k, own=own, precision=precision)
+    want_s = ref.fused_scan_ivf(q, lv, li, sel, own, k=k,
+                                precision=precision, r=r)
+    return (got, got_s), (want, want_s)
+
+
+BF16_STEP = 2.0 ** -9
+
+
+def _bf16_split(tensors, seed):
+    """Integer tensors (|x| <= 4) with BF16_STEP added to the magnitude
+    of about half their nonzero entries: bf16 rounds each back to its
+    integer and float32 keeps it, so bf16 and float32 scores order rows
+    differently, while float32 sums against integer queries stay exact
+    (multiples of 2^-9 below 2^15 at d <= 1,024; ADC sums of m <= 48)."""
+    rng = np.random.default_rng(seed)
+    return [t + t.sign() * BF16_STEP * torch.from_numpy(
+        rng.integers(0, 2, size=tuple(t.shape)).astype(np.float32)).to(
+            t.device) for t in tensors]
+
+
+def _split_inputs(shape, dev="cpu"):
+    q, cents, lv, li, own = _inputs(shape, dev)
+    cents, lv = _bf16_split((cents, lv), shape[0])
+    return q, cents, lv, li, own
+
+
+def _split_pq_inputs(shape, dev="cpu"):
+    q, cents, tables, codes, li, corpus, own = _pq_inputs(shape, dev)
+    cents, tables, corpus = _bf16_split((cents, tables, corpus), shape[0])
+    return q, cents, tables, codes, li, corpus, own
+
+
+SPLIT_SHAPES = [SHAPES[3], SHAPES[4], THOUSAND_SHAPES[0]]
+SPLIT_PQ_SHAPES = [PQ_SHAPES[2], PQ_SHAPES[3], PQ_SHAPES[4]]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_bf16_split_inputs_expose_unrounded_list_scoring(shape,
+                                                         monkeypatch):
+    """On ``_bf16_split`` lists the bf16 scan's candidate ranks differ
+    from those of a scan that skips bf16's rounding of the rows (the
+    plain version with its list scoring patched to float32), so the
+    kernels' bit-equality on these inputs holds the rounding; its f32
+    re-rank is exact (float64 agrees)."""
+    nprobe, k = shape[4], shape[5]
+    q, cents, lv, li, own = _split_inputs(shape)
+    r = ops._fused_depth(k, nprobe * shape[1], 2 * k)
+    sel = ref.fused_turn_ivf(q, cents, lv, li, nprobe=nprobe, k=k,
+                             precision="bf16", r=r)[2]
+    v, ids, rank = ref.fused_scan_ivf(q, lv, li, sel, own, k=k,
+                                      precision="bf16", r=r)
+    # the same scan with its re-rank in float64
+    exact = ref.fused_scan_ivf(q.double(), lv.double(), li, sel, own, k=k,
+                               precision="bf16", r=r)
+    assert torch.equal(v.double(), exact[0]) and torch.equal(ids, exact[1])
+    plain = ref.list_scores
+    monkeypatch.setattr(ref, "list_scores", lambda q_, lv_, sel_, p_, r_:
+                        plain(q_, lv_, sel_, "f32", r_))
+    assert not torch.equal(rank, ref.fused_scan_ivf(
+        q, lv, li, sel, own, k=k, precision="bf16", r=r)[2])
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_bf16_split_inputs_expose_unrounded_centroid_scoring(shape,
+                                                             monkeypatch):
+    """The same for stage 1: a centroid scoring that skips bf16's
+    rounding probes other lists than the bf16 one."""
+    nprobe, k = shape[4], shape[5]
+    q, cents, lv, li, _ = _split_inputs(shape)
+    r = ops._fused_depth(k, nprobe * shape[1], 2 * k)
+    sel = ref.fused_turn_ivf(q, cents, lv, li, nprobe=nprobe, k=k,
+                             precision="bf16", r=r)[2]
+    plain = ref.centroid_scores
+    monkeypatch.setattr(ref, "centroid_scores", lambda q_, c_, p_, n_:
+                        plain(q_, c_, "f32", n_))
+    assert not torch.equal(sel, ref.fused_turn_ivf(
+        q, cents, lv, li, nprobe=nprobe, k=k, precision="bf16", r=r)[2])
+
+
+@pytest.mark.parametrize("shape", SPLIT_PQ_SHAPES)
+def test_bf16_split_inputs_expose_unrounded_adc(shape, monkeypatch):
+    """The same for the ADC: LUTs left unrounded give another ADC top r
+    (ids or flat positions) than bf16 LUTs."""
+    nprobe, k, rerank = shape[4], shape[5], shape[8]
+    q, cents, tables, codes, li, corpus, own = _split_pq_inputs(shape)
+    sel = ref.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                            nprobe=nprobe, k=k, r=_depth(shape),
+                            precision="bf16")[2]
+
+    def adc_top_r():
+        return ref.fused_scan_pq(tables, q, codes, li, sel, own, corpus,
+                                 k=k, r=_depth(shape), rerank=False,
+                                 precision="bf16")
+    want = adc_top_r()
+    plain = ref.adc_tables
+    monkeypatch.setattr(ref, "adc_tables", lambda t_, p_: plain(t_, "f32"))
+    got = adc_top_r()
+    assert not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
+
+
+QUANT_INPUTS = {"integer": (_inputs, _pq_inputs),
+                "bf16_split": (_split_inputs, _split_pq_inputs)}
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("inputs", QUANT_INPUTS)
+@pytest.mark.parametrize("precision", QUANT)
+@pytest.mark.parametrize("shape", SHAPES + THOUSAND_SHAPES + GROUP_SHAPES)
+def test_cuda_quantised_kernels_equal_plain_versions(cuda_device, shape,
+                                                     precision, inputs):
+    """fused_turn and fused_scan at bf16 / int8: the quantised stage 1
+    (two centroid groups at p = 1,000), the list groups' amax pass, the
+    quantised top r = k·over and the float32 re-rank inside the kernel,
+    bit-equal (values, ids, sel, candidate ranks), on integer inputs and
+    on ``_bf16_split`` ones, where bf16 and float32 order candidates
+    differently."""
+    nprobe, k = shape[4], shape[5]
+    q, cents, lv, li, own = QUANT_INPUTS[inputs][0](shape, cuda_device)
+    before = (ops.fused_turn.launches, ops.fused_scan.launches)
+    got, want = _ivf_quant(q, cents, lv, li, own, nprobe, k, precision)
+    for g3, w3 in zip(got, want):
+        for g, w in zip(g3, w3):
+            assert torch.equal(g, w)
+    assert (ops.fused_turn.launches, ops.fused_scan.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("inputs", QUANT_INPUTS)
+@pytest.mark.parametrize("precision", QUANT)
+@pytest.mark.parametrize("shape", PQ_SHAPES + THOUSAND_PQ_SHAPES)
+def test_cuda_quantised_pq_kernels_equal_plain_versions(cuda_device, shape,
+                                                        precision, inputs):
+    """fused_turn_pq and fused_scan_pq (with and without the re-rank) at
+    bf16 / int8 LUTs and a quantised stage 1, bit-equal, on integer and
+    on ``_bf16_split`` inputs."""
+    nprobe, k, rerank = shape[4], shape[5], shape[8]
+    r = _depth(shape)
+    q, cents, tables, codes, li, corpus, own = QUANT_INPUTS[inputs][1](
+        shape, cuda_device)
+    got = ops.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                            nprobe=nprobe, k=k, rerank=rerank,
+                            precision=precision)
+    want = ref.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                             nprobe=nprobe, k=k, r=r, precision=precision)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for fuse in (True, False):
+        got = ops.fused_scan_pq(tables, q, codes, li, want[2], corpus, k,
+                                rerank=rerank, own=own, fuse_rerank=fuse,
+                                precision=precision)
+        plain = ref.fused_scan_pq(tables, q, codes, li, want[2], own, corpus,
+                                  k=k, r=r, rerank=fuse, precision=precision)
+        for g, w in zip(got, plain):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("precision", ("f32",) + QUANT)
+def test_cuda_fused_rows_do_not_depend_on_the_batch(cuda_device, precision):
+    """A query's results are the same bits alone (B = 1) and in a batch
+    of 8, on float inputs: every group scale and every sum is fixed by
+    the query and the index, not by the launch."""
+    shape = (1000, 130, 32, 8, 64, 10)
+    g = torch.Generator().manual_seed(8)
+    q, cents, lv = (torch.randn(s, generator=g).to(cuda_device) for s in
+                    ((8, 32), (1000, 32), (1000, 130, 32)))
+    _, _, _, li, _ = _inputs(shape, cuda_device)
+    lv = lv * (li >= 0)[..., None]
+    tables = torch.randn((8, 8, 256), generator=g).to(cuda_device)
+    codes = torch.randint(0, 256, (1000, 130, 8), generator=g,
+                          dtype=torch.uint8).to(cuda_device)
+    corpus = torch.randn((200, 32), generator=g).to(cuda_device)
+
+    def run(rows):
+        v, i, s = ops.fused_turn(q[rows], cents, lv, li, nprobe=64, k=10,
+                                 precision=precision)
+        out = [v, i, s, *ops.fused_scan(q[rows], lv, li, s, 10,
+                                        precision=precision)]
+        out += ops.fused_turn_pq(q[rows], cents, tables[rows], codes, li,
+                                 corpus, nprobe=64, k=10, rerank=64,
+                                 precision=precision)
+        return out
+
+    full = run(slice(0, 8))
+    for row in range(8):
+        for a, b in zip(run(slice(row, row + 1)), full):
+            assert torch.equal(a[0], b[row])
+
+
+# the order of ranks_before (csrc/topk_tie.cuh) on given values: no fused
+# kernel can emit -0.0 (every sum starts at +0.0, as the reference's
+# do), so a small harness sorts and merges rows of +-0 on the card
+TIE_HARNESS = r"""
+#include "topk_tie.cuh"
+__global__ void tie_kernel(float* v, int* id, int* pos, int n, int lists) {
+  __shared__ float sv[64];
+  __shared__ int si[64];
+  __shared__ int sp[64];
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    sv[t] = v[t]; si[t] = id[t]; sp[t] = pos[t];
+  }
+  if (lists == 1) {
+    topk_tie::block_sort(sv, si, sp, n);
+  } else {
+    __syncthreads();
+    topk_tie::merge_lists(sv, si, sp, lists, n / lists);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    v[t] = sv[t]; id[t] = si[t]; pos[t] = sp[t];
+  }
+}
+extern "C" int tie_order(float* v, int* id, int* pos, int n, int lists) {
+  tie_kernel<<<1, 64>>>(v, id, pos, n, lists);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def tie_harness(tmp_dir):
+    """Builds the harness beside the kernels' headers; its ``tie_order``."""
+    src = tmp_dir / "tie_harness.cu"
+    src.write_text(TIE_HARNESS)
+    so = tmp_dir / "libtie.so"
+    subprocess.run([_build.nvcc(), *_build.ARCH, "-std=c++17", "-shared",
+                    "-Xcompiler", "-fPIC", "-I", str(_build.CSRC), "-o",
+                    str(so), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).tie_order
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+SIGNED_ZEROS = [-0.0, 0.0, -0.0, 0.0, 1.0, -1.0]
+
+
+@pytest.mark.cuda_only
+def test_cuda_signed_zero_order(cuda_device, tmp_path):
+    """+0.0 ranks above -0.0, as in lax.top_k ([-0, +0, -0, +0, 1, -1]
+    -> ids [4, 1, 3, 0]): ``core.topk`` on the card, and ``ranks_before``
+    in the bitonic sort and in the list merge."""
+    x = torch.tensor(SIGNED_ZEROS, device=cuda_device)
+    assert topk(x, 4)[1].tolist() == [4, 1, 3, 0]
+    assert topk(x[None].repeat(3, 1), 6)[1][2].tolist() == [4, 1, 3, 0, 2, 5]
+    fn = tie_harness(tmp_path)
+    want = [4, 1, 3, 0, 2, 5]
+    for lists, order in ((1, list(range(6))), (2, [4, 1, 3, 0, 2, 5])):
+        # merge: two sorted lists of 32, the second holding +-0 too
+        v = torch.full((64,), float("-inf"), device=cuda_device)
+        pos = torch.full((64,), PAD_POS, dtype=torch.int32,
+                         device=cuda_device)
+        vals = torch.tensor(SIGNED_ZEROS)[order]
+        if lists == 1:
+            v[:6] = vals.to(cuda_device)
+            pos[:6] = torch.tensor(order, dtype=torch.int32)
+        else:   # list 0: ids 4, 1, 0; list 1: ids 3, 2, 5 (each sorted)
+            for base, ids in ((0, [4, 1, 0]), (32, [3, 2, 5])):
+                v[base:base + 3] = torch.tensor(SIGNED_ZEROS)[ids].to(
+                    cuda_device)
+                pos[base:base + 3] = torch.tensor(ids, dtype=torch.int32)
+        ids = pos.clone()
+        assert fn(v.data_ptr(), ids.data_ptr(), pos.data_ptr(), 64,
+                  lists) == 0
+        assert pos[:6].tolist() == want
+        assert [math_sign(x) for x in v[:6].tolist()] == \
+            [1, 1, 1, -1, -1, -1]
+
+
+def math_sign(x):
+    return -1 if str(x).startswith("-") else 1
 
 
 # ---------------------------------------------------------------------------

@@ -203,18 +203,24 @@ def test_cpu_tensors_with_cuda_entry_point_are_refused(tiny):
                         device="cuda")
 
 
-@pytest.mark.parametrize("precision", ["bf16", "int8"])
-def test_unported_precisions_raise(tiny, tiny_pq, precision):
+@pytest.mark.parametrize("precision", ["fp8", "f16"])
+def test_unknown_precisions_raise(tiny, tiny_pq, precision):
+    """bf16 and int8 are ported; any other precision raises ValueError
+    at every fused op, at ``FusedTurn`` and at the engine, as the
+    reference's ``score_tile`` does."""
     idx, q = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown precision"):
         tops.fused_turn(q, idx.centroids, idx.list_vecs, idx.list_ids,
                         nprobe=1, k=2, precision=precision, device="cpu")
+    with pytest.raises(ValueError, match="unknown precision"):
+        tops.fused_scan(q, idx.list_vecs, idx.list_ids, SEL, 2,
+                        precision=precision, device="cpu")
     for op in ("fused_scan_pq", "fused_turn_pq"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="unknown precision"):
             PQ_OPS[op](*tiny_pq, precision=precision, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown precision"):
         ttl.FusedTurn(precision=precision)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown precision"):
         teng.ConversationalSearchEngine(
             teng.ServingConfig(fused=True, precision=precision),
             ivf_index=idx, device="cpu")
