@@ -35,11 +35,18 @@ exits non-zero):
   2 build     nvcc of every kernels/csrc source (seconds; registers and
               spills per kernel)
   3 exact     integer inputs: kernels == plain versions bit for bit
+              (rows 1-2, centroid_topk and ivf_scan, in float32 and
+              bfloat16: p not a multiple of 128 with every score
+              negative, k up to 2,048, B up to 64, nprobe up to 256,
+              fewer real rows than k, dense ties; then the others:
               (retrieval top-k and re-rank depth up to 1,000, nprobe up
               to 256, merges past one block; the bf16 and int8 fused
               ops too, r = 2,000 and several int8 groups a list; +0.0
               above -0.0 in core.topk; embedding_bag at B = 1, 512,
               262,144)
+    plans     every probe of the kernels analysis pass on CUDA tensors
+              under torch.profiler: the recorded launch plan == the
+              traced kernels (name, order, grid, block, shared memory)
   4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25, f32,
               bf16 and int8, and at the two-tower retrieval_cand shape
   5 attn      flash_attention == its plain version within 1e-5, Yi-9B's
@@ -72,6 +79,12 @@ exits non-zero):
     fig8      the reference's recall gate: quantised vs f32 fused turn
               >= 0.95 at fig8's 20,000 docs, d = 64, p = 2,048
  13 batched   start_batch / step_batch == the sequential engine
+    classic   the two-stage turn, centroid_topk -> ivf_scan, over the
+              full index for the 25 x 10 turns at B = 1 and 10 at B =
+              25 (launches counted from 0), plus the top-h = 1,024
+              cache of each first turn: bit-equal to the fused f32
+              turn; the caches and the B = 25 turns within TOL of the
+              plain versions; then rows 1-2's [times] at B = 1 and 25
  14 times     CUDA-event kernel times (L2 flushed) beside their bounds,
               rows 4-7 at f32, bf16 and int8
  15 decode32k once the retrieval objects are freed: Yi-9B at decode_32k
@@ -109,6 +122,8 @@ PQ_SRC = "src/repro_torch/kernels/csrc/pq_adc.cu"
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 EB_SRC = "src/repro_torch/kernels/csrc/embedding_bag.cu"
 FD_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
+CK_SRC = "src/repro_torch/kernels/csrc/centroid_topk.cu"
+IV_SRC = "src/repro_torch/kernels/csrc/ivf_scan.cu"
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 PQ_M, PQ_ITERS, RERANK = 48, 8, 64
 IVF_KERNELS = ("fused_scan", "fused_turn")
@@ -121,12 +136,15 @@ QUANT_KERNELS = tuple(f"{op}[{prec}]" for op in QUANT_OPS for prec in QUANT)
 ENC_KERNELS = ("flash_attention",)
 REC_KERNELS = ("embedding_bag",)
 LM_KERNELS = ("flash_decode",)
+# rows 1-2: the two stages of a turn as kernels of their own
+CLASSIC_KERNELS = ("centroid_topk", "ivf_scan")
 SOURCES = {**dict.fromkeys(IVF_KERNELS, SCAN_SRC),
            **dict.fromkeys(PQ_KERNELS, PQ_SRC),
            **{f"{op}[{prec}]": SCAN_SRC if op in IVF_KERNELS else PQ_SRC
               for op in QUANT_OPS for prec in QUANT},
            "flash_attention": FA_SRC, "embedding_bag": EB_SRC,
-           "flash_decode": FD_SRC}
+           "flash_decode": FD_SRC, "centroid_topk": CK_SRC,
+           "ivf_scan": IV_SRC}
 REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "fused_turn": "src/repro/kernels/fused_turn.py:406",
             "pq_adc_scan": "src/repro/kernels/pq_adc.py:79",
@@ -134,7 +152,9 @@ REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "fused_turn_pq": "src/repro/kernels/fused_turn.py:445",
             "flash_attention": "src/repro/kernels/flash_attention.py:89",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:49",
-            "flash_decode": "src/repro/kernels/flash_attention.py:180"}
+            "flash_decode": "src/repro/kernels/flash_attention.py:180",
+            "centroid_topk": "src/repro/kernels/centroid_topk.py:66",
+            "ivf_scan": "src/repro/kernels/ivf_scan.py:64"}
 REPLACES.update({f"{op}[{prec}]": REPLACES[op] for op in QUANT_OPS
                  for prec in QUANT})
 BAG_TOL = 1e-6                 # embedding_bag on random floats
@@ -470,6 +490,238 @@ def phase_exact_bag(dev, errs):
                         raise AssertionError(f"{what}: max |d| {err}")
                     errs["embedding_bag"] = max(errs["embedding_bag"], err)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# rows 1-2: centroid_topk and ivf_scan, the two stages of a turn alone
+# ---------------------------------------------------------------------------
+
+# p, d, B, k: p not a multiple of 128 with every score negative (the
+# reference's zero-padded centroids would outrank them), k = p, dense
+# ties (d = 8, entries in [-1, 1]), B = 64, k up to 2,048 (a three-pass
+# merge over 20 chunks), the smoke's nprobe and h over p = 16,384
+CK_EXACT = [(600, 16, 3, 8), (16, 16, 2, 16), (300, 8, 9, 10),
+            (1000, 8, 25, 64), (700, 32, 64, 100), (2500, 8, 64, 2048),
+            (16_384, 8, 3, 64), (16_384, 8, 2, 1024)]
+# p, lmax, d, B, nprobe, k (int_inputs' ragged lists: list 0 empty, ids
+# repeat): fewer than k real rows, k = 100 past one merge group, nprobe
+# 256 at k = 1,000 and 2,048, B = 64
+IV_EXACT = [(6, 10, 16, 3, 3, 4), (5, 7, 8, 1, 5, 8), (9, 16, 32, 4, 2, 30),
+            (300, 200, 32, 9, 64, 10), (1000, 130, 8, 25, 64, 10),
+            (64, 1220, 8, 2, 32, 100), (600, 40, 8, 3, 256, 1000),
+            (600, 40, 8, 2, 256, 2048), (300, 200, 16, 64, 16, 64)]
+
+
+def ck_inputs(shape, dev):
+    """Integer queries and centroids; the first shape's scores are all
+    negative (centroids in [1, 4], queries in [-4, -1]); the d = 8
+    shapes draw from [-1, 1], so ties are dense."""
+    import torch
+    p, d, b, _ = shape
+    rng = np.random.default_rng(p + d + b)
+    lo = 1 if d == 8 else 4
+    if shape == CK_EXACT[0]:
+        q = -rng.integers(1, 5, size=(b, d))
+        c = rng.integers(1, 5, size=(p, d))
+    else:
+        q = rng.integers(-lo, lo + 1, size=(b, d))
+        c = rng.integers(-lo, lo + 1, size=(p, d))
+    return [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (q, c)]
+
+
+def iv_inputs(shape, dev):
+    """int_inputs' lists and a selection drawn with repeats."""
+    import torch
+    q, _, lv, li, _ = int_inputs(shape, dev)
+    p, b, nprobe = shape[0], shape[3], shape[4]
+    rng = np.random.default_rng(p + nprobe)
+    sel = torch.from_numpy(rng.integers(0, p, size=(b, nprobe)).astype(
+        np.int32)).to(dev)
+    return q, lv, li, sel
+
+
+def phase_exact_classic(dev):
+    """Rows 1-2 bit-equal to their plain versions on integer inputs, in
+    float32 and bfloat16 (exact on these values).  Returns the most
+    merge passes a shape took."""
+    import torch
+    from repro_torch.kernels import ops, ref, tiling
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in CK_EXACT:
+            q, c = (x.to(dtype) for x in ck_inputs(shape, dev))
+            k = shape[3]
+            got = ops.centroid_topk(q, c, k)
+            want = ref.centroid_topk(q, c, k)
+            equal(f"centroid_topk {shape} {dtype}", got, want, ("v", "ids"))
+            if shape == CK_EXACT[0] and not bool((got[0] < 0).all()):
+                raise AssertionError("centroid_topk: a padded centroid won")
+        for shape in IV_EXACT:
+            q, lv, li, sel = iv_inputs(shape, dev)
+            q, lv = q.to(dtype), lv.to(dtype)
+            k = shape[5]
+            got = ops.ivf_scan(q, lv, li, sel, k)
+            want = ref.ivf_scan_batch(q, lv, li, sel, k)
+            equal(f"ivf_scan {shape} {dtype}", got, want, ("v", "ids"))
+    torch.cuda.synchronize()
+    return max([len(tiling.merge_plan(tiling.centroid_chunks(s[0]),
+                                      tiling.next_pow2(s[3])))
+                for s in CK_EXACT] +
+               [len(tiling.merge_plan(s[4] * tiling.scan_split(s[1]),
+                                      tiling.next_pow2(s[5])))
+                for s in IV_EXACT])
+
+
+def phase_classic(args, index, docs, convs, dev, errs):
+    """The two-stage turn at full width: for the 25 conversations' turns
+    at B = 1 and B = 25, ``ops.centroid_topk(q, C, nprobe)`` then
+    ``ops.ivf_scan(q, lists, ids, sel, k)``, and on each first turn the
+    top-h cache (a refresh turn's ``centroid_topk(q, C, h)``).  The
+    launch counts start at 0 just before and are read just after.  Then
+    each turn is held bit for bit to ``ops.fused_turn(..., precision=
+    "f32")`` (values, ids, sel), and the B = 25 turns and the top-h
+    caches to the plain versions within TOL.  Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    k, nprobe, h = args.k, args.nprobe, 1024
+    lv, li, c = index.list_vecs, index.list_ids, index.centroids
+    turns = []
+    for b in (1, 25):
+        for t in range(convs.shape[1]):
+            qs = torch.from_numpy(np.ascontiguousarray(convs[:, t])).to(dev)
+            turns += [(qs[j:j + 1], t) for j in range(len(qs))] if b == 1 \
+                else [(qs, t)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    runs = []
+    for q, t in turns:
+        sel_v, sel = ops.centroid_topk(q, c, nprobe)
+        v, i = ops.ivf_scan(q, lv, li, sel, k)
+        cache = ops.centroid_topk(q, c, h) if t == 0 else None
+        runs.append((q, sel_v, sel, v, i, cache))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: getattr(ops, n).launches for n in CLASSIC_KERNELS}
+    if min(counts.values()) == 0:
+        raise AssertionError(f"classic: a kernel was not launched: {counts}")
+    ties = dict.fromkeys(("centroid_topk", "ivf_scan", "cache"), 0)
+    for q, sel_v, sel, v, i, cache in runs:
+        fv, fi, fs = ops.fused_turn(q, c, lv, li, nprobe=nprobe, k=k)
+        equal(f"classic B={q.shape[0]} vs fused_turn", (v, i, sel),
+              (fv, fi, fs), ("v", "ids", "sel"))
+        if not (torch.isfinite(v).all() and v.shape == (q.shape[0], k)):
+            raise AssertionError("classic: non-finite or misshapen scores")
+        checks = [("cache", cache, ref.centroid_topk(q, c, h), c)
+                  ] if cache is not None else []
+        if q.shape[0] > 1:
+            checks += [("centroid_topk", (sel_v, sel),
+                        ref.centroid_topk(q, c, nprobe), c),
+                       ("ivf_scan", (v, i),
+                        ref.ivf_scan_batch(q, lv, li, sel, k), docs)]
+        for name, got, want, rows in checks:
+            err, mism = compare(f"classic {name} B={q.shape[0]}", *got,
+                                *want, dot_rows(rows, q), rows.shape[0])
+            key = "centroid_topk" if name == "cache" else name
+            errs[key] = max(errs[key], err)
+            ties[name] += mism
+    n_conv, n_turn = convs.shape[:2]
+    log("classic", f"p={index.p} lmax={index.lmax} d={index.d} nprobe="
+        f"{nprobe} k={k} h={h}: {len(turns)} turns ({n_conv} x {n_turn} at "
+        f"B = 1, {n_turn} at B = {n_conv}) of centroid_topk -> ivf_scan in "
+        f"{wall:.2f}s host "
+        f"clock, launches {counts}; values, ids and sel bit-equal to "
+        f"fused_turn (f32); against the plain versions max_abs_err "
+        f"centroid_topk={errs['centroid_topk']:.3g} ivf_scan="
+        f"{errs['ivf_scan']:.3g} (tol {TOL}), near-tie id mismatches "
+        f"{ties}")
+    return counts
+
+
+def phase_plans(dev):
+    """Every probe of the ``kernels`` analysis pass on CUDA tensors of
+    its shapes, drawn from a seeded generator: the plan the recorder
+    records for the call is held to the kernels torch.profiler traces
+    (name, count, order, grid, block, static + dynamic shared memory).
+    Returns (probes, kernels checked)."""
+    import torch
+    from repro_torch.analysis import kernel_budget as KB
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n, bad = 0, []
+    probes = KB.default_probes()
+    for probe in probes:
+        tensors = probe.tensors(dev, gen)
+        want = KB.planned(probe, tensors, dev)
+        seen = KB.traced(probe, tensors, dev)
+        if seen != want or not want:
+            bad.append(f"{probe.label}: the profiler saw {seen}, the plan "
+                       f"says {want}")
+        n += len(want)
+        del tensors
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("plans: " + "; ".join(bad))
+    return len(probes), n
+
+
+def ck_bound(c, q, kp):
+    """(bytes, flops) of a centroid top-k: the table and the queries read
+    once, the (B, kp) values and ids written once; 2 p d a query."""
+    p, d = c.shape
+    return (c.numel() * 4 + q.numel() * 4 + q.shape[0] * kp * 8,
+            2 * q.shape[0] * p * d)
+
+
+def phase_classic_times(args, index, convs, dev):
+    """Rows 1-2 at B = 1 and 25 (the conversations' first turns), L2
+    flushed: the kernel, its plain version and, for row 1, the library
+    yardstick ``torch.topk(queries @ centroids.T, k)`` (two calls)."""
+    import torch
+    from repro_torch.kernels import ops, ref, tiling
+    k, nprobe = args.k, args.nprobe
+    lv, li, c = index.list_vecs, index.list_ids, index.centroids
+    qs = torch.from_numpy(np.ascontiguousarray(convs[:, 0])).to(dev)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    out = {}
+    for b in (1, 25):
+        batches = [qs[j:j + 1] for j in range(25)] if b == 1 else [qs] * 5
+        sels = [ops.centroid_topk(q, c, nprobe)[1] for q in batches]
+        r_pad = tiling.next_pow2(k)
+        calls = {
+            "centroid_topk": (
+                [lambda q=q: ops.centroid_topk(q, c, nprobe)
+                 for q in batches],
+                [lambda q=q: ref.centroid_topk(q, c, nprobe)
+                 for q in batches],
+                [ck_bound(c, q, tiling.next_pow2(nprobe)) for q in batches],
+                [lambda q=q: torch.topk(q @ c.T, nprobe) for q in batches]),
+            "ivf_scan": (
+                [lambda q=q, s=s: ops.ivf_scan(q, lv, li, s, k)
+                 for q, s in zip(batches, sels)],
+                [lambda q=q, s=s: ref.ivf_scan_batch(q, lv, li, s, k)
+                 for q, s in zip(batches, sels)],
+                # fused_scan's bytes without the positions it writes
+                [(nb - q.shape[0] * r_pad * 4, fl) for (nb, fl), q in zip(
+                    [scan_bound(index, q, s, r_pad)
+                     for q, s in zip(batches, sels)], batches)],
+                None),
+        }
+        row = {}
+        for name, (kern, plain, works, lib) in calls.items():
+            for cs in (kern, plain, lib or []):                 # warm-up
+                event_ms(cs[:2], flush, spin=True)
+            row[name] = timed(kern, plain, works, flush)
+            row[name]["library_ms"] = (event_ms(lib, flush, spin=True)
+                                       if lib else None)
+            lib_txt = (f" topk(q @ C.T)_ms={row[name]['library_ms']:.4f}"
+                       if lib else "")
+            log("times", f"{name} B={b}: ms={row[name]['ms']:.4f} "
+                f"plain_ms={row[name]['plain_ms']:.4f}{lib_txt} "
+                f"bound_ms={row[name]['bound_ms']:.4f} "
+                f"({row[name]['bound_by']}) "
+                f"share={row[name]['bound_ms'] / row[name]['ms']:.3f} "
+                f"kernels_a_call={row[name]['kernels']}")
+        out[b] = row
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1573,7 +1825,8 @@ def phase_bag_times(args, dev, model):
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"F.embedding_bag_ms={row['library_ms']:.4f} "
             f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
-            f"share={row['bound_ms'] / row['ms']:.3f}")
+            f"share={row['bound_ms'] / row['ms']:.3f} "
+            f"kernels_a_call={row['kernels']}")
         out[b] = row
     return out
 
@@ -1614,7 +1867,8 @@ def phase_cand_times(args, dev, index, vecs):
             f"p={index.p} lmax={index.lmax} d={index.d}: "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-            f"share={row['bound_ms'] / row['ms']:.3f}")
+            f"share={row['bound_ms'] / row['ms']:.3f} "
+            f"kernels_a_call={row['kernels']}")
 
 
 # ---------------------------------------------------------------------------
@@ -2000,14 +2254,26 @@ def bound_ms(nbytes, flops, flop_rate=F32_FLOP_PER_S):
                                        else "operations")
 
 
+def kernels_a_call(call):
+    """The kernels one call launches, from the launch plan the recorder
+    records for it (``tiling.plan_*``; ``[plans]`` holds the plans to
+    the profiler); nothing is launched."""
+    from repro_torch.kernels import launcher
+    with launcher.record_launches() as records:
+        call()
+    return sum(len(r.plan) for r in records)
+
+
 def timed(kernel_calls, plain_calls, works, flush, plain_syncs=True):
-    """One kernel's row: kernel and plain-version times, mean bound.
-    A plain version that never waits for the host (``plain_syncs``
-    False) is timed behind the spin too, so its time is the device's."""
+    """One kernel's row: kernel and plain-version times, mean bound, and
+    the kernels the first call launches.  A plain version that never
+    waits for the host (``plain_syncs`` False) is timed behind the spin
+    too, so its time is the device's."""
     return dict(ms=event_ms(kernel_calls, flush, spin=True),
                 plain_ms=event_ms(plain_calls, flush, spin=not plain_syncs),
                 bound_ms=float(np.mean([bound_ms(*w)[0] for w in works])),
-                bound_by=bound_ms(*works[0])[1])
+                bound_by=bound_ms(*works[0])[1],
+                kernels=kernels_a_call(kernel_calls[0]))
 
 
 def phase_times(args, index, pqi, convs, dev):
@@ -2104,7 +2370,8 @@ def phase_times(args, index, pqi, convs, dev):
             log("times", f"{name} B={b}: ms={rr['ms']:.4f} "
                 f"plain_ms={rr['plain_ms']:.4f} "
                 f"bound_ms={rr['bound_ms']:.4f} ({rr['bound_by']}) "
-                f"share={rr['bound_ms'] / rr['ms']:.3f}{extra}")
+                f"share={rr['bound_ms'] / rr['ms']:.3f}{extra} "
+                f"kernels_a_call={rr['kernels']}")
         out[b] = row
     return out
 
@@ -2209,7 +2476,8 @@ def phase_decode_times(args, dev):
             f"cache full: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_ms={row['library_ms']:.4f} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, "
-            f"{nbytes / 1e6:.1f} MB) share={row['bound_ms'] / row['ms']:.3f}")
+            f"{nbytes / 1e6:.1f} MB) share={row['bound_ms'] / row['ms']:.3f} "
+            f"kernels_a_call={row['kernels']}")
         out[b] = row
         del q, k, v
     torch.cuda.empty_cache()
@@ -2334,7 +2602,8 @@ def phase_attn_times(args, dev):
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_ms={row['library_ms']:.4f} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-            f"share={row['bound_ms'] / row['ms']:.3f}")
+            f"share={row['bound_ms'] / row['ms']:.3f} "
+            f"kernels_a_call={row['kernels']}")
         out[b] = row
     return out
 
@@ -2382,6 +2651,12 @@ def main() -> int:
     for src, lines in _build.last_build["ptxas"].items():
         log("build", f"{src}: " + " | ".join(lines))
 
+    passes = phase_exact_classic(dev)
+    log("exact", f"centroid_topk {len(CK_EXACT)} shapes and ivf_scan "
+        f"{len(IV_EXACT)} shapes, float32 and bfloat16 (v, ids): bit-equal "
+        f"to their plain versions (p = 600 with every score negative, k up "
+        f"to 2,048, B up to 64, nprobe up to 256, merges of up to {passes} "
+        f"passes)")
     n_ivf, n_pq, passes = phase_exact(dev)
     log("exact", f"{n_ivf} shapes: fused_turn (v, ids, sel) and fused_scan "
         f"(v, ids, pos); {n_pq} PQ shapes: fused_turn_pq (v, ids, sel), "
@@ -2397,8 +2672,12 @@ def main() -> int:
         f"list at d = 1,024, Lmax 1,100; r_pad 2,048 above the byte-capped "
         f"group), on integer inputs and on bf16-split ones; core.topk on "
         f"the card ranks +0.0 above -0.0")
+    n_probes, n_plan = phase_plans(dev)
+    log("plans", f"{n_probes} probes of the kernels analysis pass on CUDA "
+        f"tensors: {n_plan} traced kernels == the recorded launch plans "
+        f"(name, order, grid, block, static + dynamic shared memory)")
     errs = dict.fromkeys(IVF_KERNELS + PQ_KERNELS + REC_KERNELS
-                         + QUANT_KERNELS, 0.0)
+                         + QUANT_KERNELS + CLASSIC_KERNELS, 0.0)
     phase_exact_bag(dev, errs)
     log("exact", f"embedding_bag V={BAG_V} d={BAG_D} L={BAG_L} B="
         f"{','.join(map(str, BAG_BATCHES))}, pads, all-pad bags, ids at "
@@ -2488,10 +2767,13 @@ def main() -> int:
     log("batched", "start_batch/step_batch over 25 conversations == the "
         "sequential engine (ids, scores, TurnStats, sessions), fused and "
         "unfused toploc+, ivf and ivf_pq")
+    launches.update(phase_classic(args, index, docs, convs, dev, errs))
+    classic_times = phase_classic_times(args, index, convs, dev)
 
     times = phase_times(args, index, pqi, convs, dev)
     times[1]["flash_attention"] = phase_attn_times(args, dev)[1]
     times[1]["embedding_bag"] = bag_times[1]
+    times[1].update(classic_times[1])
     # the LM at decode_32k runs once the retrieval objects are freed
     del index, pqi, docs, indexes, runs
     torch.cuda.empty_cache()
@@ -2510,7 +2792,7 @@ def main() -> int:
                     bound_by=times[1][name]["bound_by"],
                     library_ms=times[1][name].get("library_ms"))
                for name in IVF_KERNELS + PQ_KERNELS + QUANT_KERNELS +
-               ENC_KERNELS + REC_KERNELS + LM_KERNELS]
+               ENC_KERNELS + REC_KERNELS + LM_KERNELS + CLASSIC_KERNELS]
     log("done", f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,6 +4,9 @@ Entry points (``ConversationalSearchEngine``, ``ivf.build``, the
 ``toploc`` drivers, ``kernels.ops``) run on ``cuda`` unless the caller
 passes ``device="cpu"``.  With no argument on a machine without CUDA
 they raise: the port never drifts to the CPU behind the caller's back.
+``kernels.ops`` also takes ``device="meta"``: shapes without data, which
+only the launch-plan recorder (``kernels.launcher.record_launches``)
+accepts; every kernel refuses them outside it.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ def resolve(device: DeviceLike = None) -> torch.device:
                 " (no device given: entry points default to cuda; pass "
                 "device='cpu' to run the plain PyTorch path)")
         raise RuntimeError(f"CUDA is not available{hint}")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -31,7 +31,8 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 # C signatures of the entry points (csrc/fused_turn.cu, csrc/pq_adc.cu,
-# csrc/flash_attention.cu, csrc/embedding_bag.cu, csrc/flash_decode.cu)
+# csrc/flash_attention.cu, csrc/embedding_bag.cu, csrc/flash_decode.cu,
+# csrc/centroid_topk.cu, csrc/ivf_scan.cu)
 SIGNATURES = {
     "fused_scan_ivf": [P, P, P, I, P, I, P, I, I, I, I,
                        I, I, I, P, I, I, I, I,
@@ -51,6 +52,8 @@ SIGNATURES = {
     "embedding_bag_f32": [P, I, P, P, I, I, P, P],
     "flash_decode_f32": [P, P, P, P, I, I, I, I, I, I, I, F, P, P, P, P, P],
     "flash_decode_bf16": [P, P, P, P, I, I, I, I, I, I, I, F, P, P, P, P, P],
+    "centroid_topk": [P, P, I, I, I, I, I, I, P, P, P, P, P],
+    "ivf_scan": [P, P, I, P, I, P, I, I, I, I, I, I, P, P, P, P, P, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -9,6 +9,8 @@
 //   products (exact in f32) in float32; int8 quantises symmetrically,
 //   scale = 127 / max(amax, 1e-30), q = clip(rint(x * scale), -127, 127),
 //   takes the int32 dot (exact) and dequantises f32(acc) / (sq * st).
+// load4 / warp_row_dots_bf16: rows stored as bfloat16, widened to float32
+//   as they load (centroid_topk.cu, ivf_scan.cu).
 //   Every step is one IEEE operation in a fixed order (no fast math), so
 //   kernel and plain version (kernels/ref.py) agree bit for bit.
 // launch / by_precision: a launch with its dynamic shared memory set and
@@ -122,6 +124,77 @@ __device__ __forceinline__ void warp_row_dots(const float4* __restrict__ row,
             acc[t] = fmaf(x[u].y, y.y, acc[t]);
             acc[t] = fmaf(x[u].z, y.z, acc[t]);
             acc[t] = fmaf(x[u].w, y.w, acc[t]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NQ; ++t) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], o);
+    out[t] = acc[t];
+  }
+}
+
+// Values 4c .. 4c+3 of a float32 or bfloat16 row, as float32 (a bf16 value
+// widens exactly: its bits are the top half of the float's).
+__device__ __forceinline__ float4 load4(const float* x, int c) {
+  return reinterpret_cast<const float4*>(x)[c];
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* x, int c) {
+  const uint2 w = reinterpret_cast<const uint2*>(x)[c];
+  return make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+}
+
+// warp_row_dots for a bfloat16 row of d8 groups of 8 values, read 16 bytes
+// a lane and widened to float32 as they load, against nq <= NQ float32
+// queries (query t at qs4 + t * 2 * d8).  Per lane, FMAs over the groups
+// lane, lane + 32, ... in ascending order, the group's 8 values in order,
+// then an xor-shuffle tree.  All 32 lanes must call it and all end with
+// the scores.
+template <int NQ>
+__device__ __forceinline__ void warp_row_dots_bf16(
+    const uint4* __restrict__ row, const float4* qs4, int d8, int nq,
+    float (&out)[NQ]) {
+  const int lane = threadIdx.x & 31;
+  float acc[NQ];
+#pragma unroll
+  for (int t = 0; t < NQ; ++t) acc[t] = 0.f;
+  for (int base = 0; base < d8; base += 32 * UNROLL) {
+    uint4 x[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int c = base + u * 32 + lane;
+      x[u] = c < d8 ? __ldg(row + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int t = 0; t < NQ; ++t) {
+      if (t < nq) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int c = base + u * 32 + lane;
+          if (c < d8) {
+            const float4 y0 = qs4[(t * d8 + c) * 2];
+            const float4 y1 = qs4[(t * d8 + c) * 2 + 1];
+            acc[t] = fmaf(bf16_lo(x[u].x), y0.x, acc[t]);
+            acc[t] = fmaf(bf16_hi(x[u].x), y0.y, acc[t]);
+            acc[t] = fmaf(bf16_lo(x[u].y), y0.z, acc[t]);
+            acc[t] = fmaf(bf16_hi(x[u].y), y0.w, acc[t]);
+            acc[t] = fmaf(bf16_lo(x[u].z), y1.x, acc[t]);
+            acc[t] = fmaf(bf16_hi(x[u].z), y1.y, acc[t]);
+            acc[t] = fmaf(bf16_lo(x[u].w), y1.z, acc[t]);
+            acc[t] = fmaf(bf16_hi(x[u].w), y1.w, acc[t]);
           }
         }
       }

@@ -3,8 +3,9 @@
 Counterpart of ``repro/kernels/embedding_bag.py`` (sum mode; the mean
 is ``ops.embedding_bag``'s).  As in ``fused_turn.py``: CUDA tensors
 only, every operand checked (device, dtype, shape, contiguity), the
-output allocated here, one launch on PyTorch's current stream without
-synchronising, and a refused launch raises.  Ids past the table's rows
+output allocated here, and the entry with its launch plan handed to
+``launcher.run`` (one launch on PyTorch's current stream without
+synchronising; a refused launch raises).  Ids past the table's rows
 are not checked here: that needs the ids on the host, and the callers
 check them there (``models/recsys.py``).  The choice between kernel and
 plain version belongs to ``ops.py``.
@@ -15,14 +16,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.fused_turn import _ptr, _raise_on
+from repro_torch.kernels import launcher, tiling
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int
            ) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: CUDA tensor required, got {t.device}")
+    launcher.check_device(name, t)
     if t.dtype != dtype or t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-d {dtype}, got "
                          f"{t.dim()}-d {t.dtype}")
@@ -47,11 +46,6 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     b, bag = ids.shape
     d = table.shape[1]
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
-    if b == 0:
-        return out
-    with torch.cuda.device(table.device):
-        err = _build.lib().embedding_bag_f32(
-            _ptr(table), d, _ptr(ids), _ptr(weights), b, bag, _ptr(out),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "embedding_bag_f32")
+    launcher.run("embedding_bag_f32", tiling.plan_embedding_bag(b),
+                 table.device, table, d, ids, weights, b, bag, out)
     return out

@@ -3,8 +3,9 @@
 Counterpart of ``repro/kernels/flash_attention.py`` (``flash_attention``,
 the forward only).  As in ``fused_turn.py``: CUDA tensors only, every
 operand checked (device, dtype, shape, contiguity), the output allocated
-here, one launch on PyTorch's current stream without synchronising, and
-a refused launch raises.  The choice between kernel and plain version
+here, and the entry with its launch plan handed to ``launcher.run`` (one
+launch on PyTorch's current stream without synchronising; a refused
+launch raises).  The choice between kernel and plain version
 belongs to ``ops.py``.
 """
 from __future__ import annotations
@@ -13,16 +14,14 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.fused_turn import _raise_on
+from repro_torch.kernels import launcher, tiling
 
 #: widest head dim (D and Dv) the kernel takes (csrc MAX_DIM)
 MAX_DIM = 128
 
 
 def _check(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: CUDA tensor required, got {t.device}")
+    launcher.check_device(name, t)
     if t.dtype != torch.float32 or t.dim() != 4:
         raise ValueError(f"{name}: expected 4-d float32, got {t.dim()}-d "
                          f"{t.dtype}")
@@ -66,12 +65,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d > MAX_DIM or dv > MAX_DIM:
         raise ValueError(f"head dims D={d}, Dv={dv}: at most {MAX_DIM}")
     out = torch.empty((b, h, s, dv), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(q.device):
-        err = _build.lib().flash_attention_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            hkv, s, skv, d, dv, int(causal), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "flash_attention_f32")
+    launcher.run("flash_attention_f32",
+                 tiling.plan_flash_attention(b, h, s, d, dv), q.device, q, k,
+                 v, out, b, h, hkv, s, skv, d, dv, int(causal),
+                 1.0 / math.sqrt(d))
     return out

@@ -4,21 +4,20 @@ Counterpart of ``repro/kernels/flash_attention.py`` ``flash_decode``
 (one new token per row against a KV cache masked by ``cache_len``).  As
 in ``fused_turn.py``: CUDA tensors only, every operand checked (device,
 dtype, shape, contiguity, 16-byte rows), outputs and scratch allocated
-here, the launches on PyTorch's current stream without synchronising,
-and a refused launch raises.  The cache is read in its own dtype
+here, and the entry with its launch plan handed to ``launcher.run``
+(the launches on PyTorch's current stream without synchronising; a
+refused launch raises).  The cache is read in its own dtype
 (float32 or bfloat16); the query and the output are float32.  The
 choice between kernel and plain version belongs to ``ops.py``.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.fused_turn import _raise_on
-from repro_torch.kernels.tiling import MAX_GRID_Y, next_pow2
+from repro_torch.kernels import launcher, tiling
+from repro_torch.kernels.tiling import MAX_GRID_Y, decode_split
 
 #: widest head dim the kernel takes (csrc MAX_DIM), and the widest GQA
 #: group (query heads per kv head, csrc MAX_GROUP)
@@ -27,15 +26,6 @@ MAX_GROUP = 8
 #: cache dtypes the kernel reads natively, and its C entry for each
 ENTRIES = {torch.float32: "flash_decode_f32",
            torch.bfloat16: "flash_decode_bf16"}
-
-
-def decode_split(s: int) -> Tuple[int, int]:
-    """(rows per split, splits) of a cache of ``s`` rows: about 64 splits
-    of a power of two between 64 and 512 rows.  A function of ``s``
-    alone, so the kernel's summation order does not depend on the batch
-    or on ``cache_len``."""
-    chunk = min(512, max(64, next_pow2(-(-s // 64))))
-    return chunk, -(-s // chunk)
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,11 +54,10 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: CUDA tensor required, got {t.device}")
+    launcher.check_device(name, t)
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if name != "cache_len" and t.data_ptr() % 16:
+    if name != "cache_len" and not launcher.aligned(t):
         raise ValueError(f"{name}: rows are read 16 bytes at a time and "
                          f"must be 16-byte aligned")
 
@@ -104,18 +93,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"B x Hkv = {b * hkv} > {MAX_GRID_Y} (grid y)")
     chunk, nsplit = decode_split(s)
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
-    if b == 0:
-        return out
     part = b * hkv * nsplit * (h // hkv)
     part_m = torch.empty(part, dtype=torch.float32, device=q.device)
     part_l = torch.empty(part, dtype=torch.float32, device=q.device)
     part_acc = torch.empty(part * d, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        entry = ENTRIES[k.dtype]
-        err = getattr(_build.lib(), entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
-            b, h, hkv, s, d, chunk, nsplit, 1.0 / math.sqrt(d),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, entry)
+    launcher.run(ENTRIES[k.dtype], tiling.plan_flash_decode(b, h, hkv, s, d),
+                 q.device, q, k, v, cache_len, b, h, hkv, s, d, chunk, nsplit,
+                 1.0 / math.sqrt(d), part_m, part_l, part_acc, out)
     return out

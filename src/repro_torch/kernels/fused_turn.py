@@ -4,9 +4,13 @@ Counterpart of ``repro/kernels/fused_turn.py`` (family ivf, f32 / bf16 /
 int8): the kernels themselves are CUDA C++ for sm_90a, bound through
 ctypes (``_build``).  These functions take CUDA tensors only, check what
 the kernels take (device, dtype, shape, contiguity, 16-byte rows),
-allocate outputs and scratch, launch on PyTorch's current stream without
-synchronising, and raise if a launch was refused.  Padding and the choice
-between kernel and plain version belong to ``ops.py``.
+allocate outputs and scratch, and hand the entry, its launch plan
+(``tiling.plan_*``) and its arguments to ``launcher.run``, which
+launches on PyTorch's current stream without synchronising and raises
+if a launch was refused (or records the plan under
+``launcher.record_launches``, where meta tensors pass these checks).
+Padding and the choice between kernel and plain version belong to
+``ops.py``.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import launcher
 from repro_torch.kernels import tiling
 from repro_torch.kernels.sorting import PAD_POS
 
@@ -28,25 +32,15 @@ PRECISION_CODE = {p: code for code, p in enumerate(PRECISIONS)}
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int
            ) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: CUDA tensor required, got {t.device}")
+    launcher.check_device(name, t)
     if t.dtype != dtype or t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-d {dtype}, got "
                          f"{t.dim()}-d {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if dtype == torch.float32 and t.data_ptr() % 16:
-        raise ValueError(f"{name}: rows are read as float4 and must be "
-                         f"16-byte aligned")
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+    if dtype in (torch.float32, torch.bfloat16) and not launcher.aligned(t):
+        raise ValueError(f"{name}: rows are read 16 bytes at a time and "
+                         f"must be 16-byte aligned")
 
 
 def _check_lists(queries: torch.Tensor, list_vecs: torch.Tensor,
@@ -121,16 +115,12 @@ def fused_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
         raise ValueError("queries and sel disagree on the batch")
     cand, mid, out, amax, blk_l, n_groups = _scan_scratch(
         b, nprobe, lmax, d, r_pad, kp, precision, queries.device)
-    if b == 0:
-        return out
-    with torch.cuda.device(queries.device):
-        err = _build.lib().fused_scan_ivf(
-            _ptr(queries), _ptr(list_vecs), _ptr(list_ids), p, _ptr(sel),
-            nprobe, _ptr(own), b, nprobe, lmax, d, PRECISION_CODE[precision],
-            blk_l, n_groups, _ptr(amax), r, r_pad, kp,
-            tiling.merge_group(r_pad), *map(_ptr, cand), *map(_ptr, mid),
-            *map(_ptr, out), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"fused_scan_ivf ({precision})")
+    launcher.run(
+        "fused_scan_ivf",
+        tiling.plan_fused_scan_ivf(b, nprobe, lmax, d, precision, r_pad),
+        queries.device, queries, list_vecs, list_ids, p, sel, nprobe, own, b,
+        nprobe, lmax, d, PRECISION_CODE[precision], blk_l, n_groups, amax, r,
+        r_pad, kp, tiling.merge_group(r_pad), *cand, *mid, *out)
     return out
 
 
@@ -172,16 +162,12 @@ def fused_turn(queries: torch.Tensor, centroids: torch.Tensor,
         b, p, np_pad, precision, dev)
     cand, mid, out, amax, blk_l, n_groups = _scan_scratch(
         b, nprobe, lmax, d, r_pad, kp, precision, dev)
-    if b == 0:
-        return out[0], out[1], sel
-    with torch.cuda.device(dev):
-        err = _build.lib().fused_turn_ivf(
-            _ptr(queries), _ptr(centroids), _ptr(list_vecs), _ptr(list_ids),
-            p, b, nprobe, np_pad, lmax, d, PRECISION_CODE[precision], blk_p,
-            n_cgroups, _ptr(c_amax), blk_l, n_groups, _ptr(amax), r, r_pad,
-            kp, tiling.merge_group(np_pad), tiling.merge_group(r_pad),
-            _ptr(s1_v), _ptr(s1_i), _ptr(sel_v), _ptr(sel), *map(_ptr, cand),
-            *map(_ptr, mid), *map(_ptr, out),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"fused_turn_ivf ({precision})")
+    launcher.run(
+        "fused_turn_ivf",
+        tiling.plan_fused_turn_ivf(b, p, nprobe, np_pad, lmax, d, precision,
+                                   r_pad),
+        dev, queries, centroids, list_vecs, list_ids, p, b, nprobe, np_pad,
+        lmax, d, PRECISION_CODE[precision], blk_p, n_cgroups, c_amax, blk_l,
+        n_groups, amax, r, r_pad, kp, tiling.merge_group(np_pad),
+        tiling.merge_group(r_pad), s1_v, s1_i, sel_v, sel, *cand, *mid, *out)
     return out[0], out[1], sel

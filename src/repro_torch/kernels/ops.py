@@ -4,20 +4,23 @@ Each op has two execution paths, picked by the device of its tensors:
 
   * ``"kernel"`` — the CUDA kernel (``fused_turn.py`` / ``pq_adc.py`` /
                    ``flash_attention.py`` / ``flash_decode.py`` /
-                   ``embedding_bag.py`` → ``csrc/``), the only path for
-                   CUDA tensors;
+                   ``embedding_bag.py`` / ``centroid_topk.py`` /
+                   ``ivf_scan.py`` → ``csrc/``), the only path for
+                   CUDA tensors (and for ``meta`` tensors, which only
+                   ``launcher.record_launches`` takes: it records each
+                   call's launch plan and launches nothing);
   * ``"ref"``    — the plain PyTorch version (``ref.py``), the only path
                    for CPU tensors.
 
 There is no fallback between them: ``mode="kernel"`` on CPU tensors and
 ``mode="ref"`` on CUDA tensors raise, a failed build raises, a refused
 launch raises.  The wrappers keep the reference's signatures and
-return shapes (``repro/kernels/ops.py:95-114``, ``:130-196``,
-``:209-290``, ``:331-356`` and ``:386-399``, without the TPU tile
-knobs), own the
-power-of-two padding of k / nprobe / the re-rank depth, and count their
-launches in a plain int on the wrapper (``fused_turn.launches``), so a
-run can show that its path went through the kernels.
+return shapes (``repro/kernels/ops.py:49-88``, ``:95-114``,
+``:130-196``, ``:209-290``, ``:331-356`` and ``:386-399``, without the
+TPU tile knobs), own the power-of-two padding of k / nprobe / the
+re-rank depth, and count their launches in a plain int on the wrapper
+(``fused_turn.launches``), so a run can show that its path went through
+the kernels; a recorded call counts nothing.
 
 The fused retrieval ops take the reference's ``precision``: "f32", or
 "bf16" / "int8" scoring with a float32 re-rank of the top ``r``
@@ -35,10 +38,13 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import device as _device
+from repro_torch.kernels import centroid_topk as _ck
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import fused_turn as _ft
+from repro_torch.kernels import ivf_scan as _iv
+from repro_torch.kernels import launcher
 from repro_torch.kernels import pq_adc as _pq
 from repro_torch.kernels import ref
 from repro_torch.kernels import tiling
@@ -47,7 +53,7 @@ Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def default_mode(device: torch.device) -> str:
-    return "kernel" if device.type == "cuda" else "ref"
+    return "kernel" if device.type in ("cuda", "meta") else "ref"
 
 
 def _mode(mode: Optional[str], device: torch.device) -> str:
@@ -61,7 +67,80 @@ def _mode(mode: Optional[str], device: torch.device) -> str:
     return mode
 
 
+def _count(op, batch: int) -> None:
+    """One launch of ``op``'s kernel, unless the batch was empty (nothing
+    launched) or the call was recorded (``launcher.record_launches``)."""
+    if batch > 0 and not launcher.recording():
+        op.launches += 1
+
+
 PRECISIONS = _ft.PRECISIONS
+
+
+def _same_dtype(what: str, queries: torch.Tensor, rows: torch.Tensor
+                ) -> None:
+    """Queries and scored rows share one dtype, float32 or bfloat16."""
+    if queries.dtype != rows.dtype or queries.dtype not in _ck.DTYPE_CODE:
+        raise ValueError(f"{what}: queries and rows must both be float32 or "
+                         f"both bfloat16, got {queries.dtype} and "
+                         f"{rows.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# centroid_topk / ivf_scan: the two stages of an IVF turn, one kernel each
+# ---------------------------------------------------------------------------
+
+
+def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int, *,
+                  mode: Optional[str] = None, device=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k centroids by float32 dot product for a query batch: queries
+    (B, d), centroids (p, d), both float32 or both bfloat16 (widened).
+    Returns (values (B, k) float32, ids (B, k) int32) in ``lax.top_k``'s
+    order (score desc, index asc), the reference's "ref" mode.  Unlike its
+    Pallas wrapper, which pads p with zero centroids and masks them only
+    after its top-k, no padded centroid ever competes (ROADMAP,
+    "Properties of the reference itself")."""
+    dev = _device.require(device, queries, centroids)
+    _same_dtype("centroid_topk", queries, centroids)
+    if not 0 < k <= centroids.shape[0]:
+        raise ValueError(f"top-{k} of {centroids.shape[0]} centroids")
+    if _mode(mode, dev) == "ref":
+        return ref.centroid_topk(queries, centroids, k)
+    v, i = _ck.centroid_topk(queries.contiguous(), centroids,
+                             kp=tiling.check_pad("k", k))
+    _count(centroid_topk, queries.shape[0])
+    return v[:, :k], i[:, :k]
+
+
+centroid_topk.launches = 0
+
+
+def ivf_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
+             list_ids: torch.Tensor, sel: torch.Tensor, k: int, *,
+             mode: Optional[str] = None, device=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scan of the probed posting lists ``sel`` (B, nprobe): queries (B,
+    d) and list_vecs (p, Lmax, d) both float32 or both bfloat16 (widened),
+    list_ids (p, Lmax) int32 with -1 pads.  Returns (values (B, k)
+    float32, doc ids (B, k) int32) in ``lax.top_k``'s order over the
+    gathered lists (score desc, flat position ``probe·lmax + offset``
+    asc); fewer than k real rows leave (-inf, -1)."""
+    dev = _device.require(device, queries, list_vecs, list_ids, sel)
+    _same_dtype("ivf_scan", queries, list_vecs)
+    if not 0 < k <= sel.shape[1] * list_vecs.shape[1]:
+        raise ValueError(f"top-{k} of {sel.shape[1]} lists of "
+                         f"{list_vecs.shape[1]} slots")
+    if _mode(mode, dev) == "ref":
+        return ref.ivf_scan_batch(queries, list_vecs, list_ids, sel, k)
+    v, i = _iv.ivf_scan(queries.contiguous(), list_vecs, list_ids,
+                        sel.to(torch.int32).contiguous(),
+                        kp=tiling.check_pad("k", k))
+    _count(ivf_scan, sel.shape[0])
+    return v[:, :k], i[:, :k]
+
+
+ivf_scan.launches = 0
 
 
 def check_precision(precision: str) -> None:
@@ -102,7 +181,7 @@ def fused_turn(queries: torch.Tensor, centroids: torch.Tensor,
                              list_ids, nprobe=nprobe, np_pad=np_pad,
                              r_pad=r_pad, precision=precision, r=r,
                              kp=tiling.next_pow2(k))
-    fused_turn.launches += int(queries.shape[0] > 0)
+    _count(fused_turn, queries.shape[0])
     return v[:, :k], i[:, :k], s[:, :nprobe]
 
 
@@ -136,7 +215,7 @@ def fused_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
                               sel.to(torch.int32).contiguous(), own32,
                               r_pad=r_pad, precision=precision, r=r,
                               kp=tiling.next_pow2(k))
-    fused_scan.launches += int(queries.shape[0] > 0)
+    _count(fused_scan, queries.shape[0])
     return v[:, :k], i[:, :k], pp[:, :k]
 
 
@@ -162,7 +241,7 @@ def pq_adc_scan(tables: torch.Tensor, list_codes: torch.Tensor,
     v, i, _ = _pq.pq_adc_scan(tables.to(torch.float32).contiguous(),
                               list_codes, list_ids,
                               sel.to(torch.int32).contiguous(), r_pad=kp)
-    pq_adc_scan.launches += int(sel.shape[0] > 0)
+    _count(pq_adc_scan, sel.shape[0])
     return v[:, :k], i[:, :k]
 
 
@@ -193,7 +272,7 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
         queries.contiguous(), centroids, tables.to(torch.float32).contiguous(),
         list_codes, list_ids, corpus, nprobe=nprobe, np_pad=np_pad, r=r,
         r_pad=r_pad, kp=tiling.next_pow2(k), precision=precision)
-    fused_turn_pq.launches += int(queries.shape[0] > 0)
+    _count(fused_turn_pq, queries.shape[0])
     return v[:, :k], i[:, :k], s[:, :nprobe]
 
 
@@ -231,7 +310,7 @@ def fused_scan_pq(tables: torch.Tensor, queries: torch.Tensor,
         sel.to(torch.int32).contiguous(), own32,
         corpus if fuse_rerank else None, r=r, r_pad=r_pad,
         kp=tiling.next_pow2(k), rerank=fuse_rerank, precision=precision)
-    fused_scan_pq.launches += int(sel.shape[0] > 0)
+    _count(fused_scan_pq, sel.shape[0])
     w = k if fuse_rerank else r
     return v[:, :w], i[:, :w], pp[:, :w]
 
@@ -263,7 +342,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     refuse_grad("flash_attention", q, k, v)
     f32 = [t.to(torch.float32).contiguous() for t in (q, k, v)]
     out = _fa.flash_attention(*f32, causal=causal)
-    flash_attention.launches += int(out.numel() > 0)
+    _count(flash_attention, out.numel())
     return out.to(q.dtype)
 
 
@@ -293,7 +372,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _fd.flash_decode(q.to(torch.float32).contiguous(), k.contiguous(),
                            v.contiguous(),
                            cache_len.to(torch.int32).contiguous())
-    flash_decode.launches += int(q.shape[0] > 0)
+    _count(flash_decode, q.shape[0])
     return out.to(q.dtype)
 
 
@@ -345,7 +424,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     w32 = None if weights is None else weights.to(torch.float32).contiguous()
     out = _eb.embedding_bag(table.contiguous(),
                             ids.to(torch.int32).contiguous(), w32)
-    embedding_bag.launches += int(ids.shape[0] > 0)
+    _count(embedding_bag, ids.shape[0])
     return ref.bag_mean(out, ids, w32) if agg == "mean" else out
 
 
@@ -354,6 +433,8 @@ embedding_bag.launches = 0
 
 def reset_launches() -> None:
     """Set every op's launch count to 0."""
+    centroid_topk.launches = 0
+    ivf_scan.launches = 0
     fused_turn.launches = 0
     fused_scan.launches = 0
     pq_adc_scan.launches = 0

@@ -4,9 +4,10 @@ Counterpart of ``repro/kernels/pq_adc.py`` (``pq_adc_scan``) and of the
 pq family of ``repro/kernels/fused_turn.py`` (``fused_scan_pq``,
 ``fused_turn_pq``, f32 / bf16 / int8).  As in ``fused_turn.py``: CUDA
 tensors only, every operand checked (device, dtype, shape, contiguity,
-16-byte rows), outputs and scratch allocated here, one launch sequence
-on PyTorch's current stream without synchronising, and a refused launch
-raises.  Padding and the choice between kernel and plain version belong
+16-byte rows), outputs and scratch allocated here, and the entry with
+its launch plan handed to ``launcher.run`` (one launch sequence on
+PyTorch's current stream without synchronising; a refused launch
+raises).  Padding and the choice between kernel and plain version belong
 to ``ops.py``.
 """
 from __future__ import annotations
@@ -15,11 +16,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import launcher
 from repro_torch.kernels import tiling
 from repro_torch.kernels.fused_turn import (PRECISION_CODE, _buffers, _check,
-                                           _ptr, _raise_on, centroid_scratch,
-                                           check_depth)
+                                           centroid_scratch, check_depth)
 from repro_torch.kernels.sorting import PAD_POS
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -87,15 +87,12 @@ def pq_adc_scan(tables: torch.Tensor, list_codes: torch.Tensor,
     _sel_check(sel, b, None)
     dev = tables.device
     cand, out = _cand(b, nprobe, lmax, r_pad, dev), _buffers((b, r_pad), dev)
-    if b == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = _build.lib().pq_adc_scan_f32(
-            _ptr(tables), m, tables.shape[2], _ptr(list_codes),
-            _ptr(list_ids), p, _ptr(sel), b, nprobe, lmax, r_pad,
-            tiling.merge_group(r_pad), *map(_ptr, cand), *map(_ptr, out),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "pq_adc_scan_f32")
+    n_codes = tables.shape[2]
+    launcher.run(
+        "pq_adc_scan_f32",
+        tiling.plan_adc(b, nprobe, lmax, m, n_codes, r_pad), dev, tables, m,
+        n_codes, list_codes, list_ids, p, sel, b, nprobe, lmax, r_pad,
+        tiling.merge_group(r_pad), *cand, *out)
     return out
 
 
@@ -120,18 +117,16 @@ def fused_scan_pq(tables: torch.Tensor, queries: Optional[torch.Tensor],
     cand = _cand(b, nprobe, lmax, r_pad, dev)
     mid = _buffers((b, r_pad), dev) if rerank else (None, None, None)
     out = _buffers((b, kp if rerank else r_pad), dev)
-    if b == 0:
-        return out
     d = corpus.shape[1] if rerank else 0
-    with torch.cuda.device(dev):
-        err = _build.lib().fused_scan_pq(
-            _ptr(tables), _ptr(queries if rerank else None), m,
-            tables.shape[2], _ptr(list_codes), _ptr(list_ids), p, _ptr(sel),
-            nprobe, _ptr(own), _ptr(corpus if rerank else None), b, nprobe,
-            lmax, d, PRECISION_CODE[precision], r, r_pad, kp, int(rerank),
-            tiling.merge_group(r_pad), *map(_ptr, cand), *map(_ptr, mid),
-            *map(_ptr, out), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"fused_scan_pq ({precision})")
+    n_codes = tables.shape[2]
+    launcher.run(
+        "fused_scan_pq",
+        tiling.plan_fused_scan_pq(b, nprobe, lmax, m, n_codes, d, r_pad,
+                                  rerank, precision),
+        dev, tables, queries if rerank else None, m, n_codes, list_codes,
+        list_ids, p, sel, nprobe, own, corpus if rerank else None, b, nprobe,
+        lmax, d, PRECISION_CODE[precision], r, r_pad, kp, int(rerank),
+        tiling.merge_group(r_pad), *cand, *mid, *out)
     return out
 
 
@@ -159,16 +154,13 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
         b, p, np_pad, precision, dev)
     cand = _cand(b, nprobe, lmax, r_pad, dev)
     mid, out = _buffers((b, r_pad), dev), _buffers((b, kp), dev)
-    if b == 0:
-        return out[0], out[1], sel
-    with torch.cuda.device(dev):
-        err = _build.lib().fused_turn_pq(
-            _ptr(queries), _ptr(centroids), _ptr(tables), m, tables.shape[2],
-            _ptr(list_codes), _ptr(list_ids), p, _ptr(corpus), b, nprobe,
-            np_pad, lmax, d, PRECISION_CODE[precision], blk_p, n_cgroups,
-            _ptr(c_amax), r, r_pad, kp, tiling.merge_group(np_pad),
-            tiling.merge_group(r_pad), _ptr(s1_v), _ptr(s1_i),
-            _ptr(sel_v), _ptr(sel), *map(_ptr, cand), *map(_ptr, mid),
-            *map(_ptr, out), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"fused_turn_pq ({precision})")
+    n_codes = tables.shape[2]
+    launcher.run(
+        "fused_turn_pq",
+        tiling.plan_fused_turn_pq(b, p, nprobe, np_pad, lmax, m, n_codes, d,
+                                  precision, r_pad),
+        dev, queries, centroids, tables, m, n_codes, list_codes, list_ids, p,
+        corpus, b, nprobe, np_pad, lmax, d, PRECISION_CODE[precision], blk_p,
+        n_cgroups, c_amax, r, r_pad, kp, tiling.merge_group(np_pad),
+        tiling.merge_group(r_pad), s1_v, s1_i, sel_v, sel, *cand, *mid, *out)
     return out[0], out[1], sel

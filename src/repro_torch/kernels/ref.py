@@ -42,6 +42,12 @@ value is ``-inf``, the pads here carry the kernels' convention
 on every lane.  After an exact re-rank the position is the candidate's
 ADC rank, on every lane, as in the reference.
 
+``centroid_topk`` and ``ivf_scan_batch`` are the plain versions of the
+standalone centroid top-k and list scan (``repro/kernels/ref.py:21-65``):
+float32 scores (bfloat16 operands widened) of every centroid, or of
+every slot of the probed lists with -1 pads at -inf, then the top-k in
+``lax.top_k`` order; a pad slot keeps its id -1.
+
 ``mha_attention`` is the plain version of the flash attention kernel
 (``repro/kernels/ref.py:317-346``): the full (S, Skv) score matrix,
 float32 softmax, bottom-right causal mask.
@@ -137,8 +143,8 @@ def list_scores(queries: torch.Tensor, list_vecs: torch.Tensor,
     rows = []
     for row in range(b):
         lv = list_vecs[sel[row].long()]                   # (np, lmax, d)
-        if precision == "f32":
-            rows.append(lv.reshape(-1, d) @ queries[row])
+        if precision == "f32":      # (bf16 lists of ivf_scan widen here)
+            rows.append(lv.float().reshape(-1, d) @ queries[row])
         elif precision == "bf16":
             rows.append(bf16_round(lv).reshape(-1, d)
                         @ bf16_round(queries[row]))
@@ -150,6 +156,28 @@ def list_scores(queries: torch.Tensor, list_vecs: torch.Tensor,
             acc = _int_dots(ti.reshape(1, -1, d), qi[row:row + 1])[0]
             rows.append(acc / (sq[row] * st.reshape(-1)))
     return torch.stack(rows)
+
+
+def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the centroid top-k: (values (B, k) float32, ids
+    (B, k) int32), (score desc, index asc)."""
+    v, i = topk(centroid_scores(queries.float(), centroids.float(), "f32",
+                                1), k)
+    return v, i.to(torch.int32)
+
+
+def ivf_scan_batch(queries: torch.Tensor, list_vecs: torch.Tensor,
+                   list_ids: torch.Tensor, sel: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the probed-list scan: (values (B, k) float32,
+    doc ids (B, k) int32), (score desc, flat position asc)."""
+    flat_i = list_ids[sel.long()].reshape(sel.shape[0], -1)
+    flat_v = torch.where(flat_i >= 0,
+                         list_scores(queries.float(), list_vecs, sel),
+                         float("-inf"))
+    v, pos = topk(flat_v, k)
+    return v, flat_i.gather(-1, pos).to(torch.int32)
 
 
 def fused_scan_ivf(queries: torch.Tensor, list_vecs: torch.Tensor,

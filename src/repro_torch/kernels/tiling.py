@@ -1,4 +1,5 @@
-"""Padding contract, shared-memory caps and merge plan of the CUDA kernels.
+"""Padding contract, shared-memory caps, merge plan and launch plans of the
+CUDA kernels.
 
 The Pallas kernels of the reference split their streamed axes by VMEM
 bytes; the Hopper kernels in ``csrc/`` instead take a fixed number of
@@ -9,15 +10,30 @@ candidate merge (``merge_plan``): a query's sorted candidate lists are
 folded in groups that fit one block's shared memory, pass after pass,
 until one group is left.  ``ops.py`` and the launch modules ask this
 module how to split, what fits and how many lists a merge block takes.
+
+The launch plans (``plan_*``, one per C entry of ``csrc/``) list the
+kernels one call of an entry launches, each as a ``Launch`` (kernel,
+grid, block, dynamic shared memory, opt-in), in launch order.  The
+bindings hand an entry's plan to ``launcher.run``, which records it
+under ``launcher.record_launches`` and launches the entry otherwise;
+``repro_torch.analysis.kernel_budget`` checks the recorded plans
+against the card's limits below, and ``chip_smoke.py`` ``[plans]``
+holds them to the kernels a profiler sees on the card.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import dataclasses
+from typing import Dict, List, Tuple
 
 # Shared memory one thread block may use on Hopper (sm_90): 227 KB of
-# the SM's 256 KB, above 48 KB only as opt-in dynamic shared memory.
+# the SM's 256 KB, above 48 KB only as opt-in dynamic shared memory
+# (cudaFuncSetAttribute(..., MaxDynamicSharedMemorySize, ...)).
 SMEM_BLOCK_BYTES = 232_448
 SMEM_DEFAULT_BYTES = 48 * 1024
+# Threads of one block, the warp, and the grid's extents.
+MAX_BLOCK_THREADS = 1024
+WARP = 32
+MAX_GRID_X = 2 ** 31 - 1
 
 # Rows of one probed posting list scored by one block of the scan
 # kernel, centroids and queries scored by one block of the stage-1
@@ -47,8 +63,9 @@ MAX_PAD = 2048
 # One merge candidate in shared memory: value f32, id i32, position i32.
 MERGE_ENTRY_BYTES = 12
 
-# Largest grid y extent (the batch of the scan kernel).
+# Largest grid y / z extent (y: the batch of the scan kernel).
 MAX_GRID_Y = 65_535
+MAX_GRID_Z = 65_535
 
 
 def next_pow2(n: int) -> int:
@@ -119,10 +136,14 @@ def merge_plan(n_lists: int, width: int) -> List[Tuple[int, int]]:
         n = groups
 
 
-def check_width(d: int) -> None:
-    """The kernels read rows as float4 and stage queries in shared memory."""
-    if d % 4:
-        raise ValueError(f"d={d}: the kernels read rows as float4")
+def check_width(d: int, elem_bytes: int = 4) -> None:
+    """The kernels read rows 16 bytes a lane (float4, or 8 bfloat16
+    values for ``elem_bytes`` 2) and stage queries as float32 in shared
+    memory."""
+    if (d * elem_bytes) % 16:
+        raise ValueError(f"d={d}: the kernels read rows of {elem_bytes}-byte "
+                         f"values 16 bytes at a time (float4, or 8 "
+                         f"bfloat16)")
     if d * 4 > SMEM_DEFAULT_BYTES or QTILE * d * 4 > SMEM_BLOCK_BYTES // 2:
         raise ValueError(f"d={d} is wider than the kernels stage in "
                          f"shared memory")
@@ -182,3 +203,214 @@ def centroid_groups(p: int, np_pad: int) -> Tuple[int, int]:
     np_pad, blk_p=512)``)."""
     blk = max(min(CENTROID_GROUP_ROWS, next_pow2(p)), np_pad)
     return blk, -(-p // blk)
+
+
+# ---------------------------------------------------------------------------
+# launch plans
+#
+# Threads of each kernel's block and static shared memory of each kernel
+# (must equal csrc/: ROW_THREADS, MERGE_THREADS, RERANK_THREADS,
+# ADC_THREADS, the attention kernels' THREADS, embedding_bag's WARPS and
+# the __shared__ arrays each kernel declares).
+# ---------------------------------------------------------------------------
+
+ROW_THREADS = 256
+MERGE_THREADS = 512
+RERANK_THREADS = 512
+ADC_THREADS = 256
+ATTN_THREADS = 256
+ATTN_BQ = 64               # query rows of a flash_attention block
+ATTN_BKV = 64              # keys of its kv tile
+DECODE_THREADS = 256
+DECODE_MAX_GROUP = 8
+BAG_WARPS = 4              # bags of an embedding_bag block
+
+STATIC_SMEM: Dict[str, int] = {
+    # sv / si / sp [QTILE][CENTROID_CHUNK]
+    "centroid_chunk_kernel": 3 * QTILE * CENTROID_CHUNK * 4,
+    # sv / si / sp [SCAN_ROWS]
+    "scan_lists_kernel": 3 * SCAN_ROWS * 4,
+    # sv / si / sp [PQ_ROWS]
+    "adc_scan_kernel": 3 * PQ_ROWS * 4,
+    # p_s[MAX_GROUP][MAX_CHUNK], m_s and l_s [MAX_GROUP]
+    "decode_split_kernel": DECODE_MAX_GROUP * 512 * 4 + 2 * DECODE_MAX_GROUP * 4,
+    "decode_combine_kernel": DECODE_MAX_GROUP * 4,
+    "merge_kernel": 0, "rerank_kernel": 0, "list_amax_kernel": 0,
+    "centroid_amax_kernel": 0, "flash_fwd_kernel": 0,
+    "embedding_bag_kernel": 0,
+}
+# The int8 instances keep the arrays of their scale reductions (sq[QTILE],
+# red[32]); the compiler drops them from the f32 and bf16 instances.
+INT8_STATIC_SMEM: Dict[str, int] = {
+    "centroid_chunk_kernel": QTILE * 4, "scan_lists_kernel": 32 * 4,
+    "adc_scan_kernel": 32 * 4,
+}
+
+Dim3 = Tuple[int, int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One kernel launch of a C entry: the kernel's name in ``csrc/``,
+    its grid and block, the dynamic shared memory it asks for, and
+    whether the entry raised the kernel's dynamic shared-memory cap
+    first (``opt_in``: cudaFuncSetAttribute, else 48 KB is the cap),
+    and the static shared memory of the kernel's instance."""
+
+    kernel: str
+    grid: Dim3
+    block: Dim3
+    dyn_smem_bytes: int
+    opt_in: bool
+    static_smem_bytes: int = 0
+
+    @property
+    def smem_bytes(self) -> int:
+        """Static plus dynamic shared memory of one block."""
+        return self.static_smem_bytes + self.dyn_smem_bytes
+
+
+def _launch(kernel: str, grid, threads: int, smem: int, opt_in: bool,
+            precision: str = "f32") -> Launch:
+    g = tuple(grid) + (1,) * (3 - len(tuple(grid)))
+    static = STATIC_SMEM[kernel] + (INT8_STATIC_SMEM.get(kernel, 0)
+                                    if precision == "int8" else 0)
+    return Launch(kernel, g, (threads, 1, 1), smem, opt_in, static)
+
+
+def plan_merge(b: int, n_lists: int, w: int) -> List[Launch]:
+    """``merge_topk_f32``: one ``merge_kernel`` per pass of
+    ``merge_plan``, each asking for the shared memory of the first
+    pass's groups."""
+    group = merge_group(w)
+    smem = min(n_lists, group) * w * MERGE_ENTRY_BYTES
+    return [_launch("merge_kernel", (b, groups), MERGE_THREADS, smem, True)
+            for _, groups in merge_plan(n_lists, w)]
+
+
+def plan_select(b: int, p: int, d: int, np_pad: int, precision: str
+                ) -> List[Launch]:
+    """Stage 1 (``select_probes``): the int8 centroid amax pass, the
+    chunk blocks, the merge to np_pad."""
+    n = centroid_chunks(p)
+    amax = ([_launch("centroid_amax_kernel", (n,), ROW_THREADS, 0, False)]
+            if precision == "int8" else [])
+    return amax + [_launch("centroid_chunk_kernel", (n, -(-b // QTILE)),
+                           ROW_THREADS, QTILE * d * 4, True, precision)
+                   ] + plan_merge(b, n, np_pad)
+
+
+def plan_rerank(b: int, d: int, r_pad: int) -> List[Launch]:
+    """``rerank_rows``: one block per query, the query and the r_pad
+    sort entries in dynamic shared memory."""
+    return [_launch("rerank_kernel", (b,), RERANK_THREADS,
+                    d * 4 + r_pad * MERGE_ENTRY_BYTES, True)]
+
+
+def plan_fused_scan_ivf(b: int, nprobe: int, lmax: int, d: int,
+                        precision: str, r_pad: int) -> List[Launch]:
+    """``fused_scan_ivf``: the int8 list amax pass, the scan blocks, the
+    merge to r_pad, and the quantised paths' float32 re-rank."""
+    if b == 0:
+        return []
+    grid = (nprobe * scan_split(lmax), b)
+    amax = ([_launch("list_amax_kernel", grid, ROW_THREADS, 0, False)]
+            if precision == "int8" else [])
+    rerank = plan_rerank(b, d, r_pad) if precision != "f32" else []
+    return (amax + [_launch("scan_lists_kernel", grid, ROW_THREADS, d * 4,
+                            True, precision)]
+            + plan_merge(b, grid[0], r_pad) + rerank)
+
+
+def plan_fused_turn_ivf(b: int, p: int, nprobe: int, np_pad: int, lmax: int,
+                        d: int, precision: str, r_pad: int) -> List[Launch]:
+    if b == 0:
+        return []
+    return (plan_select(b, p, d, np_pad, precision)
+            + plan_fused_scan_ivf(b, nprobe, lmax, d, precision, r_pad))
+
+
+def plan_adc(b: int, nprobe: int, lmax: int, m: int, n_codes: int,
+             r_pad: int, precision: str = "f32") -> List[Launch]:
+    """``adc_scan_merge``: the ADC blocks (the LUT in dynamic shared
+    memory) and the merge to r_pad."""
+    if b == 0:
+        return []
+    grid = (nprobe * pq_split(lmax), b)
+    return ([_launch("adc_scan_kernel", grid, ADC_THREADS,
+                     lut_bytes(m, n_codes), True, precision)]
+            + plan_merge(b, grid[0], r_pad))
+
+
+def plan_fused_scan_pq(b: int, nprobe: int, lmax: int, m: int, n_codes: int,
+                       d: int, r_pad: int, rerank: bool, precision: str
+                       ) -> List[Launch]:
+    if b == 0:
+        return []
+    return (plan_adc(b, nprobe, lmax, m, n_codes, r_pad, precision)
+            + (plan_rerank(b, d, r_pad) if rerank else []))
+
+
+def plan_fused_turn_pq(b: int, p: int, nprobe: int, np_pad: int, lmax: int,
+                       m: int, n_codes: int, d: int, precision: str,
+                       r_pad: int) -> List[Launch]:
+    if b == 0:
+        return []
+    return (plan_select(b, p, d, np_pad, precision)
+            + plan_fused_scan_pq(b, nprobe, lmax, m, n_codes, d, r_pad, True,
+                                 precision))
+
+
+def plan_centroid_topk(b: int, p: int, d: int, kp: int) -> List[Launch]:
+    """``centroid_topk``: stage 1 at float32, its top kp."""
+    return plan_select(b, p, d, kp, "f32") if b else []
+
+
+def plan_ivf_scan(b: int, nprobe: int, lmax: int, d: int, kp: int
+                  ) -> List[Launch]:
+    """``ivf_scan``: the float32 scan and its merge to kp."""
+    return plan_fused_scan_ivf(b, nprobe, lmax, d, "f32", kp)
+
+
+def plan_flash_attention(b: int, h: int, s: int, d: int, dv: int
+                         ) -> List[Launch]:
+    """``flash_attention_f32``: one block per (row, head, 64 queries);
+    the Q, K, V and P tiles in dynamic shared memory."""
+    if b * h * s == 0:
+        return []
+    smem = (ATTN_BQ * (d + 1) + ATTN_BKV * (d + 1) + ATTN_BKV * dv
+            + ATTN_BQ * (ATTN_BKV + 1)) * 4
+    return [_launch("flash_fwd_kernel", (b * h, -(-s // ATTN_BQ)),
+                    ATTN_THREADS, smem, True)]
+
+
+def decode_split(s: int) -> Tuple[int, int]:
+    """(rows per split, splits) of a cache of ``s`` rows: about 64 splits
+    of a power of two between 64 and 512 rows.  A function of ``s``
+    alone, so the decode kernel's summation order does not depend on
+    the batch or on ``cache_len``."""
+    chunk = min(512, max(64, next_pow2(-(-s // 64))))
+    return chunk, -(-s // chunk)
+
+
+def plan_flash_decode(b: int, h: int, hkv: int, s: int, d: int
+                      ) -> List[Launch]:
+    """``flash_decode_f32`` / ``_bf16``: the split kernel (the group's
+    fold in dynamic shared memory, G = the group's power-of-two bucket)
+    and the combine kernel."""
+    if b == 0:
+        return []
+    group = h // hkv
+    g = next_pow2(group)
+    _, nsplit = decode_split(s)
+    threads = -(-max(group * d, WARP * group) // WARP) * WARP
+    return [_launch("decode_split_kernel", (nsplit, b * hkv), DECODE_THREADS,
+                    DECODE_THREADS // WARP * g * d * 4, True),
+            _launch("decode_combine_kernel", (b * hkv,), threads,
+                    group * nsplit * 4, True)]
+
+
+def plan_embedding_bag(b: int) -> List[Launch]:
+    """``embedding_bag_f32``: one warp a bag, no shared memory."""
+    return ([_launch("embedding_bag_kernel", (-(-b // BAG_WARPS),),
+                     BAG_WARPS * WARP, 0, False)] if b else [])

@@ -1,0 +1,218 @@
+"""The port's ``kernels`` analysis pass (``repro_torch.analysis``).
+
+It records the launch plan of every ``kernels.ops`` entry on ``meta``
+tensors of the reference's 11 probe shapes and checks each launch
+against the H100's limits.  Here, on the CPU: the tree is clean, the
+probes match the reference's by label, every probe records a launch with
+no build and no data, fixtures defined here fire each code, and the CLI
+keeps the reference's exit codes.  That the plans equal the kernels a
+profiler traces is checked on the card (``chip_smoke.py`` ``[plans]``,
+``tests/test_torch_kernels.py``).
+"""
+import json
+
+import pytest
+import torch
+
+from repro.analysis import kernel_budget as ref_budget
+from repro_torch import analysis
+from repro_torch.analysis import __main__ as cli
+from repro_torch.analysis import kernel_budget as kb
+from repro_torch.kernels import _build, launcher, ops, tiling
+from repro_torch.kernels.tiling import Launch
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Fail any attempt to build or load the kernel library."""
+    def refuse(*a, **k):
+        raise AssertionError("the analysis pass built or loaded kernels")
+    monkeypatch.setattr(_build, "lib", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+
+
+def test_the_tree_has_no_findings(no_build):
+    assert kb.run() == []
+    assert len(kb.last_report) == 11
+
+
+def test_probes_are_the_references(no_build):
+    labels = [label for label, _ in ref_budget.default_probes()]
+    assert [p.label for p in kb.default_probes()] == labels
+
+
+@pytest.mark.parametrize("label", [p.label for p in kb.default_probes()])
+def test_every_probe_records_a_launch_and_counts_none(no_build, label):
+    probe = next(p for p in kb.default_probes() if p.label == label)
+    before = {n: getattr(ops, n).launches for n in (
+        "centroid_topk", "ivf_scan", "fused_turn", "fused_scan",
+        "pq_adc_scan", "fused_turn_pq", "flash_attention", "flash_decode",
+        "embedding_bag")}
+    records = kb.record(probe)
+    assert records and all(r.plan for r in records)
+    for r in records:
+        for x in r.plan:
+            assert x.kernel in tiling.STATIC_SMEM
+            assert kb.check_smem(x, label) == kb.check_shape(x, label) == []
+    assert {n: getattr(ops, n).launches for n in before} == before
+
+
+def test_recorded_plans_are_the_tiling_plans(no_build):
+    """The int8 fused turn records its amax passes, stage 1, the scan,
+    the merges and the re-rank, in launch order."""
+    probe = next(p for p in kb.default_probes()
+                 if p.label == "ops.fused_turn[int8]")
+    (rec,) = kb.record(probe)
+    assert rec.entry == "fused_turn_ivf"
+    assert [x.kernel for x in rec.plan] == [
+        "centroid_amax_kernel", "centroid_chunk_kernel", "merge_kernel",
+        "list_amax_kernel", "scan_lists_kernel", "merge_kernel",
+        "rerank_kernel"]
+    assert rec.plan == tiling.plan_fused_turn_ivf(8, 4096, 8, 8, 512, 128,
+                                                  "int8", 64)
+
+
+@pytest.mark.parametrize("n_lists,w", [(1, 16), (384, 16), (320, 128),
+                                       (256, 2048), (128, 1024)])
+def test_merge_plans_launch_one_kernel_a_pass(n_lists, w):
+    plan = tiling.plan_merge(3, n_lists, w)
+    passes = tiling.merge_plan(n_lists, w)
+    assert [x.grid for x in plan] == [(3, g, 1) for _, g in passes]
+    assert len({x.dyn_smem_bytes for x in plan}) == 1
+    assert plan[0].smem_bytes <= tiling.SMEM_BLOCK_BYTES
+
+
+def test_meta_tensors_are_refused_outside_the_recorder():
+    m = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor required"):
+        ops.centroid_topk(m, torch.empty((16, 8), device="meta"), 2,
+                          device="meta")
+    assert not launcher.recording()
+
+
+def _entry(plan):
+    """A probe whose call hands ``plan`` straight to the launcher."""
+    return kb.Probe("fixture", (), lambda device: launcher.run(
+        "fixture_entry", plan, torch.device("meta")))
+
+
+def _codes(findings):
+    return sorted(f.code for f in findings)
+
+
+def test_pk400_a_probe_that_raises():
+    def boom(device):
+        raise RuntimeError("no such shape")
+    (f,) = kb.run([kb.Probe("raises", (), boom)])
+    assert f.code == "PK400" and "no such shape" in f.message
+
+
+def test_pk400_a_probe_that_takes_the_plain_version():
+    """CPU tensors take the plain version: nothing reaches the recorder."""
+    probe = kb.Probe("plain", (), lambda device: ops.centroid_topk(
+        torch.zeros((2, 8)), torch.zeros((16, 8)), 2, device="cpu"))
+    (f,) = kb.run([probe])
+    assert f.code == "PK400" and "plain version" in f.message
+
+
+@pytest.mark.parametrize("smem,opt_in,fires", [
+    (tiling.SMEM_BLOCK_BYTES, True, False),
+    (tiling.SMEM_BLOCK_BYTES + 1, True, True),
+    (tiling.SMEM_DEFAULT_BYTES, False, False),
+    (tiling.SMEM_DEFAULT_BYTES + 4, False, True)])
+def test_pk401_shared_memory_over_the_cap(smem, opt_in, fires):
+    plan = [Launch("merge_kernel", (1, 1, 1), (512, 1, 1), smem, opt_in)]
+    assert _codes(kb.run([_entry(plan)])) == (["PK401"] if fires else [])
+
+
+def test_pk401_counts_static_shared_memory():
+    plan = tiling.plan_select(1, 128, 4, 8, "f32")[:1]
+    (chunk,) = plan
+    big = Launch(chunk.kernel, chunk.grid, chunk.block,
+                 tiling.SMEM_BLOCK_BYTES - chunk.static_smem_bytes + 4,
+                 True, chunk.static_smem_bytes)
+    (f,) = kb.run([_entry([big])])
+    assert f.code == "PK401" and "centroid_chunk_kernel" in f.message
+
+
+@pytest.mark.parametrize("block,grid", [((1025, 1, 1), (1, 1, 1)),
+                                        ((100, 1, 1), (1, 1, 1)),
+                                        ((256, 1, 1), (1, 70_000, 1)),
+                                        ((256, 1, 1), (0, 1, 1)),
+                                        ((32, 32, 2), (1, 1, 1))])
+def test_pk402_block_and_grid_limits(block, grid):
+    plan = [Launch("embedding_bag_kernel", grid, block, 0, False)]
+    assert _codes(kb.run([_entry(plan)])) == ["PK402"]
+
+
+def test_a_full_block_and_grid_are_fine():
+    plan = [Launch("embedding_bag_kernel", (2 ** 31 - 1, 65_535, 65_535),
+                   (32, 32, 1), 0, False)]
+    assert kb.run([_entry(plan)]) == []
+
+
+# ---------------------------------------------------------------- the CLI
+
+
+def test_cli_clean_tree_exits_0(no_build, capsys):
+    assert cli.main(["--select", "kernels"]) == 0
+    out = capsys.readouterr().out
+    assert "0 finding(s) from 1 pass(es)" in out
+    assert out.count("launch(es) through") == 11
+
+
+def test_cli_unknown_pass_exits_2(capsys):
+    assert cli.main(["--select", "no-such-pass"]) == 2
+    assert "unknown pass" in capsys.readouterr().err
+
+
+def test_cli_lists_its_passes(capsys):
+    assert cli.main(["--list-passes"]) == 0
+    assert capsys.readouterr().out.split() == ["kernels"]
+    assert sorted(analysis.all_passes()) == ["kernels"]
+
+
+def test_cli_json(no_build, capsys):
+    assert cli.main(["--json"]) == 0
+    doc = json.loads(capsys.readouterr().out)
+    assert doc["active"] == [] and doc["stale_baseline"] == []
+    assert [p["label"] for p in doc["probes"]] == \
+        [p.label for p in kb.default_probes()]
+    assert all(p["launches"] >= 1 for p in doc["probes"])
+
+
+@pytest.fixture
+def failing_probe(monkeypatch):
+    def boom(device):
+        raise RuntimeError("probe fixture")
+    monkeypatch.setattr(kb, "default_probes",
+                        lambda: [kb.Probe("fixture", (), boom)])
+
+
+def test_cli_findings_exit_1_and_the_baseline_suppresses(failing_probe,
+                                                          tmp_path, capsys):
+    assert cli.main([]) == 1
+    assert "PK400 fixture: kernel probe failed" in capsys.readouterr().out
+    base = tmp_path / "baseline.txt"
+    base.write_text("# suppress the fixture\n*PK400 fixture:*\n")
+    assert cli.main(["--baseline", str(base)]) == 0
+    assert "1 finding(s) suppressed" in capsys.readouterr().out
+
+
+def test_cli_strict_fails_on_a_stale_entry(no_build, tmp_path, capsys):
+    base = tmp_path / "baseline.txt"
+    base.write_text("*PK499 nothing matches this*\n")
+    assert cli.main(["--baseline", str(base)]) == 0
+    assert cli.main(["--strict", "--baseline", str(base)]) == 2
+    assert "stale baseline entry" in capsys.readouterr().out
+
+
+def test_run_all_rejects_unknown_passes():
+    with pytest.raises(ValueError, match="unknown pass"):
+        analysis.run_all(["nope"])
+
+
+def test_the_repository_baseline_is_read_and_empty(no_build):
+    from repro_torch.analysis.project import repo_root
+    path = repo_root() / "analysis-baseline.txt"
+    assert path.is_file() and analysis.load_baseline(str(path)) == []

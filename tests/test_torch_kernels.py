@@ -1062,3 +1062,93 @@ def test_cuda_flash_decode_refuses_grad_and_empty_launches_nothing(
         ops.flash_decode(q.detach()[..., :60].contiguous(),
                          k[..., :60].to(torch.bfloat16).contiguous(),
                          v[..., :60].to(torch.bfloat16).contiguous(), lens)
+
+
+# ---------------------------------------------------------------------------
+# rows 1-2: centroid_topk and ivf_scan, and every entry's launch plan
+# ---------------------------------------------------------------------------
+
+# p, d, B, k: p not a multiple of 128, k = p, dense ties (d = 8), B = 64
+# with a two-pass merge at k = 2,048
+CK_SHAPES = [(600, 16, 3, 8), (16, 16, 2, 16), (1000, 8, 25, 64),
+             (2500, 8, 64, 2048)]
+# p, lmax, d, B, nprobe, k: fewer real rows than k, nprobe 256, k 2,048
+IV_SHAPES = [(6, 10, 16, 3, 3, 4), (5, 7, 8, 1, 5, 8),
+             (1000, 130, 8, 25, 64, 10), (600, 40, 8, 2, 256, 2048)]
+
+
+def _ck_inputs(shape, dtype, dev):
+    """Integer queries and centroids; the first shape's scores are all
+    negative (centroids in [1, 4], queries in [-4, -1])."""
+    p, d, b, _ = shape
+    rng = np.random.default_rng(p + d)
+    lo = 1 if d == 8 else 4
+    q = rng.integers(-lo, lo + 1, size=(b, d))
+    c = rng.integers(-lo, lo + 1, size=(p, d))
+    if shape == CK_SHAPES[0]:
+        q, c = -np.abs(q) - 1, np.abs(c) + 1
+    return [torch.from_numpy(x.astype(np.float32)).to(dtype).to(dev)
+            for x in (q, c)]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CK_SHAPES)
+def test_cuda_centroid_topk_equals_plain_version(cuda_device, shape, dtype):
+    q, c = _ck_inputs(shape, dtype, cuda_device)
+    before = ops.centroid_topk.launches
+    got = ops.centroid_topk(q, c, shape[3])
+    want = ref.centroid_topk(q, c, shape[3])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert ops.centroid_topk.launches == before + 1
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", IV_SHAPES)
+def test_cuda_ivf_scan_equals_plain_version(cuda_device, shape, dtype):
+    q, _, lv, li, _ = _inputs(shape, cuda_device)
+    rng = np.random.default_rng(shape[0])
+    sel = torch.from_numpy(rng.integers(0, shape[0], size=shape[3:5]).astype(
+        np.int32)).to(cuda_device)
+    before = ops.ivf_scan.launches
+    got = ops.ivf_scan(q.to(dtype), lv.to(dtype), li, sel, shape[5])
+    want = ref.ivf_scan_batch(q.to(dtype), lv.to(dtype), li, sel, shape[5])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert ops.ivf_scan.launches == before + 1
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cuda_two_stages_equal_the_fused_turn(cuda_device, shape):
+    """centroid_topk -> ivf_scan gives the f32 fused turn's sel, values
+    and ids bit for bit: the same device code in the same order."""
+    nprobe, k = shape[4], shape[5]
+    q, cents, lv, li, _ = _inputs(shape, cuda_device)
+    q = q + 0.25 * torch.randn(q.shape, device=cuda_device)
+    fv, fi, fs = ops.fused_turn(q, cents, lv, li, nprobe=nprobe, k=k)
+    _, sel = ops.centroid_topk(q, cents, nprobe)
+    v, i = ops.ivf_scan(q, lv, li, sel, k)
+    assert torch.equal(sel, fs) and torch.equal(v, fv) and torch.equal(i, fi)
+
+
+def _probe_labels():
+    from repro_torch.analysis import kernel_budget
+    return [p.label for p in kernel_budget.default_probes()]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("label", _probe_labels())
+def test_cuda_launch_plans_match_the_profiler(cuda_device, label):
+    """Each probe of the kernels analysis pass, on CUDA tensors: the
+    recorded launch plan equals the kernels torch.profiler traces (name,
+    order, grid, block, static + dynamic shared memory)."""
+    from repro_torch.analysis import kernel_budget
+    probe = next(p for p in kernel_budget.default_probes()
+                 if p.label == label)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    tensors = probe.tensors(cuda_device, gen)
+    want = kernel_budget.planned(probe, tensors, cuda_device)
+    assert want and kernel_budget.traced(probe, tensors, cuda_device) == want

@@ -49,7 +49,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.kernels.embedding_bag, repro_torch.models.recsys, "
         "repro_torch.configs.two_tower_retrieval, "
         "repro_torch.kernels.flash_decode, repro_torch.models.transformer, "
-        "repro_torch.configs.yi_9b, repro_torch.configs.common\n"
+        "repro_torch.configs.yi_9b, repro_torch.configs.common, "
+        "repro_torch.kernels.launcher, repro_torch.kernels.centroid_topk, "
+        "repro_torch.kernels.ivf_scan, repro_torch.analysis, "
+        "repro_torch.analysis.kernel_budget, "
+        "repro_torch.analysis.__main__\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n")
@@ -57,6 +61,28 @@ def test_import_pulls_in_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True).stdout.strip()
     assert out == ""
+
+
+def test_no_source_of_the_port_or_the_smoke_imports_jax_or_repro():
+    """Every import statement, function-local ones too, of
+    ``src/repro_torch`` and ``chip_smoke.py``."""
+    import ast
+    import glob
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    files = glob.glob(os.path.join(SRC, "repro_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(root, "chip_smoke.py")]
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            bad += [(path, n) for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert len(files) > 40 and bad == []
 
 
 def test_tf32_is_off():
