@@ -33,7 +33,9 @@ Phases (one line each, [serve] one per path; any failure raises and
 exits non-zero):
   1 card      nvidia-smi name and power limit, versions, TF32 off
   2 build     nvcc of every kernels/csrc source (seconds; registers and
-              spills per kernel)
+              spills per kernel); HMMA (tensor-core) instructions in
+              each instance of the tensor-core attention kernels, from
+              cuobjdump -sass of the built library
   3 exact     integer inputs: kernels == plain versions bit for bit
               (rows 1-2, centroid_topk and ivf_scan, in float32 and
               bfloat16: p not a multiple of 128 with every score
@@ -44,14 +46,17 @@ exits non-zero):
               ops too, r = 2,000 and several int8 groups a list; +0.0
               above -0.0 in core.topk; embedding_bag at B = 1, 512,
               262,144)
-    plans     every probe of the kernels analysis pass on CUDA tensors
+    plans     every probe of the kernels analysis pass, and the LM's bf16
+              flash_decode and flash_attention calls, on CUDA tensors
               under torch.profiler: the recorded launch plan == the
-              traced kernels (name, order, grid, block, shared memory)
+              traced kernels (name, order, grid, block, shared memory):
+              no cast or layout-copy kernels beside the bf16 kernels
   4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25, f32,
               bf16 and int8, and at the two-tower retrieval_cand shape
   5 attn      flash_attention == its plain version within 1e-5, Yi-9B's
               RAG prefill shape (S = 784, D = 128, GQA 8, causal) on
-              bf16 inputs too, its bf16 output within one bf16 ulp
+              bf16 inputs too (the bf16 kernel), its bf16 output within
+              one bf16 ulp
   6 decode    flash_decode == its plain version: f32 results within
               1e-5, bf16 outputs within one bf16 ulp of the row's
               largest |out|; GQA groups 1, 5, 8, S = 1,000 / 1,024 /
@@ -86,7 +91,9 @@ exits non-zero):
               turn; the caches and the B = 25 turns within TOL of the
               plain versions; then rows 1-2's [times] at B = 1 and 25
  14 times     CUDA-event kernel times (L2 flushed) beside their bounds,
-              rows 4-7 at f32, bf16 and int8
+              rows 4-7 at f32, bf16 and int8; flash_attention at
+              dragon's B = 1 and 64 (float32, 3xTF32 bound) and Yi-9B's
+              bf16 prefill (B = 1, S = 784, causal) beside SDPA
  15 decode32k once the retrieval objects are freed: Yi-9B at decode_32k
               (S = 32,768) cut from B = 128 to B = 8 (412 GB of cache
               at B = 128; 25.8 GB at B = 8), ragged cache_len; step ms
@@ -125,6 +132,11 @@ FD_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
 CK_SRC = "src/repro_torch/kernels/csrc/centroid_topk.cu"
 IV_SRC = "src/repro_torch/kernels/csrc/ivf_scan.cu"
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+# float32 products in 3xTF32: three tf32 tensor-core passes (495 TFLOP/s
+# dense) per product
+TF32X3_FLOP_PER_S = 495e12 / 3
+# the tensor-core kernels: cuobjdump -sass must show HMMA in each
+MMA_KERNELS = ("flash_bf16_kernel", "flash_tf32_kernel", "decode_mma_kernel")
 PQ_M, PQ_ITERS, RERANK = 48, 8, 64
 IVF_KERNELS = ("fused_scan", "fused_turn")
 PQ_KERNELS = ("pq_adc_scan", "fused_scan_pq", "fused_turn_pq")
@@ -167,6 +179,28 @@ MSMARCO_DOCS = 8_841_823
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def sass_hmma(so):
+    """HMMA (tensor-core) instructions in each instance of the
+    MMA_KERNELS, from ``cuobjdump -sass`` of the built library; raises if
+    an instance has none or a kernel is missing."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = next((k for k in MMA_KERNELS if k in line), None)
+            if cur:
+                counts.setdefault(cur, []).append(0)
+        elif cur and "HMMA" in line:
+            counts[cur][-1] += 1
+    if set(counts) != set(MMA_KERNELS) or not all(
+            all(c) for c in counts.values()):
+        raise AssertionError(f"SASS: HMMA per instance {counts}")
+    return counts
 
 
 def card_line() -> str:
@@ -637,17 +671,44 @@ def phase_classic(args, index, docs, convs, dev, errs):
     return counts
 
 
+def bf16_probes():
+    """The bf16 calls of the LM path, held to the profiler like the
+    analysis pass's probes: a decode step's ``flash_decode`` on a bf16
+    cache and a prefill's ``flash_attention`` on bf16 q, k and a v seen
+    through transpose(1, 2), as the projections leave it.  Each is the
+    one kernel of its plan: no casts, no layout copies."""
+    import torch
+    from repro_torch.analysis import kernel_budget as KB
+    from repro_torch.kernels import ops
+    bf16 = torch.bfloat16
+    return [
+        KB.Probe("ops.flash_decode[bf16]",
+                 (KB.Arg((4, 32, 128), bf16), KB.Arg((4, 4, 2048, 128), bf16),
+                  KB.Arg((4, 4, 2048, 128), bf16),
+                  KB.Arg((4,), torch.int32, 1, 2049)),
+                 lambda q, k, v, n, device: ops.flash_decode(
+                     q, k, v, n, device=device)),
+        KB.Probe("ops.flash_attention[bf16]",
+                 (KB.Arg((1, 32, 784, 128), bf16),
+                  KB.Arg((1, 4, 784, 128), bf16),
+                  KB.Arg((1, 784, 4, 128), bf16)),
+                 lambda q, k, v, device: ops.flash_attention(
+                     q, k, v.transpose(1, 2), causal=True, device=device)),
+    ]
+
+
 def phase_plans(dev):
-    """Every probe of the ``kernels`` analysis pass on CUDA tensors of
-    its shapes, drawn from a seeded generator: the plan the recorder
-    records for the call is held to the kernels torch.profiler traces
-    (name, count, order, grid, block, static + dynamic shared memory).
-    Returns (probes, kernels checked)."""
+    """Every probe of the ``kernels`` analysis pass, and the two bf16
+    probes of the LM path (``bf16_probes``), on CUDA tensors of its
+    shapes, drawn from a seeded generator: the plan the recorder records
+    for the call is held to the kernels torch.profiler traces (name,
+    count, order, grid, block, static + dynamic shared memory).  Returns
+    (probes, kernels checked)."""
     import torch
     from repro_torch.analysis import kernel_budget as KB
     gen = torch.Generator(device=dev).manual_seed(17)
     n, bad = 0, []
-    probes = KB.default_probes()
+    probes = KB.default_probes() + bf16_probes()
     for probe in probes:
         tensors = probe.tensors(dev, gen)
         want = KB.planned(probe, tensors, dev)
@@ -1003,7 +1064,7 @@ ATTN_SHAPES = [(2, 8, 8, 256, 256, 64, 64, True),      # MHA
                (1, 16, 16, 256, 256, 64, 64, False),   # snowflake
                (1, 32, 4, 784, 784, 128, 128, True)]   # yi-9b RAG prefill
 # shapes whose inputs are bf16, as the LM's prefill gives them: the op
-# casts them to float32 for the kernel and its output back to bf16
+# reads them as they are (the bf16 kernel) and writes a bf16 output
 ATTN_BF16 = {(1, 32, 4, 784, 784, 128, 128, True)}
 
 
@@ -1215,7 +1276,8 @@ def profile_query_tower(enc, q, reps=5):
     """The query tower at B = 1: device busy time, cuBLAS GEMMs,
     ``flash_attention`` and the rest (``profile_device``)."""
     return profile_device(lambda: enc.encode_queries(q, q > 0), reps,
-                          (("flash_attention", ("flash_fwd",)),
+                          (("flash_attention", ("flash_bf16",
+                                                 "flash_tf32")),
                            ("gemm", GEMM_NAMES)))
 
 
@@ -1519,7 +1581,8 @@ def phase_rag(args, dev, enc, index, docs_tok, conv_tok):
     logits, cache, clen = lm.prefill(prompt[None], RAG_MAX_LEN)
     tok = logits.argmax(-1)
     prof = profile_device(lambda: lm.decode_step(cache, tok, clen), 5,
-                          (("flash_decode", ("decode_split",
+                          (("flash_decode", ("decode_mma",
+                                             "decode_split",
                                              "decode_combine")),
                            ("gemm", GEMM_NAMES)))
     del logits, cache
@@ -2532,7 +2595,8 @@ def phase_decode32k(args, dev):
                              f"{bool(torch.isfinite(logits).all())}")
     prof = profile_device(
         lambda: lm.decode_step(cache, tok, lens + steps), 3,
-        (("flash_decode", ("decode_split", "decode_combine")),
+        (("flash_decode", ("decode_mma", "decode_split",
+                           "decode_combine")),
          ("gemm", GEMM_NAMES)))
     # the weights a step reads: all but the embedding table, of which it
     # gathers B rows
@@ -2565,46 +2629,71 @@ def phase_decode32k(args, dev):
     return n
 
 
-def attn_bound(q, k, v):
+def attn_bound(q, k, v, causal=False):
     """(bytes, flops) of attention over these inputs: q, k, v read once,
-    the output written once; QK^T and PV products."""
+    the output written once, in their dtype; the QK^T and PV products
+    (causal: only the unmasked half, bottom-right, that the work
+    needs)."""
     b, h, s, d = q.shape
     skv, dv = k.shape[2], v.shape[3]
-    nbytes = 4 * (q.numel() + k.numel() + v.numel() + b * h * s * dv)
-    return nbytes, 2 * b * h * s * skv * (d + dv)
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + b * h * s * dv)
+    pairs = s * skv
+    if causal:   # query i (of S, the last of Skv) sees skv - s + i + 1 keys
+        pairs = s * (skv - s) + s * (s + 1) // 2
+    return nbytes, 2 * b * h * pairs * (d + dv)
 
 
 def phase_attn_times(args, dev):
     """flash_attention at dragon's query (B = 1) and doc-batch (B =
-    DOC_BATCH) shapes, beside its plain version (no host sync: device
-    time, as the kernel's) and, timed only, PyTorch's
-    ``scaled_dot_product_attention`` on the same float32 tensors."""
+    DOC_BATCH) shapes in float32 and at Yi-9B's RAG prefill (B = 1, 32 /
+    4 heads, S = 784, D = 128, causal) in bf16, beside its plain version
+    (no host sync: device time, as the kernel's) and, timed only,
+    PyTorch's ``scaled_dot_product_attention`` on the same tensors.  The
+    float32 bound is at the 3xTF32 rate (the f32 FMA bound beside it),
+    the bf16 one at the bf16 tensor-core rate."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for b, reps in ((1, 25), (DOC_BATCH, 5)):
-        qkv = [attn_inputs((b, 12, 12, 256, 256, 64, 64, False), gen, dev)
+    for b, shape, dtype, reps in (
+            (1, (1, 12, 12, 256, 256, 64, 64, False), torch.float32, 25),
+            (DOC_BATCH, (DOC_BATCH, 12, 12, 256, 256, 64, 64, False),
+             torch.float32, 5),
+            ("yi", (1, 32, 4, 784, 784, 128, 128, True), torch.bfloat16,
+             25)):
+        causal = shape[-1]
+        qkv = [[t.to(dtype) for t in attn_inputs(shape, gen, dev)]
                for _ in range(reps)]
-        kern = [lambda x=x: ops.flash_attention(*x, causal=False)
+        kern = [lambda x=x: ops.flash_attention(*x, causal=causal)
                 for x in qkv]
-        plain = [lambda x=x: ref.mha_attention(*x, causal=False)
+        plain = [lambda x=x: ref.mha_attention(*x, causal=causal)
                  for x in qkv]
-        lib = [lambda x=x: sdpa(*x) for x in qkv]
+        lib = [lambda x=x: sdpa(*x, is_causal=causal,
+                                enable_gqa=shape[1] != shape[2])
+               for x in qkv]
         for calls in (kern, plain, lib):                    # warm-up
             event_ms(calls[:2], flush, spin=True)
-        row = timed(kern, plain, [attn_bound(*x) for x in qkv], flush,
-                    plain_syncs=False)
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+            else TF32X3_FLOP_PER_S
+        works = [(*attn_bound(*x, causal=causal), rate) for x in qkv]
+        row = timed(kern, plain, works, flush, plain_syncs=False)
         row["library_ms"] = event_ms(lib, flush, spin=True)
-        log("times", f"flash_attention B={b} H=12 S=256 D=64: "
+        fma = (f" (f32 FMA bound {bound_ms(*works[0][:2])[0]:.4f})"
+               if dtype == torch.float32 else "")
+        log("times", f"flash_attention B={shape[0]} H={shape[1]} "
+            f"Hkv={shape[2]} S={shape[3]} D={shape[5]} "
+            f"{'causal ' if causal else ''}{str(dtype)[6:]}: "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_ms={row['library_ms']:.4f} "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){fma} "
             f"share={row['bound_ms'] / row['ms']:.3f} "
             f"kernels_a_call={row['kernels']}")
         out[b] = row
+        del qkv, kern, plain, lib
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2650,6 +2739,9 @@ def main() -> int:
         f"in parallel, from {_build.CSRC.relative_to(ROOT)}")
     for src, lines in _build.last_build["ptxas"].items():
         log("build", f"{src}: " + " | ".join(lines))
+    hmma = sass_hmma(_build.build())
+    log("build", "cuobjdump -sass, HMMA instructions per instance: " + "; ".join(
+        f"{name} {counts}" for name, counts in hmma.items()))
 
     passes = phase_exact_classic(dev)
     log("exact", f"centroid_topk {len(CK_EXACT)} shapes and ivf_scan "
@@ -2673,9 +2765,11 @@ def main() -> int:
         f"group), on integer inputs and on bf16-split ones; core.topk on "
         f"the card ranks +0.0 above -0.0")
     n_probes, n_plan = phase_plans(dev)
-    log("plans", f"{n_probes} probes of the kernels analysis pass on CUDA "
-        f"tensors: {n_plan} traced kernels == the recorded launch plans "
-        f"(name, order, grid, block, static + dynamic shared memory)")
+    log("plans", f"{n_probes} probes (the kernels analysis pass's and the "
+        f"LM's bf16 flash_decode / flash_attention calls) on CUDA tensors: "
+        f"{n_plan} traced kernels == the recorded launch plans (name, order, "
+        f"grid, block, static + dynamic shared memory); the bf16 calls run "
+        f"no cast or copy kernel")
     errs = dict.fromkeys(IVF_KERNELS + PQ_KERNELS + REC_KERNELS
                          + QUANT_KERNELS + CLASSIC_KERNELS, 0.0)
     phase_exact_bag(dev, errs)

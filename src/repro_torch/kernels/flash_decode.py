@@ -6,13 +6,24 @@ in ``fused_turn.py``: CUDA tensors only, every operand checked (device,
 dtype, shape, contiguity, 16-byte rows), outputs and scratch allocated
 here, and the entry with its launch plan handed to ``launcher.run``
 (the launches on PyTorch's current stream without synchronising; a
-refused launch raises).  The cache is read in its own dtype
-(float32 or bfloat16); the query and the output are float32.  The
-choice between kernel and plain version belongs to ``ops.py``.
+refused launch raises).  The cache is read in its own dtype (float32
+or bfloat16).  A bfloat16 cache takes a bfloat16 query (bfloat16
+output) or a float32 one (float32 output); a float32 cache takes a
+float32 query.  The choice between kernel and plain version belongs
+to ``ops.py``.
+
+The bfloat16 entry folds its splits in the launch itself: the last
+block of each (row, kv head) to arrive folds them, told so by an
+arrival counter that it resets to 0.  The counters live in a zeroed
+int32 buffer kept per device and stream (``arrival_counters``): calls
+on one stream run one after another and may share it, calls on two
+streams may run at once and must not, and keeping it saves the fill
+kernel that a ``torch.zeros`` per call would launch.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -26,6 +37,28 @@ MAX_GROUP = 8
 #: cache dtypes the kernel reads natively, and its C entry for each
 ENTRIES = {torch.float32: "flash_decode_f32",
            torch.bfloat16: "flash_decode_bf16"}
+#: query dtypes each cache dtype takes
+Q_DTYPES = {torch.float32: (torch.float32,),
+            torch.bfloat16: (torch.bfloat16, torch.float32)}
+
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` counters for the current
+    stream of ``device``; every call of the kernel leaves it zeroed.  On
+    ``meta`` (the plan recorder) an empty tensor of that shape."""
+    if device.type != "cuda":
+        return torch.empty(n, dtype=torch.int32, device=device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, torch.cuda.current_stream(index).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=index)
+        _counters[key] = buf
+    return buf
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,21 +97,23 @@ def _check(name: str, t: torch.Tensor) -> None:
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  cache_len: torch.Tensor) -> torch.Tensor:
-    """Decode attention: (B, H, D) float32.  q float32; k and v float32
-    or bfloat16; cache_len int32, rows past min(cache_len, S) unread.  A
+    """Decode attention: (B, H, D), bfloat16 for a bfloat16 q, else
+    float32.  k and v float32 or bfloat16 (``Q_DTYPES`` names the q
+    each takes); cache_len int32, rows past min(cache_len, S) unread.  A
     B of 0 launches nothing."""
     check_shapes(q, k, v, cache_len)
     for name, t in (("q", q), ("k", k), ("v", v), ("cache_len", cache_len)):
         _check(name, t)
     if len({q.device, k.device, v.device, cache_len.device}) != 1:
         raise ValueError("q, k, v and cache_len lie on different devices")
-    if q.dtype != torch.float32 or cache_len.dtype != torch.int32:
-        raise ValueError(f"q must be float32 and cache_len int32, got "
-                         f"{q.dtype}, {cache_len.dtype}")
     if k.dtype not in ENTRIES or v.dtype != k.dtype:
         raise ValueError(f"k and v must both be one of "
                          f"{sorted(map(str, ENTRIES))}, got {k.dtype}, "
                          f"{v.dtype}")
+    if q.dtype not in Q_DTYPES[k.dtype] or cache_len.dtype != torch.int32:
+        raise ValueError(f"a {k.dtype} cache takes q in "
+                         f"{[str(t) for t in Q_DTYPES[k.dtype]]} and "
+                         f"cache_len int32, got {q.dtype}, {cache_len.dtype}")
     b, h, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     vec = 16 // k.element_size()
@@ -92,12 +127,24 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * hkv > MAX_GRID_Y:
         raise ValueError(f"B x Hkv = {b * hkv} > {MAX_GRID_Y} (grid y)")
     chunk, nsplit = decode_split(s)
-    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    bf16 = k.dtype == torch.bfloat16
+    plan = tiling.plan_flash_decode(b, h, hkv, s, d,
+                                    "bf16" if bf16 else "f32")
+    out_dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    out = torch.empty((b, h, d), dtype=out_dtype, device=q.device)
     part = b * hkv * nsplit * (h // hkv)
     part_m = torch.empty(part, dtype=torch.float32, device=q.device)
     part_l = torch.empty(part, dtype=torch.float32, device=q.device)
     part_acc = torch.empty(part * d, dtype=torch.float32, device=q.device)
-    launcher.run(ENTRIES[k.dtype], tiling.plan_flash_decode(b, h, hkv, s, d),
-                 q.device, q, k, v, cache_len, b, h, hkv, s, d, chunk, nsplit,
-                 1.0 / math.sqrt(d), part_m, part_l, part_acc, out)
+    scale = 1.0 / math.sqrt(d)
+    if not bf16:
+        launcher.run(ENTRIES[k.dtype], plan, q.device, q, k, v, cache_len, b,
+                     h, hkv, s, d, chunk, nsplit, scale, part_m, part_l,
+                     part_acc, out)
+        return out
+    counter = arrival_counters(q.device, b * hkv) if b else None
+    launcher.run(ENTRIES[k.dtype], plan, q.device, q,
+                 int(q.dtype == torch.bfloat16), k, v, cache_len, b, h, hkv,
+                 s, d, chunk, nsplit, scale, part_m, part_l, part_acc,
+                 counter, out)
     return out

@@ -327,21 +327,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, mode: Optional[str] = None,
                     device=None) -> torch.Tensor:
     """Attention forward. q (B, H, S, D), k (B, Hkv, Skv, D), v (B, Hkv,
-    Skv, Dv); Hkv divides H; returns (B, H, S, Dv) float32.
+    Skv, Dv); Hkv divides H; returns (B, H, S, Dv) in q's dtype.
 
     Causal masking is bottom-right (queries are the last S positions).
     Unlike the reference, which drops to its plain math when S or Skv is
     not a multiple of 128, every CUDA call runs the kernel: it masks
-    ragged tails itself.  The kernel has no backward yet, so it refuses
-    inputs that require grad.
+    ragged tails itself.  bfloat16 and float32 inputs are read as they
+    are, strided views included (the layout copy is made only where rows
+    are not 16-byte aligned); other dtypes go through float32.  The
+    kernel has no backward yet, so it refuses inputs that require grad.
     """
     dev = _device.require(device, q, k, v)
     _fa.check_shapes(q, k, v, causal=causal)
     if _mode(mode, dev) == "ref":
         return ref.mha_attention(q, k, v, causal=causal)
     refuse_grad("flash_attention", q, k, v)
-    f32 = [t.to(torch.float32).contiguous() for t in (q, k, v)]
-    out = _fa.flash_attention(*f32, causal=causal)
+    dtype = q.dtype if q.dtype in _fa.ENTRIES and (
+        k.dtype == v.dtype == q.dtype) else torch.float32
+    qkv = [t.to(dtype) for t in (q, k, v)]
+    out = _fa.flash_attention(
+        *(t if _fa.takes(t) else t.contiguous() for t in qkv), causal=causal)
     _count(flash_attention, out.numel())
     return out.to(q.dtype)
 
@@ -362,15 +367,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     caller's contract.  Unlike the reference,
     which drops to its plain math unless S is a multiple of 128, every
     CUDA call runs the kernel on any S, reading a float32 or bfloat16
-    cache in its own dtype.
+    cache in its own dtype.  A bfloat16 cache takes a bfloat16 or float32
+    q as it is and writes the output in q's dtype: one launch, no casts.
     """
     dev = _device.require(device, q, k, v, cache_len)
     _fd.check_shapes(q, k, v, cache_len)
     if _mode(mode, dev) == "ref":
         return ref.decode_attention(q, k, v, cache_len)
     refuse_grad("flash_decode", q, k, v)
-    out = _fd.flash_decode(q.to(torch.float32).contiguous(), k.contiguous(),
-                           v.contiguous(),
+    qk = q if q.dtype in _fd.Q_DTYPES.get(k.dtype, ()) else q.to(
+        torch.float32)
+    out = _fd.flash_decode(qk.contiguous(), k.contiguous(), v.contiguous(),
                            cache_len.to(torch.int32).contiguous())
     _count(flash_decode, q.shape[0])
     return out.to(q.dtype)

@@ -210,19 +210,26 @@ def centroid_groups(p: int, np_pad: int) -> Tuple[int, int]:
 #
 # Threads of each kernel's block and static shared memory of each kernel
 # (must equal csrc/: ROW_THREADS, MERGE_THREADS, RERANK_THREADS,
-# ADC_THREADS, the attention kernels' THREADS, embedding_bag's WARPS and
-# the __shared__ arrays each kernel declares).
+# ADC_THREADS, the decode kernels' THREADS and MMA_WARPS, embedding_bag's
+# WARPS and the __shared__ arrays each kernel declares; the tensor-core
+# attention kernels keep everything in dynamic shared memory).
 # ---------------------------------------------------------------------------
 
 ROW_THREADS = 256
 MERGE_THREADS = 512
 RERANK_THREADS = 512
 ADC_THREADS = 256
-ATTN_THREADS = 256
-ATTN_BQ = 64               # query rows of a flash_attention block
-ATTN_BKV = 64              # keys of its kv tile
-DECODE_THREADS = 256
+ATTN_BKV = 64              # keys of a flash_attention kv tile
+ATTN_WARP_ROWS = 16        # query rows of one of its warps
+DECODE_THREADS = 256       # the float32-cache split kernel
 DECODE_MAX_GROUP = 8
+DECODE_MMA_WARPS = 4       # decode_mma_kernel (bfloat16 cache)
+DECODE_STAGES = 3          # its ring of 16-row K and V sub-tiles a warp
+DECODE_SUB = 16
+DECODE_FOLD_HEAD = 32      # floats before its fold arrays
+# SMs of the H100 SXM: flash_attention takes 4-warp blocks only when that
+# still gives every SM a block
+SMS = 132
 BAG_WARPS = 4              # bags of an embedding_bag block
 
 STATIC_SMEM: Dict[str, int] = {
@@ -236,7 +243,8 @@ STATIC_SMEM: Dict[str, int] = {
     "decode_split_kernel": DECODE_MAX_GROUP * 512 * 4 + 2 * DECODE_MAX_GROUP * 4,
     "decode_combine_kernel": DECODE_MAX_GROUP * 4,
     "merge_kernel": 0, "rerank_kernel": 0, "list_amax_kernel": 0,
-    "centroid_amax_kernel": 0, "flash_fwd_kernel": 0,
+    "centroid_amax_kernel": 0, "flash_bf16_kernel": 0,
+    "flash_tf32_kernel": 0, "decode_mma_kernel": 0,
     "embedding_bag_kernel": 0,
 }
 # The int8 instances keep the arrays of their scale reductions (sq[QTILE],
@@ -372,16 +380,39 @@ def plan_ivf_scan(b: int, nprobe: int, lmax: int, d: int, kp: int
     return plan_fused_scan_ivf(b, nprobe, lmax, d, "f32", kp)
 
 
-def plan_flash_attention(b: int, h: int, s: int, d: int, dv: int
-                         ) -> List[Launch]:
-    """``flash_attention_f32``: one block per (row, head, 64 queries);
-    the Q, K, V and P tiles in dynamic shared memory."""
+def attn_bucket(d: int, dv: int) -> int:
+    """The head-dim bucket a flash_attention instance is built for: the
+    tiles hold 64 or 128 columns, zero-filled past D and Dv."""
+    return 64 if max(d, dv) <= 64 else 128
+
+
+def attn_warps(b: int, h: int, s: int) -> int:
+    """Warps (16 query rows each) of a flash_attention block: 4 when
+    64-row blocks still cover the SMs, else 1 (Dragon at B = 1: 192
+    one-warp blocks rather than 48)."""
+    rows = 4 * ATTN_WARP_ROWS
+    return 4 if b * h * -(-s // rows) >= SMS else 1
+
+
+def plan_flash_attention(b: int, h: int, s: int, d: int, dv: int,
+                         dtype: str = "f32") -> List[Launch]:
+    """``flash_attention_bf16`` / ``_f32``: one block of 1 or 4 warps
+    per (row x head, 16 queries a warp); a ring of 64-key K and V tiles
+    in dynamic shared memory, rows padded (bf16: three stages, D + 8
+    both; f32: two stages, K D + 8, V D + 4, in the bucket's D)."""
     if b * h * s == 0:
         return []
-    smem = (ATTN_BQ * (d + 1) + ATTN_BKV * (d + 1) + ATTN_BKV * dv
-            + ATTN_BQ * (ATTN_BKV + 1)) * 4
-    return [_launch("flash_fwd_kernel", (b * h, -(-s // ATTN_BQ)),
-                    ATTN_THREADS, smem, True)]
+    db = attn_bucket(d, dv)
+    if dtype == "bf16":
+        kernel, smem = "flash_bf16_kernel", 3 * ATTN_BKV * 2 * (db + 8) * 2
+    elif dtype == "f32":
+        kernel, smem = ("flash_tf32_kernel",
+                         2 * ATTN_BKV * ((db + 8) + (db + 4)) * 4)
+    else:
+        raise ValueError(f"dtype {dtype!r}: 'f32' or 'bf16'")
+    warps = attn_warps(b, h, s)
+    return [_launch(kernel, (b * h, -(-s // (ATTN_WARP_ROWS * warps))),
+                    warps * WARP, smem, True)]
 
 
 def decode_split(s: int) -> Tuple[int, int]:
@@ -393,16 +424,41 @@ def decode_split(s: int) -> Tuple[int, int]:
     return chunk, -(-s // chunk)
 
 
-def plan_flash_decode(b: int, h: int, hkv: int, s: int, d: int
-                      ) -> List[Launch]:
-    """``flash_decode_f32`` / ``_bf16``: the split kernel (the group's
-    fold in dynamic shared memory, G = the group's power-of-two bucket)
-    and the combine kernel."""
+def decode_mma_smem(d: int, group: int, nsplit: int) -> int:
+    """Dynamic shared memory of ``decode_mma_kernel`` (csrc mma_smem):
+    the warps' rings of 16-row K and V sub-tiles (head dim padded to ks
+    16, rows to ks 16 + 8), or the fold arrays after them: the four
+    warps' (m, l, weight, acc) or the splits' weights, the larger."""
+    ks = next(k for k in (1, 2, 4, 8) if d <= 16 * k)
+    ring = DECODE_STAGES * DECODE_MMA_WARPS * 2 * DECODE_SUB * (
+        16 * ks + 8) * 2
+    warps = (DECODE_FOLD_HEAD + 3 * DECODE_MMA_WARPS * DECODE_MAX_GROUP
+             + DECODE_MMA_WARPS * DECODE_MAX_GROUP * 16 * ks)
+    splits = DECODE_FOLD_HEAD + group * nsplit
+    return max(ring, 4 * max(warps, splits))
+
+
+def plan_flash_decode(b: int, h: int, hkv: int, s: int, d: int,
+                      cache: str = "f32") -> List[Launch]:
+    """``flash_decode_bf16``: ``decode_mma_kernel``, one 4-warp block per
+    (split, row x kv head), the splits folded in the launch.
+    ``flash_decode_f32``: the split kernel (the group's fold in dynamic
+    shared memory, G = the group's power-of-two bucket) and the combine
+    kernel."""
     if b == 0:
         return []
     group = h // hkv
-    g = next_pow2(group)
     _, nsplit = decode_split(s)
+    if cache == "bf16":
+        smem = decode_mma_smem(d, group, nsplit)
+        if smem > SMEM_BLOCK_BYTES:
+            raise ValueError(f"S={s}: {nsplit} splits of {group} queries "
+                             f"need {smem} B of shared memory to fold")
+        return [_launch("decode_mma_kernel", (nsplit, b * hkv),
+                        DECODE_MMA_WARPS * WARP, smem, True)]
+    if cache != "f32":
+        raise ValueError(f"cache {cache!r}: 'f32' or 'bf16'")
+    g = next_pow2(group)
     threads = -(-max(group * d, WARP * group) // WARP) * WARP
     return [_launch("decode_split_kernel", (nsplit, b * hkv), DECODE_THREADS,
                     DECODE_THREADS // WARP * g * d * 4, True),

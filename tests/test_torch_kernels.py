@@ -21,6 +21,7 @@ order), over MHA/GQA, causal with S == Skv and S < Skv, Dv != D, ragged
 S and Skv, and the encoders' shapes.
 """
 import ctypes
+import json
 import subprocess
 
 import numpy as np
@@ -1062,6 +1063,324 @@ def test_cuda_flash_decode_refuses_grad_and_empty_launches_nothing(
         ops.flash_decode(q.detach()[..., :60].contiguous(),
                          k[..., :60].to(torch.bfloat16).contiguous(),
                          v[..., :60].to(torch.bfloat16).contiguous(), lens)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core attention kernels: bf16 inputs, views, launches, bits
+# ---------------------------------------------------------------------------
+
+
+def _traced_kernels(call, tmp_path, tries=3):
+    """Names of the device kernels torch.profiler sees in one ``call()``
+    (after a warm-up call), from the Kineto trace's kernel events, as
+    ``kernel_budget.traced`` reads them.  A trace with no kernel at all
+    is the profiler missing the session (every call here launches one),
+    so it is taken again, up to ``tries`` times."""
+    call()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        path = tmp_path / f"trace{attempt}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        names = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if names:
+            return names
+    return names
+
+
+def _transposed(x):
+    """x (B, H, S, D) as the model's projections leave it: a (B, S, H, D)
+    buffer seen through transpose(1, 2)."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_cuda_flash_attention_bf16_equals_plain_version(cuda_device, shape):
+    """bf16 inputs read as they are: the bf16 output within one bf16 ulp
+    of its row's largest |out| against the plain version on the same
+    inputs (each side rounds its own f32 result)."""
+    q, k, v = (t.to(torch.bfloat16)
+               for t in _attn_inputs(shape, cuda_device))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=shape[-1])
+    want = ref.mha_attention(q, k, v, causal=shape[-1])
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= _bf16_row_ulp(want.float())).all())
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_reads_views_and_ignores_the_batch(
+        cuda_device, dtype):
+    """A transposed v (the projections' layout) is read in place, with the
+    bits of its contiguous copy; a row's output is the same bits alone
+    or in a batch."""
+    shape = (3, 8, 2, 100, 200, 64, 64, True)
+    q, k, v = (t.to(dtype) for t in _attn_inputs(shape, cuda_device))
+    full = ops.flash_attention(q, k, v)
+    assert torch.equal(ops.flash_attention(_transposed(q), _transposed(k),
+                                           _transposed(v)), full)
+    for row in (0, 2):
+        one = ops.flash_attention(q[row:row + 1], k[row:row + 1],
+                                  v[row:row + 1])
+        assert torch.equal(one[0], full[row])
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_launches_only_its_kernel(cuda_device, dtype,
+                                                       tmp_path):
+    """One ops call on the prefill's layout (v transposed) is one kernel,
+    the one its plan names: no casts, no layout copies."""
+    shape = (1, 32, 4, 784, 784, 128, 128, True)
+    q, k, v = (t.to(dtype) for t in _attn_inputs(shape, cuda_device))
+    v = _transposed(v)
+    plan = tiling.plan_flash_attention(1, 32, 784, 128, 128,
+                                       "bf16" if dtype == torch.bfloat16
+                                       else "f32")
+    names = _traced_kernels(lambda: ops.flash_attention(q, k, v), tmp_path)
+    assert len(names) == len(plan) == 1 and plan[0].kernel in names[0]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_bf16_launches_one_kernel(cuda_device, qdtype,
+                                                    tmp_path):
+    """On a bf16 cache one ops call is one kernel (the splits folded in
+    it, no casts), the output in q's dtype; on a float32 cache two."""
+    q, k, v, lens = _decode_inputs(DECODE_SHAPES[3], torch.bfloat16,
+                                   cuda_device)
+    q = q.to(qdtype)
+    assert ops.flash_decode(q, k, v, lens).dtype == qdtype
+    names = _traced_kernels(lambda: ops.flash_decode(q, k, v, lens),
+                            tmp_path)
+    assert len(names) == 1 and "decode_mma_kernel" in names[0]
+    plan = tiling.plan_flash_decode(8, 32, 4, 1024, 128, "bf16")
+    assert [x.kernel for x in plan] == ["decode_mma_kernel"]
+    q, k, v = q.float(), k.float(), v.float()
+    names = _traced_kernels(lambda: ops.flash_decode(q, k, v, lens),
+                            tmp_path)
+    assert len(names) == 2
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_calls_repeat_their_bits(cuda_device, qdtype):
+    """The arrival counters are reset by each call: back-to-back calls,
+    and a call at another B between them, give the same bits; cache_len
+    1, S and S + 1 within the gates of the plain version."""
+    b, h, hkv, s, d = 3, 32, 4, 32_768, 128
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((b, h, d), generator=g, device=cuda_device).to(qdtype)
+    k, v = (torch.randn((b, hkv, s, d), generator=g, device=cuda_device
+                        ).to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([1, s, s + 1], dtype=torch.int32,
+                        device=cuda_device)
+    first = ops.flash_decode(q, k, v, lens)
+    ops.flash_decode(q[:1], k[:1], v[:1], lens[:1] + s // 2)
+    assert torch.equal(ops.flash_decode(q, k, v, lens), first)
+    assert torch.equal(ops.flash_decode(q, k, v, lens), first)
+    want = ref.decode_attention(q, k, v, lens)
+    diff = (first.float() - want.float()).abs()
+    if qdtype == torch.float32:
+        assert float(diff.max()) <= ATTN_TOL
+    else:
+        assert bool((diff <= _bf16_row_ulp(want.float())).all())
+
+
+@pytest.mark.cuda_only
+def test_cuda_flash_decode_bf16_refuses_grad_and_empty_launches_nothing(
+        cuda_device):
+    q, k, v, lens = _decode_inputs(DECODE_SHAPES[0], torch.bfloat16,
+                                   cuda_device)
+    q = q.to(torch.bfloat16)
+    before = ops.flash_decode.launches
+    out = ops.flash_decode(q[:0], k[:0], v[:0], lens[:0])
+    assert out.shape == (0, 4, 64) and out.dtype == torch.bfloat16
+    assert ops.flash_decode.launches == before
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ops.flash_decode(q.requires_grad_(), k, v, lens)
+
+
+@pytest.mark.cuda_only
+def test_cuda_flash_attention_bf16_refuses_grad_and_empty_launches_nothing(
+        cuda_device):
+    q, k, v = (t.to(torch.bfloat16)
+               for t in _attn_inputs(ATTN_SHAPES[0], cuda_device))
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q[:0], k[:0], v[:0])
+    assert out.shape == (0, 4, 128, 32) and out.dtype == torch.bfloat16
+    assert ops.flash_attention.launches == before
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+
+
+# csrc/attn_mma.cuh on the card: one warp's m16n8k16 product of a bf16 A
+# (16 x 16) and B (16 x 8) whose A comes as hi + lo terms of float32
+# values (the P V step), one 3xTF32 m16n8k8 product of float32 A (16 x 8)
+# and B (8 x 8), and the three-term bf16 split of float32 values
+MMA_HARNESS = r"""
+#include "attn_mma.cuh"
+using namespace attn_mma;
+__global__ void mma_kernel(const float* a16, const __nv_bfloat16* b16,
+                           float* c16, const float* a8, const float* b8,
+                           float* c8, const float* x, float* x3) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  uint32_t hi[4], lo[4];
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + (i & 1) * 8, c = 2 * t + (i >> 1) * 8;
+    split_bf16(a16[r * 16 + c], a16[r * 16 + c + 1], hi[i], lo[i]);
+  }
+  uint32_t b[2];
+  for (int i = 0; i < 2; ++i) {
+    const __nv_bfloat16 e0 = b16[(2 * t + 8 * i) * 8 + g];
+    const __nv_bfloat16 e1 = b16[(2 * t + 8 * i + 1) * 8 + g];
+    b[i] = (uint32_t)__bfloat16_as_ushort(e0) |
+           ((uint32_t)__bfloat16_as_ushort(e1) << 16);
+  }
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(c, lo, b[0], b[1]);
+  mma_bf16(c, hi, b[0], b[1]);
+  for (int i = 0; i < 4; ++i) c16[(g + (i >> 1) * 8) * 8 + 2 * t + (i & 1)] = c[i];
+  uint32_t ah[4], al[4];
+  for (int i = 0; i < 4; ++i)
+    split_tf32(a8[(g + (i & 1) * 8) * 8 + t + (i >> 1) * 4], ah[i], al[i]);
+  uint32_t b0h, b0l, b1h, b1l;
+  split_tf32(b8[t * 8 + g], b0h, b0l);
+  split_tf32(b8[(t + 4) * 8 + g], b1h, b1l);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32(d, ah, al, b0h, b0l, b1h, b1l);
+  for (int i = 0; i < 4; ++i) c8[(g + (i >> 1) * 8) * 8 + 2 * t + (i & 1)] = d[i];
+  uint32_t terms[3];
+  split3_bf16(x[2 * lane], x[2 * lane + 1], terms);
+  float2 s = make_float2(0.f, 0.f);
+  for (int i = 2; i >= 0; --i) {
+    const float2 h = unpack_bf16(terms[i]);
+    s.x += h.x;
+    s.y += h.y;
+  }
+  x3[2 * lane] = s.x;
+  x3[2 * lane + 1] = s.y;
+}
+extern "C" int mma_check(const float* a16, const void* b16, float* c16,
+                         const float* a8, const float* b8, float* c8,
+                         const float* x, float* x3) {
+  mma_kernel<<<1, 32>>>(a16, (const __nv_bfloat16*)b16, c16, a8, b8, c8,
+                        x, x3);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.mark.cuda_only
+def test_cuda_attn_mma_header(cuda_device, tmp_path):
+    """The fragment layouts and splits of csrc/attn_mma.cuh: a P V step
+    (P as hi + lo bf16) within 2^-15 of the float64 product, a 3xTF32
+    product within 2^-19 of it (relative to sum |a b|), and the
+    three-term bf16 split exact."""
+    src = tmp_path / "mma_harness.cu"
+    src.write_text(MMA_HARNESS)
+    so = tmp_path / "libmma.so"
+    subprocess.run([_build.nvcc(), *_build.ARCH, "-std=c++17", "-shared",
+                    "-Xcompiler", "-fPIC", "-I", str(_build.CSRC), "-o",
+                    str(so), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).mma_check
+    fn.argtypes = [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
+    gen = torch.Generator().manual_seed(11)
+    a16 = torch.rand((16, 16), generator=gen)
+    b16 = torch.randn((16, 8), generator=gen).to(torch.bfloat16)
+    a8 = torch.randn((16, 8), generator=gen)
+    b8 = torch.randn((8, 8), generator=gen)
+    x = torch.randn(64, generator=gen) * torch.exp2(
+        torch.randint(-20, 20, (64,), generator=gen).float())
+    dev = [t.to(cuda_device) for t in (a16, b16, a8, b8, x)]
+    c16, c8, x3 = (torch.zeros(n, device=cuda_device)
+                   for n in ((16, 8), (16, 8), (64,)))
+    assert fn(dev[0].data_ptr(), dev[1].data_ptr(), c16.data_ptr(),
+              dev[2].data_ptr(), dev[3].data_ptr(), c8.data_ptr(),
+              dev[4].data_ptr(), x3.data_ptr()) == 0
+    for got, a, b, tol in ((c16, a16, b16.float(), 2.0 ** -15),
+                           (c8, a8, b8, 2.0 ** -19)):
+        want = a.double() @ b.double()
+        scale = a.double().abs() @ b.double().abs()
+        assert float(((got.cpu().double() - want).abs() / scale).max()) \
+            <= tol
+    assert torch.equal(x3.cpu(), x)
+
+
+# B, H, Hkv, S, D and cache dtype: the served shapes (Yi-9B's RAG cache
+# and decode_32k cut to B = 8), the smoke's [decode] shapes and the
+# kernels probe
+DECODE_PLANS = [((1, 32, 4, 1024, 128), "bf16", (16, 4), 104_448),
+                ((8, 32, 4, 32_768, 128), "bf16", (64, 32), 104_448),
+                ((8, 40, 8, 32_768, 128), "bf16", (64, 64), 104_448),
+                ((1, 4, 4, 1000, 128), "bf16", (16, 4), 104_448),
+                ((2, 10, 2, 300, 16), "bf16", (5, 4), 18_432),
+                ((1, 32, 4, 4_000_000, 128), "bf16", (7813, 4), 250_144),
+                ((4, 8, 2, 2048, 128), "f32", (32, 8), None)]
+
+
+@pytest.mark.parametrize("shape,cache,grid,smem", DECODE_PLANS)
+def test_flash_decode_plans(shape, cache, grid, smem):
+    """The bf16 cache is one decode_mma_kernel launch (4 warps a block,
+    one block per (split, row x kv head), the ring or the fold in
+    dynamic shared memory within one block's cap); the float32 cache
+    keeps its split and combine kernels."""
+    b, h, hkv, s, d = shape
+    if smem is not None and smem > tiling.SMEM_BLOCK_BYTES:
+        with pytest.raises(ValueError, match="fold"):
+            tiling.plan_flash_decode(b, h, hkv, s, d, cache)
+        return
+    plan = tiling.plan_flash_decode(b, h, hkv, s, d, cache)
+    assert plan[0].grid == tuple(grid) + (1,) * (3 - len(grid))
+    assert all(x.smem_bytes <= tiling.SMEM_BLOCK_BYTES for x in plan)
+    if cache == "bf16":
+        assert [x.kernel for x in plan] == ["decode_mma_kernel"]
+        assert plan[0].block == (128, 1, 1)
+        assert plan[0].dyn_smem_bytes == smem
+    else:
+        assert [x.kernel for x in plan] == ["decode_split_kernel",
+                                            "decode_combine_kernel"]
+    assert tiling.plan_flash_decode(0, h, hkv, s, d, cache) == []
+
+
+# B, H, S, D, Dv, dtype -> grid, warps, dynamic shared memory: Dragon's
+# query (B = 1) and doc batch (B = 64), Snowflake's query, Yi-9B's bf16
+# prefill, the smoke's [attn] shapes and the kernels probe
+ATTN_PLANS = [((1, 12, 256, 64, 64), "f32", (12, 16), 1, 71_680),
+              ((64, 12, 256, 64, 64), "f32", (768, 4), 4, 71_680),
+              ((1, 16, 256, 64, 64), "f32", (16, 16), 1, 71_680),
+              ((1, 32, 784, 128, 128), "bf16", (32, 13), 4, 104_448),
+              ((1, 32, 784, 128, 128), "f32", (32, 13), 4, 137_216),
+              ((2, 8, 100, 64, 64), "f32", (16, 7), 1, 71_680),
+              ((2, 8, 128, 48, 32), "bf16", (16, 8), 1, 55_296),
+              ((1, 4, 1024, 128, 128), "f32", (4, 64), 1, 137_216)]
+
+
+@pytest.mark.parametrize("shape,dtype,grid,warps,smem", ATTN_PLANS)
+def test_flash_attention_plans(shape, dtype, grid, warps, smem):
+    """One launch per call: 4-warp blocks (64 query rows) when they still
+    cover the 132 SMs, else one-warp blocks; the stages of K and V tiles
+    (bf16 three, f32 two) within one block's shared memory."""
+    b, h, s, d, dv = shape
+    plan = tiling.plan_flash_attention(b, h, s, d, dv, dtype)
+    kernel = {"f32": "flash_tf32_kernel", "bf16": "flash_bf16_kernel"}
+    assert [x.kernel for x in plan] == [kernel[dtype]]
+    assert plan[0].grid == (*grid, 1)
+    assert plan[0].block == (32 * warps, 1, 1)
+    assert plan[0].grid[0] * plan[0].grid[1] >= min(
+        tiling.SMS, b * h * -(-s // 16))
+    assert plan[0].dyn_smem_bytes == smem <= tiling.SMEM_BLOCK_BYTES
+    assert tiling.plan_flash_attention(0, h, s, d, dv, dtype) == []
 
 
 # ---------------------------------------------------------------------------
