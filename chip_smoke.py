@@ -53,6 +53,8 @@ exits non-zero):
               no cast or layout-copy kernels beside the bf16 kernels
   4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25, f32,
               bf16 and int8, and at the two-tower retrieval_cand shape
+    stages    rows 1, 4 and 6 split into their kernels under
+              torch.profiler (device us each, L2 flushed), B = 1 and 25
   5 attn      flash_attention == its plain version within 1e-5, Yi-9B's
               RAG prefill shape (S = 784, D = 128, GQA 8, causal) on
               bf16 inputs too (the bf16 kernel), its bf16 output within
@@ -104,7 +106,10 @@ then a JSON line of kernels, the card line, and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Size flags
 (``--n-docs``, ``--lists``, ``--iters``, ``--enc-docs``, ``--tt-items``,
-``--tt-users``) cut the run for a quick check.
+``--tt-users``) cut the run for a quick check.  ``--stages-only`` builds
+and prints only the [stages] split; ``--dump-rows PATH`` builds and saves
+rows 1-7's outputs on the seeded realistic inputs to PATH, so the
+kernels of two checkouts can be held to each other bit for bit.
 """
 from __future__ import annotations
 
@@ -697,9 +702,38 @@ def bf16_probes():
     ]
 
 
+def stage_probes():
+    """The stage kernels at the smoke's shapes, held to the profiler like
+    the analysis pass's probes: stage 1 in its 32-query tile (B = 25)
+    and the top-h cache's growing merge (kp = 1,024), and the served
+    fused_scan (B = 1, nprobe 64, Lmax 702, d 768, k 10), whose lists
+    fold in its one launch."""
+    import torch
+    from repro_torch.analysis import kernel_budget as KB
+    from repro_torch.kernels import ops
+    f32 = torch.float32
+    return [
+        KB.Probe("ops.centroid_topk[B=25]",
+                 (KB.Arg((25, 768), f32), KB.Arg((16_384, 768), f32)),
+                 lambda q, c, device: ops.centroid_topk(q, c, 64,
+                                                        device=device)),
+        KB.Probe("ops.centroid_topk[h=1024]",
+                 (KB.Arg((1, 768), f32), KB.Arg((16_384, 768), f32)),
+                 lambda q, c, device: ops.centroid_topk(q, c, 1024,
+                                                        device=device)),
+        KB.Probe("ops.fused_scan[served]",
+                 (KB.Arg((1, 768), f32), KB.Arg((512, 702, 768), f32),
+                  KB.Arg((512, 702), torch.int32, -1, 10_000),
+                  KB.Arg((1, 64), torch.int32, 0, 512)),
+                 lambda q, lv, li, sel, device: ops.fused_scan(
+                     q, lv, li, sel, 10, device=device)),
+    ]
+
+
 def phase_plans(dev):
-    """Every probe of the ``kernels`` analysis pass, and the two bf16
-    probes of the LM path (``bf16_probes``), on CUDA tensors of its
+    """Every probe of the ``kernels`` analysis pass, the two bf16 probes
+    of the LM path (``bf16_probes``) and the stage kernels at the smoke's
+    shapes (``stage_probes``), on CUDA tensors of its
     shapes, drawn from a seeded generator: the plan the recorder records
     for the call is held to the kernels torch.profiler traces (name,
     count, order, grid, block, static + dynamic shared memory).  Returns
@@ -708,7 +742,7 @@ def phase_plans(dev):
     from repro_torch.analysis import kernel_budget as KB
     gen = torch.Generator(device=dev).manual_seed(17)
     n, bad = 0, []
-    probes = KB.default_probes() + bf16_probes()
+    probes = KB.default_probes() + bf16_probes() + stage_probes()
     for probe in probes:
         tensors = probe.tensors(dev, gen)
         want = KB.planned(probe, tensors, dev)
@@ -1270,6 +1304,165 @@ def profile_device(run, reps, classes):
     out["top_other"] = ", ".join(f"{n} {t / reps / 1e3:.3f}"
                                  for n, t in top)
     return out
+
+
+def kernel_split(call, flush, reps=10):
+    """Each kernel of one call alone: ``call()`` ``reps`` + 1 times under
+    torch.profiler, the L2 flushed (``flush`` overwritten) before each;
+    the flush's fill kernel splits the trace into calls, and the last
+    ``reps`` are read (the trace may miss the window's first fill; a
+    trace that misses calls is taken again, the host traced too, up to
+    three times).
+    Returns, per call, the mean device µs of each kernel (and memset) by
+    name, the kernels a call and the span from the first kernel's start
+    to the last one's end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        flush.zero_()
+        call()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CUDA]
+    for _ in range(3):     # a session the profiler missed is taken again
+        with profile(activities=acts) as prof:
+            for _ in range(reps + 1):
+                flush.zero_()
+                call()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        runs, cur = [], None
+        for a, b, name in spans:
+            if "FillFunctor" in name:
+                cur = []
+                runs.append(cur)
+            elif cur is not None:
+                cur.append((a, b, name))
+        runs = runs[-reps:]
+        if len(runs) == reps and all(runs):
+            break
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    else:
+        raise AssertionError(f"kernel split: {len(runs)} calls traced, "
+                             f"expected {reps}")
+    per = {}
+    for r in runs:
+        for a, b, name in r:
+            short = name.replace("(anonymous namespace)::", "")
+            short = short.split("(")[0].split("<")[0].split()[-1]
+            per[short] = per.get(short, 0.0) + (b - a) / reps
+    return dict(kernels=per, n=len(runs[0]),
+                span=float(np.mean([r[-1][1] - r[0][0] for r in runs])))
+
+
+def phase_stages(args, dev):
+    """Rows 1, 4 and 6 split into their kernels (``kernel_split``) on
+    unit-norm random lists at the smoke's shape (p = 16,384, Lmax 702,
+    d = 768, ragged sizes in [Lmax / 2, Lmax]): ``centroid_topk`` at kp =
+    64 (B = 1, 25) and at the top-h kp = 1,024 (B = 1), ``fused_scan`` at
+    f32 / bf16 / int8 and ``fused_turn`` at f32 (B = 1, 25), k = 10,
+    nprobe 64.  Written to chiprun_out/stages.json too."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 19)
+    p, lmax, d, k, nprobe = args.lists, args.lmax, args.d, args.k, \
+        args.nprobe
+    cents = unit(torch.randn((p, d), generator=gen, device=dev))
+    lv, li = realistic_lists(p, lmax, d, gen, dev)
+    qs = unit(torch.randn((25, d), generator=gen, device=dev))
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    out = {}
+    for b in (1, 25):
+        q = qs[:b].contiguous()
+        sel = ops.centroid_topk(q, cents, nprobe)[1]
+        calls = {"centroid_topk kp=64": lambda: ops.centroid_topk(
+            q, cents, nprobe)}
+        if b == 1:
+            calls["centroid_topk kp=1024"] = lambda: ops.centroid_topk(
+                q, cents, 1024)
+        for prec in ("f32",) + QUANT:
+            calls[f"fused_scan[{prec}]"] = lambda prec=prec: ops.fused_scan(
+                q, lv, li, sel, k, precision=prec)
+        calls["fused_turn[f32]"] = lambda: ops.fused_turn(
+            q, cents, lv, li, nprobe=nprobe, k=k)
+        for name, call in calls.items():
+            s = kernel_split(call, flush)
+            out[f"{name} B={b}"] = s
+            log("stages", f"{name} B={b}: {s['n']} kernels, span "
+                f"{s['span']:.1f} us: " + ", ".join(
+                    f"{kn} {us:.1f}" for kn, us in s["kernels"].items()))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "stages.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    del lv, li
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dump_rows(args, dev, path):
+    """Rows 1-7 on the smoke's seeded realistic inputs (``phase_realistic``'s
+    generator: p = 16,384 unit centroids, ragged unit lists of Lmax 702,
+    d = 768, random m = 48 PQ codes), at B = 1 and 25: centroid_topk
+    (kp 64 and the top-h 1,024), ivf_scan (k 10), pq_adc_scan, and
+    fused_turn / fused_scan / fused_turn_pq / fused_scan_pq at f32, bf16
+    and int8 (fused_scan also at the two-tower k = 100, nprobe 32), every
+    output saved to ``path``, so two builds of the kernels can be held to
+    each other bit for bit (``torch.equal``) from two processes."""
+    import torch
+    from repro_torch.core import pq, toploc
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    p, lmax, d, k, nprobe = args.lists, args.lmax, args.d, args.k, \
+        args.nprobe
+    cents = unit(torch.randn((p, d), generator=gen, device=dev))
+    lv, li = realistic_lists(p, lmax, d, gen, dev)
+    qs = unit(torch.randn((25, d), generator=gen, device=dev))
+    rows = lv.view(p * lmax, d)
+    pqi = pq.IVFPQIndex(
+        cents, torch.randn((PQ_M, 256, d // PQ_M), generator=gen,
+                           device=dev) / math.sqrt(d // PQ_M),
+        torch.randint(0, 256, (p, lmax, PQ_M), generator=gen, device=dev,
+                      dtype=torch.uint8),
+        li, (li >= 0).sum(1).to(torch.int32), rows)
+    codes = pqi.list_codes
+    out = {}
+    for b in (1, 25):
+        q = qs[:b].contiguous()
+        _, sel = ops.centroid_topk(q, cents, nprobe)
+        tables = toploc._adc_tables(pqi, q)
+        calls = {"centroid_topk": lambda: ops.centroid_topk(q, cents,
+                                                             nprobe),
+                 "centroid_topk[h]": lambda: ops.centroid_topk(q, cents,
+                                                               1024),
+                 "ivf_scan": lambda: ops.ivf_scan(q, lv, li, sel, k),
+                 "pq_adc_scan": lambda: ops.pq_adc_scan(tables, codes, li,
+                                                        sel, RERANK),
+                 "fused_scan[k100]": lambda: ops.fused_scan(
+                     q, lv, li, sel[:, :32].contiguous(), 100)}
+        for prec in ("f32",) + QUANT:
+            calls[f"fused_turn[{prec}]"] = lambda prec=prec: ops.fused_turn(
+                q, cents, lv, li, nprobe=nprobe, k=k, precision=prec)
+            calls[f"fused_scan[{prec}]"] = lambda prec=prec: ops.fused_scan(
+                q, lv, li, sel, k, precision=prec)
+            calls[f"fused_turn_pq[{prec}]"] = \
+                lambda prec=prec: ops.fused_turn_pq(
+                    q, cents, tables, codes, li, rows, nprobe=nprobe, k=k,
+                    rerank=RERANK, precision=prec)
+            calls[f"fused_scan_pq[{prec}]"] = \
+                lambda prec=prec: ops.fused_scan_pq(
+                    tables, q, codes, li, sel, rows, k, rerank=RERANK,
+                    precision=prec)
+        calls["fused_scan_pq[adc]"] = lambda: ops.fused_scan_pq(
+            tables, q, codes, li, sel, rows, k, rerank=RERANK,
+            fuse_rerank=False)
+        for name, call in calls.items():
+            out[f"{name} B={b}"] = [t.cpu() for t in call()]
+    torch.cuda.synchronize()
+    torch.save(out, path)
+    log("dump", f"{len(out)} outputs of rows 1-7 at B = 1 and 25 -> {path}")
+    del lv, li, rows, pqi
+    torch.cuda.empty_cache()
 
 
 def profile_query_tower(enc, q, reps=5):
@@ -2711,6 +2904,11 @@ def main() -> int:
                     help="two-tower retrieval_cand corpus size")
     ap.add_argument("--tt-users", type=int, default=100,
                     help="two-tower user sessions per serving path")
+    ap.add_argument("--stages-only", action="store_true",
+                    help="build, then only the [stages] kernel split")
+    ap.add_argument("--dump-rows", metavar="PATH",
+                    help="build, then only save rows 1-7's outputs on the "
+                    "seeded realistic inputs to PATH (phase_dump_rows)")
     args = ap.parse_args()
     args.d, args.k, args.nprobe = 768, 10, 64
     args.lmax = math.ceil(1.3 * args.n_docs / args.lists)
@@ -2743,6 +2941,13 @@ def main() -> int:
     log("build", "cuobjdump -sass, HMMA instructions per instance: " + "; ".join(
         f"{name} {counts}" for name, counts in hmma.items()))
 
+    if args.stages_only or args.dump_rows:
+        if args.stages_only:
+            phase_stages(args, dev)
+        if args.dump_rows:
+            phase_dump_rows(args, dev, args.dump_rows)
+        print(card)
+        return 0
     passes = phase_exact_classic(dev)
     log("exact", f"centroid_topk {len(CK_EXACT)} shapes and ivf_scan "
         f"{len(IV_EXACT)} shapes, float32 and bfloat16 (v, ids): bit-equal "
@@ -2765,8 +2970,9 @@ def main() -> int:
         f"group), on integer inputs and on bf16-split ones; core.topk on "
         f"the card ranks +0.0 above -0.0")
     n_probes, n_plan = phase_plans(dev)
-    log("plans", f"{n_probes} probes (the kernels analysis pass's and the "
-        f"LM's bf16 flash_decode / flash_attention calls) on CUDA tensors: "
+    log("plans", f"{n_probes} probes (the kernels analysis pass's, the "
+        f"LM's bf16 flash_decode / flash_attention calls and the stage "
+        f"kernels at the smoke's shapes) on CUDA tensors: "
         f"{n_plan} traced kernels == the recorded launch plans (name, order, "
         f"grid, block, static + dynamic shared memory); the bf16 calls run "
         f"no cast or copy kernel")
@@ -2808,6 +3014,7 @@ def main() -> int:
             f"{n}={e:.3g}" for n, e in cand_errs.items()) +
         f" (tol {TOL}); near-tie id mismatches " + " ".join(
             f"{n}={v}" for n, v in cand_ties.items()))
+    phase_stages(args, dev)
 
     errs["flash_attention"] = 0.0
     attn_ulps = phase_attn(args, dev, errs)

@@ -180,27 +180,35 @@ def planned(probe: Probe, tensors: Sequence[torch.Tensor], device
             for r in record(probe, tensors, device) for x in r.plan]
 
 
-def traced(probe: Probe, tensors: Sequence[torch.Tensor], device
-           ) -> List[Kernel]:
+def traced(probe: Probe, tensors: Sequence[torch.Tensor], device,
+           tries: int = 3) -> List[Kernel]:
     """The same tuples for the kernels ``torch.profiler`` sees when the
     probe's call runs on the card (after one warm-up call), in launch
     order, from the Kineto trace's kernel events ("grid", "block",
-    "shared memory": static plus dynamic)."""
+    "shared memory": static plus dynamic).  A trace with no kernel at
+    all is the profiler missing the session (every probe launches one),
+    so it is taken again, with the host's activity traced too, up to
+    ``tries`` times."""
     import json
     import os
     import re
     import tempfile
     probe.call(*tensors, device=device)
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        probe.call(*tensors, device=device)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            probe.call(*tensors, device=device)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        if any(e.get("cat") == "kernel" for e in events):
+            break
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
     out = []
     for e in sorted((e for e in events if e.get("cat") == "kernel"),
                     key=lambda e: e["ts"]):

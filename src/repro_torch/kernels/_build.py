@@ -36,18 +36,18 @@ LL = ctypes.POINTER(ctypes.c_longlong)
 # csrc/centroid_topk.cu, csrc/ivf_scan.cu)
 SIGNATURES = {
     "fused_scan_ivf": [P, P, P, I, P, I, P, I, I, I, I,
-                       I, I, I, P, I, I, I, I,
-                       P, P, P, P, P, P, P, P, P, P],
+                       I, I, I, P, I, I, I,
+                       P, P, P, P, P, P, P, P, P, P, P, P],
     "fused_turn_ivf": [P, P, P, P, I, I, I, I, I, I,
-                       I, I, I, P, I, I, P, I, I, I, I, I,
-                       P, P, P, P, P, P, P, P, P, P, P, P, P, P],
-    "pq_adc_scan_f32": [P, I, I, P, P, I, P, I, I, I, I, I,
+                       I, I, I, P, I, I, P, I, I, I,
+                       P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P],
+    "pq_adc_scan_f32": [P, I, I, P, P, I, P, I, I, I, I,
                         P, P, P, P, P, P, P],
     "fused_scan_pq": [P, P, I, I, P, P, I, P, I, P, P,
-                      I, I, I, I, I, I, I, I, I, I,
+                      I, I, I, I, I, I, I, I, I,
                       P, P, P, P, P, P, P, P, P, P],
     "fused_turn_pq": [P, P, P, I, I, P, P, I, P,
-                      I, I, I, I, I, I, I, I, P, I, I, I, I, I,
+                      I, I, I, I, I, I, I, I, P, I, I, I,
                       P, P, P, P, P, P, P, P, P, P, P, P, P, P],
     "flash_attention_f32": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, LL, P],
     "flash_attention_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, LL,
@@ -56,8 +56,8 @@ SIGNATURES = {
     "flash_decode_f32": [P, P, P, P, I, I, I, I, I, I, I, F, P, P, P, P, P],
     "flash_decode_bf16": [P, I, P, P, P, I, I, I, I, I, I, I, F, P, P, P, P,
                           P, P],
-    "centroid_topk": [P, P, I, I, I, I, I, I, P, P, P, P, P],
-    "ivf_scan": [P, P, I, P, I, P, I, I, I, I, I, I, P, P, P, P, P, P],
+    "centroid_topk": [P, P, I, I, I, I, I, P, P, P, P, P],
+    "ivf_scan": [P, P, I, P, I, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -44,18 +44,21 @@ def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *,
     if queries.device != centroids.device:
         raise ValueError("queries and centroids lie on different devices")
     tiling.check_width(d, queries.element_size())
-    if -(-b // tiling.QTILE) > tiling.MAX_GRID_Y:
+    qt = tiling.centroid_qtile(b, d)
+    if -(-b // qt) > tiling.MAX_GRID_Y:
         raise ValueError(f"batch {b}: more than {tiling.MAX_GRID_Y} blocks "
-                         f"of {tiling.QTILE} queries")
+                         f"of {qt} queries")
     if not 0 < kp <= tiling.MAX_PAD or kp & (kp - 1):
         raise ValueError(f"kp={kp}: a power of two <= {tiling.MAX_PAD}")
     dev = queries.device
-    n = b * tiling.centroid_chunks(p) * kp
+    chunks = tiling.centroid_chunks(p)
+    w1 = min(kp, tiling.CENTROID_CHUNK)
+    n = b * (chunks * w1 + tiling.merge_scratch(chunks, kp, w1))
     s1_v = torch.empty(n, dtype=torch.float32, device=dev)
     s1_i = torch.empty(n, dtype=torch.int32, device=dev)
     out_v = torch.empty((b, kp), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, kp), dtype=torch.int32, device=dev)
     launcher.run("centroid_topk", tiling.plan_centroid_topk(b, p, d, kp), dev,
                  queries, centroids, DTYPE_CODE[queries.dtype], p, b, d, kp,
-                 tiling.merge_group(kp), s1_v, s1_i, out_v, out_i)
+                 s1_v, s1_i, out_v, out_i)
     return out_v, out_i

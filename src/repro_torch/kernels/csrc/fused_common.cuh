@@ -1,20 +1,23 @@
 // Device and host pieces shared by the port's CUDA sources.
 //
-// warp_row_dots / warp_row_dots_i8: the fixed-order row scoring of the
-//   fused IVF kernels (fused_turn.cu) that the IVF-PQ exact re-rank
-//   (pq_adc.cu) reuses, so a row scores the same bits in every kernel and
-//   at any batch size; float32, bf16-rounded or int8 operands.
+// warp_rows_partial / warp_rows_partial_i8 + xor_sums / transpose_sums:
+//   the fixed-order row scoring of the IVF kernels (ivf_stages.cuh) that
+//   the float32 re-rank (warp_row_dots, one row) reuses, so a row scores
+//   the same bits in every kernel, at any batch size and with any number
+//   of rows in flight; float32, bf16-rounded or int8 operands.
 // The precision contract (src/repro/kernels/fused_turn.py:81-150):
 //   bf16 rounds both operands to bfloat16, nearest even, and sums their
 //   products (exact in f32) in float32; int8 quantises symmetrically,
 //   scale = 127 / max(amax, 1e-30), q = clip(rint(x * scale), -127, 127),
 //   takes the int32 dot (exact) and dequantises f32(acc) / (sq * st).
-// load4 / warp_row_dots_bf16: rows stored as bfloat16, widened to float32
-//   as they load (centroid_topk.cu, ivf_scan.cu).
+// load4 / warp_rows_partial_bf16: rows stored as bfloat16, widened to
+//   float32 as they load (centroid_topk.cu, ivf_scan.cu).
 //   Every step is one IEEE operation in a fixed order (no fast math), so
 //   kernel and plain version (kernels/ref.py) agree bit for bit.
-// launch / by_precision: a launch with its dynamic shared memory set and
-//   its error returned, and the instance of a kernel for a precision code.
+// launch / opt_in_once / by_precision: a launch with its error returned,
+//   its kernel's dynamic shared-memory cap raised once per instance and
+//   device (not per launch), and the instance of a kernel for a precision
+//   code.
 // merge_topk_f32 / select_probes / rerank_rows: the candidate merge, the
 //   centroid stage (stage 1) and the float32 re-rank of fused_turn.cu,
 //   exported with C linkage so pq_adc.cu launches the same kernels inside
@@ -23,6 +26,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
+#include <set>
+#include <utility>
 
 namespace fused_common {
 
@@ -88,54 +95,145 @@ __device__ __forceinline__ float block_amax(const float* x, int n,
   return m;
 }
 
-// Scores one row against nq <= NQ queries staged in shared memory (query t
-// at qs4 + t * d4), by one warp, in a fixed order: per lane, FMAs over the
-// float4 columns lane, lane + 32, ... in ascending order, then an
-// xor-shuffle tree.  The order for a (row, query) pair depends on neither
-// NQ nor nq.  BF16 rounds the row's values to bfloat16 as they load (the
-// caller stages the queries rounded): products of two bf16 values are
-// exact, so each FMA rounds once, as a float32 sum of them does.  All 32
-// lanes must call it and all end with the scores.
-template <int NQ, bool BF16 = false>
-__device__ __forceinline__ void warp_row_dots(const float4* __restrict__ row,
-                                              const float4* qs4, int d4,
-                                              int nq, float (&out)[NQ]) {
+// The per-lane partial sums of R rows against nq <= NQ queries staged in
+// shared memory (query t at qs4 + t * d4), by one warp, in a fixed order:
+// per lane and (row, query) pair, FMAs over the float4 columns lane, lane
+// + 32, ... in ascending order.  xor_sums or transpose_sums then adds the
+// 32 lanes' partials in one fixed tree.  The order for a (row, query)
+// pair depends on neither R, U, NQ nor nq, so it is the same bits in every
+// kernel.  Each lane issues the loads of all R rows, U float4s a row,
+// before the first FMA; a null row loads nothing and sums 0.  BF16 rounds
+// the rows' values to bfloat16 as they load (the caller stages the
+// queries rounded): products of two bf16 values are exact, so each FMA
+// rounds once, as a float32 sum of them does.  All 32 lanes must call it.
+template <int R, int NQ, int U, bool BF16 = false>
+__device__ __forceinline__ void warp_rows_partial(
+    const float4* const* rows, const float4* qs4, int d4, int nq,
+    float (&acc)[R][NQ]) {
   const int lane = threadIdx.x & 31;
-  float acc[NQ];
 #pragma unroll
-  for (int t = 0; t < NQ; ++t) acc[t] = 0.f;
-  for (int base = 0; base < d4; base += 32 * UNROLL) {
-    float4 x[UNROLL];
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+    for (int t = 0; t < NQ; ++t) acc[i][t] = 0.f;
+  for (int base = 0; base < d4; base += 32 * U) {
+    float4 x[R][U];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = base + u * 32 + lane;
+        x[i][u] = rows[i] != nullptr && c < d4
+                      ? __ldg(rows[i] + c)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        if (BF16) x[i][u] = bf16_round4(x[i][u]);
+      }
+    // u outer, t inner: consecutive FMAs feed different sums, while each
+    // sum still takes its columns in ascending order
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
       const int c = base + u * 32 + lane;
-      x[u] = c < d4 ? __ldg(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-      if (BF16) x[u] = bf16_round4(x[u]);
-    }
+      if (c < d4) {
 #pragma unroll
-    for (int t = 0; t < NQ; ++t) {
-      if (t < nq) {
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int c = base + u * 32 + lane;
-          if (c < d4) {
+        for (int t = 0; t < NQ; ++t) {
+          if (t < nq) {
             const float4 y = qs4[t * d4 + c];
-            acc[t] = fmaf(x[u].x, y.x, acc[t]);
-            acc[t] = fmaf(x[u].y, y.y, acc[t]);
-            acc[t] = fmaf(x[u].z, y.z, acc[t]);
-            acc[t] = fmaf(x[u].w, y.w, acc[t]);
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              acc[i][t] = fmaf(x[i][u].x, y.x, acc[i][t]);
+              acc[i][t] = fmaf(x[i][u].y, y.y, acc[i][t]);
+              acc[i][t] = fmaf(x[i][u].z, y.z, acc[i][t]);
+              acc[i][t] = fmaf(x[i][u].w, y.w, acc[i][t]);
+            }
           }
         }
       }
     }
   }
+}
+
+// The sums over the warp of each lane's M partials, in the xor-shuffle
+// tree: the partials of lanes l and l ^ 16 are added, then those of l and
+// l ^ 8, ... l ^ 1.  Every lane ends with every sum.
+template <int M, typename V>
+__device__ __forceinline__ void xor_sums(V (&a)[M]) {
 #pragma unroll
-  for (int t = 0; t < NQ; ++t) {
+  for (int k = 0; k < M; ++k)
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
-      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], o);
-    out[t] = acc[t];
+      a[k] += __shfl_xor_sync(0xffffffffu, a[k], o);
+}
+
+// One step of transpose_sums: the M values split between partners at
+// offset O (the upper lane keeps the upper half), each kept value added
+// to its partner's; M == 1 ends with a plain xor tree over offsets O ...
+// 1.  Recursion on M keeps every array index a constant, so the values
+// stay in registers.
+template <int M, int O, typename V>
+__device__ __forceinline__ V split_sums(const V (&a)[M]) {
+  if constexpr (M == 1) {
+    V x = a[0];
+#pragma unroll
+    for (int o = O; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  } else {
+    const bool upper = (threadIdx.x & O) != 0;
+    V h[M / 2];
+#pragma unroll
+    for (int i = 0; i < M / 2; ++i) {
+      const V send = upper ? a[i] : a[i + M / 2];
+      const V keep = upper ? a[i + M / 2] : a[i];
+      h[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    return split_sums<M / 2, O / 2>(h);
   }
+}
+
+// The same sums as xor_sums, in the same tree (each step adds the same two
+// partials; IEEE addition commutes, so the bits are the same), with the
+// M <= 32 values split between the partners at each of the first log2(M)
+// steps rather than all kept: 31 shuffles for 32 values rather than 160.
+// Lane l returns the sum of value l >> (5 - log2(M)).
+template <int M, typename V>
+__device__ __forceinline__ V transpose_sums(const V (&a)[M]) {
+  static_assert(M >= 1 && M <= 32 && (M & (M - 1)) == 0, "M: 1 .. 32");
+  return split_sums<M, 16>(a);
+}
+
+// Lane l's sums of the (row, query) partials acc[R][NQ] by transpose_sums:
+// with R * NQ <= 32 one pass over the pairs, lane l holding pair
+// l >> (5 - log2(R * NQ)) (row = pair / NQ, query = pair % NQ); with
+// NQ == 32 one pass a row, lane l holding query l of row k in out[k].
+// The arrays stay in registers (indexed by constants only).
+template <int R, int NQ, typename V>
+__device__ __forceinline__ void pair_sums(V (&acc)[R][NQ],
+                                          V (&out)[R * NQ <= 32 ? 1 : R]) {
+  if constexpr (R * NQ <= 32) {
+    V flat[R * NQ];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int t = 0; t < NQ; ++t) flat[i * NQ + t] = acc[i][t];
+    out[0] = transpose_sums<R * NQ>(flat);
+  } else {
+    static_assert(NQ == 32, "one pass a row takes 32 queries");
+#pragma unroll
+    for (int k = 0; k < R; ++k) out[k] = transpose_sums<32>(acc[k]);
+  }
+}
+
+// Scores one row against nq <= NQ queries: warp_rows_partial with R = 1
+// and UNROLL loads a lane in flight, then xor_sums; every lane ends with
+// the scores.
+template <int NQ, bool BF16 = false>
+__device__ __forceinline__ void warp_row_dots(const float4* __restrict__ row,
+                                              const float4* qs4, int d4,
+                                              int nq, float (&out)[NQ]) {
+  const float4* rows[1] = {row};
+  float acc[1][NQ];
+  warp_rows_partial<1, NQ, UNROLL, BF16>(rows, qs4, d4, nq, acc);
+  xor_sums<NQ>(acc[0]);
+#pragma unroll
+  for (int t = 0; t < NQ; ++t) out[t] = acc[0][t];
 }
 
 // Values 4c .. 4c+3 of a float32 or bfloat16 row, as float32 (a bf16 value
@@ -157,95 +255,102 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* x, int c) {
   return make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
 }
 
-// warp_row_dots for a bfloat16 row of d8 groups of 8 values, read 16 bytes
-// a lane and widened to float32 as they load, against nq <= NQ float32
-// queries (query t at qs4 + t * 2 * d8).  Per lane, FMAs over the groups
-// lane, lane + 32, ... in ascending order, the group's 8 values in order,
-// then an xor-shuffle tree.  All 32 lanes must call it and all end with
-// the scores.
-template <int NQ>
-__device__ __forceinline__ void warp_row_dots_bf16(
-    const uint4* __restrict__ row, const float4* qs4, int d8, int nq,
-    float (&out)[NQ]) {
+// warp_rows_partial for bfloat16 rows of d8 groups of 8 values, read 16
+// bytes a lane and widened to float32 as they load, against nq <= NQ
+// float32 queries (query t at qs4 + t * 2 * d8).  Per lane and pair, FMAs
+// over the groups lane, lane + 32, ... in ascending order, the group's 8
+// values in order.  A null row loads nothing.
+template <int R, int NQ, int U>
+__device__ __forceinline__ void warp_rows_partial_bf16(
+    const uint4* const* rows, const float4* qs4, int d8, int nq,
+    float (&acc)[R][NQ]) {
   const int lane = threadIdx.x & 31;
-  float acc[NQ];
 #pragma unroll
-  for (int t = 0; t < NQ; ++t) acc[t] = 0.f;
-  for (int base = 0; base < d8; base += 32 * UNROLL) {
-    uint4 x[UNROLL];
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+    for (int t = 0; t < NQ; ++t) acc[i][t] = 0.f;
+  for (int base = 0; base < d8; base += 32 * U) {
+    uint4 x[R][U];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = base + u * 32 + lane;
+        x[i][u] = rows[i] != nullptr && c < d8 ? __ldg(rows[i] + c)
+                                               : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
       const int c = base + u * 32 + lane;
-      x[u] = c < d8 ? __ldg(row + c) : make_uint4(0u, 0u, 0u, 0u);
-    }
+      if (c < d8) {
 #pragma unroll
-    for (int t = 0; t < NQ; ++t) {
-      if (t < nq) {
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int c = base + u * 32 + lane;
-          if (c < d8) {
+        for (int t = 0; t < NQ; ++t) {
+          if (t < nq) {
             const float4 y0 = qs4[(t * d8 + c) * 2];
             const float4 y1 = qs4[(t * d8 + c) * 2 + 1];
-            acc[t] = fmaf(bf16_lo(x[u].x), y0.x, acc[t]);
-            acc[t] = fmaf(bf16_hi(x[u].x), y0.y, acc[t]);
-            acc[t] = fmaf(bf16_lo(x[u].y), y0.z, acc[t]);
-            acc[t] = fmaf(bf16_hi(x[u].y), y0.w, acc[t]);
-            acc[t] = fmaf(bf16_lo(x[u].z), y1.x, acc[t]);
-            acc[t] = fmaf(bf16_hi(x[u].z), y1.y, acc[t]);
-            acc[t] = fmaf(bf16_lo(x[u].w), y1.z, acc[t]);
-            acc[t] = fmaf(bf16_hi(x[u].w), y1.w, acc[t]);
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              acc[i][t] = fmaf(bf16_lo(x[i][u].x), y0.x, acc[i][t]);
+              acc[i][t] = fmaf(bf16_hi(x[i][u].x), y0.y, acc[i][t]);
+              acc[i][t] = fmaf(bf16_lo(x[i][u].y), y0.z, acc[i][t]);
+              acc[i][t] = fmaf(bf16_hi(x[i][u].y), y0.w, acc[i][t]);
+              acc[i][t] = fmaf(bf16_lo(x[i][u].z), y1.x, acc[i][t]);
+              acc[i][t] = fmaf(bf16_hi(x[i][u].z), y1.y, acc[i][t]);
+              acc[i][t] = fmaf(bf16_lo(x[i][u].w), y1.z, acc[i][t]);
+              acc[i][t] = fmaf(bf16_hi(x[i][u].w), y1.w, acc[i][t]);
+            }
           }
         }
       }
     }
   }
-#pragma unroll
-  for (int t = 0; t < NQ; ++t) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], o);
-    out[t] = acc[t];
-  }
 }
 
-// The int8 form: the row's values quantised with its group's scale st as
-// they load, packed four to an int, and dotted with the nq <= NQ packed
-// queries (query t at qi + t * d4) by __dp4a into int32 sums, which are
-// exact, so their order does not matter.  All 32 lanes must call it and
-// all end with the sums.
-template <int NQ>
-__device__ __forceinline__ void warp_row_dots_i8(
-    const float4* __restrict__ row, float st, const int* qi, int d4, int nq,
-    int (&out)[NQ]) {
+// The int8 form: each row's values quantised with its group's scale st[i]
+// as they load, packed four to an int, and dotted with the nq <= NQ packed
+// queries (query t at qi + t * d4) by __dp4a into int32 partials, whose
+// sums are exact in any order.  A null row loads nothing.
+template <int R, int NQ, int U>
+__device__ __forceinline__ void warp_rows_partial_i8(
+    const float4* const* rows, const float* st, const int* qi, int d4,
+    int nq, int (&acc)[R][NQ]) {
   const int lane = threadIdx.x & 31;
-  int acc[NQ];
 #pragma unroll
-  for (int t = 0; t < NQ; ++t) acc[t] = 0;
-  for (int base = 0; base < d4; base += 32 * UNROLL) {
-    int x[UNROLL];
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+    for (int t = 0; t < NQ; ++t) acc[i][t] = 0;
+  for (int base = 0; base < d4; base += 32 * U) {
+    // every load of the pass issues before the first one is quantised
+    float4 f[R][U];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = base + u * 32 + lane;
+        f[i][u] = rows[i] != nullptr && c < d4
+                      ? __ldg(rows[i] + c)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    int x[R][U];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int u = 0; u < U; ++u) x[i][u] = pack4(f[i][u], st[i]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
       const int c = base + u * 32 + lane;
-      x[u] = c < d4 ? pack4(__ldg(row + c), st) : 0;
-    }
+      if (c < d4) {
 #pragma unroll
-    for (int t = 0; t < NQ; ++t) {
-      if (t < nq) {
+        for (int t = 0; t < NQ; ++t) {
+          if (t < nq) {
+            const int y = qi[t * d4 + c];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int c = base + u * 32 + lane;
-          if (c < d4) acc[t] = __dp4a(x[u], qi[t * d4 + c], acc[t]);
+            for (int i = 0; i < R; ++i)
+              acc[i][t] = __dp4a(x[i][u], y, acc[i][t]);
+          }
         }
       }
     }
-  }
-#pragma unroll
-  for (int t = 0; t < NQ; ++t) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], o);
-    out[t] = acc[t];
   }
 }
 
@@ -256,41 +361,89 @@ K by_precision(int precision, K f32, K bf16, K int8) {
   return precision == P_INT8 ? int8 : precision == P_BF16 ? bf16 : f32;
 }
 
-// Sets a kernel's dynamic shared memory and launches it; the launch's error.
+// Shared memory one block may use on this card: 227 KB of the SM's 256
+// KB (tiling.SMEM_BLOCK_BYTES).
+constexpr int SMEM_BLOCK_BYTES = 232448;
+
+// Raises a kernel's dynamic shared-memory cap to all a block may use
+// (SMEM_BLOCK_BYTES less its static arrays), once per kernel instance and
+// device: the launches then make no cudaFuncSetAttribute call of their
+// own.  Thread-safe; a failure is returned and retried next time.
+inline cudaError_t opt_in_once(const void* kernel) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, dev})) return cudaSuccess;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BLOCK_BYTES - (int)fa.sharedSizeBytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  done.insert({kernel, dev});
+  return cudaSuccess;
+}
+
+// Launches a kernel with its dynamic shared memory (its cap raised once,
+// opt_in_once); the launch's error.
 template <typename... Params, typename... Args>
 cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads,
                    int smem, cudaStream_t st, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = opt_in_once(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
+}
+
+// Lists of w_in entries one merge block takes in its first pass toward
+// the best w, and lists of w in its later passes: tiling.merge_groups.
+// Lists that fit one block's shared memory, except that a first pass
+// whose lists grow (w_in < w, topk_tie merge_grow, room for one list of
+// w) takes 2 w / w_in of them: its groups spread over blocks and each
+// grows into two lists of w.
+inline void merge_groups(int w_in, int w, int* g_first, int* g_later) {
+  const int entries = SMEM_BLOCK_BYTES / 12;
+  *g_first = w_in < w ? min((entries - w) / w_in, max(2, 2 * w / w_in))
+                      : entries / w_in;
+  *g_later = entries / w;
 }
 
 }  // namespace fused_common
 
 extern "C" {
 
-// Merges each query's n_lists sorted lists of w candidates (cand_*, laid
-// out (B, n_lists, w)) into its best w (out_*, (B, w)) under (value desc,
-// position asc).  A block holds at most `group` lists (>= 2); more lists
-// are merged group by group, in place in cand_*, over several passes
-// (tiling.merge_plan), which leaves the order of a one-block merge.
-// cand_p may alias cand_i; out_p may be null.
-int merge_topk_f32(float* cand_v, int* cand_i, int* cand_p, int B,
-                   int n_lists, int w, int group, float* out_v, int* out_i,
-                   int* out_p, cudaStream_t stream);
+// Merges each query's n_lists sorted lists of w_in candidates (cand_*,
+// laid out (B, n_lists, w_in); cand_n (B, n_lists) the real entries of
+// each list, the rest read as pads, or null: all w_in are real) into its
+// best w >= w_in (out_*, (B, w)) under (value desc, position asc); pads
+// carry pad_id.  A block holds the lists of one group; more lists are
+// merged group by group over several passes (tiling.merge_plan): in
+// place in cand_* when w_in == w, else the first pass writes its groups'
+// best w past the B * n_lists * w_in entries of cand_* (tiling
+// merge_scratch), and the later passes merge there in place.  cand_p may
+// alias cand_i; out_p may be null.
+int merge_topk_f32(float* cand_v, int* cand_i, int* cand_p,
+                   const int* cand_n, int B, int n_lists, int w_in, int w,
+                   int pad_id, float* out_v, int* out_i, int* out_p,
+                   cudaStream_t stream);
 
 // Stage 1: scores the p centroids (p, d) against q (B, d) at `precision`
 // and writes each query's tie-aware top np_pad to sel_v / sel
-// (B, np_pad), through the scratch s1_* of B * ceil(p / 128) * np_pad
-// entries, merged `group` lists a block.  int8 scores centroid groups of
-// blk_p rows, their largest |x| reduced into c_amax (n_cgroups ints,
-// null unless int8) first.
+// (B, np_pad), through the scratch s1_* of B * ceil(p / 128) *
+// min(np_pad, 128) entries and what merge_topk_f32 adds past them.  int8
+// scores centroid groups of blk_p rows, their largest |x| reduced into
+// c_amax (n_cgroups ints, null unless int8) first.
 int select_probes(const float* q, const float* cents, int p, int B, int d,
                   int np_pad, int precision, int blk_p, int n_cgroups,
-                  int* c_amax, int group, float* s1_v, int* s1_i,
-                  float* sel_v, int* sel, cudaStream_t stream);
+                  int* c_amax, float* s1_v, int* s1_i, float* sel_v,
+                  int* sel, cudaStream_t stream);
 
 // Float32 re-rank: for each query b, the r_pad candidates cand_i[b] (-1 =
 // pad) are scored exactly against q[b]; ranks >= r and pads score -inf;

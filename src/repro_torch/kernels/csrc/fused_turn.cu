@@ -30,35 +30,54 @@
 // 8.8M docs / 16,384 lists, 41 us at 3.35 TB/s) and does 2 FLOP per 4 B
 // read, far below the f32 ridge of ~20 FLOP/B; fused_turn adds the 50 MB
 // centroid table; int8 reads the probed rows (and the centroids) twice
-// and the re-rank adds r rows.
+// and the re-rank adds r rows.  At B = 1 a call is short enough that its
+// latency chain (ids, rows, sort, merges, launches) counts beside the
+// bytes: the design keeps rows in flight and the merges off one block's
+// serial barriers.
 //
 // What the design does about it:
-//  * scan: one 256-thread block per (query, probed list, 128-row slice), so
-//    a single query already puts 64 x 6 = 384 blocks on the 132 SMs; a
-//    row's id is read first and pad rows (-1) are never loaded;
-//  * a warp scores one row: float4 loads, up to 8 per lane issued before
-//    the first FMA (int8: __dp4a on the packed quantised bytes), so a warp
-//    keeps a 4 KB row in flight;
-//  * stage 1: one block per (128-centroid chunk, 8 queries) reads each
-//    centroid row once for all 8 queries;
-//  * only each block's top r_pad / np_pad candidates leave the SM (a block
-//    holds 128 rows or centroids, so past 128 the rest of its list is
-//    pads); a small second kernel merges a query's sorted lists pairwise
-//    in shared memory, in groups that fit one block and in as many passes
-//    as needed (tiling.merge_plan): at the two-tower shape, 32 probes x
-//    10 slices of top-128 lists are 491,520 B, two groups' worth; lists
-//    of 2,048 (r = 2,000) go 9 a block;
+//  * scan (ivf_stages.cuh scan_lists_kernel): one 256-thread block per
+//    (query, probed list, 128-row slice), so a single query already puts
+//    64 x 6 = 384 blocks on the 132 SMs.  A block reads its slice's 128
+//    ids first (the query's loads go out with them); a slice with no real
+//    row stages nothing and writes only a count of 0, and pad rows (-1)
+//    are never loaded.  A warp loads the rows of 4 real rows at once
+//    before the first FMA (int8: __dp4a on the packed quantised bytes),
+//    each row scored in the fixed order of warp_rows_dots;
+//  * one warp sorts the block's 128 entries in registers
+//    (topk_tie::warp_sort, no barrier) and writes only its real entries,
+//    at most min(r_pad, 128), with their count;
+//  * when the query's top r_pad is one slice wide or less and the fold
+//    fits (tiling.scan_fold: the served k = 10 and the two-tower k = 100),
+//    the scan launch folds the lists itself: the last slice of a probed
+//    list to arrive (an arrival counter a list) merges the list's slices,
+//    and the last list of the query to arrive merges the query's lists
+//    into the output; each merge is topk_tie::merge_warps (warps fold
+//    lists in registers, then pairwise).  The counters are a zeroed int32
+//    buffer kept per device and stream (launcher.arrival_counters), reset
+//    by the block that uses them, so calls on two streams never share one.
+//    Otherwise merge_kernel folds the lists after the scan, in the groups
+//    and passes of tiling.merge_plan (growing lists of 128 into r_pad);
+//  * stage 1 (centroid_chunk_kernel): one block per (128-centroid chunk,
+//    up to 32 queries) reads each centroid row once for all the queries
+//    of the call at B <= 32, and a warp sorts each query's 128 scores in
+//    registers; merge_kernel then folds the chunk lists (topk_tie
+//    merge_warps at np_pad <= 128, merge_grow past it);
 //  * re-rank: one block per query scores its r_pad candidates' float rows,
-//    one warp a row, and sorts them in dynamic shared memory.
+//    one warp a row, and sorts them in dynamic shared memory;
+//  * every kernel's dynamic shared-memory cap is raised once per instance
+//    and device (fused_common::opt_in_once), not per launch.
 // The scan and stage-1 kernels live in ivf_stages.cuh, shared with the
 // standalone centroid_topk.cu and ivf_scan.cu.
 // Scores are reduced in one fixed order (lane-strided FMAs, then a fixed
 // xor-shuffle tree; int8 sums are exact) that does not depend on the
-// batch, the grid or the slice a row falls in, so a row scores the same
-// at any B.
+// batch, the grid, the rows in flight or the slice a row falls in, so a
+// row scores the same at any B, and candidates rank by the total order
+// of topk_tie.cuh, so every selection and merge grouping keeps the same
+// entries in the same order.
 // Simple first: no TMA, no tensor cores, no persistence, the group scales
 // are recomputed per call.
-//
+
 // Plain C interface (bound with ctypes): every entry returns a cudaError_t
 // as int, 0 when every launch was accepted.
 
@@ -74,13 +93,13 @@
 namespace {
 
 constexpr int MERGE_THREADS = 512;
+constexpr int LOADS = 8;             // candidates a thread loads at once
 constexpr int RERANK_THREADS = 512;  // 16 warps, one candidate row each
 constexpr int MAX_R = 2048;          // widest candidate set (r_pad)
 
 using fused_common::P_BF16;
 using fused_common::P_F32;
 using fused_common::P_INT8;
-using fused_common::by_precision;
 using fused_common::launch;
 using fused_common::warp_row_dots;
 
@@ -147,38 +166,77 @@ centroid_amax_kernel(const float* __restrict__ cents, int p, int d,
 }
 
 // grid (B, groups).  Block (b, g) merges lists [g*group, (g+1)*group) of
-// the n lists of query b, list j at list offset j*stride of the query's
-// row of `row` entries, into their best w, and writes it to dst at
-// b*dst_row + g*dst_group.  The first pass reads the scan blocks' lists
-// (stride 1); a pass with more than one group writes each group's best w
-// over the group's first list (which only this block reads), and the
-// next pass reads those at stride * group; the last pass has one group
-// and writes the output.  cand_p may alias cand_i (stage 1, where the id
-// is the tie key, so both stores write the same value); dst_p may be null.
+// the n lists of w_in entries of query b, list j at list offset j*stride
+// of the query's row of `row` entries (src_n (B, n): the real entries of
+// each list, the rest read as pads; null: all real), into their best w
+// (topk_tie::merge_grow), and writes it to dst at b*dst_row +
+// g*dst_group.  A pass with more than one group writes each group's best
+// w over the group's first list (w_in == w) or into the next region, and
+// the next pass reads those; the last pass has one group and writes the
+// output.  src_p may alias src_i (stage 1, where the id is the tie key,
+// so both stores write the same value); dst_p may be null.  Dynamic
+// shared memory: the group's lists and, when w_in < w, one list of w.
 __global__ void __launch_bounds__(MERGE_THREADS)
-merge_kernel(float* cand_v, int* cand_i, int* cand_p, size_t row, int n,
-             int stride, int group, int w, float* dst_v, int* dst_i,
+merge_kernel(const float* src_v, const int* src_i, const int* src_p,
+             const int* src_n, size_t row, int n, int stride, int group,
+             int w_in, int w, int pad_id, float* dst_v, int* dst_i,
              int* dst_p, size_t dst_row, size_t dst_group) {
   extern __shared__ float smem[];
   const int first = blockIdx.y * group;
-  const int m = min(group, n - first) * w;
+  const int lists = min(group, n - first);
+  const int m = lists * w_in;
+  const int cap = m + (w_in < w ? w : 0);
   float* sv = smem;
-  int* si = reinterpret_cast<int*>(sv + m);
-  int* sp = si + m;
+  int* si = reinterpret_cast<int*>(sv + cap);
+  int* sp = si + cap;
   const size_t in = (size_t)blockIdx.x * row;
-  for (int t = threadIdx.x; t < m; t += blockDim.x) {
-    const size_t src = in + (size_t)(first + t / w) * stride * w + t % w;
-    sv[t] = cand_v[src];
-    si[t] = cand_i[src];
-    sp[t] = cand_p[src];
+  // LOADS entries a thread in flight: the loads of a batch issue before
+  // its stores to shared memory
+  for (int base = threadIdx.x; base < m; base += LOADS * blockDim.x) {
+    float v[LOADS];
+    int id[LOADS], pos[LOADS];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int t = base + u * blockDim.x;
+      const int list = first + t / w_in;
+      const int e = t % w_in;
+      const size_t src = in + (size_t)list * stride * w_in + e;
+      // the entry and its list's count load together; the count then
+      // picks (entries past it are unwritten)
+      const bool in = t < m;
+      const int cnt = in && src_n != nullptr
+                          ? src_n[(size_t)blockIdx.x * n + list]
+                          : w_in;
+      const float ev = in ? src_v[src] : 0.f;
+      const int ei = in ? src_i[src] : 0;
+      const int ep = in ? src_p[src] : 0;
+      const bool real = in && e < cnt;
+      v[u] = real ? ev : -INFINITY;
+      id[u] = real ? ei : pad_id;
+      pos[u] = real ? ep : topk_tie::PAD_POS;
+    }
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int t = base + u * blockDim.x;
+      if (t < m) {
+        sv[t] = v[u];
+        si[t] = id[u];
+        sp[t] = pos[u];
+      }
+    }
   }
   __syncthreads();
-  topk_tie::merge_lists(sv, si, sp, m / w, w);
+  int width = w;
+  if (w_in == w && w <= 128)  // lists of a warp or less: warps fold them
+    topk_tie::merge_warps(sv, si, sp, lists, w, pad_id);
+  else
+    width = topk_tie::merge_grow(sv, si, sp, lists, w_in, w, pad_id);
   const size_t out = (size_t)blockIdx.x * dst_row + blockIdx.y * dst_group;
   for (int t = threadIdx.x; t < w; t += blockDim.x) {
-    dst_v[out + t] = sv[t];
-    dst_i[out + t] = si[t];
-    if (dst_p != nullptr) dst_p[out + t] = sp[t];
+    const bool kept = t < width;
+    dst_v[out + t] = kept ? sv[t] : -INFINITY;
+    dst_i[out + t] = kept ? si[t] : pad_id;
+    if (dst_p != nullptr) dst_p[out + t] = kept ? sp[t] : topk_tie::PAD_POS;
   }
 }
 
@@ -240,39 +298,65 @@ rerank_kernel(const float* __restrict__ q, const float* __restrict__ rows,
 
 extern "C" {
 
-int merge_topk_f32(float* cand_v, int* cand_i, int* cand_p, int B,
-                   int n_lists, int w, int group, float* out_v, int* out_i,
-                   int* out_p, cudaStream_t stream) {
-  if (group < 2 || w < 1) return (int)cudaErrorInvalidValue;
-  const int smem = (n_lists < group ? n_lists : group) * w *
-                   (int)(sizeof(float) + 2 * sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int merge_topk_f32(float* cand_v, int* cand_i, int* cand_p,
+                   const int* cand_n, int B, int n_lists, int w_in, int w,
+                   int pad_id, float* out_v, int* out_i, int* out_p,
+                   cudaStream_t stream) {
+  int g_first, g_later;
+  fused_common::merge_groups(w_in, w, &g_first, &g_later);
+  if (w_in < 1 || w < w_in || g_first < 2 || g_later < 2)
+    return (int)cudaErrorInvalidValue;
+  // one dynamic size for every pass: the largest (tiling.merge_smem)
+  const int spare = w_in < w ? w : 0;
+  int smem = (min(n_lists, g_first) * w_in + spare) * 12;
+  const int groups = (n_lists + g_first - 1) / g_first;
+  if (groups > 1) smem = max(smem, min(groups, g_later) * w * 12);
+  cudaError_t err = fused_common::opt_in_once(
+      reinterpret_cast<const void*>(merge_kernel));
   if (err != cudaSuccess) return (int)err;
-  const size_t row = (size_t)n_lists * w;
-  int n = n_lists;
-  int stride = 1;
-  while (n > group) {  // grouped passes, in place (tiling.merge_plan)
-    const int groups = (n + group - 1) / group;
-    merge_kernel<<<dim3(B, groups), MERGE_THREADS, smem, stream>>>(
-        cand_v, cand_i, cand_p, row, n, stride, group, w, cand_v, cand_i,
-        cand_p, row, (size_t)group * stride * w);
+  const size_t row = (size_t)n_lists * w_in;
+  if (groups == 1) {
+    merge_kernel<<<dim3(B, 1), MERGE_THREADS, smem, stream>>>(
+        cand_v, cand_i, cand_p, cand_n, row, n_lists, 1, g_first, w_in, w,
+        pad_id, out_v, out_i, out_p, (size_t)w, 0);
+    return (int)cudaGetLastError();
+  }
+  // the first pass: in place when the width stays, else into the region
+  // past the B query rows
+  const bool in_place = w_in == w;
+  float* mv = in_place ? cand_v : cand_v + B * row;
+  int* mi = in_place ? cand_i : cand_i + B * row;
+  int* mp = in_place ? cand_p : cand_p + B * row;
+  const size_t mrow = in_place ? row : (size_t)groups * w;
+  merge_kernel<<<dim3(B, groups), MERGE_THREADS, smem, stream>>>(
+      cand_v, cand_i, cand_p, cand_n, row, n_lists, 1, g_first, w_in, w,
+      pad_id, mv, mi, mp, mrow, in_place ? (size_t)g_first * w : (size_t)w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int n = groups;
+  int stride = in_place ? g_first : 1;
+  while (n > g_later) {  // grouped passes of lists of w, in place
+    const int next = (n + g_later - 1) / g_later;
+    merge_kernel<<<dim3(B, next), MERGE_THREADS, smem, stream>>>(
+        mv, mi, mp, nullptr, mrow, n, stride, g_later, w, w, pad_id, mv, mi,
+        mp, mrow, (size_t)g_later * stride * w);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    n = groups;
-    stride *= group;
+    n = next;
+    stride *= g_later;
   }
   merge_kernel<<<dim3(B, 1), MERGE_THREADS, smem, stream>>>(
-      cand_v, cand_i, cand_p, row, n, stride, group, w, out_v, out_i, out_p,
-      (size_t)w, 0);
+      mv, mi, mp, nullptr, mrow, n, stride, g_later, w, w, pad_id, out_v,
+      out_i, out_p, (size_t)w, 0);
   return (int)cudaGetLastError();
 }
 
 int select_probes(const float* q, const float* cents, int p, int B, int d,
                   int np_pad, int precision, int blk_p, int n_cgroups,
-                  int* c_amax, int group, float* s1_v, int* s1_i,
-                  float* sel_v, int* sel, cudaStream_t stream) {
+                  int* c_amax, float* s1_v, int* s1_i, float* sel_v,
+                  int* sel, cudaStream_t stream) {
   const int nchunks = (p + CENTROID_CHUNK - 1) / CENTROID_CHUNK;
+  const int w1 = min(np_pad, CENTROID_CHUNK);
   cudaError_t err;
   if (precision == P_INT8) {
     err = cudaMemsetAsync(c_amax, 0, (size_t)n_cgroups * sizeof(int), stream);
@@ -281,16 +365,18 @@ int select_probes(const float* q, const float* cents, int p, int B, int d,
                                                               blk_p, c_amax);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    err = launch_chunks<P_INT8>(q, cents, B, p, d, w1, blk_p, c_amax, s1_v,
+                                s1_i, stream);
+  } else if (precision == P_BF16) {
+    err = launch_chunks<P_BF16>(q, cents, B, p, d, w1, blk_p, c_amax, s1_v,
+                                s1_i, stream);
+  } else {
+    err = launch_chunks<P_F32>(q, cents, B, p, d, w1, blk_p, c_amax, s1_v,
+                               s1_i, stream);
   }
-  err = launch(by_precision(precision, centroid_chunk_kernel<P_F32>,
-                            centroid_chunk_kernel<P_BF16>,
-                            centroid_chunk_kernel<P_INT8>),
-               dim3(nchunks, (B + QTILE - 1) / QTILE), ROW_THREADS,
-               QTILE * d * (int)sizeof(float), stream, q, cents, B, p, d,
-               np_pad, blk_p, (const int*)c_amax, s1_v, s1_i);
   if (err != cudaSuccess) return (int)err;
-  return merge_topk_f32(s1_v, s1_i, s1_i, B, nchunks, np_pad, group, sel_v,
-                        sel, nullptr, stream);
+  return merge_topk_f32(s1_v, s1_i, s1_i, nullptr, B, nchunks, w1, np_pad,
+                        topk_tie::PAD_POS, sel_v, sel, nullptr, stream);
 }
 
 int rerank_rows(const float* q, const float* rows, int d, const int* sel,
@@ -308,75 +394,90 @@ int rerank_rows(const float* q, const float* rows, int d, const int* sel,
 
 // Stage 2 (+ 3) alone.  q (B, d); list_vecs (p, lmax, d); list_ids (p,
 // lmax); sel (B, sel_stride) of which the first nprobe columns are probed;
-// own (B, nprobe) or null.  Scratch cand_* holds B * nprobe * nsplit *
-// r_pad entries (nsplit = ceil(lmax / 128)) and is merged in place, group
-// lists a block (tiling.merge_group).  f32: out_* (B, r_pad) is the top
-// r_pad.  bf16 / int8: mid_* (B, r_pad) receives the top r_pad and out_*
-// (B, kp) the float32 top kp of its first r; int8 reduces the probed
-// lists' group amax into amax (B * nprobe * n_groups ints, groups of
-// blk_l rows) first.
+// own (B, nprobe) or null.  Scratch cand_* holds B * nprobe * nsplit * w
+// entries (nsplit = ceil(lmax / 128), w = min(r_pad, 128)) and what
+// merge_topk_f32 adds past them, cand_n B * nprobe * nsplit counts.  With
+// counters (B * nprobe + B zeroed ints, r_pad <= 128) the scan launch
+// folds the lists itself (ivf_stages.cuh); without, merge_topk_f32 does.
+// f32: out_* (B, r_pad) is the top r_pad.  bf16 / int8: mid_* (B, r_pad)
+// receives the top r_pad and out_* (B, kp) the float32 top kp of its
+// first r; int8 reduces the probed lists' group amax into amax (B *
+// nprobe * n_groups ints, groups of blk_l rows) first.
 int fused_scan_ivf(const float* q, const float* list_vecs,
                    const int* list_ids, int p, const int* sel,
                    int sel_stride, const int* own, int B, int nprobe,
                    int lmax, int d, int precision, int blk_l, int n_groups,
-                   int* amax, int r, int r_pad, int kp, int group,
-                   float* cand_v, int* cand_i, int* cand_p, float* mid_v,
-                   int* mid_i, int* mid_p, float* out_v, int* out_i,
-                   int* out_p, void* stream) {
+                   int* amax, int r, int r_pad, int kp, float* cand_v,
+                   int* cand_i, int* cand_p, int* cand_n, int* counters,
+                   float* mid_v, int* mid_i, int* mid_p, float* out_v,
+                   int* out_i, int* out_p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nsplit = (lmax + SCAN_ROWS - 1) / SCAN_ROWS;
-  const dim3 grid(nprobe * nsplit, B);
+  const int w = min(r_pad, SCAN_ROWS);
+  if (counters != nullptr && w != r_pad) return (int)cudaErrorInvalidValue;
+  const bool f32 = precision == P_F32;
+  float* top_v = f32 ? out_v : mid_v;
+  int* top_i = f32 ? out_i : mid_i;
+  int* top_p = f32 ? out_p : mid_p;
   cudaError_t err;
   if (precision == P_INT8) {
     err = cudaMemsetAsync(amax, 0, (size_t)B * nprobe * n_groups * sizeof(int),
                           st);
     if (err != cudaSuccess) return (int)err;
-    list_amax_kernel<<<grid, ROW_THREADS, 0, st>>>(
+    list_amax_kernel<<<dim3(nprobe * nsplit, B), ROW_THREADS, 0, st>>>(
         list_vecs, p, sel, sel_stride, own, nprobe, lmax, d, nsplit, blk_l,
         n_groups, amax);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    err = launch_scan<P_INT8>(q, list_vecs, list_ids, p, sel, sel_stride, own,
+                              B, nprobe, lmax, d, w, blk_l, n_groups, amax,
+                              cand_v, cand_i, cand_p, cand_n, counters, top_v,
+                              top_i, top_p, st);
+  } else if (precision == P_BF16) {
+    err = launch_scan<P_BF16>(q, list_vecs, list_ids, p, sel, sel_stride, own,
+                              B, nprobe, lmax, d, w, blk_l, n_groups, amax,
+                              cand_v, cand_i, cand_p, cand_n, counters, top_v,
+                              top_i, top_p, st);
+  } else {
+    err = launch_scan<P_F32>(q, list_vecs, list_ids, p, sel, sel_stride, own,
+                             B, nprobe, lmax, d, w, blk_l, n_groups, amax,
+                             cand_v, cand_i, cand_p, cand_n, counters, top_v,
+                             top_i, top_p, st);
   }
-  err = launch(by_precision(precision, scan_lists_kernel<P_F32>,
-                            scan_lists_kernel<P_BF16>,
-                            scan_lists_kernel<P_INT8>),
-               grid, ROW_THREADS, d * (int)sizeof(float), st, q, list_vecs,
-               list_ids, p, sel, sel_stride, own, nprobe, lmax, d, nsplit,
-               r_pad, blk_l, n_groups, (const int*)amax, cand_v, cand_i,
-               cand_p);
   if (err != cudaSuccess) return (int)err;
-  if (precision == P_F32)
-    return merge_topk_f32(cand_v, cand_i, cand_p, B, nprobe * nsplit, r_pad,
-                          group, out_v, out_i, out_p, st);
-  const int e = merge_topk_f32(cand_v, cand_i, cand_p, B, nprobe * nsplit,
-                               r_pad, group, mid_v, mid_i, mid_p, st);
-  if (e != 0) return e;
+  if (counters == nullptr) {
+    const int e = merge_topk_f32(cand_v, cand_i, cand_p, cand_n, B,
+                                 nprobe * nsplit, w, r_pad, -1, top_v, top_i,
+                                 top_p, st);
+    if (e != 0) return e;
+  }
+  if (f32) return 0;
   return rerank_rows(q, list_vecs, d, sel, sel_stride, lmax, mid_i, mid_p, B,
                      r_pad, r, kp, out_v, out_i, out_p, st);
 }
 
 // Stages 1 + 2 (+ 3).  cents (p, d).  Scratch s1_* holds B * nchunks *
-// np_pad entries (nchunks = ceil(p / 128)), merged s1_group lists a
-// block; sel_v / sel (B, np_pad) receive the probe set; int8 reduces the
-// centroid groups (blk_p rows) into c_amax (n_cgroups ints) first; the
-// rest as fused_scan_ivf.
+// min(np_pad, 128) entries (nchunks = ceil(p / 128)) and what
+// merge_topk_f32 adds past them; sel_v / sel (B, np_pad) receive the
+// probe set; int8 reduces the centroid groups (blk_p rows) into c_amax
+// (n_cgroups ints) first; the rest as fused_scan_ivf.
 int fused_turn_ivf(const float* q, const float* cents, const float* list_vecs,
                    const int* list_ids, int p, int B, int nprobe, int np_pad,
                    int lmax, int d, int precision, int blk_p, int n_cgroups,
                    int* c_amax, int blk_l, int n_groups, int* amax, int r,
-                   int r_pad, int kp, int s1_group, int group, float* s1_v,
-                   int* s1_i, float* sel_v, int* sel, float* cand_v,
-                   int* cand_i, int* cand_p, float* mid_v, int* mid_i,
+                   int r_pad, int kp, float* s1_v, int* s1_i, float* sel_v,
+                   int* sel, float* cand_v, int* cand_i, int* cand_p,
+                   int* cand_n, int* counters, float* mid_v, int* mid_i,
                    int* mid_p, float* out_v, int* out_i, int* out_p,
                    void* stream) {
   const int e = select_probes(q, cents, p, B, d, np_pad, precision, blk_p,
-                              n_cgroups, c_amax, s1_group, s1_v, s1_i, sel_v,
-                              sel, static_cast<cudaStream_t>(stream));
+                              n_cgroups, c_amax, s1_v, s1_i, sel_v, sel,
+                              static_cast<cudaStream_t>(stream));
   if (e != 0) return e;
   return fused_scan_ivf(q, list_vecs, list_ids, p, sel, np_pad, nullptr, B,
                         nprobe, lmax, d, precision, blk_l, n_groups, amax, r,
-                        r_pad, kp, group, cand_v, cand_i, cand_p, mid_v, mid_i,
-                        mid_p, out_v, out_i, out_p, stream);
+                        r_pad, kp, cand_v, cand_i, cand_p, cand_n, counters,
+                        mid_v, mid_i, mid_p, out_v, out_i, out_p, stream);
 }
 
 }  // extern "C"

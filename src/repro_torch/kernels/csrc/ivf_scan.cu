@@ -18,16 +18,18 @@
 // far below the f32 ridge (~20 FLOP/B).
 //
 // What the design does about it: it is the f32 scan of the fused IVF turn
-// (ivf_stages.cuh scan_lists_kernel, merge_topk_f32 of fused_turn.cu),
-// without the `own` mask: one 256-thread block per (query, probed list,
-// 128-row slice), 64 x 6 = 384 blocks for one query at the smoke's shape;
-// a row's id is read first and pad rows are never loaded; a warp scores a
-// row (float4 loads, or 16 bytes = 8 bf16 values, 8 loads a lane in
-// flight); only each block's sorted top min(kp, 128) leaves the SM, and
-// the merge kernel folds a query's nprobe x nsplit lists in the passes of
-// tiling.merge_plan.  The float32 path runs the same code in the same
-// order as fused_scan_ivf, so on the fused turn's own selection it gives
-// that turn's values and ids bit for bit.
+// (ivf_stages.cuh scan_lists_kernel) without the `own` mask: one
+// 256-thread block per (query, probed list, 128-row slice), 64 x 6 = 384
+// blocks for one query at the smoke's shape; the slice's ids are read
+// first, empty slices write only a count, pad rows are never loaded, and
+// a warp loads 4 real rows at once (float4 loads, or 16 bytes = 8 bf16
+// values); one warp sorts the block's entries in registers and writes its
+// real ones, and at kp <= 128 the launch folds them itself (the last
+// slice of a list merges the list, the last list the query), else the
+// merge kernel folds them in the passes of tiling.merge_plan.  The
+// float32 path runs the same code in the same order as fused_scan_ivf, so
+// on the fused turn's own selection it gives that turn's values and ids
+// bit for bit.
 // Simple first: CUDA-core FMAs, no TMA, no tensor cores.
 //
 // Plain C interface (bound with ctypes): returns a cudaError_t as int, 0
@@ -44,17 +46,18 @@ namespace {
 template <typename T>
 int ivf_scan_t(const T* q, const T* list_vecs, const int* list_ids, int p,
                const int* sel, int B, int nprobe, int lmax, int d, int kp,
-               int group, float* cand_v, int* cand_i, int* cand_p,
-               float* out_v, int* out_i, cudaStream_t st) {
+               float* cand_v, int* cand_i, int* cand_p, int* cand_n,
+               int* counters, float* out_v, int* out_i, cudaStream_t st) {
   const int nsplit = (lmax + SCAN_ROWS - 1) / SCAN_ROWS;
-  const cudaError_t err = fused_common::launch(
-      scan_lists_kernel<fused_common::P_F32, T>, dim3(nprobe * nsplit, B),
-      ROW_THREADS, d * (int)sizeof(float), st, q, list_vecs, list_ids, p, sel,
-      nprobe, (const int*)nullptr, nprobe, lmax, d, nsplit, kp, 1, 1,
-      (const int*)nullptr, cand_v, cand_i, cand_p);
-  if (err != cudaSuccess) return (int)err;
-  return merge_topk_f32(cand_v, cand_i, cand_p, B, nprobe * nsplit, kp, group,
-                        out_v, out_i, nullptr, st);
+  const int w = min(kp, SCAN_ROWS);
+  if (counters != nullptr && w != kp) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch_scan<fused_common::P_F32>(
+      q, list_vecs, list_ids, p, sel, nprobe, (const int*)nullptr, B, nprobe,
+      lmax, d, w, 1, 1, (const int*)nullptr, cand_v, cand_i, cand_p, cand_n,
+      counters, out_v, out_i, (int*)nullptr, st);
+  if (err != cudaSuccess || counters != nullptr) return (int)err;
+  return merge_topk_f32(cand_v, cand_i, cand_p, cand_n, B, nprobe * nsplit,
+                        w, kp, -1, out_v, out_i, nullptr, st);
 }
 
 }  // namespace
@@ -64,24 +67,27 @@ extern "C" {
 // q (B, d) and list_vecs (p, lmax, d), both float32 (dtype 0) or bfloat16
 // (dtype 1); list_ids (p, lmax) int32, < 0 for a pad; sel (B, nprobe)
 // int32 (a list outside [0, p) scans as empty).  Scratch cand_* holds
-// B * nprobe * ceil(lmax / 128) * kp entries, merged `group` lists a merge
-// block (tiling.merge_group(kp)); out_v / out_i (B, kp) receive each
-// query's top kp scores and doc ids.
+// B * nprobe * ceil(lmax / 128) * min(kp, 128) entries and what
+// merge_topk_f32 adds past them, cand_n one count a slice; with counters
+// (B * nprobe + B zeroed ints, kp <= 128) the scan launch folds the
+// lists itself.  out_v / out_i (B, kp) receive each query's top kp
+// scores and doc ids.
 int ivf_scan(const void* q, const void* list_vecs, int dtype,
              const int* list_ids, int p, const int* sel, int B, int nprobe,
-             int lmax, int d, int kp, int group, float* cand_v, int* cand_i,
-             int* cand_p, float* out_v, int* out_i, void* stream) {
+             int lmax, int d, int kp, float* cand_v, int* cand_i,
+             int* cand_p, int* cand_n, int* counters, float* out_v,
+             int* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return ivf_scan_t(static_cast<const __nv_bfloat16*>(q),
                       static_cast<const __nv_bfloat16*>(list_vecs), list_ids,
-                      p, sel, B, nprobe, lmax, d, kp, group, cand_v, cand_i,
-                      cand_p, out_v, out_i, st);
+                      p, sel, B, nprobe, lmax, d, kp, cand_v, cand_i, cand_p,
+                      cand_n, counters, out_v, out_i, st);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   return ivf_scan_t(static_cast<const float*>(q),
                     static_cast<const float*>(list_vecs), list_ids, p, sel,
-                    B, nprobe, lmax, d, kp, group, cand_v, cand_i, cand_p,
-                    out_v, out_i, st);
+                    B, nprobe, lmax, d, kp, cand_v, cand_i, cand_p, cand_n,
+                    counters, out_v, out_i, st);
 }
 
 }  // extern "C"

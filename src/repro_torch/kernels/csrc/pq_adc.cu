@@ -171,12 +171,12 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
   }
 }
 
-// ADC scan at `precision` + merge (group lists a merge block): a query's
-// top r_pad (out_*, (B, r_pad)).
+// ADC scan at `precision` + merge: a query's top r_pad (out_*, (B,
+// r_pad)).
 int adc_scan_merge(const float* tables, int m, int n_codes,
                    const uint8_t* codes, const int* list_ids, int p,
                    const int* sel, int sel_stride, const int* own, int B,
-                   int nprobe, int lmax, int r_pad, int precision, int group,
+                   int nprobe, int lmax, int r_pad, int precision,
                    float* cand_v, int* cand_i, int* cand_p, float* out_v,
                    int* out_i, int* out_p, cudaStream_t st) {
   const int nsplit = (lmax + PQ_ROWS - 1) / PQ_ROWS;
@@ -189,8 +189,8 @@ int adc_scan_merge(const float* tables, int m, int n_codes,
       list_ids, p, sel, sel_stride, own, nprobe, lmax, nsplit, r_pad, cand_v,
       cand_i, cand_p);
   if (err != cudaSuccess) return (int)err;
-  return merge_topk_f32(cand_v, cand_i, cand_p, B, nprobe * nsplit, r_pad,
-                        group, out_v, out_i, out_p, st);
+  return merge_topk_f32(cand_v, cand_i, cand_p, nullptr, B, nprobe * nsplit,
+                        r_pad, r_pad, -1, out_v, out_i, out_p, st);
 }
 
 }  // namespace
@@ -200,15 +200,15 @@ extern "C" {
 // ADC scan alone.  tables (B, m, n_codes); codes (p, lmax, m) uint8;
 // list_ids (p, lmax); sel (B, nprobe).  Scratch cand_* holds
 // B * nprobe * nsplit * r_pad entries (nsplit = ceil(lmax / 512)), merged
-// in place, group lists a block; out_* is (B, r_pad): ADC values, doc
-// ids, flat positions.
+// in place (tiling.merge_plan); out_* is (B, r_pad): ADC values, doc ids,
+// flat positions.
 int pq_adc_scan_f32(const float* tables, int m, int n_codes,
                     const uint8_t* codes, const int* list_ids, int p,
                     const int* sel, int B, int nprobe, int lmax, int r_pad,
-                    int group, float* cand_v, int* cand_i, int* cand_p,
-                    float* out_v, int* out_i, int* out_p, void* stream) {
+                    float* cand_v, int* cand_i, int* cand_p, float* out_v,
+                    int* out_i, int* out_p, void* stream) {
   return adc_scan_merge(tables, m, n_codes, codes, list_ids, p, sel, nprobe,
-                        nullptr, B, nprobe, lmax, r_pad, P_F32, group, cand_v,
+                        nullptr, B, nprobe, lmax, r_pad, P_F32, cand_v,
                         cand_i, cand_p, out_v, out_i, out_p,
                         static_cast<cudaStream_t>(stream));
 }
@@ -224,26 +224,25 @@ int fused_scan_pq(const float* tables, const float* q, int m, int n_codes,
                   const int* sel, int sel_stride, const int* own,
                   const float* corpus, int B, int nprobe, int lmax, int d,
                   int precision, int r, int r_pad, int kp, int rerank,
-                  int group, float* cand_v, int* cand_i, int* cand_p,
+                  float* cand_v, int* cand_i, int* cand_p,
                   float* mid_v, int* mid_i, int* mid_p, float* out_v,
                   int* out_i, int* out_p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!rerank)
     return adc_scan_merge(tables, m, n_codes, codes, list_ids, p, sel,
                           sel_stride, own, B, nprobe, lmax, r_pad, precision,
-                          group, cand_v, cand_i, cand_p, out_v, out_i, out_p,
-                          st);
+                          cand_v, cand_i, cand_p, out_v, out_i, out_p, st);
   const int e = adc_scan_merge(tables, m, n_codes, codes, list_ids, p, sel,
                                sel_stride, own, B, nprobe, lmax, r_pad,
-                               precision, group, cand_v, cand_i, cand_p,
-                               mid_v, mid_i, mid_p, st);
+                               precision, cand_v, cand_i, cand_p, mid_v,
+                               mid_i, mid_p, st);
   if (e != 0) return e;
   return rerank_rows(q, corpus, d, nullptr, 0, 0, mid_i, mid_p, B, r_pad, r,
                      kp, out_v, out_i, out_p, st);
 }
 
-// Whole IVF-PQ turn.  cents (p, d); scratch s1_* holds B * ceil(p / 128) *
-// np_pad entries, merged s1_group lists a block; sel_v / sel (B, np_pad)
+// Whole IVF-PQ turn.  cents (p, d); scratch s1_* as select_probes'
+// (fused_common.cuh); sel_v / sel (B, np_pad)
 // receive the probe set (int8: centroid groups of blk_p rows, reduced
 // into c_amax, n_cgroups ints), of which the first nprobe are scanned;
 // the rest as fused_scan_pq with rerank.
@@ -252,17 +251,17 @@ int fused_turn_pq(const float* q, const float* cents, const float* tables,
                   const int* list_ids, int p, const float* corpus, int B,
                   int nprobe, int np_pad, int lmax, int d, int precision,
                   int blk_p, int n_cgroups, int* c_amax, int r, int r_pad,
-                  int kp, int s1_group, int group, float* s1_v, int* s1_i,
+                  int kp, float* s1_v, int* s1_i,
                   float* sel_v, int* sel, float* cand_v, int* cand_i,
                   int* cand_p, float* mid_v, int* mid_i, int* mid_p,
                   float* out_v, int* out_i, int* out_p, void* stream) {
   const int e = select_probes(q, cents, p, B, d, np_pad, precision, blk_p,
-                              n_cgroups, c_amax, s1_group, s1_v, s1_i, sel_v,
-                              sel, static_cast<cudaStream_t>(stream));
+                              n_cgroups, c_amax, s1_v, s1_i, sel_v, sel,
+                              static_cast<cudaStream_t>(stream));
   if (e != 0) return e;
   return fused_scan_pq(tables, q, m, n_codes, codes, list_ids, p, sel, np_pad,
                        nullptr, corpus, B, nprobe, lmax, d, precision, r,
-                       r_pad, kp, 1, group, cand_v, cand_i, cand_p, mid_v,
+                       r_pad, kp, 1, cand_v, cand_i, cand_p, mid_v,
                        mid_i, mid_p, out_v, out_i, out_p, stream);
 }
 

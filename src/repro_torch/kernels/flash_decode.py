@@ -15,15 +15,11 @@ to ``ops.py``.
 The bfloat16 entry folds its splits in the launch itself: the last
 block of each (row, kv head) to arrive folds them, told so by an
 arrival counter that it resets to 0.  The counters live in a zeroed
-int32 buffer kept per device and stream (``arrival_counters``): calls
-on one stream run one after another and may share it, calls on two
-streams may run at once and must not, and keeping it saves the fill
-kernel that a ``torch.zeros`` per call would launch.
+int32 buffer kept per device and stream (``launcher.arrival_counters``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
 
 import torch
 
@@ -40,26 +36,6 @@ ENTRIES = {torch.float32: "flash_decode_f32",
 #: query dtypes each cache dtype takes
 Q_DTYPES = {torch.float32: (torch.float32,),
             torch.bfloat16: (torch.bfloat16, torch.float32)}
-
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 buffer of at least ``n`` counters for the current
-    stream of ``device``; every call of the kernel leaves it zeroed.  On
-    ``meta`` (the plan recorder) an empty tensor of that shape."""
-    if device.type != "cuda":
-        return torch.empty(n, dtype=torch.int32, device=device)
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
-    key = (index, torch.cuda.current_stream(index).cuda_stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
-                          dtype=torch.int32, device=index)
-        _counters[key] = buf
-    return buf
-
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  cache_len: torch.Tensor) -> None:
@@ -142,7 +118,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      h, hkv, s, d, chunk, nsplit, scale, part_m, part_l,
                      part_acc, out)
         return out
-    counter = arrival_counters(q.device, b * hkv) if b else None
+    counter = launcher.arrival_counters(q.device, b * hkv) if b else None
     launcher.run(ENTRIES[k.dtype], plan, q.device, q,
                  int(q.dtype == torch.bfloat16), k, v, cache_len, b, h, hkv,
                  s, d, chunk, nsplit, scale, part_m, part_l, part_acc,

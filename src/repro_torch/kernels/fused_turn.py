@@ -75,20 +75,36 @@ def check_depth(r: int, r_pad: int, kp: int) -> None:
                          f"{tiling.MAX_PAD}: kp={kp}, r={r}, r_pad={r_pad}")
 
 
+def scan_lists(b: int, nprobe: int, lmax: int, r_pad: int, dev):
+    """The scan blocks' lists: (cand_v, cand_i, cand_p, cand_n,
+    counters): one slot of min(r_pad, 128) entries and a count per
+    (query, probe, slice), and what the merge adds past them; the
+    zeroed arrival counters of the stream when the launch folds the
+    lists itself (``tiling.scan_fold``), else None."""
+    n_lists = nprobe * tiling.scan_split(lmax)
+    w = min(r_pad, tiling.SCAN_ROWS)
+    cand = _buffers(b * (n_lists * w + tiling.merge_scratch(n_lists, r_pad,
+                                                             w)), dev)
+    counts = torch.empty(b * n_lists, dtype=torch.int32, device=dev)
+    counters = (launcher.arrival_counters(dev, b * nprobe + b)
+                if tiling.scan_fold(nprobe, lmax, r_pad) else None)
+    return (*cand, counts, counters)
+
+
 def _scan_scratch(b: int, nprobe: int, lmax: int, d: int, r_pad: int,
                   kp: int, precision: str, dev):
-    """(cand, mid, out, amax, blk_l, n_groups) of a scan: the scan
-    blocks' lists, the quantised paths' top r_pad before the re-rank,
-    the output ((B, r_pad) for f32, (B, kp) after a re-rank) and the
-    int8 list-group amax."""
-    cand = _buffers(b * nprobe * tiling.scan_split(lmax) * r_pad, dev)
+    """(lists, mid, out, amax, blk_l, n_groups) of a scan: the scan
+    blocks' lists (``scan_lists``), the quantised paths' top r_pad
+    before the re-rank, the output ((B, r_pad) for f32, (B, kp) after a
+    re-rank) and the int8 list-group amax."""
+    lists = scan_lists(b, nprobe, lmax, r_pad, dev)
     if precision == "f32":
-        return cand, (None, None, None), _buffers((b, r_pad), dev), \
+        return lists, (None, None, None), _buffers((b, r_pad), dev), \
             None, 1, 1
     blk_l, n_groups = tiling.list_groups(lmax, d, r_pad)
     amax = (torch.empty(b * nprobe * n_groups, dtype=torch.int32, device=dev)
             if precision == "int8" else None)
-    return (cand, _buffers((b, r_pad), dev), _buffers((b, kp), dev), amax,
+    return (lists, _buffers((b, r_pad), dev), _buffers((b, kp), dev), amax,
             blk_l, n_groups)
 
 
@@ -113,21 +129,24 @@ def fused_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
             raise ValueError("own must match sel's shape")
     if queries.shape[0] != b:
         raise ValueError("queries and sel disagree on the batch")
-    cand, mid, out, amax, blk_l, n_groups = _scan_scratch(
+    lists, mid, out, amax, blk_l, n_groups = _scan_scratch(
         b, nprobe, lmax, d, r_pad, kp, precision, queries.device)
     launcher.run(
         "fused_scan_ivf",
         tiling.plan_fused_scan_ivf(b, nprobe, lmax, d, precision, r_pad),
         queries.device, queries, list_vecs, list_ids, p, sel, nprobe, own, b,
         nprobe, lmax, d, PRECISION_CODE[precision], blk_l, n_groups, amax, r,
-        r_pad, kp, tiling.merge_group(r_pad), *cand, *mid, *out)
+        r_pad, kp, *lists, *mid, *out)
     return out
 
 
 def centroid_scratch(b: int, p: int, np_pad: int, precision: str, dev):
     """Stage 1's scratch: (s1_v, s1_i, sel_v, sel, c_amax, blk_p,
-    n_cgroups); c_amax is None unless int8."""
-    n = b * tiling.centroid_chunks(p) * np_pad
+    n_cgroups): the chunk blocks' lists of min(np_pad, 128) and what
+    their merge adds past them; c_amax is None unless int8."""
+    chunks = tiling.centroid_chunks(p)
+    w1 = min(np_pad, tiling.CENTROID_CHUNK)
+    n = b * (chunks * w1 + tiling.merge_scratch(chunks, np_pad, w1))
     blk_p, n_cgroups = tiling.centroid_groups(p, np_pad)
     c_amax = (torch.empty(n_cgroups, dtype=torch.int32, device=dev)
               if precision == "int8" else None)
@@ -160,7 +179,7 @@ def fused_turn(queries: torch.Tensor, centroids: torch.Tensor,
     dev = queries.device
     s1_v, s1_i, sel_v, sel, c_amax, blk_p, n_cgroups = centroid_scratch(
         b, p, np_pad, precision, dev)
-    cand, mid, out, amax, blk_l, n_groups = _scan_scratch(
+    lists, mid, out, amax, blk_l, n_groups = _scan_scratch(
         b, nprobe, lmax, d, r_pad, kp, precision, dev)
     launcher.run(
         "fused_turn_ivf",
@@ -168,6 +187,6 @@ def fused_turn(queries: torch.Tensor, centroids: torch.Tensor,
                                    r_pad),
         dev, queries, centroids, list_vecs, list_ids, p, b, nprobe, np_pad,
         lmax, d, PRECISION_CODE[precision], blk_p, n_cgroups, c_amax, blk_l,
-        n_groups, amax, r, r_pad, kp, tiling.merge_group(np_pad),
-        tiling.merge_group(r_pad), s1_v, s1_i, sel_v, sel, *cand, *mid, *out)
+        n_groups, amax, r, r_pad, kp, s1_v, s1_i, sel_v, sel, *lists, *mid,
+        *out)
     return out[0], out[1], sel

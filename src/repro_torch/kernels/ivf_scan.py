@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import launcher, tiling
 from repro_torch.kernels.centroid_topk import DTYPE_CODE, check_dtype
-from repro_torch.kernels.fused_turn import _buffers, _check
+from repro_torch.kernels.fused_turn import _check, scan_lists
 from repro_torch.kernels.sorting import PAD_POS
 
 
@@ -49,12 +49,10 @@ def ivf_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
     if not 0 < kp <= tiling.MAX_PAD or kp & (kp - 1):
         raise ValueError(f"kp={kp}: a power of two <= {tiling.MAX_PAD}")
     dev = queries.device
-    n_lists = nprobe * tiling.scan_split(lmax)
-    cand = _buffers(b * n_lists * kp, dev)
     out_v = torch.empty((b, kp), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, kp), dtype=torch.int32, device=dev)
     launcher.run("ivf_scan", tiling.plan_ivf_scan(b, nprobe, lmax, d, kp),
                  dev, queries, list_vecs, DTYPE_CODE[queries.dtype], list_ids,
-                 p, sel, b, nprobe, lmax, d, kp, tiling.merge_group(kp),
-                 *cand, out_v, out_i)
+                 p, sel, b, nprobe, lmax, d, kp,
+                 *scan_lists(b, nprobe, lmax, kp, dev), out_v, out_i)
     return out_v, out_i

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,3 +88,28 @@ def run(entry: str, plan: Sequence[Launch], device: torch.device,
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with cudaError "
                            f"{err}")
+
+
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` arrival counters for the
+    current stream of ``device``, for the kernels whose last block to
+    arrive finishes the call (``flash_decode``'s bf16 kernel, the folded
+    IVF scan); every call of such a kernel leaves its counters zeroed.
+    Calls on one stream run one after another and may share the buffer,
+    calls on two streams may run at once and must not; keeping it saves
+    the fill kernel a ``torch.zeros`` per call would launch.  On ``meta``
+    (the plan recorder) an empty tensor of that shape."""
+    if device.type != "cuda":
+        return torch.empty(n, dtype=torch.int32, device=device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, torch.cuda.current_stream(index).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=index)
+        _counters[key] = buf
+    return buf

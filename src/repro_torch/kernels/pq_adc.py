@@ -91,8 +91,8 @@ def pq_adc_scan(tables: torch.Tensor, list_codes: torch.Tensor,
     launcher.run(
         "pq_adc_scan_f32",
         tiling.plan_adc(b, nprobe, lmax, m, n_codes, r_pad), dev, tables, m,
-        n_codes, list_codes, list_ids, p, sel, b, nprobe, lmax, r_pad,
-        tiling.merge_group(r_pad), *cand, *out)
+        n_codes, list_codes, list_ids, p, sel, b, nprobe, lmax, r_pad, *cand,
+        *out)
     return out
 
 
@@ -125,8 +125,8 @@ def fused_scan_pq(tables: torch.Tensor, queries: Optional[torch.Tensor],
                                   rerank, precision),
         dev, tables, queries if rerank else None, m, n_codes, list_codes,
         list_ids, p, sel, nprobe, own, corpus if rerank else None, b, nprobe,
-        lmax, d, PRECISION_CODE[precision], r, r_pad, kp, int(rerank),
-        tiling.merge_group(r_pad), *cand, *mid, *out)
+        lmax, d, PRECISION_CODE[precision], r, r_pad, kp, int(rerank), *cand,
+        *mid, *out)
     return out
 
 
@@ -161,6 +161,6 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
                                   precision, r_pad),
         dev, queries, centroids, tables, m, n_codes, list_codes, list_ids, p,
         corpus, b, nprobe, np_pad, lmax, d, PRECISION_CODE[precision], blk_p,
-        n_cgroups, c_amax, r, r_pad, kp, tiling.merge_group(np_pad),
-        tiling.merge_group(r_pad), s1_v, s1_i, sel_v, sel, *cand, *mid, *out)
+        n_cgroups, c_amax, r, r_pad, kp, s1_v, s1_i, sel_v, sel, *cand, *mid,
+        *out)
     return out[0], out[1], sel

@@ -36,12 +36,21 @@ WARP = 32
 MAX_GRID_X = 2 ** 31 - 1
 
 # Rows of one probed posting list scored by one block of the scan
-# kernel, centroids and queries scored by one block of the stage-1
-# kernel (must equal the constants of the same names in
-# csrc/fused_turn.cu).
+# kernel, centroids scored by one block of the stage-1 kernel, and the
+# stage-1 query tiles: 8 queries a block at B <= 8, else 32 (the table
+# read once per call up to B = 32) while 32 staged queries fit one block
+# (d <= QTILE_WIDE_MAX_D); must equal the constants of the same names in
+# csrc/ivf_stages.cuh.
 SCAN_ROWS = 128
 CENTROID_CHUNK = 128
 QTILE = 8
+QTILE_WIDE = 32
+QTILE_WIDE_MAX_D = 1536
+# Fold the scan's lists inside its own launch (csrc scan_lists_kernel
+# with arrival counters) when the query's top r_pad is at most one slice
+# wide and the fold's lists take at most this much shared memory a block
+# (beside the staged query); otherwise merge_kernel follows the scan.
+FOLD_SMEM_BYTES = 64 * 1024
 
 # Rows of one probed PQ list scored by one block of the ADC scan
 # (csrc/pq_adc.cu PQ_ROWS): 512 rows are 24 KB of codes at m = 48, and
@@ -108,32 +117,86 @@ def centroid_chunks(p: int) -> int:
     return max(1, -(-p // CENTROID_CHUNK))
 
 
+def centroid_qtile(b: int, d: int) -> int:
+    """Queries of one stage-1 block (``csrc`` launch_chunks)."""
+    return QTILE if b <= QTILE or d > QTILE_WIDE_MAX_D else QTILE_WIDE
+
+
+def scan_fold(nprobe: int, lmax: int, r_pad: int) -> bool:
+    """Whether the scan launch folds a query's lists itself: r_pad within
+    one slice's rows, and the fold's largest merge (max(slices, probes)
+    lists of r_pad) within ``FOLD_SMEM_BYTES``."""
+    return (r_pad <= SCAN_ROWS and max(scan_split(lmax), nprobe) * r_pad
+            * MERGE_ENTRY_BYTES <= FOLD_SMEM_BYTES)
+
+
 def merge_group(width: int) -> int:
     """Sorted lists of ``width`` candidates one merge block holds in
-    shared memory (the ``group`` argument of csrc ``merge_topk_f32``)."""
+    shared memory (csrc ``merge_topk_f32``'s later passes)."""
     if not 0 < width <= MAX_PAD:
         raise ValueError(f"merge width {width}: the kernels keep at most "
                          f"{MAX_PAD}")
     return SMEM_BLOCK_BYTES // (width * MERGE_ENTRY_BYTES)
 
 
-def merge_plan(n_lists: int, width: int) -> List[Tuple[int, int]]:
+def merge_groups(w_in: int, width: int) -> Tuple[int, int]:
+    """(first, later): lists one merge block takes in its first pass, of
+    ``w_in`` entries toward the best ``width``, and in the later passes,
+    of ``width`` (csrc fused_common merge_groups): as many as fit one
+    block's shared memory, except that a first pass whose lists grow
+    (``w_in < width``: csrc topk_tie merge_grow, with room for one list
+    of ``width``) takes 2 width / w_in of them, so its groups spread over
+    blocks and each grows into two lists of ``width``."""
+    later = merge_group(width)
+    if not 0 < w_in <= width:
+        raise ValueError(f"merge of lists of {w_in} into {width}")
+    entries = SMEM_BLOCK_BYTES // MERGE_ENTRY_BYTES
+    if w_in == width:
+        return entries // w_in, later
+    return min((entries - width) // w_in, max(2, 2 * width // w_in)), later
+
+
+def merge_plan(n_lists: int, width: int, w_in: int = 0
+               ) -> List[Tuple[int, int]]:
     """The passes of the candidate merge, as (lists in, groups out) per
-    query: each pass merges groups of up to ``merge_group(width)``
-    consecutive lists into each group's best ``width``, in place, until
-    a pass has one group (its output is the query's top ``width``).
-    Every pass ranks by (value desc, flat position asc), so the result
-    is a one-block merge's, bit for bit."""
+    query: the first pass merges groups of ``merge_groups(w_in,
+    width)[0]`` consecutive lists of ``w_in`` (default ``width``)
+    entries into each group's best ``width``, each later pass groups of
+    ``merge_group(width)``, until a pass has one group (its output is
+    the query's top ``width``).  Every pass ranks by (value desc, flat
+    position asc), so the result is a one-block merge's, bit for bit."""
     if n_lists < 1:
         raise ValueError(f"n_lists={n_lists}")
-    group = merge_group(width)
+    group, later = merge_groups(w_in or width, width)
     passes, n = [], n_lists
     while True:
         groups = -(-n // group)
         passes.append((n, groups))
         if groups == 1:
             return passes
-        n = groups
+        n, group = groups, later
+
+
+def merge_smem(n_lists: int, width: int, w_in: int = 0) -> int:
+    """Dynamic shared memory every pass of the merge asks for: the
+    largest pass's (csrc merge_topk_f32)."""
+    w_in = w_in or width
+    first, later = merge_groups(w_in, width)
+    spare = width if w_in < width else 0
+    passes = merge_plan(n_lists, width, w_in)
+    smem = (min(n_lists, first) * w_in + spare) * MERGE_ENTRY_BYTES
+    if len(passes) > 1:
+        smem = max(smem, min(passes[1][0], later) * width
+                   * MERGE_ENTRY_BYTES)
+    return smem
+
+
+def merge_scratch(n_lists: int, width: int, w_in: int) -> int:
+    """Entries a query's merge needs past its ``n_lists * w_in`` input
+    entries: the first pass's groups of ``width`` when the width grows
+    and one pass is not enough (else it merges in place)."""
+    passes = merge_plan(n_lists, width, w_in)
+    return passes[0][1] * width if w_in < width and len(passes) > 1 else 0
 
 
 def check_width(d: int, elem_bytes: int = 4) -> None:
@@ -233,8 +296,9 @@ SMS = 132
 BAG_WARPS = 4              # bags of an embedding_bag block
 
 STATIC_SMEM: Dict[str, int] = {
-    # sv / si / sp [QTILE][CENTROID_CHUNK]
-    "centroid_chunk_kernel": 3 * QTILE * CENTROID_CHUNK * 4,
+    # sv [QTILE][CENTROID_CHUNK + 1] (the 8-query instance;
+    # centroid_static gives the 32-query one's)
+    "centroid_chunk_kernel": QTILE * (CENTROID_CHUNK + 1) * 4,
     # sv / si / sp [SCAN_ROWS]
     "scan_lists_kernel": 3 * SCAN_ROWS * 4,
     # sv / si / sp [PQ_ROWS]
@@ -247,12 +311,19 @@ STATIC_SMEM: Dict[str, int] = {
     "flash_tf32_kernel": 0, "decode_mma_kernel": 0,
     "embedding_bag_kernel": 0,
 }
-# The int8 instances keep the arrays of their scale reductions (sq[QTILE],
-# red[32]); the compiler drops them from the f32 and bf16 instances.
+# The int8 instances keep the arrays of their scale reductions (red[32];
+# stage 1's sq: centroid_static); the compiler drops them from the f32
+# and bf16 instances.
 INT8_STATIC_SMEM: Dict[str, int] = {
-    "centroid_chunk_kernel": QTILE * 4, "scan_lists_kernel": 32 * 4,
-    "adc_scan_kernel": 32 * 4,
+    "scan_lists_kernel": 32 * 4, "adc_scan_kernel": 32 * 4,
 }
+
+
+def centroid_static(qtile: int, precision: str) -> int:
+    """Static shared memory of the stage-1 instance for ``qtile``
+    queries: sv[qtile][CENTROID_CHUNK + 1], and int8's sq[qtile]."""
+    return qtile * (CENTROID_CHUNK + 1) * 4 + (
+        qtile * 4 if precision == "int8" else 0)
 
 Dim3 = Tuple[int, int, int]
 
@@ -279,33 +350,38 @@ class Launch:
 
 
 def _launch(kernel: str, grid, threads: int, smem: int, opt_in: bool,
-            precision: str = "f32") -> Launch:
+            precision: str = "f32", static: int = -1) -> Launch:
     g = tuple(grid) + (1,) * (3 - len(tuple(grid)))
-    static = STATIC_SMEM[kernel] + (INT8_STATIC_SMEM.get(kernel, 0)
-                                    if precision == "int8" else 0)
+    if static < 0:
+        static = STATIC_SMEM[kernel] + (INT8_STATIC_SMEM.get(kernel, 0)
+                                        if precision == "int8" else 0)
     return Launch(kernel, g, (threads, 1, 1), smem, opt_in, static)
 
 
-def plan_merge(b: int, n_lists: int, w: int) -> List[Launch]:
+def plan_merge(b: int, n_lists: int, w: int, w_in: int = 0
+               ) -> List[Launch]:
     """``merge_topk_f32``: one ``merge_kernel`` per pass of
-    ``merge_plan``, each asking for the shared memory of the first
-    pass's groups."""
-    group = merge_group(w)
-    smem = min(n_lists, group) * w * MERGE_ENTRY_BYTES
+    ``merge_plan`` (lists of ``w_in``, default ``w``, into the best
+    ``w``), each asking for the largest pass's shared memory."""
+    smem = merge_smem(n_lists, w, w_in)
     return [_launch("merge_kernel", (b, groups), MERGE_THREADS, smem, True)
-            for _, groups in merge_plan(n_lists, w)]
+            for _, groups in merge_plan(n_lists, w, w_in)]
 
 
 def plan_select(b: int, p: int, d: int, np_pad: int, precision: str
                 ) -> List[Launch]:
     """Stage 1 (``select_probes``): the int8 centroid amax pass, the
-    chunk blocks, the merge to np_pad."""
+    chunk blocks (tiles of ``centroid_qtile`` queries staged in dynamic
+    shared memory), the merge of their lists of min(np_pad, 128) to
+    np_pad."""
     n = centroid_chunks(p)
+    qt = centroid_qtile(b, d)
     amax = ([_launch("centroid_amax_kernel", (n,), ROW_THREADS, 0, False)]
             if precision == "int8" else [])
-    return amax + [_launch("centroid_chunk_kernel", (n, -(-b // QTILE)),
-                           ROW_THREADS, QTILE * d * 4, True, precision)
-                   ] + plan_merge(b, n, np_pad)
+    return amax + [_launch("centroid_chunk_kernel", (n, -(-b // qt)),
+                           ROW_THREADS, min(b, qt) * d * 4, True,
+                           static=centroid_static(qt, precision))
+                   ] + plan_merge(b, n, np_pad, min(np_pad, CENTROID_CHUNK))
 
 
 def plan_rerank(b: int, d: int, r_pad: int) -> List[Launch]:
@@ -315,19 +391,34 @@ def plan_rerank(b: int, d: int, r_pad: int) -> List[Launch]:
                     d * 4 + r_pad * MERGE_ENTRY_BYTES, True)]
 
 
+def scan_smem(d: int, nprobe: int, lmax: int, r_pad: int) -> int:
+    """Dynamic shared memory of the scan blocks: the staged query, or
+    the fold's largest merge when the launch folds (csrc launch_scan)."""
+    smem = d * 4
+    if scan_fold(nprobe, lmax, r_pad):
+        smem = max(smem, max(scan_split(lmax), nprobe) * r_pad
+                   * MERGE_ENTRY_BYTES)
+    return smem
+
+
 def plan_fused_scan_ivf(b: int, nprobe: int, lmax: int, d: int,
                         precision: str, r_pad: int) -> List[Launch]:
-    """``fused_scan_ivf``: the int8 list amax pass, the scan blocks, the
-    merge to r_pad, and the quantised paths' float32 re-rank."""
+    """``fused_scan_ivf``: the int8 list amax pass, the scan blocks (the
+    fold to r_pad in the same launch when ``scan_fold``, else the merge
+    of their lists of min(r_pad, 128) after them), and the quantised
+    paths' float32 re-rank."""
     if b == 0:
         return []
     grid = (nprobe * scan_split(lmax), b)
     amax = ([_launch("list_amax_kernel", grid, ROW_THREADS, 0, False)]
             if precision == "int8" else [])
     rerank = plan_rerank(b, d, r_pad) if precision != "f32" else []
-    return (amax + [_launch("scan_lists_kernel", grid, ROW_THREADS, d * 4,
-                            True, precision)]
-            + plan_merge(b, grid[0], r_pad) + rerank)
+    merge = ([] if scan_fold(nprobe, lmax, r_pad) else
+             plan_merge(b, grid[0], r_pad, min(r_pad, SCAN_ROWS)))
+    return (amax + [_launch("scan_lists_kernel", grid, ROW_THREADS,
+                            scan_smem(d, nprobe, lmax, r_pad), True,
+                            precision)]
+            + merge + rerank)
 
 
 def plan_fused_turn_ivf(b: int, p: int, nprobe: int, np_pad: int, lmax: int,
@@ -376,7 +467,8 @@ def plan_centroid_topk(b: int, p: int, d: int, kp: int) -> List[Launch]:
 
 def plan_ivf_scan(b: int, nprobe: int, lmax: int, d: int, kp: int
                   ) -> List[Launch]:
-    """``ivf_scan``: the float32 scan and its merge to kp."""
+    """``ivf_scan``: the float32 scan, folded to kp in its launch or
+    merged after it."""
     return plan_fused_scan_ivf(b, nprobe, lmax, d, "f32", kp)
 
 

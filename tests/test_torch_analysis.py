@@ -58,16 +58,16 @@ def test_every_probe_records_a_launch_and_counts_none(no_build, label):
 
 
 def test_recorded_plans_are_the_tiling_plans(no_build):
-    """The int8 fused turn records its amax passes, stage 1, the scan,
-    the merges and the re-rank, in launch order."""
+    """The int8 fused turn records its amax passes, stage 1 and its
+    merge, the scan (which folds its lists in its own launch) and the
+    re-rank, in launch order."""
     probe = next(p for p in kb.default_probes()
                  if p.label == "ops.fused_turn[int8]")
     (rec,) = kb.record(probe)
     assert rec.entry == "fused_turn_ivf"
     assert [x.kernel for x in rec.plan] == [
         "centroid_amax_kernel", "centroid_chunk_kernel", "merge_kernel",
-        "list_amax_kernel", "scan_lists_kernel", "merge_kernel",
-        "rerank_kernel"]
+        "list_amax_kernel", "scan_lists_kernel", "rerank_kernel"]
     assert rec.plan == tiling.plan_fused_turn_ivf(8, 4096, 8, 8, 512, 128,
                                                   "int8", 64)
 
@@ -80,6 +80,67 @@ def test_merge_plans_launch_one_kernel_a_pass(n_lists, w):
     assert [x.grid for x in plan] == [(3, g, 1) for _, g in passes]
     assert len({x.dyn_smem_bytes for x in plan}) == 1
     assert plan[0].smem_bytes <= tiling.SMEM_BLOCK_BYTES
+
+
+@pytest.mark.parametrize("b,d,grid_y,dyn,static", [
+    (1, 768, 1, 768 * 4, 8 * 129 * 4),        # the 8-query tile
+    (8, 768, 1, 8 * 768 * 4, 8 * 129 * 4),
+    (25, 768, 1, 25 * 768 * 4, 32 * 129 * 4),  # 32 queries: the table once
+    (40, 768, 2, 32 * 768 * 4, 32 * 129 * 4),
+    (25, 2048, 4, 8 * 2048 * 4, 8 * 129 * 4)])  # 32 rows of 2,048 too wide
+def test_stage1_plans_tile_the_queries(b, d, grid_y, dyn, static):
+    """Stage 1 reads the centroid table once per tile of 8 queries (B <=
+    8) or 32, each staged in dynamic shared memory; its chunk lists are
+    min(kp, 128) wide and merge in one kernel at kp = 64."""
+    chunk, merge = tiling.plan_select(b, 16_384, d, 64, "f32")
+    assert chunk.kernel == "centroid_chunk_kernel"
+    assert chunk.grid == (128, grid_y, 1)
+    assert (chunk.dyn_smem_bytes, chunk.static_smem_bytes) == (dyn, static)
+    assert merge.grid == (b, 1, 1)
+    assert merge.dyn_smem_bytes == 128 * 64 * tiling.MERGE_ENTRY_BYTES
+    # the top-h cache: groups of 16 lists of 128 grow into 1,024 on 8
+    # blocks a query, then one block merges the 8
+    (_, grow, fold) = tiling.plan_select(b, 16_384, d, 1024, "f32")
+    assert (grow.grid, fold.grid) == ((b, 8, 1), (b, 1, 1))
+    assert grow.dyn_smem_bytes == fold.dyn_smem_bytes == max(
+        16 * 128 + 1024, 8 * 1024) * tiling.MERGE_ENTRY_BYTES
+
+
+@pytest.mark.parametrize("precision,kernels", [
+    ("f32", ["scan_lists_kernel"]),
+    ("bf16", ["scan_lists_kernel", "rerank_kernel"]),
+    ("int8", ["list_amax_kernel", "scan_lists_kernel", "rerank_kernel"])])
+def test_scan_plans_fold_in_the_launch_at_the_served_shape(precision,
+                                                           kernels):
+    """fused_scan at the smoke's shape (nprobe 64, Lmax 702, d 768, k 10;
+    the quantised r = 20): the scan folds its lists in its own launch,
+    so f32 is one kernel, bf16 two, int8 three; its shared memory holds
+    the query or the fold's 64 lists of r_pad, the larger."""
+    r_pad = 16 if precision == "f32" else 32
+    plan = tiling.plan_fused_scan_ivf(1, 64, 702, 768, precision, r_pad)
+    assert [x.kernel for x in plan] == kernels
+    scan = plan[kernels.index("scan_lists_kernel")]
+    assert scan.grid == (64 * 6, 1, 1)
+    assert scan.dyn_smem_bytes == 64 * r_pad * tiling.MERGE_ENTRY_BYTES
+    assert tiling.scan_fold(64, 702, r_pad)
+
+
+@pytest.mark.parametrize("nprobe,lmax,r_pad,fold", [
+    (64, 702, 16, True), (32, 1220, 128, True), (64, 702, 256, False),
+    (256, 40, 128, False), (64, 702, 2048, False)])
+def test_scan_plans_merge_after_the_launch_past_the_fold(nprobe, lmax,
+                                                         r_pad, fold):
+    """Past one slice's 128 rows, or past the fold's shared memory, the
+    scan's lists of min(r_pad, 128) merge after it (growing to r_pad)."""
+    plan = tiling.plan_fused_scan_ivf(2, nprobe, lmax, 64, "f32", r_pad)
+    assert tiling.scan_fold(nprobe, lmax, r_pad) == fold
+    merges = [x for x in plan if x.kernel == "merge_kernel"]
+    n_lists = nprobe * tiling.scan_split(lmax)
+    w_in = min(r_pad, tiling.SCAN_ROWS)
+    assert len(merges) == (0 if fold else
+                           len(tiling.merge_plan(n_lists, r_pad, w_in)))
+    for x in plan:
+        assert x.smem_bytes <= tiling.SMEM_BLOCK_BYTES
 
 
 def test_meta_tensors_are_refused_outside_the_recorder():

@@ -1471,3 +1471,193 @@ def test_cuda_launch_plans_match_the_profiler(cuda_device, label):
     tensors = probe.tensors(cuda_device, gen)
     want = kernel_budget.planned(probe, tensors, cuda_device)
     assert want and kernel_budget.traced(probe, tensors, cuda_device) == want
+
+
+# ---------------------------------------------------------------------------
+# the redesigned stage kernels (csrc/ivf_stages.cuh): one pass over the
+# centroid table for up to 32 queries, a warp-level selection a block, the
+# scan's fold in its own launch
+# ---------------------------------------------------------------------------
+
+
+def _float_stage_inputs(p, lmax, d, b, seed, dev):
+    """Float queries, centroids and ragged lists (list 0 empty)."""
+    g = torch.Generator().manual_seed(seed)
+    q, cents, lv = (torch.randn(s, generator=g) for s in
+                    ((b, d), (p, d), (p, lmax, d)))
+    sizes = torch.randint(0, lmax + 1, (p,), generator=g)
+    sizes[0] = 0
+    real = torch.arange(lmax)[None] < sizes[:, None]
+    li = torch.where(real, torch.arange(p * lmax).view(p, lmax), -1)
+    lv = lv * real[..., None]
+    return [x.to(dev) for x in (q, cents, lv, li.to(torch.int32))]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("precision", ("f32",) + QUANT)
+def test_cuda_stage_rows_keep_their_bits_at_b_1_8_25(cuda_device,
+                                                      precision):
+    """Rows 1, 2 and 4-7 give a query the same bits alone, in a batch of
+    8 (stage 1's 8-query tile) and in a batch of 25 (its 32-query tile,
+    the table read once), on float inputs at d = 64."""
+    p, lmax, d, nprobe, k = 700, 300, 64, 16, 10
+    q, cents, lv, li = _float_stage_inputs(p, lmax, d, 25, 25, cuda_device)
+    g = torch.Generator().manual_seed(5)
+    tables = torch.randn((25, 8, 256), generator=g).to(cuda_device)
+    codes = torch.randint(0, 256, (p, lmax, 8), generator=g,
+                          dtype=torch.uint8).to(cuda_device)
+    corpus = lv.view(p * lmax, d)
+
+    def run(rows):
+        out = list(ops.centroid_topk(q[rows], cents, 64))
+        sel = ops.centroid_topk(q[rows], cents, nprobe)[1]
+        out += ops.ivf_scan(q[rows], lv, li, sel, k)
+        out += ops.fused_turn(q[rows], cents, lv, li, nprobe=nprobe, k=k,
+                              precision=precision)
+        out += ops.fused_scan(q[rows], lv, li, sel, k, precision=precision)
+        out += ops.fused_turn_pq(q[rows], cents, tables[rows], codes, li,
+                                 corpus, nprobe=nprobe, k=k, rerank=64,
+                                 precision=precision)
+        out += ops.fused_scan_pq(tables[rows], q[rows], codes, li, sel,
+                                 corpus, k, rerank=64, precision=precision)
+        return out
+
+    full = run(slice(0, 25))
+    for lo, hi in ((0, 8), (8, 16), (24, 25), (3, 4)):
+        for a, b in zip(run(slice(lo, hi)), full):
+            assert torch.equal(a, b[lo:hi])
+
+
+# p, d, B, kp: p below one chunk, p not a multiple of 128, the top-h
+# caches at kp 1,024 and 2,048, B in the 8- and the 32-query tile and
+# past one 32-query tile
+CK_EDGE_SHAPES = [(100, 16, 1, 64), (100, 16, 25, 64), (300, 8, 9, 128),
+                  (3000, 16, 1, 1024), (3000, 16, 25, 1024),
+                  (3000, 8, 2, 2048), (2500, 16, 40, 2048)]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CK_EDGE_SHAPES)
+def test_cuda_centroid_topk_chunk_edges(cuda_device, shape, dtype):
+    p, d, b, kp = shape
+    q, c = _ck_inputs((p, d, b, kp), dtype, cuda_device)
+    got = ops.centroid_topk(q, c, kp)
+    want = ref.centroid_topk(q, c, kp)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _sized_lists(lmax, sizes, d, dev):
+    """Integer lists of the given sizes (ids = flat slots, -1 pads)."""
+    p = len(sizes)
+    rng = np.random.default_rng(lmax + p)
+    lv = rng.integers(-4, 5, size=(p, lmax, d)).astype(np.float32)
+    real = np.arange(lmax)[None] < np.asarray(sizes)[:, None]
+    lv[~real] = 0
+    li = np.where(real, np.arange(p * lmax).reshape(p, lmax), -1)
+    q = rng.integers(-4, 5, size=(3, d)).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in
+            (q, lv, li.astype(np.int32))]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("precision", ("f32",) + QUANT)
+@pytest.mark.parametrize("k", [10, 100, 1000])
+def test_cuda_scan_of_lists_of_0_1_128_and_lmax_rows(cuda_device, k,
+                                                      precision):
+    """Lists holding 0, 1, 128 and Lmax rows (slices with no real row
+    write nothing), probed with repeats and a foreign list: the folded
+    scan (k 10, 100) and the merged one (k 1,000) equal the plain
+    versions bit for bit, ivf_scan too at f32."""
+    lmax = 300
+    q, lv, li = _sized_lists(lmax, [0, 1, 128, lmax, 0, 129, 2], 16,
+                             cuda_device)
+    sel = torch.tensor([[3, 0, 1, 2, 4, 5, 6, 3], [0, 4, 0, 4, 1, 1, 0, 4],
+                        [2, 2, 3, 5, 6, 1, 0, 4]], dtype=torch.int32,
+                       device=cuda_device)
+    own = torch.ones_like(sel)
+    own[1, 2] = 0
+    assert tiling.scan_fold(8, lmax, tiling.next_pow2(k)) == (k < 1000)
+    r = ops._fused_depth(k, 8 * lmax, 2 * k)
+    got = ops.fused_scan(q, lv, li, sel, k, own=own, precision=precision)
+    want = ref.fused_scan_ivf(q, lv, li, sel, own, k=k, precision=precision,
+                              r=r)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if precision == "f32":
+        for g, w in zip(ops.ivf_scan(q, lv, li, sel, k),
+                        ref.ivf_scan_batch(q, lv, li, sel, k)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda_only
+def test_cuda_folded_scan_on_two_streams(cuda_device):
+    """Two streams call the folded scan at once, each with its own
+    arrival counters (launcher.arrival_counters): every call equals the
+    same call made alone, and the counters are left zeroed."""
+    from repro_torch.kernels import launcher
+    p, lmax, d = 400, 700, 64
+    q, _, lv, li = _float_stage_inputs(p, lmax, d, 16, 7, cuda_device)
+    g = torch.Generator().manual_seed(9)
+    sels = [torch.randint(0, p, (8, 64), generator=g, dtype=torch.int32
+                          ).to(cuda_device) for _ in range(2)]
+    qs = [q[:8], q[8:]]
+    assert tiling.scan_fold(64, lmax, 16)
+    alone = [ops.fused_scan(x, lv, li, s, 10) for x, s in zip(qs, sels)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for n, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[n].append(ops.fused_scan(qs[n], lv, li, sels[n], 10))
+    torch.cuda.synchronize()
+    for n in range(2):
+        for got in outs[n]:
+            for a, b in zip(got, alone[n]):
+                assert torch.equal(a, b)
+        with torch.cuda.stream(streams[n]):
+            buf = launcher.arrival_counters(cuda_device, 1)
+        assert int(buf.abs().sum()) == 0
+
+
+STAGE_PLAN_CALLS = {
+    "centroid_topk B=1": lambda t: ops.centroid_topk(t["q"][:1], t["c"], 64),
+    "centroid_topk B=25": lambda t: ops.centroid_topk(t["q"], t["c"], 64),
+    "centroid_topk B=25 kp=1024": lambda t: ops.centroid_topk(
+        t["q"], t["c"], 1024),
+    "fused_scan folded": lambda t: ops.fused_scan(t["q"], t["lv"], t["li"],
+                                                  t["sel"], 10),
+    "fused_scan merged": lambda t: ops.fused_scan(t["q"], t["lv"], t["li"],
+                                                  t["sel"], 1000),
+    "fused_scan[int8] folded": lambda t: ops.fused_scan(
+        t["q"], t["lv"], t["li"], t["sel"], 10, precision="int8"),
+    "ivf_scan folded": lambda t: ops.ivf_scan(t["q"], t["lv"], t["li"],
+                                              t["sel"], 10),
+    "fused_turn[bf16]": lambda t: ops.fused_turn(
+        t["q"], t["c"], t["lv"], t["li"], nprobe=16, k=10,
+        precision="bf16"),
+}
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("name", STAGE_PLAN_CALLS)
+def test_cuda_stage_plans_match_the_profiler(cuda_device, name):
+    """The new stage plans (the 8- and 32-query stage-1 tiles, the
+    growing merge of the top-h cache, the folded scan of one kernel and
+    the merged one) equal the kernels torch.profiler traces: name,
+    order, grid, block, static + dynamic shared memory."""
+    from repro_torch.analysis import kernel_budget
+    q, c, lv, li = _float_stage_inputs(3000, 300, 64, 25, 11, cuda_device)
+    g = torch.Generator().manual_seed(1)
+    t = dict(q=q, c=c, lv=lv, li=li,
+             sel=torch.randint(0, 3000, (25, 16), generator=g,
+                               dtype=torch.int32).to(cuda_device))
+    probe = kernel_budget.Probe(name, (), lambda device: STAGE_PLAN_CALLS[
+        name](t))
+    want = kernel_budget.planned(probe, [], cuda_device)
+    assert want and kernel_budget.traced(probe, [], cuda_device) == want
+    names = [x[0] for x in want]
+    assert ("merge_kernel" in names[names.index("scan_lists_kernel"):]
+            ) == ("merged" in name) if "scan" in name else True
