@@ -46,15 +46,18 @@ exits non-zero):
               ops too, r = 2,000 and several int8 groups a list; +0.0
               above -0.0 in core.topk; embedding_bag at B = 1, 512,
               262,144)
-    plans     every probe of the kernels analysis pass, and the LM's bf16
-              flash_decode and flash_attention calls, on CUDA tensors
-              under torch.profiler: the recorded launch plan == the
-              traced kernels (name, order, grid, block, shared memory):
-              no cast or layout-copy kernels beside the bf16 kernels
+    plans     every probe of the kernels analysis pass, the LM's bf16
+              flash_decode and flash_attention calls and the stage
+              kernels at the smoke's shapes, on CUDA tensors under
+              torch.profiler: the recorded launch plan == the traced
+              kernels (name, order, grid, block, shared memory): no cast
+              or layout-copy kernels beside the bf16 kernels; an int8
+              call after its first runs no scale pass
   4 realistic unit-norm floats at the smoke's shapes, B = 1 and 25, f32,
               bf16 and int8, and at the two-tower retrieval_cand shape
-    stages    rows 1, 4 and 6 split into their kernels under
-              torch.profiler (device us each, L2 flushed), B = 1 and 25
+    stages    rows 1 and 3-7 split into their kernels under
+              torch.profiler (device us each, L2 flushed), B = 1 and 25,
+              and the one-time int8 scale passes of the index
   5 attn      flash_attention == its plain version within 1e-5, Yi-9B's
               RAG prefill shape (S = 784, D = 128, GQA 8, causal) on
               bf16 inputs too (the bf16 kernel), its bf16 output within
@@ -705,13 +708,22 @@ def bf16_probes():
 def stage_probes():
     """The stage kernels at the smoke's shapes, held to the profiler like
     the analysis pass's probes: stage 1 in its 32-query tile (B = 25)
-    and the top-h cache's growing merge (kp = 1,024), and the served
+    and the top-h cache's growing merge (kp = 1,024), the served
     fused_scan (B = 1, nprobe 64, Lmax 702, d 768, k 10), whose lists
-    fold in its one launch."""
+    fold in its one launch, the served int8 turn (stage 1 folded, the
+    scan with its re-rank chained behind it, the one-time scale passes of
+    its lists and centroids), and the served PQ scan and turn (m = 48 x
+    256 codes, re-rank depth 64), whose ADC scans fold and re-rank in
+    their launch; 512 lists stand for the index's 16,384."""
     import torch
     from repro_torch.analysis import kernel_budget as KB
     from repro_torch.kernels import ops
     f32 = torch.float32
+    lists = (KB.Arg((512, 702, 768), f32),
+             KB.Arg((512, 702), torch.int32, -1, 10_000))
+    pq_lists = (KB.Arg((1, PQ_M, 256), f32),
+                KB.Arg((512, 702, PQ_M), torch.uint8, 0, 256),
+                KB.Arg((512, 702), torch.int32, -1, 10_000))
     return [
         KB.Probe("ops.centroid_topk[B=25]",
                  (KB.Arg((25, 768), f32), KB.Arg((16_384, 768), f32)),
@@ -722,11 +734,27 @@ def stage_probes():
                  lambda q, c, device: ops.centroid_topk(q, c, 1024,
                                                         device=device)),
         KB.Probe("ops.fused_scan[served]",
-                 (KB.Arg((1, 768), f32), KB.Arg((512, 702, 768), f32),
-                  KB.Arg((512, 702), torch.int32, -1, 10_000),
+                 (KB.Arg((1, 768), f32), *lists,
                   KB.Arg((1, 64), torch.int32, 0, 512)),
                  lambda q, lv, li, sel, device: ops.fused_scan(
                      q, lv, li, sel, 10, device=device)),
+        KB.Probe("ops.fused_turn[int8 served]",
+                 (KB.Arg((1, 768), f32), KB.Arg((512, 768), f32), *lists),
+                 lambda q, c, lv, li, device: ops.fused_turn(
+                     q, c, lv, li, nprobe=64, k=10, precision="int8",
+                     device=device)),
+        KB.Probe("ops.fused_scan_pq[served]",
+                 (*pq_lists, KB.Arg((1, 64), torch.int32, 0, 512),
+                  KB.Arg((1, 768), f32), KB.Arg((10_000, 768), f32)),
+                 lambda t, cd, li, sel, q, rows, device: ops.fused_scan_pq(
+                     t, q, cd, li, sel, rows, 10, rerank=RERANK,
+                     device=device)),
+        KB.Probe("ops.fused_turn_pq[served]",
+                 (KB.Arg((1, 768), f32), KB.Arg((512, 768), f32), *pq_lists,
+                  KB.Arg((10_000, 768), f32)),
+                 lambda q, c, t, cd, li, rows, device: ops.fused_turn_pq(
+                     q, c, t, cd, li, rows, nprobe=64, k=10, rerank=RERANK,
+                     device=device)),
     ]
 
 
@@ -736,20 +764,30 @@ def phase_plans(dev):
     shapes (``stage_probes``), on CUDA tensors of its
     shapes, drawn from a seeded generator: the plan the recorder records
     for the call is held to the kernels torch.profiler traces (name,
-    count, order, grid, block, static + dynamic shared memory).  Returns
-    (probes, kernels checked)."""
+    count, order, grid, block, static + dynamic shared memory), each as
+    a first call on its tensors (the kept int8 scales dropped first, so
+    the int8 calls run their one-time scale pass); then an int8 call
+    after its first must plan no scale pass.  Returns (probes, kernels
+    checked)."""
     import torch
     from repro_torch.analysis import kernel_budget as KB
+    from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(17)
     n, bad = 0, []
     probes = KB.default_probes() + bf16_probes() + stage_probes()
     for probe in probes:
         tensors = probe.tensors(dev, gen)
+        ops.drop_scales()
         want = KB.planned(probe, tensors, dev)
-        seen = KB.traced(probe, tensors, dev)
+        seen = KB.traced(probe, tensors, dev, before=ops.drop_scales)
         if seen != want or not want:
             bad.append(f"{probe.label}: the profiler saw {seen}, the plan "
                        f"says {want}")
+        probe.call(*tensors, device=dev)
+        again = KB.planned(probe, tensors, dev)
+        if any(x[0] == "group_amax_kernel" for x in again):
+            bad.append(f"{probe.label}: a second call plans the scale "
+                       f"pass again: {again}")
         n += len(want)
         del tensors
         torch.cuda.empty_cache()
@@ -1356,65 +1394,15 @@ def kernel_split(call, flush, reps=10):
                 span=float(np.mean([r[-1][1] - r[0][0] for r in runs])))
 
 
-def phase_stages(args, dev):
-    """Rows 1, 4 and 6 split into their kernels (``kernel_split``) on
-    unit-norm random lists at the smoke's shape (p = 16,384, Lmax 702,
-    d = 768, ragged sizes in [Lmax / 2, Lmax]): ``centroid_topk`` at kp =
-    64 (B = 1, 25) and at the top-h kp = 1,024 (B = 1), ``fused_scan`` at
-    f32 / bf16 / int8 and ``fused_turn`` at f32 (B = 1, 25), k = 10,
-    nprobe 64.  Written to chiprun_out/stages.json too."""
+def stage_inputs(args, dev, seed):
+    """The seeded inputs of ``[stages]`` and ``--dump-rows``: p unit
+    centroids, ragged unit lists of Lmax rows (``realistic_lists``), 25
+    unit queries and an IVF-PQ index over the same lists with random m =
+    48 x 256 codes and codewords, whose corpus rows are the list rows."""
     import torch
-    from repro_torch.kernels import ops
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 19)
-    p, lmax, d, k, nprobe = args.lists, args.lmax, args.d, args.k, \
-        args.nprobe
-    cents = unit(torch.randn((p, d), generator=gen, device=dev))
-    lv, li = realistic_lists(p, lmax, d, gen, dev)
-    qs = unit(torch.randn((25, d), generator=gen, device=dev))
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    out = {}
-    for b in (1, 25):
-        q = qs[:b].contiguous()
-        sel = ops.centroid_topk(q, cents, nprobe)[1]
-        calls = {"centroid_topk kp=64": lambda: ops.centroid_topk(
-            q, cents, nprobe)}
-        if b == 1:
-            calls["centroid_topk kp=1024"] = lambda: ops.centroid_topk(
-                q, cents, 1024)
-        for prec in ("f32",) + QUANT:
-            calls[f"fused_scan[{prec}]"] = lambda prec=prec: ops.fused_scan(
-                q, lv, li, sel, k, precision=prec)
-        calls["fused_turn[f32]"] = lambda: ops.fused_turn(
-            q, cents, lv, li, nprobe=nprobe, k=k)
-        for name, call in calls.items():
-            s = kernel_split(call, flush)
-            out[f"{name} B={b}"] = s
-            log("stages", f"{name} B={b}: {s['n']} kernels, span "
-                f"{s['span']:.1f} us: " + ", ".join(
-                    f"{kn} {us:.1f}" for kn, us in s["kernels"].items()))
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "stages.json"), "w") as fh:
-        json.dump(out, fh, indent=1)
-    del lv, li
-    torch.cuda.empty_cache()
-    return out
-
-
-def phase_dump_rows(args, dev, path):
-    """Rows 1-7 on the smoke's seeded realistic inputs (``phase_realistic``'s
-    generator: p = 16,384 unit centroids, ragged unit lists of Lmax 702,
-    d = 768, random m = 48 PQ codes), at B = 1 and 25: centroid_topk
-    (kp 64 and the top-h 1,024), ivf_scan (k 10), pq_adc_scan, and
-    fused_turn / fused_scan / fused_turn_pq / fused_scan_pq at f32, bf16
-    and int8 (fused_scan also at the two-tower k = 100, nprobe 32), every
-    output saved to ``path``, so two builds of the kernels can be held to
-    each other bit for bit (``torch.equal``) from two processes."""
-    import torch
-    from repro_torch.core import pq, toploc
-    from repro_torch.kernels import ops
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    p, lmax, d, k, nprobe = args.lists, args.lmax, args.d, args.k, \
-        args.nprobe
+    from repro_torch.core import pq
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p, lmax, d = args.lists, args.lmax, args.d
     cents = unit(torch.randn((p, d), generator=gen, device=dev))
     lv, li = realistic_lists(p, lmax, d, gen, dev)
     qs = unit(torch.randn((25, d), generator=gen, device=dev))
@@ -1425,6 +1413,113 @@ def phase_dump_rows(args, dev, path):
         torch.randint(0, 256, (p, lmax, PQ_M), generator=gen, device=dev,
                       dtype=torch.uint8),
         li, (li >= 0).sum(1).to(torch.int32), rows)
+    return cents, lv, li, qs, rows, pqi
+
+
+def folded(call):
+    """``call()`` with stage 1 folding every query tile in its launch
+    (``tiling.SELECT_FOLD_QUERIES`` raised to the widest tile)."""
+    from repro_torch.kernels import tiling
+    keep = tiling.SELECT_FOLD_QUERIES
+    tiling.SELECT_FOLD_QUERIES = tiling.QTILE_WIDE
+    try:
+        return call()
+    finally:
+        tiling.SELECT_FOLD_QUERIES = keep
+
+
+def phase_stages(args, dev):
+    """Rows 1 and 3-7 split into their kernels (``kernel_split``) on
+    unit-norm random lists at the smoke's shape (p = 16,384, Lmax 702,
+    d = 768, ragged sizes in [Lmax / 2, Lmax]; PQ m = 48 x 256 codes):
+    ``centroid_topk`` at kp = 64 (B = 1, 25) and at the top-h kp = 1,024
+    (B = 1), ``fused_scan`` and ``fused_turn`` at f32 / bf16 / int8,
+    ``fused_scan_pq`` at f32 / bf16 / int8 with the served re-rank depth
+    64, ``fused_turn_pq`` at f32 and ``pq_adc_scan`` (B = 1, 25), k = 10,
+    nprobe 64.  int8 calls after their warm-up read the index's cached
+    scales; the one-time scale passes of the lists (35 GB) and the
+    centroids are split apart at B = 1.  Also written as stages.json in
+    the output directory."""
+    import torch
+    from repro_torch.core import toploc
+    from repro_torch.kernels import ops, tiling
+    k, nprobe = args.k, args.nprobe
+    cents, lv, li, qs, rows, pqi = stage_inputs(args, dev, args.seed + 19)
+    codes = pqi.list_codes
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    out = {}
+    for b in (1, 25):
+        q = qs[:b].contiguous()
+        sel = ops.centroid_topk(q, cents, nprobe)[1]
+        tables = toploc._adc_tables(pqi, q)
+        calls = {"centroid_topk kp=64": lambda: ops.centroid_topk(
+            q, cents, nprobe)}
+        if b == 1:
+            calls["centroid_topk kp=1024"] = lambda: ops.centroid_topk(
+                q, cents, 1024)
+        for prec in ("f32",) + QUANT:
+            calls[f"fused_scan[{prec}]"] = lambda prec=prec: ops.fused_scan(
+                q, lv, li, sel, k, precision=prec)
+        for prec in ("f32",) + QUANT:
+            calls[f"fused_turn[{prec}]"] = lambda prec=prec: ops.fused_turn(
+                q, cents, lv, li, nprobe=nprobe, k=k, precision=prec)
+        for prec in ("f32",) + QUANT:
+            calls[f"fused_scan_pq[{prec}]"] = \
+                lambda prec=prec: ops.fused_scan_pq(
+                    tables, q, codes, li, sel, rows, k, rerank=RERANK,
+                    precision=prec)
+        calls["fused_turn_pq[f32]"] = lambda: ops.fused_turn_pq(
+            q, cents, tables, codes, li, rows, nprobe=nprobe, k=k,
+            rerank=RERANK)
+        calls["pq_adc_scan"] = lambda: ops.pq_adc_scan(tables, codes, li,
+                                                       sel, RERANK)
+        if b == 1:
+            # the int8 scale pass, once per index: the lists' groups at the
+            # served r_pad and the centroids' at nprobe 64
+            r_q = tiling.next_pow2(2 * k)
+            calls["scale pass lists"] = lambda: (
+                ops.drop_scales(), ops.group_scales(
+                    lv, *tiling.list_groups(args.lmax, args.d, r_q)))
+            calls["scale pass centroids"] = lambda: (
+                ops.drop_scales(), ops.group_scales(
+                    cents, *tiling.centroid_groups(args.lists, nprobe)))
+        if b == 25:
+            # stage 1 folding its 32-query tile in its launch, against the
+            # merge kernel the plans keep at B = 25 (tiling.select_fold)
+            calls["centroid_topk kp=64 folded"] = lambda: folded(
+                lambda: ops.centroid_topk(q, cents, nprobe))
+            calls["fused_turn[f32] folded"] = lambda: folded(
+                lambda: ops.fused_turn(q, cents, lv, li, nprobe=nprobe, k=k))
+        for name, call in calls.items():
+            s = kernel_split(call, flush)
+            out[f"{name} B={b}"] = s
+            log("stages", f"{name} B={b}: {s['n']} kernels, span "
+                f"{s['span']:.1f} us: " + ", ".join(
+                    f"{kn} {us:.1f}" for kn, us in s["kernels"].items()))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "stages.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    del lv, li, rows, pqi
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dump_rows(args, dev, path):
+    """Rows 1-7 on the smoke's seeded realistic inputs (``stage_inputs``
+    with ``phase_realistic``'s seed: p = 16,384 unit centroids, ragged
+    unit lists of Lmax 702, d = 768, random m = 48 PQ codes), at B = 1
+    and 25: centroid_topk (kp 64 and the top-h 1,024), ivf_scan (k 10),
+    pq_adc_scan, and fused_turn / fused_scan / fused_turn_pq /
+    fused_scan_pq at f32, bf16 and int8 (fused_scan also at the
+    two-tower k = 100, nprobe 32), the int8 calls twice (the second on
+    the scales the first left cached), every output saved to ``path``,
+    so two builds of the kernels can be held to each other bit for bit
+    (``torch.equal``) from two processes."""
+    import torch
+    from repro_torch.core import toploc
+    from repro_torch.kernels import ops
+    k, nprobe = args.k, args.nprobe
+    cents, lv, li, qs, rows, pqi = stage_inputs(args, dev, args.seed + 1)
     codes = pqi.list_codes
     out = {}
     for b in (1, 25):
@@ -1453,6 +1548,8 @@ def phase_dump_rows(args, dev, path):
                 lambda prec=prec: ops.fused_scan_pq(
                     tables, q, codes, li, sel, rows, k, rerank=RERANK,
                     precision=prec)
+        for name in ("fused_turn", "fused_scan", "fused_turn_pq"):
+            calls[f"{name}[int8] again"] = calls[f"{name}[int8]"]
         calls["fused_scan_pq[adc]"] = lambda: ops.fused_scan_pq(
             tables, q, codes, li, sel, rows, k, rerank=RERANK,
             fuse_rerank=False)
@@ -2621,8 +2718,8 @@ def phase_times(args, index, pqi, convs, dev):
         row = {name: timed(kern, plain, works[name], flush)
                for name, (kern, plain) in calls.items()}
         for name, rr in row.items():
-            extra = (f" design_bound_ms={design[name]:.4f} (scale pass and "
-                     f"re-rank rows)" if name in design else "")
+            extra = (f" design_bound_ms={design[name]:.4f} (re-rank rows)"
+                     if name in design else "")
             log("times", f"{name} B={b}: ms={rr['ms']:.4f} "
                 f"plain_ms={rr['plain_ms']:.4f} "
                 f"bound_ms={rr['bound_ms']:.4f} ({rr['bound_by']}) "
@@ -2669,19 +2766,11 @@ def quant_calls(prec, index, pqi, args_, batches, k, nprobe, r, r_q):
 
 def quant_extra(op, prec, index, sel, q, r_q):
     """Bytes the quantised kernels' design moves beyond the function's
-    own: int8 reads the probed lists' rows (pads too, every row below
-    Lmax: they enter the group scales) a second time, and the turns the
-    centroids; the IVF re-rank reads r candidate rows again."""
-    b, nprobe = sel.shape
-    extra = 0
-    if prec == "int8":
-        if op in ("fused_scan", "fused_turn"):
-            extra += b * nprobe * index.lmax * index.d * 4
-        if op in ("fused_turn", "fused_turn_pq"):
-            extra += index.p * index.d * 4
-    if op in ("fused_scan", "fused_turn"):
-        extra += b * r_q * index.d * 4
-    return extra
+    own: the IVF re-rank reads r candidate rows again.  The int8 group
+    scales come from the index once (``ops.group_scales``), not from a
+    pass a call."""
+    b = sel.shape[0]
+    return b * r_q * index.d * 4 if op in ("fused_scan", "fused_turn") else 0
 
 
 def decode_bound(q, k, lens):

@@ -181,14 +181,17 @@ def planned(probe: Probe, tensors: Sequence[torch.Tensor], device
 
 
 def traced(probe: Probe, tensors: Sequence[torch.Tensor], device,
-           tries: int = 3) -> List[Kernel]:
+           tries: int = 3, before: Optional[Callable[[], None]] = None
+           ) -> List[Kernel]:
     """The same tuples for the kernels ``torch.profiler`` sees when the
     probe's call runs on the card (after one warm-up call), in launch
     order, from the Kineto trace's kernel events ("grid", "block",
-    "shared memory": static plus dynamic).  A trace with no kernel at
-    all is the profiler missing the session (every probe launches one),
-    so it is taken again, with the host's activity traced too, up to
-    ``tries`` times."""
+    "shared memory": static plus dynamic).  ``before`` runs ahead of
+    each traced call (``kernels.ops.drop_scales``: the call then runs
+    the one-time int8 scale pass as a first call does).  A trace with no
+    kernel at all is the profiler missing the session (every probe
+    launches one), so it is taken again, with the host's activity
+    traced too, up to ``tries`` times."""
     import json
     import os
     import re
@@ -197,6 +200,8 @@ def traced(probe: Probe, tensors: Sequence[torch.Tensor], device,
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     for _ in range(tries):
+        if before is not None:
+            before()
         with torch.profiler.profile(activities=acts) as prof:
             probe.call(*tensors, device=device)
             torch.cuda.synchronize()

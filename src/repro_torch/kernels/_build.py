@@ -31,7 +31,8 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 LL = ctypes.POINTER(ctypes.c_longlong)
-# C signatures of the entry points (csrc/fused_turn.cu, csrc/pq_adc.cu,
+# C signatures of the entry points, the stream last (csrc/fused_turn.cu,
+# csrc/pq_adc.cu,
 # csrc/flash_attention.cu, csrc/embedding_bag.cu, csrc/flash_decode.cu,
 # csrc/centroid_topk.cu, csrc/ivf_scan.cu)
 SIGNATURES = {
@@ -39,16 +40,17 @@ SIGNATURES = {
                        I, I, I, P, I, I, I,
                        P, P, P, P, P, P, P, P, P, P, P, P],
     "fused_turn_ivf": [P, P, P, P, I, I, I, I, I, I,
-                       I, I, I, P, I, I, P, I, I, I,
-                       P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P],
+                       I, I, P, I, I, P, I, I, I,
+                       P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P],
+    "group_amax": [P, I, I, I, I, I, P, P],
     "pq_adc_scan_f32": [P, I, I, P, P, I, P, I, I, I, I,
-                        P, P, P, P, P, P, P],
+                        P, P, P, P, P, P, P, P, P],
     "fused_scan_pq": [P, P, I, I, P, P, I, P, I, P, P,
                       I, I, I, I, I, I, I, I, I,
-                      P, P, P, P, P, P, P, P, P, P],
+                      P, P, P, P, P, P, P, P, P, P, P, P],
     "fused_turn_pq": [P, P, P, I, I, P, P, I, P,
-                      I, I, I, I, I, I, I, I, P, I, I, I,
-                      P, P, P, P, P, P, P, P, P, P, P, P, P, P],
+                      I, I, I, I, I, I, I, P, I, I, I,
+                      P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P],
     "flash_attention_f32": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, LL, P],
     "flash_attention_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, LL,
                              P],
@@ -56,7 +58,7 @@ SIGNATURES = {
     "flash_decode_f32": [P, P, P, P, I, I, I, I, I, I, I, F, P, P, P, P, P],
     "flash_decode_bf16": [P, I, P, P, P, I, I, I, I, I, I, I, F, P, P, P, P,
                           P, P],
-    "centroid_topk": [P, P, I, I, I, I, I, P, P, P, P, P],
+    "centroid_topk": [P, P, I, I, I, I, I, P, P, P, P, P, P],
     "ivf_scan": [P, P, I, P, I, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
 }
 

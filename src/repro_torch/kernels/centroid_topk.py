@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import launcher, tiling
-from repro_torch.kernels.fused_turn import _check
+from repro_torch.kernels.fused_turn import _check, fold_counters
 
 #: operand dtypes the kernels read, and their codes in the C entries
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,7 +58,10 @@ def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *,
     s1_i = torch.empty(n, dtype=torch.int32, device=dev)
     out_v = torch.empty((b, kp), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, kp), dtype=torch.int32, device=dev)
+    _, counters = fold_counters(
+        dev, 0, tiling.select_counters(b, p, d)
+        if tiling.select_fold(b, p, d, kp) else 0)
     launcher.run("centroid_topk", tiling.plan_centroid_topk(b, p, d, kp), dev,
                  queries, centroids, DTYPE_CODE[queries.dtype], p, b, d, kp,
-                 s1_v, s1_i, out_v, out_i)
+                 s1_v, s1_i, counters, out_v, out_i)
     return out_v, out_i

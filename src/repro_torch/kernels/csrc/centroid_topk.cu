@@ -26,10 +26,13 @@
 // then sorts the 128 scores of queries t, t + 8, ... in registers
 // (topk_tie::warp_sort, no barrier) and writes each query's best min(kp,
 // 128): a chunk holds no more.
-// merge_kernel folds a query's chunk lists, one block per query: at kp <=
-// 128 by warps in registers, then pairwise (topk_tie::merge_warps); the
-// top-h cache's lists of 128 grow to kp = 1,024 in groups of 16 on 8
-// blocks a query, then one block folds the 8 (tiling.merge_plan).  The
+// At B = 1 and kp <= 128 the chunk launch folds the query's chunk lists
+// itself (tiling.select_fold: arrival counters, groups of 16 chunks, then
+// the groups, each by topk_tie::merge_warps).  Otherwise merge_kernel
+// folds them, one block per query: at kp <= 128 by warps in registers,
+// then pairwise (merge_warps); the top-h cache's lists of 128 grow to kp
+// = 1,024 in groups of 16 on 8 blocks a query, then one block folds the 8
+// (tiling.merge_plan).  The
 // float32 path runs the same code in the same order as the fused turn's
 // stage 1, so its scores and ids are those of fused_turn_ivf's sel bit
 // for bit.  Simple first: CUDA-core FMAs, no TMA, no tensor cores.
@@ -48,13 +51,14 @@ namespace {
 
 template <typename T>
 int centroid_topk_t(const T* q, const T* cents, int p, int B, int d, int kp,
-                    float* s1_v, int* s1_i, float* out_v, int* out_i,
-                    cudaStream_t st) {
+                    float* s1_v, int* s1_i, int* counters, float* out_v,
+                    int* out_i, cudaStream_t st) {
   const int nchunks = (p + CENTROID_CHUNK - 1) / CENTROID_CHUNK;
   const int w1 = min(kp, CENTROID_CHUNK);
   const cudaError_t err = launch_chunks<fused_common::P_F32>(
-      q, cents, B, p, d, w1, 1, (const int*)nullptr, s1_v, s1_i, st);
-  if (err != cudaSuccess) return (int)err;
+      q, cents, B, p, d, kp, 1, (const int*)nullptr, s1_v, s1_i, counters,
+      out_v, out_i, st);
+  if (err != cudaSuccess || counters != nullptr) return (int)err;
   return merge_topk_f32(s1_v, s1_i, s1_i, nullptr, B, nchunks, w1, kp,
                         topk_tie::PAD_POS, out_v, out_i, nullptr, st);
 }
@@ -69,17 +73,17 @@ extern "C" {
 // (B, kp) receive each query's top kp scores and centroid indices (kp a
 // power of two <= 2,048; slots past p are (-inf, INT_MAX)).
 int centroid_topk(const void* q, const void* cents, int dtype, int p, int B,
-                  int d, int kp, float* s1_v, int* s1_i, float* out_v,
-                  int* out_i, void* stream) {
+                  int d, int kp, float* s1_v, int* s1_i, int* counters,
+                  float* out_v, int* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return centroid_topk_t(static_cast<const __nv_bfloat16*>(q),
                            static_cast<const __nv_bfloat16*>(cents), p, B, d,
-                           kp, s1_v, s1_i, out_v, out_i, st);
+                           kp, s1_v, s1_i, counters, out_v, out_i, st);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   return centroid_topk_t(static_cast<const float*>(q),
                          static_cast<const float*>(cents), p, B, d, kp, s1_v,
-                         s1_i, out_v, out_i, st);
+                         s1_i, counters, out_v, out_i, st);
 }
 
 }  // extern "C"

@@ -22,6 +22,8 @@
 //   centroid stage (stage 1) and the float32 re-rank of fused_turn.cu,
 //   exported with C linkage so pq_adc.cu launches the same kernels inside
 //   the one library.
+// launch_after: a launch, plain or as a programmatic dependent of the
+//   kernel before it on the stream (fold.cuh wait_primary).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -392,14 +394,45 @@ inline cudaError_t opt_in_once(const void* kernel) {
 }
 
 // Launches a kernel with its dynamic shared memory (its cap raised once,
-// opt_in_once); the launch's error.
+// opt_in_once); the launch's error.  With pdl, as a programmatic dependent
+// of the kernel before it on the stream (cudaLaunchKernelEx with
+// cudaLaunchAttributeProgrammaticStreamSerialization): its blocks may
+// start once every block of that kernel has started or called
+// fold::release_dependents, and fold::wait_primary waits for that whole
+// kernel.  A refused attribute launch returns its error; it is never
+// retried as a plain launch.
+template <typename... Params, typename... Args>
+cudaError_t launch_after(bool pdl, void (*kernel)(Params...), dim3 grid,
+                         int threads, int smem, cudaStream_t st,
+                         Args... args) {
+  cudaError_t err = opt_in_once(reinterpret_cast<const void*>(kernel));
+  if (err != cudaSuccess) return err;
+  if (!pdl) {
+    kernel<<<grid, threads, smem, st>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+
 template <typename... Params, typename... Args>
 cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads,
                    int smem, cudaStream_t st, Args... args) {
-  cudaError_t err = opt_in_once(reinterpret_cast<const void*>(kernel));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, st>>>(args...);
-  return cudaGetLastError();
+  return launch_after(false, kernel, grid, threads, smem, st, args...);
 }
 
 // Lists of w_in entries one merge block takes in its first pass toward
@@ -437,12 +470,13 @@ int merge_topk_f32(float* cand_v, int* cand_i, int* cand_p,
 // Stage 1: scores the p centroids (p, d) against q (B, d) at `precision`
 // and writes each query's tie-aware top np_pad to sel_v / sel
 // (B, np_pad), through the scratch s1_* of B * ceil(p / 128) *
-// min(np_pad, 128) entries and what merge_topk_f32 adds past them.  int8
-// scores centroid groups of blk_p rows, their largest |x| reduced into
-// c_amax (n_cgroups ints, null unless int8) first.
+// min(np_pad, 128) entries: folded in the launch with counters (a zeroed
+// int a query tile), else merged by merge_topk_f32 (and what it adds past
+// them).  int8 scores centroid groups of blk_p rows, their largest |x| the
+// index's cached c_amax (null unless int8).
 int select_probes(const float* q, const float* cents, int p, int B, int d,
-                  int np_pad, int precision, int blk_p, int n_cgroups,
-                  int* c_amax, float* s1_v, int* s1_i, float* sel_v,
+                  int np_pad, int precision, int blk_p, const int* c_amax,
+                  float* s1_v, int* s1_i, int* counters, float* sel_v,
                   int* sel, cudaStream_t stream);
 
 // Float32 re-rank: for each query b, the r_pad candidates cand_i[b] (-1 =

@@ -20,25 +20,26 @@
 // Precision (fused_common.cuh): int8 scales a query per row and the scored
 // operand per group of the reference's tiles: blk_p centroids, blk_l rows
 // of a list (tiling.centroid_groups / list_groups).  A group spans many
-// blocks here (a block scores 128 rows), so a reduction kernel first
-// writes each group's largest |x| (list_amax_kernel for the probed lists
-// of each query, centroid_amax_kernel for all centroids): one more read of
-// those bytes.  bf16 rounds as rows load.
+// blocks here (a block scores 128 rows), and its largest |x| depends on
+// the index and the group size alone: group_amax reduces every group of
+// the lists (or of the centroids) once per index, ops keeps the result
+// per tensor (ops.group_scales), and the kernels read it.  bf16 rounds as
+// rows load.
 //
 // Bound on this card: device-memory bytes.  A query reads the real rows of
 // its nprobe probed lists once (at most 64 x 702 x 768 x 4 B = 138 MB at
 // 8.8M docs / 16,384 lists, 41 us at 3.35 TB/s) and does 2 FLOP per 4 B
 // read, far below the f32 ridge of ~20 FLOP/B; fused_turn adds the 50 MB
-// centroid table; int8 reads the probed rows (and the centroids) twice
-// and the re-rank adds r rows.  At B = 1 a call is short enough that its
-// latency chain (ids, rows, sort, merges, launches) counts beside the
-// bytes: the design keeps rows in flight and the merges off one block's
-// serial barriers.
+// centroid table; the quantised re-rank adds r rows.  At B = 1 a call is
+// short enough that its latency chain (ids, rows, sort, merges, launches)
+// counts beside the bytes: the design keeps rows in flight, the merges off
+// one block's serial barriers and the chain in as few launches as it can.
 //
 // What the design does about it:
 //  * scan (ivf_stages.cuh scan_lists_kernel): one 256-thread block per
 //    (query, probed list, 128-row slice), so a single query already puts
-//    64 x 6 = 384 blocks on the 132 SMs.  A block reads its slice's 128
+//    64 x 6 = 384 blocks on the 132 SMs, three an SM, all resident at
+//    once (int8 two: a second wave, as its quantisation would spill).  A block reads its slice's 128
 //    ids first (the query's loads go out with them); a slice with no real
 //    row stages nothing and writes only a count of 0, and pad rows (-1)
 //    are never loaded.  A warp loads the rows of 4 real rows at once
@@ -53,30 +54,44 @@
 //    list to arrive (an arrival counter a list) merges the list's slices,
 //    and the last list of the query to arrive merges the query's lists
 //    into the output; each merge is topk_tie::merge_warps (warps fold
-//    lists in registers, then pairwise).  The counters are a zeroed int32
-//    buffer kept per device and stream (launcher.arrival_counters), reset
-//    by the block that uses them, so calls on two streams never share one.
+//    lists in registers, then pairwise; fold.cuh fold_query).  The
+//    counters are a zeroed int32 buffer kept per device and stream
+//    (launcher.arrival_counters), reset by the block that uses them, so
+//    calls on two streams never share one.
 //    Otherwise merge_kernel folds the lists after the scan, in the groups
 //    and passes of tiling.merge_plan (growing lists of 128 into r_pad);
+//  * where the scan folds, the block that folds query b also re-ranks the
+//    quantised paths' first r candidates in float32 (fold.cuh
+//    rerank_fold: its warps gather the list rows, 4 in flight, in
+//    rerank_kernel's order and bits) and writes the top kp, so bf16 and
+//    int8 scan in one launch too;
 //  * stage 1 (centroid_chunk_kernel): one block per (128-centroid chunk,
 //    up to 32 queries) reads each centroid row once for all the queries
 //    of the call at B <= 32, and a warp sorts each query's 128 scores in
-//    registers; merge_kernel then folds the chunk lists (topk_tie
-//    merge_warps at np_pad <= 128, merge_grow past it);
-//  * re-rank: one block per query scores its r_pad candidates' float rows,
-//    one warp a row, and sorts them in dynamic shared memory;
+//    registers; at np_pad <= 128 and a tile of one query (B = 1,
+//    tiling.select_fold) the launch folds the chunk lists itself, in two
+//    levels of arrival counters (16 chunks, then the groups); otherwise
+//    merge_kernel folds them (topk_tie merge_warps at np_pad <= 128,
+//    merge_grow past it);
+//  * fused_turn_ivf launches the scan as a programmatic dependent of the
+//    kernel before it (cudaLaunchKernelEx, fold.cuh wait_primary): its
+//    blocks load the query while stage 1 drains and read sel after the
+//    wait;
+//  * re-rank past the fold: one block per query scores its r_pad
+//    candidates' float rows, one warp a row, and sorts them in dynamic
+//    shared memory;
 //  * every kernel's dynamic shared-memory cap is raised once per instance
 //    and device (fused_common::opt_in_once), not per launch.
 // The scan and stage-1 kernels live in ivf_stages.cuh, shared with the
-// standalone centroid_topk.cu and ivf_scan.cu.
+// standalone centroid_topk.cu and ivf_scan.cu; the fold's pieces in
+// fold.cuh, shared with pq_adc.cu.
 // Scores are reduced in one fixed order (lane-strided FMAs, then a fixed
 // xor-shuffle tree; int8 sums are exact) that does not depend on the
 // batch, the grid, the rows in flight or the slice a row falls in, so a
 // row scores the same at any B, and candidates rank by the total order
 // of topk_tie.cuh, so every selection and merge grouping keeps the same
 // entries in the same order.
-// Simple first: no TMA, no tensor cores, no persistence, the group scales
-// are recomputed per call.
+// Simple first: no TMA, no tensor cores, no persistence.
 
 // Plain C interface (bound with ctypes): every entry returns a cudaError_t
 // as int, 0 when every launch was accepted.
@@ -103,66 +118,59 @@ using fused_common::P_INT8;
 using fused_common::launch;
 using fused_common::warp_row_dots;
 
-// Largest |x| of a row of d4 float4s, by one warp (all lanes get it).
-__device__ __forceinline__ float warp_row_amax(const float4* __restrict__ row,
-                                               int d4) {
-  float m = 0.f;
-  for (int c = threadIdx.x & 31; c < d4; c += 32) {
-    const float4 v = __ldg(row + c);
-    m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
-                       fmaxf(fabsf(v.z), fabsf(v.w))));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  return m;
-}
+constexpr int AMAX_ROWS = 4;         // rows a warp of group_amax loads at once
 
-// grid (nprobe * nsplit, B).  Block (j, s) of query b reduces each row of
-// rows [s*SCAN_ROWS, (s+1)*SCAN_ROWS) of list sel[b, j] to its largest |x|
-// and folds it into amax[b, j, row / blk_l] (zeroed by the caller): the
-// bits of non-negative floats order as ints, so atomicMax on them is the
-// float max in any order.  Lists the scan skips are skipped.
+// grid (n_sets * nsplit).  Block (set, s) reduces rows [s*SCAN_ROWS,
+// (s+1)*SCAN_ROWS) of set `set` (set_rows rows of d floats) to their
+// largest |x| and folds it into amax[set, row / blk] (zeroed by the
+// caller), first in shared memory and then one atomicMax a group the
+// slice touches: the bits of non-negative floats order as ints, so
+// atomicMax on them is the float max in any order.  A warp loads
+// AMAX_ROWS rows at once.
 __global__ void __launch_bounds__(ROW_THREADS)
-list_amax_kernel(const float* __restrict__ list_vecs, int p,
-                 const int* __restrict__ sel, int sel_stride,
-                 const int* __restrict__ own, int nprobe, int lmax, int d,
-                 int nsplit, int blk_l, int n_groups, int* __restrict__ amax) {
-  const int b = blockIdx.y;
-  const int j = blockIdx.x / nsplit;
-  const int s = blockIdx.x % nsplit;
-  const int list = sel[(size_t)b * sel_stride + j];
-  if (list < 0 || list >= p ||
-      (own != nullptr && own[(size_t)b * nprobe + j] <= 0))
-    return;
-  const int row0 = s * SCAN_ROWS;
-  const int nrows = min(SCAN_ROWS, lmax - row0);
+group_amax_kernel(const float* __restrict__ x, int set_rows, int d,
+                  int nsplit, int blk, int n_groups, int* __restrict__ amax) {
+  __shared__ int gmax[SCAN_ROWS];
+  const int set = blockIdx.x / nsplit;
+  const int row0 = (blockIdx.x % nsplit) * SCAN_ROWS;
+  const int n = min(SCAN_ROWS, set_rows - row0);
+  const int g0 = row0 / blk;
+  const int ng = (row0 + n - 1) / blk - g0 + 1;
+  const int d4 = d >> 2;
   const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < nrows; r += blockDim.x >> 5) {
-    const size_t row = (size_t)list * lmax + row0 + r;
-    const float m = warp_row_amax(
-        reinterpret_cast<const float4*>(list_vecs + row * d), d >> 2);
-    if (lane == 0)
-      atomicMax(amax + ((size_t)b * nprobe + j) * n_groups +
-                    (row0 + r) / blk_l,
-                __float_as_int(m));
+  if (threadIdx.x < ng) gmax[threadIdx.x] = 0;
+  __syncthreads();
+  const float4* x4 = reinterpret_cast<const float4*>(
+      x + ((size_t)set * set_rows + row0) * d);
+  for (int r0 = (threadIdx.x >> 5) * AMAX_ROWS; r0 < n;
+       r0 += (blockDim.x >> 5) * AMAX_ROWS) {
+    float m[AMAX_ROWS];
+#pragma unroll
+    for (int i = 0; i < AMAX_ROWS; ++i) m[i] = 0.f;
+    for (int c = lane; c < d4; c += 32) {
+      float4 v[AMAX_ROWS];
+#pragma unroll
+      for (int i = 0; i < AMAX_ROWS; ++i)
+        v[i] = r0 + i < n ? __ldg(x4 + (size_t)(r0 + i) * d4 + c)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < AMAX_ROWS; ++i)
+        m[i] = fmaxf(m[i], fmaxf(fmaxf(fabsf(v[i].x), fabsf(v[i].y)),
+                                 fmaxf(fabsf(v[i].z), fabsf(v[i].w))));
+    }
+#pragma unroll
+    for (int i = 0; i < AMAX_ROWS; ++i) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
+      if (lane == 0 && r0 + i < n)
+        atomicMax(gmax + (row0 + r0 + i) / blk - g0, __float_as_int(m[i]));
+    }
   }
-}
-
-// grid (nchunks).  Folds each centroid row's largest |x| into
-// c_amax[row / blk_p] (zeroed by the caller).
-__global__ void __launch_bounds__(ROW_THREADS)
-centroid_amax_kernel(const float* __restrict__ cents, int p, int d,
-                     int blk_p, int* __restrict__ c_amax) {
-  const int c0 = blockIdx.x * CENTROID_CHUNK;
-  const int n = min(CENTROID_CHUNK, p - c0);
-  for (int r = threadIdx.x >> 5; r < n; r += blockDim.x >> 5) {
-    const float m = warp_row_amax(
-        reinterpret_cast<const float4*>(cents + (size_t)(c0 + r) * d),
-        d >> 2);
-    if ((threadIdx.x & 31) == 0)
-      atomicMax(c_amax + (c0 + r) / blk_p, __float_as_int(m));
-  }
+  __syncthreads();
+  if (threadIdx.x < ng)
+    atomicMax(amax + (size_t)set * n_groups + g0 + threadIdx.x,
+              gmax[threadIdx.x]);
 }
 
 // grid (B, groups).  Block (b, g) merges lists [g*group, (g+1)*group) of
@@ -182,6 +190,7 @@ merge_kernel(const float* src_v, const int* src_i, const int* src_p,
              int w_in, int w, int pad_id, float* dst_v, int* dst_i,
              int* dst_p, size_t dst_row, size_t dst_group) {
   extern __shared__ float smem[];
+  fold::release_dependents();
   const int first = blockIdx.y * group;
   const int lists = min(group, n - first);
   const int m = lists * w_in;
@@ -352,29 +361,22 @@ int merge_topk_f32(float* cand_v, int* cand_i, int* cand_p,
 }
 
 int select_probes(const float* q, const float* cents, int p, int B, int d,
-                  int np_pad, int precision, int blk_p, int n_cgroups,
-                  int* c_amax, float* s1_v, int* s1_i, float* sel_v,
+                  int np_pad, int precision, int blk_p, const int* c_amax,
+                  float* s1_v, int* s1_i, int* counters, float* sel_v,
                   int* sel, cudaStream_t stream) {
   const int nchunks = (p + CENTROID_CHUNK - 1) / CENTROID_CHUNK;
   const int w1 = min(np_pad, CENTROID_CHUNK);
   cudaError_t err;
-  if (precision == P_INT8) {
-    err = cudaMemsetAsync(c_amax, 0, (size_t)n_cgroups * sizeof(int), stream);
-    if (err != cudaSuccess) return (int)err;
-    centroid_amax_kernel<<<nchunks, ROW_THREADS, 0, stream>>>(cents, p, d,
-                                                              blk_p, c_amax);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    err = launch_chunks<P_INT8>(q, cents, B, p, d, w1, blk_p, c_amax, s1_v,
-                                s1_i, stream);
-  } else if (precision == P_BF16) {
-    err = launch_chunks<P_BF16>(q, cents, B, p, d, w1, blk_p, c_amax, s1_v,
-                                s1_i, stream);
-  } else {
-    err = launch_chunks<P_F32>(q, cents, B, p, d, w1, blk_p, c_amax, s1_v,
-                               s1_i, stream);
-  }
-  if (err != cudaSuccess) return (int)err;
+  if (precision == P_INT8)
+    err = launch_chunks<P_INT8>(q, cents, B, p, d, np_pad, blk_p, c_amax,
+                                s1_v, s1_i, counters, sel_v, sel, stream);
+  else if (precision == P_BF16)
+    err = launch_chunks<P_BF16>(q, cents, B, p, d, np_pad, blk_p, c_amax,
+                                s1_v, s1_i, counters, sel_v, sel, stream);
+  else
+    err = launch_chunks<P_F32>(q, cents, B, p, d, np_pad, blk_p, c_amax,
+                               s1_v, s1_i, counters, sel_v, sel, stream);
+  if (err != cudaSuccess || counters != nullptr) return (int)err;
   return merge_topk_f32(s1_v, s1_i, s1_i, nullptr, B, nchunks, w1, np_pad,
                         topk_tie::PAD_POS, sel_v, sel, nullptr, stream);
 }
@@ -392,92 +394,129 @@ int rerank_rows(const float* q, const float* rows, int d, const int* sel,
                      kp, out_v, out_i, out_p);
 }
 
+// The one-time int8 scale pass of an index: the largest |x| of every
+// group of blk rows of each of the n_sets sets of set_rows rows of x
+// (n_sets, set_rows, d) into amax (n_sets, n_groups), zeroed here first:
+// the lists' groups (tiling.list_groups) or the centroids' (one set of p
+// rows, tiling.centroid_groups).  ops keeps the result per index tensor.
+int group_amax(const float* x, int n_sets, int set_rows, int d, int blk,
+               int n_groups, int* amax, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(
+      amax, 0, (size_t)n_sets * n_groups * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  const int nsplit = (set_rows + SCAN_ROWS - 1) / SCAN_ROWS;
+  group_amax_kernel<<<(unsigned)(n_sets * nsplit), ROW_THREADS, 0, st>>>(
+      x, set_rows, d, nsplit, blk, n_groups, amax);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+namespace {
+
+// Stage 2 (+ 3); pdl: the scan chained behind stage 1 (fused_turn_ivf).
+int scan_ivf(const float* q, const float* list_vecs, const int* list_ids,
+             int p, const int* sel, int sel_stride, const int* own, int B,
+             int nprobe, int lmax, int d, int precision, int blk_l,
+             int n_groups, const int* amax, int r, int r_pad, int kp,
+             float* cand_v, int* cand_i, int* cand_p, int* cand_n,
+             int* counters, float* mid_v, int* mid_i, int* mid_p,
+             float* out_v, int* out_i, int* out_p, bool pdl,
+             cudaStream_t st) {
+  const int nsplit = (lmax + SCAN_ROWS - 1) / SCAN_ROWS;
+  const int w = min(r_pad, SCAN_ROWS);
+  if (counters != nullptr && w != r_pad) return (int)cudaErrorInvalidValue;
+  const bool f32 = precision == P_F32;
+  // folded, the quantised paths re-rank in the scan launch into out_*
+  const int rr = f32 || counters == nullptr ? 0 : r;
+  float* top_v = f32 || counters != nullptr ? out_v : mid_v;
+  int* top_i = f32 || counters != nullptr ? out_i : mid_i;
+  int* top_p = f32 || counters != nullptr ? out_p : mid_p;
+  cudaError_t err;
+  if (precision == P_INT8)
+    err = launch_scan<P_INT8>(q, list_vecs, list_ids, p, sel, sel_stride, own,
+                              B, nprobe, lmax, d, w, blk_l, n_groups, amax,
+                              cand_v, cand_i, cand_p, cand_n, counters, rr,
+                              kp, top_v, top_i, top_p, pdl, st);
+  else if (precision == P_BF16)
+    err = launch_scan<P_BF16>(q, list_vecs, list_ids, p, sel, sel_stride, own,
+                              B, nprobe, lmax, d, w, blk_l, n_groups, amax,
+                              cand_v, cand_i, cand_p, cand_n, counters, rr,
+                              kp, top_v, top_i, top_p, pdl, st);
+  else
+    err = launch_scan<P_F32>(q, list_vecs, list_ids, p, sel, sel_stride, own,
+                             B, nprobe, lmax, d, w, blk_l, n_groups, amax,
+                             cand_v, cand_i, cand_p, cand_n, counters, 0, kp,
+                             top_v, top_i, top_p, pdl, st);
+  if (err != cudaSuccess || counters != nullptr) return (int)err;
+  const int e = merge_topk_f32(cand_v, cand_i, cand_p, cand_n, B,
+                               nprobe * nsplit, w, r_pad, -1, top_v, top_i,
+                               top_p, st);
+  if (e != 0 || f32) return e;
+  return rerank_rows(q, list_vecs, d, sel, sel_stride, lmax, mid_i, mid_p, B,
+                     r_pad, r, kp, out_v, out_i, out_p, st);
+}
+
+}  // namespace
+
+extern "C" {
+
 // Stage 2 (+ 3) alone.  q (B, d); list_vecs (p, lmax, d); list_ids (p,
 // lmax); sel (B, sel_stride) of which the first nprobe columns are probed;
 // own (B, nprobe) or null.  Scratch cand_* holds B * nprobe * nsplit * w
 // entries (nsplit = ceil(lmax / 128), w = min(r_pad, 128)) and what
 // merge_topk_f32 adds past them, cand_n B * nprobe * nsplit counts.  With
 // counters (B * nprobe + B zeroed ints, r_pad <= 128) the scan launch
-// folds the lists itself (ivf_stages.cuh); without, merge_topk_f32 does.
-// f32: out_* (B, r_pad) is the top r_pad.  bf16 / int8: mid_* (B, r_pad)
-// receives the top r_pad and out_* (B, kp) the float32 top kp of its
-// first r; int8 reduces the probed lists' group amax into amax (B *
-// nprobe * n_groups ints, groups of blk_l rows) first.
+// folds the lists itself, and re-ranks the quantised paths' candidates
+// too (ivf_stages.cuh); without, merge_topk_f32 and rerank_rows follow it.
+// f32: out_* (B, r_pad) is the top r_pad.  bf16 / int8: out_* (B, kp) is
+// the float32 top kp of the quantised top r_pad's first r (mid_* (B,
+// r_pad) receives that top r_pad when the launch does not fold); int8
+// reads each list row's group amax from amax (p, n_groups), the index's
+// cached scales (group_amax, groups of blk_l rows).
 int fused_scan_ivf(const float* q, const float* list_vecs,
                    const int* list_ids, int p, const int* sel,
                    int sel_stride, const int* own, int B, int nprobe,
                    int lmax, int d, int precision, int blk_l, int n_groups,
-                   int* amax, int r, int r_pad, int kp, float* cand_v,
+                   const int* amax, int r, int r_pad, int kp, float* cand_v,
                    int* cand_i, int* cand_p, int* cand_n, int* counters,
                    float* mid_v, int* mid_i, int* mid_p, float* out_v,
                    int* out_i, int* out_p, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nsplit = (lmax + SCAN_ROWS - 1) / SCAN_ROWS;
-  const int w = min(r_pad, SCAN_ROWS);
-  if (counters != nullptr && w != r_pad) return (int)cudaErrorInvalidValue;
-  const bool f32 = precision == P_F32;
-  float* top_v = f32 ? out_v : mid_v;
-  int* top_i = f32 ? out_i : mid_i;
-  int* top_p = f32 ? out_p : mid_p;
-  cudaError_t err;
-  if (precision == P_INT8) {
-    err = cudaMemsetAsync(amax, 0, (size_t)B * nprobe * n_groups * sizeof(int),
-                          st);
-    if (err != cudaSuccess) return (int)err;
-    list_amax_kernel<<<dim3(nprobe * nsplit, B), ROW_THREADS, 0, st>>>(
-        list_vecs, p, sel, sel_stride, own, nprobe, lmax, d, nsplit, blk_l,
-        n_groups, amax);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    err = launch_scan<P_INT8>(q, list_vecs, list_ids, p, sel, sel_stride, own,
-                              B, nprobe, lmax, d, w, blk_l, n_groups, amax,
-                              cand_v, cand_i, cand_p, cand_n, counters, top_v,
-                              top_i, top_p, st);
-  } else if (precision == P_BF16) {
-    err = launch_scan<P_BF16>(q, list_vecs, list_ids, p, sel, sel_stride, own,
-                              B, nprobe, lmax, d, w, blk_l, n_groups, amax,
-                              cand_v, cand_i, cand_p, cand_n, counters, top_v,
-                              top_i, top_p, st);
-  } else {
-    err = launch_scan<P_F32>(q, list_vecs, list_ids, p, sel, sel_stride, own,
-                             B, nprobe, lmax, d, w, blk_l, n_groups, amax,
-                             cand_v, cand_i, cand_p, cand_n, counters, top_v,
-                             top_i, top_p, st);
-  }
-  if (err != cudaSuccess) return (int)err;
-  if (counters == nullptr) {
-    const int e = merge_topk_f32(cand_v, cand_i, cand_p, cand_n, B,
-                                 nprobe * nsplit, w, r_pad, -1, top_v, top_i,
-                                 top_p, st);
-    if (e != 0) return e;
-  }
-  if (f32) return 0;
-  return rerank_rows(q, list_vecs, d, sel, sel_stride, lmax, mid_i, mid_p, B,
-                     r_pad, r, kp, out_v, out_i, out_p, st);
+  return scan_ivf(q, list_vecs, list_ids, p, sel, sel_stride, own, B, nprobe,
+                  lmax, d, precision, blk_l, n_groups, amax, r, r_pad, kp,
+                  cand_v, cand_i, cand_p, cand_n, counters, mid_v, mid_i,
+                  mid_p, out_v, out_i, out_p, false,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // Stages 1 + 2 (+ 3).  cents (p, d).  Scratch s1_* holds B * nchunks *
 // min(np_pad, 128) entries (nchunks = ceil(p / 128)) and what
-// merge_topk_f32 adds past them; sel_v / sel (B, np_pad) receive the
-// probe set; int8 reduces the centroid groups (blk_p rows) into c_amax
-// (n_cgroups ints) first; the rest as fused_scan_ivf.
+// merge_topk_f32 adds past them; with s1_counters (a zeroed int a query
+// tile) stage 1 folds its chunks into sel_v / sel (B, np_pad) in its own
+// launch (tiling.select_fold), else merge_topk_f32 does; int8 reads the
+// centroid groups' amax (blk_p rows) from c_amax, the index's cached
+// scales.  The scan is launched as a programmatic dependent of the kernel
+// before it (stage 1, or its merge): its prologue overlaps that kernel's
+// tail.  The rest as fused_scan_ivf.
 int fused_turn_ivf(const float* q, const float* cents, const float* list_vecs,
                    const int* list_ids, int p, int B, int nprobe, int np_pad,
-                   int lmax, int d, int precision, int blk_p, int n_cgroups,
-                   int* c_amax, int blk_l, int n_groups, int* amax, int r,
-                   int r_pad, int kp, float* s1_v, int* s1_i, float* sel_v,
-                   int* sel, float* cand_v, int* cand_i, int* cand_p,
-                   int* cand_n, int* counters, float* mid_v, int* mid_i,
-                   int* mid_p, float* out_v, int* out_i, int* out_p,
-                   void* stream) {
+                   int lmax, int d, int precision, int blk_p,
+                   const int* c_amax, int blk_l, int n_groups,
+                   const int* amax, int r, int r_pad, int kp, float* s1_v,
+                   int* s1_i, int* s1_counters, float* sel_v, int* sel,
+                   float* cand_v, int* cand_i, int* cand_p, int* cand_n,
+                   int* counters, float* mid_v, int* mid_i, int* mid_p,
+                   float* out_v, int* out_i, int* out_p, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int e = select_probes(q, cents, p, B, d, np_pad, precision, blk_p,
-                              n_cgroups, c_amax, s1_v, s1_i, sel_v, sel,
-                              static_cast<cudaStream_t>(stream));
+                              c_amax, s1_v, s1_i, s1_counters, sel_v, sel,
+                              st);
   if (e != 0) return e;
-  return fused_scan_ivf(q, list_vecs, list_ids, p, sel, np_pad, nullptr, B,
-                        nprobe, lmax, d, precision, blk_l, n_groups, amax, r,
-                        r_pad, kp, cand_v, cand_i, cand_p, cand_n, counters,
-                        mid_v, mid_i, mid_p, out_v, out_i, out_p, stream);
+  return scan_ivf(q, list_vecs, list_ids, p, sel, np_pad, nullptr, B, nprobe,
+                  lmax, d, precision, blk_l, n_groups, amax, r, r_pad, kp,
+                  cand_v, cand_i, cand_p, cand_n, counters, mid_v, mid_i,
+                  mid_p, out_v, out_i, out_p, true, st);
 }
 
 }  // extern "C"

@@ -54,7 +54,7 @@ int ivf_scan_t(const T* q, const T* list_vecs, const int* list_ids, int p,
   const cudaError_t err = launch_scan<fused_common::P_F32>(
       q, list_vecs, list_ids, p, sel, nprobe, (const int*)nullptr, B, nprobe,
       lmax, d, w, 1, 1, (const int*)nullptr, cand_v, cand_i, cand_p, cand_n,
-      counters, out_v, out_i, (int*)nullptr, st);
+      counters, 0, kp, out_v, out_i, (int*)nullptr, false, st);
   if (err != cudaSuccess || counters != nullptr) return (int)err;
   return merge_topk_f32(cand_v, cand_i, cand_p, cand_n, B, nprobe * nsplit,
                         w, kp, -1, out_v, out_i, nullptr, st);

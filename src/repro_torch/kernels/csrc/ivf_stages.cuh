@@ -35,6 +35,7 @@
 #include <cstddef>
 #include <type_traits>
 
+#include "fold.cuh"
 #include "fused_common.cuh"
 #include "topk_tie.cuh"
 
@@ -42,10 +43,15 @@ namespace {
 
 constexpr int SCAN_ROWS = 128;       // rows of a probed list per block
 constexpr int CENTROID_CHUNK = 128;  // centroids per stage-1 block
-constexpr int ROW_THREADS = 256;     // 8 warps; the scan 2 blocks an SM
+constexpr int ROW_THREADS = 256;     // 8 warps
+// Scan blocks an SM: 3 (the registers for it) holds a B = 1 query's 64 x
+// 6 = 384 blocks at once on the 132 SMs, with no second wave; the int8
+// scan keeps 2, as its quantisation would spill at 3.
+constexpr int SCAN_BLOCKS_SM = 3;
 constexpr int QTILE_NARROW = 8;      // stage-1 queries a block at B <= 8
 constexpr int QTILE_WIDE = 32;       // and above, while 32 queries fit:
 constexpr int QTILE_WIDE_MAX_D = 1536;  // 196,608 B staged at d = 1,536
+constexpr int SELECT_GROUP = 16;     // chunks a stage-1 fold merges first
 constexpr int SCAN_INFLIGHT = 4;     // rows a scan warp loads at once
 constexpr int ROW_LOADS = 3;         // 16-byte loads a lane per row per
                                      // pass: 1.5 KB of a row a warp
@@ -101,91 +107,37 @@ __device__ __forceinline__ float stage_query(const T* __restrict__ q, int d4,
   }
 }
 
-// Counts the block's arrival on `counter` once its writes are published;
-// true (in every thread) for the last of n blocks to arrive, whose reads
-// of the others' writes are then ordered after them.
-__device__ __forceinline__ bool arrive_last(int* counter, int n) {
-  __syncthreads();  // the block's writes before thread 0's fence
-  int last = 0;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(counter, 1) == n - 1;
-  }
-  if (!__syncthreads_or(last)) return false;
-  __threadfence();
-  return true;
-}
-
-// Loads n candidate lists of w entries into shared memory: list l from
-// slot first + l * step of cand_* (slots of w entries), its cand_n[slot]
-// real entries, pads (-inf, -1, PAD_POS) after them.  Reads through L2
-// (other blocks wrote them in this launch).
-__device__ __forceinline__ void load_lists(float* fv, int* fi, int* fp,
-                                           const float* cand_v,
-                                           const int* cand_i,
-                                           const int* cand_p,
-                                           const int* cand_n, size_t first,
-                                           int step, int n, int w) {
-  constexpr int LOADS = 4;  // entries a thread in flight
-  for (int base = threadIdx.x; base < n * w; base += LOADS * blockDim.x) {
-    float v[LOADS];
-    int id[LOADS], pos[LOADS];
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int t = base + u * blockDim.x;
-      const size_t slot = first + (size_t)(t / w) * step;
-      const int e = t % w;
-      // the entry and its slot's count load together (a slot holds w
-      // entries, past its count unwritten); the count then picks
-      const bool in = t < n * w;
-      const int cnt = in ? __ldcg(cand_n + slot) : 0;
-      const float ev = in ? __ldcg(cand_v + slot * w + e) : 0.f;
-      const int ei = in ? __ldcg(cand_i + slot * w + e) : 0;
-      const int ep = in ? __ldcg(cand_p + slot * w + e) : 0;
-      const bool real = e < cnt;
-      v[u] = real ? ev : -INFINITY;
-      id[u] = real ? ei : -1;
-      pos[u] = real ? ep : topk_tie::PAD_POS;
-    }
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int t = base + u * blockDim.x;
-      if (t < n * w) {
-        fv[t] = v[u];
-        fi[t] = id[u];
-        fp[t] = pos[u];
-      }
-    }
-  }
-}
-
 // grid (nprobe * nsplit, B).  Block (j, s) of query b scores rows
 // [s*SCAN_ROWS, (s+1)*SCAN_ROWS) of list sel[b, j] at precision P and
 // writes its best min(w, real rows) to slot (b, j*nsplit + s) of cand_*
-// (slots of w entries) and that count to cand_n.  A list id outside
-// [0, p), or a list `own` marks as foreign, scans as empty.  The slice's
-// 128 ids are read first (a thread each): a slice with no real row stages
-// nothing, scores nothing and writes only its count 0; a warp loads
-// SCAN_INFLIGHT real rows at once.  One warp selects the best w in
-// registers: at w <= 32 four sorted lists of 32 merged pairwise
-// (topk_tie::warp_sort, warp_merge), else a sort of all 128.  int8 reads
-// row r's group scale from amax[b, j, r / blk_l] (list_amax_kernel).
-// With counters (B * nprobe + B zeroed ints; w == r_pad), the last slice
-// of list (b, j) to arrive merges that list's nsplit slices over slot
-// (b, j*nsplit), and the last list of query b to arrive merges its
-// nprobe lists into out_* (B, w) (out_p may be null); each resets its
-// counter to 0 for the next call.  Dynamic shared memory: the query, then
-// the fold's max(nsplit, nprobe) * w entries.
+// (slots of w entries) and that count to cand_n (fold::select_slice).  A
+// list id outside [0, p), or a list `own` marks as foreign, scans as
+// empty.  The query, an input of the call, is loaded before
+// fold::wait_primary (a launch chained behind stage 1 overlaps its
+// prologue with stage 1's tail); sel, the ids and the rows after it (sel
+// and own are not __restrict__: a load the compiler may treat as
+// invariant could move above the wait).  The
+// slice's 128 ids are read first (a thread each): a slice with no real
+// row scores nothing and writes only its count 0; a warp loads
+// SCAN_INFLIGHT real rows at once.  int8 reads row r's group scale from
+// the index's cached group amax, amax[list, r / blk_l] (group_amax).
+// With counters (B * nprobe + B zeroed ints; w == r_pad) the launch folds
+// the query's lists (fold::fold_query); the block that folds query b
+// writes its top w to out_* (B, w) (out_p may be null) or, with rr > 0,
+// re-ranks its first rr candidates in float32 against q and the list rows
+// (fold::rerank_fold; T float) and writes the top kp to out_* (B, kp).
+// Dynamic shared memory: the query, then the fold's max(nsplit, nprobe) *
+// w entries.
 template <int P, typename T = float>
-__global__ void __launch_bounds__(ROW_THREADS, 2)
+__global__ void __launch_bounds__(ROW_THREADS, P == fused_common::P_INT8
+                                                   ? 2 : SCAN_BLOCKS_SM)
 scan_lists_kernel(const T* __restrict__ q, const T* __restrict__ list_vecs,
-                  const int* __restrict__ list_ids, int p,
-                  const int* __restrict__ sel, int sel_stride,
-                  const int* __restrict__ own, int nprobe, int lmax, int d,
-                  int nsplit, int w, int blk_l, int n_groups,
+                  const int* __restrict__ list_ids, int p, const int* sel,
+                  int sel_stride, const int* own, int nprobe, int lmax,
+                  int d, int nsplit, int w, int blk_l, int n_groups,
                   const int* __restrict__ amax, float* cand_v, int* cand_i,
-                  int* cand_p, int* cand_n, int* counters, float* out_v,
-                  int* out_i, int* out_p) {
+                  int* cand_p, int* cand_n, int* counters, int rr, int kp,
+                  float* out_v, int* out_i, int* out_p) {
   using namespace fused_common;
   static_assert(P == P_F32 || std::is_same<T, float>::value,
                 "bf16 storage is scored in float32");
@@ -203,6 +155,17 @@ scan_lists_kernel(const T* __restrict__ q, const T* __restrict__ list_vecs,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
+
+  // f32 / bf16: the query's loads go out first, a thread a group of four
+  // values while d4 <= ROW_THREADS, and land after the ids'; int8 (or a
+  // wider query) stages it whole
+  const bool early = P != P_INT8 && d4 <= ROW_THREADS;
+  float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (early && threadIdx.x < d4) qv = load4(q + (size_t)b * d, threadIdx.x);
+  float sq = 0.f;
+  if (!early) sq = stage_query<P>(q + (size_t)b * d, d4, qs4, red);
+  fold::wait_primary();
+
   const int list = sel[(size_t)b * sel_stride + j];
   const bool owned = list >= 0 && list < p &&
                      (own == nullptr || own[(size_t)b * nprobe + j] > 0);
@@ -213,12 +176,8 @@ scan_lists_kernel(const T* __restrict__ q, const T* __restrict__ list_vecs,
   int id = -1;
   if (threadIdx.x < nrows)
     id = list_ids[(size_t)list * lmax + row0 + threadIdx.x];
-  // f32 / bf16: the query's loads go out with the ids' (a thread a group
-  // of four values while d4 <= ROW_THREADS)
-  const bool early = P != P_INT8 && d4 <= ROW_THREADS;
-  float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (early && owned && threadIdx.x < d4)
-    qv = load4(q + (size_t)b * d, threadIdx.x);
+  if (early && threadIdx.x < d4)
+    qs4[threadIdx.x] = P == P_BF16 ? bf16_round4(qv) : qv;
   if (threadIdx.x < SCAN_ROWS) {
     si[threadIdx.x] = id;
     sv[threadIdx.x] = -INFINITY;
@@ -226,14 +185,7 @@ scan_lists_kernel(const T* __restrict__ q, const T* __restrict__ list_vecs,
   }
   const int n_real = __syncthreads_count(id >= 0);
   if (n_real > 0) {
-    float sq = 0.f;
-    if (early) {
-      if (threadIdx.x < d4) qs4[threadIdx.x] = P == P_BF16 ? bf16_round4(qv)
-                                                           : qv;
-    } else {
-      sq = stage_query<P>(q + (size_t)b * d, d4, qs4, red);
-    }
-    __syncthreads();
+    const int* gmax = P == P_INT8 ? amax + (size_t)list * n_groups : nullptr;
     for (int g = warp; g * R < nrows; g += nwarps) {
       const T* rows[R];
       bool any = false;
@@ -257,8 +209,7 @@ scan_lists_kernel(const T* __restrict__ q, const T* __restrict__ list_vecs,
           r4[k] = reinterpret_cast<const float4*>(rows[k]);
           st[k] = rows[k] != nullptr
                       ? int8_scale(__int_as_float(
-                            amax[((size_t)b * nprobe + j) * n_groups +
-                                 (row0 + g * R + k) / blk_l]))
+                            gmax[(row0 + g * R + k) / blk_l]))
                       : 1.f;
         }
         int acc[R][1], sum[1];
@@ -268,8 +219,7 @@ scan_lists_kernel(const T* __restrict__ q, const T* __restrict__ list_vecs,
         sc = r < nrows && si[r] >= 0
                  ? dequant(sum[0], sq,
                            int8_scale(__int_as_float(
-                               amax[((size_t)b * nprobe + j) * n_groups +
-                                    (row0 + r) / blk_l])))
+                               gmax[(row0 + r) / blk_l])))
                  : 0.f;
       } else {
         float acc[R][1], sum[1];
@@ -283,92 +233,23 @@ scan_lists_kernel(const T* __restrict__ q, const T* __restrict__ list_vecs,
       }
     }
     __syncthreads();
-    const int keep = min(w, n_real);
-    if (warp == 0 && w <= 32) {
-      // the best 32 without sorting all 128: four lists of 32 (entry
-      // k * 32 + lane in register k) sorted apart, then merged pairwise
-      float v[4][1];
-      int ids[4][1], pos[4][1];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        v[k][0] = sv[k * 32 + lane];
-        ids[k][0] = si[k * 32 + lane];
-        pos[k][0] = sp[k * 32 + lane];
-        topk_tie::warp_sort<1>(v[k], ids[k], pos[k]);
-      }
-      topk_tie::warp_merge<1>(v[0], ids[0], pos[0], v[1], ids[1], pos[1]);
-      topk_tie::warp_merge<1>(v[2], ids[2], pos[2], v[3], ids[3], pos[3]);
-      topk_tie::warp_merge<1>(v[0], ids[0], pos[0], v[2], ids[2], pos[2]);
-      if (lane < keep) {
-        cand_v[slot * w + lane] = v[0][0];
-        cand_i[slot * w + lane] = ids[0][0];
-        cand_p[slot * w + lane] = pos[0][0];
-      }
-    } else if (warp == 0) {  // wider lists: the whole 128, 4 a lane
-      float v[4];
-      int ids[4], pos[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        v[k] = sv[lane * 4 + k];
-        ids[k] = si[lane * 4 + k];
-        pos[k] = sp[lane * 4 + k];
-      }
-      topk_tie::warp_sort<4>(v, ids, pos);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int e = lane * 4 + k;
-        if (e < keep) {
-          cand_v[slot * w + e] = v[k];
-          cand_i[slot * w + e] = ids[k];
-          cand_p[slot * w + e] = pos[k];
-        }
-      }
-    }
-    if (threadIdx.x == 0) cand_n[slot] = keep;
-  } else if (threadIdx.x == 0) {
-    cand_n[slot] = 0;
   }
+  fold::select_slice(sv, si, sp, w, n_real, cand_v, cand_i, cand_p, cand_n,
+                     slot);
   if (counters == nullptr) return;  // merge_topk_f32 folds the lists
 
+  int *fi, *fp;
   float* fv = reinterpret_cast<float*>(qs4);
-  const size_t first = (size_t)b * gridDim.x + (size_t)j * nsplit;
-  if (nsplit > 1) {
-    // level 1: the last slice of list (b, j) merges the list's slices
-    int* counter = counters + (size_t)b * nprobe + j;
-    if (!arrive_last(counter, nsplit)) return;
-    int* fi = reinterpret_cast<int*>(fv + nsplit * w);
-    int* fp = fi + nsplit * w;
-    load_lists(fv, fi, fp, cand_v, cand_i, cand_p, cand_n, first, 1, nsplit,
-               w);
-    __syncthreads();
-    topk_tie::merge_warps(fv, fi, fp, nsplit, w, -1);
-    const int keep = __syncthreads_count(threadIdx.x < w &&
-                                         fp[threadIdx.x] != topk_tie::PAD_POS);
-    for (int t = threadIdx.x; t < keep; t += blockDim.x) {
-      cand_v[first * w + t] = fv[t];
-      cand_i[first * w + t] = fi[t];
-      cand_p[first * w + t] = fp[t];
-    }
-    if (threadIdx.x == 0) {
-      cand_n[first] = keep;
-      *counter = 0;  // ready for the next call
-    }
+  if (!fold::fold_query(fv, cand_v, cand_i, cand_p, cand_n, counters, b, j,
+                        nprobe, nsplit, w, gridDim.y, &fi, &fp))
+    return;
+  if (rr == 0) {
+    fold::write_fold(fv, fi, fp, b, w, out_v, out_i, out_p);
+    return;
   }
-  // level 2: the last list of query b merges the query's lists
-  int* counter = counters + (size_t)gridDim.y * nprobe + b;
-  if (!arrive_last(counter, nprobe)) return;
-  int* fi = reinterpret_cast<int*>(fv + nprobe * w);
-  int* fp = fi + nprobe * w;
-  load_lists(fv, fi, fp, cand_v, cand_i, cand_p, cand_n,
-             (size_t)b * gridDim.x, nsplit, nprobe, w);
-  __syncthreads();
-  topk_tie::merge_warps(fv, fi, fp, nprobe, w, -1);
-  for (int t = threadIdx.x; t < w; t += blockDim.x) {
-    out_v[(size_t)b * w + t] = fv[t];
-    out_i[(size_t)b * w + t] = fi[t];
-    if (out_p != nullptr) out_p[(size_t)b * w + t] = fp[t];
-  }
-  if (threadIdx.x == 0) *counter = 0;
+  if constexpr (std::is_same<T, float>::value)
+    fold::rerank_fold(fi, fp, sv, w, rr, kp, q, list_vecs, d, sel,
+                      sel_stride, lmax, b, out_v, out_i, out_p);
 }
 
 // grid (nchunks, ceil(B / NQ)).  Block (c, g) scores centroids
@@ -379,14 +260,22 @@ scan_lists_kernel(const T* __restrict__ q, const T* __restrict__ list_vecs,
 // B <= 32).  Then warp t sorts the 128 scores of queries t, t + 8, ... in
 // registers (topk_tie::warp_sort) and writes the best w1 (centroid index
 // as id and tie key; pads (-inf, PAD_POS) past p) to cand[b, c, :w1].
-// int8 reads centroid r's group scale from c_amax[r / blk_p]; warp t
-// quantises queries t, t + 8, ... with their own scales.
+// int8 reads centroid r's group scale from the index's cached group amax
+// c_amax[r / blk_p] (group_amax); warp t quantises queries t, t + 8, ...
+// with their own scales.  With counters (w1 == np_pad; ceil(B / NQ) *
+// (ngroups + 1) zeroed ints, ngroups = ceil(nchunks / SELECT_GROUP)), the
+// launch folds its lists into each query's top np_pad, (sel_v, sel) (B,
+// np_pad), in two levels of topk_tie::merge_warps (the order and bits of
+// merge_topk_f32): a group's SELECT_GROUP chunks, then the tile's groups.
+// A scan chained behind it (programmatic dependent launch) may launch as
+// soon as every block has started.
 template <int P, typename T, int NQ, int R, int U>
 __global__ void __launch_bounds__(ROW_THREADS)
 centroid_chunk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
                       int B, int p, int d, int w1, int blk_p,
-                      const int* __restrict__ c_amax,
-                      float* __restrict__ cand_v, int* __restrict__ cand_i) {
+                      const int* __restrict__ c_amax, float* cand_v,
+                      int* cand_i, int* counters, int np_pad, float* sel_v,
+                      int* sel) {
   using namespace fused_common;
   static_assert(P == P_F32 || std::is_same<T, float>::value,
                 "bf16 storage is scored in float32");
@@ -396,6 +285,9 @@ centroid_chunk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
   __shared__ float sv[NQ][CENTROID_CHUNK + 1];
   __shared__ float sq[NQ];
 
+  // the scan chained behind this launch may start its blocks as soon as
+  // every block of this one has: they stage their queries meanwhile
+  fold::release_dependents();
   const int b0 = blockIdx.y * NQ;
   const int nq = min(NQ, B - b0);
   const int d4 = d >> 2;
@@ -506,6 +398,57 @@ centroid_chunk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
       }
     }
   }
+  if (counters == nullptr) return;  // merge_topk_f32 merges the chunks
+
+  // the fold, in two levels: the last chunk block of each group of
+  // SELECT_GROUP chunks merges the group's lists into the group's first
+  // slot, then the last group of the tile merges the groups' lists into
+  // (sel_v, sel); each level one query of the tile after another
+  const int nchunks = gridDim.x;
+  const int ngroups = (nchunks + SELECT_GROUP - 1) / SELECT_GROUP;
+  const int g0 = blockIdx.x / SELECT_GROUP * SELECT_GROUP;
+  const int cap = max(SELECT_GROUP, ngroups) * w1;
+  float* fv = reinterpret_cast<float*>(qs4);
+  int* fi = reinterpret_cast<int*>(fv + cap);
+  int* fp = fi + cap;
+  int lists = nchunks, step = 1;  // one group: its chunks at level 2
+  if (ngroups > 1) {
+    const int gn = min(SELECT_GROUP, nchunks - g0);
+    int* counter =
+        counters + (size_t)blockIdx.y * ngroups + g0 / SELECT_GROUP;
+    if (!fold::arrive_last(counter, gn)) return;
+    for (int t = 0; t < nq; ++t) {
+      const size_t slot = (size_t)(b0 + t) * nchunks + g0;
+      fold::load_lists(fv, fi, fp, cand_v, cand_i, cand_i, nullptr, slot, 1,
+                       gn, w1, topk_tie::PAD_POS);
+      __syncthreads();
+      topk_tie::merge_warps(fv, fi, fp, gn, w1, topk_tie::PAD_POS);
+      for (int e = threadIdx.x; e < w1; e += blockDim.x) {
+        cand_v[slot * w1 + e] = fv[e];
+        cand_i[slot * w1 + e] = fi[e];
+      }
+      __syncthreads();  // the next query's lists overwrite these
+    }
+    if (threadIdx.x == 0) *counter = 0;  // ready for the next call
+    lists = ngroups;
+    step = SELECT_GROUP;
+  }
+  int* counter = counters + (size_t)gridDim.y * ngroups + blockIdx.y;
+  if (!fold::arrive_last(counter, lists)) return;
+  for (int t = 0; t < nq; ++t) {
+    const int b = b0 + t;
+    fold::load_lists(fv, fi, fp, cand_v, cand_i, cand_i, nullptr,
+                     (size_t)b * nchunks, step, lists, w1,
+                     topk_tie::PAD_POS);
+    __syncthreads();
+    topk_tie::merge_warps(fv, fi, fp, lists, w1, topk_tie::PAD_POS);
+    for (int e = threadIdx.x; e < np_pad; e += blockDim.x) {
+      sel_v[(size_t)b * np_pad + e] = fv[e];
+      sel[(size_t)b * np_pad + e] = fi[e];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *counter = 0;
 }
 
 // Stage 1's chunk blocks for B queries: tiles of QTILE_NARROW queries at
@@ -513,46 +456,59 @@ centroid_chunk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
 // 4 centroid rows at once, 6 (narrow) or 3 (wide: registers for 4 x 32
 // sums) 16-byte loads a lane a row at a time, and each query value it
 // reads from shared memory serves the 4 rows; each query's best w1 =
-// min(np_pad, CENTROID_CHUNK) a chunk (tiling.plan_select).
+// min(np_pad, CENTROID_CHUNK) a chunk, folded into (sel_v, sel) in the
+// same launch with counters (tiling.select_fold; the dynamic shared memory
+// then holds the larger of the staged queries and a fold level's lists),
+// else merged after it by merge_topk_f32 (tiling.plan_select).
 template <int P, typename T>
 cudaError_t launch_chunks(const T* q, const T* cents, int B, int p, int d,
-                          int w1, int blk_p, const int* c_amax, float* s1_v,
-                          int* s1_i, cudaStream_t st) {
+                          int np_pad, int blk_p, const int* c_amax,
+                          float* s1_v, int* s1_i, int* counters,
+                          float* sel_v, int* sel, cudaStream_t st) {
   const int nchunks = (p + CENTROID_CHUNK - 1) / CENTROID_CHUNK;
-  const int row = d * (int)sizeof(float);
-  if (B <= QTILE_NARROW || d > QTILE_WIDE_MAX_D)
+  const int w1 = min(np_pad, CENTROID_CHUNK);
+  const bool narrow = B <= QTILE_NARROW || d > QTILE_WIDE_MAX_D;
+  const int qt = narrow ? QTILE_NARROW : QTILE_WIDE;
+  if (counters != nullptr && w1 != np_pad) return cudaErrorInvalidValue;
+  int smem = min(B, qt) * d * (int)sizeof(float);
+  if (counters != nullptr)
+    smem = max(smem, max(SELECT_GROUP, (nchunks + SELECT_GROUP - 1) /
+                                           SELECT_GROUP) * w1 * 12);
+  if (narrow)
     return fused_common::launch(
         centroid_chunk_kernel<P, T, QTILE_NARROW, 4, 6>,
         dim3(nchunks, (B + QTILE_NARROW - 1) / QTILE_NARROW), ROW_THREADS,
-        min(B, QTILE_NARROW) * row, st, q, cents, B, p, d, w1, blk_p, c_amax,
-        s1_v, s1_i);
+        smem, st, q, cents, B, p, d, w1, blk_p, c_amax, s1_v, s1_i,
+        counters, np_pad, sel_v, sel);
   return fused_common::launch(
       centroid_chunk_kernel<P, T, QTILE_WIDE, 4, 3>,
-      dim3(nchunks, (B + QTILE_WIDE - 1) / QTILE_WIDE), ROW_THREADS,
-      min(B, QTILE_WIDE) * row, st, q, cents, B, p, d, w1, blk_p, c_amax,
-      s1_v, s1_i);
+      dim3(nchunks, (B + QTILE_WIDE - 1) / QTILE_WIDE), ROW_THREADS, smem,
+      st, q, cents, B, p, d, w1, blk_p, c_amax, s1_v, s1_i, counters,
+      np_pad, sel_v, sel);
 }
 
 // The scan blocks (scan_lists_kernel) with slices of w = min(r_pad,
 // SCAN_ROWS) entries; with counters (w == r_pad) the fold into out_* in
-// the same launch (tiling.plan_fused_scan_ivf).
+// the same launch, re-ranked when rr > 0 (tiling.plan_fused_scan_ivf).
+// pdl: launched as a programmatic dependent of the kernel before it on
+// the stream (fused_turn: stage 1).
 template <int P, typename T>
 cudaError_t launch_scan(const T* q, const T* list_vecs, const int* list_ids,
                         int p, const int* sel, int sel_stride, const int* own,
                         int B, int nprobe, int lmax, int d, int w, int blk_l,
                         int n_groups, const int* amax, float* cand_v,
                         int* cand_i, int* cand_p, int* cand_n, int* counters,
-                        float* out_v, int* out_i, int* out_p,
-                        cudaStream_t st) {
+                        int rr, int kp, float* out_v, int* out_i, int* out_p,
+                        bool pdl, cudaStream_t st) {
   const int nsplit = (lmax + SCAN_ROWS - 1) / SCAN_ROWS;
   int smem = d * (int)sizeof(float);
   if (counters != nullptr)
     smem = max(smem, max(nsplit, nprobe) * w * 12);
-  return fused_common::launch(
-      scan_lists_kernel<P, T>, dim3(nprobe * nsplit, B), ROW_THREADS, smem,
-      st, q, list_vecs, list_ids, p, sel, sel_stride, own, nprobe, lmax, d,
-      nsplit, w, blk_l, n_groups, amax, cand_v, cand_i, cand_p, cand_n,
-      counters, out_v, out_i, out_p);
+  return fused_common::launch_after(
+      pdl, scan_lists_kernel<P, T>, dim3(nprobe * nsplit, B), ROW_THREADS,
+      smem, st, q, list_vecs, list_ids, p, sel, sel_stride, own, nprobe, lmax,
+      d, nsplit, w, blk_l, n_groups, amax, cand_v, cand_i, cand_p, cand_n,
+      counters, rr, kp, out_v, out_i, out_p);
 }
 
 }  // namespace

@@ -51,8 +51,8 @@ def ivf_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
     dev = queries.device
     out_v = torch.empty((b, kp), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, kp), dtype=torch.int32, device=dev)
+    lists, _ = scan_lists(b, nprobe, lmax, kp, dev)
     launcher.run("ivf_scan", tiling.plan_ivf_scan(b, nprobe, lmax, d, kp),
                  dev, queries, list_vecs, DTYPE_CODE[queries.dtype], list_ids,
-                 p, sel, b, nprobe, lmax, d, kp,
-                 *scan_lists(b, nprobe, lmax, kp, dev), out_v, out_i)
+                 p, sel, b, nprobe, lmax, d, kp, *lists, out_v, out_i)
     return out_v, out_i

@@ -97,7 +97,8 @@ def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     """A zeroed int32 buffer of at least ``n`` arrival counters for the
     current stream of ``device``, for the kernels whose last block to
     arrive finishes the call (``flash_decode``'s bf16 kernel, the folded
-    IVF scan); every call of such a kernel leaves its counters zeroed.
+    IVF and ADC scans, stage 1's fold); every call of such a kernel
+    leaves its counters zeroed.
     Calls on one stream run one after another and may share the buffer,
     calls on two streams may run at once and must not; keeping it saves
     the fill kernel a ``torch.zeros`` per call would launch.  On ``meta``

@@ -33,7 +33,8 @@ reference either) does.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -150,6 +151,69 @@ def check_precision(precision: str) -> None:
                          f"take one of {PRECISIONS}")
 
 
+# ---------------------------------------------------------------------------
+# int8 group scales: one pass per index, kept per tensor
+# ---------------------------------------------------------------------------
+
+#: id(tensor) -> (weak reference, {(blk, n_groups): (_version, amax)})
+_scales: Dict[int, Tuple[weakref.ref, Dict[Tuple[int, int],
+                                           Tuple[int, torch.Tensor]]]] = {}
+
+
+def group_scales(x: torch.Tensor, blk: int, n_groups: int) -> torch.Tensor:
+    """The int8 group amax of an index tensor on the kernel path: lists
+    (p, lmax, d) -> (p, n_groups), or centroids (p, d) as one set -> (1,
+    n_groups), each group ``blk`` rows (``tiling.list_groups`` /
+    ``centroid_groups``).  A group's amax depends on the index and the
+    group size only, so one pass (``fused_turn.group_amax``) serves every
+    call: the result is kept per tensor through a weak reference (a freed
+    index drops it), keyed by (blk, n_groups) and the tensor's
+    ``_version``, so an in-place edit recomputes it.  Inference tensors
+    keep no version counter and are recomputed every call.  Under
+    ``launcher.record_launches`` the pass is recorded when no valid
+    result is kept, and nothing is kept."""
+    entry = _scales.get(id(x))
+    if entry is not None and entry[0]() is not x:
+        entry = None
+    version = None if x.is_inference() else x._version
+    kept = entry[1].get((blk, n_groups)) if entry is not None else None
+    if kept is not None and version is not None and kept[0] == version:
+        return kept[1]
+    out = _ft.group_amax(x if x.dim() == 3 else x.unsqueeze(0), blk,
+                         n_groups)
+    if launcher.recording() or version is None:
+        return out
+    if entry is None:
+        key = id(x)
+        entry = (weakref.ref(x, lambda _, key=key: _scales.pop(key, None)),
+                 {})
+        _scales[key] = entry
+    entry[1][(blk, n_groups)] = (version, out)
+    return out
+
+
+def drop_scales() -> None:
+    """Forget every kept int8 scale: the next int8 call on each index
+    runs its scale pass again."""
+    _scales.clear()
+
+
+def _list_scales(list_vecs: torch.Tensor, r_pad: int, precision: str
+                 ) -> Optional[torch.Tensor]:
+    if precision != "int8":
+        return None
+    _, lmax, d = list_vecs.shape
+    return group_scales(list_vecs, *tiling.list_groups(lmax, d, r_pad))
+
+
+def _centroid_scales(centroids: torch.Tensor, np_pad: int, precision: str
+                     ) -> Optional[torch.Tensor]:
+    if precision != "int8":
+        return None
+    return group_scales(centroids, *tiling.centroid_groups(
+        centroids.shape[0], np_pad))
+
+
 def _fused_depth(k: int, cap: int, want: int) -> int:
     """Exact candidate depth r: ``want`` (k·over for quantised IVF, the
     re-rank depth for PQ) clamped to the scannable candidate count
@@ -177,10 +241,12 @@ def fused_turn(queries: torch.Tensor, centroids: torch.Tensor,
                                   r=r)
     np_pad = tiling.check_pad("nprobe", nprobe)
     r_pad = tiling.check_pad("k" if precision == "f32" else "k·over", r)
-    v, i, s = _ft.fused_turn(queries.contiguous(), centroids, list_vecs,
-                             list_ids, nprobe=nprobe, np_pad=np_pad,
-                             r_pad=r_pad, precision=precision, r=r,
-                             kp=tiling.next_pow2(k))
+    v, i, s = _ft.fused_turn(
+        queries.contiguous(), centroids, list_vecs, list_ids, nprobe=nprobe,
+        np_pad=np_pad, r_pad=r_pad, precision=precision, r=r,
+        kp=tiling.next_pow2(k),
+        amax=_list_scales(list_vecs, r_pad, precision),
+        c_amax=_centroid_scales(centroids, np_pad, precision))
     _count(fused_turn, queries.shape[0])
     return v[:, :k], i[:, :k], s[:, :nprobe]
 
@@ -214,7 +280,8 @@ def fused_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
     v, i, pp = _ft.fused_scan(queries.contiguous(), list_vecs, list_ids,
                               sel.to(torch.int32).contiguous(), own32,
                               r_pad=r_pad, precision=precision, r=r,
-                              kp=tiling.next_pow2(k))
+                              kp=tiling.next_pow2(k),
+                              amax=_list_scales(list_vecs, r_pad, precision))
     _count(fused_scan, queries.shape[0])
     return v[:, :k], i[:, :k], pp[:, :k]
 
@@ -271,7 +338,8 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
     v, i, s = _pq.fused_turn_pq(
         queries.contiguous(), centroids, tables.to(torch.float32).contiguous(),
         list_codes, list_ids, corpus, nprobe=nprobe, np_pad=np_pad, r=r,
-        r_pad=r_pad, kp=tiling.next_pow2(k), precision=precision)
+        r_pad=r_pad, kp=tiling.next_pow2(k), precision=precision,
+        c_amax=_centroid_scales(centroids, np_pad, precision))
     _count(fused_turn_pq, queries.shape[0])
     return v[:, :k], i[:, :k], s[:, :nprobe]
 

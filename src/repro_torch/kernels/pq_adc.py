@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import launcher
 from repro_torch.kernels import tiling
 from repro_torch.kernels.fused_turn import (PRECISION_CODE, _buffers, _check,
-                                           centroid_scratch, check_depth)
+                                           centroid_scratch, check_depth,
+                                           check_scales, scan_lists)
 from repro_torch.kernels.sorting import PAD_POS
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -60,10 +61,6 @@ def _check_rerank(queries: torch.Tensor, corpus: torch.Tensor, b: int
     tiling.check_width(corpus.shape[1])
 
 
-def _cand(b: int, nprobe: int, lmax: int, r_pad: int, dev) -> Triple:
-    return _buffers(b * nprobe * tiling.pq_split(lmax) * r_pad, dev)
-
-
 def _sel_check(sel: torch.Tensor, b: int, own: Optional[torch.Tensor]
                ) -> None:
     _check("sel", sel, torch.int32, 2)
@@ -86,13 +83,14 @@ def pq_adc_scan(tables: torch.Tensor, list_codes: torch.Tensor,
     _check_scan(tables, list_codes, list_ids, b, nprobe, r_pad)
     _sel_check(sel, b, None)
     dev = tables.device
-    cand, out = _cand(b, nprobe, lmax, r_pad, dev), _buffers((b, r_pad), dev)
+    lists, _ = scan_lists(b, nprobe, lmax, r_pad, dev)
+    out = _buffers((b, r_pad), dev)
     n_codes = tables.shape[2]
     launcher.run(
         "pq_adc_scan_f32",
         tiling.plan_adc(b, nprobe, lmax, m, n_codes, r_pad), dev, tables, m,
-        n_codes, list_codes, list_ids, p, sel, b, nprobe, lmax, r_pad, *cand,
-        *out)
+        n_codes, list_codes, list_ids, p, sel, b, nprobe, lmax, r_pad,
+        *lists, *out)
     return out
 
 
@@ -114,8 +112,9 @@ def fused_scan_pq(tables: torch.Tensor, queries: Optional[torch.Tensor],
         _check_rerank(queries, corpus, b)
         check_depth(r, r_pad, kp)
     dev = tables.device
-    cand = _cand(b, nprobe, lmax, r_pad, dev)
-    mid = _buffers((b, r_pad), dev) if rerank else (None, None, None)
+    lists, _ = scan_lists(b, nprobe, lmax, r_pad, dev)
+    mid = (_buffers((b, r_pad), dev) if rerank and lists[-1] is None
+           else (None, None, None))
     out = _buffers((b, kp if rerank else r_pad), dev)
     d = corpus.shape[1] if rerank else 0
     n_codes = tables.shape[2]
@@ -125,8 +124,8 @@ def fused_scan_pq(tables: torch.Tensor, queries: Optional[torch.Tensor],
                                   rerank, precision),
         dev, tables, queries if rerank else None, m, n_codes, list_codes,
         list_ids, p, sel, nprobe, own, corpus if rerank else None, b, nprobe,
-        lmax, d, PRECISION_CODE[precision], r, r_pad, kp, int(rerank), *cand,
-        *mid, *out)
+        lmax, d, PRECISION_CODE[precision], r, r_pad, kp, int(rerank),
+        *lists, *mid, *out)
     return out
 
 
@@ -134,10 +133,13 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
                   tables: torch.Tensor, list_codes: torch.Tensor,
                   list_ids: torch.Tensor, corpus: torch.Tensor, *,
                   nprobe: int, np_pad: int, r: int, r_pad: int, kp: int,
-                  precision: str = "f32") -> Triple:
+                  precision: str = "f32",
+                  c_amax: Optional[torch.Tensor] = None) -> Triple:
     """Whole IVF-PQ turn at ``precision``: returns (values (B, kp), ids
     (B, kp), sel (B, np_pad)); the first ``nprobe`` probes are scanned
-    and the ADC top ``r`` re-ranked.  A B of 0 launches nothing."""
+    and the ADC top ``r`` re-ranked; int8 reads ``c_amax`` (1,
+    n_cgroups), the centroids' cached group amax.  A B of 0 launches
+    nothing."""
     b, d = queries.shape
     p, lmax, m = list_codes.shape
     _check_scan(tables, list_codes, list_ids, b, nprobe, r_pad)
@@ -150,10 +152,13 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
         raise ValueError(f"nprobe={nprobe}, np_pad={np_pad}, p={p}")
     check_depth(r, r_pad, kp)
     dev = queries.device
-    s1_v, s1_i, sel_v, sel, c_amax, blk_p, n_cgroups = centroid_scratch(
-        b, p, np_pad, precision, dev)
-    cand = _cand(b, nprobe, lmax, r_pad, dev)
-    mid, out = _buffers((b, r_pad), dev), _buffers((b, kp), dev)
+    s1_v, s1_i, sel_v, sel, tiles = centroid_scratch(b, p, d, np_pad, dev)
+    lists, s1_counters = scan_lists(b, nprobe, lmax, r_pad, dev, tiles)
+    mid = (_buffers((b, r_pad), dev) if lists[-1] is None
+           else (None, None, None))
+    out = _buffers((b, kp), dev)
+    blk_p, n_cgroups = tiling.centroid_groups(p, np_pad)
+    check_scales("c_amax", c_amax, (1, n_cgroups), precision)
     n_codes = tables.shape[2]
     launcher.run(
         "fused_turn_pq",
@@ -161,6 +166,6 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
                                   precision, r_pad),
         dev, queries, centroids, tables, m, n_codes, list_codes, list_ids, p,
         corpus, b, nprobe, np_pad, lmax, d, PRECISION_CODE[precision], blk_p,
-        n_cgroups, c_amax, r, r_pad, kp, s1_v, s1_i, sel_v, sel, *cand, *mid,
-        *out)
+        c_amax, r, r_pad, kp, s1_v, s1_i, s1_counters, sel_v, sel, *lists,
+        *mid, *out)
     return out[0], out[1], sel

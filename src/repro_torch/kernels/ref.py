@@ -97,6 +97,22 @@ def int8_scale(amax: torch.Tensor) -> torch.Tensor:
     return torch.full_like(amax, 127.0) / amax.clamp_min(1e-30)
 
 
+def group_amax(x: torch.Tensor, blk: int, n_groups: int) -> torch.Tensor:
+    """Plain version of the one-time int8 scale pass (csrc/fused_turn.cu
+    ``group_amax``, kept per index by ``ops.group_scales``): the largest
+    |x| of each group of ``blk`` rows of each set of ``x`` (n_sets,
+    set_rows, d), (n_sets, n_groups) float32; rows past set_rows (the
+    reference's zero padding) count as 0.  The kernel returns the same
+    values as int32 bits."""
+    n_sets, rows, _ = x.shape
+    if blk < 1 or n_groups * blk < rows:
+        raise ValueError(f"{n_groups} groups of {blk} rows do not cover "
+                         f"{rows} rows")
+    a = x.abs().amax(-1)
+    a = torch.cat([a, a.new_zeros((n_sets, n_groups * blk - rows))], 1)
+    return a.reshape(n_sets, n_groups, blk).amax(-1)
+
+
 def quantize_sym(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantisation over ``dims``: (integer values as
     float32, scale), ``repro/kernels/fused_turn.py:81`` ``quantize_sym``."""

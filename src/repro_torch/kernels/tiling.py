@@ -46,16 +46,25 @@ CENTROID_CHUNK = 128
 QTILE = 8
 QTILE_WIDE = 32
 QTILE_WIDE_MAX_D = 1536
-# Fold the scan's lists inside its own launch (csrc scan_lists_kernel
-# with arrival counters) when the query's top r_pad is at most one slice
-# wide and the fold's lists take at most this much shared memory a block
-# (beside the staged query); otherwise merge_kernel follows the scan.
+# Fold the scan's lists inside its own launch (csrc scan_lists_kernel and
+# adc_scan_kernel with arrival counters, csrc/fold.cuh) when the query's
+# top r_pad is at most one slice wide and the fold's lists take at most
+# this much shared memory a block (over the staged query or LUT);
+# otherwise merge_kernel follows the scan.
 FOLD_SMEM_BYTES = 64 * 1024
+# Fold stage 1's chunk lists inside its launch (csrc centroid_chunk_kernel
+# with arrival counters) when its query tiles hold at most this many
+# queries: the tile's last block merges them one after another, where
+# merge_kernel merges them on a block each.
+SELECT_FOLD_QUERIES = 1
+# Chunks whose lists the stage-1 fold merges first (csrc SELECT_GROUP).
+SELECT_GROUP = 16
 
 # Rows of one probed PQ list scored by one block of the ADC scan
-# (csrc/pq_adc.cu PQ_ROWS): 512 rows are 24 KB of codes at m = 48, and
-# two blocks cover a list of the smoke's Lmax 702.
-PQ_ROWS = 512
+# (csrc/pq_adc.cu ADC_ROWS, fold.cuh SLICE_ROWS): a query's 64 lists of
+# the smoke's Lmax 702 are 384 blocks, and a block's 128 rows sort in one
+# warp's registers as the IVF scan's do.
+PQ_ROWS = 128
 # Codewords per subquantizer: codes are uint8.
 MAX_CODES = 256
 
@@ -101,7 +110,7 @@ def lut_bytes(m: int, n_codes: int) -> int:
 
 def check_lut(m: int, n_codes: int) -> None:
     """The ADC block holds its query's whole LUT in shared memory beside
-    the sort arrays of its ``PQ_ROWS`` scores; above 48 KB the LUT is
+    the selection arrays of its ``PQ_ROWS`` scores; above 48 KB the LUT is
     opt-in dynamic shared memory (m = 48 x 256 codes is 49,152 B)."""
     if not 0 < n_codes <= MAX_CODES:
         raise ValueError(f"n_codes={n_codes}: codes are uint8, at most "
@@ -123,11 +132,45 @@ def centroid_qtile(b: int, d: int) -> int:
 
 
 def scan_fold(nprobe: int, lmax: int, r_pad: int) -> bool:
-    """Whether the scan launch folds a query's lists itself: r_pad within
-    one slice's rows, and the fold's largest merge (max(slices, probes)
-    lists of r_pad) within ``FOLD_SMEM_BYTES``."""
+    """Whether a scan launch (the IVF scan, or the ADC scan: slices of the
+    same ``SCAN_ROWS`` == ``PQ_ROWS`` rows) folds a query's lists itself:
+    r_pad within one slice's rows, and the fold's largest merge
+    (max(slices, probes) lists of r_pad) within ``FOLD_SMEM_BYTES``.
+    The quantised IVF scan and the ADC scan with a re-rank then re-rank
+    in the same launch."""
     return (r_pad <= SCAN_ROWS and max(scan_split(lmax), nprobe) * r_pad
             * MERGE_ENTRY_BYTES <= FOLD_SMEM_BYTES)
+
+
+def select_groups(p: int) -> int:
+    """Groups of ``SELECT_GROUP`` chunks the stage-1 fold merges first."""
+    return -(-centroid_chunks(p) // SELECT_GROUP)
+
+
+def select_fold_smem(p: int, np_pad: int) -> int:
+    """Shared memory of stage 1's fold: the larger level's lists of
+    np_pad, a group's chunks or the groups."""
+    return max(SELECT_GROUP, select_groups(p)) * np_pad * MERGE_ENTRY_BYTES
+
+
+def select_counters(b: int, p: int, d: int) -> int:
+    """Arrival counters of stage 1's fold: a tile's groups, then a tile."""
+    return -(-b // centroid_qtile(b, d)) * (select_groups(p) + 1)
+
+
+def select_fold(b: int, p: int, d: int, np_pad: int) -> bool:
+    """Whether stage 1 folds its chunk lists in its own launch (csrc
+    centroid_chunk_kernel with arrival counters, two levels of
+    merge_warps: groups of ``SELECT_GROUP`` chunks, then the groups):
+    lists of np_pad <= 128 (a chunk's whole list; the top-h cache's
+    growing merge stays merge_kernel's), tiles of at most
+    ``SELECT_FOLD_QUERIES`` queries, and the fold's lists within one
+    block's shared memory beside the instance's static arrays."""
+    qt = centroid_qtile(b, d)
+    return (np_pad <= CENTROID_CHUNK
+            and min(b, qt) <= SELECT_FOLD_QUERIES
+            and select_fold_smem(p, np_pad) + centroid_static(qt, "int8")
+            <= SMEM_BLOCK_BYTES)
 
 
 def merge_group(width: int) -> int:
@@ -234,8 +277,10 @@ def check_pad(name: str, n: int) -> int:
 # zero-padded to ``lpad`` (``list_tile``, byte-capped by the 4 MiB tile
 # budget, never narrower than the candidate depth).  Those groups are
 # part of the numbers, not of the CUDA tiling, so the port keeps the
-# reference's policy and constants here; the kernels reduce each group's
-# largest |x| before they score (csrc/fused_turn.cu).
+# reference's policy and constants here.  A group's largest |x| depends
+# on the index and the group size only, not on the query: one pass over
+# the whole table (csrc/fused_turn.cu group_amax, ``plan_group_amax``)
+# computes every group's, and ``ops`` keeps the result per index tensor.
 # ---------------------------------------------------------------------------
 
 #: bytes of one streamed list tile in the reference (its VMEM slice)
@@ -303,11 +348,12 @@ STATIC_SMEM: Dict[str, int] = {
     "scan_lists_kernel": 3 * SCAN_ROWS * 4,
     # sv / si / sp [PQ_ROWS]
     "adc_scan_kernel": 3 * PQ_ROWS * 4,
+    # gmax [SCAN_ROWS]: the groups one slice touches
+    "group_amax_kernel": SCAN_ROWS * 4,
     # p_s[MAX_GROUP][MAX_CHUNK], m_s and l_s [MAX_GROUP]
     "decode_split_kernel": DECODE_MAX_GROUP * 512 * 4 + 2 * DECODE_MAX_GROUP * 4,
     "decode_combine_kernel": DECODE_MAX_GROUP * 4,
-    "merge_kernel": 0, "rerank_kernel": 0, "list_amax_kernel": 0,
-    "centroid_amax_kernel": 0, "flash_bf16_kernel": 0,
+    "merge_kernel": 0, "rerank_kernel": 0, "flash_bf16_kernel": 0,
     "flash_tf32_kernel": 0, "decode_mma_kernel": 0,
     "embedding_bag_kernel": 0,
 }
@@ -368,20 +414,33 @@ def plan_merge(b: int, n_lists: int, w: int, w_in: int = 0
             for _, groups in merge_plan(n_lists, w, w_in)]
 
 
+def plan_group_amax(n_sets: int, set_rows: int) -> List[Launch]:
+    """``group_amax``: the one-time int8 scale pass of an index, one
+    block per 128-row slice of each set (a list, or the one set of p
+    centroids)."""
+    if n_sets * set_rows == 0:
+        return []
+    return [_launch("group_amax_kernel", (n_sets * scan_split(set_rows),),
+                    ROW_THREADS, 0, False)]
+
+
 def plan_select(b: int, p: int, d: int, np_pad: int, precision: str
                 ) -> List[Launch]:
-    """Stage 1 (``select_probes``): the int8 centroid amax pass, the
-    chunk blocks (tiles of ``centroid_qtile`` queries staged in dynamic
-    shared memory), the merge of their lists of min(np_pad, 128) to
-    np_pad."""
+    """Stage 1 (``select_probes``): the chunk blocks (tiles of
+    ``centroid_qtile`` queries staged in dynamic shared memory), which
+    fold their lists of min(np_pad, 128) into np_pad in the same launch
+    when ``select_fold`` (the dynamic shared memory then holds the larger
+    of the queries and the fold), else the merge after them."""
     n = centroid_chunks(p)
     qt = centroid_qtile(b, d)
-    amax = ([_launch("centroid_amax_kernel", (n,), ROW_THREADS, 0, False)]
-            if precision == "int8" else [])
-    return amax + [_launch("centroid_chunk_kernel", (n, -(-b // qt)),
-                           ROW_THREADS, min(b, qt) * d * 4, True,
-                           static=centroid_static(qt, precision))
-                   ] + plan_merge(b, n, np_pad, min(np_pad, CENTROID_CHUNK))
+    smem = min(b, qt) * d * 4
+    fold = select_fold(b, p, d, np_pad)
+    if fold:
+        smem = max(smem, select_fold_smem(p, np_pad))
+    return [_launch("centroid_chunk_kernel", (n, -(-b // qt)), ROW_THREADS,
+                    smem, True, static=centroid_static(qt, precision))
+            ] + ([] if fold else
+                 plan_merge(b, n, np_pad, min(np_pad, CENTROID_CHUNK)))
 
 
 def plan_rerank(b: int, d: int, r_pad: int) -> List[Launch]:
@@ -403,56 +462,74 @@ def scan_smem(d: int, nprobe: int, lmax: int, r_pad: int) -> int:
 
 def plan_fused_scan_ivf(b: int, nprobe: int, lmax: int, d: int,
                         precision: str, r_pad: int) -> List[Launch]:
-    """``fused_scan_ivf``: the int8 list amax pass, the scan blocks (the
-    fold to r_pad in the same launch when ``scan_fold``, else the merge
-    of their lists of min(r_pad, 128) after them), and the quantised
-    paths' float32 re-rank."""
+    """``fused_scan_ivf``: the scan blocks, which fold to r_pad (and
+    re-rank the quantised paths' candidates in float32) in the same
+    launch when ``scan_fold``; else the merge of their lists of min(r_pad,
+    128) after them, and the quantised paths' re-rank.  int8 reads the
+    index's cached group scales (``plan_group_amax``, once per index)."""
     if b == 0:
         return []
     grid = (nprobe * scan_split(lmax), b)
-    amax = ([_launch("list_amax_kernel", grid, ROW_THREADS, 0, False)]
-            if precision == "int8" else [])
-    rerank = plan_rerank(b, d, r_pad) if precision != "f32" else []
-    merge = ([] if scan_fold(nprobe, lmax, r_pad) else
-             plan_merge(b, grid[0], r_pad, min(r_pad, SCAN_ROWS)))
-    return (amax + [_launch("scan_lists_kernel", grid, ROW_THREADS,
-                            scan_smem(d, nprobe, lmax, r_pad), True,
-                            precision)]
-            + merge + rerank)
+    scan = [_launch("scan_lists_kernel", grid, ROW_THREADS,
+                    scan_smem(d, nprobe, lmax, r_pad), True, precision)]
+    if scan_fold(nprobe, lmax, r_pad):
+        return scan
+    return (scan + plan_merge(b, grid[0], r_pad, min(r_pad, SCAN_ROWS))
+            + (plan_rerank(b, d, r_pad) if precision != "f32" else []))
 
 
 def plan_fused_turn_ivf(b: int, p: int, nprobe: int, np_pad: int, lmax: int,
                         d: int, precision: str, r_pad: int) -> List[Launch]:
+    """``fused_turn_ivf``: stage 1, then the scan chained behind it."""
     if b == 0:
         return []
     return (plan_select(b, p, d, np_pad, precision)
             + plan_fused_scan_ivf(b, nprobe, lmax, d, precision, r_pad))
 
 
+def adc_smem(m: int, n_codes: int, nprobe: int, lmax: int, r_pad: int
+             ) -> int:
+    """Dynamic shared memory of the ADC blocks: the LUT, or the fold's
+    largest merge over it when the launch folds (csrc adc_scan)."""
+    smem = lut_bytes(m, n_codes)
+    if scan_fold(nprobe, lmax, r_pad):
+        smem = max(smem, max(pq_split(lmax), nprobe) * r_pad
+                   * MERGE_ENTRY_BYTES)
+    return smem
+
+
 def plan_adc(b: int, nprobe: int, lmax: int, m: int, n_codes: int,
              r_pad: int, precision: str = "f32") -> List[Launch]:
-    """``adc_scan_merge``: the ADC blocks (the LUT in dynamic shared
-    memory) and the merge to r_pad."""
+    """``adc_scan``: the ADC blocks (the LUT in dynamic shared memory),
+    folded to r_pad in the same launch when ``scan_fold``, else the
+    merge of their lists of min(r_pad, 128) to r_pad after them."""
     if b == 0:
         return []
     grid = (nprobe * pq_split(lmax), b)
-    return ([_launch("adc_scan_kernel", grid, ADC_THREADS,
-                     lut_bytes(m, n_codes), True, precision)]
-            + plan_merge(b, grid[0], r_pad))
+    scan = [_launch("adc_scan_kernel", grid, ADC_THREADS,
+                    adc_smem(m, n_codes, nprobe, lmax, r_pad), True,
+                    precision)]
+    if scan_fold(nprobe, lmax, r_pad):
+        return scan
+    return scan + plan_merge(b, grid[0], r_pad, min(r_pad, PQ_ROWS))
 
 
 def plan_fused_scan_pq(b: int, nprobe: int, lmax: int, m: int, n_codes: int,
                        d: int, r_pad: int, rerank: bool, precision: str
                        ) -> List[Launch]:
+    """``fused_scan_pq``: the ADC scan, then its float32 re-rank, which
+    the scan's launch runs itself when it folds."""
     if b == 0:
         return []
     return (plan_adc(b, nprobe, lmax, m, n_codes, r_pad, precision)
-            + (plan_rerank(b, d, r_pad) if rerank else []))
+            + (plan_rerank(b, d, r_pad)
+               if rerank and not scan_fold(nprobe, lmax, r_pad) else []))
 
 
 def plan_fused_turn_pq(b: int, p: int, nprobe: int, np_pad: int, lmax: int,
                        m: int, n_codes: int, d: int, precision: str,
                        r_pad: int) -> List[Launch]:
+    """``fused_turn_pq``: stage 1, then the ADC scan chained behind it."""
     if b == 0:
         return []
     return (plan_select(b, p, d, np_pad, precision)

@@ -58,16 +58,21 @@ def test_every_probe_records_a_launch_and_counts_none(no_build, label):
 
 
 def test_recorded_plans_are_the_tiling_plans(no_build):
-    """The int8 fused turn records its amax passes, stage 1 and its
-    merge, the scan (which folds its lists in its own launch) and the
-    re-rank, in launch order."""
+    """The int8 fused turn's first call on an index records the one-time
+    scale passes of its lists and its centroids, then its entry: stage 1
+    and its merge (a tile of 8 queries: past the stage-1 fold) and the
+    scan, which folds its lists and re-ranks them in its own launch, in
+    launch order."""
     probe = next(p for p in kb.default_probes()
                  if p.label == "ops.fused_turn[int8]")
-    (rec,) = kb.record(probe)
-    assert rec.entry == "fused_turn_ivf"
+    records = kb.record(probe)
+    assert [r.entry for r in records] == ["group_amax", "group_amax",
+                                          "fused_turn_ivf"]
+    assert records[0].plan == tiling.plan_group_amax(4096, 512)
+    assert records[1].plan == tiling.plan_group_amax(1, 4096)
+    rec = records[2]
     assert [x.kernel for x in rec.plan] == [
-        "centroid_amax_kernel", "centroid_chunk_kernel", "merge_kernel",
-        "list_amax_kernel", "scan_lists_kernel", "rerank_kernel"]
+        "centroid_chunk_kernel", "merge_kernel", "scan_lists_kernel"]
     assert rec.plan == tiling.plan_fused_turn_ivf(8, 4096, 8, 8, 512, 128,
                                                   "int8", 64)
 
@@ -83,7 +88,7 @@ def test_merge_plans_launch_one_kernel_a_pass(n_lists, w):
 
 
 @pytest.mark.parametrize("b,d,grid_y,dyn,static", [
-    (1, 768, 1, 768 * 4, 8 * 129 * 4),        # the 8-query tile
+    (1, 768, 1, 16 * 64 * 12, 8 * 129 * 4),  # one query: a fold level
     (8, 768, 1, 8 * 768 * 4, 8 * 129 * 4),
     (25, 768, 1, 25 * 768 * 4, 32 * 129 * 4),  # 32 queries: the table once
     (40, 768, 2, 32 * 768 * 4, 32 * 129 * 4),
@@ -91,31 +96,41 @@ def test_merge_plans_launch_one_kernel_a_pass(n_lists, w):
 def test_stage1_plans_tile_the_queries(b, d, grid_y, dyn, static):
     """Stage 1 reads the centroid table once per tile of 8 queries (B <=
     8) or 32, each staged in dynamic shared memory; its chunk lists are
-    min(kp, 128) wide and merge in one kernel at kp = 64."""
-    chunk, merge = tiling.plan_select(b, 16_384, d, 64, "f32")
+    min(kp, 128) wide.  A tile of one query folds them in its own launch
+    in two levels (its shared memory then holds a group's 16 lists of 64);
+    wider tiles merge them in one kernel at kp = 64."""
+    fold = b == 1
+    assert tiling.select_fold(b, 16_384, d, 64) == fold
+    plan = tiling.plan_select(b, 16_384, d, 64, "f32")
+    chunk = plan[0]
     assert chunk.kernel == "centroid_chunk_kernel"
     assert chunk.grid == (128, grid_y, 1)
     assert (chunk.dyn_smem_bytes, chunk.static_smem_bytes) == (dyn, static)
-    assert merge.grid == (b, 1, 1)
-    assert merge.dyn_smem_bytes == 128 * 64 * tiling.MERGE_ENTRY_BYTES
-    # the top-h cache: groups of 16 lists of 128 grow into 1,024 on 8
-    # blocks a query, then one block merges the 8
-    (_, grow, fold) = tiling.plan_select(b, 16_384, d, 1024, "f32")
-    assert (grow.grid, fold.grid) == ((b, 8, 1), (b, 1, 1))
-    assert grow.dyn_smem_bytes == fold.dyn_smem_bytes == max(
+    assert [x.kernel for x in plan[1:]] == ([] if fold else ["merge_kernel"])
+    if not fold:
+        assert plan[1].grid == (b, 1, 1)
+        assert plan[1].dyn_smem_bytes == 128 * 64 * tiling.MERGE_ENTRY_BYTES
+    # the top-h cache, never folded: groups of 16 lists of 128 grow into
+    # 1,024 on 8 blocks a query, then one block merges the 8
+    assert not tiling.select_fold(b, 16_384, d, 1024)
+    (_, grow, last) = tiling.plan_select(b, 16_384, d, 1024, "f32")
+    assert (grow.grid, last.grid) == ((b, 8, 1), (b, 1, 1))
+    assert grow.dyn_smem_bytes == last.dyn_smem_bytes == max(
         16 * 128 + 1024, 8 * 1024) * tiling.MERGE_ENTRY_BYTES
 
 
 @pytest.mark.parametrize("precision,kernels", [
     ("f32", ["scan_lists_kernel"]),
-    ("bf16", ["scan_lists_kernel", "rerank_kernel"]),
-    ("int8", ["list_amax_kernel", "scan_lists_kernel", "rerank_kernel"])])
+    ("bf16", ["scan_lists_kernel"]),
+    ("int8", ["scan_lists_kernel"])])
 def test_scan_plans_fold_in_the_launch_at_the_served_shape(precision,
                                                            kernels):
     """fused_scan at the smoke's shape (nprobe 64, Lmax 702, d 768, k 10;
-    the quantised r = 20): the scan folds its lists in its own launch,
-    so f32 is one kernel, bf16 two, int8 three; its shared memory holds
-    the query or the fold's 64 lists of r_pad, the larger."""
+    the quantised r = 20): the scan folds its lists in its own launch and
+    re-ranks the quantised candidates there too, and int8 reads the
+    index's cached scales, so every precision is one kernel; its shared
+    memory holds the query or the fold's 64 lists of r_pad, the
+    larger."""
     r_pad = 16 if precision == "f32" else 32
     plan = tiling.plan_fused_scan_ivf(1, 64, 702, 768, precision, r_pad)
     assert [x.kernel for x in plan] == kernels

@@ -141,6 +141,62 @@ def test_int8_groups_match_the_interpret_kernel_at_two_groups_a_list():
     _ivf_case((4, 1100, 1024, 1, 2, 4), "int8", "interpret")
 
 
+# p, lmax, d, r_pad: one group a list, several (d = 1,024, Lmax > 1,024),
+# a group wider than the byte cap (r_pad 2,048), groups past the rows
+GROUP_AMAX_SHAPES = [(5, 10, 16, 8), (3, 1100, 1024, 32),
+                     (3, 1100, 1024, 2048), (4, 520, 8192, 16)]
+
+
+@pytest.mark.parametrize("shape", GROUP_AMAX_SHAPES)
+def test_group_amax_is_the_per_call_groups(shape):
+    """The scales the kernels take from the index once (``ref.group_amax``,
+    the plain version of csrc ``group_amax``) are those of every per-call
+    group: ``ref.list_scores`` / ``centroid_scores``'s groups in the port,
+    and the reference's int8 tiles (``repro.kernels.fused_turn``
+    ``quantize_sym`` over the zero-padded lists' ``blk_l``-row tiles and
+    the centroids' ``blk_p``-row tiles): the same amax, so the same scale
+    bits."""
+    from repro.kernels import fused_turn as rft
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import tiling
+    p, lmax, d, r_pad = shape
+    rng = np.random.default_rng(p * lmax + d)
+    lv = (rng.standard_normal((p, lmax, d)) * rng.uniform(
+        0.1, 4.0, size=(p, lmax, 1))).astype(np.float32)
+    blk, ng = tiling.list_groups(lmax, d, r_pad)
+    got = tref.group_amax(torch.from_numpy(lv), blk, ng)
+    lpad = ng * blk
+    pad = np.zeros((p, lpad, d), np.float32)
+    pad[:, :lmax] = lv
+    tiles = pad.reshape(p, ng, blk, d)
+    for pi in range(p):
+        for g in range(ng):
+            want = np.abs(tiles[pi, g]).max()
+            assert got[pi, g].item() == want
+            _, scale = rft.quantize_sym(jnp.asarray(tiles[pi, g]), (0, 1))
+            assert tref.int8_scale(got[pi, g]).item() == \
+                np.asarray(scale).item()
+    cents = rng.standard_normal((1300, 16)).astype(np.float32)
+    blk_p, ncg = tiling.centroid_groups(1300, 64)
+    got_c = tref.group_amax(torch.from_numpy(cents)[None], blk_p, ncg)[0]
+    cpad = np.zeros((ncg * blk_p, 16), np.float32)
+    cpad[:1300] = cents
+    for g in range(ncg):
+        _, scale = rft.quantize_sym(jnp.asarray(cpad[g * blk_p:(g + 1)
+                                                     * blk_p]), (0, 1))
+        assert tref.int8_scale(got_c[g]).item() == np.asarray(scale).item()
+    # the port's per-call groups, as ref.list_scores / centroid_scores
+    # stack them
+    lt = torch.from_numpy(lv)
+    per_call = torch.stack([lt[:, g * blk:(g + 1) * blk].abs().amax((1, 2))
+                            if g * blk < lmax else torch.zeros(p)
+                            for g in range(ng)], 1)
+    assert torch.equal(got, per_call)
+    ct = torch.from_numpy(cents)
+    assert torch.equal(got_c, torch.stack(
+        [ct[g * blk_p:(g + 1) * blk_p].abs().amax() for g in range(ncg)]))
+
+
 @pytest.mark.parametrize("precision", QUANT)
 def test_quantised_ivf_ops_on_float_inputs(precision):
     """Normal floats: int8 still exact (ids, sel, ranks); bf16 values."""

@@ -227,10 +227,13 @@ def test_wrapper_limits():
 
 
 def test_pq_wrapper_limits():
-    """The ADC block's LUT and the PQ merge at the smoke's shapes fit;
+    """The ADC block's LUT and the PQ fold at the smoke's shapes fit;
     wider LUTs are refused before any launch, wider merges take groups."""
-    assert tiling.pq_split(702) == 2 and tiling.pq_split(512) == 1
-    assert tiling.merge_plan(64 * tiling.pq_split(702), 64) == [(128, 1)]
+    assert tiling.pq_split(702) == 6 and tiling.pq_split(512) == 4
+    # at the smoke's shape the ADC scan folds its 384 lists of 64 in its
+    # launch, over the LUT's 49,152 B
+    assert tiling.scan_fold(64, 702, 64)
+    assert tiling.adc_smem(48, 256, 64, 702, 64) == 49_152
     tiling.check_lut(48, 256)
     assert tiling.lut_bytes(48, 256) == 49_152
     with pytest.raises(ValueError, match="uint8"):
@@ -243,6 +246,55 @@ def test_pq_wrapper_limits():
     assert tiling.check_pad("rerank depth", 2000) == 2048
     with pytest.raises(ValueError, match="at most 2048"):
         tiling.check_pad("rerank depth", 2049)
+
+
+def test_group_scales_are_kept_per_tensor_version_and_group(monkeypatch):
+    """``ops.group_scales`` runs the one-time scale pass once per (tensor,
+    group size) and keeps the result while the tensor lives and is not
+    edited in place: a second index of the same shape, a new group size,
+    an in-place edit (``_version``) and an inference tensor (no version
+    counter) each run it again; a freed tensor drops its entry; under
+    the plan recorder nothing is kept.  The pass itself is stood in for
+    by its plain version (the card runs csrc ``group_amax``)."""
+    from repro_torch.kernels import launcher
+    calls = []
+
+    def plain_pass(x, blk, n_groups):
+        calls.append((blk, n_groups))
+        return ref.group_amax(x, blk, n_groups).view(torch.int32)
+
+    monkeypatch.setattr(ops._ft, "group_amax", plain_pass)
+    ops.drop_scales()
+    lv = torch.randn(4, 10, 8)
+    a = ops.group_scales(lv, 16, 1)
+    assert ops.group_scales(lv, 16, 1) is a and len(calls) == 1
+    assert ops.group_scales(lv, 8, 2).shape == (4, 2) and len(calls) == 2
+    other = lv.clone()
+    assert torch.equal(ops.group_scales(other, 16, 1), a)
+    assert len(calls) == 3
+    lv[0] *= 4                                       # in place
+    edited = ops.group_scales(lv, 16, 1)
+    assert len(calls) == 4 and not torch.equal(edited, a)
+    assert torch.equal(edited, ref.group_amax(lv, 16, 1).view(torch.int32))
+    cents = torch.randn(20, 8)
+    assert ops.group_scales(cents, 32, 1).shape == (1, 1)
+    ops.group_scales(cents, 32, 1)
+    assert len(calls) == 5
+    n = len(ops._scales)
+    del other
+    assert len(ops._scales) == n - 1
+    with torch.inference_mode():
+        frozen = torch.randn(2, 10, 8)
+    ops.group_scales(frozen, 16, 1)
+    ops.group_scales(frozen, 16, 1)
+    assert len(calls) == 7
+    fresh = torch.randn(2, 10, 8)
+    with launcher.record_launches():
+        ops.group_scales(fresh, 16, 1)
+    ops.group_scales(fresh, 16, 1)
+    assert len(calls) == 9
+    ops.drop_scales()
+    assert not ops._scales
 
 
 @pytest.mark.parametrize("lmax,d,r_pad,want", [
@@ -1469,8 +1521,10 @@ def test_cuda_launch_plans_match_the_profiler(cuda_device, label):
                  if p.label == label)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     tensors = probe.tensors(cuda_device, gen)
+    ops.drop_scales()       # a first call: int8 runs its scale pass
     want = kernel_budget.planned(probe, tensors, cuda_device)
-    assert want and kernel_budget.traced(probe, tensors, cuda_device) == want
+    assert want and kernel_budget.traced(probe, tensors, cuda_device,
+                                         before=ops.drop_scales) == want
 
 
 # ---------------------------------------------------------------------------
@@ -1656,8 +1710,277 @@ def test_cuda_stage_plans_match_the_profiler(cuda_device, name):
                                dtype=torch.int32).to(cuda_device))
     probe = kernel_budget.Probe(name, (), lambda device: STAGE_PLAN_CALLS[
         name](t))
+    ops.drop_scales()       # a first call: int8 runs its scale pass
     want = kernel_budget.planned(probe, [], cuda_device)
-    assert want and kernel_budget.traced(probe, [], cuda_device) == want
+    assert want and kernel_budget.traced(probe, [], cuda_device,
+                                         before=ops.drop_scales) == want
     names = [x[0] for x in want]
     assert ("merge_kernel" in names[names.index("scan_lists_kernel"):]
             ) == ("merged" in name) if "scan" in name else True
+
+
+# ---------------------------------------------------------------------------
+# the folds of stage 1 and of the ADC scan, the chained turn, the scales
+# kept per index (csrc/fold.cuh, ops.group_scales)
+# ---------------------------------------------------------------------------
+
+
+def _unfolded(monkeypatch):
+    """Every launch past its fold: merge_kernel (and rerank_kernel) after
+    stage 1 and after the scans."""
+    monkeypatch.setattr(tiling, "FOLD_SMEM_BYTES", 0)
+    monkeypatch.setattr(tiling, "SELECT_FOLD_QUERIES", 0)
+
+
+def _all_folded(monkeypatch):
+    """Stage 1 folds every tile (up to 32 queries a block) at kp <= 128."""
+    monkeypatch.setattr(tiling, "SELECT_FOLD_QUERIES", 64)
+
+
+def _rows_3_to_7(q, cents, lv, li, tables, codes, corpus, nprobe, k, rerank,
+                 precision):
+    out = list(ops.fused_turn(q, cents, lv, li, nprobe=nprobe, k=k,
+                              precision=precision))
+    sel = out[2]
+    out += ops.fused_scan(q, lv, li, sel, k, precision=precision)
+    out += ops.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                             nprobe=nprobe, k=k, rerank=rerank,
+                             precision=precision)
+    out += ops.fused_scan_pq(tables, q, codes, li, sel, corpus, k,
+                             rerank=rerank, precision=precision)
+    out += ops.fused_scan_pq(tables, q, codes, li, sel, corpus, k,
+                             rerank=rerank, precision=precision,
+                             fuse_rerank=False)
+    if precision == "f32":
+        out += ops.pq_adc_scan(tables, codes, li, sel, rerank)
+    return out
+
+
+# B, nprobe, k, the PQ re-rank depth: the scans fold at r_pad <= 128 and
+# merge past it, up to 2,048; stage 1 folds at B = 1
+FOLD_EDGES = [(1, 16, 10, 64), (1, 8, 100, 128), (1, 8, 100, 256),
+              (3, 16, 10, 2000), (25, 16, 64, 128), (64, 8, 10, 64),
+              (2, 64, 1000, 1000)]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("precision", ("f32",) + QUANT)
+@pytest.mark.parametrize("edge", FOLD_EDGES)
+def test_cuda_folds_equal_the_merges(cuda_device, edge, precision,
+                                     monkeypatch):
+    """Rows 3-7 on integer inputs on both sides of each fold limit: the
+    calls as the tiling plans them (stage 1 and the scans folded where
+    they fit), with every fold off (merge_kernel and rerank_kernel after
+    the launches) and with stage 1 folding every tile (up to 32 queries a
+    block) are bit-equal, and equal the plain versions."""
+    b, nprobe, k, rerank = edge
+    shape = (700, 300, 16, b, nprobe, k, 16, 256, rerank)
+    q, cents, tables, codes, li, corpus, _ = _pq_inputs(shape, cuda_device)
+    lv = _inputs(shape[:6], cuda_device)[2]
+    args = (q, cents, lv, li, tables, codes, corpus, nprobe, k, rerank,
+            precision)
+    planned = _rows_3_to_7(*args)
+    with monkeypatch.context() as m:
+        _unfolded(m)
+        merged = _rows_3_to_7(*args)
+    with monkeypatch.context() as m:
+        _all_folded(m)
+        folded = _rows_3_to_7(*args)
+    for a, b_, c in zip(planned, merged, folded):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+    r = ops._fused_depth(k, nprobe * 300, 2 * k)
+    want = ref.fused_turn_ivf(q, cents, lv, li, nprobe=nprobe, k=k,
+                              precision=precision, r=r)
+    for g, w in zip(planned[:3], want):
+        assert torch.equal(g, w)
+    r_pq = ops._fused_depth(k, nprobe * 300, rerank)
+    want = ref.fused_scan_pq(tables, q, codes, li, want[2], None, corpus,
+                             k=k, r=r_pq, rerank=True, precision=precision)
+    for g, w in zip(planned[9:12], want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("p", [1000, 3000])
+@pytest.mark.parametrize("kp", [16, 64, 128])
+@pytest.mark.parametrize("b", [1, 8, 25, 64])
+def test_cuda_stage1_fold_equals_its_merge(cuda_device, b, kp, p,
+                                           monkeypatch):
+    """centroid_topk with stage 1's fold in every tile (1 to 32 queries
+    a block; one group of chunks, or groups of 16 then the groups) and
+    with none: bit-equal, and equal to the plain version, on float
+    inputs."""
+    q, c = _ck_inputs((p, 16, b, kp), torch.float32, cuda_device)
+    with monkeypatch.context() as m:
+        _all_folded(m)
+        assert tiling.select_fold(b, p, 16, kp)
+        folded = ops.centroid_topk(q, c, kp)
+    with monkeypatch.context() as m:
+        _unfolded(m)
+        merged = ops.centroid_topk(q, c, kp)
+    for f, g, w in zip(folded, merged, ref.centroid_topk(q, c, kp)):
+        assert torch.equal(f, g) and torch.equal(f, w)
+
+
+def _int8_calls(q, cents, lv, li, tables, codes, corpus):
+    sel = ops.centroid_topk(q, cents, 16)[1]
+    return [lambda: ops.fused_turn(q, cents, lv, li, nprobe=16, k=10,
+                                   precision="int8"),
+            lambda: ops.fused_scan(q, lv, li, sel, 10, precision="int8"),
+            lambda: ops.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                                      nprobe=16, k=10, rerank=64,
+                                      precision="int8")]
+
+
+def _planned_kernels(call):
+    from repro_torch.kernels import launcher
+    with launcher.record_launches() as records:
+        call()
+    return [x.kernel for r in records for x in r.plan]
+
+
+@pytest.mark.cuda_only
+def test_cuda_cached_scales_equal_per_call_scales(cuda_device):
+    """The int8 turns and scan on the scales kept per index give the bits
+    of the same calls with the scales dropped before each (a pass a
+    call), and a call after the first plans no scale pass."""
+    q, cents, lv, li = _float_stage_inputs(700, 300, 64, 3, 13, cuda_device)
+    g = torch.Generator().manual_seed(2)
+    tables = torch.randn((3, 8, 256), generator=g).to(cuda_device)
+    codes = torch.randint(0, 256, (700, 300, 8), generator=g,
+                          dtype=torch.uint8).to(cuda_device)
+    corpus = lv.view(-1, 64)
+    calls = _int8_calls(q, cents, lv, li, tables, codes, corpus)
+    ops.drop_scales()
+    first = [call() for call in calls]
+    cached = [call() for call in calls]
+    for call in calls:
+        assert "group_amax_kernel" not in _planned_kernels(call)
+    fresh = []
+    for call in calls:
+        ops.drop_scales()
+        assert "group_amax_kernel" in _planned_kernels(call)
+        fresh.append(call())
+    for a, b_, c in zip(first, cached, fresh):
+        for x, y, z in zip(a, b_, c):
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.cuda_only
+def test_cuda_in_place_edit_recomputes_the_scales(cuda_device):
+    """An in-place edit of ``list_vecs`` (its ``_version`` moves) makes the
+    next int8 call run the scale pass again: its result is the plain
+    version's on the edited lists, not the old scales'; a second index of
+    the same shape keeps its own scales, and a freed index drops its."""
+    shape = (300, 200, 32, 2, 8, 10)
+    q, cents, lv, li, _ = _inputs(shape, cuda_device)
+    sel = ref.fused_turn_ivf(q, cents, lv, li, nprobe=8, k=10)[2]
+
+    def both(lists):
+        got = ops.fused_scan(q, lists, li, sel, 10, precision="int8")
+        want = ref.fused_scan_ivf(q, lists, li, sel, None, k=10,
+                                  precision="int8", r=20)
+        for a, b_ in zip(got, want):
+            assert torch.equal(a, b_)
+
+    ops.drop_scales()
+    both(lv)
+    other = lv.clone()
+    other[:, :, 0] *= 3
+    both(other)
+    lv[:, :, 1] *= 5                       # in place
+    assert "group_amax_kernel" in _planned_kernels(
+        lambda: ops.fused_scan(q, lv, li, sel, 10, precision="int8"))
+    both(lv)
+    both(other)
+    n = len(ops._scales)
+    del other
+    assert len(ops._scales) == n - 1
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("precision", ("f32",) + QUANT)
+def test_cuda_chained_turns_on_two_streams(cuda_device, precision):
+    """The row-4 and row-5 turns (stage 1, then the scan chained behind
+    it by programmatic dependent launch) called on two streams at once
+    equal the same calls made in turn, and leave the counters zeroed."""
+    from repro_torch.kernels import launcher
+    q, cents, lv, li = _float_stage_inputs(2000, 300, 64, 2, 17, cuda_device)
+    g = torch.Generator().manual_seed(4)
+    tables = torch.randn((2, 8, 256), generator=g).to(cuda_device)
+    codes = torch.randint(0, 256, (2000, 300, 8), generator=g,
+                          dtype=torch.uint8).to(cuda_device)
+    corpus = lv.view(-1, 64)
+
+    def calls(n):
+        return (list(ops.fused_turn(q[n:n + 1], cents, lv, li, nprobe=64,
+                                    k=10, precision=precision))
+                + list(ops.fused_turn_pq(q[n:n + 1], cents, tables[n:n + 1],
+                                         codes, li, corpus, nprobe=64, k=10,
+                                         rerank=64, precision=precision)))
+
+    alone = [calls(0), calls(1)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for n, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[n].append(calls(n))
+    torch.cuda.synchronize()
+    for n in range(2):
+        for got in outs[n]:
+            for a, b_ in zip(got, alone[n]):
+                assert torch.equal(a, b_)
+        with torch.cuda.stream(streams[n]):
+            buf = launcher.arrival_counters(cuda_device, 1)
+        assert int(buf.abs().sum()) == 0
+
+
+SERVED_KERNELS = {
+    "pq_adc_scan": 1, "fused_scan_pq": 1, "fused_scan": 1, "fused_turn": 2,
+    "fused_turn_pq": 2}
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("precision", ("f32",) + QUANT)
+def test_cuda_kernels_a_call_at_the_served_shape(cuda_device, precision,
+                                                 tmp_path):
+    """Rows 3-7 at the served shape (B = 1, nprobe 64, Lmax 702, d 768,
+    k 10, PQ m 48 x 256, re-rank depth 64; 1,024 lists stand for the
+    index's 16,384): after an int8 call's first, rows 3, 6 and 7 run one
+    kernel a call and rows 4 and 5 two, in the plans and in the
+    profiler's trace."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    d, lmax, n_lists = 768, 702, 1024
+    cents_l = torch.randn((n_lists, d), generator=g, device=cuda_device)
+    lv = torch.randn((n_lists, lmax, d), generator=g, device=cuda_device)
+    li = torch.randint(-1, 50_000, (n_lists, lmax), generator=g,
+                       device=cuda_device, dtype=torch.int32)
+    q = torch.randn((1, d), generator=g, device=cuda_device)
+    tables = torch.randn((1, 48, 256), generator=g, device=cuda_device)
+    codes = torch.randint(0, 256, (n_lists, lmax, 48), generator=g,
+                          device=cuda_device, dtype=torch.uint8)
+    corpus = torch.randn((50_000, d), generator=g, device=cuda_device)
+    sel = ops.centroid_topk(q, cents_l, 64)[1]
+    calls = {
+        "fused_turn": lambda: ops.fused_turn(q, cents_l, lv, li, nprobe=64,
+                                             k=10, precision=precision),
+        "fused_scan": lambda: ops.fused_scan(q, lv, li, sel, 10,
+                                             precision=precision),
+        "fused_turn_pq": lambda: ops.fused_turn_pq(
+            q, cents_l, tables, codes, li, corpus, nprobe=64, k=10,
+            rerank=64, precision=precision),
+        "fused_scan_pq": lambda: ops.fused_scan_pq(
+            tables, q, codes, li, sel, corpus, 10, rerank=64,
+            precision=precision)}
+    if precision == "f32":
+        calls["pq_adc_scan"] = lambda: ops.pq_adc_scan(tables, codes, li,
+                                                       sel, 64)
+    for name, call in calls.items():
+        call()                              # the int8 scales, once
+        plan = _planned_kernels(call)
+        assert len(plan) == SERVED_KERNELS[name], (name, plan)
+        names = _traced_kernels(call, tmp_path)
+        assert len(names) == len(plan), (name, names)
+        assert all(k in n for k, n in zip(plan, names)), (name, names)

@@ -25,7 +25,7 @@ from repro_torch.core.topk import order_key
 from repro_torch.kernels import sorting, tiling
 from repro_torch.kernels.sorting import PAD_POS
 
-ROWS = 128  # tiling.SCAN_ROWS == tiling.CENTROID_CHUNK
+ROWS = 128  # tiling.SCAN_ROWS == tiling.CENTROID_CHUNK == tiling.PQ_ROWS
 
 
 def ranks_before(va, pa, vb, pb):
@@ -284,7 +284,36 @@ def stage1_emulated(scores, kp):
     v[:, :p] = scores
     i[:, :p] = torch.arange(p, dtype=torch.int32)
     lists = block_lists(v, i, i.clone(), w1)
-    return merge_topk(lists, None, w1, kp, PAD_POS)
+    if not tiling.select_fold(b, p, 768, kp):
+        return merge_topk(lists, None, w1, kp, PAD_POS)
+    # the fold, in the launch: each group of SELECT_GROUP chunks' lists,
+    # then the groups' (one group: its chunks)
+    g = tiling.SELECT_GROUP
+    groups = []
+    for lo in range(0, chunks, g):
+        n = min(g, chunks - lo)
+        t3 = [x[:, lo:lo + n].reshape(b, -1).clone() for x in lists]
+        if chunks > g:
+            merge_warps(t3, n, w1, PAD_POS, nwarps=8)
+            n = 1
+        groups.append([x[:, :n * w1] for x in t3])
+    t3 = [torch.cat([grp[k] for grp in groups], 1) for k in range(3)]
+    merge_warps(t3, t3[0].shape[1] // w1, w1, PAD_POS, nwarps=8)
+    return tuple(x[:, :kp] for x in t3)
+
+
+def rerank_emulated(exact, cand_i, r, kp):
+    """fold.cuh rerank_fold: candidate t of the fold's w (t < r, id >=
+    0) keeps its exact score, the rest -inf and their id, position t;
+    one warp sorts them (warp_sort of 32 N, pads past w) and keeps kp."""
+    b, w = cand_i.shape
+    t = torch.arange(w)
+    es = torch.where((t < r) & (cand_i >= 0), exact, -np.inf)
+    n = 32 if w <= 32 else 64 if w <= 64 else 128
+    v, i, p = pads((b, n), -1)
+    v[:, :w], i[:, :w], p[:, :w] = es, cand_i, t.int().expand(b, -1)
+    v, i, p = warp_sort(v, i, p)
+    return v[:, :kp], i[:, :kp], p[:, :kp]
 
 
 def _want(v, i, p, k):
@@ -373,10 +402,13 @@ def test_scan_selection_of_empty_queries():
     assert (v == -np.inf).all() and (i == -1).all() and (p == PAD_POS).all()
 
 
-# (kind, B, p, kp): p a multiple of 128, not one, and below one chunk
+# (kind, B, p, kp): p a multiple of 128, not one, and below one chunk;
+# B = 1 at kp <= 128 folds in the launch (one group, or groups of 16)
 STAGE1_CASES = [("ties", 2, 1000, 64), ("zeros", 2, 600, 64),
                 ("neginf", 1, 2500, 1024), ("ties", 1, 2500, 2048),
-                ("ties", 3, 100, 64), ("zeros", 1, 1300, 2048)]
+                ("ties", 3, 100, 64), ("zeros", 1, 1300, 2048),
+                ("ties", 1, 1000, 64), ("zeros", 1, 4000, 128),
+                ("neginf", 1, 2100, 16)]
 
 
 @pytest.mark.parametrize("case", STAGE1_CASES)
@@ -410,3 +442,52 @@ def test_merge_plan_groups_fit_one_block(w_in, w, n):
     for n_in, groups in tiling.merge_plan(n, w, w_in)[1:]:
         assert min(n_in, later) * w * tiling.MERGE_ENTRY_BYTES <= smem
     assert tiling.merge_plan(n, w) == tiling.merge_plan(n, w, w)
+
+
+# (kind, B, nprobe, lmax, r_pad, m): the ADC scan folded in its launch
+# and re-ranked there (r_pad <= 128), or merged after it (1,024)
+ADC_CASES = [("ties", 2, 6, 300, 64, 8), ("zeros", 2, 5, 130, 16, 4),
+             ("ties", 1, 9, 702, 64, 16), ("ties", 2, 3, 128, 128, 8),
+             ("zeros", 1, 7, 300, 1024, 4)]
+
+
+@pytest.mark.parametrize("case", ADC_CASES)
+def test_adc_selection_fold_and_rerank(case):
+    """The ADC scan (csrc/pq_adc.cu adc_scan_kernel) selects and folds as
+    the IVF scan does, over 128-row slices: replayed on ADC sums of
+    integer (or +-0) LUTs, its top r equals the plain ``pq_adc_scan``
+    and ``lax.top_k``; the fold's re-rank (fold.cuh rerank_fold) of the
+    first r candidates equals the plain ``fused_scan_pq``."""
+    from repro_torch.kernels import ref
+    kind, b, nprobe, lmax, r_pad, m = case
+    assert tiling.PQ_ROWS == ROWS
+    rng = np.random.default_rng(r_pad * lmax + m)
+    tables = torch.from_numpy(_scores(kind, (b, m, 256), rng))
+    codes = torch.from_numpy(rng.integers(0, 256, size=(nprobe, lmax, m)
+                                          ).astype(np.uint8))
+    _, ids = _lists("ties", 1, nprobe, lmax, r_pad + m)
+    ids = ids[0]
+    sel = torch.arange(nprobe, dtype=torch.int32).expand(b, -1).contiguous()
+    scores = ref.adc_sum(tables, codes.reshape(1, -1, m).expand(b, -1, -1)
+                         ).reshape(b, nprobe, lmax)
+    v, i, p = scan_emulated(scores, ids.expand(b, -1, -1), r_pad)
+    r = r_pad - r_pad // 4
+    wv, wi = ref.pq_adc_scan_batch(tables, codes, ids, sel, r)
+    assert torch.equal(v[:, :r], wv) and torch.equal(i[:, :r], wi)
+    assert torch.equal(order_key(v[:, :r]), order_key(wv))
+    real = (ids >= 0).expand(b, -1, -1).reshape(b, -1)
+    for row, want in enumerate(_lax_order(scores.reshape(b, -1), real, r)):
+        assert p[row, :len(want)].tolist() == want
+    if not tiling.scan_fold(nprobe, lmax, r_pad):
+        return
+    d = 8
+    corpus = torch.from_numpy(rng.integers(-3, 4, size=(10_000, d)
+                                           ).astype(np.float32))
+    q = torch.from_numpy(rng.integers(-3, 4, size=(b, d)).astype(np.float32))
+    exact = ref.gemv_rows(corpus[i.long().clamp_min(0)], q)
+    k = 8
+    got = rerank_emulated(exact, i, r, k)
+    want = ref.fused_scan_pq(tables, q, codes, ids, sel, None, corpus, k=k,
+                             r=r, rerank=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
