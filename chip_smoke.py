@@ -112,11 +112,15 @@ Run from the repository root: ``python3 chip_smoke.py``.  Size flags
 ``--tt-users``) cut the run for a quick check.  ``--stages-only`` builds
 and prints only the [stages] split; ``--dump-rows PATH`` builds and saves
 rows 1-7's outputs on the seeded realistic inputs to PATH, so the
-kernels of two checkouts can be held to each other bit for bit.
+kernels of two checkouts can be held to each other bit for bit;
+``--bag-times`` builds and times only embedding_bag's kernels over a
+range of batch sizes ([bag], ``phase_bag_sweep``).  The three may be
+given together.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import math
 import os
@@ -1435,7 +1439,8 @@ def phase_stages(args, dev):
     ``centroid_topk`` at kp = 64 (B = 1, 25) and at the top-h kp = 1,024
     (B = 1), ``fused_scan`` and ``fused_turn`` at f32 / bf16 / int8,
     ``fused_scan_pq`` at f32 / bf16 / int8 with the served re-rank depth
-    64, ``fused_turn_pq`` at f32 and ``pq_adc_scan`` (B = 1, 25), k = 10,
+    64, ``fused_turn_pq`` at f32 / bf16 / int8 and ``pq_adc_scan`` (B = 1,
+    25), k = 10,
     nprobe 64.  int8 calls after their warm-up read the index's cached
     scales; the one-time scale passes of the lists (35 GB) and the
     centroids are split apart at B = 1.  Also written as stages.json in
@@ -1468,9 +1473,11 @@ def phase_stages(args, dev):
                 lambda prec=prec: ops.fused_scan_pq(
                     tables, q, codes, li, sel, rows, k, rerank=RERANK,
                     precision=prec)
-        calls["fused_turn_pq[f32]"] = lambda: ops.fused_turn_pq(
-            q, cents, tables, codes, li, rows, nprobe=nprobe, k=k,
-            rerank=RERANK)
+        for prec in ("f32",) + QUANT:
+            calls[f"fused_turn_pq[{prec}]"] = \
+                lambda prec=prec: ops.fused_turn_pq(
+                    q, cents, tables, codes, li, rows, nprobe=nprobe, k=k,
+                    rerank=RERANK, precision=prec)
         calls["pq_adc_scan"] = lambda: ops.pq_adc_scan(tables, codes, li,
                                                        sel, RERANK)
         if b == 1:
@@ -2146,6 +2153,91 @@ def bag_bound(ids, d):
     rows = int((ids >= 0).sum())
     return (rows * d * 4 + ids.numel() * 4 + ids.shape[0] * d * 4,
             2 * rows * d)
+
+
+# the batch sizes of [bag]: a request, powers of 4 up to serve_p99's 512,
+# past it, and serve_bulk
+BAG_SWEEP = (1, 8, 32, 128, 512, 2048, 8192, 262_144)
+
+
+def bag_table(dev, seed):
+    """A table of the two-tower model's shape (user and item fields, d
+    256: 3.22 GB) from a seeded CUDA generator at the model's scale
+    (normal x d^-1/2), the item field's first row and size, and the
+    history length."""
+    import torch
+    from repro_torch.configs import two_tower_retrieval as TT
+    cfg = TT.full_config()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((cfg.user_vocab + cfg.item_vocab, cfg.embed_dim),
+                        generator=gen, device=dev) * cfg.embed_dim ** -0.5
+    return table, cfg.user_vocab, cfg.item_vocab, cfg.history_len
+
+
+def bag_kernels():
+    """The embedding_bag kernels of this tree by the names its binding
+    takes (``embedding_bag.KERNELS``); a tree with one kernel: (None,)."""
+    from repro_torch.kernels import embedding_bag as eb
+    return tuple(getattr(eb, "KERNELS", (None,)))
+
+
+def bag_call(table, ids, kernel):
+    """One unweighted embedding_bag sum through the binding, with
+    ``kernel`` forced (None: the launch plan's choice)."""
+    from repro_torch.kernels import embedding_bag as eb
+    if kernel is None:
+        return eb.embedding_bag(table, ids, None)
+    return eb.embedding_bag(table, ids, None, kernel=kernel)
+
+
+def phase_bag_sweep(args, dev):
+    """Each embedding_bag kernel forced at every B of BAG_SWEEP on a
+    table of the two-tower shape (``bag_table``; L = 50 ids of the item
+    field, unweighted sum), L2 flushed, beside
+    ``torch.nn.functional.embedding_bag`` (timed only), each output
+    held to the plain version bit for bit; the kernel the launch plan
+    picks at each B.  Also written as bag_sweep.json in the output
+    directory: the measurement behind ``tiling.BAG_ROWS_MAX_B``."""
+    import torch
+    from repro_torch.kernels import ref, tiling
+    table, lo, vocab, hist = bag_table(dev, args.seed + 23)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 29)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    lib_fn = torch.nn.functional.embedding_bag
+    out = {}
+    for b in BAG_SWEEP:
+        reps = 5 if b > 8192 else 25
+        idss = [torch.randint(lo, lo + vocab, (b, hist), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(reps)]
+        row = {}
+        for kernel in bag_kernels():
+            calls = [lambda x=x: bag_call(table, x, kernel) for x in idss]
+            event_ms(calls[:2], flush, spin=True)              # warm-up
+            if not torch.equal(calls[0](),
+                               ref.embedding_bag(table, idss[0])):
+                raise AssertionError(f"embedding_bag[{kernel}] B={b}: "
+                                     f"not bit-equal to its plain version")
+            row[str(kernel)] = event_ms(calls, flush, spin=True)
+        lib = [lambda x=x: lib_fn(x, table, mode="sum") for x in idss]
+        event_ms(lib[:2], flush, spin=True)
+        row["library"] = event_ms(lib, flush, spin=True)
+        row["bound"] = float(np.mean([bound_ms(*bag_bound(x, table.shape[1])
+                                               )[0] for x in idss]))
+        plan = tiling.plan_embedding_bag
+        row["plan"] = (plan(b, table.shape[1]) if "d" in inspect.signature(
+            plan).parameters else plan(b))[0].kernel
+        out[b] = row
+        log("bag", f"B={b} L={hist} d={table.shape[1]}: " + " ".join(
+            f"{k}_ms={v:.4f}" for k, v in row.items() if k not in (
+                "bound", "plan")) + f" bound_ms={row['bound']:.6f} plan="
+            f"{row['plan']}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "bag_sweep.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    del table
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_bag_times(args, dev, model):
@@ -2995,6 +3087,9 @@ def main() -> int:
                     help="two-tower user sessions per serving path")
     ap.add_argument("--stages-only", action="store_true",
                     help="build, then only the [stages] kernel split")
+    ap.add_argument("--bag-times", action="store_true",
+                    help="build, then only the [bag] sweep of embedding_bag's "
+                    "kernels over B (phase_bag_sweep)")
     ap.add_argument("--dump-rows", metavar="PATH",
                     help="build, then only save rows 1-7's outputs on the "
                     "seeded realistic inputs to PATH (phase_dump_rows)")
@@ -3030,7 +3125,9 @@ def main() -> int:
     log("build", "cuobjdump -sass, HMMA instructions per instance: " + "; ".join(
         f"{name} {counts}" for name, counts in hmma.items()))
 
-    if args.stages_only or args.dump_rows:
+    if args.stages_only or args.dump_rows or args.bag_times:
+        if args.bag_times:
+            phase_bag_sweep(args, dev)
         if args.stages_only:
             phase_stages(args, dev)
         if args.dump_rows:

@@ -54,7 +54,7 @@ SIGNATURES = {
     "flash_attention_f32": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, LL, P],
     "flash_attention_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, LL,
                              P],
-    "embedding_bag_f32": [P, I, P, P, I, I, P, P],
+    "embedding_bag_f32": [P, I, P, P, I, I, P, I, P],
     "flash_decode_f32": [P, P, P, P, I, I, I, I, I, I, I, F, P, P, P, P, P],
     "flash_decode_bf16": [P, I, P, P, P, I, I, I, I, I, I, I, F, P, P, P, P,
                           P, P],

@@ -24,8 +24,9 @@
 // is read once per call up to B = 32.  A warp loads 4 centroid rows at
 // once, and each staged query value it reads serves the 4 rows.  Warp t
 // then sorts the 128 scores of queries t, t + 8, ... in registers
-// (topk_tie::warp_sort, no barrier) and writes each query's best min(kp,
-// 128): a chunk holds no more.
+// (topk_tie::warp_sort, no barrier), or at one query the block counts
+// each score's rank, and writes each query's best min(kp, 128): a chunk
+// holds no more.
 // At B = 1 and kp <= 128 the chunk launch folds the query's chunk lists
 // itself (tiling.select_fold: arrival counters, groups of 16 chunks, then
 // the groups, each by topk_tie::merge_warps).  Otherwise merge_kernel

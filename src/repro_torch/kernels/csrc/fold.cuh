@@ -3,17 +3,29 @@
 // family (pq_adc.cu: adc_scan_kernel).
 //
 // A scan block scores one 128-row slice of a probed list and keeps its
-// best w = min(r_pad, 128) rows (select_slice: one warp in registers,
-// only the real entries written, with their count).  When the query's
-// top r_pad is one slice wide and the fold fits (tiling.scan_fold), the
-// launch folds its own lists (fold_query): the last slice of a probed
-// list to arrive (an arrival counter a list) merges the list's slices,
-// and the last list of the query to arrive merges the query's lists;
-// each merge is topk_tie::merge_warps.  The block that folds query b may
-// then re-rank its first r candidates in float32 (rerank_fold), in the
-// order and to the bits of fused_turn.cu's rerank_kernel.  The counters
-// are a zeroed int32 buffer kept per device and stream
-// (launcher.arrival_counters), reset by the block that uses them.
+// best w = min(r_pad, 128) rows (select_slice: each entry's rank counted
+// by the block, only the real entries written, with their count).  When
+// the query's top r_pad is one slice wide and the fold fits
+// (tiling.scan_fold), the launch folds its own lists (fold_query): the
+// last slice of a probed list to arrive (an arrival counter a list)
+// merges the list's slices, and the last list of the query to arrive
+// merges the query's lists; each level's lists land in shared memory in
+// one round of asynchronous copies (load_lists) and merge by
+// topk_tie::merge_warps.  The block that folds query b may then re-rank
+// its first r candidates in float32 (rerank_fold), in the order and to
+// the bits of fused_turn.cu's rerank_kernel.  The counters are a zeroed
+// int32 buffer kept per device and stream (launcher.arrival_counters),
+// reset by the block that uses them.
+//
+// Where the single-block phases' time goes (kernel_timeline.py, PERF.md
+// section 6): on the H100 a bitonic step in one warp (shuffles and a
+// compare chain) is a dependent link of ~0.1 us, so one warp sorting 128
+// entries took ~3 us and merging two lists of 64 ~0.9 us.  So a slice's
+// selection and the re-rank's sort count ranks with every thread at once
+// (topk_tie::count_before); the merges stay topk_tie::merge_warps (a
+// block-wide merge by merge-path ranks and a warp folding a tree of
+// lists at once both measured slower); each level's lists land by one
+// round of copies, not four rounds of loads.
 //
 // Programmatic dependent launch (wait_primary / release_dependents): a
 // kernel launched with cudaLaunchAttributeProgrammaticStreamSerialization
@@ -69,7 +81,12 @@ __device__ __forceinline__ bool arrive_last(int* counter, int n) {
 // slot first + l * step of cand_* (slots of w entries), its cand_n[slot]
 // real entries (cand_n null: all w), pads (-inf, pad_id, PAD_POS) after
 // them.  cand_p may alias cand_i.  Reads through L2 (other blocks wrote
-// them in this launch).
+// them in this launch).  With w a multiple of 4 and the arrays 16-byte
+// aligned, every slot is copied whole by cp.async at once while the
+// counts load, a list a thread, and the entries past each count are
+// overwritten by pads after the copies land: one round trip to L2.
+// Otherwise LOADS entries a thread in flight.  The caller synchronises
+// before reading the lists.
 __device__ __forceinline__ void load_lists(float* fv, int* fi, int* fp,
                                            const float* cand_v,
                                            const int* cand_i,
@@ -77,6 +94,37 @@ __device__ __forceinline__ void load_lists(float* fv, int* fi, int* fp,
                                            const int* cand_n, size_t first,
                                            int step, int n, int w,
                                            int pad_id) {
+  using namespace fused_common;
+  if ((w & 3) == 0 && aligned16(cand_v) && aligned16(cand_i) &&
+      aligned16(cand_p)) {
+    const int pieces = w >> 2;  // 16-byte copies a slot of each array
+    const int lp = __ffs(pieces) - 1;
+    for (int x = threadIdx.x; x < (n << lp); x += blockDim.x) {
+      const int l = x >> lp;
+      const int c = (x & (pieces - 1)) << 2;
+      const size_t src = (first + (size_t)l * step) * w + c;
+      cp_async16(fv + l * w + c, cand_v + src);
+      cp_async16(fi + l * w + c, cand_i + src);
+      cp_async16(fp + l * w + c, cand_p + src);
+    }
+    const int l0 = threadIdx.x;
+    const int cnt0 = l0 < n && cand_n != nullptr
+                         ? __ldcg(cand_n + first + (size_t)l0 * step)
+                         : w;
+    cp_async_wait_all();
+    __syncthreads();  // every copy landed before any pad overwrites it
+    for (int l = l0; l < n; l += blockDim.x) {
+      const int cnt = l == l0 || cand_n == nullptr
+                          ? cnt0
+                          : __ldcg(cand_n + first + (size_t)l * step);
+      for (int e = cnt; e < w; ++e) {
+        fv[l * w + e] = -INFINITY;
+        fi[l * w + e] = pad_id;
+        fp[l * w + e] = topk_tie::PAD_POS;
+      }
+    }
+    return;
+  }
   constexpr int LOADS = 4;  // entries a thread in flight
   for (int base = threadIdx.x; base < n * w; base += LOADS * blockDim.x) {
     float v[LOADS];
@@ -110,60 +158,39 @@ __device__ __forceinline__ void load_lists(float* fv, int* fi, int* fp,
   }
 }
 
-// Warp 0 keeps the best min(w, n_real) of the block's SLICE_ROWS entries
-// (sv, si, sp; pads (-inf, -1, PAD_POS)) and writes them to slot `slot` of
-// cand_* (slots of w entries), thread 0 the count to cand_n[slot].  At
-// w <= 32 four sorted lists of 32 (entry k * 32 + lane in register k)
-// are merged pairwise (topk_tie::warp_sort, warp_merge), else all 128 are
-// sorted, 4 a lane.  No barrier; the caller synchronised after filling
-// the entries.
-__device__ __forceinline__ void select_slice(const float* sv, const int* si,
+// The block keeps the best keep = min(w, n_real) of its SLICE_ROWS
+// entries (sv, si, sp; pads (-inf, -1, PAD_POS)) and writes them sorted
+// to slot `slot` of cand_* (slots of w entries), thread 0 the count to
+// cand_n[slot].  Each real entry's rank is counted among the 128
+// (topk_tie::count_before), two threads an entry (each half the
+// entries; the second half's count passes through si), and an entry of
+// rank < keep is written at its rank.  Every thread of the block (2 *
+// SLICE_ROWS threads: the scan kernels') calls it, after the barrier
+// that follows filling the entries; si is overwritten.
+__device__ __forceinline__ void select_slice(const float* sv, int* si,
                                              const int* sp, int w, int n_real,
                                              float* cand_v, int* cand_i,
                                              int* cand_p, int* cand_n,
                                              size_t slot) {
-  static_assert(SLICE_ROWS == 32 * 4, "a slice is 4 entries a lane");
-  const int lane = threadIdx.x & 31;
+  constexpr int HALF = SLICE_ROWS / 2;
   const int keep = min(w, n_real);
   if (threadIdx.x == 0) cand_n[slot] = keep;
-  if ((threadIdx.x >> 5) != 0 || keep == 0) return;
-  if (w <= 32) {
-    float v[4][1];
-    int ids[4][1], pos[4][1];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      v[k][0] = sv[k * 32 + lane];
-      ids[k][0] = si[k * 32 + lane];
-      pos[k][0] = sp[k * 32 + lane];
-      topk_tie::warp_sort<1>(v[k], ids[k], pos[k]);
-    }
-    topk_tie::warp_merge<1>(v[0], ids[0], pos[0], v[1], ids[1], pos[1]);
-    topk_tie::warp_merge<1>(v[2], ids[2], pos[2], v[3], ids[3], pos[3]);
-    topk_tie::warp_merge<1>(v[0], ids[0], pos[0], v[2], ids[2], pos[2]);
-    if (lane < keep) {
-      cand_v[slot * w + lane] = v[0][0];
-      cand_i[slot * w + lane] = ids[0][0];
-      cand_p[slot * w + lane] = pos[0][0];
-    }
-    return;
-  }
-  float v[4];
-  int ids[4], pos[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    v[k] = sv[lane * 4 + k];
-    ids[k] = si[lane * 4 + k];
-    pos[k] = sp[lane * 4 + k];
-  }
-  topk_tie::warp_sort<4>(v, ids, pos);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int e = lane * 4 + k;
-    if (e < keep) {
-      cand_v[slot * w + e] = v[k];
-      cand_i[slot * w + e] = ids[k];
-      cand_p[slot * w + e] = pos[k];
-    }
+  if (keep == 0) return;  // block-uniform
+  const int e = threadIdx.x % SLICE_ROWS;
+  const int part = threadIdx.x / SLICE_ROWS;  // 0 or 1
+  const float ev = sv[e];
+  const int ei = si[e], ep = sp[e];
+  int c = ei >= 0 ? topk_tie::count_before(sv, sp, part * HALF,
+                                           (part + 1) * HALF, ev, ep)
+                  : 0;
+  __syncthreads();  // every entry read before si takes the counts
+  if (part == 1) si[e] = c;
+  __syncthreads();
+  if (part == 0) c += si[e];
+  if (part == 0 && ei >= 0 && c < keep) {
+    cand_v[slot * w + c] = ev;
+    cand_i[slot * w + c] = ei;
+    cand_p[slot * w + c] = ep;
   }
 }
 
@@ -249,29 +276,21 @@ __device__ __forceinline__ const float* row_of(const int* fi, const int* fp,
   return rows + row * d;
 }
 
-template <int N>
-__device__ __forceinline__ void sort_exact(const float* es, const int* fi,
+// Writes the top kp of the w exact scores es[0, w) by (score desc, rank
+// t asc) to out_* + out as (score, fi[t], t): thread t < w counts the
+// scores that rank before its own.  Every thread calls it after a
+// barrier.
+__device__ __forceinline__ void rank_exact(const float* es, const int* fi,
                                            int w, int kp, size_t out,
                                            float* out_v, int* out_i,
                                            int* out_p) {
-  const int lane = threadIdx.x & 31;
-  float v[N];
-  int ids[N], pos[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int e = lane * N + k;
-    v[k] = e < w ? es[e] : -INFINITY;
-    ids[k] = e < w ? fi[e] : -1;
-    pos[k] = e < w ? e : topk_tie::PAD_POS;
-  }
-  topk_tie::warp_sort<N>(v, ids, pos);
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int e = lane * N + k;
-    if (e < kp) {
-      out_v[out + e] = v[k];
-      out_i[out + e] = ids[k];
-      out_p[out + e] = pos[k];
+  for (int t = threadIdx.x; t < w; t += blockDim.x) {
+    const float ev = es[t];
+    const int c = topk_tie::count_before(es, nullptr, 0, w, ev, t);
+    if (c < kp) {
+      out_v[out + c] = ev;
+      out_i[out + c] = fi[t];
+      out_p[out + c] = t;
     }
   }
 }
@@ -281,13 +300,13 @@ __device__ __forceinline__ void sort_exact(const float* es, const int* fi,
 // (fused_turn.cu): candidate t < r with an id >= 0 scores the exact dot
 // of its row with the float32 query q (B, d); the rest score -inf and
 // keep their id; the top kp by (exact score desc, rank t asc) go to
-// out_* (B, kp) as (score, id, rank).  A candidate's row is rows[id]
-// (sel null: the PQ corpus) or the list row at its flat position
-// probe * lmax + offset of list sel[b * sel_stride + probe].  Each warp
-// loads RERANK_ROWS rows at once and scores each in warp_row_dots' order
-// (fused_common warp_rows_partial, then the xor tree by transpose_sums),
-// so the scores are rerank_kernel's bits.  es: w floats of shared memory.
-// Every thread calls it after a barrier.
+// out_* (B, kp) as (score, id, rank) (rank_exact).  A candidate's row is
+// rows[id] (sel null: the PQ corpus) or the list row at its flat
+// position probe * lmax + offset of list sel[b * sel_stride + probe].
+// Each warp loads RERANK_ROWS rows at once and scores each in
+// warp_row_dots' order (fused_common warp_rows_partial, then the xor
+// tree by transpose_sums), so the scores are rerank_kernel's bits.  es:
+// w floats of shared memory.  Every thread calls it after a barrier.
 __device__ __forceinline__ void rerank_fold(const int* fi, const int* fp,
                                             float* es, int w, int r, int kp,
                                             const float* __restrict__ q,
@@ -333,14 +352,7 @@ __device__ __forceinline__ void rerank_fold(const int* fi, const int* fp,
     if ((lane & (32 / R - 1)) == 0 && t < n && fi[t] >= 0) es[t] = sum[0];
   }
   __syncthreads();
-  if (warp != 0) return;
-  const size_t out = (size_t)b * kp;
-  if (w <= 32)
-    sort_exact<1>(es, fi, w, kp, out, out_v, out_i, out_p);
-  else if (w <= 64)
-    sort_exact<2>(es, fi, w, kp, out, out_v, out_i, out_p);
-  else
-    sort_exact<4>(es, fi, w, kp, out, out_v, out_i, out_p);
+  rank_exact(es, fi, w, kp, (size_t)b * kp, out_v, out_i, out_p);
 }
 
 }  // namespace fold

@@ -24,11 +24,16 @@
 //   the one library.
 // launch_after: a launch, plain or as a programmatic dependent of the
 //   kernel before it on the stream (fold.cuh wait_primary).
+// cp_async16 / cp_async4 / cp_async_wait_all: copies from device memory
+//   into shared memory that the issuing thread does not wait for until
+//   cp_async_wait_all, so every copy of a batch is in flight at once
+//   (fold.cuh load_lists, embedding_bag.cu bag_rows_kernel).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <mutex>
 #include <set>
 #include <utility>
@@ -36,6 +41,34 @@
 namespace fused_common {
 
 constexpr int UNROLL = 8;  // float4 loads in flight per lane
+
+// 16 bytes (both addresses 16-byte aligned) through L2 only, not L1: the
+// source may be data other blocks of the launch wrote.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes (both addresses 4-byte aligned), of data this launch does not
+// write.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Waits for every copy this thread issued; a barrier then makes them
+// visible to the block.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
 
 // Precision of the quantised scoring stages (fused_turn.PRECISION_CODE).
 enum Precision { P_F32 = 0, P_BF16 = 1, P_INT8 = 2 };

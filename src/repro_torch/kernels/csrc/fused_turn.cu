@@ -45,16 +45,18 @@
 //    are never loaded.  A warp loads the rows of 4 real rows at once
 //    before the first FMA (int8: __dp4a on the packed quantised bytes),
 //    each row scored in the fixed order of warp_rows_dots;
-//  * one warp sorts the block's 128 entries in registers
-//    (topk_tie::warp_sort, no barrier) and writes only its real entries,
-//    at most min(r_pad, 128), with their count;
+//  * the block counts each of its 128 entries' rank (fold.cuh
+//    select_slice) and writes only its real entries, at most min(r_pad,
+//    128), in rank order, with their count;
 //  * when the query's top r_pad is one slice wide or less and the fold
 //    fits (tiling.scan_fold: the served k = 10 and the two-tower k = 100),
 //    the scan launch folds the lists itself: the last slice of a probed
 //    list to arrive (an arrival counter a list) merges the list's slices,
 //    and the last list of the query to arrive merges the query's lists
-//    into the output; each merge is topk_tie::merge_warps (warps fold
-//    lists in registers, then pairwise; fold.cuh fold_query).  The
+//    into the output; each level's lists land in shared memory in one
+//    round of asynchronous copies and merge by topk_tie::merge_warps
+//    (warps fold lists in registers, then pairwise; fold.cuh
+//    fold_query).  The
 //    counters are a zeroed int32 buffer kept per device and stream
 //    (launcher.arrival_counters), reset by the block that uses them, so
 //    calls on two streams never share one.
@@ -68,11 +70,11 @@
 //  * stage 1 (centroid_chunk_kernel): one block per (128-centroid chunk,
 //    up to 32 queries) reads each centroid row once for all the queries
 //    of the call at B <= 32, and a warp sorts each query's 128 scores in
-//    registers; at np_pad <= 128 and a tile of one query (B = 1,
-//    tiling.select_fold) the launch folds the chunk lists itself, in two
-//    levels of arrival counters (16 chunks, then the groups); otherwise
-//    merge_kernel folds them (topk_tie merge_warps at np_pad <= 128,
-//    merge_grow past it);
+//    registers (at one query the block counts their ranks); at np_pad <=
+//    128 and a tile of one query (B = 1, tiling.select_fold) the launch
+//    folds the chunk lists itself, in two levels of arrival counters (16
+//    chunks, then the groups); otherwise merge_kernel folds them
+//    (topk_tie merge_warps at np_pad <= 128, merge_grow past it);
 //  * fused_turn_ivf launches the scan as a programmatic dependent of the
 //    kernel before it (cudaLaunchKernelEx, fold.cuh wait_primary): its
 //    blocks load the query while stage 1 drains and read sel after the

@@ -258,15 +258,17 @@ scan_lists_kernel(const T* __restrict__ q, const T* __restrict__ list_vecs,
 // warp loads R centroid rows at once and scores them against every query
 // of the tile, so the table is read once per tile (once per call at
 // B <= 32).  Then warp t sorts the 128 scores of queries t, t + 8, ... in
-// registers (topk_tie::warp_sort) and writes the best w1 (centroid index
-// as id and tie key; pads (-inf, PAD_POS) past p) to cand[b, c, :w1].
+// registers (topk_tie::warp_sort), or at one query the block counts each
+// score's rank, and writes the best w1 (centroid index as id and tie
+// key; pads (-inf, PAD_POS) past p) to cand[b, c, :w1].
 // int8 reads centroid r's group scale from the index's cached group amax
 // c_amax[r / blk_p] (group_amax); warp t quantises queries t, t + 8, ...
 // with their own scales.  With counters (w1 == np_pad; ceil(B / NQ) *
 // (ngroups + 1) zeroed ints, ngroups = ceil(nchunks / SELECT_GROUP)), the
 // launch folds its lists into each query's top np_pad, (sel_v, sel) (B,
 // np_pad), in two levels of topk_tie::merge_warps (the order and bits of
-// merge_topk_f32): a group's SELECT_GROUP chunks, then the tile's groups.
+// merge_topk_f32): a group's SELECT_GROUP chunks, then the tile's groups,
+// each level's lists landing by fold::load_lists.
 // A scan chained behind it (programmatic dependent launch) may launch as
 // soon as every block has started.
 template <int P, typename T, int NQ, int R, int U>
@@ -279,6 +281,8 @@ centroid_chunk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
   using namespace fused_common;
   static_assert(P == P_F32 || std::is_same<T, float>::value,
                 "bf16 storage is scored in float32");
+  static_assert(NQ >= 2 && ROW_THREADS == 2 * CENTROID_CHUNK,
+                "one query's ranks: two threads a centroid, sv[1] free");
   extern __shared__ float4 qs4[];
   // one row a query, padded to an odd stride: lane t writes query t's
   // score of a row without bank conflicts
@@ -377,7 +381,36 @@ centroid_chunk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
     }
   }
   __syncthreads();
-  for (int t = warp; t < nq; t += nwarps) {
+  if (nq == 1) {
+    // one query: every thread counts ranks (topk_tie::count_before), two
+    // threads a centroid, each half the chunk; the second half's counts
+    // pass through sv[1]; then the best w1 land at their ranks, pads
+    // (-inf, PAD_POS) past the chunk's n centroids
+    const int e = threadIdx.x % CENTROID_CHUNK;
+    const int part = threadIdx.x / CENTROID_CHUNK;  // 0, 1 at 256 threads
+    constexpr int SPAN = CENTROID_CHUNK / 2;
+    const bool real = e < n;
+    const float ev = real ? sv[0][e] : 0.f;
+    int* half = reinterpret_cast<int*>(sv[1]);
+    int c = real ? topk_tie::count_before(sv[0], nullptr, part * SPAN,
+                                          min(n, (part + 1) * SPAN), ev, e)
+                 : 0;
+    if (part == 1) half[e] = c;
+    __syncthreads();
+    if (part == 0) {
+      const size_t out = ((size_t)b0 * gridDim.x + blockIdx.x) * w1;
+      c += half[e];
+      if (real && c < w1) {
+        cand_v[out + c] = ev;
+        cand_i[out + c] = c0 + e;
+      }
+      if (e >= n && e < w1) {
+        cand_v[out + e] = -INFINITY;
+        cand_i[out + e] = topk_tie::PAD_POS;
+      }
+    }
+  }
+  for (int t = warp; nq > 1 && t < nq; t += nwarps) {
     float v[4];
     int ids[4], pos[4];
 #pragma unroll

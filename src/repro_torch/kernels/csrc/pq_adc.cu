@@ -32,7 +32,10 @@
 // B = 1 that is below a microsecond, so launch latency and the chain of
 // dependent steps (LUT, ids, codes, selection, merges, re-rank) set the
 // time: the design runs the chain in one launch, on the pattern of the
-// IVF scan (ivf_stages.cuh scan_lists_kernel, fold.cuh).
+// IVF scan (ivf_stages.cuh scan_lists_kernel, fold.cuh), and keeps each
+// single-block step of it short: every thread of the block ranks,
+// merges and loads at once (kernel_timeline.py measured the one-warp
+// networks these replace at ~35 us of fused_turn_pq's ~86 at B = 1).
 //
 // What the design does about it:
 //  * scan: one 256-thread block per (query, probed list, 128-row slice):
@@ -41,12 +44,12 @@
 //    (49,152 B at m = 48, opt-in dynamic shared memory) before it waits
 //    for the kernel before it (fold::wait_primary: in fused_turn_pq the
 //    scan is chained behind stage 1 by programmatic dependent launch),
-//    then reads its slice's 128 ids; a slice with no real row scores
-//    nothing and writes only a count of 0, and a pad row (id -1) is never
-//    loaded.  A thread scores a code row from 16-byte loads;
-//  * one warp selects the block's best min(r_pad, 128) in registers
-//    (fold::select_slice: topk_tie::warp_sort / warp_merge), and only the
-//    real entries leave the SM, with their count;
+//    then reads its slice's 128 ids, each row's codes going out with its
+//    id (16-byte loads); a slice with no real row scores nothing and
+//    writes only a count of 0, and a pad row (id -1) is never scored;
+//  * the block selects its best min(r_pad, 128) by counting each
+//    entry's rank (fold::select_slice), and only the real entries leave
+//    the SM, in rank order, with their count;
 //  * when the query's top r_pad is one slice wide or less and the fold
 //    fits (tiling.scan_fold: the served re-rank depth 64), the launch
 //    folds its own lists with arrival counters (fold::fold_query, the IVF
@@ -54,12 +57,21 @@
 //    LUT's shared memory; the block that folds query b also re-ranks the
 //    first r candidates against their corpus rows by doc id in float32
 //    (fold::rerank_fold, the bits of rerank_kernel) and writes the top
-//    kp.  Otherwise fused_turn.cu's merge_kernel (merge_topk_f32) folds
-//    the lists after the scan, growing them to r_pad, and rerank_rows
-//    (one block a query, up to 2,048 candidates sorted in dynamic shared
-//    memory) re-ranks them.
-// Simple first: no TMA, no persistence, the LUT reads may conflict on
-// shared-memory banks.
+//    kp.  Each fold level's lists land in shared memory by one round of
+//    cp.async copies and merge by topk_tie::merge_warps (warps fold lists
+//    in registers, then pairwise); the re-rank's warps gather
+//    its rows 4 at a time, and the block counts the exact scores' ranks
+//    (fold.cuh rank_exact).  Otherwise fused_turn.cu's
+//    merge_kernel (merge_topk_f32) folds the lists after the scan,
+//    growing them to r_pad, and rerank_rows (one block a query, up to
+//    2,048 candidates sorted in dynamic shared memory) re-ranks them;
+//  * fused_turn_pq chains the scan behind stage 1 (ivf_stages.cuh
+//    centroid_chunk_kernel: its one-query sort counts ranks, its
+//    two-level fold lands and merges as above).
+// Not done: no persistent kernel, the LUT reads may conflict on
+// shared-memory banks, and the re-rank's rows stay one block's loads
+// (the LUT region holds 15 of the 64 rows: staging them there keeps no
+// more bytes in flight than the warps' registers do).
 //
 // Plain C interface (bound with ctypes): every entry returns a cudaError_t
 // as int, 0 when every launch was accepted.  Codes must be < n_codes
@@ -87,6 +99,23 @@ using fused_common::P_F32;
 using fused_common::P_INT8;
 
 constexpr int LUT_LOADS = 8;  // 16-byte LUT loads a thread has in flight
+constexpr int CODE_LOADS = 4;  // 16-byte code loads a row issued with its id
+
+// acc += the LUT entries of the 16 codes in cw, subquantizers j0 ..
+// j0 + 15 in order (tab: the staged LUT, n_codes entries a subquantizer).
+template <typename Acc>
+__device__ __forceinline__ void add_codes(Acc& acc, const Acc* tab,
+                                          int n_codes, int j0, uint4 cw) {
+  const unsigned words[4] = {cw.x, cw.y, cw.z, cw.w};
+#pragma unroll
+  for (int wi = 0; wi < 4; ++wi) {
+#pragma unroll
+    for (int by = 0; by < 4; ++by) {
+      const int sub = j0 + wi * 4 + by;
+      acc += tab[sub * n_codes + ((words[wi] >> (8 * by)) & 0xffu)];
+    }
+  }
+}
 
 // Largest |x| of the n4 float4s at t4, by the whole block (red: 32
 // floats; every thread gets it), LUT_LOADS loads a thread at once.
@@ -219,6 +248,20 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
   int id = -1;
   if (threadIdx.x < nrows)
     id = list_ids[(size_t)list * lmax + row0 + threadIdx.x];
+  // the row's codes, 16 bytes at a time when every row starts on a
+  // 16-byte boundary; up to CODE_LOADS of them (m <= 64) go out with the
+  // id rather than after it, so the block waits on one trip to device
+  // memory, not two (a pad row's codes exist; they are never scored)
+  const uint8_t* c = codes + ((size_t)list * lmax + row0 + threadIdx.x) * m;
+  const bool vec16 =
+      (m % 16) == 0 && (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+  const bool early = vec16 && m <= 16 * CODE_LOADS;
+  uint4 cw[CODE_LOADS];
+#pragma unroll
+  for (int k = 0; k < CODE_LOADS; ++k)
+    cw[k] = early && threadIdx.x < nrows && k * 16 < m
+                ? __ldg(reinterpret_cast<const uint4*>(c) + k)
+                : make_uint4(0u, 0u, 0u, 0u);
   if (threadIdx.x < ADC_ROWS) {
     si[threadIdx.x] = id;
     sv[threadIdx.x] = -INFINITY;
@@ -228,24 +271,15 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
   const int n_real = __syncthreads_count(id >= 0);
   if (n_real > 0) {
     if (id >= 0) {
-      const uint8_t* c = codes + ((size_t)list * lmax + row0 + threadIdx.x) * m;
-      // 16-byte code loads when every row starts on a 16-byte boundary
-      const bool vec16 =
-          (m % 16) == 0 && (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
       Acc acc = 0;
-      if (vec16) {
-        for (int j0 = 0; j0 < m; j0 += 16) {
-          const uint4 cw = __ldg(reinterpret_cast<const uint4*>(c + j0));
-          const unsigned words[4] = {cw.x, cw.y, cw.z, cw.w};
+      if (early) {
 #pragma unroll
-          for (int wi = 0; wi < 4; ++wi) {
-#pragma unroll
-            for (int by = 0; by < 4; ++by) {
-              const int sub = j0 + wi * 4 + by;
-              acc += tab[sub * n_codes + ((words[wi] >> (8 * by)) & 0xffu)];
-            }
-          }
-        }
+        for (int k = 0; k < CODE_LOADS; ++k)
+          if (k * 16 < m) add_codes(acc, tab, n_codes, k * 16, cw[k]);
+      } else if (vec16) {
+        for (int j0 = 0; j0 < m; j0 += 16)
+          add_codes(acc, tab, n_codes, j0,
+                    __ldg(reinterpret_cast<const uint4*>(c + j0)));
       } else {
         for (int sub = 0; sub < m; ++sub)
           acc += tab[sub * n_codes + __ldg(c + sub)];

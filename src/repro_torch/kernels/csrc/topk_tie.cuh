@@ -18,8 +18,13 @@
 // shared memory (value, id, position), static or dynamic, of power-of-two
 // widths (the kernels sort and merge up to 2,048 entries a list); every
 // thread of the block must call them.  warp_sort sorts 32 N entries held
-// in one warp's registers, N a lane, with shuffles and no barrier.  They
-// are inline because several sources of the one library include this
+// in one warp's registers, N a lane, with shuffles and no barrier.
+// count_before places entries by their rank instead of a network: an
+// entry's rank in a set is the number of entries that rank before it
+// (the order is total, so ranks are distinct and place every real entry
+// where any sort would), counted by every thread of the block at once,
+// where a network is a chain of dependent steps in one warp.  They are
+// inline because several sources of the one library include this
 // header.
 #pragma once
 
@@ -229,6 +234,31 @@ __device__ __forceinline__ void warp_sort(float (&v)[N], int (&id)[N],
   for (int k = 2; k <= 32 * N; k <<= 1)
 #pragma unroll
     for (int s = k >> 1; s > 0; s >>= 1) warp_step<N>(v, id, pos, k, s);
+}
+
+// The number of the entries (v, pos)[j0, j1) that rank strictly before
+// (ev, ep), reading them from shared memory (the same entry for every
+// thread of a warp: a broadcast) 8 at a time, so each batch's loads are
+// in flight together; pos null: an entry's position is its index.
+__device__ __forceinline__ int count_before(const float* v, const int* pos,
+                                            int j0, int j1, float ev,
+                                            int ep) {
+  constexpr int BATCH = 8;
+  const int ke = order_key(ev);
+  int c = 0;
+  for (int jb = j0; jb < j1; jb += BATCH) {
+    int kj[BATCH], pj[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int j = min(jb + u, j1 - 1);
+      kj[u] = order_key(v[j]);
+      pj[u] = pos == nullptr ? j : pos[j];
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+      c += (jb + u < j1) & ((kj[u] > ke) | ((kj[u] == ke) & (pj[u] < ep)));
+  }
+  return c;
 }
 
 // Merges the sorted 32 N entries (bv, bi, bp) of one warp into its sorted

@@ -18,6 +18,11 @@ import torch
 
 from repro_torch.kernels import launcher, tiling
 
+#: the kernels of ``csrc/embedding_bag.cu`` a call may force: a block a
+#: (bag, column slice) with the rows staged in shared memory, or a warp a
+#: bag; by default ``tiling.plan_embedding_bag`` picks by B
+KERNELS = ("rows", "warp")
+
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int
            ) -> None:
@@ -30,10 +35,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
-                  weights: Optional[torch.Tensor]) -> torch.Tensor:
+                  weights: Optional[torch.Tensor], kernel: str = ""
+                  ) -> torch.Tensor:
     """Sum of each bag's rows: table (V, d) float32, ids (B, L) int32
     (negative = pad), weights (B, L) float32 or None.  Returns (B, d)
-    float32.  A B of 0 launches nothing."""
+    float32.  ``kernel`` forces one of ``KERNELS`` (the measurement
+    behind the plan's choice does); both give the same bits.  A B of 0
+    launches nothing."""
     _check("table", table, torch.float32, 2)
     _check("ids", ids, torch.int32, 2)
     if weights is not None:
@@ -46,6 +54,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     b, bag = ids.shape
     d = table.shape[1]
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
-    launcher.run("embedding_bag_f32", tiling.plan_embedding_bag(b),
-                 table.device, table, d, ids, weights, b, bag, out)
+    plan = tiling.plan_embedding_bag(b, d, kernel)
+    rows = bool(plan) and plan[0].kernel == "bag_rows_kernel"
+    launcher.run("embedding_bag_f32", plan, table.device, table, d, ids,
+                 weights, b, bag, out, int(rows))
     return out

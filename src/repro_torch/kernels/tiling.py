@@ -339,6 +339,16 @@ DECODE_FOLD_HEAD = 32      # floats before its fold arrays
 # still gives every SM a block
 SMS = 132
 BAG_WARPS = 4              # bags of an embedding_bag block
+# bag_rows_kernel (csrc/embedding_bag.cu SLICE, ROWS_CHUNK): columns of
+# one block's slice of a bag (a lane each), and rows it stages at once
+BAG_SLICE = 32
+BAG_ROWS_CHUNK = 64
+# The largest B that takes bag_rows_kernel; larger batches take one warp
+# a bag.  Set from chip_smoke.py --bag-times (both kernels forced on the
+# two-tower table, L = 50; NVIDIA H100 80GB HBM3, 700 W; PERF.md section
+# 6): 0.0199 against 0.0213 ms at B = 512, 0.0529 against 0.0505 at
+# 2,048 and 0.1588 against 0.1565 at 8,192.
+BAG_ROWS_MAX_B = 512
 
 STATIC_SMEM: Dict[str, int] = {
     # sv [QTILE][CENTROID_CHUNK + 1] (the 8-query instance;
@@ -356,6 +366,8 @@ STATIC_SMEM: Dict[str, int] = {
     "merge_kernel": 0, "rerank_kernel": 0, "flash_bf16_kernel": 0,
     "flash_tf32_kernel": 0, "decode_mma_kernel": 0,
     "embedding_bag_kernel": 0,
+    # rows [BAG_ROWS_CHUNK][BAG_SLICE], sid and sw [BAG_ROWS_CHUNK]
+    "bag_rows_kernel": BAG_ROWS_CHUNK * (BAG_SLICE + 2) * 4,
 }
 # The int8 instances keep the arrays of their scale reductions (red[32];
 # stage 1's sq: centroid_static); the compiler drops them from the f32
@@ -635,7 +647,19 @@ def plan_flash_decode(b: int, h: int, hkv: int, s: int, d: int,
                     group * nsplit * 4, True)]
 
 
-def plan_embedding_bag(b: int) -> List[Launch]:
-    """``embedding_bag_f32``: one warp a bag, no shared memory."""
-    return ([_launch("embedding_bag_kernel", (-(-b // BAG_WARPS),),
-                     BAG_WARPS * WARP, 0, False)] if b else [])
+def plan_embedding_bag(b: int, d: int, kernel: str = "") -> List[Launch]:
+    """``embedding_bag_f32``: up to ``BAG_ROWS_MAX_B`` bags (or ``kernel``
+    "rows") one block of a warp per (bag, slice of ``BAG_SLICE``
+    columns), the slice's rows staged in static shared memory by
+    asynchronous copies; else (or ``kernel`` "warp") one warp a bag, no
+    shared memory."""
+    if kernel not in ("", "rows", "warp"):
+        raise ValueError(f"embedding_bag kernel must be 'rows' or 'warp', "
+                         f"got {kernel!r}")
+    if not b:
+        return []
+    if kernel == "rows" or (not kernel and b <= BAG_ROWS_MAX_B):
+        return [_launch("bag_rows_kernel", (b, -(-d // BAG_SLICE)), WARP, 0,
+                        False)]
+    return [_launch("embedding_bag_kernel", (-(-b // BAG_WARPS),),
+                    BAG_WARPS * WARP, 0, False)]

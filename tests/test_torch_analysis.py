@@ -62,7 +62,8 @@ def test_recorded_plans_are_the_tiling_plans(no_build):
     scale passes of its lists and its centroids, then its entry: stage 1
     and its merge (a tile of 8 queries: past the stage-1 fold) and the
     scan, which folds its lists and re-ranks them in its own launch, in
-    launch order."""
+    launch order.  The bag probe at B = 1 and 512 records its entry's
+    plan."""
     probe = next(p for p in kb.default_probes()
                  if p.label == "ops.fused_turn[int8]")
     records = kb.record(probe)
@@ -75,6 +76,18 @@ def test_recorded_plans_are_the_tiling_plans(no_build):
         "centroid_chunk_kernel", "merge_kernel", "scan_lists_kernel"]
     assert rec.plan == tiling.plan_fused_turn_ivf(8, 4096, 8, 8, 512, 128,
                                                   "int8", 64)
+    # embedding_bag at a request (B = 1) and at serve_p99 (B = 512): the
+    # entry's plan, the small-batch kernel up to BAG_ROWS_MAX_B
+    bag = next(p for p in kb.default_probes() if p.label == "ops.embedding_bag")
+    table = torch.empty((50_000, 256), device="meta")
+    for b in (1, 512):
+        ids = torch.empty((b, 50), dtype=torch.int32, device="meta")
+        (rec,) = kb.record(bag, (table, ids))
+        assert rec.entry == "embedding_bag_f32"
+        assert rec.plan == tiling.plan_embedding_bag(b, 256)
+        assert rec.plan[0].kernel == ("bag_rows_kernel"
+                                      if b <= tiling.BAG_ROWS_MAX_B
+                                      else "embedding_bag_kernel")
 
 
 @pytest.mark.parametrize("n_lists,w", [(1, 16), (384, 16), (320, 128),

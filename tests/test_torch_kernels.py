@@ -1001,6 +1001,144 @@ def test_cuda_embedding_bag_refuses_grad_and_empty_launches_nothing(
         ops.embedding_bag(table, ids)
 
 
+# The two kernels of csrc/embedding_bag.cu: bag_rows_kernel (a block a
+# (bag, 32-column slice), the rows staged by cp.async) up to
+# tiling.BAG_ROWS_MAX_B bags, embedding_bag_kernel (a warp a bag) past it.
+# (V, d, B, L): each side of the threshold and serve_p99's 512; bags of 1,
+# 31, 32, 33 and 200 ids (past one 64-row chunk); d 16, 260 (a slice of
+# 4 columns past 8 whole ones) and 1,000 (32 slices, the last of 8)
+BAG_THR = tiling.BAG_ROWS_MAX_B
+BAG_EDGE_SHAPES = [(1000, 256, 1, 50), (1000, 256, BAG_THR, 50),
+                   (1000, 256, BAG_THR + 1, 50), (1000, 256, 512, 50),
+                   (500, 256, 3, 1), (500, 256, 3, 31), (500, 256, 3, 32),
+                   (500, 256, 3, 33), (500, 256, 3, 200), (400, 16, 5, 50),
+                   (400, 260, 5, 50), (400, 1000, 5, 50)]
+
+
+def _bag_edge_inputs(shape, dev="cpu"):
+    """``_bag_inputs``' float table, ids and weights, with bag 0 all
+    pads only when there is another bag (a lone bag stays real)."""
+    table, ids, w = _bag_inputs(shape, False, dev)
+    if ids.shape[0] == 1:
+        rng = np.random.default_rng(shape[0] + shape[3])
+        ids = torch.from_numpy(rng.integers(-1, shape[0], size=ids.shape)
+                               .astype(np.int32)).to(dev)
+        ids[:, -1] = shape[0] - 1
+    return table, ids, w
+
+
+def test_bag_plan_picks_the_rows_kernel_up_to_the_threshold():
+    """B <= BAG_ROWS_MAX_B: one block of a warp per (bag, slice of
+    BAG_SLICE columns), its staged rows in static shared memory; past
+    it one warp a bag; a forced kernel wins; B = 0 launches nothing."""
+    for b in (1, 8, BAG_THR):
+        (plan,) = tiling.plan_embedding_bag(b, 256)
+        assert plan.kernel == "bag_rows_kernel"
+        assert plan.grid == (b, 256 // tiling.BAG_SLICE, 1)
+        assert plan.block == (tiling.WARP, 1, 1) and plan.dyn_smem_bytes == 0
+        assert plan.static_smem_bytes == tiling.STATIC_SMEM[
+            "bag_rows_kernel"] == tiling.BAG_ROWS_CHUNK * (
+                tiling.BAG_SLICE + 2) * 4
+    assert tiling.plan_embedding_bag(1, 1000)[0].grid == (1, 32, 1)
+    for b in (BAG_THR + 1, 262_144):
+        (plan,) = tiling.plan_embedding_bag(b, 256)
+        assert plan.kernel == "embedding_bag_kernel"
+        assert plan.grid == (-(-b // tiling.BAG_WARPS), 1, 1)
+    assert tiling.plan_embedding_bag(1, 256, "warp")[0].kernel == \
+        "embedding_bag_kernel"
+    assert tiling.plan_embedding_bag(10 ** 6, 256, "rows")[0].kernel == \
+        "bag_rows_kernel"
+    assert tiling.plan_embedding_bag(0, 256) == []
+    with pytest.raises(ValueError, match="rows"):
+        tiling.plan_embedding_bag(1, 256, "block")
+
+
+def _bag_rows_replay(table, ids, weights):
+    """csrc bag_rows_kernel's arithmetic in numpy float32: per (bag,
+    slice of BAG_SLICE columns), per chunk of BAG_ROWS_CHUNK ids, lane c
+    adds row * w of column c for each real id in bag order, one rounding
+    after the product and one after the sum; a pad is skipped."""
+    t, idn = table.numpy(), ids.numpy()
+    w = (np.ones(idn.shape, np.float32) if weights is None
+         else weights.numpy())
+    b, bag = idn.shape
+    d = t.shape[1]
+    out = np.zeros((b, d), np.float32)
+    for row in range(b):
+        for c0 in range(0, d, tiling.BAG_SLICE):
+            cols = slice(c0, min(d, c0 + tiling.BAG_SLICE))
+            acc = np.zeros(cols.stop - c0, np.float32)
+            for l0 in range(0, bag, tiling.BAG_ROWS_CHUNK):
+                for l in range(l0, min(bag, l0 + tiling.BAG_ROWS_CHUNK)):
+                    if idn[row, l] < 0:
+                        continue
+                    acc = (acc + (t[idn[row, l], cols] * w[row, l]
+                                  ).astype(np.float32)).astype(np.float32)
+            out[row, cols] = acc
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("shape", [BAG_EDGE_SHAPES[k] for k in
+                                   (0, 4, 7, 8, 10, 11)])
+def test_bag_rows_kernel_order_is_the_plain_versions_bits(shape):
+    """A CPU replay of the small-batch kernel's summation order (slices,
+    chunks of 64 ids, pads skipped) equals ref.embedding_bag bit for
+    bit, weighted and not, on float inputs."""
+    table, ids, w = _bag_edge_inputs(shape)
+    for weights in (None, w):
+        want = ref.embedding_bag(table, ids, weights)
+        got = _bag_rows_replay(table, ids, weights)
+        assert torch.equal(got, want)
+        assert (ids.shape[0] == 1) == bool(got[0].any())
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("kernel", ["", "rows", "warp"])
+@pytest.mark.parametrize("shape", BAG_EDGE_SHAPES)
+def test_cuda_embedding_bag_kernels_equal_plain_version(cuda_device, shape,
+                                                        kernel):
+    """Each kernel, forced or by the plan, bit-equal to the plain version
+    on float inputs, weighted and not, with an all-pad bag 0: both sum
+    in bag order with one rounding a product and a sum."""
+    from repro_torch.kernels import embedding_bag as eb
+    table, ids, w = _bag_edge_inputs(shape, cuda_device)
+    for weights in (None, w):
+        got = eb.embedding_bag(table, ids, weights, kernel=kernel)
+        assert torch.equal(got, ref.embedding_bag(table, ids, weights))
+        assert (ids.shape[0] == 1) == bool(got[0].any())
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("kernel", ["rows", "warp"])
+def test_cuda_embedding_bag_reads_a_misaligned_table_view(cuda_device,
+                                                          kernel):
+    """A table view 4 bytes past a 16-byte boundary (d = 256) takes each
+    kernel's 4-byte path, to the same bits."""
+    from repro_torch.kernels import embedding_bag as eb
+    table, ids, w = _bag_edge_inputs(BAG_EDGE_SHAPES[0], cuda_device)
+    buf = torch.empty(table.numel() + 1, device=cuda_device)
+    view = buf[1:].view(table.shape)
+    view.copy_(table)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    for weights in (None, w):
+        got = eb.embedding_bag(view, ids, weights, kernel=kernel)
+        assert torch.equal(got, ref.embedding_bag(table, ids, weights))
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("b", [1, BAG_THR, BAG_THR + 1])
+def test_cuda_embedding_bag_launches_one_kernel_a_call(cuda_device, b,
+                                                       tmp_path):
+    """One kernel a call under the profiler, the one the plan names."""
+    table, ids, w = _bag_edge_inputs((1000, 256, b, 50), cuda_device)
+    want = tiling.plan_embedding_bag(b, 256)[0].kernel
+    before = ops.embedding_bag.launches
+    names = _traced_kernels(lambda: ops.embedding_bag(table, ids, w),
+                            tmp_path)
+    assert len(names) == 1 and want in names[0], names
+    assert ops.embedding_bag.launches > before
+
+
 # ---------------------------------------------------------------------------
 # flash decode: one query token per row against a KV cache
 # ---------------------------------------------------------------------------
@@ -1940,6 +2078,56 @@ def test_cuda_chained_turns_on_two_streams(cuda_device, precision):
 SERVED_KERNELS = {
     "pq_adc_scan": 1, "fused_scan_pq": 1, "fused_scan": 1, "fused_turn": 2,
     "fused_turn_pq": 2}
+
+
+# fused_turn_pq's edges (p, lmax, d, B, nprobe, k, m, rerank): p below
+# one 128-centroid chunk and not a multiple of one; d 4 and 3,632 (the
+# widest check_width takes: 8 staged queries in half a block's shared
+# memory); B 1, 8, 25, 32 and 33 (the query tiles' edges); re-rank depths
+# 1, 63 and 64; B = 1 over 17 chunks folds stage 1 in two groups
+PQ_EDGE_SHAPES = [(100, 40, 16, 1, 8, 1, 8, 1), (300, 50, 4, 8, 16, 10, 4, 63),
+                  (1000, 30, 3632, 25, 8, 10, 16, 64),
+                  (300, 130, 16, 32, 16, 10, 8, 64),
+                  (300, 130, 16, 33, 16, 10, 8, 63),
+                  (2100, 60, 32, 1, 64, 10, 16, 64)]
+
+
+def _pq_edge_inputs(shape, dev):
+    """Integer queries, centroids, LUTs, codes and corpus rows over
+    ragged lists (list 0 empty; ids < 500 repeat)."""
+    p, lmax, d, b, nprobe, k, m, _ = shape
+    rng = np.random.default_rng(p + lmax + d + b)
+    q = rng.integers(-4, 5, size=(b, d)).astype(np.float32)
+    cents = rng.integers(-4, 5, size=(p, d)).astype(np.float32)
+    sizes = rng.integers(0, lmax + 1, size=p)
+    sizes[0] = 0
+    real = np.arange(lmax)[None] < sizes[:, None]
+    li = np.where(real, np.arange(p * lmax).reshape(p, lmax) % 500, -1)
+    tables = rng.integers(-4, 5, size=(b, m, 256)).astype(np.float32)
+    codes = rng.integers(0, 256, size=(p, lmax, m)).astype(np.uint8)
+    corpus = rng.integers(-4, 5, size=(500, d)).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in
+            (q, cents, tables, codes, li.astype(np.int32), corpus)]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("precision", ("f32",) + QUANT)
+@pytest.mark.parametrize("shape", PQ_EDGE_SHAPES)
+def test_cuda_fused_turn_pq_edges_equal_plain_version(cuda_device, shape,
+                                                      precision):
+    """Row 5 at its edges, bit-equal to the plain version (values, ids,
+    sel) at every precision."""
+    p, lmax, d, b, nprobe, k, m, rerank = shape
+    q, cents, tables, codes, li, corpus = _pq_edge_inputs(shape,
+                                                          cuda_device)
+    r = max(k, min(rerank, nprobe * lmax))
+    got = ops.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                            nprobe=nprobe, k=k, rerank=rerank,
+                            precision=precision)
+    want = ref.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                             nprobe=nprobe, k=k, r=r, precision=precision)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda_only

@@ -1,20 +1,22 @@
 """The selection and merge networks of the IVF stage kernels, emulated.
 
-``csrc/ivf_stages.cuh`` selects each block's best candidates with
-warp-level bitonic networks (``topk_tie::warp_sort`` of 128 entries, 4 a
-lane, or, for a scan's best 32 or fewer, four sorts of 32 merged
-pairwise by ``topk_tie::warp_merge``) and folds the blocks' lists with
-``topk_tie::merge_warps`` (lists of at most 128: warps fold them in
-registers, then pairwise; the scan's two-level fold, a list's slices
-then a query's lists, and the merge kernel) or ``topk_tie::merge_grow``
-(lists narrower than the output, in the groups and passes of
-``tiling.merge_plan``).  The card is needed to run
-them, so these tests replay the same compare-exchange networks step for
-step in plain PyTorch, on the same lists in the kernels' grouping, and
-hold the result to ``sorting.block_topk_desc_tie`` (the plain versions'
-order) and to ``lax.top_k`` over the real candidates (the reference's
-order): exact ties, +0.0 above -0.0, all-pad and empty slices, real rows
-scoring -inf, and top-k widths of 64, 1,024 and 2,048.
+``csrc/ivf_stages.cuh`` selects each block's best candidates by rank
+(``fold::select_slice``: each entry's rank counted among the block's
+128, ``topk_tie::count_before``; stage 1 likewise at one query, else a
+warp-level bitonic sort, ``topk_tie::warp_sort`` of 128 entries, 4 a
+lane) and folds the blocks' lists with ``topk_tie::merge_warps`` (lists
+of at most 128: warps fold them in registers, then pairwise; the scan's
+two-level fold, a list's slices then a query's lists, stage 1's fold
+and the merge kernel) or
+``topk_tie::merge_grow`` (lists narrower than the output, in the groups
+and passes of ``tiling.merge_plan``).  The card is needed to run
+them, so these tests replay the same ranks and compare-exchange networks
+step for step in plain PyTorch, on the same lists in the kernels'
+grouping, and hold the result to ``sorting.block_topk_desc_tie`` (the
+plain versions' order) and to ``lax.top_k`` over the real candidates
+(the reference's order): exact ties, +0.0 above -0.0, all-pad and empty
+slices, real rows scoring -inf, and top-k widths of 64, 1,024 and
+2,048.
 """
 import jax
 import numpy as np
@@ -92,6 +94,25 @@ def merge_lists(t3, n_lists, w):
             x[..., t] = torch.where(take, x[..., b], x[..., t])
         half_clean(t3, pairs, w)
         m = half
+
+
+def count_ranks(v, p, real):
+    """topk_tie::count_before for every entry of the last axis: the
+    real entries that rank before it (pads never do)."""
+    before = ranks_before(v[..., None, :], p[..., None, :], v[..., :, None],
+                          p[..., :, None]) & real[..., None, :]
+    return before.sum(-1)
+
+
+def place(t3, at, keep, width, pad_id):
+    """Entries at their ranks ``at`` where ``keep``, into lists of
+    ``width`` (NaN / -2 where nothing lands)."""
+    out = [torch.full(at.shape[:-1] + (width + 1,), fill, dtype=x.dtype)
+           for x, fill in zip(t3, (np.nan, -2, -2))]
+    idx = torch.where(keep & (at < width), at, width)
+    for o, x in zip(out, t3):
+        o.scatter_(-1, idx, x)
+    return [o[..., :width] for o in out]
 
 
 def warp_merge(a, b):
@@ -184,19 +205,22 @@ def pads(shape, pad_id):
             torch.full(shape, PAD_POS, dtype=torch.int32))
 
 
-def block_lists(v, i, p, w, select=False):
-    """Each 128-entry block of the last axis: its best w.  ``select``
-    (the scan at w <= 32): four lists of 32 warp-sorted apart and merged
-    pairwise; else one warp sort of all 128."""
+def block_lists(v, i, p, w, pad_id, ranks=True):
+    """Each 128-entry block of the last axis: its best w.  ``ranks`` (a
+    scan block, or stage 1 at one query): each real entry (position <
+    PAD_POS) placed at its counted rank, pads past the real ones; else
+    one warp sort of all 128."""
     lead, n = v.shape[:-1], v.shape[-1]
     blocks = [x.reshape(*lead, n // ROWS, ROWS) for x in (v, i, p)]
-    if select and w <= 32:
-        lists = [warp_sort(*(x[..., k * 32:(k + 1) * 32] for x in blocks))
-                 for k in range(4)]
-        top = warp_merge(warp_merge(lists[0], lists[1]),
-                         warp_merge(lists[2], lists[3]))
-        return [x[..., :w].clone() for x in top]
-    return [x[..., :w].clone() for x in warp_sort(*blocks)]
+    if not ranks:
+        return [x[..., :w].clone() for x in warp_sort(*blocks)]
+    real = blocks[2] != PAD_POS
+    at = count_ranks(blocks[0], blocks[2], real)
+    out = place(blocks, at, real, w, pad_id)
+    n_real = real.sum(-1, keepdim=True)
+    past = torch.arange(w) >= n_real
+    return [torch.where(past, torch.tensor(pad, dtype=x.dtype), x)
+            for x, pad in zip(out, (-np.inf, pad_id, PAD_POS))]
 
 
 def merge_topk(lists, counts, w_in, w, pad_id):
@@ -251,7 +275,7 @@ def scan_emulated(scores, ids, r_pad):
     v[..., :lmax] = torch.where(real, scores, -np.inf)
     i[..., :lmax] = ids
     p[..., :lmax] = torch.where(real, pos, PAD_POS).int()
-    slices = block_lists(v, i, p, w, select=True)  # (B, nprobe, nsplit, w)
+    slices = block_lists(v, i, p, w, -1)  # (B, nprobe, nsplit, w)
     counts = real.reshape(b, nprobe, -1) if lmax == full else torch.cat(
         [real, torch.zeros(b, nprobe, full - lmax, dtype=torch.bool)], -1)
     counts = counts.reshape(b, nprobe, nsplit, ROWS).sum(-1).clamp(max=w)
@@ -283,7 +307,9 @@ def stage1_emulated(scores, kp):
     v, i, _ = pads((b, chunks * ROWS), PAD_POS)
     v[:, :p] = scores
     i[:, :p] = torch.arange(p, dtype=torch.int32)
-    lists = block_lists(v, i, i.clone(), w1)
+    # one query (a tile of one) counts ranks; its pads' positions are
+    # PAD_POS, the centroids' their index
+    lists = block_lists(v, i, i.clone(), w1, PAD_POS, ranks=b == 1)
     if not tiling.select_fold(b, p, 768, kp):
         return merge_topk(lists, None, w1, kp, PAD_POS)
     # the fold, in the launch: each group of SELECT_GROUP chunks' lists,
@@ -305,14 +331,14 @@ def stage1_emulated(scores, kp):
 def rerank_emulated(exact, cand_i, r, kp):
     """fold.cuh rerank_fold: candidate t of the fold's w (t < r, id >=
     0) keeps its exact score, the rest -inf and their id, position t;
-    one warp sorts them (warp_sort of 32 N, pads past w) and keeps kp."""
+    each lands at its counted rank (rank_exact: every candidate counts,
+    positions are distinct) and the first kp are kept."""
     b, w = cand_i.shape
     t = torch.arange(w)
     es = torch.where((t < r) & (cand_i >= 0), exact, -np.inf)
-    n = 32 if w <= 32 else 64 if w <= 64 else 128
-    v, i, p = pads((b, n), -1)
-    v[:, :w], i[:, :w], p[:, :w] = es, cand_i, t.int().expand(b, -1)
-    v, i, p = warp_sort(v, i, p)
+    t3 = [es, cand_i, t.int().expand(b, -1)]
+    at = count_ranks(es, t3[2], torch.ones_like(cand_i, dtype=torch.bool))
+    v, i, p = place(t3, at, torch.ones_like(at, dtype=torch.bool), w, -1)
     return v[:, :kp], i[:, :kp], p[:, :kp]
 
 
