@@ -34,8 +34,9 @@ exits non-zero):
   1 card      nvidia-smi name and power limit, versions, TF32 off
   2 build     nvcc of every kernels/csrc source (seconds; registers and
               spills per kernel); HMMA (tensor-core) instructions in
-              each instance of the tensor-core attention kernels, from
-              cuobjdump -sass of the built library
+              each instance of the tensor-core attention kernels, and
+              the LUT's bulk copy (UBLKCP) in each bulk instance of the
+              ADC scan, from cuobjdump -sass of the built library
   3 exact     integer inputs: kernels == plain versions bit for bit
               (rows 1-2, centroid_topk and ivf_scan, in float32 and
               bfloat16: p not a multiple of 128 with every score
@@ -114,8 +115,11 @@ and prints only the [stages] split; ``--dump-rows PATH`` builds and saves
 rows 1-7's outputs on the seeded realistic inputs to PATH, so the
 kernels of two checkouts can be held to each other bit for bit;
 ``--bag-times`` builds and times only embedding_bag's kernels over a
-range of batch sizes ([bag], ``phase_bag_sweep``).  The three may be
-given together.
+range of batch sizes ([bag], ``phase_bag_sweep``); ``--adc-times``
+builds and times only the rows that run the ADC scan, rows 3, 5 and 7
+at every precision and B = 1 and 25 ([adc], ``phase_adc_times``), so
+two checkouts can be compared in one call.  The four may be given
+together.
 """
 from __future__ import annotations
 
@@ -124,6 +128,7 @@ import inspect
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -193,10 +198,11 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def sass_hmma(so):
-    """HMMA (tensor-core) instructions in each instance of the
-    MMA_KERNELS, from ``cuobjdump -sass`` of the built library; raises if
-    an instance has none or a kernel is missing."""
+def sass_counts(so, kernels, opcodes):
+    """Per instance of each kernel named in ``kernels``, its mangled name
+    and the number of SASS instructions whose opcode starts with each of
+    ``opcodes``, from ``cuobjdump -sass`` of the built library: {kernel:
+    [(name, {opcode: n}), ...]}."""
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
@@ -204,15 +210,43 @@ def sass_hmma(so):
     counts, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            cur = next((k for k in MMA_KERNELS if k in line), None)
+            cur = next((k for k in kernels if k in line), None)
             if cur:
-                counts.setdefault(cur, []).append(0)
-        elif cur and "HMMA" in line:
-            counts[cur][-1] += 1
-    if set(counts) != set(MMA_KERNELS) or not all(
-            all(c) for c in counts.values()):
-        raise AssertionError(f"SASS: HMMA per instance {counts}")
+                counts.setdefault(cur, []).append(
+                    (line.split("Function :")[1].strip(),
+                     dict.fromkeys(opcodes, 0)))
+            continue
+        m = cur and re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                              r"([A-Z][A-Z0-9_.]*)", line)
+        if m:
+            for op in opcodes:
+                if m.group(1).startswith(op):
+                    counts[cur][-1][1][op] += 1
     return counts
+
+
+def sass_checks(so):
+    """The SASS the design relies on, per kernel instance: HMMA
+    (tensor-core) instructions in each of the MMA_KERNELS, and the bulk
+    copy of the LUT (UBLKCP) in each of adc_scan_kernel's three bulk
+    instances (template argument BULK true: ``Lb1E`` in the mangled
+    name) and in none of the three that stage the LUT by threads. Raises
+    if an instance breaks this or a kernel is missing; returns the HMMA
+    counts and, per adc_scan_kernel instance, (bulk instance, its counts
+    of bulk copies and mbarrier instructions (SYNCS))."""
+    hmma = sass_counts(so, MMA_KERNELS, ("HMMA",))
+    adc = [("Lb1E" in name, c)
+           for name, c in sass_counts(so, ("adc_scan_kernel",),
+                                      ("UBLKCP", "SYNCS")
+                                      ).get("adc_scan_kernel", [])]
+    if set(hmma) != set(MMA_KERNELS) or not all(
+            c["HMMA"] for cs in hmma.values() for _, c in cs):
+        raise AssertionError(f"SASS: HMMA per instance {hmma}")
+    if (sorted(bulk for bulk, _ in adc) != [False] * 3 + [True] * 3
+            or not all(bool(c["UBLKCP"]) == bulk for bulk, c in adc)):
+        raise AssertionError(f"SASS: bulk copy per adc_scan_kernel "
+                             f"instance {adc}")
+    return ({k: [c["HMMA"] for _, c in cs] for k, cs in hmma.items()}, adc)
 
 
 def card_line() -> str:
@@ -1509,6 +1543,42 @@ def phase_stages(args, dev):
     del lv, li, rows, pqi
     torch.cuda.empty_cache()
     return out
+
+
+def phase_adc_times(args, dev):
+    """The rows that run the ADC scan, by CUDA events (``event_ms``: 30
+    calls, L2 flushed before each, a spin kernel queued first), three
+    times each, on ``kernel_timeline.py``'s seeded inputs at the smoke's
+    shapes: row 3 ``pq_adc_scan``, row 7 ``fused_scan_pq`` with its
+    re-rank and row 5 ``fused_turn_pq``, at f32, bf16 and int8, at B = 1
+    and 25; a line per call with its three mean times in ms."""
+    import torch
+    from repro_torch.core import toploc
+    from repro_torch.kernels import ops
+    cents, lv, li, qs, rows, pqi = stage_inputs(args, dev, args.seed + 19)
+    codes = pqi.list_codes
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    for b in (1, 25):
+        q = qs[:b].contiguous()
+        sel = ops.centroid_topk(q, cents, args.nprobe)[1]
+        t = toploc._adc_tables(pqi, q)
+        calls = {"row3 pq_adc_scan": lambda: ops.pq_adc_scan(
+            t, codes, li, sel, RERANK)}
+        for prec in ("f32",) + QUANT:
+            calls[f"row7 fused_scan_pq[{prec}]"] = \
+                lambda prec=prec: ops.fused_scan_pq(
+                    t, q, codes, li, sel, rows, args.k, rerank=RERANK,
+                    precision=prec)
+        for prec in ("f32",) + QUANT:
+            calls[f"row5 fused_turn_pq[{prec}]"] = \
+                lambda prec=prec: ops.fused_turn_pq(
+                    q, cents, t, codes, li, rows, nprobe=args.nprobe,
+                    k=args.k, rerank=RERANK, precision=prec)
+        for name, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            ms = [event_ms([call] * 30, flush, spin=True) for _ in range(3)]
+            log("adc", f"{name} B={b}: " + " ".join(f"{x:.4f}" for x in ms))
 
 
 def phase_dump_rows(args, dev, path):
@@ -3090,6 +3160,9 @@ def main() -> int:
     ap.add_argument("--bag-times", action="store_true",
                     help="build, then only the [bag] sweep of embedding_bag's "
                     "kernels over B (phase_bag_sweep)")
+    ap.add_argument("--adc-times", action="store_true",
+                    help="build, then only time the rows that run the ADC "
+                    "scan (phase_adc_times)")
     ap.add_argument("--dump-rows", metavar="PATH",
                     help="build, then only save rows 1-7's outputs on the "
                     "seeded realistic inputs to PATH (phase_dump_rows)")
@@ -3121,13 +3194,19 @@ def main() -> int:
         f"in parallel, from {_build.CSRC.relative_to(ROOT)}")
     for src, lines in _build.last_build["ptxas"].items():
         log("build", f"{src}: " + " | ".join(lines))
-    hmma = sass_hmma(_build.build())
+    hmma, adc = sass_checks(_build.build())
     log("build", "cuobjdump -sass, HMMA instructions per instance: " + "; ".join(
         f"{name} {counts}" for name, counts in hmma.items()))
+    log("build", "cuobjdump -sass, adc_scan_kernel per instance (three "
+        "precisions, bulk copy or staged): bulk copies (UBLKCP), mbarrier "
+        "(SYNCS): " + "; ".join(f"{'bulk' if bulk else 'staged'} {c}"
+                                for bulk, c in adc))
 
-    if args.stages_only or args.dump_rows or args.bag_times:
+    if args.stages_only or args.dump_rows or args.bag_times or args.adc_times:
         if args.bag_times:
             phase_bag_sweep(args, dev)
+        if args.adc_times:
+            phase_adc_times(args, dev)
         if args.stages_only:
             phase_stages(args, dev)
         if args.dump_rows:

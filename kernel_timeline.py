@@ -11,8 +11,8 @@ kernel), each block
 appending its stamps to a device buffer, builds that copy and runs the
 served B = 1 calls at the smoke's shape (``chip_smoke.stage_inputs``:
 p = 16,384, Lmax 702, d = 768, PQ m = 48; k 10, nprobe 64, re-rank
-depth 64; ``fused_turn_pq`` at f32, bf16 and int8), the L2 cache
-flushed before each.  For the third call of each
+depth 64; ``fused_turn_pq`` at f32, bf16 and int8; ``pq_adc_scan`` at
+B = 25 too), the L2 cache flushed before each.  For the third call of each
 it prints, per phase, the minimum / median / maximum time in µs from the
 call's first stamp:
 
@@ -20,7 +20,9 @@ call's first stamp:
   G1     stage-1 fold, a group of 16 chunks: arrived, merged
   G2     stage-1 fold, the groups: arrived, sel written
   SCAN   IVF scan block: start, wait for stage 1 over, scored, selected
-  ADC    ADC scan block: start, LUT staged, scored, selected
+  ADC    ADC scan block: start, LUT ready (landed or staged, int8's
+         scale taken, the slice's ids and codes asked for), scored,
+         selected
   G1 / G2 also: the lists landed in shared memory, merged, written
   L1     a probed list's fold: arrived, lists landed, merged, written
   L2     the query's fold: arrived, lists landed, merged (and the SM's
@@ -129,7 +131,7 @@ STAMPS = [
      "  if (threadIdx.x == 0) rec(9, b, tl_r1, gtime());\n"),
     ("pq_adc.cu", "  const int s = blockIdx.x % nsplit;\n",
      "  const unsigned long long tl_t0 = fold::gtime();\n"),
-    ("pq_adc.cu", "  Acc* tab = reinterpret_cast<Acc*>(lut);\n",
+    ("pq_adc.cu", "  // also orders the LUT's stores before its reads\n",
      "  const unsigned long long tl_t1 = fold::gtime();\n"),
     ("ivf_stages.cuh", "  const int nwarps = blockDim.x >> 5;\n\n",
      "  const unsigned long long tl_t0 = fold::gtime();\n"),
@@ -308,6 +310,8 @@ def drive() -> None:
     sel = ops.centroid_topk(q, cents, 64)[1]
     tables = toploc._adc_tables(pqi, q)
     codes = pqi.list_codes
+    sel25 = ops.centroid_topk(qs, cents, 64)[1]
+    tables25 = toploc._adc_tables(pqi, qs)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     buf = np.zeros((16384, 7), np.uint64)
     n = ctypes.c_uint(0)
@@ -333,6 +337,8 @@ def drive() -> None:
             tables, q, codes, li, sel, rows, 10, rerank=C.RERANK),
         "pq_adc_scan": lambda: ops.pq_adc_scan(tables, codes, li, sel,
                                                C.RERANK),
+        "pq_adc_scan B=25": lambda: ops.pq_adc_scan(tables25, codes, li,
+                                                    sel25, C.RERANK),
     }
     for prec in ("f32", "bf16", "int8"):
         calls[f"fused_turn_pq[{prec}]"] = lambda prec=prec: ops.fused_turn_pq(
@@ -353,7 +359,8 @@ def drive() -> None:
             r = dump()
         t0 = min(int(x[c]) for x in r if int(x[0]) in PHASES
                  for c in PHASES[int(x[0])][1])
-        print(f"{name} B=1: µs from the call's first stamp, min / median / "
+        label = name if "B=" in name else f"{name} B=1"
+        print(f"{label}: µs from the call's first stamp, min / median / "
               f"max over the blocks of each phase")
         for tag, (label, cols) in PHASES.items():
             got = r[r[:, 0] == tag]

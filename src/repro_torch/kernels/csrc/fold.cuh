@@ -22,10 +22,13 @@
 // compare chain) is a dependent link of ~0.1 us, so one warp sorting 128
 // entries took ~3 us and merging two lists of 64 ~0.9 us.  So a slice's
 // selection and the re-rank's sort count ranks with every thread at once
-// (topk_tie::count_before); the merges stay topk_tie::merge_warps (a
-// block-wide merge by merge-path ranks and a warp folding a tree of
-// lists at once both measured slower); each level's lists land by one
-// round of copies, not four rounds of loads.
+// (topk_tie::count_before); the merges stay topk_tie::merge_warps: a
+// block-wide merge by merge-path ranks, a warp folding a tree of lists
+// at once, ranks by binary searches in the other sorted lists and a
+// radix select of the query level (8-bit digit passes of a 64-bit key,
+// histograms in shared memory, survivors placed by their ranks) all
+// measured slower; each level's lists land by one round of copies, not
+// four rounds of loads.
 //
 // Programmatic dependent launch (wait_primary / release_dependents): a
 // kernel launched with cudaLaunchAttributeProgrammaticStreamSerialization

@@ -28,6 +28,9 @@
 //   into shared memory that the issuing thread does not wait for until
 //   cp_async_wait_all, so every copy of a batch is in flight at once
 //   (fold.cuh load_lists, embedding_bag.cu bag_rows_kernel).
+// mbar_* / bulk_copy: Hopper's bulk copy engine: one thread asks for a
+//   whole contiguous range, its completion counted in bytes on an
+//   mbarrier in shared memory (pq_adc.cu adc_scan_kernel).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,6 +71,57 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier of `count` arrivals, initialised by one thread; the fence
+// makes it visible to the bulk copies, the block barrier that follows it
+// to the block's threads.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of bulk copies in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` completes; the bytes the bulk
+// copies counted on it are then visible to the calling thread.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from device
+// memory into this block's shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // Precision of the quantised scoring stages (fused_turn.PRECISION_CODE).

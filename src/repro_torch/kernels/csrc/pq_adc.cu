@@ -39,14 +39,22 @@
 //
 // What the design does about it:
 //  * scan: one 256-thread block per (query, probed list, 128-row slice):
-//    64 x 6 = 384 blocks for one query at the smoke's shapes, so they
-//    fill the card.  Each block stages the query's LUT in shared memory
-//    (49,152 B at m = 48, opt-in dynamic shared memory) before it waits
-//    for the kernel before it (fold::wait_primary: in fused_turn_pq the
-//    scan is chained behind stage 1 by programmatic dependent launch),
-//    then reads its slice's 128 ids, each row's codes going out with its
-//    id (16-byte loads); a slice with no real row scores nothing and
-//    writes only a count of 0, and a pad row (id -1) is never scored;
+//    64 x 6 = 384 blocks for one query at the smoke's shapes.
+//    Each block lands the query's LUT in shared memory (49,152 B at m =
+//    48, opt-in dynamic shared memory) before it waits for the kernel
+//    before it (fold::wait_primary: in fused_turn_pq the scan is chained
+//    behind stage 1 by programmatic dependent launch).  From B = 2
+//    (ADC_BULK_MIN_B, the instance BULK) one thread asks for the whole
+//    float32 table by one bulk copy, counted on an mbarrier, and the
+//    block reads its slice's 128 ids while the table is in flight; bf16
+//    rounds and int8 quantises each entry as it is read (the int8 scale
+//    from the shared copy).  At B = 1 every block reads the same table,
+//    and the block's threads stage it at its precision (16-byte loads,
+//    LUT_LOADS a thread in flight; int8 as int values with one scale),
+//    then read the ids: the bulk instance measured slower there (PERF.md
+//    section 6).  Each row's codes go out with its id (16-byte loads); a
+//    slice with no real row scores nothing and writes only a count of 0,
+//    and a pad row (id -1) is never scored;
 //  * the block selects its best min(r_pad, 128) by counting each
 //    entry's rank (fold::select_slice), and only the real entries leave
 //    the SM, in rank order, with their count;
@@ -57,21 +65,20 @@
 //    LUT's shared memory; the block that folds query b also re-ranks the
 //    first r candidates against their corpus rows by doc id in float32
 //    (fold::rerank_fold, the bits of rerank_kernel) and writes the top
-//    kp.  Each fold level's lists land in shared memory by one round of
-//    cp.async copies and merge by topk_tie::merge_warps (warps fold lists
-//    in registers, then pairwise); the re-rank's warps gather
-//    its rows 4 at a time, and the block counts the exact scores' ranks
-//    (fold.cuh rank_exact).  Otherwise fused_turn.cu's
-//    merge_kernel (merge_topk_f32) folds the lists after the scan,
-//    growing them to r_pad, and rerank_rows (one block a query, up to
-//    2,048 candidates sorted in dynamic shared memory) re-ranks them;
+//    kp.  Otherwise fused_turn.cu's merge_kernel (merge_topk_f32) folds
+//    the lists after the scan, growing them to r_pad, and rerank_rows
+//    (one block a query, up to 2,048 candidates sorted in dynamic
+//    shared memory) re-ranks them;
 //  * fused_turn_pq chains the scan behind stage 1 (ivf_stages.cuh
 //    centroid_chunk_kernel: its one-query sort counts ranks, its
 //    two-level fold lands and merges as above).
-// Not done: no persistent kernel, the LUT reads may conflict on
-// shared-memory banks, and the re-rank's rows stay one block's loads
-// (the LUT region holds 15 of the 64 rows: staging them there keeps no
-// more bytes in flight than the warps' registers do).
+// Not done: the query level's merge of 64 lists (~4.7 us at B = 1) is
+// the longest single-block step (a radix select and ranks by binary
+// search measured slower, PERF.md section 6); a list's slices as one
+// thread-block cluster (the LUT multicast once a list, the list folded
+// in distributed shared memory) lowered the device time at B = 1 but not
+// the time a call takes, and was taken out; the re-rank's rows stay one
+// block's loads.
 //
 // Plain C interface (bound with ctypes): every entry returns a cudaError_t
 // as int, 0 when every launch was accepted.  Codes must be < n_codes
@@ -93,6 +100,10 @@ namespace {
 
 constexpr int ADC_ROWS = fold::SLICE_ROWS;  // rows of a probed list a block
 constexpr int ADC_THREADS = 256;
+// The smallest batch whose blocks land the LUT by a bulk copy (the
+// kernel instance BULK); below it their threads stage it (tiling
+// ADC_BULK_MIN_B).
+constexpr int ADC_BULK_MIN_B = 2;
 
 using fused_common::P_BF16;
 using fused_common::P_F32;
@@ -101,20 +112,56 @@ using fused_common::P_INT8;
 constexpr int LUT_LOADS = 8;  // 16-byte LUT loads a thread has in flight
 constexpr int CODE_LOADS = 4;  // 16-byte code loads a row issued with its id
 
-// acc += the LUT entries of the 16 codes in cw, subquantizers j0 ..
-// j0 + 15 in order (tab: the staged LUT, n_codes entries a subquantizer).
-template <typename Acc>
-__device__ __forceinline__ void add_codes(Acc& acc, const Acc* tab,
-                                          int n_codes, int j0, uint4 cw) {
-  const unsigned words[4] = {cw.x, cw.y, cw.z, cw.w};
+// The LUT entry x at precision P: float32 as it is, bf16 rounded, int8
+// quantised with the table's scale st.
+template <int P>
+__device__ __forceinline__ auto lut_entry(float x, float st) {
+  if constexpr (P == fused_common::P_INT8)
+    return fused_common::quant8(x, st);
+  else if constexpr (P == fused_common::P_BF16)
+    return fused_common::bf16_round(x);
+  else
+    return x;
+}
+
+// The ADC score of the row at c (m codes; its first 16 * CODE_LOADS
+// already in cw when early) at precision P, subquantizers in order,
+// from the table in shared memory: RAW, the float32 LUT, each entry
+// rounded or quantised as it is read (int8 with the scale st); else
+// the LUT as stage_lut left it (Acc values).
+template <int P, bool RAW, typename Acc>
+__device__ __forceinline__ Acc adc_score(const float* lut, int m,
+                                         int n_codes, const uint8_t* c,
+                                         const uint4* cw, bool early,
+                                         bool vec16, float st) {
+  const Acc* tab = reinterpret_cast<const Acc*>(lut);
+  auto entry = [&](int sub, unsigned code) {
+    if constexpr (RAW)
+      return lut_entry<P>(lut[sub * n_codes + code], st);
+    else
+      return tab[sub * n_codes + code];
+  };
+  auto add16 = [&](Acc& acc, int j0, uint4 w4) {
+    const unsigned words[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-  for (int wi = 0; wi < 4; ++wi) {
+    for (int wi = 0; wi < 4; ++wi) {
 #pragma unroll
-    for (int by = 0; by < 4; ++by) {
-      const int sub = j0 + wi * 4 + by;
-      acc += tab[sub * n_codes + ((words[wi] >> (8 * by)) & 0xffu)];
+      for (int by = 0; by < 4; ++by)
+        acc += entry(j0 + wi * 4 + by, (words[wi] >> (8 * by)) & 0xffu);
     }
+  };
+  Acc acc = 0;
+  if (early) {
+#pragma unroll
+    for (int k = 0; k < CODE_LOADS; ++k)
+      if (k * 16 < m) add16(acc, k * 16, cw[k]);
+  } else if (vec16) {
+    for (int j0 = 0; j0 < m; j0 += 16)
+      add16(acc, j0, __ldg(reinterpret_cast<const uint4*>(c + j0)));
+  } else {
+    for (int sub = 0; sub < m; ++sub) acc += entry(sub, __ldg(c + sub));
   }
+  return acc;
 }
 
 // Largest |x| of the n4 float4s at t4, by the whole block (red: 32
@@ -197,23 +244,52 @@ __device__ __forceinline__ float stage_lut(const float* __restrict__ tb,
   return st;
 }
 
+// The int8 scale of the query's table, landed in lut as float32 by the
+// bulk copy (whole float4s; every thread past its mbarrier): its largest
+// |x| from the shared copy, each thread's share, then the block's
+// reduction through red (32 floats).  Every thread of the block calls
+// it.
+__device__ __forceinline__ float lut_scale(const float* lut, int lut_n,
+                                           float* red) {
+  using namespace fused_common;
+  const float4* l4 = reinterpret_cast<const float4*>(lut);
+  float m = 0.f;
+  for (int t = threadIdx.x; t < lut_n >> 2; t += blockDim.x) {
+    const float4 v = l4[t];
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                       fmaxf(fabsf(v.z), fabsf(v.w))));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, red[w]);
+  return int8_scale(m);
+}
+
 // grid (nprobe * nsplit, B).  Block (j, s) of query b scores rows
 // [s*ADC_ROWS, (s+1)*ADC_ROWS) of list sel[b, j] with the LUT tables[b]
 // (m, n_codes) at precision P and writes its best min(w, real rows) to
 // slot (b, j*nsplit + s) of cand_* (slots of w entries) and that count to
 // cand_n.  A list outside [0, p) or not owned scans as an empty list.
-// The LUT is staged in shared memory as float (f32, bf16-rounded) or as
-// its int8 values in int slots (stage_lut), before fold::wait_primary;
-// sel and the lists after it (sel and own are not __restrict__: a load
-// the compiler may treat as invariant could move above the wait).  With
-// counters (B * nprobe + B zeroed ints; w == r_pad) the launch folds the
-// query's lists (fold::fold_query); the block that
-// folds query b writes its top w to out_* (B, w) or, with rr > 0,
+// The LUT lands in dynamic shared memory before fold::wait_primary: with
+// BULK (the tables whole 16-byte pieces) as float32 by one bulk copy
+// that thread 0 asks for (the block waits on its mbarrier only before it
+// scores, so sel, the ids and the codes are read while the copy is in
+// flight), bf16 rounding and int8 quantising each entry as it is read
+// (int8's scale from the shared copy: lut_scale); else staged by the
+// block's threads at its precision (stage_lut).  sel and own are not
+// __restrict__: a load the compiler may treat as invariant could move
+// above the wait.  With counters (B * nprobe + B zeroed ints; w ==
+// r_pad) the launch folds the query's lists (fold::fold_query); the block
+// that folds query b writes its top w to out_* (B, w) or, with rr > 0,
 // re-ranks its first rr candidates against q and the corpus rows in
 // float32 (fold::rerank_fold) and writes the top kp to out_* (B, kp).
-// Dynamic shared memory: the LUT, then the fold's max(nsplit, nprobe) * w
-// entries over it.
-template <int P>
+// Dynamic shared memory: the LUT, then the fold's max(nsplit, nprobe) *
+// w entries over it.
+template <int P, bool BULK>
 __global__ void __launch_bounds__(ADC_THREADS)
 adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
                 const uint8_t* __restrict__ codes,
@@ -223,20 +299,31 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
                 int* cand_n, int* counters, const float* __restrict__ q,
                 const float* __restrict__ corpus, int d, int rr, int kp,
                 float* out_v, int* out_i, int* out_p) {
+  using namespace fused_common;
   using Acc = typename std::conditional<P == P_INT8, int, float>::type;
-  extern __shared__ float lut[];
+  extern __shared__ __align__(16) float lut[];
   __shared__ float sv[ADC_ROWS];
   __shared__ int si[ADC_ROWS];
   __shared__ int sp[ADC_ROWS];
   __shared__ float red[32];
+  __shared__ uint64_t lut_bar;  // the table's bulk copy
 
   const int b = blockIdx.y;
   const int j = blockIdx.x / nsplit;
   const int s = blockIdx.x % nsplit;
   const int lut_n = m * n_codes;
   const float* tb = tables + (size_t)b * lut_n;
-  const float st = stage_lut<P>(tb, lut_n, lut, red);  // int8: its scale
-  Acc* tab = reinterpret_cast<Acc*>(lut);
+  float st = 0.f;  // int8: the table's scale
+  if constexpr (BULK) {
+    if (threadIdx.x == 0) {
+      mbar_init(&lut_bar, 1);
+      mbar_expect_tx(&lut_bar, (unsigned)lut_n * 4u);
+      bulk_copy(lut, tb, (unsigned)lut_n * 4u, &lut_bar);
+    }
+    __syncthreads();  // the mbarrier initialised before any thread waits
+  } else {
+    st = stage_lut<P>(tb, lut_n, lut, red);
+  }
   fold::wait_primary();
 
   const int list = sel[(size_t)b * sel_stride + j];
@@ -267,23 +354,16 @@ adc_scan_kernel(const float* __restrict__ tables, int m, int n_codes,
     sv[threadIdx.x] = -INFINITY;
     sp[threadIdx.x] = topk_tie::PAD_POS;
   }
+  if constexpr (BULK) {
+    mbar_wait(&lut_bar, 0);
+    if constexpr (P == P_INT8) st = lut_scale(lut, lut_n, red);
+  }
   // also orders the LUT's stores before its reads
   const int n_real = __syncthreads_count(id >= 0);
   if (n_real > 0) {
     if (id >= 0) {
-      Acc acc = 0;
-      if (early) {
-#pragma unroll
-        for (int k = 0; k < CODE_LOADS; ++k)
-          if (k * 16 < m) add_codes(acc, tab, n_codes, k * 16, cw[k]);
-      } else if (vec16) {
-        for (int j0 = 0; j0 < m; j0 += 16)
-          add_codes(acc, tab, n_codes, j0,
-                    __ldg(reinterpret_cast<const uint4*>(c + j0)));
-      } else {
-        for (int sub = 0; sub < m; ++sub)
-          acc += tab[sub * n_codes + __ldg(c + sub)];
-      }
+      const Acc acc = adc_score<P, BULK, Acc>(lut, m, n_codes, c, cw, early,
+                                              vec16, st);
       if constexpr (P == P_INT8)
         sv[threadIdx.x] = __fdiv_rn(__int2float_rn(acc), st);
       else
@@ -323,11 +403,17 @@ int adc_scan(const float* tables, int m, int n_codes, const uint8_t* codes,
   if (counters != nullptr && w != r_pad) return (int)cudaErrorInvalidValue;
   int smem = m * n_codes * (int)sizeof(float);
   if (counters != nullptr) smem = max(smem, max(nsplit, nprobe) * w * 12);
+  const bool bulk = B >= ADC_BULK_MIN_B && (m * n_codes) % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(tables) & 15) == 0;
+  using fused_common::by_precision;
   const cudaError_t err = fused_common::launch_after(
       pdl,
-      fused_common::by_precision(precision, adc_scan_kernel<P_F32>,
-                                 adc_scan_kernel<P_BF16>,
-                                 adc_scan_kernel<P_INT8>),
+      bulk ? by_precision(precision, adc_scan_kernel<P_F32, true>,
+                          adc_scan_kernel<P_BF16, true>,
+                          adc_scan_kernel<P_INT8, true>)
+           : by_precision(precision, adc_scan_kernel<P_F32, false>,
+                          adc_scan_kernel<P_BF16, false>,
+                          adc_scan_kernel<P_INT8, false>),
       dim3(nprobe * nsplit, B), ADC_THREADS, smem, st, tables, m, n_codes,
       codes, list_ids, p, sel, sel_stride, own, nprobe, lmax, nsplit, w,
       cand_v, cand_i, cand_p, cand_n, counters, q, corpus, d, rr, kp, out_v,

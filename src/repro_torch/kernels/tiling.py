@@ -65,6 +65,15 @@ SELECT_GROUP = 16
 # the smoke's Lmax 702 are 384 blocks, and a block's 128 rows sort in one
 # warp's registers as the IVF scan's do.
 PQ_ROWS = 128
+# The smallest batch whose ADC blocks land the LUT by one bulk copy each
+# (csrc/pq_adc.cu ADC_BULK_MIN_B, the kernel instance BULK; the LUT whole
+# 16-byte pieces, the tables 16-byte aligned as the allocator gives
+# them): below it every block reads the same table, and staging it by
+# the block's threads measured faster there.  The bulk
+# instance's mbarrier adds ADC_BULK_SMEM bytes of static shared memory
+# (8 that the build lays out in 16).
+ADC_BULK_MIN_B = 2
+ADC_BULK_SMEM = 16
 # Codewords per subquantizer: codes are uint8.
 MAX_CODES = 256
 
@@ -356,7 +365,7 @@ STATIC_SMEM: Dict[str, int] = {
     "centroid_chunk_kernel": QTILE * (CENTROID_CHUNK + 1) * 4,
     # sv / si / sp [SCAN_ROWS]
     "scan_lists_kernel": 3 * SCAN_ROWS * 4,
-    # sv / si / sp [PQ_ROWS]
+    # sv / si / sp [PQ_ROWS]; ADC_BULK_SMEM more in the bulk-copy instance
     "adc_scan_kernel": 3 * PQ_ROWS * 4,
     # gmax [SCAN_ROWS]: the groups one slice touches
     "group_amax_kernel": SCAN_ROWS * 4,
@@ -512,15 +521,21 @@ def adc_smem(m: int, n_codes: int, nprobe: int, lmax: int, r_pad: int
 
 def plan_adc(b: int, nprobe: int, lmax: int, m: int, n_codes: int,
              r_pad: int, precision: str = "f32") -> List[Launch]:
-    """``adc_scan``: the ADC blocks (the LUT in dynamic shared memory),
-    folded to r_pad in the same launch when ``scan_fold``, else the
-    merge of their lists of min(r_pad, 128) to r_pad after them."""
+    """``adc_scan``: the ADC blocks (the LUT in dynamic shared memory,
+    by a bulk copy a block from ``ADC_BULK_MIN_B`` queries), folded to
+    r_pad in the same launch when ``scan_fold``, else the merge of their
+    lists of min(r_pad, 128) to r_pad after them."""
     if b == 0:
         return []
     grid = (nprobe * pq_split(lmax), b)
+    bulk = b >= ADC_BULK_MIN_B and (m * n_codes) % 4 == 0
+    static = (STATIC_SMEM["adc_scan_kernel"]
+              + (INT8_STATIC_SMEM["adc_scan_kernel"]
+                 if precision == "int8" else 0)
+              + (ADC_BULK_SMEM if bulk else 0))
     scan = [_launch("adc_scan_kernel", grid, ADC_THREADS,
                     adc_smem(m, n_codes, nprobe, lmax, r_pad), True,
-                    precision)]
+                    precision, static)]
     if scan_fold(nprobe, lmax, r_pad):
         return scan
     return scan + plan_merge(b, grid[0], r_pad, min(r_pad, PQ_ROWS))

@@ -240,6 +240,58 @@ def test_a_full_block_and_grid_are_fine():
     assert kb.run([_entry(plan)]) == []
 
 
+@pytest.mark.parametrize("lmax", [128, 300, 702, 1024, 1100])
+@pytest.mark.parametrize("b,r_pad", [(1, 64), (25, 64), (2, 16), (1, 256)])
+def test_adc_plan_fits_a_block_at_every_depth(lmax, b, r_pad):
+    """The ADC scan's plan at 1, 3, 6, 8 and 9 slices a list (Lmax 128 to
+    1,100), B 1 to 25 and r_pad 16 to 256: one block a (query, probed
+    list, slice), its shared memory (the LUT, the fold over it, from
+    B = 2 the mbarrier of the LUT's bulk copy) within the opt-in cap, the
+    merge after it only past one slice's width, and the kernels pass
+    accepts every launch."""
+    plan = tiling.plan_adc(b, 64, lmax, 48, 256, r_pad)
+    scan = plan[0]
+    assert scan.kernel == "adc_scan_kernel"
+    assert scan.grid == (64 * tiling.pq_split(lmax), b, 1)
+    assert scan.static_smem_bytes == 3 * tiling.PQ_ROWS * 4 + (
+        tiling.ADC_BULK_SMEM if b >= tiling.ADC_BULK_MIN_B else 0)
+    assert scan.smem_bytes <= tiling.SMEM_BLOCK_BYTES
+    assert (len(plan) == 1) == tiling.scan_fold(64, lmax, r_pad)
+    for x in plan:
+        assert kb.check_smem(x, "adc") == [] and \
+            kb.check_shape(x, "adc") == []
+    assert kb.run([_entry(plan)]) == []
+
+
+def test_served_pq_plans_launch_the_adc_kernel_once(no_build):
+    """At the served shape (nprobe 64, Lmax 702, m = 48 x 256, re-rank
+    depth 64, B = 1 and 25) rows 3, 7 and 5 launch the ADC kernel once,
+    last, with the LUT's 49,152 B of dynamic shared memory (the fold's 64
+    lists of 64 fit over it), and the plan recorded on meta tensors says
+    the same."""
+    assert tiling.lut_bytes(48, 256) == 64 * 64 * 12 == 49_152
+    for b in (1, 25):
+        plans = [tiling.plan_adc(b, 64, 702, 48, 256, 64),
+                 tiling.plan_fused_scan_pq(b, 64, 702, 48, 256, 768, 64,
+                                           True, "f32"),
+                 tiling.plan_fused_turn_pq(b, 16_384, 64, 64, 702, 48, 256,
+                                           768, "f32", 64)]
+        for plan in plans:
+            adc = [x for x in plan if x.kernel == "adc_scan_kernel"]
+            assert len(adc) == 1 and adc[0] is plan[-1]
+            assert adc[0].grid == (384, b, 1)
+            assert adc[0].dyn_smem_bytes == 49_152
+    probe = kb.Probe("pq", (kb.Arg((1, 48, 256)),
+                            kb.Arg((80, 702, 48), torch.uint8, 0, 256),
+                            kb.Arg((80, 702), torch.int32, -1, 100),
+                            kb.Arg((1, 64), torch.int32, 0, 80)),
+                     lambda t, c, li, sel, device: ops.pq_adc_scan(
+                         t, c, li, sel, 64, device=device))
+    assert kb.planned(probe, probe.tensors("meta"), "meta") == [
+        ("adc_scan_kernel", (384, 1, 1), (256, 1, 1),
+         49_152 + 3 * tiling.PQ_ROWS * 4)]
+
+
 # ---------------------------------------------------------------- the CLI
 
 

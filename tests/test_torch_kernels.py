@@ -2172,3 +2172,157 @@ def test_cuda_kernels_a_call_at_the_served_shape(cuda_device, precision,
         names = _traced_kernels(call, tmp_path)
         assert len(names) == len(plan), (name, names)
         assert all(k in n for k, n in zip(plan, names)), (name, names)
+
+
+# ---------------------------------------------------------------------------
+# the ADC scan (csrc/pq_adc.cu): from B = 2 the LUT landed by one bulk
+# copy a block, each entry converted as it is read, at B = 1 staged by
+# the block's threads; held to the plain version at every depth and on
+# tied lists, and the scans' in-launch fold to merge_kernel on tied lists
+# ---------------------------------------------------------------------------
+
+# Lmax -> slices a list: 1, 3, 6, 8 and 9
+ADC_LMAX = [128, 300, 702, 1024, 1100]
+
+
+def _adc_lists(lmax, b, nprobe, m, dev, seed, values=(-4, 5)):
+    """Integer LUTs (B, m, 256) in [lo, hi) (the ADC sums are exact, and
+    dense ties fall within and across slices and lists), codes and ids
+    of nprobe + 2 lists of Lmax rows (list 0 all pads, list 1 shorter
+    than one slice, list 2 full, the rest ragged; ids repeat), and probe
+    sets that hold lists 0-2 and repeats."""
+    rng = np.random.default_rng(seed)
+    p = nprobe + 2
+    tables = rng.integers(*values, size=(b, m, 256)).astype(np.float32)
+    codes = rng.integers(0, 256, size=(p, lmax, m)).astype(np.uint8)
+    sizes = rng.integers(0, lmax + 1, size=p)
+    sizes[:3] = (0, min(50, lmax), lmax)
+    real = np.arange(lmax)[None] < sizes[:, None]
+    li = np.where(real, rng.integers(0, 10_000, size=(p, lmax)), -1)
+    sel = rng.integers(0, p, size=(b, nprobe))
+    sel[:, :3] = (0, 1, 2)
+    return [torch.from_numpy(x).to(dev) for x in
+            (tables, codes, li.astype(np.int32), sel.astype(np.int32))]
+
+
+def _adc_equal(tables, codes, li, sel, r_pad):
+    """The ADC scan's binding at r_pad: values, ids and flat positions
+    equal the plain ADC top r_pad, pads (-inf, -1, PAD_POS) included."""
+    from repro_torch.kernels import pq_adc
+    got = pq_adc.pq_adc_scan(tables, codes, li, sel, r_pad=r_pad)
+    want = ref.fused_scan_pq(tables, None, codes, li, sel, None, None,
+                             k=r_pad, r=r_pad, rerank=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("r_pad", [16, 64, 128, 256])
+@pytest.mark.parametrize("lmax", ADC_LMAX)
+def test_cuda_adc_scan_depths_and_widths(cuda_device, lmax, r_pad, b):
+    """Row 3 at 1, 3, 6, 8 and 9 slices a list, B = 1 (the LUT staged
+    by the threads) and 3 (by bulk copies), and r_pad 16, 64, 128
+    (folded in the launch) and 256 (merge_kernel after it): bit-equal to
+    the plain version, on lists that are all pads, shorter than one
+    slice, full and ragged."""
+    nprobe = 12
+    plan = tiling.plan_adc(b, nprobe, lmax, 16, 256, r_pad)
+    assert (len(plan) == 1) == (r_pad <= 128)
+    _adc_equal(*_adc_lists(lmax, b, nprobe, 16, cuda_device,
+                           lmax + r_pad), r_pad)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("lmax", [702, 1100])
+@pytest.mark.parametrize("values", [(1, 2), (0, 2)])
+def test_cuda_adc_scan_exact_ties(cuda_device, lmax, values, b):
+    """Every ADC sum equal (a LUT of ones), or few distinct sums (0 / 1
+    entries): ties across the slices of one list and across the 64
+    lists of a query, decided by the flat position."""
+    _adc_equal(*_adc_lists(lmax, b, 64, 8, cuda_device, 5, values), 64)
+
+
+@pytest.mark.cuda_only
+def test_cuda_adc_scan_lists_all_pads_or_short(cuda_device):
+    """A query whose probed lists are all pads gets only pads; one whose
+    lists are shorter than one slice gets fewer real entries than
+    r_pad."""
+    tables, codes, li, sel = _adc_lists(702, 2, 8, 16, cuda_device, 3)
+    sel[0] = 0              # all pads
+    sel[1] = 1              # 50 rows, repeated: 400 candidates
+    _adc_equal(tables, codes, li, sel, 64)
+    sel[1, 1:] = 0          # one list of 50 rows: fewer than r_pad
+    _adc_equal(tables, codes, li, sel, 64)
+    for row in range(2):    # each alone: B = 1
+        _adc_equal(tables[row:row + 1].contiguous(), codes, li,
+                   sel[row:row + 1].contiguous(), 64)
+
+
+@pytest.mark.cuda_only
+def test_cuda_adc_scan_at_b25_served_shape(cuda_device):
+    """B = 25 at the served shape's widths (nprobe 64, Lmax 702, m = 48 x
+    256 codes, r_pad 64): 9,600 blocks, bit-equal."""
+    _adc_equal(*_adc_lists(702, 25, 64, 48, cuda_device, 25), 64)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("precision", QUANT)
+@pytest.mark.parametrize("lmax", [702, 1100])
+def test_cuda_quantised_adc_rows_as_read(cuda_device, lmax, precision, b):
+    """Rows 5 and 7 at bf16 and int8 take the ADC kernel (each table
+    entry rounded or quantised as it is read; int8's scale from the
+    shared copy): fused_scan_pq with an ``own`` mask, with and without
+    its re-rank, and fused_turn_pq, bit-equal to the plain versions, at
+    B = 1 (the LUT staged by the threads) and B = 3 (by bulk copies), 6
+    and 9 slices a list."""
+    nprobe, k, rerank = 16, 10, 64
+    shape = (nprobe + 2, lmax, 16, b, nprobe, k, 16, 256, rerank)
+    q, cents, tables, codes, li, corpus, own = _pq_inputs(shape,
+                                                          cuda_device)
+    r = ops._fused_depth(k, nprobe * lmax, rerank)
+    got = ops.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                            nprobe=nprobe, k=k, rerank=rerank,
+                            precision=precision)
+    want = ref.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                             nprobe=nprobe, k=k, r=r, precision=precision)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for fuse in (True, False):
+        got = ops.fused_scan_pq(tables, q, codes, li, want[2], corpus, k,
+                                rerank=rerank, own=own, fuse_rerank=fuse,
+                                precision=precision)
+        plain = ref.fused_scan_pq(tables, q, codes, li, want[2], own, corpus,
+                                  k=k, r=r, rerank=fuse, precision=precision)
+        for g, w in zip(got, plain):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("k", [10, 64])
+def test_cuda_fold_equals_the_merges_on_tied_lists(cuda_device, k,
+                                                   monkeypatch):
+    """Row 6's fold merges the query's 64 lists in its launch; with the
+    fold off, merge_kernel merges the same lists after it.  On lists
+    whose scores tie in many places (integer rows and queries in [-1,
+    1]) both give the same bits, and the plain version's."""
+    p, lmax, d, b, nprobe = 80, 300, 16, 4, 64
+    rng = np.random.default_rng(k)
+    q = torch.from_numpy(rng.integers(-1, 2, size=(b, d)).astype(
+        np.float32)).to(cuda_device)
+    lv = torch.from_numpy(rng.integers(-1, 2, size=(p, lmax, d)).astype(
+        np.float32)).to(cuda_device)
+    li = torch.from_numpy((np.arange(p * lmax) % 5000).reshape(p, lmax)
+                          .astype(np.int32)).to(cuda_device)
+    sel = torch.from_numpy(rng.integers(0, p, size=(b, nprobe)).astype(
+        np.int32)).to(cuda_device)
+    assert tiling.scan_fold(nprobe, lmax, tiling.next_pow2(k))
+    folded = ops.fused_scan(q, lv, li, sel, k)
+    with monkeypatch.context() as m:
+        _unfolded(m)
+        merged = ops.fused_scan(q, lv, li, sel, k)
+    want = ref.fused_scan_ivf(q, lv, li, sel, None, k=k)
+    for f, g, w in zip(folded, merged, want):
+        assert torch.equal(f, g) and torch.equal(f, w)

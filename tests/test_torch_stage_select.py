@@ -471,10 +471,12 @@ def test_merge_plan_groups_fit_one_block(w_in, w, n):
 
 
 # (kind, B, nprobe, lmax, r_pad, m): the ADC scan folded in its launch
-# and re-ranked there (r_pad <= 128), or merged after it (1,024)
+# and re-ranked there (r_pad <= 128), or merged after it (1,024); lists
+# of 9 slices (Lmax 1,100) and 8 (1,024) too
 ADC_CASES = [("ties", 2, 6, 300, 64, 8), ("zeros", 2, 5, 130, 16, 4),
              ("ties", 1, 9, 702, 64, 16), ("ties", 2, 3, 128, 128, 8),
-             ("zeros", 1, 7, 300, 1024, 4)]
+             ("zeros", 1, 7, 300, 1024, 4), ("ties", 1, 4, 1100, 64, 8),
+             ("neginf", 2, 5, 1024, 32, 4)]
 
 
 @pytest.mark.parametrize("case", ADC_CASES)
