@@ -90,6 +90,12 @@ exits non-zero):
     fig8      the reference's recall gate: quantised vs f32 fused turn
               >= 0.95 at fig8's 20,000 docs, d = 64, p = 2,048
  13 batched   start_batch / step_batch == the sequential engine
+    batched serve  fig3's protocol (32 conversations x 10 turns) through
+              BatchedConversationalSearchEngine at max_batch 1, 8, 32,
+              seven paths a backend (the result cache in one), each
+              replay bit-equal to the sequential engine; turns/s beside
+              the sequential engine's, request p50 / p95, launches and
+              host syncs a wave
     classic   the two-stage turn, centroid_topk -> ivf_scan, over the
               full index for the 25 x 10 turns at B = 1 and 10 at B =
               25 (launches counted from 0), plus the top-h = 1,024
@@ -117,13 +123,16 @@ kernels of two checkouts can be held to each other bit for bit;
 ``--bag-times`` builds and times only embedding_bag's kernels over a
 range of batch sizes ([bag], ``phase_bag_sweep``); ``--adc-times``
 builds and times only the rows that run the ADC scan, rows 3, 5 and 7
-at every precision and B = 1 and 25 ([adc], ``phase_adc_times``), so
-two checkouts can be compared in one call.  The four may be given
+at every precision and B = 1 to 32 with each instance of the scan forced
+([adc], ``phase_adc_times``), so two checkouts can be compared in one
+call.  The four may be given
 together.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import inspect
 import json
 import math
@@ -752,7 +761,9 @@ def stage_probes():
     scan with its re-rank chained behind it, the one-time scale passes of
     its lists and centroids), and the served PQ scan and turn (m = 48 x
     256 codes, re-rank depth 64), whose ADC scans fold and re-rank in
-    their launch; 512 lists stand for the index's 16,384."""
+    their launch; then rows 4-7 at f32 and B = 32, the batched engine's
+    largest wave (stage 1 merged after its tile, the ADC scan's bulk
+    instance); 512 lists stand for the index's 16,384."""
     import torch
     from repro_torch.analysis import kernel_budget as KB
     from repro_torch.kernels import ops
@@ -792,6 +803,34 @@ def stage_probes():
                   KB.Arg((10_000, 768), f32)),
                  lambda q, c, t, cd, li, rows, device: ops.fused_turn_pq(
                      q, c, t, cd, li, rows, nprobe=64, k=10, rerank=RERANK,
+                     device=device)),
+    ] + wave_probes(KB, ops, lists, pq_lists[1:])
+
+
+def wave_probes(KB, ops, lists, pq_lists, b=32):
+    """Rows 4-7 at f32 on a wave of ``b`` queries (``stage_probes``)."""
+    import torch
+    f32 = torch.float32
+    q, cents = KB.Arg((b, 768), f32), KB.Arg((512, 768), f32)
+    tables, sel = KB.Arg((b, PQ_M, 256), f32), KB.Arg((b, 64), torch.int32,
+                                                       0, 512)
+    rows = KB.Arg((10_000, 768), f32)
+    return [
+        KB.Probe(f"ops.fused_turn[B={b}]", (q, cents, *lists),
+                 lambda q, c, lv, li, device: ops.fused_turn(
+                     q, c, lv, li, nprobe=64, k=10, device=device)),
+        KB.Probe(f"ops.fused_scan[B={b}]", (q, *lists, sel),
+                 lambda q, lv, li, sel, device: ops.fused_scan(
+                     q, lv, li, sel, 10, device=device)),
+        KB.Probe(f"ops.fused_turn_pq[B={b}]",
+                 (q, cents, tables, *pq_lists, rows),
+                 lambda q, c, t, cd, li, rows, device: ops.fused_turn_pq(
+                     q, c, t, cd, li, rows, nprobe=64, k=10, rerank=RERANK,
+                     device=device)),
+        KB.Probe(f"ops.fused_scan_pq[B={b}]",
+                 (tables, *pq_lists, sel, q, rows),
+                 lambda t, cd, li, sel, q, rows, device: ops.fused_scan_pq(
+                     t, q, cd, li, sel, rows, 10, rerank=RERANK,
                      device=device)),
     ]
 
@@ -1545,48 +1584,81 @@ def phase_stages(args, dev):
     return out
 
 
+ADC_BATCHES = (1, 2, 4, 8, 16, 32)      # the batched engine's buckets
+
+
 def phase_adc_times(args, dev):
     """The rows that run the ADC scan, by CUDA events (``event_ms``: 30
-    calls, L2 flushed before each, a spin kernel queued first), three
-    times each, on ``kernel_timeline.py``'s seeded inputs at the smoke's
-    shapes: row 3 ``pq_adc_scan``, row 7 ``fused_scan_pq`` with its
-    re-rank and row 5 ``fused_turn_pq``, at f32, bf16 and int8, at B = 1
-    and 25; a line per call with its three mean times in ms."""
+    calls, L2 flushed before each, a spin kernel queued first), on
+    ``stage_inputs``'s seeded lists and PQ index at the smoke's shapes
+    and 32 seeded unit queries: row 3
+    ``pq_adc_scan``, row 7 ``fused_scan_pq`` with its re-rank and row 5
+    ``fused_turn_pq``, at f32, bf16 and int8, at each batch the engine
+    serves (``ADC_BATCHES``), with the scan's instance forced
+    (``adc_bulk``: staged by the threads, or the LUT by a bulk copy),
+    three times each, the two instances in turns; a line per call with
+    both instances' mean times in ms, then, per call, the smallest batch
+    from which the bulk instance's median is the lower (the evidence for
+    ``tiling.ADC_BULK_MIN_B``).  Returns {(call, B): (staged ms, bulk
+    ms)} of medians."""
     import torch
     from repro_torch.core import toploc
     from repro_torch.kernels import ops
-    cents, lv, li, qs, rows, pqi = stage_inputs(args, dev, args.seed + 19)
+    cents, lv, li, _, rows, pqi = stage_inputs(args, dev, args.seed + 19)
+    del lv
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    qs = unit(torch.randn((max(ADC_BATCHES), args.d), generator=gen,
+                          device=dev))
     codes = pqi.list_codes
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    for b in (1, 25):
+    out = {}
+    for b in ADC_BATCHES:
         q = qs[:b].contiguous()
         sel = ops.centroid_topk(q, cents, args.nprobe)[1]
         t = toploc._adc_tables(pqi, q)
-        calls = {"row3 pq_adc_scan": lambda: ops.pq_adc_scan(
-            t, codes, li, sel, RERANK)}
+        calls = {"row3 pq_adc_scan": lambda bulk: ops.pq_adc_scan(
+            t, codes, li, sel, RERANK, adc_bulk=bulk)}
         for prec in ("f32",) + QUANT:
             calls[f"row7 fused_scan_pq[{prec}]"] = \
-                lambda prec=prec: ops.fused_scan_pq(
+                lambda bulk, prec=prec: ops.fused_scan_pq(
                     t, q, codes, li, sel, rows, args.k, rerank=RERANK,
-                    precision=prec)
+                    precision=prec, adc_bulk=bulk)
         for prec in ("f32",) + QUANT:
             calls[f"row5 fused_turn_pq[{prec}]"] = \
-                lambda prec=prec: ops.fused_turn_pq(
+                lambda bulk, prec=prec: ops.fused_turn_pq(
                     q, cents, t, codes, li, rows, nprobe=args.nprobe,
-                    k=args.k, rerank=RERANK, precision=prec)
+                    k=args.k, rerank=RERANK, precision=prec, adc_bulk=bulk)
         for name, call in calls.items():
-            call()
+            outs = [call(bulk) for bulk in (False, True)]
+            if not all(torch.equal(x, y) for x, y in zip(*outs)):
+                raise AssertionError(f"{name} B={b}: the ADC scan's two "
+                                     f"instances differ")
             torch.cuda.synchronize()
-            ms = [event_ms([call] * 30, flush, spin=True) for _ in range(3)]
-            log("adc", f"{name} B={b}: " + " ".join(f"{x:.4f}" for x in ms))
+            ms = {False: [], True: []}
+            for _ in range(3):
+                for bulk in (False, True):
+                    ms[bulk].append(event_ms([lambda: call(bulk)] * 30,
+                                             flush, spin=True))
+            out[(name, b)] = (float(np.median(ms[False])),
+                              float(np.median(ms[True])))
+            log("adc", f"{name} B={b}: staged " + " ".join(
+                f"{x:.4f}" for x in ms[False]) + " | bulk " + " ".join(
+                f"{x:.4f}" for x in ms[True]))
+    for name in calls:
+        wins = [b for b in ADC_BATCHES if out[(name, b)][1]
+                < out[(name, b)][0]]
+        log("adc", f"{name}: bulk faster (median) at B = "
+            f"{', '.join(map(str, wins)) or 'none'}")
+    return out
 
 
 def phase_dump_rows(args, dev, path):
     """Rows 1-7 on the smoke's seeded realistic inputs (``stage_inputs``
     with ``phase_realistic``'s seed: p = 16,384 unit centroids, ragged
-    unit lists of Lmax 702, d = 768, random m = 48 PQ codes), at B = 1
-    and 25: centroid_topk (kp 64 and the top-h 1,024), ivf_scan (k 10),
-    pq_adc_scan, and fused_turn / fused_scan / fused_turn_pq /
+    unit lists of Lmax 702, d = 768, random m = 48 PQ codes), at B = 1,
+    2, 4 and 25 (B = 2 and 4 below the ADC scan's ``ADC_BULK_MIN_B``,
+    25 above it): centroid_topk (kp 64 and the top-h 1,024), ivf_scan
+    (k 10), pq_adc_scan, and fused_turn / fused_scan / fused_turn_pq /
     fused_scan_pq at f32, bf16 and int8 (fused_scan also at the
     two-tower k = 100, nprobe 32), the int8 calls twice (the second on
     the scales the first left cached), every output saved to ``path``,
@@ -1599,7 +1671,7 @@ def phase_dump_rows(args, dev, path):
     cents, lv, li, qs, rows, pqi = stage_inputs(args, dev, args.seed + 1)
     codes = pqi.list_codes
     out = {}
-    for b in (1, 25):
+    for b in (1, 2, 4, 25):
         q = qs[:b].contiguous()
         _, sel = ops.centroid_topk(q, cents, nprobe)
         tables = toploc._adc_tables(pqi, q)
@@ -1634,7 +1706,8 @@ def phase_dump_rows(args, dev, path):
             out[f"{name} B={b}"] = [t.cpu() for t in call()]
     torch.cuda.synchronize()
     torch.save(out, path)
-    log("dump", f"{len(out)} outputs of rows 1-7 at B = 1 and 25 -> {path}")
+    log("dump", f"{len(out)} outputs of rows 1-7 at B = 1, 2, 4 and 25 -> "
+        f"{path}")
     del lv, li, rows, pqi
     torch.cuda.empty_cache()
 
@@ -2410,6 +2483,13 @@ def phase_index(args, dev):
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     convs = corpus.conversations
+    # [batched serve]'s traffic: fig3's 32 conversations, drawn around
+    # the same topic centres from a seed of their own
+    bconvs = SY._conversations(
+        np.random.default_rng(args.seed + BATCH_SEED),
+        dataclasses.replace(cfg, n_conversations=BATCH_CONVS,
+                            turns_per_conversation=BATCH_TURNS),
+        corpus.topic_centers)[0]
     flat = torch.from_numpy(convs.reshape(-1, args.d)).to(dev)
     _, exact = ivf.exact_search(corpus.doc_vecs, flat, args.k)
     exact = exact.cpu().numpy().reshape(convs.shape[0], convs.shape[1], -1)
@@ -2423,7 +2503,7 @@ def phase_index(args, dev):
         f"max_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f}")
     if index.n_docs != args.n_docs:
         raise AssertionError("the index lost documents")
-    return index, docs, convs, exact
+    return index, docs, convs, exact, bconvs
 
 
 def doc_slots(index):
@@ -2699,6 +2779,239 @@ def phase_batched(index, convs, run, dev):
         for f, x in zip(toploc.IVFSession._fields, eng.sessions[f"c{c}"]):
             if not torch.equal(getattr(sess, f)[c], x):
                 raise AssertionError(f"batched conv {c}: session {f}")
+
+
+# [batched serve]: fig3's protocol (benchmarks/fig3_batched_serving.py)
+# on the collection-scale indexes: 32 concurrent conversations x 10 turns
+# (their own seed), each round every conversation submits one request and
+# the engine drains; max_batch 1, 8 and 32, n_slots 32, two waves in
+# flight, no deadline wait
+BATCH_CONVS, BATCH_TURNS, BATCH_SEED = 32, 10, 23
+BATCH_SIZES = (1, 8, 32)
+# timed replays per engine and max_batch: turns/s is their median (a
+# replay of 10 waves at B = 32 takes ~5 ms, so one host stall of the
+# shared machine would set a single replay's rate)
+BATCH_REPEATS = 3
+BSERVE = (("toploc+ fused", dict(strategy="toploc+", fused=True)),
+          ("toploc+ fused bf16", dict(strategy="toploc+", fused=True,
+                                      precision="bf16")),
+          ("toploc+ fused int8", dict(strategy="toploc+", fused=True,
+                                      precision="int8")),
+          ("toploc fused", dict(strategy="toploc", fused=True)),
+          ("plain fused", dict(strategy="plain", fused=True)),
+          ("toploc+ unfused", dict(strategy="toploc+", fused=False)),
+          # fig7's cache settings: threshold 0.95, depth 64
+          ("toploc+ fused cache", dict(strategy="toploc+", fused=True,
+                                       cache_threshold=0.95,
+                                       cache_depth=64)))
+BATCH_ROWS = {"ivf": ("fused_turn", "fused_scan"),
+              "ivf_pq": ("pq_adc_scan", "fused_turn_pq", "fused_scan_pq")}
+
+
+def path_kernels(backend, cfg):
+    """The kernel a wave of this path runs: the fused turn (plain) or
+    scan (sessioned); unfused, IVF-PQ's ADC scan and for IVF none (its
+    unfused stages are plain PyTorch, where the reference runs XLA)."""
+    if not cfg.fused:
+        return ("pq_adc_scan",) if backend == "ivf_pq" else ()
+    op = "fused_turn" if cfg.strategy == "plain" else "fused_scan"
+    return (op + ("_pq" if backend == "ivf_pq" else ""),)
+
+
+def serve_rounds(eng, convs):
+    """fig3's replay through a batched engine: round by round, every
+    conversation submits its turn, then the engine drains.  Returns
+    (scores, ids, wall seconds)."""
+    n_conv, turns = convs.shape[:2]
+    k = eng.cfg.k
+    vs = np.zeros((n_conv, turns, k), np.float32)
+    ids = np.zeros((n_conv, turns, k), np.int64)
+    t0 = time.perf_counter()
+    for t in range(turns):
+        futs = [eng.submit(f"c{c}", convs[c, t]) for c in range(n_conv)]
+        eng.drain()
+        for c, fut in enumerate(futs):
+            vs[c, t], ids[c, t] = fut.result()
+    return vs, ids, time.perf_counter() - t0
+
+
+def serve_sequential(eng, convs):
+    """The same turns, in the same order, through the sequential
+    engine."""
+    n_conv, turns = convs.shape[:2]
+    k = eng.cfg.k
+    vs = np.zeros((n_conv, turns, k), np.float32)
+    ids = np.zeros((n_conv, turns, k), np.int64)
+    t0 = time.perf_counter()
+    for t in range(turns):
+        for c in range(n_conv):
+            vs[c, t], ids[c, t] = eng.query(f"c{c}", convs[c, t])
+    return vs, ids, time.perf_counter() - t0
+
+
+def count_syncs(run):
+    """Calls that synchronise the host with the card while ``run()``
+    runs (torch.cuda's sync debug mode, one warning each), and run's
+    result."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught), out
+
+
+def device_ops(warm, run):
+    """(kernels, copies and fills) the card runs in ``run()``, from
+    torch.profiler's device events; ``warm()`` runs first in a discarded
+    warm-up step, which absorbs what a session's start can miss."""
+    import torch
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                         repeat=1))
+    with prof:
+        for call in (warm, run):
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in evs)
+    return len(evs) - copies, copies
+
+
+BATCH_KEYS = STAT_FIELDS + ("cache_hit",)
+
+
+def phase_batched_serve(indexes, docs, convs):
+    """Each backend's paths (``BSERVE``) through the sequential engine
+    and through ``BatchedConversationalSearchEngine`` at max_batch 1, 8
+    and 32, after a warm-up round of each, ``BATCH_REPEATS`` timed
+    replays each on fresh engines: every batched replay equals the
+    sequential one bit for bit (ids, scores, every TurnStats counter,
+    cache_hit), else it raises.  Per engine and max_batch: the median
+    turns/s (each replay's in brackets), the request p50 / p95
+    (latency_s + queue_wait_s) over all replays, waves and their mean
+    size, the launches per wave of the backend's rows (counts set to 0
+    just before the replays, read just after), the host syncs per wave
+    (one more, untimed round under the sync debug mode), the cache hit
+    rate, and the sequential engine's median turns/s beside.  Returns
+    (launches per kernel, results)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (BatchedConversationalSearchEngine,
+                                     ConversationalSearchEngine,
+                                     ServingConfig)
+    turns = convs.shape[0] * convs.shape[1]
+    launches, out, by_b = {}, {}, {}
+    for backend, _ in BACKENDS:
+        index = {f"{backend}_index": indexes[backend]}
+        rows = BATCH_ROWS[backend]
+        for name, knobs in BSERVE:
+            cfg = ServingConfig(backend=backend, **knobs)
+            kw = dict(doc_vecs=docs) if cfg.cache_threshold > 0 else {}
+
+            def batched(b):
+                return BatchedConversationalSearchEngine(
+                    cfg, **index, **kw, n_slots=BATCH_CONVS, max_batch=b,
+                    max_wait_s=0.0, max_inflight=2)
+
+            def records(eng):
+                return {(r.conv_id, r.turn): [getattr(r, f) for f in
+                                              BATCH_KEYS]
+                        for r in eng.records}
+
+            s_syncs, _ = count_syncs(lambda: serve_sequential(
+                ConversationalSearchEngine(cfg, **index, **kw),
+                convs[:, :1]))
+            s_walls = []
+            for _ in range(BATCH_REPEATS):
+                gc.collect()        # the engines' cycles, not mid-run
+                seq = ConversationalSearchEngine(cfg, **index, **kw)
+                v, i, wall = serve_sequential(seq, convs)
+                if not s_walls:
+                    s_v, s_i, s_recs = v, i, records(seq)
+                elif not (np.array_equal(v, s_v) and np.array_equal(i, s_i)
+                          and records(seq) == s_recs):
+                    raise AssertionError(f"{backend} {name}: sequential "
+                                         f"replays differ")
+                s_walls.append(wall)
+            s_wall = float(np.median(s_walls))
+            for b in BATCH_SIZES:
+                serve_rounds(batched(b), convs[:, :1])
+                engines, walls = [], []
+                ops.reset_launches()
+                for _ in range(BATCH_REPEATS):
+                    gc.collect()
+                    eng = batched(b)
+                    v, i, wall = serve_rounds(eng, convs)
+                    if not (np.array_equal(v, s_v) and np.array_equal(i, s_i)
+                            and records(eng) == s_recs):
+                        raise AssertionError(
+                            f"[batched serve] {backend} {name} B={b}: "
+                            f"differs from the sequential engine")
+                    engines.append(eng)
+                    walls.append(wall)
+                counts = {n: getattr(ops, n).launches for n in rows}
+                wall = float(np.median(walls))
+                want = path_kernels(backend, cfg)
+                if {n for n in rows if counts[n]} != set(want):
+                    raise AssertionError(f"{backend} {name} B={b}: "
+                                         f"launches {counts}, the path "
+                                         f"runs {want}")
+                for n in want:
+                    key = n if cfg.precision == "f32" else \
+                        f"{n}[{cfg.precision}]"
+                    launches[key] = launches.get(key, 0) + counts[n]
+                    by_b[f"{key} B={b}"] = by_b.get(f"{key} B={b}",
+                                                    0) + counts[n]
+                sizes = [n for e in engines for n in e.batcher.batch_sizes]
+                waves = len(sizes)
+                req = np.asarray([r.latency_s + r.queue_wait_s
+                                  for e in engines for r in e.records]) * 1e3
+                p50, p95 = np.percentile(req, [50, 95])
+                probe = batched(b)
+                syncs, _ = count_syncs(lambda: serve_rounds(probe,
+                                                            convs[:, :1]))
+                per_wave = syncs / len(probe.batcher.batch_sizes)
+                hit = (f"{eng.cache_stats()['hit_rate']:.4f}"
+                       if eng.cache_stats() else "off")
+                out[(backend, name, b)] = dict(
+                    turns_s=turns / wall, seq_turns_s=turns / s_wall,
+                    p50_ms=p50, p95_ms=p95, waves=waves,
+                    syncs_per_wave=per_wave)
+                profiled = ""
+                if name == "toploc+ fused":
+                    e1, e2 = batched(b), batched(b)
+                    n_k, n_c = device_ops(
+                        lambda: serve_rounds(e1, convs[:, :1]),
+                        lambda: serve_rounds(e2, convs[:, :1]))
+                    w = BATCH_CONVS // b
+                    profiled = (f" profiler: {n_k / w:.1f} kernels/wave, "
+                                f"{n_c / w:.1f} copies+fills/wave;")
+                log("batched serve", f"{backend} {name} B={b}: turns/s="
+                    f"{turns / wall:.1f} (" + "/".join(
+                        f"{turns / x:.1f}" for x in walls) + "; sequential "
+                    f"{turns / s_wall:.1f} (" + "/".join(
+                        f"{turns / x:.1f}" for x in s_walls) + "), "
+                    f"{s_syncs / BATCH_CONVS:.2f} host syncs/turn) request "
+                    f"p50_ms={p50:.3f} p95_ms={p95:.3f} waves={waves} "
+                    f"mean_wave={np.mean(sizes):.2f} "
+                    f"launches/wave " + " ".join(
+                        f"{n}={counts[n] / waves:.2f}" for n in rows)
+                    + f" host_syncs/wave={per_wave:.2f} cache_hit_rate="
+                    f"{hit};{profiled} == sequential (ids, scores, "
+                    f"TurnStats, cache_hit)")
+                del eng, engines, probe
+            torch.cuda.empty_cache()
+    log("batched serve", f"launches by kernel and max_batch: {by_b}")
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -3320,7 +3633,7 @@ def main() -> int:
     del model, corpus, tindex, rec_vecs
     torch.cuda.empty_cache()
 
-    index, docs, convs, exact = phase_index(args, dev)
+    index, docs, convs, exact, bconvs = phase_index(args, dev)
     pqi = phase_pq(args, index, docs, dev)
     indexes = {"ivf": index, "ivf_pq": pqi}
     runs, launches = phase_serve(indexes, docs, convs, exact, dev)
@@ -3333,6 +3646,9 @@ def main() -> int:
     log("batched", "start_batch/step_batch over 25 conversations == the "
         "sequential engine (ids, scores, TurnStats, sessions), fused and "
         "unfused toploc+, ivf and ivf_pq")
+    bs_launches, _ = phase_batched_serve(indexes, docs, bconvs)
+    for name, n in bs_launches.items():
+        launches[name] = launches.get(name, 0) + n
     launches.update(phase_classic(args, index, docs, convs, dev, errs))
     classic_times = phase_classic_times(args, index, convs, dev)
 

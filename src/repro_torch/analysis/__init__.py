@@ -13,6 +13,12 @@ The reference's seven other passes (trace-safety, contract, retrace,
 shard, deprecated, lock-order, guarded-fields) come with the modules
 they check (ROADMAP Queue 1, item 8).  Findings are suppressed only by
 ``analysis-baseline.txt``, which stays empty.
+
+The dynamic half of the reference's concurrency sanitizer is here:
+``tsan`` (an instrumented ``threading`` shim: lock-order graph,
+vector-clock races, the ``@guarded_by`` locksets) and ``schedules``
+(seeded deterministic preemptions, ``replay``), run over the batched
+serving engine by ``tests/test_torch_concurrency.py``.
 """
 from __future__ import annotations
 

@@ -4,6 +4,9 @@ The JAX package and the port share their index and session layouts
 field for field, so a reference-built ``IVFIndex`` / ``IVFPQIndex`` /
 ``IVFSession`` becomes the port's by handing each field over as a numpy
 array (``np.asarray(field)``); ``to_numpy`` goes the other way.  The
+batched engine's state converts the same way: its session slab through
+``ivf_session_from_numpy``, its result-cache slab through
+``cache_entries_from_numpy``.  The
 bi-encoder's parameter tree converts leaf for leaf, its stacked layers
 unstacked (``encoder_params_from_numpy``); so do the two-tower model's
 (``two_tower_params_from_numpy``) and the LM's
@@ -24,6 +27,7 @@ from repro_torch.core.toploc import IVFSession
 from repro_torch.models.encoder import DualEncoder, EncoderConfig, Tower
 from repro_torch.models.recsys import TwoTower, TwoTowerConfig
 from repro_torch.models.transformer import LM, LMConfig
+from repro_torch.serving.result_cache import CacheEntry
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -62,6 +66,19 @@ def ivf_session_from_numpy(cache_ids, cache_vecs, anchor_sel, refreshes,
     return IVFSession(_i32(cache_ids, dev), _f32(cache_vecs, dev),
                       _i32(anchor_sel, dev), _i32(refreshes, dev),
                       _i32(turn, dev))
+
+
+def cache_entries_from_numpy(q_vec, doc_ids, doc_scores, doc_vecs, valid,
+                             device=None) -> CacheEntry:
+    """A result-cache ``CacheEntry`` on ``device`` (default cuda); the
+    reference's cache slab (a leading ``n_slots + 1`` axis on every
+    field) converts the same way, as its session slab does through
+    ``ivf_session_from_numpy``.  ``SessionStore.restore`` takes either
+    over, with the reference store's slot map and free list."""
+    dev = _device.resolve(device)
+    return CacheEntry(_f32(q_vec, dev), _i32(doc_ids, dev),
+                      _f32(doc_scores, dev), _f32(doc_vecs, dev),
+                      torch.tensor(np.asarray(valid, bool), device=dev))
 
 
 def _tree(fn, tree):

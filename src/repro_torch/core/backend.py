@@ -17,7 +17,7 @@ bool(...)``): one host sync per follow-up turn when TopLoc_IVF+ is on.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, ClassVar, Dict, Tuple, Type
+from typing import Any, ClassVar, Dict, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -237,10 +237,9 @@ def _ivf_family_plain_batch(index, q, *, nprobe, k, list_scan):
 class RetrievalBackend:
     """Shared glue for registered backends.  Subclasses are frozen
     dataclasses exposing ``start / step / plain_batch / start_batch /
-    step_batch`` as in the reference; the reference's hooks for the
-    session store and the result cache (``session_template``,
-    ``corpus_vectors``, ``query_dim``, ``fetch_limit``) come with those
-    layers (ROADMAP Queue 1, item 1)."""
+    step_batch`` as in the reference, and the hooks the session store
+    and the result cache read (``session_template``, ``corpus_vectors``,
+    ``query_dim``, ``fetch_limit``)."""
 
     name: ClassVar[str] = "?"
     index_kwarg: ClassVar[str] = "?"       # engine kwarg holding the index
@@ -251,6 +250,27 @@ class RetrievalBackend:
         batched path."""
         v, i, st = self.plain_batch(index, q[None], k=k)
         return v[0], i[0], _tl.TurnStats(*(x[0] for x in st))
+
+    def session_template(self, index) -> Optional[Any]:
+        """One session's state, zeroed (no leading batch dim): the layout
+        of the session store's slab.  None for stateless backends."""
+        return None
+
+    def corpus_vectors(self, index) -> Optional[torch.Tensor]:
+        """The flat (n, d) corpus the result cache re-scores against, if
+        the index keeps one."""
+        return None
+
+    def query_dim(self, index) -> int:
+        """Embedding dimensionality queries against ``index`` must have."""
+        raise NotImplementedError
+
+    def fetch_limit(self, index) -> int:
+        """Largest per-query result depth a turn can request while
+        running the *same* turn a plain k-request would (same candidate
+        pool, so the top-k prefix is unchanged).  The result cache
+        clamps its over-fetch depth to this."""
+        raise NotImplementedError
 
 
 @register
@@ -314,6 +334,24 @@ class IVFBackend(RetrievalBackend):
         return _ivf_family_plain_batch(index, q, nprobe=self.nprobe, k=k,
                                        list_scan=self._list_scan)
 
+    def session_template(self, index):
+        dev = index.centroids.device
+        return _tl.IVFSession(
+            cache_ids=torch.zeros((self.h,), dtype=torch.int32, device=dev),
+            cache_vecs=torch.zeros((self.h, index.d),
+                                   dtype=index.centroids.dtype, device=dev),
+            anchor_sel=torch.zeros((self.nprobe,), dtype=torch.int32,
+                                   device=dev),
+            refreshes=torch.zeros((), dtype=torch.int32, device=dev),
+            turn=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def query_dim(self, index) -> int:
+        return index.d
+
+    def fetch_limit(self, index) -> int:
+        # the float scan's candidate pool: every slot of every probed list
+        return self.nprobe * index.lmax
+
 
 @register
 @dataclasses.dataclass(frozen=True)
@@ -356,3 +394,12 @@ class IVFPQBackend(IVFBackend):
             return v, i, stats
         return _ivf_family_plain_batch(index, q, nprobe=self.nprobe, k=k,
                                        list_scan=self._list_scan)
+
+    def corpus_vectors(self, index):
+        return index.doc_vecs
+
+    def fetch_limit(self, index) -> int:
+        # asking for k beyond this would widen the exact re-rank pool
+        # (``r = max(k, min(rerank, np·Lmax))`` in ``_scan_lists_pq``),
+        # changing which candidates the top-k is drawn from
+        return min(self.rerank, self.nprobe * index.lmax)

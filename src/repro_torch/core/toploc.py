@@ -53,6 +53,15 @@ class TurnStats(NamedTuple):
     refreshed: torch.Tensor       # () bool
 
 
+def _zero_stats(device=None) -> TurnStats:
+    """The counters of a turn that did no backend work (a result-cache
+    hit): every count 0, ``i0`` -1, not refreshed."""
+    z = torch.zeros((), dtype=torch.int32, device=device)
+    return TurnStats(z, z, z, z, torch.full((), -1, dtype=torch.int32,
+                                            device=device),
+                     torch.zeros((), dtype=torch.bool, device=device))
+
+
 def stack_stats(stats) -> TurnStats:
     """Stack a sequence of per-turn ``TurnStats`` along a new first axis."""
     return TurnStats(*(torch.stack([getattr(s, f) for s in stats])

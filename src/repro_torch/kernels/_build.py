@@ -44,13 +44,14 @@ SIGNATURES = {
                        P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P],
     "group_amax": [P, I, I, I, I, I, P, P],
     "pq_adc_scan_f32": [P, I, I, P, P, I, P, I, I, I, I,
-                        P, P, P, P, P, P, P, P, P],
+                        P, P, P, P, P, P, P, P, I, P],
     "fused_scan_pq": [P, P, I, I, P, P, I, P, I, P, P,
                       I, I, I, I, I, I, I, I, I,
-                      P, P, P, P, P, P, P, P, P, P, P, P],
+                      P, P, P, P, P, P, P, P, P, P, P, I, P],
     "fused_turn_pq": [P, P, P, I, I, P, P, I, P,
                       I, I, I, I, I, I, I, P, I, I, I,
-                      P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P],
+                      P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I,
+                      P],
     "flash_attention_f32": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, LL, P],
     "flash_attention_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, LL,
                              P],

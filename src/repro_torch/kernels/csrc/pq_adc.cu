@@ -43,16 +43,16 @@
 //    Each block lands the query's LUT in shared memory (49,152 B at m =
 //    48, opt-in dynamic shared memory) before it waits for the kernel
 //    before it (fold::wait_primary: in fused_turn_pq the scan is chained
-//    behind stage 1 by programmatic dependent launch).  From B = 2
+//    behind stage 1 by programmatic dependent launch).  From B = 8
 //    (ADC_BULK_MIN_B, the instance BULK) one thread asks for the whole
 //    float32 table by one bulk copy, counted on an mbarrier, and the
 //    block reads its slice's 128 ids while the table is in flight; bf16
 //    rounds and int8 quantises each entry as it is read (the int8 scale
-//    from the shared copy).  At B = 1 every block reads the same table,
-//    and the block's threads stage it at its precision (16-byte loads,
-//    LUT_LOADS a thread in flight; int8 as int values with one scale),
-//    then read the ids: the bulk instance measured slower there (PERF.md
-//    section 6).  Each row's codes go out with its id (16-byte loads); a
+//    from the shared copy).  Below it few tables serve all blocks (B = 1:
+//    one), and the block's threads stage the table at its precision
+//    (16-byte loads, LUT_LOADS a thread in flight; int8 as int values
+//    with one scale), then read the ids: the bulk instance measured
+//    slower there (PERF.md section 6).  Each row's codes go out with its id (16-byte loads); a
 //    slice with no real row scores nothing and writes only a count of 0,
 //    and a pad row (id -1) is never scored;
 //  * the block selects its best min(r_pad, 128) by counting each
@@ -102,8 +102,9 @@ constexpr int ADC_ROWS = fold::SLICE_ROWS;  // rows of a probed list a block
 constexpr int ADC_THREADS = 256;
 // The smallest batch whose blocks land the LUT by a bulk copy (the
 // kernel instance BULK); below it their threads stage it (tiling
-// ADC_BULK_MIN_B).
-constexpr int ADC_BULK_MIN_B = 2;
+// ADC_BULK_MIN_B).  An entry's `adc_kernel` argument forces one
+// instance (0 staged, 1 bulk) for measurement; -1 picks by the batch.
+constexpr int ADC_BULK_MIN_B = 8;
 
 using fused_common::P_BF16;
 using fused_common::P_F32;
@@ -397,13 +398,14 @@ int adc_scan(const float* tables, int m, int n_codes, const uint8_t* codes,
              int precision, float* cand_v, int* cand_i, int* cand_p,
              int* cand_n, int* counters, const float* q, const float* corpus,
              int d, int rr, int kp, float* out_v, int* out_i, int* out_p,
-             bool pdl, cudaStream_t st) {
+             bool pdl, int adc_kernel, cudaStream_t st) {
   const int nsplit = (lmax + ADC_ROWS - 1) / ADC_ROWS;
   const int w = min(r_pad, ADC_ROWS);
   if (counters != nullptr && w != r_pad) return (int)cudaErrorInvalidValue;
   int smem = m * n_codes * (int)sizeof(float);
   if (counters != nullptr) smem = max(smem, max(nsplit, nprobe) * w * 12);
-  const bool bulk = B >= ADC_BULK_MIN_B && (m * n_codes) % 4 == 0 &&
+  const bool want = adc_kernel < 0 ? B >= ADC_BULK_MIN_B : adc_kernel == 1;
+  const bool bulk = want && (m * n_codes) % 4 == 0 &&
                     (reinterpret_cast<uintptr_t>(tables) & 15) == 0;
   using fused_common::by_precision;
   const cudaError_t err = fused_common::launch_after(
@@ -430,17 +432,17 @@ int scan_pq(const float* tables, const float* q, int m, int n_codes,
             int nprobe, int lmax, int d, int precision, int r, int r_pad,
             int kp, int rerank, float* cand_v, int* cand_i, int* cand_p,
             int* cand_n, int* counters, float* mid_v, int* mid_i, int* mid_p,
-            float* out_v, int* out_i, int* out_p, bool pdl,
+            float* out_v, int* out_i, int* out_p, bool pdl, int adc_kernel,
             cudaStream_t st) {
   if (!rerank || counters != nullptr)
     return adc_scan(tables, m, n_codes, codes, list_ids, p, sel, sel_stride,
                     own, B, nprobe, lmax, r_pad, precision, cand_v, cand_i,
                     cand_p, cand_n, counters, q, corpus, d, rerank ? r : 0,
-                    kp, out_v, out_i, out_p, pdl, st);
+                    kp, out_v, out_i, out_p, pdl, adc_kernel, st);
   const int e = adc_scan(tables, m, n_codes, codes, list_ids, p, sel,
                          sel_stride, own, B, nprobe, lmax, r_pad, precision,
                          cand_v, cand_i, cand_p, cand_n, nullptr, q, corpus, d,
-                         0, kp, mid_v, mid_i, mid_p, pdl, st);
+                         0, kp, mid_v, mid_i, mid_p, pdl, adc_kernel, st);
   if (e != 0) return e;
   return rerank_rows(q, corpus, d, nullptr, 0, 0, mid_i, mid_p, B, r_pad, r,
                      kp, out_v, out_i, out_p, st);
@@ -457,16 +459,17 @@ extern "C" {
 // (tiling.merge_scratch), cand_n B * nprobe * nsplit counts; with counters
 // (B * nprobe + B zeroed ints, r_pad <= 128) the launch folds the lists
 // itself.  out_* is (B, r_pad): ADC values, doc ids, flat positions.
+// adc_kernel: -1, or the instance forced (ADC_BULK_MIN_B).
 int pq_adc_scan_f32(const float* tables, int m, int n_codes,
                     const uint8_t* codes, const int* list_ids, int p,
                     const int* sel, int B, int nprobe, int lmax, int r_pad,
                     float* cand_v, int* cand_i, int* cand_p, int* cand_n,
                     int* counters, float* out_v, int* out_i, int* out_p,
-                    void* stream) {
+                    int adc_kernel, void* stream) {
   return adc_scan(tables, m, n_codes, codes, list_ids, p, sel, nprobe,
                   nullptr, B, nprobe, lmax, r_pad, P_F32, cand_v, cand_i,
                   cand_p, cand_n, counters, nullptr, nullptr, 0, 0, r_pad,
-                  out_v, out_i, out_p, false,
+                  out_v, out_i, out_p, false, adc_kernel,
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -476,7 +479,7 @@ int pq_adc_scan_f32(const float* tables, int m, int n_codes,
 // top r_pad's first r candidates, against q (B, d) and corpus (N, d)
 // (mid_* (B, r_pad) the ADC top r_pad when the launch does not fold).
 // rerank == 0: out_* (B, r_pad) is the ADC top r_pad (mid_* unused; q and
-// corpus may be null).
+// corpus may be null).  adc_kernel as pq_adc_scan_f32's.
 int fused_scan_pq(const float* tables, const float* q, int m, int n_codes,
                   const uint8_t* codes, const int* list_ids, int p,
                   const int* sel, int sel_stride, const int* own,
@@ -484,11 +487,12 @@ int fused_scan_pq(const float* tables, const float* q, int m, int n_codes,
                   int precision, int r, int r_pad, int kp, int rerank,
                   float* cand_v, int* cand_i, int* cand_p, int* cand_n,
                   int* counters, float* mid_v, int* mid_i, int* mid_p,
-                  float* out_v, int* out_i, int* out_p, void* stream) {
+                  float* out_v, int* out_i, int* out_p, int adc_kernel,
+                  void* stream) {
   return scan_pq(tables, q, m, n_codes, codes, list_ids, p, sel, sel_stride,
                  own, corpus, B, nprobe, lmax, d, precision, r, r_pad, kp,
                  rerank, cand_v, cand_i, cand_p, cand_n, counters, mid_v,
-                 mid_i, mid_p, out_v, out_i, out_p, false,
+                 mid_i, mid_p, out_v, out_i, out_p, false, adc_kernel,
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -497,7 +501,8 @@ int fused_scan_pq(const float* tables, const float* q, int m, int n_codes,
 // groups of blk_p rows read from the cached c_amax); sel_v / sel (B,
 // np_pad) receive the probe set, of which the first nprobe are scanned;
 // the ADC scan is chained behind stage 1 (programmatic dependent launch)
-// and runs as fused_scan_pq with rerank.
+// and runs as fused_scan_pq with rerank (adc_kernel as
+// pq_adc_scan_f32's).
 int fused_turn_pq(const float* q, const float* cents, const float* tables,
                   int m, int n_codes, const uint8_t* codes,
                   const int* list_ids, int p, const float* corpus, int B,
@@ -507,7 +512,7 @@ int fused_turn_pq(const float* q, const float* cents, const float* tables,
                   int* sel, float* cand_v, int* cand_i, int* cand_p,
                   int* cand_n, int* counters, float* mid_v, int* mid_i,
                   int* mid_p, float* out_v, int* out_i, int* out_p,
-                  void* stream) {
+                  int adc_kernel, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int e = select_probes(q, cents, p, B, d, np_pad, precision, blk_p,
                               c_amax, s1_v, s1_i, s1_counters, sel_v, sel,
@@ -516,7 +521,7 @@ int fused_turn_pq(const float* q, const float* cents, const float* tables,
   return scan_pq(tables, q, m, n_codes, codes, list_ids, p, sel, np_pad,
                  nullptr, corpus, B, nprobe, lmax, d, precision, r, r_pad, kp,
                  1, cand_v, cand_i, cand_p, cand_n, counters, mid_v, mid_i,
-                 mid_p, out_v, out_i, out_p, true, st);
+                 mid_p, out_v, out_i, out_p, true, adc_kernel, st);
 }
 
 }  // extern "C"

@@ -296,18 +296,24 @@ fused_scan.launches = 0
 
 def pq_adc_scan(tables: torch.Tensor, list_codes: torch.Tensor,
                 list_ids: torch.Tensor, sel: torch.Tensor, k: int, *,
-                mode: Optional[str] = None, device=None
+                mode: Optional[str] = None, device=None,
+                adc_bulk: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ADC scan of the probed PQ lists ``sel`` (B, nprobe) with the
     per-query LUTs ``tables`` (B, m, n_codes): the ADC top-k (values
-    (B, k), int32 ids (B, k)), to be re-ranked by the caller."""
+    (B, k), int32 ids (B, k)), to be re-ranked by the caller.
+    ``adc_bulk`` forces the kernel's instance (True: the LUT by a bulk
+    copy, False: staged by the threads; None: by ``tiling.ADC_BULK_MIN_B``)
+    for measurement, on the kernel path; every instance gives the same
+    bits, as rows 5 and 7 take it."""
     dev = _device.require(device, tables, list_codes, list_ids, sel)
     if _mode(mode, dev) == "ref":
         return ref.pq_adc_scan_batch(tables, list_codes, list_ids, sel, k)
     kp = tiling.check_pad("k", k)
     v, i, _ = _pq.pq_adc_scan(tables.to(torch.float32).contiguous(),
                               list_codes, list_ids,
-                              sel.to(torch.int32).contiguous(), r_pad=kp)
+                              sel.to(torch.int32).contiguous(), r_pad=kp,
+                              bulk=adc_bulk)
     _count(pq_adc_scan, sel.shape[0])
     return v[:, :k], i[:, :k]
 
@@ -319,12 +325,14 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
                   tables: torch.Tensor, list_codes: torch.Tensor,
                   list_ids: torch.Tensor, corpus: torch.Tensor, *,
                   nprobe: int, k: int, rerank: int, precision: str = "f32",
-                  mode: Optional[str] = None, device=None) -> Triple:
+                  mode: Optional[str] = None, device=None,
+                  adc_bulk: Optional[bool] = None) -> Triple:
     """Whole IVF-PQ turn: centroid top-nprobe + ADC scan + exact re-rank
     of the ADC top ``r = max(k, min(rerank, nprobe·lmax))`` against
     ``corpus`` rows, whatever the precision (bf16 / int8 score the
     centroids and the ADC quantised).  Returns (values (B, k), ids
-    (B, k), sel (B, nprobe)); ids and sel int32."""
+    (B, k), sel (B, nprobe)); ids and sel int32.  ``adc_bulk`` as
+    ``pq_adc_scan``'s."""
     check_precision(precision)
     dev = _device.require(device, queries, centroids, tables, list_codes,
                           list_ids, corpus)
@@ -339,7 +347,8 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
         queries.contiguous(), centroids, tables.to(torch.float32).contiguous(),
         list_codes, list_ids, corpus, nprobe=nprobe, np_pad=np_pad, r=r,
         r_pad=r_pad, kp=tiling.next_pow2(k), precision=precision,
-        c_amax=_centroid_scales(centroids, np_pad, precision))
+        c_amax=_centroid_scales(centroids, np_pad, precision),
+        bulk=adc_bulk)
     _count(fused_turn_pq, queries.shape[0])
     return v[:, :k], i[:, :k], s[:, :nprobe]
 
@@ -352,7 +361,8 @@ def fused_scan_pq(tables: torch.Tensor, queries: torch.Tensor,
                   sel: torch.Tensor, corpus: torch.Tensor, k: int, *,
                   rerank: int, own: Optional[torch.Tensor] = None,
                   precision: str = "f32", fuse_rerank: bool = True,
-                  mode: Optional[str] = None, device=None) -> Triple:
+                  mode: Optional[str] = None, device=None,
+                  adc_bulk: Optional[bool] = None) -> Triple:
     """PQ ADC scan with a caller-supplied selection ``sel`` (B, nprobe).
 
     With ``fuse_rerank`` (single-device turns): the exact top-k of the
@@ -360,7 +370,8 @@ def fused_scan_pq(tables: torch.Tensor, queries: torch.Tensor,
     (the sharded merge): the ADC top r, (values (B, r), ids (B, r), flat
     positions ``probe·lmax + offset``, ``PAD_POS`` on -inf lanes).
     ``own`` masks lists this shard does not own.  bf16 / int8 score the
-    ADC quantised; the re-rank is float32.
+    ADC quantised; the re-rank is float32.  ``adc_bulk`` as
+    ``pq_adc_scan``'s.
     """
     check_precision(precision)
     dev = _device.require(device, tables, queries, list_codes, list_ids,
@@ -377,7 +388,8 @@ def fused_scan_pq(tables: torch.Tensor, queries: torch.Tensor,
         queries.contiguous() if fuse_rerank else None, list_codes, list_ids,
         sel.to(torch.int32).contiguous(), own32,
         corpus if fuse_rerank else None, r=r, r_pad=r_pad,
-        kp=tiling.next_pow2(k), rerank=fuse_rerank, precision=precision)
+        kp=tiling.next_pow2(k), rerank=fuse_rerank, precision=precision,
+        bulk=adc_bulk)
     _count(fused_scan_pq, sel.shape[0])
     w = k if fuse_rerank else r
     return v[:, :w], i[:, :w], pp[:, :w]

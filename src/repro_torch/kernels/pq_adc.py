@@ -72,12 +72,20 @@ def _sel_check(sel: torch.Tensor, b: int, own: Optional[torch.Tensor]
             raise ValueError("own must match sel's shape")
 
 
+def _adc_kernel(bulk: Optional[bool]) -> int:
+    """The C entries' ``adc_kernel``: -1 picks the ADC scan's instance by
+    the batch (``tiling.ADC_BULK_MIN_B``); 1 forces the bulk-copy
+    instance, 0 the staged one (both give the same bits)."""
+    return -1 if bulk is None else int(bool(bulk))
+
+
 def pq_adc_scan(tables: torch.Tensor, list_codes: torch.Tensor,
-                list_ids: torch.Tensor, sel: torch.Tensor, *, r_pad: int
-                ) -> Triple:
+                list_ids: torch.Tensor, sel: torch.Tensor, *, r_pad: int,
+                bulk: Optional[bool] = None) -> Triple:
     """ADC-scan the probed lists ``sel`` (B, nprobe) int32.  Returns the
     ADC top ``r_pad`` (values, ids, flat positions probe*lmax + offset),
-    pads ``(-inf, -1, PAD_POS)``.  A B of 0 launches nothing."""
+    pads ``(-inf, -1, PAD_POS)``.  ``bulk`` forces the scan's instance
+    (``_adc_kernel``).  A B of 0 launches nothing."""
     b, nprobe = sel.shape
     p, lmax, m = list_codes.shape
     _check_scan(tables, list_codes, list_ids, b, nprobe, r_pad)
@@ -88,9 +96,9 @@ def pq_adc_scan(tables: torch.Tensor, list_codes: torch.Tensor,
     n_codes = tables.shape[2]
     launcher.run(
         "pq_adc_scan_f32",
-        tiling.plan_adc(b, nprobe, lmax, m, n_codes, r_pad), dev, tables, m,
-        n_codes, list_codes, list_ids, p, sel, b, nprobe, lmax, r_pad,
-        *lists, *out)
+        tiling.plan_adc(b, nprobe, lmax, m, n_codes, r_pad, bulk=bulk), dev,
+        tables, m, n_codes, list_codes, list_ids, p, sel, b, nprobe, lmax,
+        r_pad, *lists, *out, _adc_kernel(bulk))
     return out
 
 
@@ -98,12 +106,14 @@ def fused_scan_pq(tables: torch.Tensor, queries: Optional[torch.Tensor],
                   list_codes: torch.Tensor, list_ids: torch.Tensor,
                   sel: torch.Tensor, own: Optional[torch.Tensor],
                   corpus: Optional[torch.Tensor], *, r: int, r_pad: int,
-                  kp: int, rerank: bool, precision: str = "f32") -> Triple:
+                  kp: int, rerank: bool, precision: str = "f32",
+                  bulk: Optional[bool] = None) -> Triple:
     """ADC scan of ``sel`` (B, nprobe) with ``own`` (B, nprobe) int32 or
     None, at ``precision``.  With ``rerank``: the exact top ``kp`` of the
     ADC top ``r`` against ``corpus`` rows (values, ids, ADC ranks);
-    without: the ADC top ``r_pad`` (values, ids, flat positions).  A B
-    of 0 launches nothing."""
+    without: the ADC top ``r_pad`` (values, ids, flat positions).
+    ``bulk`` forces the scan's instance (``_adc_kernel``).  A B of 0
+    launches nothing."""
     b, nprobe = sel.shape
     p, lmax, m = list_codes.shape
     _check_scan(tables, list_codes, list_ids, b, nprobe, r_pad)
@@ -121,11 +131,11 @@ def fused_scan_pq(tables: torch.Tensor, queries: Optional[torch.Tensor],
     launcher.run(
         "fused_scan_pq",
         tiling.plan_fused_scan_pq(b, nprobe, lmax, m, n_codes, d, r_pad,
-                                  rerank, precision),
+                                  rerank, precision, bulk=bulk),
         dev, tables, queries if rerank else None, m, n_codes, list_codes,
         list_ids, p, sel, nprobe, own, corpus if rerank else None, b, nprobe,
         lmax, d, PRECISION_CODE[precision], r, r_pad, kp, int(rerank),
-        *lists, *mid, *out)
+        *lists, *mid, *out, _adc_kernel(bulk))
     return out
 
 
@@ -134,12 +144,13 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
                   list_ids: torch.Tensor, corpus: torch.Tensor, *,
                   nprobe: int, np_pad: int, r: int, r_pad: int, kp: int,
                   precision: str = "f32",
-                  c_amax: Optional[torch.Tensor] = None) -> Triple:
+                  c_amax: Optional[torch.Tensor] = None,
+                  bulk: Optional[bool] = None) -> Triple:
     """Whole IVF-PQ turn at ``precision``: returns (values (B, kp), ids
     (B, kp), sel (B, np_pad)); the first ``nprobe`` probes are scanned
     and the ADC top ``r`` re-ranked; int8 reads ``c_amax`` (1,
-    n_cgroups), the centroids' cached group amax.  A B of 0 launches
-    nothing."""
+    n_cgroups), the centroids' cached group amax.  ``bulk`` forces the
+    ADC scan's instance (``_adc_kernel``).  A B of 0 launches nothing."""
     b, d = queries.shape
     p, lmax, m = list_codes.shape
     _check_scan(tables, list_codes, list_ids, b, nprobe, r_pad)
@@ -163,9 +174,9 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
     launcher.run(
         "fused_turn_pq",
         tiling.plan_fused_turn_pq(b, p, nprobe, np_pad, lmax, m, n_codes, d,
-                                  precision, r_pad),
+                                  precision, r_pad, bulk=bulk),
         dev, queries, centroids, tables, m, n_codes, list_codes, list_ids, p,
         corpus, b, nprobe, np_pad, lmax, d, PRECISION_CODE[precision], blk_p,
         c_amax, r, r_pad, kp, s1_v, s1_i, s1_counters, sel_v, sel, *lists,
-        *mid, *out)
+        *mid, *out, _adc_kernel(bulk))
     return out[0], out[1], sel

@@ -23,7 +23,7 @@ holds them to the kernels a profiler sees on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # Shared memory one thread block may use on Hopper (sm_90): 227 KB of
 # the SM's 256 KB, above 48 KB only as opt-in dynamic shared memory
@@ -68,11 +68,13 @@ PQ_ROWS = 128
 # The smallest batch whose ADC blocks land the LUT by one bulk copy each
 # (csrc/pq_adc.cu ADC_BULK_MIN_B, the kernel instance BULK; the LUT whole
 # 16-byte pieces, the tables 16-byte aligned as the allocator gives
-# them): below it every block reads the same table, and staging it by
-# the block's threads measured faster there.  The bulk
-# instance's mbarrier adds ADC_BULK_SMEM bytes of static shared memory
-# (8 that the build lays out in 16).
-ADC_BULK_MIN_B = 2
+# them): below it few tables serve all blocks, and staging them by the
+# block's threads measured faster there (chip_smoke.py --adc-times, rows
+# 3, 5 and 7 at every precision: the bulk copy wins every row from B =
+# 8, the staging 12 of the 14 row-batches at B = 2 and 4; PERF.md
+# section 6).  The bulk instance's mbarrier adds ADC_BULK_SMEM bytes of
+# static shared memory (8 that the build lays out in 16).
+ADC_BULK_MIN_B = 8
 ADC_BULK_SMEM = 16
 # Codewords per subquantizer: codes are uint8.
 MAX_CODES = 256
@@ -520,15 +522,18 @@ def adc_smem(m: int, n_codes: int, nprobe: int, lmax: int, r_pad: int
 
 
 def plan_adc(b: int, nprobe: int, lmax: int, m: int, n_codes: int,
-             r_pad: int, precision: str = "f32") -> List[Launch]:
+             r_pad: int, precision: str = "f32",
+             bulk: Optional[bool] = None) -> List[Launch]:
     """``adc_scan``: the ADC blocks (the LUT in dynamic shared memory,
-    by a bulk copy a block from ``ADC_BULK_MIN_B`` queries), folded to
-    r_pad in the same launch when ``scan_fold``, else the merge of their
-    lists of min(r_pad, 128) to r_pad after them."""
+    by a bulk copy a block from ``ADC_BULK_MIN_B`` queries, or as
+    ``bulk`` forces), folded to r_pad in the same launch when
+    ``scan_fold``, else the merge of their lists of min(r_pad, 128) to
+    r_pad after them."""
     if b == 0:
         return []
     grid = (nprobe * pq_split(lmax), b)
-    bulk = b >= ADC_BULK_MIN_B and (m * n_codes) % 4 == 0
+    want = b >= ADC_BULK_MIN_B if bulk is None else bulk
+    bulk = want and (m * n_codes) % 4 == 0
     static = (STATIC_SMEM["adc_scan_kernel"]
               + (INT8_STATIC_SMEM["adc_scan_kernel"]
                  if precision == "int8" else 0)
@@ -542,26 +547,27 @@ def plan_adc(b: int, nprobe: int, lmax: int, m: int, n_codes: int,
 
 
 def plan_fused_scan_pq(b: int, nprobe: int, lmax: int, m: int, n_codes: int,
-                       d: int, r_pad: int, rerank: bool, precision: str
-                       ) -> List[Launch]:
+                       d: int, r_pad: int, rerank: bool, precision: str,
+                       bulk: Optional[bool] = None) -> List[Launch]:
     """``fused_scan_pq``: the ADC scan, then its float32 re-rank, which
     the scan's launch runs itself when it folds."""
     if b == 0:
         return []
-    return (plan_adc(b, nprobe, lmax, m, n_codes, r_pad, precision)
+    return (plan_adc(b, nprobe, lmax, m, n_codes, r_pad, precision, bulk)
             + (plan_rerank(b, d, r_pad)
                if rerank and not scan_fold(nprobe, lmax, r_pad) else []))
 
 
 def plan_fused_turn_pq(b: int, p: int, nprobe: int, np_pad: int, lmax: int,
                        m: int, n_codes: int, d: int, precision: str,
-                       r_pad: int) -> List[Launch]:
+                       r_pad: int, bulk: Optional[bool] = None
+                       ) -> List[Launch]:
     """``fused_turn_pq``: stage 1, then the ADC scan chained behind it."""
     if b == 0:
         return []
     return (plan_select(b, p, d, np_pad, precision)
             + plan_fused_scan_pq(b, nprobe, lmax, m, n_codes, d, r_pad, True,
-                                 precision))
+                                 precision, bulk))
 
 
 def plan_centroid_topk(b: int, p: int, d: int, kp: int) -> List[Launch]:

@@ -1,4 +1,16 @@
-"""Conversational serving: the sequential ``ConversationalSearchEngine``."""
-from repro_torch.serving import engine  # noqa: F401
+"""Conversational serving: the sequential and batched engines, the
+session store, the micro-batching scheduler and the result cache.
+
+The reference's ``router`` / ``ReplicatedSearchEngine`` come with the
+corpus mesh (ROADMAP Queue 1, item 6).
+"""
+from repro_torch.serving import engine, result_cache, scheduler, sessions  # noqa: F401
 from repro_torch.serving.engine import (  # noqa: F401
-    ConversationalSearchEngine, ServingConfig, TurnRecord)
+    BatchedConversationalSearchEngine, ConversationalSearchEngine,
+    ServingConfig, TurnRecord)
+from repro_torch.serving.result_cache import CacheEntry, ResultCache  # noqa: F401
+from repro_torch.serving.scheduler import (  # noqa: F401
+    HedgedExecutor, MicroBatcher, Request)
+from repro_torch.serving.sessions import (  # noqa: F401
+    SessionStore, hnsw_session_store, ivf_pq_session_store,
+    ivf_session_store, store_for_backend)

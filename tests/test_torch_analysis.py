@@ -246,7 +246,8 @@ def test_adc_plan_fits_a_block_at_every_depth(lmax, b, r_pad):
     """The ADC scan's plan at 1, 3, 6, 8 and 9 slices a list (Lmax 128 to
     1,100), B 1 to 25 and r_pad 16 to 256: one block a (query, probed
     list, slice), its shared memory (the LUT, the fold over it, from
-    B = 2 the mbarrier of the LUT's bulk copy) within the opt-in cap, the
+    ``ADC_BULK_MIN_B`` queries the mbarrier of the LUT's bulk copy)
+    within the opt-in cap, the
     merge after it only past one slice's width, and the kernels pass
     accepts every launch."""
     plan = tiling.plan_adc(b, 64, lmax, 48, 256, r_pad)

@@ -1263,18 +1263,31 @@ def test_cuda_flash_decode_refuses_grad_and_empty_launches_nothing(
 def _traced_kernels(call, tmp_path, tries=3):
     """Names of the device kernels torch.profiler sees in one ``call()``
     (after a warm-up call), from the Kineto trace's kernel events, as
-    ``kernel_budget.traced`` reads them.  A trace with no kernel at all
-    is the profiler missing the session (every call here launches one),
-    so it is taken again, up to ``tries`` times."""
+    ``kernel_budget.traced`` reads them.
+
+    Each session first runs the call in a warm-up step whose events are
+    discarded (``schedule(warmup=1, active=1)``), and records only the
+    second: the activity tracing a session starts can miss the first
+    kernel launched behind it (a trace of a two-kernel call then held
+    only the second), and the warm-up step absorbs that.  A trace with
+    no kernel at all is the profiler missing the session (every call
+    here launches one), so it is taken again, up to ``tries`` times; a
+    short trace is returned as it is, for the caller to compare."""
     call()
     torch.cuda.synchronize()
+    names = []
     for attempt in range(tries):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
         path = tmp_path / f"trace{attempt}.json"
-        prof.export_chrome_trace(str(path))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                 active=1, repeat=1),
+                on_trace_ready=lambda p: p.export_chrome_trace(str(path))
+                ) as prof:
+            for _ in range(2):
+                call()
+                torch.cuda.synchronize()
+                prof.step()
         events = json.loads(path.read_text())["traceEvents"]
         names = [e["name"] for e in events if e.get("cat") == "kernel"]
         if names:
@@ -2175,7 +2188,7 @@ def test_cuda_kernels_a_call_at_the_served_shape(cuda_device, precision,
 
 
 # ---------------------------------------------------------------------------
-# the ADC scan (csrc/pq_adc.cu): from B = 2 the LUT landed by one bulk
+# the ADC scan (csrc/pq_adc.cu): from B = 8 the LUT landed by one bulk
 # copy a block, each entry converted as it is read, at B = 1 staged by
 # the block's threads; held to the plain version at every depth and on
 # tied lists, and the scans' in-launch fold to merge_kernel on tied lists
@@ -2217,12 +2230,12 @@ def _adc_equal(tables, codes, li, sel, r_pad):
 
 
 @pytest.mark.cuda_only
-@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("r_pad", [16, 64, 128, 256])
 @pytest.mark.parametrize("lmax", ADC_LMAX)
 def test_cuda_adc_scan_depths_and_widths(cuda_device, lmax, r_pad, b):
-    """Row 3 at 1, 3, 6, 8 and 9 slices a list, B = 1 (the LUT staged
-    by the threads) and 3 (by bulk copies), and r_pad 16, 64, 128
+    """Row 3 at 1, 3, 6, 8 and 9 slices a list, B = 1 and 3 (the LUT
+    staged by the threads) and 8 (by bulk copies), and r_pad 16, 64, 128
     (folded in the launch) and 256 (merge_kernel after it): bit-equal to
     the plain version, on lists that are all pads, shorter than one
     slice, full and ragged."""
@@ -2233,8 +2246,85 @@ def test_cuda_adc_scan_depths_and_widths(cuda_device, lmax, r_pad, b):
                            lmax + r_pad), r_pad)
 
 
+def test_entries_pass_the_arguments_their_signatures_declare(monkeypatch):
+    """Every ops entry hands its C entry as many arguments as
+    ``_build.SIGNATURES`` declares, the stream (which ``launcher.run``
+    appends) aside: the analysis pass's probes and the PQ scan, on meta
+    tensors, with the ADC scan's instance by the batch and forced."""
+    from repro_torch.analysis import kernel_budget as KB
+    from repro_torch.kernels import launcher
+    seen = {}
+
+    def run(entry, plan, device, *args):
+        seen.setdefault(entry, set()).add(len(args))
+
+    monkeypatch.setattr(launcher, "run", run)
+    meta = torch.device("meta")
+    with launcher.record_launches():
+        for probe in KB.default_probes():
+            probe.call(*probe.tensors(meta), device=meta)
+        t = torch.empty((2, 16, 256), device=meta)
+        codes = torch.empty((64, 300, 16), dtype=torch.uint8, device=meta)
+        li = torch.empty((64, 300), dtype=torch.int32, device=meta)
+        sel = torch.empty((2, 8), dtype=torch.int32, device=meta)
+        q = torch.empty((2, 64), device=meta)
+        cents = torch.empty((64, 64), device=meta)
+        corpus = torch.empty((1000, 64), device=meta)
+        for bulk in (None, False, True):
+            ops.fused_scan_pq(t, q, codes, li, sel, corpus, 10, rerank=32,
+                              device=meta, adc_bulk=bulk)
+            ops.pq_adc_scan(t, codes, li, sel, 10, device=meta,
+                            adc_bulk=bulk)
+            ops.fused_turn_pq(q, cents, t, codes, li, corpus, nprobe=8,
+                              k=10, rerank=32, device=meta, adc_bulk=bulk)
+    assert {"pq_adc_scan_f32", "fused_scan_pq", "fused_turn_pq",
+            "fused_turn_ivf", "fused_scan_ivf"} <= set(seen)
+    for entry, counts in seen.items():
+        assert counts == {len(_build.SIGNATURES[entry]) - 1}, entry
+
+
+@pytest.mark.parametrize("b", [1, 2, 32])
+def test_adc_instance_plans_by_batch_or_forced(b):
+    """The ADC scan's plan takes the bulk instance (its mbarrier's
+    static bytes) from ``ADC_BULK_MIN_B`` queries, or as forced."""
+    def static(bulk):
+        (launch,) = tiling.plan_adc(b, 8, 300, 16, 256, 64, bulk=bulk)
+        return launch.smem_bytes
+    assert static(True) - static(False) == tiling.ADC_BULK_SMEM
+    assert static(None) == static(b >= tiling.ADC_BULK_MIN_B)
+
+
 @pytest.mark.cuda_only
-@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 32])
+def test_cuda_adc_instances_give_the_same_bits(cuda_device, b):
+    """Rows 3, 7 and 5 with the ADC scan's instance forced, the LUT by a
+    bulk copy or staged by the threads, at every batch the engine serves
+    and every precision: the same bits as the instance the batch picks
+    (which the tests above hold to the plain versions)."""
+    nprobe, k, rerank = 16, 10, 64
+    shape = (nprobe + 2, 702, 16, b, nprobe, k, 48, 256, rerank)
+    q, cents, tables, codes, li, corpus, _ = _pq_inputs(shape, cuda_device)
+    r = ops._fused_depth(k, nprobe * 702, rerank)
+    sel = ref.fused_turn_pq(q, cents, tables, codes, li, corpus,
+                            nprobe=nprobe, k=k, r=r)[2]
+    runs = {"row3": lambda bulk, prec: ops.pq_adc_scan(
+                tables, codes, li, sel, rerank, adc_bulk=bulk),
+            "row7": lambda bulk, prec: ops.fused_scan_pq(
+                tables, q, codes, li, sel, corpus, k, rerank=rerank,
+                precision=prec, adc_bulk=bulk),
+            "row5": lambda bulk, prec: ops.fused_turn_pq(
+                q, cents, tables, codes, li, corpus, nprobe=nprobe, k=k,
+                rerank=rerank, precision=prec, adc_bulk=bulk)}
+    for name, run in runs.items():
+        for prec in ("f32",) + (QUANT if name != "row3" else ()):
+            outs = [run(bulk, prec) for bulk in (None, False, True)]
+            for o in outs[1:]:
+                for g, w in zip(o, outs[0]):
+                    assert torch.equal(g, w), (name, prec)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("b", [1, 2, 8])
 @pytest.mark.parametrize("lmax", [702, 1100])
 @pytest.mark.parametrize("values", [(1, 2), (0, 2)])
 def test_cuda_adc_scan_exact_ties(cuda_device, lmax, values, b):
@@ -2268,7 +2358,7 @@ def test_cuda_adc_scan_at_b25_served_shape(cuda_device):
 
 
 @pytest.mark.cuda_only
-@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("precision", QUANT)
 @pytest.mark.parametrize("lmax", [702, 1100])
 def test_cuda_quantised_adc_rows_as_read(cuda_device, lmax, precision, b):
@@ -2276,8 +2366,8 @@ def test_cuda_quantised_adc_rows_as_read(cuda_device, lmax, precision, b):
     entry rounded or quantised as it is read; int8's scale from the
     shared copy): fused_scan_pq with an ``own`` mask, with and without
     its re-rank, and fused_turn_pq, bit-equal to the plain versions, at
-    B = 1 (the LUT staged by the threads) and B = 3 (by bulk copies), 6
-    and 9 slices a list."""
+    B = 1 and 3 (the LUT staged by the threads) and B = 8 (by bulk
+    copies), 6 and 9 slices a list."""
     nprobe, k, rerank = 16, 10, 64
     shape = (nprobe + 2, lmax, 16, b, nprobe, k, 16, 256, rerank)
     q, cents, tables, codes, li, corpus, own = _pq_inputs(shape,

@@ -253,8 +253,7 @@ def test_unknown_precisions_raise(tiny, tiny_pq, precision):
 
 
 @pytest.mark.parametrize("knob", [dict(shards=2), dict(mesh=object()),
-                                  dict(segment_cap=8),
-                                  dict(cache_threshold=0.5)])
+                                  dict(segment_cap=8)])
 def test_unported_serving_knobs_raise(tiny, knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         teng.ConversationalSearchEngine(teng.ServingConfig(**knob),
