@@ -89,6 +89,17 @@ exits non-zero):
               again, recall@10 and counters against the f32 fused path
     fig8      the reference's recall gate: quantised vs f32 fused turn
               >= 0.95 at fig8's 20,000 docs, d = 64, p = 2,048
+    hnsw      the port's HNSW build (host numpy) over the corpus's first
+              20,000 docs (m = 16, ef_construction = 64); hnsw_search
+              (one CUDA block a query) against its plain version
+              (differing queries <= 1 %); the 25 x 10 turns through the
+              sequential engine (plain, toploc, toploc adaptive, toploc
+              with fig7's cache) at ef 32 and 64, recall@10 against
+              exact search over the same docs; fig3's 32 x 10 through
+              the batched engine at max_batch 1, 8, 32 == the sequential
+              engine bit for bit; the kernel's times at B = 1 and 32
+    exact     serve: ExactBackend through the sequential engine over the
+              whole corpus, ids == [index]'s exact top-10
  13 batched   start_batch / step_batch == the sequential engine
     batched serve  fig3's protocol (32 conversations x 10 turns) through
               BatchedConversationalSearchEngine at max_batch 1, 8, 32,
@@ -120,12 +131,14 @@ Run from the repository root: ``python3 chip_smoke.py``.  Size flags
 and prints only the [stages] split; ``--dump-rows PATH`` builds and saves
 rows 1-7's outputs on the seeded realistic inputs to PATH, so the
 kernels of two checkouts can be held to each other bit for bit;
+``--hnsw-only`` builds and runs only the corpus, [hnsw] and the [exact]
+serve; ``--hnsw-docs`` sizes the graph;
 ``--bag-times`` builds and times only embedding_bag's kernels over a
 range of batch sizes ([bag], ``phase_bag_sweep``); ``--adc-times``
 builds and times only the rows that run the ADC scan, rows 3, 5 and 7
 at every precision and B = 1 to 32 with each instance of the scan forced
 ([adc], ``phase_adc_times``), so two checkouts can be compared in one
-call.  The four may be given
+call.  The five may be given
 together.
 """
 from __future__ import annotations
@@ -157,6 +170,7 @@ EB_SRC = "src/repro_torch/kernels/csrc/embedding_bag.cu"
 FD_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
 CK_SRC = "src/repro_torch/kernels/csrc/centroid_topk.cu"
 IV_SRC = "src/repro_torch/kernels/csrc/ivf_scan.cu"
+HS_SRC = "src/repro_torch/kernels/csrc/hnsw_search.cu"
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 # float32 products in 3xTF32: three tf32 tensor-core passes (495 TFLOP/s
 # dense) per product
@@ -176,13 +190,14 @@ REC_KERNELS = ("embedding_bag",)
 LM_KERNELS = ("flash_decode",)
 # rows 1-2: the two stages of a turn as kernels of their own
 CLASSIC_KERNELS = ("centroid_topk", "ivf_scan")
+HNSW_KERNELS = ("hnsw_search",)
 SOURCES = {**dict.fromkeys(IVF_KERNELS, SCAN_SRC),
            **dict.fromkeys(PQ_KERNELS, PQ_SRC),
            **{f"{op}[{prec}]": SCAN_SRC if op in IVF_KERNELS else PQ_SRC
               for op in QUANT_OPS for prec in QUANT},
            "flash_attention": FA_SRC, "embedding_bag": EB_SRC,
            "flash_decode": FD_SRC, "centroid_topk": CK_SRC,
-           "ivf_scan": IV_SRC}
+           "ivf_scan": IV_SRC, "hnsw_search": HS_SRC}
 REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "fused_turn": "src/repro/kernels/fused_turn.py:406",
             "pq_adc_scan": "src/repro/kernels/pq_adc.py:79",
@@ -192,7 +207,9 @@ REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:49",
             "flash_decode": "src/repro/kernels/flash_attention.py:180",
             "centroid_topk": "src/repro/kernels/centroid_topk.py:66",
-            "ivf_scan": "src/repro/kernels/ivf_scan.py:64"}
+            "ivf_scan": "src/repro/kernels/ivf_scan.py:64",
+            "hnsw_search": "src/repro/core/hnsw.py:349 _search_impl (XLA "
+                           "while_loop, no Pallas kernel)"}
 REPLACES.update({f"{op}[{prec}]": REPLACES[op] for op in QUANT_OPS
                  for prec in QUANT})
 BAG_TOL = 1e-6                 # embedding_bag on random floats
@@ -851,7 +868,8 @@ def phase_plans(dev):
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(17)
     n, bad = 0, []
-    probes = KB.default_probes() + bf16_probes() + stage_probes()
+    probes = (KB.default_probes() + KB.port_probes() + bf16_probes()
+              + stage_probes())
     for probe in probes:
         tensors = probe.tensors(dev, gen)
         ops.drop_scales()
@@ -2464,7 +2482,11 @@ def phase_cand_times(args, dev, index, vecs):
 # ---------------------------------------------------------------------------
 
 
-def phase_index(args, dev):
+def smoke_corpus(args, dev):
+    """The smoke's corpus on the card (``args.n_docs`` docs), its 25 x 10
+    conversations, fig3's 32 x 10 ([batched serve]'s, drawn around the
+    same topic centres from a seed of their own), and the exact top-k of
+    every turn of the 25; plus the seconds the corpus took."""
     import torch
     from repro_torch.core import ivf
     from repro_torch.data import synthetic as SY
@@ -2472,19 +2494,11 @@ def phase_index(args, dev):
                             doc_spread=0.35, n_conversations=25,
                             turns_per_conversation=10, query_drift=0.15,
                             walk_step=0.05, shift_prob=0.15, seed=args.seed)
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     corpus = SY.make_device_corpus(cfg, dev)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    index = ivf.build(corpus.doc_vecs, args.lists, iters=args.iters,
-                      seed=args.seed, capacity_factor=1.3)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
     convs = corpus.conversations
-    # [batched serve]'s traffic: fig3's 32 conversations, drawn around
-    # the same topic centres from a seed of their own
     bconvs = SY._conversations(
         np.random.default_rng(args.seed + BATCH_SEED),
         dataclasses.replace(cfg, n_conversations=BATCH_CONVS,
@@ -2493,9 +2507,20 @@ def phase_index(args, dev):
     flat = torch.from_numpy(convs.reshape(-1, args.d)).to(dev)
     _, exact = ivf.exact_search(corpus.doc_vecs, flat, args.k)
     exact = exact.cpu().numpy().reshape(convs.shape[0], convs.shape[1], -1)
+    return corpus.doc_vecs, convs, bconvs, exact, t_gen
+
+
+def phase_index(args, dev):
+    import torch
+    from repro_torch.core import ivf
+    torch.cuda.reset_peak_memory_stats()
+    docs, convs, bconvs, exact, t_gen = smoke_corpus(args, dev)
+    t0 = time.perf_counter()
+    index = ivf.build(docs, args.lists, iters=args.iters, seed=args.seed,
+                      capacity_factor=1.3)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
     # the corpus stays: it is the IVF-PQ index's re-rank source
-    docs = corpus.doc_vecs
-    del corpus, flat
     torch.cuda.empty_cache()
     log("index", f"n_docs={args.n_docs} d={args.d} p={args.lists} "
         f"iters={args.iters} corpus_s={t_gen:.1f} build_s={t_build:.1f} "
@@ -3015,6 +3040,238 @@ def phase_batched_serve(indexes, docs, convs):
 
 
 # ---------------------------------------------------------------------------
+# [hnsw] and the [exact] serve: the HNSW index and the Exact baseline
+# ---------------------------------------------------------------------------
+
+# the graph: benchmarks/common.py's m and ef_construction over the first
+# HNSW_DOCS docs of the smoke's corpus (a view, no copy; the reference's
+# BENCH_DOCS); the host build takes ~3.5 ms a node on the card's host
+# (PERF.md section 4), so the collection's 8.8 M docs are out of reach
+# and the graph is cut
+HNSW_DOCS, HNSW_M, HNSW_EFC = 20_000, 16, 64
+HNSW_EFS, HNSW_UP = (32, 64), 2         # table1's ef and fig2's largest
+# the sequential paths (adaptive: the backend's knob re-anchoring every
+# turn, set on the engine's backend) and the batched ones
+HSERVE = (("plain", dict(strategy="plain"), False),
+          ("toploc", dict(strategy="toploc"), False),
+          ("toploc adaptive", dict(strategy="toploc"), True))
+HBATCH = (("toploc", dict(strategy="toploc")),
+          # fig7's cache settings, the depth clamped to ef
+          ("toploc cache", dict(strategy="toploc", cache_threshold=0.95,
+                                cache_depth=64)))
+HNSW_DIFF_SHARE = 0.01        # queries the kernel may route otherwise
+
+
+def hnsw_check(index, q, ef, k, entry, what):
+    """The kernel against its plain version on the same queries: the
+    rows whose traversal agrees (ids and ndist equal) are held by
+    ``compare`` (scores within TOL, each id's float64 score within TOL);
+    returns (max |dscore|, rows, rows whose ids or ndist differ)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    args = (index.vectors, index.adj0, index.upper_adj, index.entry_point,
+            q, entry)
+    kv, ki, kn = ops.hnsw_search(*args, ef=ef, k=k)
+    pv, pi, pn = ref.hnsw_search(*args, ef=ef, k=k)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(kv).all()):
+        raise AssertionError(f"{what}: a non-finite score")
+    same = (ki == pi).all(-1) & (kn == pn)
+    err, _ = compare(what, kv[same], ki[same], pv[same], pi[same],
+                     dot_rows(index.vectors, q[same]), index.n)
+    return err, q.shape[0], int((~same).sum())
+
+
+def hnsw_bound(index, nd, b, k):
+    """(bytes, flops) of a search with these distance counts: each scored
+    row's vector and at least its adjacency entry, the queries and the
+    outputs; 2 d flops a scored row."""
+    d = index.vectors.shape[1]
+    n = int(nd.sum())
+    return n * (d + 1) * 4 + b * d * 4 + b * (k * 8 + 4), 2 * n * d
+
+
+def phase_hnsw(args, docs, convs, bconvs, dev):
+    """The port's HNSW build over the first ``args.hnsw_docs`` docs, the
+    kernel held to its plain version, the smoke's 25 x 10 turns through
+    the sequential engine (plain, toploc, toploc adaptive, toploc with
+    fig7's cache) at ef 32 and 64, fig3's 32 x 10 through the batched
+    engine at max_batch 1, 8, 32 == the sequential engine bit for bit,
+    and the kernel's times.  Returns (launches, max_abs_err, times)."""
+    import torch
+    from repro_torch.core import hnsw, ivf
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import (BatchedConversationalSearchEngine,
+                                     ConversationalSearchEngine,
+                                     ServingConfig)
+    n, k = min(args.hnsw_docs, docs.shape[0]), args.k
+    vecs = docs[:n]
+    t0 = time.perf_counter()
+    index = hnsw.build(vecs, m=HNSW_M, ef_construction=HNSW_EFC,
+                       seed=args.seed)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if index.vectors.data_ptr() != docs.data_ptr():
+        raise AssertionError("the HNSW index copied the corpus")
+    log("hnsw", f"build N={n} d={args.d} m={HNSW_M} "
+        f"ef_construction={HNSW_EFC}: {t_build:.1f}s on the host, "
+        f"{n / t_build:.0f} nodes/s, top_level={index.top_level}, "
+        f"entry_point={int(index.entry_point)}, adj0 "
+        f"{index.adj0.numel() * 4 / 1e6:.1f} MB, vectors "
+        f"{vecs.numel() * 4 / 1e6:.1f} MB (past the 50 MB L2)")
+    flat = torch.from_numpy(convs.reshape(-1, args.d)).to(dev)
+    _, exact = ivf.exact_search(vecs, flat, k)
+    exact = exact.cpu().numpy().reshape(convs.shape[0], convs.shape[1], -1)
+
+    # the kernel against its plain version: descent and entry override
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    entry = torch.randint(0, n, (flat.shape[0],), generator=gen,
+                          device=dev, dtype=torch.int32)
+    err, rows, diff = 0.0, 0, 0
+    for ef in HNSW_EFS + (HNSW_UP * HNSW_EFS[-1],):
+        for e in (None, entry):
+            x, r, dq = hnsw_check(index, flat, ef, k, e, f"hnsw ef={ef}")
+            err, rows, diff = max(err, x), rows + r, diff + dq
+    if diff > HNSW_DIFF_SHARE * rows:
+        raise AssertionError(f"hnsw: {diff} of {rows} queries differ from "
+                             f"the plain version")
+    log("hnsw", f"kernel vs plain version, {rows} queries (the "
+        f"{flat.shape[0]} turns at ef {', '.join(map(str, HNSW_EFS))} and "
+        f"{HNSW_UP * HNSW_EFS[-1]}"
+        f", descent and entry override): max_abs_err={err:.3g} (tol {TOL})"
+        f", ids or graph_dists differ on {diff} ({diff / rows:.2%}; limit "
+        f"{HNSW_DIFF_SHARE:.0%})")
+
+    def config(ef, knobs):
+        return ServingConfig(backend="hnsw", k=k, ef_search=ef, up=HNSW_UP,
+                             **knobs)
+
+    def engine(cls, ef, knobs, adaptive=False, **kw):
+        eng = cls(config(ef, knobs), hnsw_index=index, **kw)
+        if adaptive:
+            eng.backend = dataclasses.replace(eng.backend, adaptive=True)
+        return eng
+
+    launches, graph = 0, {}
+    n_conv, turns = convs.shape[:2]
+    paths = [(name, knobs, a) for name, knobs, a in HSERVE] + [
+        ("toploc cache", HBATCH[1][1], False)]
+    for ef in HNSW_EFS:
+        for name, knobs, adaptive in paths:
+            serve_sequential(engine(ConversationalSearchEngine, ef, knobs,
+                                    adaptive), convs[:1, :2])      # warm
+            ops.reset_launches()
+            eng = engine(ConversationalSearchEngine, ef, knobs, adaptive)
+            _, ids, _ = serve_sequential(eng, convs)
+            got = ops.hnsw_search.launches
+            if got == 0:
+                raise AssertionError(f"hnsw {name} ef={ef}: no kernel launch")
+            launches += got
+            lat = np.asarray([r.latency_s for r in eng.records]) * 1e3
+            p50, p95 = np.percentile(lat, [50, 95])
+            s = eng.summary()
+            recall = np.mean([len(set(ids[c, t]) & set(exact[c, t])) / k
+                              for c in range(n_conv) for t in range(turns)])
+            graph[(name, ef)] = s["mean_graph_dists"]
+            log("hnsw", f"ef={ef} {name}: turns={s['turns']} p50_ms="
+                f"{p50:.3f} p95_ms={p95:.3f} mean_graph_dists="
+                f"{s['mean_graph_dists']:.1f} recall@10={recall:.4f} (exact "
+                f"over the {n} docs) cache_hit_rate="
+                f"{s['cache_hit_rate']:.3f} hnsw_search_launches={got}")
+    for ef in HNSW_EFS:
+        log("hnsw", f"ef={ef}: mean graph_dists a turn, HNSW "
+            f"{graph[('plain', ef)]:.1f}, TopLoc_HNSW "
+            f"{graph[('toploc', ef)]:.1f} (adaptive "
+            f"{graph[('toploc adaptive', ef)]:.1f}); TopLoc "
+            f"{'<=' if graph[('toploc', ef)] <= graph[('plain', ef)] else '>'}"
+            f" HNSW (printed, not a gate: the corpus shows little locality)")
+
+    # the batched engine == the sequential engine, fig3's traffic
+    n_turns = bconvs.shape[0] * bconvs.shape[1]
+    for name, knobs in HBATCH:
+        ef = HNSW_EFS[-1]
+        seq = engine(ConversationalSearchEngine, ef, knobs)
+        s_v, s_i, s_wall = serve_sequential(seq, bconvs)
+        s_recs = {(r.conv_id, r.turn): [getattr(r, f) for f in BATCH_KEYS]
+                  for r in seq.records}
+        for b in BATCH_SIZES:
+            def batched():
+                return engine(BatchedConversationalSearchEngine, ef, knobs,
+                              n_slots=BATCH_CONVS, max_batch=b,
+                              max_wait_s=0.0, max_inflight=2)
+            serve_rounds(batched(), bconvs[:, :1])                  # warm
+            ops.reset_launches()
+            eng = batched()
+            v, i, wall = serve_rounds(eng, bconvs)
+            got = ops.hnsw_search.launches
+            recs = {(r.conv_id, r.turn): [getattr(r, f) for f in BATCH_KEYS]
+                    for r in eng.records}
+            if not (np.array_equal(v, s_v) and np.array_equal(i, s_i)
+                    and recs == s_recs):
+                raise AssertionError(f"[hnsw] {name} B={b}: the batched "
+                                     f"engine differs from the sequential")
+            if got == 0:
+                raise AssertionError(f"hnsw batched {name} B={b}: no launch")
+            launches += got
+            waves = len(eng.batcher.batch_sizes)
+            probe = batched()
+            syncs, _ = count_syncs(lambda: serve_rounds(probe,
+                                                        bconvs[:, :1]))
+            req = np.asarray([r.latency_s + r.queue_wait_s
+                              for r in eng.records]) * 1e3
+            p50, p95 = np.percentile(req, [50, 95])
+            log("hnsw", f"batched ef={ef} {name} B={b}: turns/s="
+                f"{n_turns / wall:.1f} (sequential {n_turns / s_wall:.1f}) "
+                f"request p50_ms={p50:.3f} p95_ms={p95:.3f} waves={waves} "
+                f"launches/wave={got / waves:.2f} host_syncs/wave="
+                f"{syncs / len(probe.batcher.batch_sizes):.2f} "
+                f"cache_hit_rate={eng.summary()['cache_hit_rate']:.3f}; "
+                f"== sequential (ids, scores, TurnStats, cache_hit)")
+
+    # the kernel's time beside its bound and the plain version's
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    ef, times = HNSW_EFS[-1], {}
+    for b in (1, 32):
+        qs = [flat[j * b:(j + 1) * b] for j in range(8 if b == 1 else 4)]
+        args_ = (index.vectors, index.adj0, index.upper_adj,
+                 index.entry_point)
+        works = [hnsw_bound(index, ops.hnsw_search(*args_, q, ef=ef, k=k)[2],
+                            q.shape[0], k) for q in qs]
+        row = timed([lambda q=q: ops.hnsw_search(*args_, q, ef=ef, k=k)
+                     for q in qs],
+                    [lambda q=q: ref.hnsw_search(*args_, q, ef=ef, k=k)
+                     for q in qs], works, flush)
+        times[b] = row
+        log("hnsw", f"hnsw_search ef={ef} B={b} (descent + level 0, L2 "
+            f"flushed): {row['ms']:.4f} ms a call, plain {row['plain_ms']:.3f}"
+            f" ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}: the "
+            f"scored rows, {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+            f"{row['kernels']} kernel a call")
+    del flush
+    return launches, err, times[1]
+
+
+def phase_exact_serve(docs, convs, exact):
+    """ExactBackend through the sequential engine over the whole corpus,
+    the 25 x 10 turns at k = 10: its ids equal ``smoke_corpus``'s exact
+    top-k (the same function, batch-size stable) bit for bit."""
+    from repro_torch.serving import ConversationalSearchEngine, ServingConfig
+    cfg = ServingConfig(backend="exact", k=exact.shape[-1])
+    serve_sequential(ConversationalSearchEngine(cfg, doc_vecs=docs),
+                     convs[:1, :2])                                 # warm
+    eng = ConversationalSearchEngine(cfg, doc_vecs=docs)
+    _, ids, _ = serve_sequential(eng, convs)
+    if not np.array_equal(ids, exact):
+        raise AssertionError("[exact] serve: ids differ from the exact "
+                             "search of [index]")
+    lat = np.asarray([r.latency_s for r in eng.records]) * 1e3
+    p50, p95 = np.percentile(lat, [50, 95])
+    log("exact", f"serve ExactBackend over all {docs.shape[0]} docs: turns="
+        f"{len(eng.records)} p50_ms={p50:.3f} p95_ms={p95:.3f}; ids == "
+        f"[index]'s exact top-{exact.shape[-1]} bit for bit")
+
+
+# ---------------------------------------------------------------------------
 # phases 14-15: kernel times beside their bounds; the LM at decode_32k
 # ---------------------------------------------------------------------------
 
@@ -3476,6 +3733,12 @@ def main() -> int:
     ap.add_argument("--adc-times", action="store_true",
                     help="build, then only time the rows that run the ADC "
                     "scan (phase_adc_times)")
+    ap.add_argument("--hnsw-docs", type=int, default=HNSW_DOCS,
+                    help="nodes of the [hnsw] graph (a prefix of the "
+                    "corpus)")
+    ap.add_argument("--hnsw-only", action="store_true",
+                    help="build, then only the corpus, [hnsw] and the "
+                    "[exact] serve (no IVF index)")
     ap.add_argument("--dump-rows", metavar="PATH",
                     help="build, then only save rows 1-7's outputs on the "
                     "seeded realistic inputs to PATH (phase_dump_rows)")
@@ -3515,7 +3778,14 @@ def main() -> int:
         "(SYNCS): " + "; ".join(f"{'bulk' if bulk else 'staged'} {c}"
                                 for bulk, c in adc))
 
-    if args.stages_only or args.dump_rows or args.bag_times or args.adc_times:
+    if (args.stages_only or args.dump_rows or args.bag_times or args.adc_times
+            or args.hnsw_only):
+        if args.hnsw_only:
+            docs, convs, bconvs, exact, _ = smoke_corpus(args, dev)
+            phase_hnsw(args, docs, convs, bconvs, dev)
+            phase_exact_serve(docs, convs, exact)
+            del docs
+            torch.cuda.empty_cache()
         if args.bag_times:
             phase_bag_sweep(args, dev)
         if args.adc_times:
@@ -3639,6 +3909,10 @@ def main() -> int:
     runs, launches = phase_serve(indexes, docs, convs, exact, dev)
     launches.update(phase_serve_quant(indexes, convs, exact, runs))
     phase_fig8(dev)
+    hnsw_launches, errs["hnsw_search"], hnsw_times = phase_hnsw(
+        args, docs, convs, bconvs, dev)
+    launches["hnsw_search"] = hnsw_launches
+    phase_exact_serve(docs, convs, exact)
 
     for backend, _ in BACKENDS:
         for name in ("toploc+ fused", "toploc+ unfused"):
@@ -3656,6 +3930,7 @@ def main() -> int:
     times[1]["flash_attention"] = phase_attn_times(args, dev)[1]
     times[1]["embedding_bag"] = bag_times[1]
     times[1].update(classic_times[1])
+    times[1]["hnsw_search"] = hnsw_times
     # the LM at decode_32k runs once the retrieval objects are freed
     del index, pqi, docs, indexes, runs
     torch.cuda.empty_cache()
@@ -3674,7 +3949,8 @@ def main() -> int:
                     bound_by=times[1][name]["bound_by"],
                     library_ms=times[1][name].get("library_ms"))
                for name in IVF_KERNELS + PQ_KERNELS + QUANT_KERNELS +
-               ENC_KERNELS + REC_KERNELS + LM_KERNELS + CLASSIC_KERNELS]
+               ENC_KERNELS + REC_KERNELS + LM_KERNELS + CLASSIC_KERNELS
+               + HNSW_KERNELS]
     log("done", f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

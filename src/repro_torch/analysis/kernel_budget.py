@@ -8,8 +8,9 @@ budget and tile alignment.  Here every ops entry hands its launch plan
 ``launcher.record_launches`` the plans are recorded and nothing is
 launched.  The probes drive the ops entries on ``meta`` tensors of the
 reference's 11 probe shapes (``kernel_budget.py:205-285``, same labels),
-so the pass needs no card, allocates no data and builds nothing, as the
-reference's pass runs under ``eval_shape``.  Each recorded launch is
+and of ``port_probes`` (the HNSW search kernel, which has no Pallas
+counterpart), so the pass needs no card, allocates no data and builds
+nothing, as the reference's pass runs under ``eval_shape``.  Each recorded launch is
 checked against the H100's limits, taken from ``tiling`` as the
 reference takes its budget from its ``tiling``:
 
@@ -158,6 +159,25 @@ def default_probes() -> List[Probe]:
     ]
 
 
+def port_probes() -> List[Probe]:
+    """Probes of the port's kernels that no Pallas kernel of the
+    reference has: ``ops.hnsw_search`` (the reference's traversal is an
+    XLA ``while_loop``) on a graph of 20,000 nodes at d = 768, m = 16 and
+    three upper levels, ef = 64, k = 10, at a request (B = 1) and at the
+    batched engine's largest wave (B = 32)."""
+    from repro_torch.kernels import ops
+    n, d, m = 20_000, 768, 16
+
+    def hnsw(b):
+        return Probe(f"ops.hnsw_search[B={b}]",
+                     (_f32(n, d), _ids(n, 2 * m, n=n), _ids(3, n, m, n=n),
+                      Arg((), torch.int32, 0, n), _f32(b, d)),
+                     lambda v, a0, up, e, q, device: ops.hnsw_search(
+                         v, a0, up, e, q, ef=64, k=10, device=device))
+
+    return [hnsw(1), hnsw(32)]
+
+
 def record(probe: Probe, tensors: Optional[Sequence[torch.Tensor]] = None,
            device="meta") -> List[launcher.Record]:
     """The entry calls of one probe, recorded: on meta tensors of its
@@ -269,7 +289,8 @@ last_report: List[Tuple[str, List[str], int]] = []
 def run(probes: Optional[Sequence[Probe]] = None) -> List[Finding]:
     findings: List[Finding] = []
     last_report.clear()
-    for probe in (probes if probes is not None else default_probes()):
+    for probe in (probes if probes is not None
+                  else default_probes() + port_probes()):
         try:
             records = record(probe)
         except Exception as e:  # noqa: BLE001 - surface, don't abort

@@ -2,10 +2,11 @@
 
 The JAX package and the port share their index and session layouts
 field for field, so a reference-built ``IVFIndex`` / ``IVFPQIndex`` /
-``IVFSession`` becomes the port's by handing each field over as a numpy
-array (``np.asarray(field)``); ``to_numpy`` goes the other way.  The
-batched engine's state converts the same way: its session slab through
-``ivf_session_from_numpy``, its result-cache slab through
+``HNSWIndex`` / ``IVFSession`` / ``HNSWSession`` becomes the port's by
+handing each field over as a numpy array (``np.asarray(field)``);
+``to_numpy`` goes the other way.  The batched engine's state converts
+the same way: its session slab through ``ivf_session_from_numpy`` or
+``hnsw_session_from_numpy``, its result-cache slab through
 ``cache_entries_from_numpy``.  The
 bi-encoder's parameter tree converts leaf for leaf, its stacked layers
 unstacked (``encoder_params_from_numpy``); so do the two-tower model's
@@ -21,9 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.core.hnsw import HNSWIndex
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.pq import IVFPQIndex, check_index
-from repro_torch.core.toploc import IVFSession
+from repro_torch.core.toploc import HNSWSession, IVFSession
 from repro_torch.models.encoder import DualEncoder, EncoderConfig, Tower
 from repro_torch.models.recsys import TwoTower, TwoTowerConfig
 from repro_torch.models.transformer import LM, LMConfig
@@ -66,6 +68,26 @@ def ivf_session_from_numpy(cache_ids, cache_vecs, anchor_sel, refreshes,
     return IVFSession(_i32(cache_ids, dev), _f32(cache_vecs, dev),
                       _i32(anchor_sel, dev), _i32(refreshes, dev),
                       _i32(turn, dev))
+
+
+def hnsw_index_from_numpy(vectors, adj0, upper_adj, entry_point, node_level,
+                          deleted=None, device=None) -> HNSWIndex:
+    """An ``HNSWIndex`` on ``device`` (default cuda) from its fields (the
+    reference's order; ``deleted`` None or (n,) bool)."""
+    dev = _device.resolve(device)
+    return HNSWIndex(
+        _f32(vectors, dev), _i32(adj0, dev), _i32(upper_adj, dev),
+        _i32(entry_point, dev), _i32(node_level, dev),
+        None if deleted is None
+        else torch.tensor(np.asarray(deleted, bool), device=dev))
+
+
+def hnsw_session_from_numpy(entry_point, turn, device=None) -> HNSWSession:
+    """An ``HNSWSession`` on ``device`` (default cuda); a batched session
+    or a session slab (a leading axis on both fields) converts the same
+    way."""
+    dev = _device.resolve(device)
+    return HNSWSession(_i32(entry_point, dev), _i32(turn, dev))
 
 
 def cache_entries_from_numpy(q_vec, doc_ids, doc_scores, doc_vecs, valid,

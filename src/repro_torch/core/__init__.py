@@ -1,6 +1,8 @@
-"""Core library of the port: TopLoc sessions and the IVF substrate.
+"""Core library of the port: TopLoc sessions, the IVF and HNSW substrates.
 
-  backend  — RetrievalBackend registry (``IVFBackend``, ``IVFPQBackend``)
+  backend  — RetrievalBackend registry (``IVFBackend``, ``IVFPQBackend``,
+             ``HNSWBackend``, ``ExactBackend``)
+  hnsw     — HNSW index: host build, one-kernel-per-query search
   ivf      — bucketed-padded IVF index (build / search / search_cached)
   pq       — product quantisation, ``IVFPQIndex`` / ``build_ivf_pq``
   toploc   — TopLoc sessions, ``FusedTurn`` and the generic drivers
@@ -9,6 +11,6 @@
   topk     — top-k selection in ``lax.top_k`` order
 """
 from repro_torch.core import (  # noqa: F401
-    backend, ivf, kmeans, pq, topk, toploc)
+    backend, hnsw, ivf, kmeans, pq, topk, toploc)
 from repro_torch.core.backend import (  # noqa: F401
-    IVFBackend, IVFPQBackend, RetrievalBackend)
+    ExactBackend, HNSWBackend, IVFBackend, IVFPQBackend, RetrievalBackend)

@@ -1,18 +1,19 @@
 """RetrievalBackend registry — the port's seam for ANN backends.
 
-Port of ``repro/core/backend.py`` for the IVF family.  A backend is a
-frozen dataclass holding its knobs (h, nprobe, alpha, …); the index is
-an argument.  ``register`` / ``get`` / ``make`` behave as the
-reference's (strict and lenient knob checking).  ``"ivf"`` and
-``"ivf_pq"`` are registered: ``make("hnsw")`` and ``make("exact")``
-raise the reference's unknown-backend error until those backends are
-ported (ROADMAP Queue 1).
+Port of ``repro/core/backend.py``.  A backend is a frozen dataclass
+holding its knobs (h, nprobe, alpha, ef, …); the index is an argument.
+``register`` / ``get`` / ``make`` behave as the reference's (strict and
+lenient knob checking).  Registered: ``"ivf"``, ``"ivf_pq"``,
+``"hnsw"`` (TopLoc_HNSW over ``core.hnsw``) and ``"exact"`` (stateless
+brute force over the bare corpus).
 
 The Eq. 1 session machinery is written once (``_ivf_family_*``) and
 parameterised by ``list_scan``: float lists and PQ lists differ only
-there.  Where the reference gates the refresh with ``lax.cond`` on a
-traced predicate, the port syncs the predicate to the host (``if
-bool(...)``): one host sync per follow-up turn when TopLoc_IVF+ is on.
+there.  Where the reference gates work with ``lax.cond`` on a traced
+predicate, the port syncs the predicate to the host (``if
+bool(...)``): the IVF refresh (one host sync per follow-up turn when
+TopLoc_IVF+ is on, one a batched wave) and the HNSW batch's first-turn
+search (one a batched wave).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Any, ClassVar, Dict, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from repro_torch.core import hnsw as _hnsw
 from repro_torch.core import ivf as _ivf
 from repro_torch.core import toploc as _tl
 from repro_torch.core.topk import intersect_count, topk
@@ -403,3 +405,138 @@ class IVFPQBackend(IVFBackend):
         # (``r = max(k, min(rerank, np·Lmax))`` in ``_scan_lists_pq``),
         # changing which candidates the top-k is drawn from
         return min(self.rerank, self.nprobe * index.lmax)
+
+
+@register
+@dataclasses.dataclass(frozen=True)
+class HNSWBackend(RetrievalBackend):
+    """TopLoc_HNSW: privileged entry point, first-turn ef upscaling.
+
+    The first turn searches from the global entry point with a beam of
+    ``up·ef`` and keeps its top-1 as the conversation's entry point;
+    follow-ups start the level-0 beam of ``ef`` there, skipping the
+    descent.  ``adaptive=True`` (beyond the paper) re-anchors the entry
+    point at every turn's top-1.  ``search`` optionally replaces
+    ``hnsw.search`` (a sharded search, ROADMAP Queue 1, item 6).
+    """
+
+    name: ClassVar[str] = "hnsw"
+    index_kwarg: ClassVar[str] = "hnsw_index"
+
+    ef: int = 64
+    up: int = 2
+    adaptive: bool = False
+    search: Any = None
+
+    def _search(self):
+        return self.search or _hnsw.search
+
+    @staticmethod
+    def _stats(nd, first) -> _tl.TurnStats:
+        b, dev = nd.shape[0], nd.device
+        z = _full(b, 0, dev)
+        return _tl.TurnStats(z, z, nd, z, _full(b, -1, dev), first)
+
+    def start(self, index, q0, *, k):
+        dev = q0.device
+        v, i, nd = self._search()(index, q0[None], ef=self.up * self.ef,
+                                  k=k)
+        sess = _tl.HNSWSession(entry_point=i[0, 0].to(torch.int32),
+                               turn=_i32(1, dev))
+        stats = _tl._zero_stats(dev)._replace(
+            graph_dists=nd[0], refreshed=torch.tensor(True, device=dev))
+        return v[0], i[0], sess, stats
+
+    def step(self, index, sess, q, *, k):
+        v, i, nd = self._search()(
+            index, q[None], ef=self.ef, k=k,
+            entry_override=sess.entry_point[None], use_entry_override=True)
+        new_entry = (i[0, 0].to(torch.int32) if self.adaptive
+                     else sess.entry_point)
+        sess = _tl.HNSWSession(entry_point=new_entry, turn=sess.turn + 1)
+        stats = _tl._zero_stats(q.device)._replace(graph_dists=nd[0])
+        return v[0], i[0], sess, stats
+
+    def start_batch(self, index, q0, *, k):
+        b, dev = q0.shape[0], q0.device
+        v, i, nd = self._search()(index, q0, ef=self.up * self.ef, k=k)
+        sess = _tl.HNSWSession(entry_point=i[:, 0].to(torch.int32),
+                               turn=_full(b, 1, dev))
+        return v, i, sess, self._stats(nd, _full(b, True, dev, torch.bool))
+
+    def step_batch(self, index, sess, q, *, k, is_first=None):
+        b, dev = q.shape[0], q.device
+        do_search = self._search()
+        v, i, nd = do_search(index, q, ef=self.ef, k=k,
+                             entry_override=sess.entry_point,
+                             use_entry_override=True)
+        first = (_full(b, False, dev, torch.bool) if is_first is None
+                 else is_first.to(torch.bool))
+        # batch-wide gate (one host sync): waves with no first turn skip
+        # the full-descent upscaled search
+        if is_first is not None and bool(first.any()):
+            v0, i_0, nd0 = do_search(index, q, ef=self.up * self.ef, k=k)
+            f1 = first[:, None]
+            v = torch.where(f1, v0, v)
+            i = torch.where(f1, i_0, i)
+            nd = torch.where(first, nd0, nd)
+        top1 = i[:, 0].to(torch.int32)
+        new_entry = top1 if self.adaptive else torch.where(
+            first, top1, sess.entry_point)
+        new_sess = _tl.HNSWSession(
+            entry_point=new_entry,
+            turn=torch.where(first, 1, sess.turn + 1).to(torch.int32))
+        return v, i, new_sess, self._stats(nd, first)
+
+    def plain_batch(self, index, q, *, k):
+        b, dev = q.shape[0], q.device
+        v, i, nd = self._search()(index, q, ef=self.ef, k=k)
+        return v, i, self._stats(nd, _full(b, False, dev, torch.bool))
+
+    def session_template(self, index):
+        dev = index.vectors.device
+        return _tl.HNSWSession(
+            entry_point=torch.zeros((), dtype=torch.int32, device=dev),
+            turn=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def corpus_vectors(self, index):
+        return index.vectors
+
+    def query_dim(self, index) -> int:
+        return index.vectors.shape[1]
+
+    def fetch_limit(self, index) -> int:
+        # the level-0 beam holds ef candidates; a top-k beyond that is
+        # unsatisfiable (first turns search wider at up·ef, but every
+        # follow-up is capped at ef)
+        return self.ef
+
+
+@register
+@dataclasses.dataclass(frozen=True)
+class ExactBackend(RetrievalBackend):
+    """Brute-force top-k over the full collection (the paper's 'Exact'
+    row, ``ivf.exact_search``).  Stateless: the engines route every
+    strategy through ``plain``; its index is the bare ``(n, d)`` corpus
+    tensor."""
+
+    name: ClassVar[str] = "exact"
+    index_kwarg: ClassVar[str] = "doc_vecs"
+    stateful: ClassVar[bool] = False
+
+    def plain_batch(self, index, q, *, k):
+        b, dev = q.shape[0], q.device
+        v, i = _ivf.exact_search(index, q, k)
+        z = _full(b, 0, dev)
+        stats = _tl.TurnStats(z, z, z, z, _full(b, -1, dev),
+                              _full(b, False, dev, torch.bool))
+        return v, i, stats
+
+    def corpus_vectors(self, index):
+        return index
+
+    def query_dim(self, index) -> int:
+        return index.shape[1]
+
+    def fetch_limit(self, index) -> int:
+        return index.shape[0]

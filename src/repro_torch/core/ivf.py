@@ -96,11 +96,14 @@ def build(vectors, p: int, *, iters: int = 10, seed: int = 0,
 def exact_search(vectors: torch.Tensor, queries: torch.Tensor, k: int, *,
                  chunk: int = 1 << 20) -> Tuple[torch.Tensor, torch.Tensor]:
     """Brute-force top-k over the collection (paper's 'Exact' row),
-    ``chunk`` docs at a time; (values (B, k), int32 ids (B, k))."""
+    ``chunk`` docs at a time; (values (B, k), int32 ids (B, k)).  Each
+    query is scored by its own matrix–vector product
+    (``kernels.ref.gemv_rows``), so its result does not depend on B: the
+    Exact backend's batched turns equal its sequential ones."""
     best_v = best_i = None
     for s in range(0, vectors.shape[0], chunk):
         part = vectors[s:s + chunk]
-        v, i = topk(queries @ part.T, min(k, part.shape[0]))
+        v, i = topk(_ref.gemv_rows(part, queries), min(k, part.shape[0]))
         i = i + s
         if best_v is not None:
             # earlier chunks hold lower ids: a stable sort of the

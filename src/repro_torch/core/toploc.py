@@ -1,10 +1,10 @@
 """TopLoc — the paper's session logic, shared by the registered backends.
 
-Port of ``repro/core/toploc.py`` for the IVF family (float and PQ
-lists):
+Port of ``repro/core/toploc.py``:
 
-  * the session state ``IVFSession`` and the ``TurnStats`` work counters
-    of the paper's cost model;
+  * the session states ``IVFSession`` (IVF and IVF-PQ) and
+    ``HNSWSession`` (the privileged entry point), and the ``TurnStats``
+    work counters of the paper's cost model;
   * the batch-size-stable centroid scoring (``_bcast_centroid_scores``,
     ``make_cache_batch``) and ADC tables (``_adc_tables``) that keep
     sequential and batched serving bit-identical;
@@ -18,7 +18,9 @@ lists):
 PyTorch runs eagerly, so the drivers are plain functions (the
 reference jit-compiles one program per backend); ``lax.scan`` becomes a
 Python loop.  Each driver takes ``device`` (default cuda, see
-``repro_torch.device``) and refuses inputs that live elsewhere.
+``repro_torch.device``) and refuses an index or inputs that live
+elsewhere (``index_tensor`` finds the index's device for every index
+type: IVF, IVF-PQ, HNSW and Exact's bare corpus).
 """
 from __future__ import annotations
 
@@ -41,6 +43,12 @@ class IVFSession(NamedTuple):
     cache_vecs: torch.Tensor    # (h, d)     — gathered centroid vectors
     anchor_sel: torch.Tensor    # (np,) int32 — top_np(q0, C0), for Eq. 1
     refreshes: torch.Tensor     # () int32
+    turn: torch.Tensor          # () int32
+
+
+class HNSWSession(NamedTuple):
+    """Per-conversation TopLoc_HNSW state."""
+    entry_point: torch.Tensor   # () int32 — privileged entry node
     turn: torch.Tensor          # () int32
 
 
@@ -210,8 +218,21 @@ class FusedTurn:
 # ---------------------------------------------------------------------------
 
 
+def index_tensor(index) -> torch.Tensor:
+    """A tensor of ``index`` that lies where the whole index does: the
+    centroids of an IVF / IVF-PQ index, the vectors of an HNSW index, or
+    Exact's index itself, the bare (n, d) corpus."""
+    if isinstance(index, torch.Tensor):
+        return index
+    for field in ("centroids", "vectors"):
+        t = getattr(index, field, None)
+        if isinstance(t, torch.Tensor):
+            return t
+    raise TypeError(f"not an index: {type(index).__name__}")
+
+
 def _on(device, index, *tensors) -> None:
-    _device.require(device, index.centroids, *tensors)
+    _device.require(device, index_tensor(index), *tensors)
 
 
 def start(backend, index, q0: torch.Tensor, *, k: int, device=None):

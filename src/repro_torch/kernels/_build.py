@@ -34,7 +34,7 @@ LL = ctypes.POINTER(ctypes.c_longlong)
 # C signatures of the entry points, the stream last (csrc/fused_turn.cu,
 # csrc/pq_adc.cu,
 # csrc/flash_attention.cu, csrc/embedding_bag.cu, csrc/flash_decode.cu,
-# csrc/centroid_topk.cu, csrc/ivf_scan.cu)
+# csrc/centroid_topk.cu, csrc/ivf_scan.cu, csrc/hnsw_search.cu)
 SIGNATURES = {
     "fused_scan_ivf": [P, P, P, I, P, I, P, I, I, I, I,
                        I, I, I, P, I, I, I,
@@ -61,6 +61,8 @@ SIGNATURES = {
                           P, P],
     "centroid_topk": [P, P, I, I, I, I, I, P, P, P, P, P, P],
     "ivf_scan": [P, P, I, P, I, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
+    "hnsw_search": [P, I, I, P, I, P, I, I, P, P, I, P, P, I, I, I, P, I,
+                    P, P, P, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

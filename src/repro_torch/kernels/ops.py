@@ -5,7 +5,8 @@ Each op has two execution paths, picked by the device of its tensors:
   * ``"kernel"`` — the CUDA kernel (``fused_turn.py`` / ``pq_adc.py`` /
                    ``flash_attention.py`` / ``flash_decode.py`` /
                    ``embedding_bag.py`` / ``centroid_topk.py`` /
-                   ``ivf_scan.py`` → ``csrc/``), the only path for
+                   ``ivf_scan.py`` / ``hnsw_search.py`` → ``csrc/``),
+                   the only path for
                    CUDA tensors (and for ``meta`` tensors, which only
                    ``launcher.record_launches`` takes: it records each
                    call's launch plan and launches nothing);
@@ -44,6 +45,7 @@ from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import fused_turn as _ft
+from repro_torch.kernels import hnsw_search as _hs
 from repro_torch.kernels import ivf_scan as _iv
 from repro_torch.kernels import launcher
 from repro_torch.kernels import pq_adc as _pq
@@ -518,6 +520,50 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
 embedding_bag.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# hnsw_search: the HNSW traversal, one block per query
+# ---------------------------------------------------------------------------
+
+
+def hnsw_search(vectors: torch.Tensor, adj0: torch.Tensor,
+                upper_adj: torch.Tensor, entry_point: torch.Tensor,
+                queries: torch.Tensor,
+                entry_override: Optional[torch.Tensor] = None, *, ef: int,
+                k: int, deleted: Optional[torch.Tensor] = None,
+                mode: Optional[str] = None, device=None) -> Triple:
+    """HNSW search of B queries (the reference's ``_search_impl``, an XLA
+    ``while_loop`` there): vectors (n, d) float32, adj0 (n, 2M) and
+    upper_adj (L, n, M) int32 with -1 pads, entry_point () int32, queries
+    (B, d) float32; ``entry_override`` (B,) starts the level-0 beam there
+    and skips the descent; ``deleted`` (n,) bool masks tombstones out of
+    the result.  Returns (scores (B, k) float32, ids (B, k) int32, ndist
+    (B,) int32).  On CUDA tensors one ``csrc/hnsw_search.cu`` launch,
+    within ``tiling.check_hnsw``'s caps (ValueError past them); on CPU
+    tensors ``ref.hnsw_search``."""
+    dev = _device.require(device, vectors, adj0, upper_adj, entry_point,
+                          queries, entry_override, deleted)
+    if queries.dim() != 2 or queries.shape[1] != vectors.shape[1]:
+        raise ValueError(f"queries {tuple(queries.shape)} against vectors "
+                         f"{tuple(vectors.shape)}")
+    if not 0 < k <= ef:
+        raise ValueError(f"top-{k} of a beam of {ef}")
+    if _mode(mode, dev) == "ref":
+        return ref.hnsw_search(vectors, adj0, upper_adj, entry_point,
+                               queries, entry_override, ef=ef, k=k,
+                               deleted=deleted)
+    out = _hs.hnsw_search(
+        vectors, adj0, upper_adj, entry_point.to(torch.int32).contiguous(),
+        queries.to(torch.float32).contiguous(),
+        None if entry_override is None
+        else entry_override.to(torch.int32).contiguous(), deleted, ef=ef,
+        k=k)
+    _count(hnsw_search, queries.shape[0])
+    return out
+
+
+hnsw_search.launches = 0
+
+
 def reset_launches() -> None:
     """Set every op's launch count to 0."""
     centroid_topk.launches = 0
@@ -530,3 +576,4 @@ def reset_launches() -> None:
     flash_attention.launches = 0
     flash_decode.launches = 0
     embedding_bag.launches = 0
+    hnsw_search.launches = 0

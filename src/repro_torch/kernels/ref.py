@@ -56,6 +56,11 @@ float32 softmax, bottom-right causal mask.
 (``repro/kernels/ref.py:347-365``): one query token per row against a
 KV cache, positions >= ``cache_len`` masked, float32 softmax.
 
+``hnsw_search`` is the plain version of the HNSW search kernel
+(``csrc/hnsw_search.cu``), the reference's XLA traversal
+``repro/core/hnsw.py`` ``_search_impl``, batched over queries; its
+scorer is the ``dots_at`` seam of ``hnsw_dots``.
+
 ``embedding_bag`` is the plain version of the EmbeddingBag kernel
 (``repro/kernels/ref.py:435-456``), summed in the Pallas kernel's order:
 sequential over the bag, ``acc = acc + row * w`` in float32.
@@ -469,3 +474,114 @@ def bag_mean(total: torch.Tensor, ids: torch.Tensor,
     bag's float32 sum over max(Σ mask·w, 1)."""
     return total / _bag_weights(ids, weights).sum(-1, keepdim=True
                                                    ).clamp_min(1.0)
+
+
+def hnsw_dots(vectors: torch.Tensor):
+    """The default ``dots_at`` factory of ``hnsw_search`` (the
+    reference's ``_gather_dots``): ``factory(queries (B, d))`` returns
+    ``dots_at(ids (B, m)) -> (B, m)``, each id's row gathered and scored
+    against its row's query by an explicit multiply and a sum over d.
+    The sum reduces each (row, id) alone, in an order set by d only, so
+    a query's scores do not depend on B.  A sharded scorer (ROADMAP
+    Queue 1, item 6) plugs in here and reuses the traversal."""
+    def factory(queries: torch.Tensor):
+        def dots_at(ids: torch.Tensor) -> torch.Tensor:
+            return (vectors[ids.long()] * queries[:, None, :]).sum(-1)
+        return dots_at
+    return factory
+
+
+def hnsw_search(vectors: torch.Tensor, adj0: torch.Tensor,
+                upper_adj: torch.Tensor, entry_point: torch.Tensor,
+                queries: torch.Tensor,
+                entry_override: Optional[torch.Tensor] = None, *, ef: int,
+                k: int, deleted: Optional[torch.Tensor] = None,
+                dots_factory=None) -> Triple:
+    """Plain version of the HNSW search kernel: the reference's
+    ``_search_impl`` (``repro/core/hnsw.py:349-388``) for B queries at
+    once, its ``vmap`` + ``while_loop`` a batch with a per-row "still
+    going" mask (one host sync a step for the loop's test).
+
+    Without ``entry_override`` (B,) the greedy descent runs from
+    ``entry_point`` through the upper levels (argmax over a node's
+    neighbours, ties to the first, moving only on a strictly larger
+    score); then the level-0 beam of ``ef`` entries starts there: each
+    step expands the best unexpanded entry (``argmax``, ties to the
+    first), scores the neighbours that are real and not yet visited,
+    marks them, and keeps the best ``ef`` of [beam; new] by
+    ``core.topk.topk`` (``lax.top_k``'s order), the expanded flags riding
+    along, until the reference's stop test or ``4 ef + 16`` steps.
+    ``deleted`` ids score -inf at the end.  Returns (scores (B, k), ids
+    (B, k) int32, ndist (B,) int32)."""
+    b, dev = queries.shape[0], queries.device
+    n = adj0.shape[0]
+    ninf = float("-inf")
+    dots_at = (dots_factory or hnsw_dots(vectors))(queries)
+    rows = torch.arange(b, device=dev)
+    ndist = torch.zeros(b, dtype=torch.int32, device=dev)
+    if entry_override is None:
+        cur = entry_point.to(torch.int64).expand(b).clone()
+        cur_s = dots_at(cur[:, None])[:, 0]
+        ndist += 1
+        for lvl in range(upper_adj.shape[0] - 1, -1, -1):
+            going = torch.ones(b, dtype=torch.bool, device=dev)
+            while bool(going.any()):
+                nbrs = upper_adj[lvl][cur].long()             # (B, M)
+                valid = nbrs >= 0
+                s = torch.where(valid, dots_at(nbrs.clamp_min(0)), ninf)
+                j = s.argmax(-1, keepdim=True)
+                sj = s.gather(1, j)[:, 0]
+                better = going & (sj > cur_s)
+                ndist += torch.where(going, valid.sum(-1), 0).to(torch.int32)
+                cur = torch.where(better, nbrs.gather(1, j)[:, 0], cur)
+                cur_s = torch.where(better, sj, cur_s)
+                going = better
+        start = cur
+    else:
+        start = entry_override.to(torch.int64)
+
+    # level 0: a fixed-width beam of ef entries
+    max_steps = 4 * ef + 16
+    cand_v = torch.full((b, ef), ninf, dtype=torch.float32, device=dev)
+    cand_v[:, 0] = dots_at(start[:, None])[:, 0]
+    cand_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
+    cand_i[:, 0] = start.to(torch.int32)
+    expanded = torch.zeros((b, ef), dtype=torch.bool, device=dev)
+    visited = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    visited[rows, start] = True
+    ndist += 1
+    step = torch.zeros(b, dtype=torch.int32, device=dev)
+    lanes = torch.arange(ef, device=dev)
+    while True:
+        real = cand_i >= 0
+        unexp = ~expanded & real
+        best_unexp = torch.where(unexp, cand_v, ninf).amax(-1)
+        worst = torch.where(real, cand_v, float("inf")).amin(-1)
+        full = real.sum(-1) >= ef
+        go = unexp.any(-1) & ~(full & (best_unexp < worst)) & (
+            step < max_steps)
+        if not bool(go.any()):
+            break
+        pick = torch.where(unexp, cand_v, ninf).argmax(-1, keepdim=True)
+        node = cand_i.gather(1, pick)[:, 0].long().clamp_min(0)
+        expanded = expanded | (go[:, None] & (lanes == pick))
+        nbrs = adj0[node]                                  # (B, 2M)
+        idx = nbrs.long().clamp_min(0)
+        ok = (nbrs >= 0) & ~visited.gather(1, idx) & go[:, None]
+        s = torch.where(ok, dots_at(idx), ninf)
+        ndist += ok.sum(-1).to(torch.int32)
+        visited[rows[:, None].expand_as(idx)[ok], idx[ok]] = True
+        all_v = torch.cat([cand_v, s], 1)
+        all_i = torch.cat([cand_i, torch.where(ok, nbrs, -1)], 1)
+        all_e = torch.cat([expanded, torch.zeros_like(ok)], 1)
+        top_v, pos = topk(all_v, ef)
+        g = go[:, None]
+        cand_v = torch.where(g, top_v, cand_v)
+        cand_i = torch.where(g, all_i.gather(1, pos), cand_i)
+        expanded = torch.where(g, all_e.gather(1, pos), expanded)
+        step += go.to(torch.int32)
+    if deleted is not None:
+        dead = deleted[cand_i.long().clamp_min(0)] & (cand_i >= 0)
+        cand_v = torch.where(dead, ninf, cand_v)
+    top_v, pos = topk(cand_v, k)
+    return top_v, cand_i.gather(1, pos), ndist

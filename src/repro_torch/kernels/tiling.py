@@ -277,6 +277,27 @@ def check_pad(name: str, n: int) -> int:
     return n_pad
 
 
+def check_hnsw(d: int, ef: int, degree: int, k: int) -> None:
+    """The HNSW kernel's caps (ROADMAP Queue 3, item 4): a beam of at most
+    ``HNSW_MAX_EF`` entries, at most ``HNSW_MAX_DEGREE`` neighbours a
+    node, k <= ef, and a query row the retrieval kernels' width
+    (``check_width``)."""
+    if not 1 <= ef <= HNSW_MAX_EF:
+        raise ValueError(f"ef={ef}: the HNSW kernel keeps a beam of 1 to "
+                         f"{HNSW_MAX_EF} entries (ROADMAP Queue 3, item 4)")
+    if degree > HNSW_MAX_DEGREE:
+        raise ValueError(f"degree {degree}: the HNSW kernel expands at most "
+                         f"{HNSW_MAX_DEGREE} neighbours a node (ROADMAP "
+                         f"Queue 3, item 4)")
+    if not 1 <= k <= ef:
+        raise ValueError(f"k={k}: the HNSW kernel returns 1 to ef={ef} "
+                         f"results (ROADMAP Queue 3, item 4)")
+    try:
+        check_width(d)
+    except ValueError as e:
+        raise ValueError(f"{e} (ROADMAP Queue 3, item 4)") from None
+
+
 # ---------------------------------------------------------------------------
 # int8 scale groups
 #
@@ -360,6 +381,12 @@ BAG_ROWS_CHUNK = 64
 # 6): 0.0199 against 0.0213 ms at B = 512, 0.0529 against 0.0505 at
 # 2,048 and 0.1588 against 0.1565 at 8,192.
 BAG_ROWS_MAX_B = 512
+# hnsw_search_kernel (csrc/hnsw_search.cu THREADS, MAX_EF, MAX_DEGREE):
+# one block a query; the beam's entries and a step's new neighbours are
+# each a thread's in the merge
+HNSW_THREADS = 256
+HNSW_MAX_EF = 256
+HNSW_MAX_DEGREE = 256
 
 STATIC_SMEM: Dict[str, int] = {
     # sv [QTILE][CENTROID_CHUNK + 1] (the 8-query instance;
@@ -379,6 +406,10 @@ STATIC_SMEM: Dict[str, int] = {
     "embedding_bag_kernel": 0,
     # rows [BAG_ROWS_CHUNK][BAG_SLICE], sid and sw [BAG_ROWS_CHUNK]
     "bag_rows_kernel": BAG_ROWS_CHUNK * (BAG_SLICE + 2) * 4,
+    # bv / bi / be [HNSW_MAX_EF], nv / ni [HNSW_MAX_DEGREE], wv / wj / wn
+    # [warps], ctl[8]
+    "hnsw_search_kernel": (3 * HNSW_MAX_EF + 2 * HNSW_MAX_DEGREE
+                           + 3 * HNSW_THREADS // WARP + 8) * 4,
 }
 # The int8 instances keep the arrays of their scale reductions (red[32];
 # stage 1's sq: centroid_static); the compiler drops them from the f32
@@ -684,3 +715,11 @@ def plan_embedding_bag(b: int, d: int, kernel: str = "") -> List[Launch]:
                         False)]
     return [_launch("embedding_bag_kernel", (-(-b // BAG_WARPS),),
                     BAG_WARPS * WARP, 0, False)]
+
+
+def plan_hnsw_search(b: int, d: int) -> List[Launch]:
+    """``hnsw_search``: ``hnsw_search_kernel``, one block a query, the
+    query in dynamic shared memory (its cap raised once, as every
+    kernel's)."""
+    return [_launch("hnsw_search_kernel", (b,), HNSW_THREADS, d * 4,
+                    True)] if b else []

@@ -31,8 +31,9 @@ Where the reference relies on JAX's async dispatch, the batched engine
 queues every wave (gather, step, cache pass, scatter, and the copy of
 the results into pinned host buffers) on one CUDA stream of its own and
 records an event; the wave's results are read when the batcher retires
-it, after that event.  The refresh gate of ``step_batch`` (``bool(
-refresh.any())``) still syncs the host once a wave.
+it, after that event.  The gate of ``step_batch`` (IVF's refresh,
+HNSW's first-turn search: ``bool(....any())``) still syncs the host once
+a wave.
 
 ``ServingConfig`` keeps every field and default of the reference.  The
 knobs whose modules are not ported yet raise ``NotImplementedError``:
@@ -40,7 +41,8 @@ corpus sharding (``shards > 1``, ``mesh``; ROADMAP Queue 1, item 6) and
 the mutable corpus (``segment_cap > 0``; item 5).  A fused
 configuration whose fetch depth needs a top-k wider than the CUDA
 kernels keep (``tiling.MAX_PAD``) raises at construction (ROADMAP
-Queue 3, item 1).
+Queue 3, item 1), as does an HNSW configuration past the HNSW kernel's
+caps (``tiling.check_hnsw``, item 4).
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import backend as _backend
+from repro_torch.core import hnsw as _hnsw
 from repro_torch.core import ivf as _ivf
 from repro_torch.core import pq as _pq
 from repro_torch.core import toploc
@@ -175,29 +178,31 @@ class _EngineBase(_EngineAccounting):
     _cache: Optional[_result_cache.ResultCache]
 
     def _setup(self, config: ServingConfig, *, ivf_index, ivf_pq_index,
-               doc_vecs, device) -> None:
+               hnsw_index, doc_vecs, device) -> None:
         _refuse_unported(config)
         self.cfg = config
         self.device = _device.resolve(device)
         alpha = config.alpha if config.strategy == "toploc+" else -1.0
         fused = (toploc.FusedTurn(precision=config.precision)
                  if config.fused else None)
-        # the ported registry holds the IVF family only: pass its knobs
-        # (ef_search / up belong to backends not yet ported); make()
-        # drops rerank for "ivf", as the reference's does
-        self.backend = _backend.make(config.backend, h=config.h,
-                                     nprobe=config.nprobe, alpha=alpha,
-                                     rerank=config.rerank, fused=fused)
-        self.index = {"ivf_index": ivf_index,
-                      "ivf_pq_index": ivf_pq_index
-                      }.get(self.backend.index_kwarg)
-        if self.index is None:
-            raise ValueError(f"{config.backend} backend needs "
-                             f"{self.backend.index_kwarg}")
+        # make() drops the knobs a backend does not declare, as the
+        # reference's does
+        self.backend = _backend.make(
+            config.backend, h=config.h, nprobe=config.nprobe, alpha=alpha,
+            rerank=config.rerank, ef=config.ef_search, up=config.up,
+            fused=fused)
         if doc_vecs is not None and not isinstance(doc_vecs, torch.Tensor):
             doc_vecs = torch.from_numpy(
                 np.asarray(doc_vecs, np.float32)).to(self.device)
-        _device.require(self.device, self.index.centroids, doc_vecs)
+        # Exact's index is the flat corpus itself
+        provided = {"ivf_index": ivf_index, "hnsw_index": hnsw_index,
+                    "ivf_pq_index": ivf_pq_index, "doc_vecs": doc_vecs}
+        self.index = provided.get(self.backend.index_kwarg)
+        if self.index is None:
+            raise ValueError(f"{config.backend} backend needs "
+                             f"{self.backend.index_kwarg}")
+        _device.require(self.device, toploc.index_tensor(self.index),
+                        doc_vecs)
         if isinstance(self.index, _pq.IVFPQIndex):
             _pq.check_index(self.index)
         self.doc_vecs = doc_vecs
@@ -241,11 +246,21 @@ class _EngineBase(_EngineAccounting):
         return self._cache.depth if self._cache is not None else self.cfg.k
 
     def _check_kernel_width(self) -> None:
-        """Refuse, at construction, a fused configuration whose fetch
-        depth needs a top-k wider than the CUDA kernels keep: the
+        """Refuse, at construction, a configuration past the CUDA
+        kernels' caps: HNSW's beams of ef and up·ef, the fetch depth
+        within them (``tiling.check_hnsw``), or a fused configuration
+        whose fetch depth needs a top-k wider than the kernels keep: the
         quantised IVF scan keeps the top r = depth·over, the PQ scan its
         re-rank pool r = max(depth, min(rerank, nprobe·Lmax))."""
-        fused = self.backend.fused
+        if isinstance(self.backend, _backend.HNSWBackend):
+            bk, index = self.backend, self.index
+            for ef in (bk.ef, bk.up * bk.ef):
+                _tiling.check_hnsw(index.vectors.shape[1], ef,
+                                   max(index.adj0.shape[1],
+                                       index.upper_adj.shape[2]),
+                                   self._k_fetch)
+            return
+        fused = getattr(self.backend, "fused", None)
         if fused is None:
             return
         depth, cap = self._k_fetch, self.cfg.nprobe * self.index.lmax
@@ -270,18 +285,20 @@ class ConversationalSearchEngine(_EngineBase):
     """One turn per call, sessions in a Python dict.
 
     The index (``ivf_index`` for ``backend="ivf"``, ``ivf_pq_index`` for
-    ``"ivf_pq"``) and ``doc_vecs`` (the flat corpus the result cache
-    re-scores against; IVF-PQ keeps its own) must live on ``device``
-    (default cuda); queries may be numpy arrays or tensors and are moved
-    there.
+    ``"ivf_pq"``, ``hnsw_index`` for ``"hnsw"``, ``doc_vecs`` for
+    ``"exact"``) and ``doc_vecs`` (the flat corpus the result cache
+    re-scores against; IVF-PQ and HNSW keep their own) must live on
+    ``device`` (default cuda); queries may be numpy arrays or tensors and
+    are moved there.
     """
 
     def __init__(self, config: ServingConfig, *,
                  ivf_index: Optional[_ivf.IVFIndex] = None,
+                 hnsw_index: Optional[_hnsw.HNSWIndex] = None,
                  ivf_pq_index: Optional[_pq.IVFPQIndex] = None,
                  doc_vecs=None, device=None):
         self._setup(config, ivf_index=ivf_index, ivf_pq_index=ivf_pq_index,
-                    doc_vecs=doc_vecs, device=device)
+                    hnsw_index=hnsw_index, doc_vecs=doc_vecs, device=device)
         self.sessions: Dict[str, Any] = {}
         self._cache = self._make_cache()
         self._check_kernel_width()
@@ -382,13 +399,14 @@ class BatchedConversationalSearchEngine(_EngineBase):
 
     def __init__(self, config: ServingConfig, *,
                  ivf_index: Optional[_ivf.IVFIndex] = None,
+                 hnsw_index: Optional[_hnsw.HNSWIndex] = None,
                  ivf_pq_index: Optional[_pq.IVFPQIndex] = None,
                  doc_vecs=None, n_slots: int = 256, max_batch: int = 32,
                  max_wait_s: float = 0.002,
                  buckets: Sequence[int] = (1, 2, 4, 8, 16, 32),
                  max_inflight: int = 2, device=None):
         self._setup(config, ivf_index=ivf_index, ivf_pq_index=ivf_pq_index,
-                    doc_vecs=doc_vecs, device=device)
+                    hnsw_index=hnsw_index, doc_vecs=doc_vecs, device=device)
         # a wave holds up to max_batch distinct conversations, each
         # needing its own live slot — fewer slots would make acquire()
         # evict a conversation acquired earlier in the SAME wave and

@@ -39,9 +39,11 @@ execution gives the next wave the updated rows, as the reference's
 single device stream does.  A caller on another stream is ordered both
 ways against the store's (``Stream.wait_stream``; no host sync).
 
-The corpus mesh of the reference (``mesh=``, a slab replicated over the
-sharded corpus) comes with ROADMAP Queue 1, item 6; HNSW sessions with
-item 4.
+The slab's layout is the backend's ``session_template``: the rows
+above for IVF and IVF-PQ, ``entry_point`` (S+1,) int32 and ``turn``
+(S+1,) int32 for HNSW.  The corpus mesh of the reference (``mesh=``, a
+slab replicated over the sharded corpus) comes with ROADMAP Queue 1,
+item 6.
 """
 from __future__ import annotations
 
@@ -335,8 +337,10 @@ def ivf_pq_session_store(index: Any, *, h: int, nprobe: int, n_slots: int,
                              mesh=mesh, stream=stream)
 
 
-def hnsw_session_store(index: Any, *, n_slots: int, mesh: Any = None
+def hnsw_session_store(index: Any, *, n_slots: int, mesh: Any = None,
+                       stream: Optional["torch.cuda.Stream"] = None
                        ) -> SessionStore:
-    """Slab of HNSW sessions: the HNSW backend is not ported yet."""
-    raise NotImplementedError(
-        "HNSW sessions are not ported yet: ROADMAP Queue 1, item 4")
+    """Slab of ``toploc.HNSWSession`` rows, on the index's device."""
+    from repro_torch.core import backend as _backend
+    return store_for_backend(_backend.HNSWBackend(), index, n_slots=n_slots,
+                             mesh=mesh, stream=stream)

@@ -1,7 +1,8 @@
 """The port's ``kernels`` analysis pass (``repro_torch.analysis``).
 
 It records the launch plan of every ``kernels.ops`` entry on ``meta``
-tensors of the reference's 11 probe shapes and checks each launch
+tensors of the reference's 11 probe shapes, and of the port's probes of
+the HNSW search kernel (``port_probes``), and checks each launch
 against the H100's limits.  Here, on the CPU: the tree is clean, the
 probes match the reference's by label, every probe records a launch with
 no build and no data, fixtures defined here fire each code, and the CLI
@@ -33,7 +34,7 @@ def no_build(monkeypatch):
 
 def test_the_tree_has_no_findings(no_build):
     assert kb.run() == []
-    assert len(kb.last_report) == 11
+    assert len(kb.last_report) == 11 + len(kb.port_probes())
 
 
 def test_probes_are_the_references(no_build):
@@ -41,13 +42,15 @@ def test_probes_are_the_references(no_build):
     assert [p.label for p in kb.default_probes()] == labels
 
 
-@pytest.mark.parametrize("label", [p.label for p in kb.default_probes()])
+@pytest.mark.parametrize("label", [p.label for p in kb.default_probes()
+                                   + kb.port_probes()])
 def test_every_probe_records_a_launch_and_counts_none(no_build, label):
-    probe = next(p for p in kb.default_probes() if p.label == label)
+    probe = next(p for p in kb.default_probes() + kb.port_probes()
+                 if p.label == label)
     before = {n: getattr(ops, n).launches for n in (
         "centroid_topk", "ivf_scan", "fused_turn", "fused_scan",
         "pq_adc_scan", "fused_turn_pq", "flash_attention", "flash_decode",
-        "embedding_bag")}
+        "embedding_bag", "hnsw_search")}
     records = kb.record(probe)
     assert records and all(r.plan for r in records)
     for r in records:
@@ -300,7 +303,7 @@ def test_cli_clean_tree_exits_0(no_build, capsys):
     assert cli.main(["--select", "kernels"]) == 0
     out = capsys.readouterr().out
     assert "0 finding(s) from 1 pass(es)" in out
-    assert out.count("launch(es) through") == 11
+    assert out.count("launch(es) through") == 11 + len(kb.port_probes())
 
 
 def test_cli_unknown_pass_exits_2(capsys):
@@ -319,7 +322,7 @@ def test_cli_json(no_build, capsys):
     doc = json.loads(capsys.readouterr().out)
     assert doc["active"] == [] and doc["stale_baseline"] == []
     assert [p["label"] for p in doc["probes"]] == \
-        [p.label for p in kb.default_probes()]
+        [p.label for p in kb.default_probes() + kb.port_probes()]
     assert all(p["launches"] >= 1 for p in doc["probes"])
 
 

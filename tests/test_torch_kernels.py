@@ -1656,9 +1656,15 @@ def test_cuda_two_stages_equal_the_fused_turn(cuda_device, shape):
     assert torch.equal(sel, fs) and torch.equal(v, fv) and torch.equal(i, fi)
 
 
-def _probe_labels():
+def _probes():
+    """The kernels analysis pass's probes: the reference's and the
+    port's own (``hnsw_search``)."""
     from repro_torch.analysis import kernel_budget
-    return [p.label for p in kernel_budget.default_probes()]
+    return kernel_budget.default_probes() + kernel_budget.port_probes()
+
+
+def _probe_labels():
+    return [p.label for p in _probes()]
 
 
 @pytest.mark.cuda_only
@@ -1668,8 +1674,7 @@ def test_cuda_launch_plans_match_the_profiler(cuda_device, label):
     recorded launch plan equals the kernels torch.profiler traces (name,
     order, grid, block, static + dynamic shared memory)."""
     from repro_torch.analysis import kernel_budget
-    probe = next(p for p in kernel_budget.default_probes()
-                 if p.label == label)
+    probe = next(p for p in _probes() if p.label == label)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     tensors = probe.tensors(cuda_device, gen)
     ops.drop_scales()       # a first call: int8 runs its scale pass

@@ -313,8 +313,8 @@ def test_slot_eviction_wipes_cache_row(small_corpus, tidx, docs):
 
 def test_cache_disabled_for_plain(tidx, docs):
     """The cache is session-level state: the plain strategy runs
-    uncached even with a threshold set (the stateless backends come with
-    ROADMAP Queue 1, item 4)."""
+    uncached even with a threshold set (the stateless Exact backend:
+    ``tests/test_torch_hnsw_serving.py``)."""
     assert _seq(tidx, docs, strategy="plain", cache_threshold=0.9
                 )._cache is None
     assert _bat(tidx, docs, strategy="plain", cache_threshold=0.9

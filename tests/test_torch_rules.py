@@ -267,12 +267,6 @@ def test_serving_config_keeps_the_reference_fields_and_defaults():
     assert port == ref
 
 
-@pytest.mark.parametrize("name", ["hnsw", "exact"])
-def test_unported_backends_raise_unknown_backend(name):
-    with pytest.raises(ValueError, match="unknown retrieval backend"):
-        tbackend.make(name)
-
-
 def test_make_checks_knobs_like_the_reference():
     assert tbackend.make("ivf", nprobe=3).nprobe == 3
     with pytest.raises(TypeError, match="typo"):
@@ -282,7 +276,7 @@ def test_make_checks_knobs_like_the_reference():
     # lenient make drops the PQ knob for the float backend
     assert not hasattr(tbackend.make("ivf", rerank=3), "rerank")
     assert tbackend.make("ivf_pq", rerank=3).rerank == 3
-    assert tbackend.names() == ("ivf", "ivf_pq")
+    assert tbackend.names() == ("exact", "hnsw", "ivf", "ivf_pq")
 
 
 def test_make_ivf_pq_defaults_match_the_reference():

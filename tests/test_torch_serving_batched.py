@@ -33,7 +33,7 @@ from repro_torch.core import toploc
 from repro_torch.core.backend import IVFBackend, IVFPQBackend
 from repro_torch.serving import (BatchedConversationalSearchEngine,
                                  ConversationalSearchEngine, ServingConfig,
-                                 hnsw_session_store, ivf_pq_session_store,
+                                 ivf_pq_session_store,
                                  ivf_session_store)
 from repro_torch.serving import sessions as SS
 
@@ -304,15 +304,11 @@ def test_clear_zeroes_many_slots_in_one_scatter(tidx, monkeypatch):
     assert freed == [slots[0]]
 
 
-@pytest.mark.parametrize("what", ["hnsw", "mesh"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unported_stores_raise(tidx, what):
-    if what == "hnsw":
-        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-            hnsw_session_store(None, n_slots=2)
-    else:
-        with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-            ivf_session_store(tidx["ivf"], h=H, nprobe=NPROBE, n_slots=2,
-                              mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+        ivf_session_store(tidx["ivf"], h=H, nprobe=NPROBE, n_slots=2,
+                          mesh=object())
 
 
 def test_session_template_matches_the_reference(ivf_index, tidx):
