@@ -97,7 +97,10 @@ exits non-zero):
               with fig7's cache) at ef 32 and 64, recall@10 against
               exact search over the same docs; fig3's 32 x 10 through
               the batched engine at max_batch 1, 8, 32 == the sequential
-              engine bit for bit; the kernel's times at B = 1 and 32
+              engine bit for bit; a device-memory round trip by a
+              pointer chase; the kernel's times at B = 1 and 32 beside
+              its byte bound and its chain bound (the steps of a call's
+              longest search x the round trip)
     exact     serve: ExactBackend through the sequential engine over the
               whole corpus, ids == [index]'s exact top-10
  13 batched   start_batch / step_batch == the sequential engine
@@ -129,16 +132,21 @@ Run from the repository root: ``python3 chip_smoke.py``.  Size flags
 (``--n-docs``, ``--lists``, ``--iters``, ``--enc-docs``, ``--tt-items``,
 ``--tt-users``) cut the run for a quick check.  ``--stages-only`` builds
 and prints only the [stages] split; ``--dump-rows PATH`` builds and saves
-rows 1-7's outputs on the seeded realistic inputs to PATH, so the
-kernels of two checkouts can be held to each other bit for bit;
+rows 1-7's outputs on the seeded realistic inputs and hnsw_search's on a
+seeded graph to PATH, so the kernels of two checkouts can be held to
+each other bit for bit (``--same-dumps A B``);
 ``--hnsw-only`` builds and runs only the corpus, [hnsw] and the [exact]
-serve; ``--hnsw-docs`` sizes the graph;
+serve; ``--hnsw-docs`` sizes the graph; ``--hnsw-times`` builds and
+prints only a device-memory round trip (a pointer chase) and
+hnsw_search's times on the [hnsw] graph beside its byte and chain
+bounds, the graph loaded from ``--hnsw-graph PATH`` when that file
+exists, else built and saved there, so two checkouts time one graph;
 ``--bag-times`` builds and times only embedding_bag's kernels over a
 range of batch sizes ([bag], ``phase_bag_sweep``); ``--adc-times``
 builds and times only the rows that run the ADC scan, rows 3, 5 and 7
 at every precision and B = 1 to 32 with each instance of the scan forced
 ([adc], ``phase_adc_times``), so two checkouts can be compared in one
-call.  The five may be given
+call.  The six may be given
 together.
 """
 from __future__ import annotations
@@ -1723,11 +1731,72 @@ def phase_dump_rows(args, dev, path):
         for name, call in calls.items():
             out[f"{name} B={b}"] = [t.cpu() for t in call()]
     torch.cuda.synchronize()
-    torch.save(out, path)
-    log("dump", f"{len(out)} outputs of rows 1-7 at B = 1, 2, 4 and 25 -> "
-        f"{path}")
+    rows_out = len(out)
     del lv, li, rows, pqi
     torch.cuda.empty_cache()
+    out.update(dump_hnsw(args, dev))
+    torch.save(out, path)
+    log("dump", f"{rows_out} outputs of rows 1-7 at B = 1, 2, 4 and 25, "
+        f"{len(out) - rows_out} of hnsw_search -> {path}")
+
+
+def dump_hnsw(args, dev, n=20_000, deg=32, levels=3):
+    """hnsw_search on a seeded graph, no build needed: n unit vectors
+    of d = 768, level 0 ``deg`` random neighbours a node and ``levels``
+    upper levels of deg / 2 (about a tenth of each row -1 pads), a
+    random entry point; 32 unit queries.  ef 32, 64 and 128 (k 10) at
+    B = 1 (the first query) and 32, from the descent, from random entry
+    overrides, and from the descent with a tenth of the nodes
+    tombstoned: {name: [scores, ids, ndist]} on the host."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+
+    def unit(rows):
+        x = torch.randn((rows, args.d), generator=gen, device=dev)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    def links(shape):
+        ids = torch.randint(0, n, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        pad = torch.rand(shape, generator=gen, device=dev) < 0.1
+        return torch.where(pad, -1, ids)
+
+    vecs, queries = unit(n), unit(32)
+    adj0, upper = links((n, deg)), links((levels, n, deg // 2))
+    entry = torch.randint(0, n, (), generator=gen, device=dev,
+                          dtype=torch.int32)
+    override = torch.randint(0, n, (32,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    dead = torch.rand(n, generator=gen, device=dev) < 0.1
+    out = {}
+    for ef in (32, 64, 128):
+        for b in (1, 32):
+            q = queries[:b]
+            for case, kw in (("descent", {}),
+                             ("override", dict(entry_override=override[:b])),
+                             ("tombstones", dict(deleted=dead))):
+                got = ops.hnsw_search(vecs, adj0, upper, entry, q, ef=ef,
+                                      k=args.k, **kw)
+                out[f"hnsw_search ef={ef} {case} B={b}"] = [
+                    t.cpu() for t in got]
+    return out
+
+
+def same_dumps(a_path, b_path):
+    """``--same-dumps A B``: every output of two ``--dump-rows`` files
+    ``torch.equal`` (dtype, shape and bits); returns the count compared,
+    raises on the first difference."""
+    import torch
+    a, b = torch.load(a_path), torch.load(b_path)
+    if a.keys() != b.keys():
+        raise AssertionError(f"the dumps hold other outputs: "
+                             f"{sorted(a.keys() ^ b.keys())}")
+    for name in a:
+        for x, y in zip(a[name], b[name], strict=True):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"{name}: the two dumps differ")
+    return len(a), sum(len(v) for v in a.values())
 
 
 def profile_query_tower(enc, q, reps=5):
@@ -3091,6 +3160,251 @@ def hnsw_bound(index, nd, b, k):
     return n * (d + 1) * 4 + b * d * 4 + b * (k * 8 + 4), 2 * n * d
 
 
+def hnsw_steps(index, q, ef, k):
+    """The dependent steps of the search of one query ``q`` (1, d): the
+    descent's and level 0's, counted by the plain version, whose scorer
+    runs once a step and once for each entry (the global entry point's,
+    the level-0 start's)."""
+    from repro_torch.kernels import ref
+    calls = [0]
+    dots = ref.hnsw_dots(index.vectors)
+
+    def factory(queries):
+        at = dots(queries)
+
+        def counted(ids):
+            calls[0] += 1
+            return at(ids)
+        return counted
+
+    ref.hnsw_search(index.vectors, index.adj0, index.upper_adj,
+                    index.entry_point, q, ef=ef, k=k, dots_factory=factory)
+    return calls[0] - 2
+
+
+# a pointer chase: one thread, each load's address the value of the last
+CHASE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void chase_kernel(const int* __restrict__ next, int hops,
+                             int* out) {
+  int i = 0;
+  for (int h = 0; h < hops; ++h) i = __ldcg(next + i);
+  *out = i;
+}
+extern "C" int chase(const int* next, int hops, int* out, void* stream) {
+  chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(next, hops,
+                                                                out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def probe_lib(name, src):
+    """A measurement kernel of this script (not part of the port), built
+    from ``src`` with nvcc beside the port's library and loaded; the
+    library is named by a hash of its source and built once."""
+    import ctypes
+    import hashlib
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(src.encode()).hexdigest()[:16]
+    so = _build.BUILD_DIR / f"{name}_{tag}.so"
+    if not so.exists():
+        cu = _build.BUILD_DIR / f"{name}_{tag}_{os.getpid()}.cu"
+        tmp = cu.with_suffix(".so")
+        cu.write_text(src)
+        subprocess.run([_build.nvcc(), *_build.ARCH, "-std=c++17", "-O3",
+                        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+                        str(cu)], check=True)
+        os.replace(tmp, so)
+        cu.unlink()
+    return ctypes.CDLL(str(so))
+
+
+def round_trip_ns(dev, hops=100_000):
+    """One dependent load's latency on the card, by a pointer chase
+    through a random single cycle: over 256 MB after the L2 is flushed
+    (a device-memory round trip: the chase touches 100,000 of its 2 M
+    lines once each) and over 4 MB left in the L2 (an L2 hit).  Returns
+    {"dram": ns, "l2": ns}; the chase kernel is built here from
+    ``CHASE_SRC``, not part of the port."""
+    import ctypes
+    import torch
+    lib = probe_lib("chase", CHASE_SRC)
+    lib.chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p]
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    got = {}
+    for name, n in (("dram", 64 << 20), ("l2", 1 << 20)):
+        order = torch.randperm(n, generator=gen, device=dev)
+        nxt = torch.empty(n, dtype=torch.int32, device=dev)
+        nxt[order] = order.roll(-1).to(torch.int32)
+
+        def run(h):
+            err = lib.chase(nxt.data_ptr(), h, out.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"chase: cudaError {err}")
+        run(1000)
+        ts = []
+        for _ in range(3):
+            if name == "dram":
+                flush.zero_()
+            else:
+                run(n)          # the whole cycle: every line in the L2
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            run(hops)
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end) * 1e6 / hops)
+        got[name] = float(np.median(ts))
+        del order, nxt
+    return got
+
+
+def hnsw_graph(args, dev):
+    """The [hnsw] graph (the port's build over the corpus's first
+    ``args.hnsw_docs`` docs) and the smoke's 250 turns as (B, d) queries:
+    loaded from ``args.hnsw_graph`` (``hnsw.save``'s npz; the turns and
+    the run's sizes and seed in ``PATH.turns.npz`` beside it) when that
+    file exists, else built and, with a path, saved there, so two
+    checkouts time one graph.  A file made for other sizes, seed or
+    build settings is refused."""
+    import torch
+    from repro_torch.core import hnsw
+    path = args.hnsw_graph
+    made = dict(n_docs=args.n_docs, hnsw_docs=args.hnsw_docs, d=args.d,
+                seed=args.seed, m=HNSW_M, ef_construction=HNSW_EFC)
+    if path and os.path.exists(path):
+        z = np.load(path + ".turns.npz")
+        saved = {key: int(z[key]) for key in made}
+        if saved != made:
+            raise ValueError(f"{path} holds a graph made for {saved}, "
+                             f"this run needs {made}")
+        return hnsw.load(path, device=dev), torch.from_numpy(z["turns"]).to(dev)
+    docs, convs, _, _, _ = smoke_corpus(args, dev)
+    n = min(args.hnsw_docs, docs.shape[0])
+    vecs = docs[:n].clone()
+    del docs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    index = hnsw.build(vecs, m=HNSW_M, ef_construction=HNSW_EFC,
+                       seed=args.seed)
+    log("hnsw", f"build N={n}: {time.perf_counter() - t0:.1f}s on the host")
+    turns = torch.from_numpy(convs.reshape(-1, args.d)).to(dev)
+    if path:
+        with open(path, "wb") as fh:
+            hnsw.save(index, fh)
+        np.savez(path + ".turns.npz", turns=turns.cpu().numpy(), **made)
+    return index, turns
+
+
+def hnsw_times(index, flat, k, rtt_ns, plain=True, ef=HNSW_EFS[-1]):
+    """The kernel's CUDA-event ms at B = 1 (the first 8 turns, a call
+    each) and B = 32 (4 calls), L2 flushed, beside the byte bound, the
+    chain bound (the steps of a call's longest search, its blocks
+    running side by side, x one dependent device-memory round trip,
+    ``rtt_ns``) and, with ``plain``, the plain version's ms.  Returns
+    {B: row}."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=flat.device)
+    args_ = (index.vectors, index.adj0, index.upper_adj, index.entry_point)
+    times = {}
+    for b in (1, 32):
+        qs = [flat[j * b:(j + 1) * b] for j in range(8 if b == 1 else 4)]
+        works = [hnsw_bound(index, ops.hnsw_search(*args_, q, ef=ef, k=k)[2],
+                            q.shape[0], k) for q in qs]
+        calls = [lambda q=q: ops.hnsw_search(*args_, q, ef=ef, k=k)
+                 for q in qs]
+        if plain:
+            row = timed(calls, [lambda q=q: ref.hnsw_search(*args_, q, ef=ef,
+                                                            k=k)
+                                for q in qs], works, flush)
+        else:
+            row = dict(ms=event_ms(calls, flush, spin=True),
+                       bound_ms=float(np.mean([bound_ms(*w)[0]
+                                               for w in works])),
+                       bound_by=bound_ms(*works[0])[1],
+                       kernels=kernels_a_call(calls[0]))
+        steps = [max(hnsw_steps(index, q[i:i + 1], ef, k)
+                     for i in range(q.shape[0])) for q in qs]
+        row["steps"] = float(np.mean(steps))
+        row["chain_ms"] = row["steps"] * rtt_ns / 1e6
+        times[b] = row
+        log("hnsw", f"hnsw_search ef={ef} B={b} (descent + level 0, L2 "
+            f"flushed): {row['ms']:.4f} ms a call"
+            + (f", plain {row['plain_ms']:.3f} ms" if plain else "")
+            + f", bound {row['bound_ms']:.5f} ms ({row['bound_by']}: the "
+            f"scored rows, {HBM_BYTES_PER_S / 1e12:.2f} TB/s), chain bound "
+            f"{row['chain_ms']:.4f} ms ({row['steps']:.1f} steps of the "
+            f"longest search x {rtt_ns:.1f} ns), {row['ms'] / row['steps'] * 1e3:.3f}"
+            f" µs a step, {row['kernels']} kernel a call")
+    return times
+
+
+def phase_hnsw_times(args, dev):
+    """``--hnsw-times``: the round trip, then only the kernel's times on
+    the [hnsw] graph (``hnsw_graph``), without the plain version."""
+    rtt = round_trip_ns(dev)
+    log("hnsw", f"pointer chase: {rtt['dram']:.1f} ns a device-memory "
+        f"round trip (256 MB, L2 flushed), {rtt['l2']:.1f} ns an L2 hit "
+        f"(4 MB)")
+    index, flat = hnsw_graph(args, dev)
+    hnsw_times(index, flat, args.k, rtt["dram"], plain=False)
+    hnsw_visited_times(index, flat, args.k)
+
+
+def hnsw_visited_times(index, flat, k, efs=(32, 64, 128), rounds=3):
+    """The kernel's CUDA-event ms with each instance of its visited set
+    that fits the graph forced (``tiling.hnsw_visited``), at ef 32, 64
+    and 128, B = 1 (the first 8 turns, a call each) and B = 32 (4
+    calls), L2 flushed: the instances run in turns (A B C C B A ...) and
+    give the same bits, else this raises.  Prints the median of the
+    rounds per instance."""
+    import torch
+    from repro_torch.kernels import hnsw_search as K, tiling
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=flat.device)
+    g = (index.vectors, index.adj0, index.upper_adj, index.entry_point)
+    n, d = index.vectors.shape
+    deg = index.adj0.shape[1]
+    for ef in efs:
+        kinds = []
+        for kind in tiling.HNSW_VISITED:
+            try:
+                kinds.append((kind, tiling.hnsw_visited(n, d, ef, deg,
+                                                        kind)[1]))
+            except ValueError:
+                pass
+        for b in (1, 32):
+            qs = [flat[j * b:(j + 1) * b] for j in range(8 if b == 1 else 4)]
+            calls = {kind: [lambda q=q, kind=kind: K.hnsw_search(
+                *g, q, None, None, ef=ef, k=k, visited=kind) for q in qs]
+                for kind, _ in kinds}
+            outs = {kind: [c() for c in cs] for kind, cs in calls.items()}
+            first = outs[kinds[0][0]]
+            for kind, got in outs.items():
+                if not all(torch.equal(x, y) for o, p in zip(got, first)
+                           for x, y in zip(o, p)):
+                    raise AssertionError(f"hnsw_search ef={ef} B={b}: the "
+                                         f"{kind} instance's bits differ")
+            ms = {kind: [] for kind, _ in kinds}
+            order = [kind for kind, _ in kinds]
+            for r in range(rounds * 2):
+                for kind in order if r % 2 == 0 else order[::-1]:
+                    ms[kind].append(event_ms(calls[kind], flush, spin=True))
+            log("hnsw", f"visited set forced, ef={ef} B={b} (n={n}, deg "
+                f"{deg}, L2 flushed, median of {rounds * 2} rounds in "
+                "turns, bits equal): " + "; ".join(
+                    f"{kind} ({words} words) {np.median(ms[kind]):.4f} ms"
+                    for kind, words in kinds)
+                + f"; picked: {tiling.hnsw_visited(n, d, ef, deg)[0]}")
+
+
 def phase_hnsw(args, docs, convs, bconvs, dev):
     """The port's HNSW build over the first ``args.hnsw_docs`` docs, the
     kernel held to its plain version, the smoke's 25 x 10 turns through
@@ -3100,7 +3414,7 @@ def phase_hnsw(args, docs, convs, bconvs, dev):
     and the kernel's times.  Returns (launches, max_abs_err, times)."""
     import torch
     from repro_torch.core import hnsw, ivf
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.serving import (BatchedConversationalSearchEngine,
                                      ConversationalSearchEngine,
                                      ServingConfig)
@@ -3228,26 +3542,12 @@ def phase_hnsw(args, docs, convs, bconvs, dev):
                 f"cache_hit_rate={eng.summary()['cache_hit_rate']:.3f}; "
                 f"== sequential (ids, scores, TurnStats, cache_hit)")
 
-    # the kernel's time beside its bound and the plain version's
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    ef, times = HNSW_EFS[-1], {}
-    for b in (1, 32):
-        qs = [flat[j * b:(j + 1) * b] for j in range(8 if b == 1 else 4)]
-        args_ = (index.vectors, index.adj0, index.upper_adj,
-                 index.entry_point)
-        works = [hnsw_bound(index, ops.hnsw_search(*args_, q, ef=ef, k=k)[2],
-                            q.shape[0], k) for q in qs]
-        row = timed([lambda q=q: ops.hnsw_search(*args_, q, ef=ef, k=k)
-                     for q in qs],
-                    [lambda q=q: ref.hnsw_search(*args_, q, ef=ef, k=k)
-                     for q in qs], works, flush)
-        times[b] = row
-        log("hnsw", f"hnsw_search ef={ef} B={b} (descent + level 0, L2 "
-            f"flushed): {row['ms']:.4f} ms a call, plain {row['plain_ms']:.3f}"
-            f" ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}: the "
-            f"scored rows, {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
-            f"{row['kernels']} kernel a call")
-    del flush
+    # the kernel's time beside its bounds and the plain version's
+    rtt = round_trip_ns(dev)
+    log("hnsw", f"pointer chase: {rtt['dram']:.1f} ns a device-memory "
+        f"round trip (256 MB, L2 flushed), {rtt['l2']:.1f} ns an L2 hit "
+        f"(4 MB)")
+    times = hnsw_times(index, flat, k, rtt["dram"])
     return launches, err, times[1]
 
 
@@ -3740,8 +4040,19 @@ def main() -> int:
                     help="build, then only the corpus, [hnsw] and the "
                     "[exact] serve (no IVF index)")
     ap.add_argument("--dump-rows", metavar="PATH",
-                    help="build, then only save rows 1-7's outputs on the "
-                    "seeded realistic inputs to PATH (phase_dump_rows)")
+                    help="build, then only save rows 1-7's and "
+                    "hnsw_search's outputs on seeded inputs to PATH "
+                    "(phase_dump_rows)")
+    ap.add_argument("--same-dumps", nargs=2, metavar=("A", "B"),
+                    help="only hold two --dump-rows files to each other "
+                    "bit for bit (same_dumps)")
+    ap.add_argument("--hnsw-times", action="store_true",
+                    help="build, then only the round trip and "
+                    "hnsw_search's times on the [hnsw] graph "
+                    "(phase_hnsw_times)")
+    ap.add_argument("--hnsw-graph", metavar="PATH",
+                    help="load the [hnsw] graph of --hnsw-times from PATH, "
+                    "or build it and save it there (hnsw_graph)")
     args = ap.parse_args()
     args.d, args.k, args.nprobe = 768, 10, 64
     args.lmax = math.ceil(1.3 * args.n_docs / args.lists)
@@ -3752,6 +4063,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.same_dumps:
+        n_out, n_t = same_dumps(*args.same_dumps)
+        log("dump", f"{n_out} outputs ({n_t} tensors) torch.equal in "
+            f"{args.same_dumps[0]} and {args.same_dumps[1]}")
+        return 0
     import repro_torch  # noqa: F401  (sets TF32 off)
     from repro_torch.kernels import _build, tiling
     dev = torch.device("cuda")
@@ -3779,7 +4095,9 @@ def main() -> int:
                                 for bulk, c in adc))
 
     if (args.stages_only or args.dump_rows or args.bag_times or args.adc_times
-            or args.hnsw_only):
+            or args.hnsw_only or args.hnsw_times):
+        if args.hnsw_times:
+            phase_hnsw_times(args, dev)
         if args.hnsw_only:
             docs, convs, bconvs, exact, _ = smoke_corpus(args, dev)
             phase_hnsw(args, docs, convs, bconvs, dev)
@@ -3947,7 +4265,9 @@ def main() -> int:
                     plain_ms=times[1][name]["plain_ms"],
                     bound_ms=times[1][name]["bound_ms"],
                     bound_by=times[1][name]["bound_by"],
-                    library_ms=times[1][name].get("library_ms"))
+                    library_ms=times[1][name].get("library_ms"),
+                    **({"chain_ms": times[1][name]["chain_ms"]}
+                       if "chain_ms" in times[1][name] else {}))
                for name in IVF_KERNELS + PQ_KERNELS + QUANT_KERNELS +
                ENC_KERNELS + REC_KERNELS + LM_KERNELS + CLASSIC_KERNELS
                + HNSW_KERNELS]

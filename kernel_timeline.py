@@ -39,6 +39,15 @@ Then ``embedding_bag`` at B = 1 on a table of the two-tower shape (d
 may name alternatives, the code as it is and as it was before the
 kernels' redesign, so the same script stamps both trees.
 
+``--hnsw GRAPH`` stamps ``hnsw_search_kernel`` instead: on chip_smoke's
+[hnsw] graph (``chip_smoke.hnsw_graph``: built over the smoke corpus's
+first 20,000 docs and saved to GRAPH, or loaded from it) at ef = 64, B =
+1 (8 turns, a call each) and B = 32 (4 calls), thread 0 of each block
+reads the SM's clock at each level-0 step's links (picked; the
+adjacency row landed and its neighbours tested; the rows scored;
+merged) and sums each link over the steps, with the descent's time and
+steps, and the script prints per block the µs a step of each link.
+
 The stamps cost a few device instructions and one atomic a block; the
 timeline is for where the time goes, the kernel times are ``chip_smoke.py
 [times]``'s.  Run from the repository root: ``python3 kernel_timeline.py``.
@@ -187,6 +196,56 @@ STAMPS = [
      "  if (lane == 0) rec(11, bag, tl_r0, tl_r1, tl_r2, tl_r3);\n"),
 ]
 
+# hnsw_search_kernel: thread 0 reads the SM's clock at each step's
+# links (picked; the adjacency row landed and its neighbours tested; the
+# rows scored; merged) and sums each link over the steps, and the
+# descent's time and steps; one pair of records a block at its end
+HNSW_STAMPS = [
+    ("hnsw_search.cu", "namespace {\n",
+     "using topk_tie::gtime;\nusing topk_tie::rec;\n"),
+    ("hnsw_search.cu",
+     ("    for (int w = tid; w < words; w += THREADS) vis[w] = fill;\n  }\n"
+      "  __syncthreads();\n",
+      "  for (int w = tid; w < words; w += THREADS) __stcg(vis + w, 0u);\n"
+      "  __syncthreads();\n"),
+     "  const unsigned long long tl_g0 = gtime(), tl_c0 = clock64();\n"
+     "  unsigned long long tl_prev = tl_c0, tl_d = 0, tl_dn = 0, tl_n = 0,\n"
+     "      tl_s0 = 0, tl_s1 = 0, tl_s2 = 0, tl_s3 = 0, tl_p = 0, tl_a = 0,\n"
+     "      tl_r = 0;\n"),
+    ("hnsw_search.cu",
+     ("        par ^= 1;\n",
+      "        cur = ctl[C_CUR];\n        const bool moved = ctl[C_MOVED];\n"
+      "        __syncthreads();\n"),
+     "        ++tl_dn;\n"),
+    ("hnsw_search.cu", ("  // the start's dot, as scored\n  }\n",
+                        "    start = cur;\n  }\n"),
+     "  tl_d = clock64() - tl_c0;\n"),
+    ("hnsw_search.cu",
+     ("  ndist += 1;\n  __syncthreads();\n",
+      "    ndist += 1;\n  }\n  __syncthreads();\n"),
+     "  tl_prev = clock64();\n"),
+    ("hnsw_search.cu",
+     ("      ctl[(step + 1) & 1] = INT_MAX;\n    }\n",
+      "    __syncthreads();\n    if (!ctl[C_GO]) break;\n"),
+     "    tl_p = clock64();\n    tl_s0 += tl_p - tl_prev;\n"),
+    ("hnsw_search.cu",
+     ("      c += __popc(bal);\n    }\n    __syncwarp();\n",
+      "    __syncthreads();\n    const int c = ctl[C_NEW];\n"),
+     "    tl_a = clock64();\n    tl_s1 += tl_a - tl_p;\n"),
+    ("hnsw_search.cu",
+     ("    if (tid < ((c + 3) & ~3) - c) nk[c + tid] = INT_MIN;\n"
+      "    __syncthreads();\n",
+      "      if (lane == 0) nv[j] = s;\n    }\n    __syncthreads();\n"),
+     "    tl_r = clock64();\n    tl_s2 += tl_r - tl_a;\n"),
+    ("hnsw_search.cu", ("    cb ^= 1;\n    __syncthreads();\n",
+                        "    ndist += c;\n    __syncthreads();\n"),
+     "    tl_prev = clock64();\n    tl_s3 += tl_prev - tl_r;\n    ++tl_n;\n"),
+    ("hnsw_search.cu", ("  if (tid == 0) out_nd[b] = ndist;\n",),
+     "  if (tid == 0) {\n"
+     "    rec(12, b, gtime() - tl_g0, clock64() - tl_c0, tl_d, tl_dn, tl_n);\n"
+     "    rec(13, b, tl_s0, tl_s1, tl_s2, tl_s3);\n  }\n"),
+]
+
 # (file, text, text that replaces it): stamps that go before a line
 REPLACE = [
     ("pq_adc.cu", "    __syncthreads();\n  }\n  fold::select_slice(",
@@ -246,7 +305,8 @@ PHASES = {  # tag: (name, columns of the stamps)
 # C sources that get a dump entry: (file, tag, namespace of the recorder)
 DUMPS = (("fused_turn.cu", "ivf", "topk_tie::"),
          ("pq_adc.cu", "pq", "topk_tie::"),
-         ("embedding_bag.cu", "bag", ""))
+         ("embedding_bag.cu", "bag", ""),
+         ("hnsw_search.cu", "hnsw", "topk_tie::"))
 
 
 def instrument() -> None:
@@ -261,7 +321,7 @@ def instrument() -> None:
                 texts[name] = fh.read()
         return texts[name]
 
-    for name, anchors, add in STAMPS:
+    for name, anchors, add in STAMPS + HNSW_STAMPS:
         optional = name.endswith("?")
         name = name.rstrip("?")
         s = text(name)
@@ -379,14 +439,85 @@ def drive() -> None:
                   f"{(x[6] - x[5]) / max(x[4] - x[3], 1):.2f} GHz")
 
 
+def drive_hnsw(graph: str) -> None:
+    """Runs inside the instrumented copy: hnsw_search at ef = 64, k = 10
+    on chip_smoke's [hnsw] graph (``chip_smoke.hnsw_graph``, loaded from
+    or saved to ``graph``) at B = 1 (8 turns, a call each) and B = 32 (4
+    calls), the L2 flushed before each call, after one warm round."""
+    import ctypes
+    import types
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from repro_torch.kernels import _build, ops
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_timeline: no CUDA device")
+    lib = _build.lib()
+    dev = torch.device("cuda")
+    args = types.SimpleNamespace(n_docs=C.MSMARCO_DOCS, d=768, k=10, seed=0,
+                                 hnsw_docs=C.HNSW_DOCS, hnsw_graph=graph)
+    index, flat = C.hnsw_graph(args, dev)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    buf = np.zeros((16384, 7), np.uint64)
+    n = ctypes.c_uint(0)
+    fn = lib.timeline_hnsw
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def dump():
+        if fn(buf.ctypes.data, ctypes.addressof(n)) != 0:
+            raise RuntimeError("timeline_hnsw failed")
+        return buf[:min(n.value, 16384)].copy()
+
+    print(C.card_line())
+    g = (index.vectors, index.adj0, index.upper_adj, index.entry_point)
+    for b, calls in ((1, 8), (32, 4)):
+        qs = [flat[j * b:(j + 1) * b] for j in range(calls)]
+        for q in qs:
+            ops.hnsw_search(*g, q, ef=64, k=10)
+        dump()
+        recs = []
+        for q in qs:
+            flush.zero_()
+            ops.hnsw_search(*g, q, ef=64, k=10)
+            recs.append(dump())
+        r = np.concatenate(recs).astype(np.int64)
+        tot, links = r[r[:, 0] == 12], r[r[:, 0] == 13]
+        ghz = tot[:, 3] / tot[:, 2]             # cycles a ns, per block
+        steps = np.maximum(tot[:, 6], 1)
+        desc = np.maximum(tot[:, 5], 1)
+
+        def stat(v):
+            v = np.sort(v)
+            return f"{v[0]:.3f} / {v[len(v) // 2]:.3f} / {v[-1]:.3f}"
+
+        print(f"hnsw_search ef=64 B={b}: {len(tot)} blocks, min / median / "
+              f"max over the blocks; SM clock {np.median(ghz):.3f} GHz")
+        print(f"  search µs      {stat(tot[:, 2] / 1e3)}")
+        print(f"  descent steps  {stat(tot[:, 5])}; µs a step "
+              f"{stat(tot[:, 4] / ghz / desc / 1e3)}")
+        print(f"  level-0 steps  {stat(tot[:, 6])}; µs a step "
+              f"{stat((tot[:, 3] - tot[:, 4]) / ghz / steps / 1e3)}")
+        for col, name in ((2, "picked"), (3, "adjacency row + tested"),
+                          (4, "rows scored"), (5, "merged")):
+            print(f"  µs a step to {name:24s} {stat(links[:, col] / ghz / steps / 1e3)}")
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--drive":
-        drive()
+        if len(sys.argv) > 2 and sys.argv[2] == "--hnsw":
+            drive_hnsw(sys.argv[3] if len(sys.argv) > 3 else "")
+        else:
+            drive()
         return 0
     instrument()
     shutil.copy(os.path.abspath(__file__), COPY)
     return subprocess.call([sys.executable, os.path.join(
-        COPY, os.path.basename(__file__)), "--drive"], cwd=COPY)
+        COPY, os.path.basename(__file__)), "--drive", *sys.argv[1:]],
+        cwd=COPY)
 
 
 if __name__ == "__main__":

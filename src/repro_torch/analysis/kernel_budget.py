@@ -162,20 +162,25 @@ def default_probes() -> List[Probe]:
 def port_probes() -> List[Probe]:
     """Probes of the port's kernels that no Pallas kernel of the
     reference has: ``ops.hnsw_search`` (the reference's traversal is an
-    XLA ``while_loop``) on a graph of 20,000 nodes at d = 768, m = 16 and
-    three upper levels, ef = 64, k = 10, at a request (B = 1) and at the
-    batched engine's largest wave (B = 32)."""
+    XLA ``while_loop``) at d = 768, m = 16 and three upper levels, k =
+    10, at each instance of its visited set (``tiling.hnsw_visited``):
+    on a graph of 20,000 nodes at ef = 64 (the shared bitmap) at a
+    request (B = 1) and at the batched engine's largest wave (B = 32);
+    on 1,000,000 nodes at ef = 64 (the shared hash) and on 2,000,000 at
+    ef = 256 (the global bitmap), B = 32."""
     from repro_torch.kernels import ops
-    n, d, m = 20_000, 768, 16
+    d, m = 768, 16
 
-    def hnsw(b):
-        return Probe(f"ops.hnsw_search[B={b}]",
+    def hnsw(label, b, n, ef):
+        return Probe(f"ops.hnsw_search[{label}]",
                      (_f32(n, d), _ids(n, 2 * m, n=n), _ids(3, n, m, n=n),
                       Arg((), torch.int32, 0, n), _f32(b, d)),
                      lambda v, a0, up, e, q, device: ops.hnsw_search(
-                         v, a0, up, e, q, ef=64, k=10, device=device))
+                         v, a0, up, e, q, ef=ef, k=10, device=device))
 
-    return [hnsw(1), hnsw(32)]
+    return [hnsw("B=1", 1, 20_000, 64), hnsw("B=32", 32, 20_000, 64),
+            hnsw("hash,B=32", 32, 1_000_000, 64),
+            hnsw("global,B=32", 32, 2_000_000, 256)]
 
 
 def record(probe: Probe, tensors: Optional[Sequence[torch.Tensor]] = None,
@@ -208,10 +213,13 @@ def traced(probe: Probe, tensors: Sequence[torch.Tensor], device,
     order, from the Kineto trace's kernel events ("grid", "block",
     "shared memory": static plus dynamic).  ``before`` runs ahead of
     each traced call (``kernels.ops.drop_scales``: the call then runs
-    the one-time int8 scale pass as a first call does).  A trace with no
-    kernel at all is the profiler missing the session (every probe
-    launches one), so it is taken again, with the host's activity
-    traced too, up to ``tries`` times."""
+    the one-time int8 scale pass as a first call does).  Each session
+    first runs the call in a warm-up step whose events are discarded
+    (``schedule(warmup=1, active=1)``) and records only the second: the
+    activity tracing a session starts can miss the first kernel launched
+    behind it.  A trace with no kernel at all is the profiler missing
+    the session (every probe launches one), so it is taken again, with
+    the host's activity traced too, up to ``tries`` times."""
     import json
     import os
     import re
@@ -220,14 +228,20 @@ def traced(probe: Probe, tensors: Sequence[torch.Tensor], device,
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     for _ in range(tries):
-        if before is not None:
-            before()
-        with torch.profiler.profile(activities=acts) as prof:
-            probe.call(*tensors, device=device)
-            torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
+            with torch.profiler.profile(
+                    activities=acts,
+                    schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                     active=1, repeat=1),
+                    on_trace_ready=lambda p: p.export_chrome_trace(path)
+                    ) as prof:
+                for _ in range(2):
+                    if before is not None:
+                        before()
+                    probe.call(*tensors, device=device)
+                    torch.cuda.synchronize()
+                    prof.step()
             with open(path) as fh:
                 events = json.load(fh)["traceEvents"]
         if any(e.get("cat") == "kernel" for e in events):

@@ -61,8 +61,8 @@ SIGNATURES = {
                           P, P],
     "centroid_topk": [P, P, I, I, I, I, I, P, P, P, P, P, P],
     "ivf_scan": [P, P, I, P, I, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
-    "hnsw_search": [P, I, I, P, I, P, I, I, P, P, I, P, P, I, I, I, P, I,
-                    P, P, P, P],
+    "hnsw_search": [P, I, I, P, I, P, I, I, P, P, I, P, P, I, I, I, I, P,
+                    I, P, P, P, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

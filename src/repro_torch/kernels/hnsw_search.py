@@ -3,7 +3,8 @@
 Counterpart of the reference's XLA traversal ``repro/core/hnsw.py``
 ``_search_impl`` (no Pallas kernel there).  As the other bindings: CUDA
 tensors only, every operand checked (device, dtype, shape, contiguity,
-16-byte rows), outputs and the visited scratch allocated here, and the
+16-byte rows), outputs and (for the global instance of the visited
+set) its scratch allocated here, and the
 entry with its launch plan handed to ``launcher.run``: one launch on
 PyTorch's current stream, no host sync.  Ids are not checked against n
 here (that needs them on the host): the index's build makes them, and
@@ -23,14 +24,17 @@ from repro_torch.kernels.embedding_bag import _check
 def hnsw_search(vectors: torch.Tensor, adj0: torch.Tensor,
                 upper_adj: torch.Tensor, entry_point: torch.Tensor,
                 queries: torch.Tensor, entry_override: Optional[torch.Tensor],
-                deleted: Optional[torch.Tensor], *, ef: int, k: int
+                deleted: Optional[torch.Tensor], *, ef: int, k: int,
+                visited: str = ""
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Search B queries: vectors (n, d) float32, adj0 (n, 2M) and
     upper_adj (L, n, M) int32 with -1 pads, entry_point () int32,
     queries (B, d) float32, entry_override (B,) int32 or None (then the
     descent runs), deleted (n,) bool or None.  Returns (scores (B, k)
     float32, ids (B, k) int32, ndist (B,) int32).  A B of 0 launches
-    nothing."""
+    nothing.  ``visited`` forces an instance of the visited set
+    (``tiling.HNSW_VISITED``; by default ``tiling.hnsw_visited``'s
+    choice): every instance gives the same bits."""
     _check("vectors", vectors, torch.float32, 2)
     _check("adj0", adj0, torch.int32, 2)
     _check("upper_adj", upper_adj, torch.int32, 3)
@@ -64,13 +68,17 @@ def hnsw_search(vectors: torch.Tensor, adj0: torch.Tensor,
     if b > tiling.MAX_GRID_X or n >= 2 ** 31 - 31:
         raise ValueError(f"batch {b} or {n} nodes out of range")
     dev = queries.device
-    words = (n + 31) // 32
+    kind, words = tiling.hnsw_visited(n, d, ef, deg, visited)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     out_nd = torch.empty((b,), dtype=torch.int32, device=dev)
-    visited = torch.empty((b, words), dtype=torch.int32, device=dev)
-    launcher.run("hnsw_search", tiling.plan_hnsw_search(b, d), dev, vectors,
-                 n, d, adj0, deg, upper_adj if levels else None, levels, m,
-                 entry_point, queries, b, entry_override, deleted, ef, k,
-                 4 * ef + 16, visited, words, out_v, out_i, out_nd)
+    scratch = (torch.empty((b, words), dtype=torch.int32, device=dev)
+               if kind == "global" else None)
+    launcher.run("hnsw_search",
+                 tiling.plan_hnsw_search(b, d, n, ef, deg, kind), dev,
+                 vectors, n, d, adj0, deg, upper_adj if levels else None,
+                 levels, m, entry_point, queries, b, entry_override, deleted,
+                 ef, k, tiling.hnsw_max_steps(ef),
+                 tiling.HNSW_VISITED.index(kind), scratch, words, out_v,
+                 out_i, out_nd)
     return out_v, out_i, out_nd

@@ -387,6 +387,12 @@ BAG_ROWS_MAX_B = 512
 HNSW_THREADS = 256
 HNSW_MAX_EF = 256
 HNSW_MAX_DEGREE = 256
+# Its visited sets (csrc/hnsw_search.cu V_*, in code order): a bitmap of
+# n bits or an open-addressed hash of ids in shared memory, or a bitmap
+# in global scratch; the hash is sized for a search's most ids at a load
+# of at most HNSW_HASH_LOAD (11/20), so its probes stay short
+HNSW_VISITED = ("bitmap", "hash", "global")
+HNSW_HASH_LOAD = (11, 20)
 
 STATIC_SMEM: Dict[str, int] = {
     # sv [QTILE][CENTROID_CHUNK + 1] (the 8-query instance;
@@ -406,10 +412,11 @@ STATIC_SMEM: Dict[str, int] = {
     "embedding_bag_kernel": 0,
     # rows [BAG_ROWS_CHUNK][BAG_SLICE], sid and sw [BAG_ROWS_CHUNK]
     "bag_rows_kernel": BAG_ROWS_CHUNK * (BAG_SLICE + 2) * 4,
-    # bv / bi / be [HNSW_MAX_EF], nv / ni [HNSW_MAX_DEGREE], wv / wj / wn
-    # [warps], ctl[8]
-    "hnsw_search_kernel": (3 * HNSW_MAX_EF + 2 * HNSW_MAX_DEGREE
-                           + 3 * HNSW_THREADS // WARP + 8) * 4,
+    # bv / bi / be [2][HNSW_MAX_EF], nv / ni / nk [HNSW_MAX_DEGREE],
+    # wv / wj / wi / wn [2][warps], ctl[4]; the query and a shared
+    # visited set are dynamic (plan_hnsw_search)
+    "hnsw_search_kernel": (6 * HNSW_MAX_EF + 3 * HNSW_MAX_DEGREE
+                           + 8 * HNSW_THREADS // WARP + 4) * 4,
 }
 # The int8 instances keep the arrays of their scale reductions (red[32];
 # stage 1's sq: centroid_static); the compiler drops them from the f32
@@ -717,9 +724,51 @@ def plan_embedding_bag(b: int, d: int, kernel: str = "") -> List[Launch]:
                     BAG_WARPS * WARP, 0, False)]
 
 
-def plan_hnsw_search(b: int, d: int) -> List[Launch]:
-    """``hnsw_search``: ``hnsw_search_kernel``, one block a query, the
-    query in dynamic shared memory (its cap raised once, as every
+def hnsw_max_steps(ef: int) -> int:
+    """The level-0 steps a search takes at most (the reference's
+    ``4 ef + 16``)."""
+    return 4 * ef + 16
+
+
+def hnsw_visited(n: int, d: int, ef: int, degree: int,
+                 visited: str = "") -> Tuple[str, int]:
+    """(instance, words) of the HNSW kernel's visited set for n nodes,
+    a query of d floats, a beam of ef and ``degree`` level-0 neighbours:
+    a bitmap of ceil(n / 32) words or a hash of ceil(visits / load)
+    slots, visits = min(n, 1 + max_steps x degree) the most ids a
+    search marks, in shared memory beside the query and the static
+    arrays, the smaller of the two that fits (a bitmap on a tie);
+    else a bitmap of ceil(n / 32) words a query in global scratch.
+    ``visited`` names an instance to force (ValueError where it does not
+    fit)."""
+    if visited not in ("",) + HNSW_VISITED:
+        raise ValueError(f"visited must be one of {HNSW_VISITED}, got "
+                         f"{visited!r}")
+    bitmap = -(-n // WARP)
+    visits = min(n, 1 + hnsw_max_steps(ef) * degree)
+    num, den = HNSW_HASH_LOAD
+    sizes = {"bitmap": bitmap, "hash": -(-visits * den // num)}
+    room = (SMEM_BLOCK_BYTES - STATIC_SMEM["hnsw_search_kernel"]
+            - d * 4) // 4
+    fits = [v for v in ("bitmap", "hash") if sizes[v] <= room]
+    if visited == "global" or (not visited and not fits):
+        return "global", bitmap
+    if not visited:
+        visited = min(fits, key=sizes.get)
+    elif visited not in fits:
+        raise ValueError(f"a {visited} of {sizes[visited]} words does not "
+                         f"fit the {room} words of shared memory left "
+                         f"beside a query of d={d}")
+    return visited, sizes[visited]
+
+
+def plan_hnsw_search(b: int, d: int, n: int, ef: int, degree: int,
+                     visited: str = "") -> List[Launch]:
+    """``hnsw_search``: ``hnsw_search_kernel``, one block a query; in
+    dynamic shared memory the query and, for a shared instance, the
+    visited set (``hnsw_visited``; the cap raised once, as every
     kernel's)."""
-    return [_launch("hnsw_search_kernel", (b,), HNSW_THREADS, d * 4,
+    kind, words = hnsw_visited(n, d, ef, degree, visited)
+    smem = d * 4 + (0 if kind == "global" else words * 4)
+    return [_launch("hnsw_search_kernel", (b,), HNSW_THREADS, smem,
                     True)] if b else []

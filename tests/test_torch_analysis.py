@@ -296,6 +296,120 @@ def test_served_pq_plans_launch_the_adc_kernel_once(no_build):
          49_152 + 3 * tiling.PQ_ROWS * 4)]
 
 
+# ------------------------------------------------------------- hnsw_search
+
+def _hnsw_room(d):
+    """Words of shared memory a block has beside the query and the HNSW
+    kernel's static arrays."""
+    return (tiling.SMEM_BLOCK_BYTES - tiling.STATIC_SMEM["hnsw_search_kernel"]
+            - d * 4) // 4
+
+
+def _widest():
+    """The widest query row ``check_hnsw`` admits."""
+    d = 4
+    while True:
+        try:
+            tiling.check_hnsw(d + 4, 1, 1, 1)
+        except ValueError:
+            return d
+        d += 4
+
+
+@pytest.mark.parametrize("ef", [1, 32, 64, 128, 256])
+@pytest.mark.parametrize("degree", [1, 16, 32, 64, 256])
+def test_hnsw_plan_fits_every_shape_check_hnsw_admits(ef, degree):
+    """Over n from 1 to 2^31 - 32 and d from 4 to the widest row
+    ``check_hnsw`` admits: the plan picks the smaller of the shared
+    bitmap (ceil(n / 32) words) and the shared hash (visits x 20 / 11
+    slots, visits = min(n, 1 + (4 ef + 16) degree)) that fits, else the
+    global bitmap; its shared memory is what the kernel takes (static,
+    the query, a shared set) and never past the block's 232,448 B; the
+    words pass the kernel's own checks; an instance forced where it does
+    not fit is refused."""
+    for d in (4, 64, 768, _widest()):
+        tiling.check_hnsw(d, ef, degree, 1)
+        room = _hnsw_room(d)
+        for n in (1, 600, 20_000, 1_000_000, 2_000_000, 8_841_823,
+                  2 ** 31 - 32):
+            bitmap = -(-n // 32)
+            visits = min(n, 1 + (4 * ef + 16) * degree)
+            sizes = {"bitmap": bitmap, "hash": -(-visits * 20 // 11)}
+            fits = {v: w for v, w in sizes.items() if w <= room}
+            kind, words = tiling.hnsw_visited(n, d, ef, degree)
+            if fits:
+                assert kind == min(fits, key=fits.get)
+                assert words == fits[kind]
+            else:
+                assert (kind, words) == ("global", bitmap)
+            if kind == "hash":
+                assert words * 11 >= visits * 20 and words > visits
+            else:
+                assert words >= bitmap
+            (plan,) = tiling.plan_hnsw_search(32, d, n, ef, degree)
+            assert plan.kernel == "hnsw_search_kernel"
+            assert plan.grid == (32, 1, 1) and plan.opt_in
+            assert plan.dyn_smem_bytes == d * 4 + (
+                0 if kind == "global" else words * 4)
+            assert plan.smem_bytes <= tiling.SMEM_BLOCK_BYTES
+            assert kb.check_smem(plan, "hnsw") == []
+            for forced in tiling.HNSW_VISITED:
+                if forced == "global" or forced in fits:
+                    assert tiling.hnsw_visited(n, d, ef, degree, forced) == (
+                        forced, bitmap if forced == "global"
+                        else sizes[forced])
+                else:
+                    with pytest.raises(ValueError, match="does not fit"):
+                        tiling.hnsw_visited(n, d, ef, degree, forced)
+
+
+@pytest.mark.parametrize("n,ef,degree,kind", [
+    (2_000, 256, 16, "bitmap"),          # the card tests' integer graph
+    (20_000, 32, 32, "bitmap"),          # the smoke's graph, ef 32 / 64,
+    (20_000, 64, 32, "bitmap"),          # and a first turn's up x ef
+    (20_000, 128, 32, "bitmap"),
+    (600_000, 64, 32, "hash"),
+    (8_841_823, 32, 32, "hash"),         # the collection's 8.8 M docs
+    (8_841_823, 64, 32, "hash"),
+    (8_841_823, 128, 32, "hash"),
+    (8_841_823, 256, 32, "global"),
+    (8_841_823, 64, 256, "global"),      # the degree cap
+    (2_000_000, 256, 32, "global"),
+])
+def test_hnsw_plan_picks_the_instance_at_served_shapes(n, ef, degree, kind):
+    """d = 768: the shared bitmap while ceil(n / 32) words are fewer
+    than the hash's slots (n up to 506,496 at ef = 64, deg 32), then the
+    shared hash (15,828 slots, 63 KB, at ef = 64; 30,722 at ef = 128),
+    the global bitmap where the hash's slots pass the block's room (ef
+    256, or degree 256)."""
+    assert tiling.hnsw_visited(n, 768, ef, degree)[0] == kind
+
+
+def test_hnsw_plan_refuses_an_unknown_instance():
+    with pytest.raises(ValueError, match="visited must be one of"):
+        tiling.hnsw_visited(100, 768, 64, 32, "tree")
+
+
+def test_the_pass_reaches_hnsw_search_at_each_instance(no_build,
+                                                       monkeypatch):
+    """The port's probes record an ``hnsw_search`` launch at every
+    instance of the visited set, each with the plan ``tiling`` gives
+    for its shapes."""
+    chosen = []
+    real = tiling.hnsw_visited
+
+    def spy(*a, **kw):
+        chosen.append(real(*a, **kw)[0])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tiling, "hnsw_visited", spy)
+    for probe in kb.port_probes():
+        (rec,) = kb.record(probe)
+        assert rec.entry == "hnsw_search"
+        assert kb.check_smem(rec.plan[0], probe.label) == []
+    assert set(chosen) == set(tiling.HNSW_VISITED)
+
+
 # ---------------------------------------------------------------- the CLI
 
 

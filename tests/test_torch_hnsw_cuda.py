@@ -9,6 +9,12 @@ repository's conftest imports JAX).  On graphs the port builds:
   bit, ids, scores and ndist, exact ties included, with and without an
   entry override and with tombstones, at ef 1 to 256; on a chain graph
   both stop at the step cap 4 ef + 16;
+* each instance of the visited set (``tiling.HNSW_VISITED``: a bitmap or
+  a hash in shared memory, a bitmap in global scratch), forced on the
+  same inputs, gives the same bits as the others and as the plain
+  version; on a comb graph every step of a search finds deg fresh ids
+  until the step cap, so a search visits 1 + (4 ef + 16) deg ids, the
+  hash's highest load; the step cap holds at every instance;
 * on float vectors the scores agree within 1e-5 where the traversals
   agree, and at most 1 % of the queries take another path (a near tie
   resolved by the other summation order);
@@ -26,8 +32,10 @@ import pytest
 import torch
 
 from repro_torch.core import hnsw
+from repro_torch.kernels import hnsw_search as hs
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import tiling
 
 TOL = 1e-5
 
@@ -102,12 +110,92 @@ def test_cuda_kernel_equals_plain_version_on_integers(dev, int_graph, case,
         assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
+def _forced(index, q, visited, entry_override=None, **kw):
+    """The kernel with the visited set's instance ``visited`` forced."""
+    got = hs.hnsw_search(index.vectors, index.adj0, index.upper_adj,
+                         index.entry_point, q, entry_override,
+                         index.deleted, visited=visited, **kw)
+    torch.cuda.synchronize()
+    return got
+
+
+def _same(got, want):
+    for g, w, name in zip(got, want, ("scores", "ids", "ndist")):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
 @pytest.mark.cuda_only
+@pytest.mark.parametrize("case", ["descent", "override", "tombstones"])
+@pytest.mark.parametrize("ef,k", [(8, 8), (64, 10), (256, 256)])
+def test_cuda_each_visited_set_gives_the_same_bits(dev, int_graph, case,
+                                                   ef, k):
+    index, x = int_graph
+    q = _queries(x, 40, ef + 1, dev)
+    kw = dict(ef=ef, k=k)
+    if case == "override":
+        kw["entry_override"] = torch.randint(
+            0, index.n, (40,), generator=torch.Generator().manual_seed(ef),
+            dtype=torch.int32).to(dev)
+    elif case == "tombstones":
+        dead = torch.zeros(index.n, dtype=torch.bool)
+        dead[torch.randperm(index.n, generator=torch.Generator()
+                            .manual_seed(ef))[:600]] = True
+        index = index._replace(deleted=dead.to(dev))
+    _, want = _both(index, q, **dict(kw))
+    for visited in tiling.HNSW_VISITED:
+        _same(_forced(index, q, visited, **dict(kw)), want)
+
+
+def _comb(ef, deg, dev):
+    """A spine s_0 -> s_1 -> ... whose node t has dot t + 1 with the
+    query (1, 0, 0, 0), each spine node linked to the next and to deg - 1
+    leaves of its own (dot 0): from s_0 every step expands the newest
+    spine node and finds deg fresh ids, to the step cap 4 ef + 16."""
+    steps = tiling.hnsw_max_steps(ef)
+    spine = steps + 2
+    n = spine * deg
+    x = np.zeros((n, 4), np.float32)
+    x[:spine, 0] = np.arange(1, spine + 1)
+    x[spine:, 1] = 1.0
+    adj0 = np.full((n, deg), -1, np.int32)
+    adj0[:spine - 1, 0] = np.arange(1, spine)
+    adj0[:spine, 1:] = spine + np.arange(spine * (deg - 1)).reshape(
+        spine, deg - 1)
+    index = hnsw.HNSWIndex(
+        torch.from_numpy(x).to(dev), torch.from_numpy(adj0).to(dev),
+        torch.zeros((0, n, 1), dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev),
+        torch.zeros(n, dtype=torch.int32, device=dev))
+    return index, 1 + steps * deg
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("ef", [1, 16, 64, 128])
+def test_cuda_visited_sets_at_the_most_ids_a_search_visits(dev, ef):
+    """The comb graph at deg 32: a search visits 1 + (4 ef + 16) 32 ids,
+    the number the hash is sized for (load 11/20); every instance gives
+    the plain version's bits."""
+    index, visits = _comb(ef, 32, dev)
+    q = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev)
+    entry = torch.zeros(1, dtype=torch.int32, device=dev)
+    kind, slots = tiling.hnsw_visited(index.n, 4, ef, 32, "hash")
+    assert visits * 20 <= slots * 11 < visits * 20 + 11
+    (v, i, nd), want = _both(index, q, ef=ef, k=ef, entry_override=entry)
+    assert int(nd[0]) == visits
+    _same((v, i, nd), want)
+    for visited in tiling.HNSW_VISITED:
+        _same(_forced(index, q, visited, ef=ef, k=ef, entry_override=entry),
+              want)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("visited", tiling.HNSW_VISITED)
 @pytest.mark.parametrize("ef", [1, 2, 4])
-def test_cuda_kernel_stops_at_the_step_cap(dev, ef):
+def test_cuda_kernel_stops_at_the_step_cap(dev, ef, visited):
     """A chain of 200 nodes on an arc, each linked to its two
     neighbours, queries at the far end: every step finds a better node,
-    so the beam stops at 4 ef + 16 steps, as the plain version does."""
+    so the beam stops at 4 ef + 16 steps, as the plain version does, at
+    every instance of the visited set."""
     n = 200
     theta = np.linspace(0.0, np.pi / 2, n)
     x = np.zeros((n, 4), np.float32)
@@ -121,7 +209,8 @@ def test_cuda_kernel_stops_at_the_step_cap(dev, ef):
         torch.zeros(n, dtype=torch.int32, device=dev))
     q = torch.tensor([[0.0, 1.0, 0.0, 0.0], [0.3, 0.9, 0.0, 0.0]],
                      device=dev)
-    (v, i, nd), (pv, pi, pnd) = _both(index, q, ef=ef, k=ef)
+    _, (pv, pi, pnd) = _both(index, q, ef=ef, k=ef)
+    v, i, nd = _forced(index, q, visited, ef=ef, k=ef)
     assert torch.equal(i, pi) and torch.equal(nd, pnd)
     assert float((v - pv).abs().max()) <= TOL
     assert 0 < int(i[0, 0]) < 4 * ef + 16 + 2 < n - 1
