@@ -120,6 +120,22 @@ exits non-zero):
               rows 4-7 at f32, bf16 and int8; flash_attention at
               dragon's B = 1 and 64 (float32, 3xTF32 bound) and Yi-9B's
               bf16 prefill (B = 1, S = 784, causal) beside SDPA
+    segment   the mutable corpus (core.segment), fig6's protocol: fig3's
+              32 x 10 through the batched engine at max_batch 32, ingest
+              off and on (each wave: add docs, delete a doc it served,
+              compact when the segment would overflow); HNSW toploc on
+              the [hnsw] graph (cap 256, 64 docs a wave), then IVF (p =
+              4,096) and IVF-PQ over the corpus's first 2,000,000 docs
+              (cap 2,048, 512 docs a wave), toploc+ fused f32 / int8,
+              plain fused, toploc+ unfused; per path wave p50 / p99,
+              docs/s, add p50, each compaction's ms, peak memory; gates:
+              an empty delta == the wrapped backend, no deleted doc
+              served, compact == segment.rebuild (torch.equal; HNSW's
+              rebuild in a child process), the sequential replay == the
+              batched run; the holed-index checks: rows 3-7 (f32 / bf16
+              / int8) and hnsw_search bit-equal to their plain versions
+              on lists with holes, dead slices and lists, and on
+              tombstoned graphs
  15 decode32k once the retrieval objects are freed: Yi-9B at decode_32k
               (S = 32,768) cut from B = 128 to B = 8 (412 GB of cache
               at B = 128; 25.8 GB at B = 8), ragged cache_len; step ms
@@ -135,7 +151,8 @@ and prints only the [stages] split; ``--dump-rows PATH`` builds and saves
 rows 1-7's outputs on the seeded realistic inputs and hnsw_search's on a
 seeded graph to PATH, so the kernels of two checkouts can be held to
 each other bit for bit (``--same-dumps A B``);
-``--hnsw-only`` builds and runs only the corpus, [hnsw] and the [exact]
+``--segment-only`` builds and runs only the corpus, the [hnsw] graph
+and [segment]; ``--hnsw-only`` builds and runs only the corpus, [hnsw] and the [exact]
 serve; ``--hnsw-docs`` sizes the graph; ``--hnsw-times`` builds and
 prints only a device-memory round trip (a pointer chase) and
 hnsw_search's times on the [hnsw] graph beside its byte and chain
@@ -146,7 +163,7 @@ range of batch sizes ([bag], ``phase_bag_sweep``); ``--adc-times``
 builds and times only the rows that run the ADC scan, rows 3, 5 and 7
 at every precision and B = 1 to 32 with each instance of the scan forced
 ([adc], ``phase_adc_times``), so two checkouts can be compared in one
-call.  The six may be given
+call.  The seven may be given
 together.
 """
 from __future__ import annotations
@@ -3548,7 +3565,7 @@ def phase_hnsw(args, docs, convs, bconvs, dev):
         f"round trip (256 MB, L2 flushed), {rtt['l2']:.1f} ns an L2 hit "
         f"(4 MB)")
     times = hnsw_times(index, flat, k, rtt["dram"])
-    return launches, err, times[1]
+    return launches, err, times[1], index
 
 
 def phase_exact_serve(docs, convs, exact):
@@ -4014,6 +4031,478 @@ def phase_attn_times(args, dev):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# [segment]: the mutable corpus (core.segment), fig6's protocol
+# ---------------------------------------------------------------------------
+
+SEG_DOCS, SEG_LISTS = 2_000_000, 4_096   # three copies of the lists fit
+SEG_CAP, SEG_ADD = 2_048, 512            # fig6's cap; two compactions
+SEG_HNSW_CAP, SEG_HNSW_ADD = 256, 64
+SEG_BATCH = 32
+SEG_POOL_SEED = 61
+SEG_PATHS = (("ivf", "toploc+ fused", dict(strategy="toploc+", fused=True)),
+             ("ivf", "toploc+ fused int8", dict(strategy="toploc+",
+                                                fused=True,
+                                                precision="int8")),
+             ("ivf", "plain fused", dict(strategy="plain", fused=True)),
+             ("ivf", "toploc+ unfused", dict(strategy="toploc+",
+                                             fused=False)),
+             ("ivf_pq", "toploc+ fused", dict(strategy="toploc+",
+                                              fused=True)),
+             ("ivf_pq", "plain fused", dict(strategy="plain", fused=True)),
+             ("ivf_pq", "toploc+ unfused", dict(strategy="toploc+",
+                                                fused=False)))
+# the HNSW oracle (hnsw.build over the [hnsw] graph's docs and the added
+# ones, ~75 s of host numpy) runs in a child process beside the IVF legs
+SEG_REBUILD_SRC = r"""
+import sys
+import time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core import backend, hnsw, segment
+z = np.load(sys.argv[2])
+t0 = time.perf_counter()
+seg = segment.rebuild(backend.make("hnsw"), hnsw.load(sys.argv[3], "cpu"),
+                      z["added"], z["deleted"], cap=int(z["cap"]),
+                      ef_construction=int(z["efc"]), seed=int(z["seed"]))
+print(time.perf_counter() - t0)
+np.savez(sys.argv[4], *[t.numpy() for t in list(seg.base) + list(seg[1:])])
+"""
+
+
+def seg_leaves(tree):
+    out = []
+    for x in tree:
+        out += seg_leaves(x) if isinstance(x, tuple) else [x]
+    return out
+
+
+def seg_equal(what, got, want):
+    """Every tensor of two segmented indexes (or lists of tensors)
+    torch.equal: dtype, shape and bits.  Returns how many."""
+    import torch
+    a, b = seg_leaves(got), seg_leaves(want)
+    if len(a) != len(b) or any(
+            (x is None) != (y is None) or (x is not None and (
+                x.dtype != y.dtype or not torch.equal(x, y.to(x.device))))
+            for x, y in zip(a, b)):
+        raise AssertionError(f"[segment] {what}: the indexes differ")
+    return sum(x is not None for x in a)
+
+
+def seg_pool(n, d, seed, dev):
+    """fig6's ingest pool: ``n`` seeded unit-norm docs on the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def seg_drive(eng, convs, pool, n_add, cap, build_kw, ingest, picks=None):
+    """fig6's wave loop (``benchmarks/fig6_ingest.py`` ``drive``): each
+    round every conversation submits its turn and the engine drains (a
+    sequential engine answers them in order); with ``ingest`` each wave
+    is followed by a ``compact()`` when the next add would overflow the
+    segment, one ``add_documents`` of ``n_add`` pool docs, and one delete
+    of the top doc the wave served conversation ``t % n`` (or of
+    ``picks[t]``: another run's picks, replayed).  Returns the served
+    scores and ids, the wave, add and compaction seconds, the added docs,
+    the deleted ids, the picks, and how many served docs had been
+    deleted before their turn was submitted."""
+    import torch
+    from repro_torch.serving import BatchedConversationalSearchEngine
+    n_conv, turns = convs.shape[:2]
+    vs = np.zeros((n_conv, turns, eng.cfg.k), np.float32)
+    ids = np.zeros((n_conv, turns, eng.cfg.k), np.int64)
+    out = dict(wave_s=[], add_s=[], compact_s=[], deleted=[], picks=[],
+               stale=0)
+    added, fill = [], 0
+    batched = isinstance(eng, BatchedConversationalSearchEngine)
+    for t in range(turns):
+        gone = list(out["deleted"])
+        t0 = time.perf_counter()
+        if batched:
+            futs = [eng.submit(f"c{c}", convs[c, t]) for c in range(n_conv)]
+            eng.drain()
+            rows = [f.result() for f in futs]
+        else:
+            rows = [eng.query(f"c{c}", convs[c, t]) for c in range(n_conv)]
+        out["wave_s"].append(time.perf_counter() - t0)
+        for c, (v, i) in enumerate(rows):
+            vs[c, t], ids[c, t] = v, i
+        out["stale"] += int(np.isin(ids[:, t], gone).sum())
+        if not ingest:
+            continue
+        if fill + n_add > cap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.compact(**build_kw)
+            torch.cuda.synchronize()
+            out["compact_s"].append(time.perf_counter() - t0)
+            fill = 0
+        batch = pool[t * n_add:(t + 1) * n_add]
+        t0 = time.perf_counter()
+        eng.add_documents(batch)
+        torch.cuda.synchronize()
+        out["add_s"].append(time.perf_counter() - t0)
+        added.append(batch)
+        fill += n_add
+        victim = int(ids[t % n_conv, t, 0]) if picks is None else picks[t]
+        out["picks"].append(victim)
+        if victim >= 0 and victim not in gone:
+            eng.delete_documents([victim])
+            out["deleted"].append(victim)
+    out.update(v=vs, ids=ids, added=torch.cat(added) if added else None)
+    return out
+
+
+def seg_same(what, a, a_eng, b, b_eng):
+    """Two runs served the same scores, ids and counters, bit for bit."""
+    def recs(eng):
+        return sorted((r.conv_id, r.turn) + tuple(getattr(r, f)
+                                                   for f in BATCH_KEYS)
+                      for r in eng.records)
+    if not (np.array_equal(a["v"], b["v"])
+            and np.array_equal(a["ids"], b["ids"])
+            and recs(a_eng) == recs(b_eng)):
+        raise AssertionError(f"[segment] {what}")
+
+
+def seg_leg(card, backend, name, knobs, index, convs, pool, cap, n_add,
+            build_kw, rebuild=True):
+    """One path under fig6's protocol, the batched engine at max_batch
+    32: a frozen engine and the segmented engine with ingest off (an
+    empty delta reproduces the wrapped backend bit for bit), then ingest
+    on with the launch counts set to 0 just before and read just after
+    (each of the path's kernels launched, no deleted doc served), the
+    last compaction, the compacted index == ``segment.rebuild`` over the
+    pristine index and the whole history (unless ``rebuild`` is False:
+    the caller holds it), and the script replayed through the sequential
+    engine == the batched run and its index, bit for bit.  Returns
+    (launches by kernel, the engine, the ingest run)."""
+    import torch
+    from repro_torch.core import segment
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (BatchedConversationalSearchEngine,
+                                     ConversationalSearchEngine,
+                                     ServingConfig)
+    cfg = ServingConfig(backend=backend, segment_cap=cap, **knobs)
+    kw = {f"{backend}_index": index}
+
+    def batched(c=cfg):
+        return BatchedConversationalSearchEngine(
+            c, n_slots=convs.shape[0], max_batch=SEG_BATCH, max_wait_s=0.0,
+            max_inflight=2, **kw)
+
+    def drive(eng, ingest, picks=None):
+        return seg_drive(eng, convs, pool, n_add, cap, build_kw, ingest,
+                         picks)
+
+    # a batched engine and its batcher hold each other: free the last
+    # leg's engines (and their compacted indexes) before this one's
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_rounds(batched(), convs[:, :1])                          # warm
+    frozen_eng = batched(dataclasses.replace(cfg, segment_cap=0))
+    frozen = drive(frozen_eng, False)
+    off_eng = batched()
+    off = drive(off_eng, False)
+    seg_same(f"{backend} {name}: an empty delta differs from the wrapped "
+             f"backend", off, off_eng, frozen, frozen_eng)
+    kernels = (HNSW_KERNELS if backend == "hnsw"
+               else path_kernels(backend, cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eng = batched()
+    on = drive(eng, True)
+    counts = {n: getattr(ops, n).launches for n in kernels}
+    if 0 in counts.values():
+        raise AssertionError(f"[segment] {backend} {name}: a kernel of the "
+                             f"path was not launched: {counts}")
+    if on["stale"] or off["stale"]:
+        raise AssertionError(f"[segment] {backend} {name}: served "
+                             f"{on['stale']} deleted docs")
+    t0 = time.perf_counter()
+    eng.compact(**build_kw)
+    torch.cuda.synchronize()
+    last_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_eq = 0
+    if rebuild:
+        n_eq = seg_equal(f"{backend} {name}: compact != rebuild", eng.index,
+                         segment.rebuild(eng._seg_inner, index, on["added"],
+                                         on["deleted"], cap=cap, **build_kw))
+    seq = ConversationalSearchEngine(cfg, **kw)
+    rep = drive(seq, True, on["picks"])
+    seg_same(f"{backend} {name}: the sequential replay differs from the "
+             f"batched run", rep, seq, on, eng)
+    seq.compact(**build_kw)
+    seg_equal(f"{backend} {name}: sequential != batched index", seq.index,
+              eng.index)
+    del seq, frozen_eng, off_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    wave = {run: np.percentile(np.asarray(r["wave_s"]) * 1e3, [50, 99])
+            for run, r in (("frozen", frozen), ("off", off), ("on", on))}
+    n_added = on["added"].shape[0]
+    log("segment", f"{backend} {name} ({card}): wave p50 / p99 ms frozen "
+        f"index {wave['frozen'][0]:.3f} / {wave['frozen'][1]:.3f}, ingest "
+        f"off {wave['off'][0]:.3f} / {wave['off'][1]:.3f}, on "
+        f"{wave['on'][0]:.3f} / {wave['on'][1]:.3f}; ingest "
+        f"{n_added / sum(on['add_s']):.1f} docs/s, add p50 "
+        f"{np.percentile(np.asarray(on['add_s']) * 1e3, 50):.3f} ms ("
+        f"{n_add} docs); compactions ms "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in on['compact_s'])}, last "
+        f"{last_ms:.1f}; peak {peak:.1f} GB; {n_added} added, "
+        f"{len(on['deleted'])} deleted, 0 deleted docs served; launches "
+        + (" ".join(f"{n}={c}" for n, c in counts.items())
+           or "none (plain PyTorch, where the reference runs XLA)")
+        + (f"; compact == rebuild ({n_eq} tensors torch.equal)" if rebuild
+           else "") + "; empty delta == the wrapped backend; sequential "
+        "replay == batched (ids, scores, TurnStats, index)")
+    return counts, eng, on
+
+
+def seg_holed_lists(p, lmax, d, gen, dev):
+    """Integer lists (values -4..4) with the holes a delete leaves: ~30 %
+    of every list dead mid-list, list 0 every third row, list 1 its
+    first 128-row slice dead and the next live, lists 2 and 192..255 all
+    dead, list 191 two live rows mid-list, list 4 a live prefix and zero
+    tail pads.  Dead rows keep their vectors; ids are unique."""
+    import torch
+    lv = torch.randint(-4, 5, (p, lmax, d), generator=gen, device=dev
+                       ).float()
+    ids = torch.arange(p * lmax, device=dev, dtype=torch.int32
+                       ).view(p, lmax)
+    live = torch.rand((p, lmax), generator=gen, device=dev) > 0.3
+    r = torch.arange(lmax, device=dev)
+    live[0] = r % 3 != 1
+    live[1] = r >= 128
+    live[2] = False
+    live[192:] = False
+    live[191] = (r == 150) | (r == 151)
+    live[4] = r < 40
+    lv[4, 40:] = 0
+    return lv, torch.where(live, ids, -1)
+
+
+def phase_segment_holes(args, dev, card):
+    """Rows 3-7 at f32 / bf16 / int8 and hnsw_search on edited indexes,
+    integer inputs (exact dots): bit-equal to their plain versions.
+    256 lists of the [segment] IVF's Lmax (``seg_holed_lists``), nprobe
+    64, k 10, B = 1 and 32: half the queries steered onto lists 191..255
+    (stage 1 probes 191..254: two live rows, fewer than k), the rest onto
+    holed lists; a ``sel`` whose first row probes lists 0..63.  HNSW: a
+    seeded graph of 20,000 integer vectors (d 768, deg 32, 3 upper
+    levels), the entry point and 10 % or 99.5 % of the nodes tombstoned,
+    descent and entry overrides."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 71)
+    p, lmax, d, nprobe, k, m, rerank = 256, 635, args.d, 64, args.k, 48, 64
+    lv, li = seg_holed_lists(p, lmax, d, gen, dev)
+    cents = torch.randint(-4, 1, (p, d), generator=gen, device=dev).float()
+    cents[191:] = 4
+    q = torch.randint(0, 3, (32, d), generator=gen, device=dev).float()
+    q[16:] = -q[16:]
+    sel = torch.stack([torch.randperm(p, generator=gen, device=dev)[:nprobe]
+                       for _ in range(32)]).to(torch.int32)
+    sel[0] = torch.arange(nprobe, device=dev, dtype=torch.int32)
+    tables = torch.randint(-4, 5, (32, m, 256), generator=gen, device=dev
+                           ).float()
+    codes = torch.randint(0, 256, (p, lmax, m), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    corpus = lv.view(p * lmax, d)
+    calls = 0
+
+    def same(what, got, want):
+        nonlocal calls
+        calls += 1
+        if any(g.dtype != w.dtype or not torch.equal(g, w)
+               for g, w in zip(got, want)):
+            raise AssertionError(f"[segment] holed {what}: the kernel "
+                                 f"differs from its plain version")
+
+    r_pq = ops._fused_depth(k, nprobe * lmax, rerank)
+    for b in (1, 32):
+        qb, sb, tb = q[:b], sel[:b], tables[:b]
+        for prec in ("f32", "bf16", "int8"):
+            r = None if prec == "f32" else ops._fused_depth(
+                k, nprobe * lmax, 2 * k)
+            want = ref.fused_turn_ivf(qb, cents, lv, li, nprobe=nprobe, k=k,
+                                      precision=prec, r=r)
+            same(f"fused_turn[{prec}] B={b}", ops.fused_turn(
+                qb, cents, lv, li, nprobe=nprobe, k=k, precision=prec), want)
+            if int((want[1][0] >= 0).sum()) != 2:
+                raise AssertionError("[segment] holed: the first query does "
+                                     "not see two live rows")
+            same(f"fused_scan[{prec}] B={b}", ops.fused_scan(
+                qb, lv, li, sb, k, precision=prec), ref.fused_scan_ivf(
+                qb, lv, li, sb, None, k=k, precision=prec, r=r))
+            same(f"fused_turn_pq[{prec}] B={b}", ops.fused_turn_pq(
+                qb, cents, tb, codes, li, corpus, nprobe=nprobe, k=k,
+                rerank=rerank, precision=prec), ref.fused_turn_pq(
+                qb, cents, tb, codes, li, corpus, nprobe=nprobe, k=k,
+                r=r_pq, precision=prec))
+            for fuse in (True, False):
+                same(f"fused_scan_pq[{prec}] rerank={fuse} B={b}",
+                     ops.fused_scan_pq(tb, qb, codes, li, sb, corpus, k,
+                                       rerank=rerank, fuse_rerank=fuse,
+                                       precision=prec),
+                     ref.fused_scan_pq(tb, qb, codes, li, sb, None, corpus,
+                                       k=k, r=r_pq, rerank=fuse,
+                                       precision=prec))
+        same(f"pq_adc_scan B={b}", ops.pq_adc_scan(tb, codes, li, sb, r_pq),
+             ref.pq_adc_scan_batch(tb, codes, li, sb, r_pq))
+    del lv, li, codes, corpus
+
+    n, deg = HNSW_DOCS, 32
+    vecs = torch.randint(-3, 4, (n, d), generator=gen, device=dev).float()
+
+    def links(shape):
+        ids = torch.randint(0, n, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        return torch.where(torch.rand(shape, generator=gen, device=dev)
+                           < 0.1, -1, ids)
+
+    adj0, upper = links((n, deg)), links((3, n, deg // 2))
+    entry = torch.randint(0, n, (), generator=gen, device=dev,
+                          dtype=torch.int32)
+    override = torch.randint(0, n, (32,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    hq = torch.randint(-3, 4, (32, d), generator=gen, device=dev).float()
+    for share in (0.1, 0.995):
+        dead = torch.rand(n, generator=gen, device=dev) < share
+        dead[entry.long()] = True
+        for b in (1, 32):
+            for e in (None, override[:b]):
+                same(f"hnsw_search dead={share} B={b}", ops.hnsw_search(
+                    vecs, adj0, upper, entry, hq[:b], e, ef=64, k=k,
+                    deleted=dead), ref.hnsw_search(
+                    vecs, adj0, upper, entry, hq[:b], e, ef=64, k=k,
+                    deleted=dead))
+    log("segment", f"holed indexes: {calls} calls of rows 3-7 (f32 / bf16 "
+        f"/ int8) and hnsw_search bit-equal to their plain versions: p {p},"
+        f" Lmax {lmax}, d {d}, nprobe {nprobe}, k {k}, B = 1 and 32; holes "
+        f"mid-list, a dead 128-row slice before a live one, dead probed "
+        f"lists, a query with 2 live rows among its 64 lists; HNSW {n} "
+        f"nodes, the entry point and 10 % / 99.5 % tombstoned ({card})")
+
+
+def phase_segment(args, docs, bconvs, graph, dev):
+    """[segment]: fig6's protocol (``benchmarks/fig6_ingest.py``) on the
+    port's mutable corpus, fig3's 32 x 10 (``bconvs``) through the
+    batched engine at max_batch 32 (``seg_leg``).  HNSW toploc first, on
+    the [hnsw] graph (``graph``), cap 256, 64 docs a wave, ef 64; its
+    from-scratch rebuild then runs in a child process while IVF (p 4,096)
+    and IVF-PQ (m 48) over the corpus's first ``SEG_DOCS`` docs serve
+    each path of ``SEG_PATHS``: cap 2,048, 512 seeded unit-norm docs a
+    wave (two compactions in 10 waves).  Then the holed-index kernel
+    checks (``phase_segment_holes``), and the HNSW rebuild is held to
+    the engine's index.  Returns launches by kernel name (the int8 ones
+    as ``op[int8]``)."""
+    import tempfile
+    import torch
+    from repro_torch.core import hnsw, ivf, pq, segment
+    from repro_torch.kernels import _build
+    card = card_line()
+    launches = {}
+
+    def count(counts, prec="f32"):
+        for n, c in counts.items():
+            key = n if prec == "f32" else f"{n}[{prec}]"
+            launches[key] = launches.get(key, 0) + c
+
+    n_graph = graph.n
+    build_kw = dict(ef_construction=HNSW_EFC, seed=args.seed)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    child = None
+    try:
+        pool = seg_pool(SEG_HNSW_ADD * bconvs.shape[1], args.d,
+                        args.seed + SEG_POOL_SEED + 1, dev)
+        counts, eng, on = seg_leg(card, "hnsw", "toploc",
+                                  dict(strategy="toploc"), graph, bconvs,
+                                  pool, SEG_HNSW_CAP, SEG_HNSW_ADD,
+                                  build_kw, rebuild=False)
+        count(counts)
+        hnsw.save(graph, os.path.join(tmp, "pristine.npz"))
+        np.savez(os.path.join(tmp, "history.npz"),
+                 added=on["added"].cpu().numpy(),
+                 deleted=np.asarray(on["deleted"], np.int64),
+                 cap=SEG_HNSW_CAP, efc=HNSW_EFC, seed=args.seed)
+        child = subprocess.Popen(
+            [sys.executable, "-c", SEG_REBUILD_SRC, os.path.join(ROOT, "src"),
+             os.path.join(tmp, "history.npz"),
+             os.path.join(tmp, "pristine.npz"),
+             os.path.join(tmp, "rebuilt.npz")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        served = [t.cpu() for t in seg_leaves(eng.index)]
+        del eng, on, pool
+
+        t0 = time.perf_counter()
+        sub = docs[:SEG_DOCS]
+        index = ivf.build(sub, SEG_LISTS, iters=args.iters, seed=args.seed,
+                          capacity_factor=1.3)
+        torch.cuda.synchronize()
+        t_ivf = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        pqi = pq.build_ivf_pq(index, sub, pq.train(sub, PQ_M, iters=PQ_ITERS,
+                                                   generator=gen))
+        torch.cuda.synchronize()
+        t_pq = time.perf_counter() - t0
+        pool = seg_pool(SEG_ADD * bconvs.shape[1], args.d,
+                        args.seed + SEG_POOL_SEED, dev)
+        # a delta doc's list and code do not depend on the docs beside
+        # it: each of 64 rows alone == in the batch
+        rows = pool[:64]
+        whole = (segment.nearest_centroids(index.centroids, rows),
+                 segment.encode_rows(pqi.book, rows))
+        for j in range(rows.shape[0]):
+            alone = (segment.nearest_centroids(index.centroids,
+                                               rows[j:j + 1]),
+                     segment.encode_rows(pqi.book, rows[j:j + 1]))
+            if not all(torch.equal(w[j:j + 1], a)
+                       for w, a in zip(whole, alone)):
+                raise AssertionError("[segment] a doc's list or code "
+                                     "depends on the docs beside it")
+        log("segment", f"prefix of {SEG_DOCS} docs: IVF p={SEG_LISTS} "
+            f"build_s={t_ivf:.1f} lmax={index.lmax} list_vecs "
+            f"{index.list_vecs.numel() * 4 / 1e9:.2f} GB a copy; IVF-PQ "
+            f"m={PQ_M} build_s={t_pq:.1f}; 64 delta docs' lists and codes "
+            f"alone == in one batch ({card})")
+        for backend, name, knobs in SEG_PATHS:
+            counts, _, _ = seg_leg(card, backend, name, knobs,
+                                   index if backend == "ivf" else pqi,
+                                   bconvs, pool, SEG_CAP, SEG_ADD, {})
+            count(counts, knobs.get("precision", "f32"))
+        del index, pqi, sub, pool
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_segment_holes(args, dev, card)
+
+        took, err = child.communicate(timeout=900)
+        if child.returncode:
+            raise RuntimeError(f"[segment] the hnsw rebuild failed: {err}")
+        z = np.load(os.path.join(tmp, "rebuilt.npz"))
+        want = [torch.from_numpy(z[f"arr_{i}"]) for i in range(len(z.files))]
+        n_eq = seg_equal("hnsw toploc: compact != rebuild", served, want)
+        log("segment", f"hnsw toploc: compact == rebuild ({n_eq} tensors "
+            f"torch.equal; the rebuild, hnsw.build over {want[0].shape[0]} "
+            f"docs ({n_graph} + the added), took {float(took):.1f}s in a "
+            f"child process beside the IVF legs)")
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        for f in os.listdir(tmp):
+            os.remove(os.path.join(tmp, f))
+        os.rmdir(tmp)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=8_841_823)
@@ -4036,6 +4525,9 @@ def main() -> int:
     ap.add_argument("--hnsw-docs", type=int, default=HNSW_DOCS,
                     help="nodes of the [hnsw] graph (a prefix of the "
                     "corpus)")
+    ap.add_argument("--segment-only", action="store_true",
+                    help="build, then only the corpus, the [hnsw] graph "
+                    "and [segment] (phase_segment)")
     ap.add_argument("--hnsw-only", action="store_true",
                     help="build, then only the corpus, [hnsw] and the "
                     "[exact] serve (no IVF index)")
@@ -4095,9 +4587,21 @@ def main() -> int:
                                 for bulk, c in adc))
 
     if (args.stages_only or args.dump_rows or args.bag_times or args.adc_times
-            or args.hnsw_only or args.hnsw_times):
+            or args.hnsw_only or args.hnsw_times or args.segment_only):
         if args.hnsw_times:
             phase_hnsw_times(args, dev)
+        if args.segment_only:
+            from repro_torch.core import hnsw
+            docs, _, bconvs, _, _ = smoke_corpus(args, dev)
+            t0 = time.perf_counter()
+            graph = hnsw.build(docs[:min(args.hnsw_docs, docs.shape[0])],
+                               m=HNSW_M, ef_construction=HNSW_EFC,
+                               seed=args.seed)
+            log("hnsw", f"build N={graph.n}: "
+                f"{time.perf_counter() - t0:.1f}s on the host")
+            phase_segment(args, docs, bconvs, graph, dev)
+            del docs, graph
+            torch.cuda.empty_cache()
         if args.hnsw_only:
             docs, convs, bconvs, exact, _ = smoke_corpus(args, dev)
             phase_hnsw(args, docs, convs, bconvs, dev)
@@ -4227,7 +4731,7 @@ def main() -> int:
     runs, launches = phase_serve(indexes, docs, convs, exact, dev)
     launches.update(phase_serve_quant(indexes, convs, exact, runs))
     phase_fig8(dev)
-    hnsw_launches, errs["hnsw_search"], hnsw_times = phase_hnsw(
+    hnsw_launches, errs["hnsw_search"], hnsw_times, graph = phase_hnsw(
         args, docs, convs, bconvs, dev)
     launches["hnsw_search"] = hnsw_launches
     phase_exact_serve(docs, convs, exact)
@@ -4249,8 +4753,12 @@ def main() -> int:
     times[1]["embedding_bag"] = bag_times[1]
     times[1].update(classic_times[1])
     times[1]["hnsw_search"] = hnsw_times
+    del index, pqi, indexes, runs
+    torch.cuda.empty_cache()
+    for name, n in phase_segment(args, docs, bconvs, graph, dev).items():
+        launches[name] = launches.get(name, 0) + n
     # the LM at decode_32k runs once the retrieval objects are freed
-    del index, pqi, docs, indexes, runs
+    del docs, graph
     torch.cuda.empty_cache()
     d32_counts = phase_decode32k(args, dev)
     times[1]["flash_decode"] = phase_decode_times(args, dev)[1]

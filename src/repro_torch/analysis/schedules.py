@@ -34,9 +34,9 @@ optional ``watch``), assert no violation was observed, and hand back
 the scenario result + the explorer for trace/identity assertions.
 The fixed seed matrix ``SEEDS`` (20 schedules) is what
 tests/test_torch_concurrency.py replays over the overlapped-wave
-batched engine (the reference's scenario A; its delete-racing-a-wave
-and router-mutation scenarios come with ROADMAP Queue 1, items 5
-and 6).
+batched engine (the reference's scenario A) and a delete racing its
+waves (scenario B); the router-mutation scenario comes with ROADMAP
+Queue 1, item 6.
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ handing each field over as a numpy array (``np.asarray(field)``);
 ``to_numpy`` goes the other way.  The batched engine's state converts
 the same way: its session slab through ``ivf_session_from_numpy`` or
 ``hnsw_session_from_numpy``, its result-cache slab through
-``cache_entries_from_numpy``.  The
+``cache_entries_from_numpy``; a mutable corpus mid-mutation through
+``segmented_index_from_numpy`` around its converted base.  The
 bi-encoder's parameter tree converts leaf for leaf, its stacked layers
 unstacked (``encoder_params_from_numpy``); so do the two-tower model's
 (``two_tower_params_from_numpy``) and the LM's
@@ -25,7 +26,8 @@ from repro_torch import device as _device
 from repro_torch.core.hnsw import HNSWIndex
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.pq import IVFPQIndex, check_index
-from repro_torch.core.toploc import HNSWSession, IVFSession
+from repro_torch.core.segment import SegmentedIndex
+from repro_torch.core.toploc import HNSWSession, IVFSession, index_tensor
 from repro_torch.models.encoder import DualEncoder, EncoderConfig, Tower
 from repro_torch.models.recsys import TwoTower, TwoTowerConfig
 from repro_torch.models.transformer import LM, LMConfig
@@ -88,6 +90,19 @@ def hnsw_session_from_numpy(entry_point, turn, device=None) -> HNSWSession:
     way."""
     dev = _device.resolve(device)
     return HNSWSession(_i32(entry_point, dev), _i32(turn, dev))
+
+
+def segmented_index_from_numpy(base, delta_vecs, delta_ids, tombstone,
+                               device=None) -> SegmentedIndex:
+    """A ``segment.SegmentedIndex`` on ``device`` (default cuda) around
+    ``base``, a port index already converted there (``ivf_index_...``,
+    ``ivf_pq_index_...`` or ``hnsw_index_from_numpy``), from the delta
+    buffer, its ids and the tombstone mask: a reference segment carried
+    over mid-mutation."""
+    dev = _device.require(device, index_tensor(base))
+    return SegmentedIndex(base, _f32(delta_vecs, dev), _i32(delta_ids, dev),
+                          torch.tensor(np.asarray(tombstone, bool),
+                                       device=dev))
 
 
 def cache_entries_from_numpy(q_vec, doc_ids, doc_scores, doc_vecs, valid,

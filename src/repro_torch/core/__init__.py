@@ -9,8 +9,12 @@
   kmeans   — balanced k-means, chunked over points (index build; ++
              seeding for the PQ codebooks)
   topk     — top-k selection in ``lax.top_k`` order
+  segment  — mutable corpus: delta segment + tombstones + compaction
+             (``SegmentedBackend`` wraps ivf, ivf_pq or hnsw)
 """
 from repro_torch.core import (  # noqa: F401
-    backend, hnsw, ivf, kmeans, pq, topk, toploc)
+    backend, hnsw, ivf, kmeans, pq, segment, topk, toploc)
 from repro_torch.core.backend import (  # noqa: F401
     ExactBackend, HNSWBackend, IVFBackend, IVFPQBackend, RetrievalBackend)
+from repro_torch.core.segment import (  # noqa: F401
+    SegmentedBackend, SegmentedIndex)

@@ -220,10 +220,13 @@ class FusedTurn:
 
 def index_tensor(index) -> torch.Tensor:
     """A tensor of ``index`` that lies where the whole index does: the
-    centroids of an IVF / IVF-PQ index, the vectors of an HNSW index, or
-    Exact's index itself, the bare (n, d) corpus."""
+    centroids of an IVF / IVF-PQ index, the vectors of an HNSW index,
+    Exact's index itself, the bare (n, d) corpus, or, through a
+    ``segment.SegmentedIndex``, its base's."""
     if isinstance(index, torch.Tensor):
         return index
+    if hasattr(index, "tombstone"):             # segment.SegmentedIndex
+        return index_tensor(index.base)
     for field in ("centroids", "vectors"):
         t = getattr(index, field, None)
         if isinstance(t, torch.Tensor):

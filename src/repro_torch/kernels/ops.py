@@ -171,7 +171,10 @@ def group_scales(x: torch.Tensor, blk: int, n_groups: int) -> torch.Tensor:
     call: the result is kept per tensor through a weak reference (a freed
     index drops it), keyed by (blk, n_groups) and the tensor's
     ``_version``, so an in-place edit recomputes it.  Inference tensors
-    keep no version counter and are recomputed every call.  Under
+    keep no version counter and are recomputed every call.  The port's
+    own paths never write into an index tensor (``core.segment``'s
+    mutations return new tensors); a write that bumps no version (through
+    ``.data``, DLPack or a raw pointer) would leave a stale scale.  Under
     ``launcher.record_launches`` the pass is recorded when no valid
     result is kept, and nothing is kept."""
     entry = _scales.get(id(x))

@@ -35,17 +35,26 @@ it, after that event.  The gate of ``step_batch`` (IVF's refresh,
 HNSW's first-turn search: ``bool(....any())``) still syncs the host once
 a wave.
 
-``ServingConfig`` keeps every field and default of the reference.  The
-knobs whose modules are not ported yet raise ``NotImplementedError``:
-corpus sharding (``shards > 1``, ``mesh``; ROADMAP Queue 1, item 6) and
-the mutable corpus (``segment_cap > 0``; item 5).  A fused
+``ServingConfig(segment_cap > 0)`` serves a mutable corpus
+(``core.segment``): the backend is wrapped in a ``SegmentedBackend``
+over a ``segment_cap``-row delta segment, and both engines take
+``add_documents`` / ``delete_documents`` / ``compact`` while sessions are
+live (the batched engine under ``MicroBatcher.paused``, so no wave
+straddles two corpus epochs).
+
+``ServingConfig`` keeps every field and default of the reference.
+Corpus sharding (``shards > 1``, ``mesh``) is not ported yet and raises
+``NotImplementedError`` (ROADMAP Queue 1, item 6).  A fused
 configuration whose fetch depth needs a top-k wider than the CUDA
 kernels keep (``tiling.MAX_PAD``) raises at construction (ROADMAP
 Queue 3, item 1), as does an HNSW configuration past the HNSW kernel's
-caps (``tiling.check_hnsw``, item 4).
+caps (``tiling.check_hnsw``, item 4); a compaction that would take the
+index past them is refused the same way, and the engine keeps serving
+the index it had.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -58,6 +67,7 @@ from repro_torch.core import backend as _backend
 from repro_torch.core import hnsw as _hnsw
 from repro_torch.core import ivf as _ivf
 from repro_torch.core import pq as _pq
+from repro_torch.core import segment as _segment
 from repro_torch.core import toploc
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels import tiling as _tiling
@@ -97,7 +107,10 @@ class ServingConfig:
     # only the top-k is ever served/recorded; 0 caches exactly the top-k.
     cache_threshold: float = 0.0
     cache_depth: int = 0
-    # mutable corpus (not ported)
+    # mutable corpus (core.segment): > 0 wraps the backend in a
+    # SegmentedBackend with a `segment_cap`-row delta segment, enabling
+    # add_documents / delete_documents / compact() on the engine while
+    # sessions are live.  0 (default) serves the frozen index as before
     segment_cap: int = 0
 
 
@@ -124,10 +137,6 @@ def _refuse_unported(cfg: ServingConfig) -> None:
         raise NotImplementedError(
             "corpus sharding (shards > 1 / mesh) is not ported yet: "
             "ROADMAP Queue 1, item 6")
-    if cfg.segment_cap > 0:
-        raise NotImplementedError(
-            "the mutable corpus (segment_cap > 0) is not ported yet: "
-            "ROADMAP Queue 1, item 5")
 
 
 def _host_query(qvec) -> np.ndarray:
@@ -206,6 +215,15 @@ class _EngineBase(_EngineAccounting):
         if isinstance(self.index, _pq.IVFPQIndex):
             _pq.check_index(self.index)
         self.doc_vecs = doc_vecs
+        # corpus epoch: bumped on every mutation (add / delete / compact)
+        self.corpus_epoch = 0
+        # the unwrapped backend of a mutable corpus (None: frozen index)
+        self._seg_inner: Optional[_backend.RetrievalBackend] = None
+        if config.segment_cap > 0:
+            self._seg_inner = self.backend
+            self.index = _segment.make_segmented(
+                self.backend, self.index, cap=config.segment_cap)
+            self.backend = _segment.SegmentedBackend(inner=self.backend)
         self.turn_count: Dict[str, int] = {}
         self.records: List[TurnRecord] = []
 
@@ -214,8 +232,85 @@ class _EngineBase(_EngineAccounting):
         """Per-conversation state in play this deployment?"""
         return self.backend.stateful and self.cfg.strategy != "plain"
 
+    # -- mutable corpus (core.segment) --------------------------------
+
+    def _require_segmented(self) -> None:
+        if self._seg_inner is None:
+            raise RuntimeError(
+                "corpus mutation needs ServingConfig.segment_cap > 0 "
+                "(the engine is serving a frozen index)")
+
+    def _mutation_scope(self):
+        """Context under which a corpus mutation swaps the index.  The
+        sequential engine needs none (one thread, no work in flight); the
+        batched engine holds its batcher paused."""
+        return contextlib.nullcontext()
+
+    def _after_mutation(self, index: "_segment.SegmentedIndex") -> None:
+        """Serve ``index`` from now on, bump the epoch and refresh the
+        cache's historical-embedding corpus."""
+        self.index = index
+        self.corpus_epoch += 1
+        if self._cache is not None:
+            self._cache.corpus = self._cache_corpus()
+
+    def add_documents(self, vectors) -> np.ndarray:
+        """Ingest new documents into the delta segment (no shape
+        changes); returns their assigned global ids."""
+        self._require_segmented()
+        with self._mutation_scope():
+            index, ids = _segment.add_documents(self.index, vectors)
+            # cache entries stay valid: their candidate pools predate the
+            # new docs (the staleness of a miss served just before the add)
+            self._after_mutation(index)
+        return ids
+
+    def delete_documents(self, ids) -> None:
+        """Tombstone documents by global id; a cache hit can never serve
+        them again (the entries holding them are dropped)."""
+        self._require_segmented()
+        if isinstance(ids, torch.Tensor):
+            ids = ids.cpu()
+        with self._mutation_scope():
+            self._after_mutation(_segment.delete_documents(
+                self._seg_inner, self.index, ids))
+            # the sweep lands inside the scope too: a wave launched between
+            # the index swap and the sweep could refresh an entry that
+            # still holds the dead doc
+            if self._cache is not None:
+                self._cache.invalidate_docs(ids)
+
+    def compact(self, **build_kw) -> None:
+        """Fold the delta segment into the base index (the one mutation
+        that changes shapes).  The result equals a from-scratch rebuild
+        (``core.segment``)."""
+        self._require_segmented()
+        with self._mutation_scope():
+            self._compact_locked(**build_kw)
+
+    def _compact_locked(self, **build_kw) -> None:
+        index = _segment.compact(self._seg_inner, self.index, **build_kw)
+        # a compaction can change Lmax: refuse an index past the kernels'
+        # caps before it is served, keeping the one served now
+        self._check_kernel_width(index.base)
+        if self.doc_vecs is not None:
+            # delta rows fold into the base id range: the flat corpus
+            # grows with them, so cache re-scoring keeps covering them
+            fill = _segment.delta_fill(self.index)
+            self.doc_vecs = torch.cat([self.doc_vecs,
+                                       self.index.delta_vecs[:fill]], 0)
+        self._after_mutation(index)
+
     def _cache_corpus(self) -> Optional[torch.Tensor]:
-        """Flat (n, d) corpus for historical-embedding re-scoring."""
+        """Flat (n, d) corpus for historical-embedding re-scoring; under
+        a mutable corpus the delta rows follow the base rows, at exactly
+        ids n_base..n_base+cap-1."""
+        if self._seg_inner is not None:
+            base = (self.doc_vecs if self.doc_vecs is not None
+                    else self._seg_inner.corpus_vectors(self.index.base))
+            if base is None:
+                return None
+            return torch.cat([base, self.index.delta_vecs], 0)
         return (self.doc_vecs if self.doc_vecs is not None
                 else self.backend.corpus_vectors(self.index))
 
@@ -245,27 +340,33 @@ class _EngineBase(_EngineAccounting):
         is served), plain k otherwise."""
         return self._cache.depth if self._cache is not None else self.cfg.k
 
-    def _check_kernel_width(self) -> None:
-        """Refuse, at construction, a configuration past the CUDA
-        kernels' caps: HNSW's beams of ef and up·ef, the fetch depth
-        within them (``tiling.check_hnsw``), or a fused configuration
-        whose fetch depth needs a top-k wider than the kernels keep: the
-        quantised IVF scan keeps the top r = depth·over, the PQ scan its
-        re-rank pool r = max(depth, min(rerank, nprobe·Lmax))."""
-        if isinstance(self.backend, _backend.HNSWBackend):
-            bk, index = self.backend, self.index
-            for ef in (bk.ef, bk.up * bk.ef):
+    def _check_kernel_width(self, index=None) -> None:
+        """Refuse, at construction (and before a compaction's index is
+        served), a configuration past the CUDA kernels' caps: HNSW's
+        beams of ef and up·ef, the fetch depth within them
+        (``tiling.check_hnsw``), or a fused configuration whose fetch
+        depth needs a top-k wider than the kernels keep: the quantised
+        IVF scan keeps the top r = depth·over, the PQ scan its re-rank
+        pool r = max(depth, min(rerank, nprobe·Lmax)).  ``index`` is the
+        backend's own index (a mutable corpus's base; default: the one
+        served)."""
+        backend, served = self.backend, self.index
+        if self._seg_inner is not None:
+            backend, served = self._seg_inner, self.index.base
+        index = served if index is None else index
+        if isinstance(backend, _backend.HNSWBackend):
+            for ef in (backend.ef, backend.up * backend.ef):
                 _tiling.check_hnsw(index.vectors.shape[1], ef,
                                    max(index.adj0.shape[1],
                                        index.upper_adj.shape[2]),
                                    self._k_fetch)
             return
-        fused = getattr(self.backend, "fused", None)
+        fused = getattr(backend, "fused", None)
         if fused is None:
             return
-        depth, cap = self._k_fetch, self.cfg.nprobe * self.index.lmax
-        if isinstance(self.backend, _backend.IVFPQBackend):
-            r = _kops._fused_depth(depth, cap, self.backend.rerank)
+        depth, cap = self._k_fetch, self.cfg.nprobe * index.lmax
+        if isinstance(backend, _backend.IVFPQBackend):
+            r = _kops._fused_depth(depth, cap, backend.rerank)
         elif fused.precision == "f32":
             r = depth
         else:
@@ -488,6 +589,20 @@ class BatchedConversationalSearchEngine(_EngineBase):
     def __exit__(self, *exc) -> bool:
         self.close()
         return False
+
+    def _mutation_scope(self):
+        # paused() retires every wave in flight and holds the drain lock
+        # for the whole swap (and the cache's tombstone sweep), so no wave
+        # launches against the pre-mutation index: a wave never straddles
+        # two corpus epochs
+        return self.batcher.paused()
+
+    def _after_mutation(self, index) -> None:
+        super()._after_mutation(index)
+        if self._stream is not None:
+            # the new index was made on the caller's stream; the next wave
+            # runs on the engine's
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
     def end_conversation(self, conv_id: str) -> None:
         # release under the paused batcher: a launched wave's scatter

@@ -291,9 +291,8 @@ class ResultCache:
         """Corpus-tombstone sweep: drop every entry whose cached
         candidate pool intersects ``doc_ids``, in both storage modes —
         after this, no later hit can serve or re-score a deleted
-        document.  Returns entries/rows dropped.  (No path of the port
-        deletes documents yet: that is ``core.segment``, ROADMAP Queue
-        1, item 5.)
+        document.  Returns entries/rows dropped.  The engines call it
+        from ``delete_documents``, inside the mutation scope.
         """
         dead = np.atleast_1d(np.asarray(doc_ids, np.int64))
         if dead.size == 0:

@@ -11,8 +11,13 @@ Two layers under test, as in ``tests/test_concurrency.py``:
    cache on) with per-session **bit-identity** to the port's sequential
    engine and **zero** concurrency violations.  The sequential oracle
    itself matches the reference's sequential engine (ids and hits
-   exactly, scores within 1e-5).  Scenarios B (delete racing a wave) and
-   C (router mutation) come with ROADMAP Queue 1, items 5 and 6.
+   exactly, scores within 1e-5).
+3. Scenario B: every seed replays a ``delete_documents`` racing the
+   in-flight waves of two clients (a mutable corpus, the cache on): no
+   turn submitted after the delete returned serves the deleted doc,
+   from the backend or from a stale cache entry, and the schedule
+   exposes no violation.  Scenario C (router mutation) comes with
+   ROADMAP Queue 1, item 6.
 
 Runs on CPU tensors; no thread is left running.
 """
@@ -21,6 +26,7 @@ import threading
 import numpy as np
 import pytest
 import jax.numpy as jnp
+import torch
 
 from repro import concurrency as rconc
 from repro.serving import (ConversationalSearchEngine as RSeq,
@@ -255,3 +261,52 @@ def test_batched_engine_bit_identical_under_every_schedule(
         for t, ((wv, wi, _), (gv, gi)) in enumerate(zip(want, got)):
             np.testing.assert_array_equal(wi, gi, err_msg=f"{cid} turn {t}")
             np.testing.assert_array_equal(wv, gv, err_msg=f"{cid} turn {t}")
+
+
+# ---------------------------------------------------------------------------
+# scenario B — delete racing an in-flight wave, all seeds
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", schedules.SEEDS)
+def test_delete_never_serves_tombstone_under_any_schedule(
+        seed, tindex, small_corpus):
+    """A ``delete_documents`` racing in-flight waves never serves the
+    tombstoned doc afterwards, from the backend or from a stale
+    result-cache entry.  Turns whose submit started after the delete
+    returned assert the doc is gone; earlier turns may still see it
+    (they raced the delete)."""
+    doc_vecs = torch.from_numpy(small_corpus.doc_vecs)
+
+    def scenario(rt):
+        eng = BatchedConversationalSearchEngine(
+            ServingConfig(**_kw(), segment_cap=64), ivf_index=tindex,
+            doc_vecs=doc_vecs, n_slots=8, max_batch=4, max_wait_s=1e-4,
+            device=CPU)
+        # aim every query at one known-retrievable doc
+        _, i = eng.query("probe", small_corpus.conversations[0, 0])
+        target = int(i[0])
+        q = small_corpus.doc_vecs[target]
+        deleted = threading.Event()
+
+        def client(name):
+            for _ in range(4):
+                pre = deleted.is_set()
+                _, ids = eng.query(name, q)
+                if pre:
+                    assert target not in ids.tolist(), \
+                        f"{name} served tombstoned doc {target}"
+
+        def mutator():
+            eng.delete_documents([target])
+            deleted.set()
+
+        schedules.run_threads(
+            [lambda: client("cA"), lambda: client("cB"), mutator],
+            names=["client-A", "client-B", "mutator"])
+        eng.close()
+        assert eng.corpus_epoch == 1
+        return target
+
+    _, _, rt = schedules.replay(seed, scenario, watch_classes=WATCH)
+    assert not rt.reports

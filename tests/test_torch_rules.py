@@ -25,6 +25,7 @@ from repro_torch.configs import two_tower_retrieval as ttt
 from repro_torch.core import backend as tbackend
 from repro_torch.core import ivf as tivf
 from repro_torch.core import pq as tpq
+from repro_torch.core import segment as tsegment
 from repro_torch.core import toploc as ttl
 from repro_torch.kernels import ops as tops
 from repro_torch.models import encoder as tenc
@@ -252,12 +253,26 @@ def test_unknown_precisions_raise(tiny, tiny_pq, precision):
             ivf_index=idx, device="cpu")
 
 
-@pytest.mark.parametrize("knob", [dict(shards=2), dict(mesh=object()),
-                                  dict(segment_cap=8)])
+@pytest.mark.parametrize("knob", [dict(shards=2), dict(mesh=object())])
 def test_unported_serving_knobs_raise(tiny, knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         teng.ConversationalSearchEngine(teng.ServingConfig(**knob),
                                         ivf_index=tiny[0], device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["ConversationalSearchEngine",
+                                    "BatchedConversationalSearchEngine"])
+def test_segment_cap_builds_a_segmented_backend(tiny, engine):
+    """``segment_cap > 0`` (the mutable corpus, ported) wraps the
+    backend in a ``SegmentedBackend`` over an empty delta of that many
+    rows, in both engines, as the reference's ``_setup`` does."""
+    eng = getattr(teng, engine)(teng.ServingConfig(segment_cap=8),
+                                ivf_index=tiny[0], device="cpu")
+    assert isinstance(eng.backend, tsegment.SegmentedBackend)
+    assert isinstance(eng.backend.inner, tbackend.IVFBackend)
+    assert eng.index.base is tiny[0]
+    assert tsegment.delta_cap(eng.index) == 8
+    assert tsegment.delta_fill(eng.index) == 0 and eng.corpus_epoch == 0
 
 
 def test_serving_config_keeps_the_reference_fields_and_defaults():
@@ -276,7 +291,8 @@ def test_make_checks_knobs_like_the_reference():
     # lenient make drops the PQ knob for the float backend
     assert not hasattr(tbackend.make("ivf", rerank=3), "rerank")
     assert tbackend.make("ivf_pq", rerank=3).rerank == 3
-    assert tbackend.names() == ("exact", "hnsw", "ivf", "ivf_pq")
+    assert tbackend.names() == ("exact", "hnsw", "ivf", "ivf_pq",
+                                "segmented") == rbackend.names()
 
 
 def test_make_ivf_pq_defaults_match_the_reference():
