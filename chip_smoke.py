@@ -103,6 +103,19 @@ exits non-zero):
               longest search x the round trip)
     exact     serve: ExactBackend through the sequential engine over the
               whole corpus, ids == [index]'s exact top-10
+    sharded   the corpus split over S = 2 and 4 shards of the one card
+              (distributed.retrieval, every shard a view): per-shard
+              list work and bytes placed; each shard's row 6 / 7 call
+              == its plain version (f32 / bf16 / int8); the 25 x 10
+              turns, ivf and ivf_pq toploc+ fused (f32, bf16, int8) and
+              unfused at each S, p50 / p95 beside the unsharded engine,
+              at f32 ids, scores and TurnStats == the unsharded engine's;
+              hnsw_search's sharded instance == the unsharded kernel on
+              every turn and its plain sharded version (tie rule), the
+              HNSW toploc engine == unsharded, its times at B = 1 and 32
+    router    ReplicatedSearchEngine, two replicas on the one card (and
+              2 replicas x 2 shards): pinned toploc+ fused sessions and
+              hedged plain fused traffic == a sequential engine
  13 batched   start_batch / step_batch == the sequential engine
     batched serve  fig3's protocol (32 conversations x 10 turns) through
               BatchedConversationalSearchEngine at max_batch 1, 8, 32,
@@ -152,7 +165,8 @@ rows 1-7's outputs on the seeded realistic inputs and hnsw_search's on a
 seeded graph to PATH, so the kernels of two checkouts can be held to
 each other bit for bit (``--same-dumps A B``);
 ``--segment-only`` builds and runs only the corpus, the [hnsw] graph
-and [segment]; ``--hnsw-only`` builds and runs only the corpus, [hnsw] and the [exact]
+and [segment]; ``--sharded-only`` only the corpus, the IVF and IVF-PQ
+indexes, the [hnsw] graph, [sharded] and [router]; ``--hnsw-only`` builds and runs only the corpus, [hnsw] and the [exact]
 serve; ``--hnsw-docs`` sizes the graph; ``--hnsw-times`` builds and
 prints only a device-memory round trip (a pointer chase) and
 hnsw_search's times on the [hnsw] graph beside its byte and chain
@@ -163,8 +177,7 @@ range of batch sizes ([bag], ``phase_bag_sweep``); ``--adc-times``
 builds and times only the rows that run the ADC scan, rows 3, 5 and 7
 at every precision and B = 1 to 32 with each instance of the scan forced
 ([adc], ``phase_adc_times``), so two checkouts can be compared in one
-call.  The seven may be given
-together.
+call.  The eight may be given together.
 """
 from __future__ import annotations
 
@@ -216,13 +229,15 @@ LM_KERNELS = ("flash_decode",)
 # rows 1-2: the two stages of a turn as kernels of their own
 CLASSIC_KERNELS = ("centroid_topk", "ivf_scan")
 HNSW_KERNELS = ("hnsw_search",)
+HNSW_SHARD_KERNELS = ("hnsw_search_sharded",)   # its sharded instance
 SOURCES = {**dict.fromkeys(IVF_KERNELS, SCAN_SRC),
            **dict.fromkeys(PQ_KERNELS, PQ_SRC),
            **{f"{op}[{prec}]": SCAN_SRC if op in IVF_KERNELS else PQ_SRC
               for op in QUANT_OPS for prec in QUANT},
            "flash_attention": FA_SRC, "embedding_bag": EB_SRC,
            "flash_decode": FD_SRC, "centroid_topk": CK_SRC,
-           "ivf_scan": IV_SRC, "hnsw_search": HS_SRC}
+           "ivf_scan": IV_SRC, "hnsw_search": HS_SRC,
+           "hnsw_search_sharded": HS_SRC}
 REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "fused_turn": "src/repro/kernels/fused_turn.py:406",
             "pq_adc_scan": "src/repro/kernels/pq_adc.py:79",
@@ -234,7 +249,10 @@ REPLACES = {"fused_scan": "src/repro/kernels/fused_turn.py:644",
             "centroid_topk": "src/repro/kernels/centroid_topk.py:66",
             "ivf_scan": "src/repro/kernels/ivf_scan.py:64",
             "hnsw_search": "src/repro/core/hnsw.py:349 _search_impl (XLA "
-                           "while_loop, no Pallas kernel)"}
+                           "while_loop, no Pallas kernel)",
+            "hnsw_search_sharded": "src/repro/distributed/retrieval.py:407 "
+                                   "_search_impl under shard_map, dots "
+                                   "psum-ed (XLA, no Pallas kernel)"}
 REPLACES.update({f"{op}[{prec}]": REPLACES[op] for op in QUANT_OPS
                  for prec in QUANT})
 BAG_TOL = 1e-6                 # embedding_bag on random floats
@@ -895,11 +913,17 @@ def phase_plans(dev):
     n, bad = 0, []
     probes = (KB.default_probes() + KB.port_probes() + bf16_probes()
               + stage_probes())
+    retraced = []
     for probe in probes:
         tensors = probe.tensors(dev, gen)
         ops.drop_scales()
         want = KB.planned(probe, tensors, dev)
         seen = KB.traced(probe, tensors, dev, before=ops.drop_scales)
+        for _ in range(PLAN_RETRACES):
+            if not lost_events(seen, want):
+                break
+            retraced.append(f"{probe.label} ({len(seen)} of {len(want)})")
+            seen = KB.traced(probe, tensors, dev, before=ops.drop_scales)
         if seen != want or not want:
             bad.append(f"{probe.label}: the profiler saw {seen}, the plan "
                        f"says {want}")
@@ -911,9 +935,26 @@ def phase_plans(dev):
         n += len(want)
         del tensors
         torch.cuda.empty_cache()
+    if retraced:
+        log("plans", f"traced again after the profiler lost kernels: "
+            f"{', '.join(retraced)}")
     if bad:
         raise AssertionError("plans: " + "; ".join(bad))
     return len(probes), n
+
+
+# traces taken again, a probe, while a trace is its plan with kernels
+# missing: torch.profiler's activity tracing on the card now and then
+# drops a session's events (a trace empty after its own 3 tries, or
+# without its first kernel); a trace with a kernel the plan lacks, or in
+# another order, fails at once
+PLAN_RETRACES = 3
+
+
+def lost_events(seen, want):
+    """Is ``seen`` ``want`` with kernels missing, the rest in order?"""
+    rest = iter(want)
+    return len(seen) < len(want) and all(k in rest for k in seen)
 
 
 def ck_bound(c, q, kp):
@@ -2899,10 +2940,11 @@ def phase_batched(index, convs, run, dev):
 # flight, no deadline wait
 BATCH_CONVS, BATCH_TURNS, BATCH_SEED = 32, 10, 23
 BATCH_SIZES = (1, 8, 32)
-# timed replays per engine and max_batch: turns/s is their median (a
-# replay of 10 waves at B = 32 takes ~5 ms, so one host stall of the
-# shared machine would set a single replay's rate)
-BATCH_REPEATS = 3
+# timed replays per engine and max_batch: turns/s is their median, the
+# mean of the two (a replay of 10 waves at B = 32 takes ~5 ms, so one
+# host stall of the shared machine would set a single replay's rate;
+# two, not three, to keep the whole smoke well inside its time limit)
+BATCH_REPEATS = 2
 BSERVE = (("toploc+ fused", dict(strategy="toploc+", fused=True)),
           ("toploc+ fused bf16", dict(strategy="toploc+", fused=True,
                                       precision="bf16")),
@@ -3428,7 +3470,8 @@ def phase_hnsw(args, docs, convs, bconvs, dev):
     the sequential engine (plain, toploc, toploc adaptive, toploc with
     fig7's cache) at ef 32 and 64, fig3's 32 x 10 through the batched
     engine at max_batch 1, 8, 32 == the sequential engine bit for bit,
-    and the kernel's times.  Returns (launches, max_abs_err, times)."""
+    and the kernel's times.  Returns (launches, max_abs_err, times {B:
+    row}, the graph)."""
     import torch
     from repro_torch.core import hnsw, ivf
     from repro_torch.kernels import ops
@@ -3565,7 +3608,7 @@ def phase_hnsw(args, docs, convs, bconvs, dev):
         f"round trip (256 MB, L2 flushed), {rtt['l2']:.1f} ns an L2 hit "
         f"(4 MB)")
     times = hnsw_times(index, flat, k, rtt["dram"])
-    return launches, err, times[1], index
+    return launches, err, times, index
 
 
 def phase_exact_serve(docs, convs, exact):
@@ -3586,6 +3629,378 @@ def phase_exact_serve(docs, convs, exact):
     log("exact", f"serve ExactBackend over all {docs.shape[0]} docs: turns="
         f"{len(eng.records)} p50_ms={p50:.3f} p95_ms={p95:.3f}; ids == "
         f"[index]'s exact top-{exact.shape[-1]} bit for bit")
+
+
+# ---------------------------------------------------------------------------
+# [sharded] / [router]: the corpus split over shards of one card, and two
+# replicas behind the router
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (2, 4)
+SHARD_PATHS = (("toploc+ fused", dict(strategy="toploc+", fused=True)),
+               ("toploc+ fused bf16", dict(strategy="toploc+", fused=True,
+                                           precision="bf16")),
+               ("toploc+ fused int8", dict(strategy="toploc+", fused=True,
+                                           precision="int8")),
+               ("toploc+ unfused", dict(strategy="toploc+", fused=False)))
+SHARD_ROW = {"ivf": "fused_scan", "ivf_pq": "fused_scan_pq"}
+SHARD_QUERIES = 4             # queries of the per-shard kernel checks
+
+
+def shard_mesh(s, dev):
+    from repro_torch.distributed import retrieval as R
+    return R.retrieval_mesh(s, devices=[dev] * s)
+
+
+def shard_run(backend, index, convs, knobs, mesh=None):
+    """The 25 x 10 turns through the sequential engine (the mesh's, or
+    unsharded), after a warm-up on two turns, the launch counts set to 0
+    between the two: (engine, scores, ids, latencies ms)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ConversationalSearchEngine, ServingConfig
+    cfg = ServingConfig(**{"backend": backend, **knobs}, mesh=mesh)
+    serve_sequential(ConversationalSearchEngine(
+        cfg, **{f"{backend}_index": index}), convs[:1, :2])        # warm
+    ops.reset_launches()
+    eng = ConversationalSearchEngine(cfg, **{f"{backend}_index": index})
+    vs, ids, _ = serve_sequential(eng, convs)
+    return eng, vs, ids, np.asarray([r.latency_s for r in eng.records]) * 1e3
+
+
+def shard_rows_check(backend, index, docs, q, sel, dev, errs):
+    """Each shard's row 6 / row 7 call, as ``ShardedIVFScan`` /
+    ``ShardedPQScan`` make it (the shard's lists, the selection clipped
+    into them, ``own``), against its plain version on the same inputs:
+    row 6 under the tie rule (``compare``), row 7's ADC top r bit for
+    bit, at f32, bf16 and int8.  Returns the calls checked."""
+    import torch
+    from repro_torch.core import toploc
+    from repro_torch.distributed import retrieval as R
+    from repro_torch.kernels import ops, ref
+    k, calls = 10, 0
+    for s in SHARD_COUNTS:
+        placed = R.shard_backend(shard_mesh(s, dev), _bk(backend),
+                                 index)[1]
+        lists = placed.list_vecs if backend == "ivf" else placed.list_codes
+        ids = placed.list_ids
+        tables = None if backend == "ivf" else toploc._adc_tables(index, q)
+        for j in range(s):
+            lo, hi = lists.bounds(j)
+            own, ss = R.local_selection(sel, lo, hi, dev)
+            ss = ss.to(torch.int32)
+            for prec in ("f32",) + QUANT:
+                what = f"[sharded] S={s} shard {j} {SHARD_ROW[backend]}[{prec}]"
+                if backend == "ivf":
+                    r = None if prec == "f32" else ops._fused_depth(
+                        k, sel.shape[1] * index.lmax, 2 * k)
+                    got = ops.fused_scan(q, lists.parts[j], ids.parts[j], ss,
+                                         k, own=own, precision=prec)
+                    want = ref.fused_scan_ivf(q, lists.parts[j],
+                                              ids.parts[j], ss, own, k=k,
+                                              precision=prec, r=r)
+                    err, _ = compare(what, got[0], got[1], want[0], want[1],
+                                     dot_rows(docs, q), docs.shape[0])
+                    key = "fused_scan" if prec == "f32" else \
+                        f"fused_scan[{prec}]"
+                    errs[key] = max(errs.get(key, 0.0), err)
+                else:
+                    r = ops._fused_depth(k, sel.shape[1] * index.lmax,
+                                         RERANK)
+                    equal(what, ops.fused_scan_pq(
+                        tables, q, lists.parts[j], ids.parts[j], ss,
+                        placed.doc_vecs.parts[j], k, rerank=RERANK, own=own,
+                        fuse_rerank=False, precision=prec),
+                        ref.fused_scan_pq(tables, q, lists.parts[j],
+                                          ids.parts[j], ss, own, None, k=k,
+                                          r=r, rerank=False, precision=prec),
+                        ("v", "ids", "pos"))
+                calls += 1
+    return calls
+
+
+def _bk(backend):
+    from repro_torch.core import backend as B
+    return B.make(backend)
+
+
+def sharded_hnsw_times(index, flat, k, rtt_ns, s, dev, steps,
+                       ef=HNSW_EFS[-1]):
+    """The sharded instance's CUDA-event ms at S shards of one card, B =
+    1 (8 calls) and 32 (4 calls), L2 flushed, beside the unsharded
+    kernel's on the same queries (in turns: unsharded, sharded,
+    sharded, unsharded), the plain sharded version's, the byte bound and
+    the chain bound (the same traversal as the unsharded search's: its
+    longest search's steps, ``steps`` {B: mean over the calls}, counted
+    once for every S).  Returns {B: row}."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops, ref
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    sh = SH.split_rows(index.vectors, [dev] * s)
+    g = (index.adj0, index.upper_adj, index.entry_point)
+    dots = ref.hnsw_sharded_dots(sh.parts, sh.per)
+    times = {}
+    for b in (1, 32):
+        qs = [flat[j * b:(j + 1) * b] for j in range(8 if b == 1 else 4)]
+        works = [hnsw_bound(index, ops.hnsw_search(index.vectors, *g, q,
+                                                   ef=ef, k=k)[2],
+                            q.shape[0], k) for q in qs]
+        calls = [lambda q=q: ops.hnsw_search_sharded(sh.parts, sh.per, *g,
+                                                     q, ef=ef, k=k)
+                 for q in qs]
+        flat_calls = [lambda q=q: ops.hnsw_search(index.vectors, *g, q,
+                                                  ef=ef, k=k) for q in qs]
+        plain = [lambda q=q: ref.hnsw_search(None, *g, q, ef=ef, k=k,
+                                             dots_factory=dots) for q in qs]
+        unsharded = [event_ms(flat_calls, flush, spin=True)]
+        row = timed(calls, plain, works, flush)
+        row["ms"] = float(np.mean([row["ms"],
+                                   event_ms(calls, flush, spin=True)]))
+        unsharded.append(event_ms(flat_calls, flush, spin=True))
+        row["unsharded_ms"] = float(np.mean(unsharded))
+        if b not in steps:
+            steps[b] = float(np.mean([max(hnsw_steps(index, q[i:i + 1], ef,
+                                                     k)
+                                          for i in range(q.shape[0]))
+                                      for q in qs]))
+        row["steps"] = steps[b]
+        row["chain_ms"] = row["steps"] * rtt_ns / 1e6
+        times[b] = row
+        log("sharded", f"hnsw_search sharded S={s} ef={ef} B={b} (L2 "
+            f"flushed): {row['ms']:.4f} ms a call, unsharded "
+            f"{row['unsharded_ms']:.4f} ms (same queries, in turns), plain "
+            f"sharded {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} "
+            f"ms ({row['bound_by']}), chain bound {row['chain_ms']:.4f} ms "
+            f"({row['steps']:.1f} steps x {rtt_ns:.1f} ns), "
+            f"{row['kernels']} kernel a call")
+    return times
+
+
+def phase_sharded(args, indexes, docs, convs, graph, dev, errs,
+                  steps=None):
+    """``[sharded]``: the corpus split over S = 2 and 4 shards of one card
+    (``retrieval_mesh(S, devices=[cuda:0] x S)``; each shard a view of the
+    unsharded tensors).  Per backend and path, the 25 x 10 turns through
+    the sequential engine at each S, the launch counts set to 0 just
+    before each run and read just after, beside the unsharded engine on
+    the same turns: at f32 ids, scores and every counter equal (the
+    fused IVF-PQ turn to the unsharded unfused one: its re-rank is the
+    single-device multiply-reduce); bf16 / int8 print their agreement.
+    Each shard's row 6 / 7 call against its plain version; HNSW on the
+    [hnsw] graph: the sharded engine == the unsharded one, the sharded
+    ``hnsw_search`` instance == its plain sharded version (under the
+    tie rule) and == the unsharded kernel on every turn, and its times
+    (``steps``: the chain steps {B: steps} of ``hnsw_times`` on the same
+    graph and turns, counted here when not given).  Returns (launches,
+    hnsw_search_sharded max_abs_err, times)."""
+    import torch
+    from repro_torch.core.topk import topk
+    from repro_torch.distributed import retrieval as R
+    from repro_torch.kernels import ops, ref
+    launches = {}
+    t_phase = time.perf_counter()
+    flat = torch.from_numpy(convs.reshape(-1, args.d)).to(dev)
+    for backend in ("ivf", "ivf_pq"):
+        index = indexes[backend]
+        _, sel = topk(ref.gemv_rows(index.centroids, flat), args.nprobe)
+        sizes = index.list_sizes.cpu().numpy()
+        for s in SHARD_COUNTS:
+            work = R.per_shard_list_work(sizes, sel.cpu().numpy(), s)
+            placed = R.shard_backend(shard_mesh(s, dev), _bk(backend),
+                                     index)[1]
+            log("sharded", f"{backend} S={s}: shards of "
+                f"{placed.list_ids.per} lists (last "
+                f"{placed.list_ids.parts[-1].shape[0]}), bytes placed "
+                f"{R.placed_bytes(placed)} (views of the unsharded index); "
+                f"per-shard list work of the {flat.shape[0]} turns' plain "
+                f"selections "
+                f"(nprobe {args.nprobe}): {work.tolist()} = {int(work.sum())}"
+                f", max / mean {work.max() / work.mean():.3f}")
+        n = shard_rows_check(backend, index, docs, flat[:SHARD_QUERIES],
+                             sel[:SHARD_QUERIES].to(torch.int32), dev, errs)
+        log("sharded", f"{backend}: {n} per-shard {SHARD_ROW[backend]} calls "
+            f"(S = {', '.join(map(str, SHARD_COUNTS))}, every shard, f32 / "
+            f"bf16 / int8, B = {SHARD_QUERIES}, nprobe {args.nprobe}) == "
+            f"their plain versions ("
+            + ("under the tie rule, tol " + str(TOL) if backend == "ivf"
+               else "ADC top r bit for bit") + ")")
+        base = {name: shard_run(backend, index, convs, knobs)
+                for name, knobs in SHARD_PATHS}
+        for name, knobs in SHARD_PATHS:
+            prec = knobs.get("precision", "f32")
+            row = SHARD_ROW[backend] + ("" if prec == "f32" else f"[{prec}]")
+            want = base[name]
+            if backend == "ivf_pq" and knobs["fused"] and prec == "f32":
+                want = base["toploc+ unfused"]
+            for s in SHARD_COUNTS:
+                eng, vs, ids, lat = shard_run(backend, index, convs, knobs,
+                                              shard_mesh(s, dev))
+                got = ops.fused_scan.launches + ops.fused_scan_pq.launches
+                if knobs["fused"]:
+                    if got != s * vs.shape[0] * vs.shape[1]:
+                        raise AssertionError(f"[sharded] {backend} {name} "
+                                             f"S={s}: {got} launches")
+                    launches[row] = launches.get(row, 0) + got
+                w_eng, w_vs, w_ids, w_lat = want
+                same_ids = float(np.mean(ids == w_ids))
+                if prec == "f32":
+                    if not (np.array_equal(vs, w_vs)
+                            and np.array_equal(ids, w_ids)
+                            and same_records(eng, w_eng)):
+                        raise AssertionError(
+                            f"[sharded] {backend} {name} S={s}: differs from "
+                            f"the unsharded engine")
+                    note = "== unsharded" + (" unfused" if want is not
+                                             base[name] else "") + \
+                        " (ids, scores, TurnStats)"
+                else:
+                    rec = np.mean([len(set(a) & set(b)) / args.k for a, b in
+                                   zip(ids.reshape(-1, args.k),
+                                       w_ids.reshape(-1, args.k))])
+                    note = (f"vs unsharded {name}: recall@10 {rec:.4f}, ids "
+                            f"equal at {same_ids:.4f} of slots, TurnStats "
+                            f"equal: {same_records(eng, w_eng)}")
+                p50, p95 = np.percentile(lat, [50, 95])
+                u50, u95 = np.percentile(w_lat if want is base[name]
+                                         else base[name][3], [50, 95])
+                log("sharded", f"{backend} {name} S={s}: p50_ms={p50:.3f} "
+                    f"p95_ms={p95:.3f} (unsharded {u50:.3f} / {u95:.3f}) "
+                    f"{row}_launches={got}; {note}")
+
+    # HNSW on the [hnsw] graph
+    k, ef = args.k, HNSW_EFS[-1]
+    hflat = flat
+    from repro_torch.distributed import sharding as SH
+    diff = rows = 0
+    err = 0.0
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    entry = torch.randint(0, graph.n, (flat.shape[0],), generator=gen,
+                          device=dev, dtype=torch.int32)
+    g = (graph.adj0, graph.upper_adj, graph.entry_point)
+    for s in SHARD_COUNTS:
+        sh = SH.split_rows(graph.vectors, [dev] * s)
+        dots = ref.hnsw_sharded_dots(sh.parts, sh.per)
+        for e in (None, entry):
+            for ef_ in HNSW_EFS + (HNSW_UP * ef,):
+                got = ops.hnsw_search_sharded(sh.parts, sh.per, *g, hflat, e,
+                                              ef=ef_, k=k)
+                one = ops.hnsw_search(graph.vectors, *g, hflat, e, ef=ef_,
+                                      k=k)
+                equal(f"[sharded] hnsw_search S={s} ef={ef_} == unsharded",
+                      got, one, ("v", "ids", "ndist"))
+            q, ee = hflat[:SHARD_QUERIES], None if e is None else \
+                e[:SHARD_QUERIES]
+            kv, ki, kn = ops.hnsw_search_sharded(sh.parts, sh.per, *g, q, ee,
+                                                 ef=ef, k=k)
+            pv, pi, pn = ref.hnsw_search(None, *g, q, ee, ef=ef, k=k,
+                                         dots_factory=dots)
+            same = (ki == pi).all(-1) & (kn == pn)
+            x, _ = compare(f"[sharded] hnsw_search S={s} vs plain", kv[same],
+                           ki[same], pv[same], pi[same],
+                           dot_rows(graph.vectors, q[same]), graph.n)
+            err, rows, diff = max(err, x), rows + q.shape[0], \
+                diff + int((~same).sum())
+    if diff > HNSW_DIFF_SHARE * rows + 1:
+        raise AssertionError(f"[sharded] hnsw: {diff} of {rows} queries "
+                             f"differ from the plain sharded version")
+    log("sharded", f"hnsw_search sharded (S = "
+        f"{', '.join(map(str, SHARD_COUNTS))}, the {flat.shape[0]} turns at "
+        f"ef {', '.join(map(str, HNSW_EFS))}, {HNSW_UP * ef}, descent and "
+        f"entry override) == the unsharded kernel bit for bit; vs its plain "
+        f"sharded version ({rows} queries): max_abs_err={err:.3g} (tol "
+        f"{TOL}), {diff} differ")
+    knobs = dict(strategy="toploc", ef_search=ef, up=HNSW_UP)
+    base = shard_run("hnsw", graph, convs, knobs)
+    n_launch = 0
+    for s in SHARD_COUNTS:
+        mesh = shard_mesh(s, dev)
+        eng, vs, ids, lat = shard_run("hnsw", graph, convs, knobs, mesh)
+        got = ops.hnsw_search_sharded.launches
+        if got == 0 or ops.hnsw_search.launches:
+            raise AssertionError(f"[sharded] hnsw S={s}: launches {got}, "
+                                 f"unsharded {ops.hnsw_search.launches}")
+        n_launch += got
+        if not (np.array_equal(vs, base[1]) and np.array_equal(ids, base[2])
+                and same_records(eng, base[0])):
+            raise AssertionError(f"[sharded] hnsw S={s}: differs from the "
+                                 f"unsharded engine")
+        p50, p95 = np.percentile(lat, [50, 95])
+        u50, u95 = np.percentile(base[3], [50, 95])
+        log("sharded", f"hnsw toploc ef={ef} S={s}: p50_ms={p50:.3f} "
+            f"p95_ms={p95:.3f} (unsharded {u50:.3f} / {u95:.3f}) "
+            f"hnsw_search_sharded_launches={got}; == unsharded (ids, "
+            f"scores, TurnStats); bytes placed "
+            f"{R.placed_bytes(R.shard_hnsw_index(mesh, graph))}")
+    launches["hnsw_search_sharded"] = n_launch
+    rtt = round_trip_ns(dev)
+    steps = dict(steps or {})
+    times = {s: sharded_hnsw_times(graph, flat, k, rtt["dram"], s, dev,
+                                   steps) for s in SHARD_COUNTS}
+    log("sharded", f"phase {time.perf_counter() - t_phase:.1f}s")
+    return launches, err, times
+
+
+def phase_router(index, convs, dev):
+    """``[router]``: ``ReplicatedSearchEngine`` with two replicas on one
+    card (two batched engines on cuda:0, a stream each), then two
+    replicas x two shards.  Stateful toploc+ fused traffic pinned per
+    session equals the sequential engine per session bit for bit;
+    stateless plain fused traffic is hedged (hedge floor 0, so hedges
+    fire) and equals the sequential plain engine whichever replica
+    wins (the oracle: a sequential engine of one replica's config).
+    Returns the launches of rows 4 and 6."""
+    from repro_torch.distributed import retrieval as R
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (ConversationalSearchEngine,
+                                     ReplicatedSearchEngine, ServingConfig)
+    n_conv, turns = convs.shape[:2]
+    launches = {}
+    t_phase = time.perf_counter()
+    meshes = [("2 replicas", None),
+              ("2 replicas x 2 shards",
+               R.retrieval_mesh(2, replicas=2, devices=[dev] * 4))]
+    for strategy in ("toploc+", "plain"):
+        cfg = ServingConfig(backend="ivf", strategy=strategy, fused=True)
+        for what, mesh in meshes:
+            # the oracle: one sequential engine of a replica's config
+            sub = None if mesh is None else R.replica_submeshes(mesh)[0]
+            seq = ConversationalSearchEngine(
+                dataclasses.replace(cfg, mesh=sub), ivf_index=index)
+            s_v, s_i, _ = serve_sequential(seq, convs)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with ReplicatedSearchEngine(
+                    dataclasses.replace(cfg, mesh=mesh), replicas=2,
+                    ivf_index=index, n_slots=32, max_batch=8,
+                    max_wait_s=0.0 if strategy != "plain" else 0.002,
+                    hedge_floor_s=0.0) as eng:
+                vs = np.zeros_like(s_v)
+                ids = np.zeros_like(s_i)
+                for t in range(turns):
+                    futs = [eng.submit(f"c{c}", convs[c, t])
+                            for c in range(n_conv)]
+                    if eng.stateful:
+                        eng.drain()
+                    for c, f in enumerate(futs):
+                        vs[c, t], ids[c, t] = f.result(timeout=60)
+                wall = time.perf_counter() - t0
+                stats = (eng.load_stats() if eng.stateful
+                         else eng.hedge_stats())
+            for op in ("fused_scan", "fused_turn"):
+                launches[op] = launches.get(op, 0) + getattr(ops, op).launches
+            if not (np.array_equal(vs, s_v) and np.array_equal(ids, s_i)):
+                raise AssertionError(f"[router] {strategy} {what}: differs "
+                                     f"from the sequential engine")
+            log("router", f"ivf {strategy} fused, {what} on one card: "
+                f"{n_conv * turns} turns in {wall:.3f}s "
+                f"({n_conv * turns / wall:.1f} turns/s), launches "
+                f"fused_scan={ops.fused_scan.launches} fused_turn="
+                f"{ops.fused_turn.launches}; "
+                + ("pinned per session, " if strategy != "plain" else
+                   "hedged, ") + f"{stats}; == the sequential engine "
+                f"(ids, scores)")
+    log("router", f"phase {time.perf_counter() - t_phase:.1f}s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4528,6 +4943,9 @@ def main() -> int:
     ap.add_argument("--segment-only", action="store_true",
                     help="build, then only the corpus, the [hnsw] graph "
                     "and [segment] (phase_segment)")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="build, then only the corpus, the indexes, the "
+                    "[hnsw] graph, [sharded] and [router]")
     ap.add_argument("--hnsw-only", action="store_true",
                     help="build, then only the corpus, [hnsw] and the "
                     "[exact] serve (no IVF index)")
@@ -4587,7 +5005,27 @@ def main() -> int:
                                 for bulk, c in adc))
 
     if (args.stages_only or args.dump_rows or args.bag_times or args.adc_times
-            or args.hnsw_only or args.hnsw_times or args.segment_only):
+            or args.hnsw_only or args.hnsw_times or args.segment_only
+            or args.sharded_only):
+        if args.sharded_only:
+            from repro_torch.core import hnsw
+            index, docs, convs, _, _ = phase_index(args, dev)
+            pqi = phase_pq(args, index, docs, dev)
+            t0 = time.perf_counter()
+            graph = hnsw.build(docs[:min(args.hnsw_docs, docs.shape[0])],
+                               m=HNSW_M, ef_construction=HNSW_EFC,
+                               seed=args.seed)
+            log("hnsw", f"build N={graph.n}: "
+                f"{time.perf_counter() - t0:.1f}s on the host")
+            errs = {}
+            launches, err, _ = phase_sharded(
+                args, {"ivf": index, "ivf_pq": pqi}, docs, convs, graph, dev,
+                errs)
+            launches.update(phase_router(index, convs, dev))
+            log("sharded", f"launches {launches}; hnsw_search_sharded "
+                f"max_abs_err={err:.3g}; per-shard max_abs_err {errs}")
+            del index, pqi, docs, graph
+            torch.cuda.empty_cache()
         if args.hnsw_times:
             phase_hnsw_times(args, dev)
         if args.segment_only:
@@ -4735,6 +5173,12 @@ def main() -> int:
         args, docs, convs, bconvs, dev)
     launches["hnsw_search"] = hnsw_launches
     phase_exact_serve(docs, convs, exact)
+    sh_launches, errs["hnsw_search_sharded"], sh_times = phase_sharded(
+        args, indexes, docs, convs, graph, dev, errs,
+        {b: row["steps"] for b, row in hnsw_times.items()})
+    for name, n in list(sh_launches.items()) + list(
+            phase_router(index, convs, dev).items()):
+        launches[name] = launches.get(name, 0) + n
 
     for backend, _ in BACKENDS:
         for name in ("toploc+ fused", "toploc+ unfused"):
@@ -4752,7 +5196,8 @@ def main() -> int:
     times[1]["flash_attention"] = phase_attn_times(args, dev)[1]
     times[1]["embedding_bag"] = bag_times[1]
     times[1].update(classic_times[1])
-    times[1]["hnsw_search"] = hnsw_times
+    times[1]["hnsw_search"] = hnsw_times[1]
+    times[1]["hnsw_search_sharded"] = sh_times[SHARD_COUNTS[-1]][1]
     del index, pqi, indexes, runs
     torch.cuda.empty_cache()
     for name, n in phase_segment(args, docs, bconvs, graph, dev).items():
@@ -4778,7 +5223,7 @@ def main() -> int:
                        if "chain_ms" in times[1][name] else {}))
                for name in IVF_KERNELS + PQ_KERNELS + QUANT_KERNELS +
                ENC_KERNELS + REC_KERNELS + LM_KERNELS + CLASSIC_KERNELS
-               + HNSW_KERNELS]
+               + HNSW_KERNELS + HNSW_SHARD_KERNELS]
     log("done", f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -35,8 +35,9 @@ the scenario result + the explorer for trace/identity assertions.
 The fixed seed matrix ``SEEDS`` (20 schedules) is what
 tests/test_torch_concurrency.py replays over the overlapped-wave
 batched engine (the reference's scenario A) and a delete racing its
-waves (scenario B); the router-mutation scenario comes with ROADMAP
-Queue 1, item 6.
+waves (scenario B), and tests/test_torch_router.py over add / delete /
+compact broadcast by ``serving.router.ReplicatedSearchEngine`` while
+pinned clients query (scenario C).
 """
 from __future__ import annotations
 

@@ -281,9 +281,13 @@ class IVFBackend(RetrievalBackend):
     """TopLoc_IVF / TopLoc_IVF+ over float posting lists.
 
     ``alpha < 0`` → static centroid cache (TopLoc_IVF); ``alpha >= 0`` →
-    Eq. 1 refresh at ``|I0| < alpha·nprobe`` (TopLoc_IVF+).  ``fused``
-    (a ``toploc.FusedTurn``) routes the scan — and, on the stateless
-    path, the whole turn — through the fused CUDA kernels.
+    Eq. 1 refresh at ``|I0| < alpha·nprobe`` (TopLoc_IVF+).  ``scan``
+    optionally replaces the posting-list scan (signature of
+    ``ivf._scan_lists``; sharded: ``distributed.retrieval
+    .ShardedIVFScan``).  ``fused`` (a ``toploc.FusedTurn``) routes the
+    scan — and, on the stateless path, the whole turn — through the
+    fused CUDA kernels; ``scan`` wins if both are set (the sharded scan
+    carries its own fused plugin), as in the reference.
     """
 
     name: ClassVar[str] = "ivf"
@@ -292,10 +296,13 @@ class IVFBackend(RetrievalBackend):
     h: int = 1024
     nprobe: int = 64
     alpha: float = -1.0
+    scan: Any = None
     fused: Any = None
 
     def _list_scan(self, index, q, sel, k):
-        if self.fused is not None:
+        if self.scan is not None:
+            v, i, real = self.scan(index, q, sel, k)
+        elif self.fused is not None:
             v, i, real = self.fused.list_scan_ivf(index, q, sel, k)
         else:
             v, i, real = _ivf._scan_lists(index, q, sel, k)
@@ -321,7 +328,7 @@ class IVFBackend(RetrievalBackend):
                                       list_scan=self._list_scan)
 
     def plain_batch(self, index, q, *, k):
-        if self.fused is not None:
+        if self.fused is not None and self.scan is None:
             # whole turn in the fused kernels: centroid scoring, probe
             # selection and list scan/merge
             b, dev = q.shape[0], q.device
@@ -364,7 +371,9 @@ class IVFPQBackend(IVFBackend):
     ``fused_scan_pq`` / ``fused_turn_pq`` through ``fused``) and the top
     ``R = max(k, min(rerank, nprobe·Lmax))`` candidates exact-re-ranked
     against the float corpus; ``list_dists`` counts the R re-rank dots,
-    ``code_dists`` the ADC table sums.
+    ``code_dists`` the ADC table sums.  ``scan`` replaces the whole ADC
+    scan + re-rank stage (signature of ``toploc._scan_lists_pq``;
+    sharded: ``distributed.retrieval.ShardedPQScan``).
     """
 
     name: ClassVar[str] = "ivf_pq"
@@ -373,7 +382,9 @@ class IVFPQBackend(IVFBackend):
     rerank: int = 64
 
     def _list_scan(self, index, q, sel, k):
-        if self.fused is not None:
+        if self.scan is not None:
+            v, i, code_d, rerank_d = self.scan(index, q, sel, k, self.rerank)
+        elif self.fused is not None:
             v, i, code_d, rerank_d = self.fused.list_scan_pq(
                 index, q, sel, k, self.rerank)
         else:
@@ -382,7 +393,7 @@ class IVFPQBackend(IVFBackend):
         return v, i, rerank_d, code_d
 
     def plain_batch(self, index, q, *, k):
-        if self.fused is not None:
+        if self.fused is not None and self.scan is None:
             # whole turn in the fused kernels: centroid scoring, probe
             # selection, ADC scan/merge and exact re-rank
             b, dev = q.shape[0], q.device
@@ -417,7 +428,8 @@ class HNSWBackend(RetrievalBackend):
     follow-ups start the level-0 beam of ``ef`` there, skipping the
     descent.  ``adaptive=True`` (beyond the paper) re-anchors the entry
     point at every turn's top-1.  ``search`` optionally replaces
-    ``hnsw.search`` (a sharded search, ROADMAP Queue 1, item 6).
+    ``hnsw.search`` (sharded: ``distributed.retrieval
+    .ShardedHNSWSearch``).
     """
 
     name: ClassVar[str] = "hnsw"

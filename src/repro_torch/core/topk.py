@@ -12,7 +12,7 @@ scope, as it is for the kernels.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -52,6 +52,49 @@ def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int
     neg = torch.full((), float("-inf"), dtype=scores.dtype,
                      device=scores.device)
     return topk(torch.where(mask, scores, neg), k)
+
+
+def merge_topk(values_a: torch.Tensor, ids_a: torch.Tensor,
+               values_b: torch.Tensor, ids_b: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two (values, ids) top-k lists into one top-k over the last
+    axis; a tie goes to side a, then to the lower index."""
+    v = torch.cat([values_a, values_b], -1)
+    i = torch.cat([ids_a, ids_b], -1)
+    top_v, pos = topk(v, k)
+    return top_v, i.gather(-1, pos)
+
+
+def distributed_topk(local_values: Sequence[torch.Tensor],
+                     local_ids: Sequence[torch.Tensor], k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global top-k of per-shard top-k lists, concatenated in shard
+    order (so ties resolve shard-major)."""
+    top_v, pos = topk(torch.cat(list(local_values), -1), k)
+    return top_v, torch.cat(list(local_ids), -1).gather(-1, pos)
+
+
+def distributed_topk_ordered(local_values: Sequence[torch.Tensor],
+                             local_pos: Sequence[torch.Tensor],
+                             local_ids: Sequence[torch.Tensor], k: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global top-k with single-device tie-breaking: every shard's
+    candidates carry their flat position in the single-device scan, and
+    the merge orders by (score desc, position asc), so duplicate
+    documents with equal scores come out as the single-device
+    ``lax.top_k`` over the flat candidates gives them.  Pads
+    (``-inf``, ``PAD_POS``) come last.  Two stable sorts: by position,
+    then by ``order_key`` descending."""
+    v = torch.cat(list(local_values), -1)
+    p = torch.cat(list(local_pos), -1)
+    i = torch.cat(list(local_ids), -1)
+    if k > v.shape[-1]:
+        raise ValueError(f"top-{k} of {v.shape[-1]} merged candidates")
+    by_pos = torch.sort(p, dim=-1, stable=True).indices
+    v, i = v.gather(-1, by_pos), i.gather(-1, by_pos)
+    by_v = torch.sort(order_key(v), dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+    return v.gather(-1, by_v), i.gather(-1, by_v)
 
 
 def intersect_count(ids_a: torch.Tensor, ids_b: torch.Tensor) -> torch.Tensor:

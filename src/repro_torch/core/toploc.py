@@ -220,14 +220,15 @@ class FusedTurn:
 
 def index_tensor(index) -> torch.Tensor:
     """A tensor of ``index`` that lies where the whole index does: the
-    centroids of an IVF / IVF-PQ index, the vectors of an HNSW index,
-    Exact's index itself, the bare (n, d) corpus, or, through a
-    ``segment.SegmentedIndex``, its base's."""
+    centroids of an IVF / IVF-PQ index, the vectors of an HNSW index
+    (its adjacency when the vectors are split over a mesh: the leader's
+    device), Exact's index itself, the bare (n, d) corpus, or, through
+    a ``segment.SegmentedIndex``, its base's."""
     if isinstance(index, torch.Tensor):
         return index
     if hasattr(index, "tombstone"):             # segment.SegmentedIndex
         return index_tensor(index.base)
-    for field in ("centroids", "vectors"):
+    for field in ("centroids", "vectors", "adj0"):
         t = getattr(index, field, None)
         if isinstance(t, torch.Tensor):
             return t

@@ -63,6 +63,9 @@ SIGNATURES = {
     "ivf_scan": [P, P, I, P, I, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
     "hnsw_search": [P, I, I, P, I, P, I, I, P, P, I, P, P, I, I, I, I, P,
                     I, P, P, P, P],
+    "hnsw_search_sharded": [P, I, I, I, I, P, I, P, I, I, P, P, I, P, P, I,
+                            I, I, I, P, I, P, P, P, P],
+    "hnsw_peer_access": [I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

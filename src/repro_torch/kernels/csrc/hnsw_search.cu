@@ -65,6 +65,15 @@
 // B blocks run at once, so a batch costs about one query's latency while
 // it fits the card's 132 SMs.
 //
+// Row-sharded vectors (distributed/retrieval.py ShardedHNSWSearch): the
+// SHARDED instances read row id of shard s = id / n_local at row id -
+// s n_local, through a table of up to MAX_SHARDS shard offsets passed by
+// value as a kernel parameter (the descent, the level-0 rows and the L2
+// prefetch all go through it).  Each score is the reference's psum over
+// the shards, the owner's dot plus exact zeros, so it adds +0.0f to the
+// owner's dot: -0.0 becomes +0.0 and nothing else changes.  The
+// unsharded instances compute what they did before the table existed.
+//
 // Plain C interface (bound with ctypes): returns a cudaError_t as int, 0
 // when the launch was accepted.  Ids (the entry point, overrides, and the
 // adjacency's non-negative entries) must lie in [0, n): the caller's
@@ -91,6 +100,36 @@ constexpr int VEC = 6;   // float4 a lane loads of a row a pass
 constexpr int PF_WARP = 4;  // the warp that prefetches the next step's rows
 constexpr unsigned FULL = 0xffffffffu;
 
+// Must equal tiling.HNSW_MAX_SHARDS.
+constexpr int MAX_SHARDS = 8;
+
+// Row-sharded vectors: shard s's rows start off[s] float4 past the
+// `vectors` pointer (its first shard) and hold ids [s n_local, (s + 1)
+// n_local).  Every row address is taken from the one __restrict__
+// pointer, so the sharded instance reads rows as the unsharded one does.
+struct ShardTable {
+  long long off[MAX_SHARDS];
+  int n_local;
+};
+
+// A row's first float4 past `vectors`: id d4 unsharded; sharded, the
+// owner's offset (picked by compare and select, so the table stays in
+// the parameter bank) plus the row within it.
+template <bool SHARDED>
+__device__ __forceinline__ size_t row_at(const ShardTable& t, int id,
+                                         int d4) {
+  if constexpr (SHARDED) {
+    const int s = id / t.n_local;
+    long long o = t.off[0];
+#pragma unroll
+    for (int i = 1; i < MAX_SHARDS; ++i)
+      if (s == i) o = t.off[i];
+    return (size_t)(o + (long long)(id - s * t.n_local) * d4);
+  } else {
+    return (size_t)id * d4;
+  }
+}
+
 // The visited set's instances, in tiling.HNSW_VISITED's order.
 constexpr int V_BITMAP = 0, V_HASH = 1, V_GLOBAL = 2;
 constexpr int EMPTY = -1;  // a free hash slot
@@ -99,9 +138,10 @@ constexpr int EMPTY = -1;  // a free hash slot
 // query, by one warp; every lane's loads of all the rows are issued before
 // its first FMA.  Each row: lane l sums float4 l, l + 32, ... in order,
 // then a fixed xor butterfly; every lane returns the same values.
-template <int R>
+template <int R, bool SHARDED>
 __device__ __forceinline__ void warp_dots(const float* __restrict__ vectors,
-                                          int d4, const float4* q4,
+                                          const ShardTable& shards, int d4,
+                                          const float4* q4,
                                           const int (&id)[R], float (&s)[R],
                                           int lane) {
   float acc[R];
@@ -112,7 +152,7 @@ __device__ __forceinline__ void warp_dots(const float* __restrict__ vectors,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float4* r4 = reinterpret_cast<const float4*>(vectors) +
-                         (size_t)max(id[r], 0) * d4;
+                         row_at<SHARDED>(shards, max(id[r], 0), d4);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         const int c = c0 + lane + 32 * i;
@@ -139,6 +179,8 @@ __device__ __forceinline__ void warp_dots(const float* __restrict__ vectors,
   for (int r = 0; r < R; ++r) {
     float v = acc[r];
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    // the psum of the owner's dot with the other shards' exact zeros
+    if constexpr (SHARDED) v = __fadd_rn(v, 0.0f);
     s[r] = v;
   }
 }
@@ -188,9 +230,10 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
-template <int V>
+template <int V, bool SHARDED>
 __global__ void __launch_bounds__(THREADS)
-    hnsw_search_kernel(const float* __restrict__ vectors, int d,
+    hnsw_search_kernel(const float* __restrict__ vectors,
+                       const ShardTable shards, int d,
                        const int* __restrict__ adj0, int deg,
                        const int* __restrict__ upper, int n_levels, int n,
                        int m, const int* __restrict__ entry_point,
@@ -241,7 +284,7 @@ __global__ void __launch_bounds__(THREADS)
     if (warp == 0) {
       const int id[1] = {start};
       float s[1];
-      warp_dots<1>(vectors, d4, q4, id, s, lane);
+      warp_dots<1, SHARDED>(vectors, shards, d4, q4, id, s, lane);
       if (lane == 0) bv[0][0] = s[0];
     }
   } else {
@@ -250,7 +293,7 @@ __global__ void __launch_bounds__(THREADS)
     if (warp == 0) {
       const int id[1] = {cur};
       float s[1];
-      warp_dots<1>(vectors, d4, q4, id, s, lane);
+      warp_dots<1, SHARDED>(vectors, shards, d4, q4, id, s, lane);
       if (lane == 0) ctl[2] = __float_as_int(s[0]);
     }
     __syncthreads();
@@ -271,7 +314,7 @@ __global__ void __launch_bounds__(THREADS)
             const int j = j0 + r * WARPS;
             id[r] = j < m ? __ldg(row + j) : -1;
           }
-          warp_dots<ROWS>(vectors, d4, q4, id, s, lane);
+          warp_dots<ROWS, SHARDED>(vectors, shards, d4, q4, id, s, lane);
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
             if (id[r] < 0) continue;
@@ -383,7 +426,7 @@ __global__ void __launch_bounds__(THREADS)
         const int j = j0 + r * WARPS;
         id[r] = j < c ? ni[j] : -1;
       }
-      warp_dots<ROWS>(vectors, d4, q4, id, s, lane);
+      warp_dots<ROWS, SHARDED>(vectors, shards, d4, q4, id, s, lane);
       if (lane == 0) {
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
@@ -440,8 +483,9 @@ __global__ void __launch_bounds__(THREADS)
         for (int j = lane; j < deg; j += 32) {
           const int nb = __ldg(nrow + j);
           if (nb < 0) continue;
-          const char* v =
-              reinterpret_cast<const char*>(vectors + (size_t)nb * d);
+          const char* v = reinterpret_cast<const char*>(
+              reinterpret_cast<const float4*>(vectors) +
+              row_at<SHARDED>(shards, nb, d >> 2));
           for (int l = 0; l < vl; ++l) prefetch_l2(v + l * 128);
         }
       }
@@ -541,6 +585,50 @@ __global__ void __launch_bounds__(THREADS)
   if (tid == 0) out_nd[b] = ndist;
 }
 
+// One launch of the instance for `visited_kind` over the rows `vectors`
+// (sharded: the rows of `shards`, `vectors` its first shard).
+template <bool SHARDED>
+int launch_search(const float* vectors, const ShardTable& shards, int n,
+                  int d, const int* adj0,
+                  int deg, const int* upper, int n_levels, int m,
+                  const int* entry_point, const float* queries, int B,
+                  const int* entry_override, const unsigned char* deleted,
+                  int ef, int k, int max_steps, int visited_kind,
+                  unsigned* visited, int words, float* out_v, int* out_i,
+                  int* out_nd, void* stream) {
+  if (B <= 0) return 0;
+  if (ef < 1 || ef > MAX_EF || deg > MAX_DEGREE || m > MAX_DEGREE ||
+      k < 1 || k > ef || d % 4 || max_steps < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long reach = 1 + (long long)max_steps * deg;
+  const long long visits = reach < n ? reach : n;
+  const int bitmap = (n + 31) / 32;
+  int smem = d * (int)sizeof(float);
+  void (*kernel)(const float*, const ShardTable, int, const int*, int,
+                 const int*, int, int, int, const int*, const float*,
+                 const int*, const unsigned char*, int, int, int, unsigned*,
+                 int, float*, int*, int*);
+  if (visited_kind == V_BITMAP && words >= bitmap) {
+    kernel = hnsw_search_kernel<V_BITMAP, SHARDED>;
+    smem += words * (int)sizeof(unsigned);
+  } else if (visited_kind == V_HASH && (long long)words * 11 >= visits * 20) {
+    kernel = hnsw_search_kernel<V_HASH, SHARDED>;
+    smem += words * (int)sizeof(unsigned);
+  } else if (visited_kind == V_GLOBAL && visited != nullptr &&
+             words >= bitmap) {
+    kernel = hnsw_search_kernel<V_GLOBAL, SHARDED>;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)fused_common::launch(
+      kernel, dim3(B), THREADS, smem, static_cast<cudaStream_t>(stream),
+      vectors, shards, d, adj0, deg, upper, n_levels, n, m, entry_point,
+      queries,
+      entry_override, deleted, ef, k, max_steps,
+      visited_kind == V_GLOBAL ? visited : nullptr, words, out_v, out_i,
+      out_nd);
+}
+
 }  // namespace
 
 extern "C" {
@@ -563,36 +651,59 @@ int hnsw_search(const float* vectors, int n, int d, const int* adj0,
                 int ef, int k, int max_steps, int visited_kind,
                 unsigned* visited, int words, float* out_v, int* out_i,
                 int* out_nd, void* stream) {
-  if (B <= 0) return 0;
-  if (ef < 1 || ef > MAX_EF || deg > MAX_DEGREE || m > MAX_DEGREE ||
-      k < 1 || k > ef || d % 4 || max_steps < 0)
+  return launch_search<false>(vectors, ShardTable{}, n, d, adj0, deg, upper,
+                              n_levels, m, entry_point, queries, B,
+                              entry_override, deleted, ef, k, max_steps,
+                              visited_kind, visited, words, out_v, out_i,
+                              out_nd, stream);
+}
+
+// As hnsw_search over row-sharded vectors: bases (a host array of
+// `shards` device pointers, 1 <= shards <= MAX_SHARDS), shard s holding
+// rows [s n_local, min((s + 1) n_local, n)) of d floats, each 16-byte
+// aligned and readable from the current device (one virtual address
+// space: a shard is reached as an offset from the first).
+int hnsw_search_sharded(const float* const* bases, int shards, int n_local,
+                        int n, int d, const int* adj0, int deg,
+                        const int* upper, int n_levels, int m,
+                        const int* entry_point, const float* queries, int B,
+                        const int* entry_override,
+                        const unsigned char* deleted, int ef, int k,
+                        int max_steps, int visited_kind, unsigned* visited,
+                        int words, float* out_v, int* out_i, int* out_nd,
+                        void* stream) {
+  if (shards < 1 || shards > MAX_SHARDS || n_local < 1 ||
+      (long long)shards * n_local < n)
     return (int)cudaErrorInvalidValue;
-  const long long reach = 1 + (long long)max_steps * deg;
-  const long long visits = reach < n ? reach : n;
-  const int bitmap = (n + 31) / 32;
-  int smem = d * (int)sizeof(float);
-  void (*kernel)(const float*, int, const int*, int, const int*, int, int,
-                 int, const int*, const float*, const int*,
-                 const unsigned char*, int, int, int, unsigned*, int,
-                 float*, int*, int*);
-  if (visited_kind == V_BITMAP && words >= bitmap) {
-    kernel = hnsw_search_kernel<V_BITMAP>;
-    smem += words * (int)sizeof(unsigned);
-  } else if (visited_kind == V_HASH && (long long)words * 11 >= visits * 20) {
-    kernel = hnsw_search_kernel<V_HASH>;
-    smem += words * (int)sizeof(unsigned);
-  } else if (visited_kind == V_GLOBAL && visited != nullptr &&
-             words >= bitmap) {
-    kernel = hnsw_search_kernel<V_GLOBAL>;
-  } else {
-    return (int)cudaErrorInvalidValue;
+  ShardTable t{};
+  const char* first = reinterpret_cast<const char*>(bases[0]);
+  for (int s = 0; s < shards; ++s) {
+    const long long bytes = reinterpret_cast<const char*>(bases[s]) - first;
+    if (bytes % 16) return (int)cudaErrorInvalidValue;
+    t.off[s] = bytes / 16;
   }
-  return (int)fused_common::launch(
-      kernel, dim3(B), THREADS, smem, static_cast<cudaStream_t>(stream),
-      vectors, d, adj0, deg, upper, n_levels, n, m, entry_point, queries,
-      entry_override, deleted, ef, k, max_steps,
-      visited_kind == V_GLOBAL ? visited : nullptr, words, out_v, out_i,
-      out_nd);
+  t.n_local = n_local;
+  if (d % 4) return (int)cudaErrorInvalidValue;
+  return launch_search<true>(bases[0], t, n, d, adj0, deg, upper, n_levels,
+                             m, entry_point, queries, B, entry_override,
+                             deleted, ef, k, max_steps, visited_kind, visited,
+                             words, out_v, out_i, out_nd, stream);
+}
+
+// Let the current device read memory of device `peer` (a shard's
+// vectors on another card); 0 when it may, also when it already could.
+int hnsw_peer_access(int peer) {
+  int can = 0, dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    return 0;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

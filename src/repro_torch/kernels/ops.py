@@ -5,7 +5,8 @@ Each op has two execution paths, picked by the device of its tensors:
   * ``"kernel"`` — the CUDA kernel (``fused_turn.py`` / ``pq_adc.py`` /
                    ``flash_attention.py`` / ``flash_decode.py`` /
                    ``embedding_bag.py`` / ``centroid_topk.py`` /
-                   ``ivf_scan.py`` / ``hnsw_search.py`` → ``csrc/``),
+                   ``ivf_scan.py`` / ``hnsw_search.py`` → ``csrc/``; ``hnsw_search``
+                   also over row-sharded vectors),
                    the only path for
                    CUDA tensors (and for ``meta`` tensors, which only
                    ``launcher.record_launches`` takes: it records each
@@ -567,6 +568,51 @@ def hnsw_search(vectors: torch.Tensor, adj0: torch.Tensor,
 hnsw_search.launches = 0
 
 
+def hnsw_search_sharded(parts, n_local: int, adj0: torch.Tensor,
+                        upper_adj: torch.Tensor, entry_point: torch.Tensor,
+                        queries: torch.Tensor,
+                        entry_override: Optional[torch.Tensor] = None, *,
+                        ef: int, k: int,
+                        deleted: Optional[torch.Tensor] = None,
+                        mode: Optional[str] = None, device=None) -> Triple:
+    """``hnsw_search`` over row-sharded vectors: ``parts[s]`` holds rows
+    [s·n_local, s·n_local + len(parts[s])); the graph and the queries lie
+    on the leader device.  Each score is the owner's dot summed in shard
+    order with the other shards' exact zeros (the reference's ``psum``).
+    One shard is the unsharded search (``hnsw_search``, its launch
+    counted there); from two, on CUDA tensors one launch of
+    ``csrc/hnsw_search.cu``'s sharded instance, on CPU tensors
+    ``ref.hnsw_search`` with ``ref.hnsw_sharded_dots``."""
+    if len(parts) == 1:
+        return hnsw_search(parts[0], adj0, upper_adj, entry_point, queries,
+                           entry_override, ef=ef, k=k, deleted=deleted,
+                           mode=mode, device=device)
+    dev = _device.require(device, adj0, upper_adj, entry_point, queries,
+                          entry_override, deleted, *parts)
+    if queries.dim() != 2 or queries.shape[1] != parts[0].shape[1]:
+        raise ValueError(f"queries {tuple(queries.shape)} against shards "
+                         f"of {parts[0].shape[1]} columns")
+    if not 0 < k <= ef:
+        raise ValueError(f"top-{k} of a beam of {ef}")
+    if _mode(mode, dev) == "ref":
+        return ref.hnsw_search(None, adj0, upper_adj, entry_point, queries,
+                               entry_override, ef=ef, k=k, deleted=deleted,
+                               dots_factory=ref.hnsw_sharded_dots(parts,
+                                                                  n_local))
+    out = _hs.hnsw_search_sharded(
+        parts, n_local, adj0, upper_adj,
+        entry_point.to(torch.int32).contiguous(),
+        queries.to(torch.float32).contiguous(),
+        None if entry_override is None
+        else entry_override.to(torch.int32).contiguous(), deleted, ef=ef,
+        k=k)
+    _count(hnsw_search_sharded, queries.shape[0])
+    return out
+
+
+hnsw_search_sharded.launches = 0
+
+
 def reset_launches() -> None:
     """Set every op's launch count to 0."""
     centroid_topk.launches = 0
@@ -580,3 +626,4 @@ def reset_launches() -> None:
     flash_decode.launches = 0
     embedding_bag.launches = 0
     hnsw_search.launches = 0
+    hnsw_search_sharded.launches = 0

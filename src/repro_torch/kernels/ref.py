@@ -482,11 +482,40 @@ def hnsw_dots(vectors: torch.Tensor):
     ``dots_at(ids (B, m)) -> (B, m)``, each id's row gathered and scored
     against its row's query by an explicit multiply and a sum over d.
     The sum reduces each (row, id) alone, in an order set by d only, so
-    a query's scores do not depend on B.  A sharded scorer (ROADMAP
-    Queue 1, item 6) plugs in here and reuses the traversal."""
+    a query's scores do not depend on B.  The sharded scorer
+    (``hnsw_sharded_dots``) plugs in here and reuses the traversal."""
     def factory(queries: torch.Tensor):
         def dots_at(ids: torch.Tensor) -> torch.Tensor:
             return (vectors[ids.long()] * queries[:, None, :]).sum(-1)
+        return dots_at
+    return factory
+
+
+def hnsw_sharded_dots(parts, n_local: int):
+    """A ``dots_at`` factory over row-sharded vectors (shard s holds rows
+    [s·n_local, s·n_local + len(parts[s]))): each shard scores the ids it
+    owns with ``hnsw_dots``' multiply and sum and gives exact zeros
+    elsewhere, and the scores are summed in shard order on the queries'
+    device — the reference's owner-computes ``psum``
+    (``repro/distributed/retrieval.py:372-427``), which turns -0.0 into
+    +0.0 and changes nothing else.  The plain version of the kernel's
+    sharded instance."""
+    def factory(queries: torch.Tensor):
+        qs = [queries.to(p.device) for p in parts]
+
+        def dots_at(ids: torch.Tensor) -> torch.Tensor:
+            total = None
+            for s, (part, q) in enumerate(zip(parts, qs)):
+                loc = ids.to(part.device).long() - s * n_local
+                own = (loc >= 0) & (loc < part.shape[0])
+                if part.shape[0]:
+                    rows = part[loc.clamp(0, part.shape[0] - 1)]
+                    dot = (rows * q[:, None, :]).sum(-1)
+                else:
+                    dot = q.new_zeros(ids.shape)
+                dot = torch.where(own, dot, 0.0).to(queries.device)
+                total = dot if total is None else total + dot
+            return total
         return dots_at
     return factory
 

@@ -393,6 +393,9 @@ HNSW_MAX_DEGREE = 256
 # of at most HNSW_HASH_LOAD (11/20), so its probes stay short
 HNSW_VISITED = ("bitmap", "hash", "global")
 HNSW_HASH_LOAD = (11, 20)
+# shards of row-sharded vectors its sharded instance reads
+# (csrc/hnsw_search.cu MAX_SHARDS)
+HNSW_MAX_SHARDS = 8
 
 STATIC_SMEM: Dict[str, int] = {
     # sv [QTILE][CENTROID_CHUNK + 1] (the 8-query instance;

@@ -43,8 +43,15 @@ live (the batched engine under ``MicroBatcher.paused``, so no wave
 straddles two corpus epochs).
 
 ``ServingConfig`` keeps every field and default of the reference.
-Corpus sharding (``shards > 1``, ``mesh``) is not ported yet and raises
-``NotImplementedError`` (ROADMAP Queue 1, item 6).  A fused
+``shards > 1`` or a prebuilt ``mesh`` (a
+``distributed.retrieval.RetrievalMesh`` led by the engine's device)
+splits the corpus over the mesh's shards and plugs the sharded scan
+into the backend (``retrieval.shard_backend``); results equal the
+unsharded engine's bit for bit.  ``shards`` takes the first visible
+cards, or on the CPU repeats the CPU device (the counterpart of the
+reference's forced host devices).  Exact passes through unsharded.  A
+mutable corpus keeps its unsharded segmented index on the leader and
+serves the base placed on the mesh again after each mutation.  A fused
 configuration whose fetch depth needs a top-k wider than the CUDA
 kernels keep (``tiling.MAX_PAD``) raises at construction (ROADMAP
 Queue 3, item 1), as does an HNSW configuration past the HNSW kernel's
@@ -69,6 +76,7 @@ from repro_torch.core import ivf as _ivf
 from repro_torch.core import pq as _pq
 from repro_torch.core import segment as _segment
 from repro_torch.core import toploc
+from repro_torch.distributed import retrieval as _retrieval
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels import tiling as _tiling
 from repro_torch.serving import result_cache as _result_cache
@@ -94,7 +102,10 @@ class ServingConfig:
     # HNSW
     ef_search: int = 64
     up: int = 2                   # first-turn ef upscaling
-    # corpus sharding (not ported)
+    # corpus sharding (distributed.retrieval): shards > 1 builds a mesh
+    # of that many shards; mesh is a prebuilt RetrievalMesh.  shard_axis
+    # is the reference's field, kept for parity: the port's mesh axis is
+    # always "model"
     shards: int = 0
     mesh: Any = None
     shard_axis: str = "model"
@@ -130,13 +141,6 @@ class TurnRecord:
     # engine).  latency_s + queue_wait_s is the client-observed request
     # latency
     queue_wait_s: float = 0.0
-
-
-def _refuse_unported(cfg: ServingConfig) -> None:
-    if (cfg.shards and cfg.shards > 1) or cfg.mesh is not None:
-        raise NotImplementedError(
-            "corpus sharding (shards > 1 / mesh) is not ported yet: "
-            "ROADMAP Queue 1, item 6")
 
 
 def _host_query(qvec) -> np.ndarray:
@@ -182,13 +186,12 @@ class _EngineAccounting:
 
 
 class _EngineBase(_EngineAccounting):
-    """Backend/index/cache resolution shared by both engines."""
+    """Backend/index/mesh/cache resolution shared by both engines."""
 
     _cache: Optional[_result_cache.ResultCache]
 
     def _setup(self, config: ServingConfig, *, ivf_index, ivf_pq_index,
                hnsw_index, doc_vecs, device) -> None:
-        _refuse_unported(config)
         self.cfg = config
         self.device = _device.resolve(device)
         alpha = config.alpha if config.strategy == "toploc+" else -1.0
@@ -217,13 +220,28 @@ class _EngineBase(_EngineAccounting):
         self.doc_vecs = doc_vecs
         # corpus epoch: bumped on every mutation (add / delete / compact)
         self.corpus_epoch = 0
-        # the unwrapped backend of a mutable corpus (None: frozen index)
+        # a mutable corpus: the unwrapped backend and the unsharded
+        # segmented index the mutations run on (None: frozen index)
         self._seg_inner: Optional[_backend.RetrievalBackend] = None
+        self._segmented: Optional[_segment.SegmentedIndex] = None
         if config.segment_cap > 0:
             self._seg_inner = self.backend
-            self.index = _segment.make_segmented(
+            self._segmented = _segment.make_segmented(
                 self.backend, self.index, cap=config.segment_cap)
+        # corpus mesh: place the index, plug the sharded scan into the
+        # backend; with no mesh both pass through untouched.  Only a
+        # mutable corpus keeps its unsharded base (in _segmented), where
+        # the mutations run; _placed pairs it with its placement
+        self.mesh = self._resolve_mesh(config)
+        self._placed: Optional[Tuple[Any, Any]] = None   # (base, placed)
+        if self.mesh is not None:
+            self.backend, self.index = _retrieval.shard_backend(
+                self.mesh, self.backend, self.index)
+        if self._segmented is not None:
+            if self.mesh is not None:
+                self._placed = (self._segmented.base, self.index)
             self.backend = _segment.SegmentedBackend(inner=self.backend)
+            self.index = self._served(self._segmented)
         self.turn_count: Dict[str, int] = {}
         self.records: List[TurnRecord] = []
 
@@ -232,7 +250,34 @@ class _EngineBase(_EngineAccounting):
         """Per-conversation state in play this deployment?"""
         return self.backend.stateful and self.cfg.strategy != "plain"
 
+    def _resolve_mesh(self, config: ServingConfig):
+        """The corpus mesh: ``config.mesh``, or one of ``config.shards``
+        shards (the first visible cards; on the CPU the CPU device
+        repeated), led by the engine's device; None without either."""
+        mesh = config.mesh
+        if mesh is None and config.shards and config.shards > 1:
+            mesh = _retrieval.engine_mesh(config.shards, self.device)
+        if mesh is None:
+            return None
+        return _retrieval.check_mesh(mesh, self.device)
+
     # -- mutable corpus (core.segment) --------------------------------
+
+    def _served(self, seg: "_segment.SegmentedIndex"
+                ) -> "_segment.SegmentedIndex":
+        """What the engine serves for the segmented index ``seg``: ``seg``
+        itself, or over a mesh its base placed there (placed again only
+        when a mutation changed it) under the leader's delta and
+        tombstones."""
+        if self.mesh is None:
+            return seg
+        plain, placed = self._placed
+        if seg.base is not plain:
+            placed = _retrieval.shard_index(self.mesh, self._seg_inner,
+                                            seg.base)
+            self._placed = (seg.base, placed)
+        return _retrieval.place_segmented(self.mesh, seg)._replace(
+            base=placed)
 
     def _require_segmented(self) -> None:
         if self._seg_inner is None:
@@ -249,7 +294,8 @@ class _EngineBase(_EngineAccounting):
     def _after_mutation(self, index: "_segment.SegmentedIndex") -> None:
         """Serve ``index`` from now on, bump the epoch and refresh the
         cache's historical-embedding corpus."""
-        self.index = index
+        self._segmented = index
+        self.index = self._served(index)
         self.corpus_epoch += 1
         if self._cache is not None:
             self._cache.corpus = self._cache_corpus()
@@ -259,7 +305,7 @@ class _EngineBase(_EngineAccounting):
         changes); returns their assigned global ids."""
         self._require_segmented()
         with self._mutation_scope():
-            index, ids = _segment.add_documents(self.index, vectors)
+            index, ids = _segment.add_documents(self._segmented, vectors)
             # cache entries stay valid: their candidate pools predate the
             # new docs (the staleness of a miss served just before the add)
             self._after_mutation(index)
@@ -273,7 +319,7 @@ class _EngineBase(_EngineAccounting):
             ids = ids.cpu()
         with self._mutation_scope():
             self._after_mutation(_segment.delete_documents(
-                self._seg_inner, self.index, ids))
+                self._seg_inner, self._segmented, ids))
             # the sweep lands inside the scope too: a wave launched between
             # the index swap and the sweep could refresh an entry that
             # still holds the dead doc
@@ -289,16 +335,17 @@ class _EngineBase(_EngineAccounting):
             self._compact_locked(**build_kw)
 
     def _compact_locked(self, **build_kw) -> None:
-        index = _segment.compact(self._seg_inner, self.index, **build_kw)
+        index = _segment.compact(self._seg_inner, self._segmented,
+                                 **build_kw)
         # a compaction can change Lmax: refuse an index past the kernels'
         # caps before it is served, keeping the one served now
         self._check_kernel_width(index.base)
         if self.doc_vecs is not None:
             # delta rows fold into the base id range: the flat corpus
             # grows with them, so cache re-scoring keeps covering them
-            fill = _segment.delta_fill(self.index)
+            fill = _segment.delta_fill(self._segmented)
             self.doc_vecs = torch.cat([self.doc_vecs,
-                                       self.index.delta_vecs[:fill]], 0)
+                                       self._segmented.delta_vecs[:fill]], 0)
         self._after_mutation(index)
 
     def _cache_corpus(self) -> Optional[torch.Tensor]:
@@ -306,11 +353,12 @@ class _EngineBase(_EngineAccounting):
         a mutable corpus the delta rows follow the base rows, at exactly
         ids n_base..n_base+cap-1."""
         if self._seg_inner is not None:
+            seg = self._segmented
             base = (self.doc_vecs if self.doc_vecs is not None
-                    else self._seg_inner.corpus_vectors(self.index.base))
+                    else self._seg_inner.corpus_vectors(seg.base))
             if base is None:
                 return None
-            return torch.cat([base, self.index.delta_vecs], 0)
+            return torch.cat([base, seg.delta_vecs], 0)
         return (self.doc_vecs if self.doc_vecs is not None
                 else self.backend.corpus_vectors(self.index))
 
@@ -330,7 +378,7 @@ class _EngineBase(_EngineAccounting):
         return _result_cache.ResultCache(
             d=self.backend.query_dim(self.index), k=cfg.k,
             threshold=cfg.cache_threshold, depth=depth,
-            corpus=self._cache_corpus(), n_slots=n_slots,
+            corpus=self._cache_corpus(), n_slots=n_slots, mesh=self.mesh,
             device=self.device, stream=stream)
 
     @property
@@ -352,7 +400,7 @@ class _EngineBase(_EngineAccounting):
         served)."""
         backend, served = self.backend, self.index
         if self._seg_inner is not None:
-            backend, served = self._seg_inner, self.index.base
+            backend, served = self._seg_inner, self._segmented.base
         index = served if index is None else index
         if isinstance(backend, _backend.HNSWBackend):
             for ef in (backend.ef, backend.up * backend.ef):
@@ -523,7 +571,8 @@ class BatchedConversationalSearchEngine(_EngineBase):
             self._stream = torch.cuda.Stream(device=self.device)
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
         self.store = _sessions.store_for_backend(
-            self.backend, self.index, n_slots=n_slots, stream=self._stream)
+            self.backend, self.index, n_slots=n_slots, mesh=self.mesh,
+            stream=self._stream)
         self._cache = self._make_cache(n_slots=n_slots, stream=self._stream)
         self._check_kernel_width()
         if self._cache is not None:

@@ -41,9 +41,10 @@ ways against the store's (``Stream.wait_stream``; no host sync).
 
 The slab's layout is the backend's ``session_template``: the rows
 above for IVF and IVF-PQ, ``entry_point`` (S+1,) int32 and ``turn``
-(S+1,) int32 for HNSW.  The corpus mesh of the reference (``mesh=``, a
-slab replicated over the sharded corpus) comes with ROADMAP Queue 1,
-item 6.
+(S+1,) int32 for HNSW.  Over a corpus mesh (``mesh=``, a
+``distributed.retrieval.RetrievalMesh``) the slab lives on the mesh's
+leader device, where the session math runs: the port's counterpart of
+the reference's slab replicated over the mesh.
 """
 from __future__ import annotations
 
@@ -56,6 +57,8 @@ import numpy as np
 import torch
 
 from repro_torch.concurrency import guarded_by
+from repro_torch.distributed.retrieval import (RetrievalMesh,
+                                               canonical_device)
 
 
 def tree_map(fn: Callable, *trees: Any) -> Any:
@@ -126,11 +129,17 @@ class SessionStore:
         """``template``: one session's NamedTuple of tensors (no leading
         batch dim), whose shapes, dtypes and device define the slab.
         ``stream``: the CUDA stream every slab access runs on (None: the
-        caller's current stream)."""
+        caller's current stream).  ``mesh``: the corpus mesh the slab
+        serves; the template must lie on its leader device."""
         if mesh is not None:
-            raise NotImplementedError(
-                "a session slab replicated over a corpus mesh is not "
-                "ported yet: ROADMAP Queue 1, item 6")
+            if not isinstance(mesh, RetrievalMesh):
+                raise TypeError(f"mesh must be a RetrievalMesh, got "
+                                f"{type(mesh).__name__}")
+            if any(canonical_device(t.device) != mesh.leader
+                   for t in template):
+                raise ValueError(f"the session slab lives on the mesh's "
+                                 f"leader {mesh.leader}, the template on "
+                                 f"{template[0].device}")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         self.n_slots = n_slots

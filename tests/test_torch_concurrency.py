@@ -16,8 +16,8 @@ Two layers under test, as in ``tests/test_concurrency.py``:
    in-flight waves of two clients (a mutable corpus, the cache on): no
    turn submitted after the delete returned serves the deleted doc,
    from the backend or from a stale cache entry, and the schedule
-   exposes no violation.  Scenario C (router mutation) comes with
-   ROADMAP Queue 1, item 6.
+   exposes no violation.  Scenario C (a router mutation racing
+   queries) is in ``tests/test_torch_router.py``.
 
 Runs on CPU tensors; no thread is left running.
 """

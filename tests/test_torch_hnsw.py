@@ -389,8 +389,12 @@ def test_hnsw_session_store_layout(tindex, hnsw_index):
     for r, g in zip(ref, got):
         assert tuple(r.shape) == tuple(g.shape)
         assert np.asarray(r).dtype == g.numpy().dtype
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+    with pytest.raises(TypeError, match="RetrievalMesh"):
         hnsw_session_store(tindex, n_slots=2, mesh=object())
+    from repro_torch.distributed import retrieval
+    mesh = retrieval.retrieval_mesh(2, devices=["cpu", "cpu"])
+    placed = retrieval.shard_hnsw_index(mesh, tindex)
+    assert hnsw_session_store(placed, n_slots=2, mesh=mesh).trash_slot == 2
 
 
 def test_exact_backend_matches_reference(small_corpus):

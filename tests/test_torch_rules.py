@@ -4,7 +4,8 @@
 * Entry points default to cuda and raise without it; they never drift
   to the CPU behind the caller's back.
 * ``mode="kernel"`` on CPU tensors raises (the kernel has no CPU mode);
-  unported precisions and serving knobs raise ``NotImplementedError``;
+  unknown precisions raise ``ValueError``, unported LM features
+  ``NotImplementedError``;
   unported backends raise the reference's unknown-backend error.
 """
 import dataclasses
@@ -27,12 +28,14 @@ from repro_torch.core import ivf as tivf
 from repro_torch.core import pq as tpq
 from repro_torch.core import segment as tsegment
 from repro_torch.core import toploc as ttl
+from repro_torch.distributed import retrieval as tretrieval
 from repro_torch.kernels import ops as tops
 from repro_torch.models import encoder as tenc
 from repro_torch.configs import yi_9b as tyi
 from repro_torch.models import recsys as trec
 from repro_torch.models import transformer as ttf
 from repro_torch.serving import engine as teng
+from repro_torch.serving import router as trouter
 
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 
@@ -54,7 +57,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.kernels.launcher, repro_torch.kernels.centroid_topk, "
         "repro_torch.kernels.ivf_scan, repro_torch.analysis, "
         "repro_torch.analysis.kernel_budget, "
-        "repro_torch.analysis.__main__\n"
+        "repro_torch.analysis.__main__, repro_torch.distributed, "
+        "repro_torch.distributed.sharding, "
+        "repro_torch.distributed.collectives, "
+        "repro_torch.distributed.retrieval, "
+        "repro_torch.serving.router\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n")
@@ -180,7 +187,18 @@ ENTRY_POINTS = {
         teng.ServingConfig(), ivf_index=idx),
     "engine.ivf_pq": lambda idx, q: teng.ConversationalSearchEngine(
         teng.ServingConfig(backend="ivf_pq"), ivf_pq_index=idx),
+    "engine.shards": lambda idx, q: teng.BatchedConversationalSearchEngine(
+        teng.ServingConfig(shards=2), ivf_index=idx),
+    "router": lambda idx, q: trouter.ReplicatedSearchEngine(
+        teng.ServingConfig(), replicas=2, ivf_index=idx),
 }
+
+
+def test_retrieval_mesh_defaults_to_the_cards(no_cuda):
+    """With no ``devices`` a mesh takes the visible CUDA cards: none
+    here, so it raises rather than fall back to the CPU."""
+    with pytest.raises(ValueError, match="0 available"):
+        tretrieval.retrieval_mesh(1)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -255,9 +273,18 @@ def test_unknown_precisions_raise(tiny, tiny_pq, precision):
 
 @pytest.mark.parametrize("knob", [dict(shards=2), dict(mesh=object())])
 def test_unported_serving_knobs_raise(tiny, knob):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        teng.ConversationalSearchEngine(teng.ServingConfig(**knob),
-                                        ivf_index=tiny[0], device="cpu")
+    """Corpus sharding is ported: ``shards=2`` serves over two shards of
+    the CPU device; a mesh that is not a ``RetrievalMesh`` raises."""
+    if "mesh" in knob:
+        with pytest.raises(TypeError, match="RetrievalMesh"):
+            teng.ConversationalSearchEngine(teng.ServingConfig(**knob),
+                                            ivf_index=tiny[0], device="cpu")
+        return
+    eng = teng.ConversationalSearchEngine(
+        teng.ServingConfig(nprobe=1, h=2, **knob), ivf_index=tiny[0],
+        device="cpu")
+    assert len(eng.mesh.shard_devices) == 2
+    assert isinstance(eng.backend.scan, tretrieval.ShardedIVFScan)
 
 
 @pytest.mark.parametrize("engine", ["ConversationalSearchEngine",
@@ -296,12 +323,12 @@ def test_make_checks_knobs_like_the_reference():
 
 
 def test_make_ivf_pq_defaults_match_the_reference():
-    """``make("ivf_pq")`` gives the reference's knobs and defaults; the
-    reference's ``scan`` (the sharded-scan hook) is not ported."""
+    """``make("ivf_pq")`` gives the reference's knobs and defaults, the
+    sharded-scan hook ``scan`` included."""
     ref, port = rbackend.make("ivf_pq"), tbackend.make("ivf_pq")
     rf = {f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}
     pf = {f.name: getattr(port, f.name) for f in dataclasses.fields(port)}
-    assert set(rf) - set(pf) == {"scan"} and set(pf) <= set(rf)
+    assert list(rf) == list(pf) and "scan" in pf
     assert pf == {n: rf[n] for n in pf}
     assert (type(port).name, type(port).index_kwarg) == \
         ("ivf_pq", "ivf_pq_index")

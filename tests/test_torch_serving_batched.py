@@ -306,9 +306,16 @@ def test_clear_zeroes_many_slots_in_one_scatter(tidx, monkeypatch):
 
 @pytest.mark.parametrize("what", ["mesh"])
 def test_unported_stores_raise(tidx, what):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+    """A slab over a corpus mesh (ported) lives on the mesh's leader; a
+    mesh that is not a ``RetrievalMesh`` raises."""
+    with pytest.raises(TypeError, match="RetrievalMesh"):
         ivf_session_store(tidx["ivf"], h=H, nprobe=NPROBE, n_slots=2,
                           mesh=object())
+    from repro_torch.distributed import retrieval
+    mesh = retrieval.retrieval_mesh(3, devices=["cpu"] * 3)
+    store = ivf_session_store(tidx["ivf"], h=H, nprobe=NPROBE, n_slots=2,
+                              mesh=mesh)
+    assert store.device == mesh.leader
 
 
 def test_session_template_matches_the_reference(ivf_index, tidx):
