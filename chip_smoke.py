@@ -26,8 +26,12 @@ hand-written ``embedding_bag`` kernel.  Then retrieval-augmented answers
 at full width and depth (``repro/configs/yi_9b.py``, bf16, random
 weights from a seed), which prefills the retrieved docs and the query
 and decodes greedily through the hand-written ``flash_decode`` kernel;
-and the ``decode_32k`` serve shape of that model, cut from B = 128 to B
-= 8 (at B = 128 the K/V cache would be 412 GB).
+then the same turns answered by DeepSeek-V2-Lite at full width and
+depth (``repro/configs/deepseek_v2_lite_16b.py``: MLA, 64 routed experts
+top-6 + 2 shared, bf16, random weights from a seed), its prefill through
+``flash_attention`` at D = 192, Dv = 128; and the ``decode_32k`` serve
+shape of Yi-9B, cut from B = 128 to B = 8 (at B = 128 the K/V cache
+would be 412 GB).
 
 Phases (one line each, [serve] one per path; any failure raises and
 exits non-zero):
@@ -60,9 +64,10 @@ exits non-zero):
               torch.profiler (device us each, L2 flushed), B = 1 and 25,
               and the one-time int8 scale passes of the index
   5 attn      flash_attention == its plain version within 1e-5, Yi-9B's
-              RAG prefill shape (S = 784, D = 128, GQA 8, causal) on
-              bf16 inputs too (the bf16 kernel), its bf16 output within
-              one bf16 ulp
+              RAG prefill shape (S = 784, D = 128, GQA 8, causal),
+              DeepSeek's MLA prefill (H 16, D = 192, Dv = 128) and
+              heads 256 wide on bf16 inputs too (the bf16 kernel), its
+              bf16 output within one bf16 ulp
   6 decode    flash_decode == its plain version: f32 results within
               1e-5, bf16 outputs within one bf16 ulp of the row's
               largest |out|; GQA groups 1, 5, 8, S = 1,000 / 1,024 /
@@ -75,11 +80,19 @@ exits non-zero):
               prefill of 3 docs x 256 + 16 query tokens (first held
               to a prefill through the plain attention), 32 greedy
               tokens; encode / retrieval / prefill p50 and p95, ms a
-              token, 24,576 flash_decode launches, finite logits
+              token, 24,576 flash_decode launches, finite logits; then
+              [rag] deepseek-v2-lite: the same 16 turns (its 784-token
+              prefill first held to the plain attention, routed as the
+              plain run: logits, ckv, krope), the absorbed MLA decode; init s, peak memory,
+              prefill p50 / p95, ms and kernels a token beside the
+              decode's byte floor (every expert's bank a token)
   9 twotower  the full-width model, the item corpus, its IVF; then
               [recsys serve] (100 users x 10 requests per path, user
               tower at B = 1 then engine.query), [pairwise] (serve_p99
-              and serve_bulk) and the embedding_bag [times]
+              and serve_bulk) and the embedding_bag [times]; [twotower
+              dist]: the sharded serve steps at S = 2 and 4 of the one
+              card, dist_topk (k = 100 of 10^6 items) == the brute step's
+              ids, toploc_ivf_dist == its S = 1 result
  10 index     the port's ivf.build at full size + exact top-10
  11 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
  12 serve     per backend: toploc+ / toploc / plain fused, toploc+
@@ -131,8 +144,9 @@ exits non-zero):
               plain versions; then rows 1-2's [times] at B = 1 and 25
  14 times     CUDA-event kernel times (L2 flushed) beside their bounds,
               rows 4-7 at f32, bf16 and int8; flash_attention at
-              dragon's B = 1 and 64 (float32, 3xTF32 bound) and Yi-9B's
-              bf16 prefill (B = 1, S = 784, causal) beside SDPA
+              dragon's B = 1 and 64 (float32, 3xTF32 bound), Yi-9B's
+              and DeepSeek's MLA bf16 prefill (B = 1, S = 784, causal)
+              beside SDPA (the kernels it picked named)
     segment   the mutable corpus (core.segment), fig6's protocol: fig3's
               32 x 10 through the batched engine at max_batch 32, ingest
               off and on (each wave: add docs, delete a doc it served,
@@ -161,9 +175,10 @@ Run from the repository root: ``python3 chip_smoke.py``.  Size flags
 (``--n-docs``, ``--lists``, ``--iters``, ``--enc-docs``, ``--tt-items``,
 ``--tt-users``) cut the run for a quick check.  ``--stages-only`` builds
 and prints only the [stages] split; ``--dump-rows PATH`` builds and saves
-rows 1-7's outputs on the seeded realistic inputs and hnsw_search's on a
-seeded graph to PATH, so the kernels of two checkouts can be held to
-each other bit for bit (``--same-dumps A B``);
+rows 1-7's outputs on the seeded realistic inputs, hnsw_search's on a
+seeded graph and row 8's at the [attn] shapes up to 128 wide to PATH,
+so the kernels of two checkouts can be held to each other bit for bit
+(``--same-dumps A B``);
 ``--segment-only`` builds and runs only the corpus, the [hnsw] graph
 and [segment]; ``--sharded-only`` only the corpus, the IVF and IVF-PQ
 indexes, the [hnsw] graph, [sharded] and [router]; ``--hnsw-only`` builds and runs only the corpus, [hnsw] and the [exact]
@@ -918,12 +933,10 @@ def phase_plans(dev):
         tensors = probe.tensors(dev, gen)
         ops.drop_scales()
         want = KB.planned(probe, tensors, dev)
-        seen = KB.traced(probe, tensors, dev, before=ops.drop_scales)
-        for _ in range(PLAN_RETRACES):
-            if not lost_events(seen, want):
-                break
-            retraced.append(f"{probe.label} ({len(seen)} of {len(want)})")
-            seen = KB.traced(probe, tensors, dev, before=ops.drop_scales)
+        KB.traced.retaken = 0
+        seen = KB.traced(probe, tensors, dev, want, before=ops.drop_scales)
+        if KB.traced.retaken:
+            retraced.append(f"{probe.label} ({KB.traced.retaken}x)")
         if seen != want or not want:
             bad.append(f"{probe.label}: the profiler saw {seen}, the plan "
                        f"says {want}")
@@ -941,20 +954,6 @@ def phase_plans(dev):
     if bad:
         raise AssertionError("plans: " + "; ".join(bad))
     return len(probes), n
-
-
-# traces taken again, a probe, while a trace is its plan with kernels
-# missing: torch.profiler's activity tracing on the card now and then
-# drops a session's events (a trace empty after its own 3 tries, or
-# without its first kernel); a trace with a kernel the plan lacks, or in
-# another order, fails at once
-PLAN_RETRACES = 3
-
-
-def lost_events(seen, want):
-    """Is ``seen`` ``want`` with kernels missing, the rest in order?"""
-    rest = iter(want)
-    return len(seen) < len(want) and all(k in rest for k in seen)
 
 
 def ck_bound(c, q, kp):
@@ -1295,10 +1294,17 @@ ATTN_SHAPES = [(2, 8, 8, 256, 256, 64, 64, True),      # MHA
                (1, 12, 12, 256, 256, 64, 64, False),   # dragon query
                (DOC_BATCH, 12, 12, 256, 256, 64, 64, False),  # dragon docs
                (1, 16, 16, 256, 256, 64, 64, False),   # snowflake
-               (1, 32, 4, 784, 784, 128, 128, True)]   # yi-9b RAG prefill
+               (1, 32, 4, 784, 784, 128, 128, True),   # yi-9b RAG prefill
+               (1, 16, 16, 784, 784, 192, 128, True),  # deepseek MLA prefill
+               (1, 8, 4, 256, 256, 256, 256, True)]    # the widest heads
 # shapes whose inputs are bf16, as the LM's prefill gives them: the op
 # reads them as they are (the bf16 kernel) and writes a bf16 output
-ATTN_BF16 = {(1, 32, 4, 784, 784, 128, 128, True)}
+ATTN_BF16 = {(1, 32, 4, 784, 784, 128, 128, True),
+             (1, 16, 16, 784, 784, 192, 128, True),
+             (1, 8, 4, 256, 256, 256, 256, True)}
+# deepseek-v2-lite's prefill through MLA: H = Hkv = 16, D = d_head +
+# d_rope = 192, Dv = d_head = 128 (a wide instance)
+MLA_ATTN = (1, 16, 16, 784, 784, 192, 128, True)
 
 
 def attn_inputs(shape, gen, dev):
@@ -1449,12 +1455,12 @@ def pad_queries(tok, max_len):
 
 
 def set_attention(model, fn, which="attention"):
-    """Run every attention layer of ``model`` through ``fn`` (None: the
-    kernel); ``which`` is "attention" (``flash_attention``) or
-    "decode_attention" (``flash_decode``)."""
-    from repro_torch.models.layers import Attention
+    """Run every attention layer of ``model`` (GQA or MLA) through ``fn``
+    (None: the kernel); ``which`` is "attention" (``flash_attention``)
+    or "decode_attention" (``flash_decode``, GQA only)."""
+    from repro_torch.models.layers import MLA, Attention
     for m in model.modules():
-        if isinstance(m, Attention):
+        if isinstance(m, (Attention, MLA)) and hasattr(type(m), which):
             setattr(m, which, fn)
 
 
@@ -1793,9 +1799,36 @@ def phase_dump_rows(args, dev, path):
     del lv, li, rows, pqi
     torch.cuda.empty_cache()
     out.update(dump_hnsw(args, dev))
+    n_hnsw = len(out) - rows_out
+    out.update(dump_attn(args, dev))
     torch.save(out, path)
     log("dump", f"{rows_out} outputs of rows 1-7 at B = 1, 2, 4 and 25, "
-        f"{len(out) - rows_out} of hnsw_search -> {path}")
+        f"{n_hnsw} of hnsw_search, {len(out) - rows_out - n_hnsw} of "
+        f"flash_attention -> {path}")
+
+
+def dump_attn(args, dev):
+    """flash_attention (row 8) at every [attn] shape whose heads are at
+    most 128 wide (the instances that predate the wide ones), on float32
+    and bf16 inputs, v contiguous and as the prefill leaves it
+    (transposed): {name: [out]} on the host."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    out = {}
+    for shape in ATTN_SHAPES:
+        if max(shape[5], shape[6]) > 128:
+            continue
+        causal = shape[-1]
+        x = attn_inputs(shape, gen, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in x)
+            vt = v.transpose(1, 2).contiguous().transpose(1, 2)
+            out[f"flash_attention {shape} {dtype}"] = [
+                ops.flash_attention(q, k, v, causal=causal).cpu()]
+            out[f"flash_attention {shape} {dtype} v transposed"] = [
+                ops.flash_attention(q, k, vt, causal=causal).cpu()]
+    return out
 
 
 def dump_hnsw(args, dev, n=20_000, deg=32, levels=3):
@@ -2211,6 +2244,196 @@ def phase_rag(args, dev, enc, index, docs_tok, conv_tok):
     return n
 
 
+def decode_floor_bytes(cfg, max_len):
+    """Bytes one B = 1 decode step of an MoE / MLA LM must read: every
+    weight but the embedding (one row of it), since the reference's
+    dense dispatch multiplies every expert's bank, and the whole latent
+    cache (its einsums run over all max_len positions, masked after)."""
+    import torch
+    esz = torch.empty((), dtype=cfg.dtype).element_size()
+    weights = (cfg.param_count() - (cfg.vocab - 1) * cfg.d_model) * esz
+    return weights + cfg.kv_bytes_per_token() * max_len
+
+
+def moe_prefill_gate(lm, prompt, tol=5e-2):
+    """An MLA / MoE LM's prefill of ``prompt`` through flash_attention
+    against the same prefill through the plain attention, with the kernel
+    run's routing taken from the plain run's (teacher-forced): a bf16
+    ulp apart in one attention output can flip a token's top-k experts, a
+    discontinuous change (as a near tie in any top-k is) after which the
+    two runs take other paths.  So each routing call of the kernel run
+    takes the plain run's top-k experts, weighted by its own router
+    probabilities at them, and the logits, ckv and krope of every layer
+    are held within ``tol`` of the plain side's largest |value|.  Returns
+    its line, with the tokens whose own top-k differs from the plain
+    run's, a layer (a diagnostic, not gated)."""
+    import types
+    import torch
+    from repro_torch.core import topk as core_topk
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+    cfg = lm.cfg
+    routes, flips = [], []
+
+    def record(probs, k):
+        w, e = core_topk.topk(probs, k)
+        routes.append(e)
+        return w, e
+
+    def forced(probs, k):
+        e = routes[len(flips)]
+        own = core_topk.topk(probs, k)[1]
+        flips.append(int((own.sort(-1).values != e.sort(-1).values)
+                         .any(-1).sum()))
+        return probs.gather(-1, e), e
+
+    def run(attention, route):
+        set_attention(lm, attention)
+        layers._topk = types.SimpleNamespace(topk=route)
+        try:
+            return lm.prefill(prompt[None], RAG_MAX_LEN)
+        finally:
+            layers._topk = core_topk
+            set_attention(lm, None)
+
+    def rel(got, want):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{cfg.name} prefill: not finite")
+        d = float((got.float() - want.float()).abs().max())
+        return d / float(want.float().abs().max())
+
+    want = run(ref.mha_attention, record)
+    got = run(None, forced)
+    if len(flips) != len(routes) or len(routes) % cfg.n_layers:
+        raise AssertionError(f"{cfg.name} prefill: {len(routes)} routing "
+                             f"calls recorded, {len(flips)} forced")
+    per = len(routes) // cfg.n_layers
+    flips = [sum(flips[i:i + per]) for i in range(0, len(flips), per)]
+    err = {"logits": rel(got[0], want[0])}
+    err.update({n: rel(got[1][n], want[1][n]) for n in ("ckv", "krope")})
+    s = prompt.shape[0]
+    if max(err.values()) > tol:
+        raise AssertionError(
+            f"{cfg.name} prefill of {s} tokens, kernel vs plain attention, "
+            f"the plain run's routing: max |d| / max |plain| {err} (tol "
+            f"{tol}); own routing flips a layer {flips}")
+    return (f"{s} tokens, all {cfg.n_layers} layers, the kernel run "
+            f"routed as the plain run: max |d| / max |plain| " + " ".join(
+                f"{n}={e:.4g}" for n, e in err.items())
+            + f" (tol {tol}), same top-1 "
+            f"{bool((got[0].argmax(-1) == want[0].argmax(-1)).all())}; "
+            f"tokens whose own top-{cfg.top_k} experts would differ, a "
+            f"layer: {','.join(map(str, flips))}")
+
+
+def phase_rag_deepseek(args, dev, enc, index, docs_tok, conv_tok):
+    """DeepSeek-V2-Lite at full width and depth (27 layers, MLA with a
+    512 + 64 latent, 64 routed experts top-6 and 2 shared, bf16, random
+    weights from a seeded CUDA generator) answers the same RAG turns as
+    [rag]: RAG_CONVS x RAG_TURNS, the dragon query tower at B = 1, fused
+    toploc+ over the encoder path's IVF (k = 3), a 784-token prompt (its
+    MLA prefill through flash_attention at D = 192, Dv = 128) and RAG_GEN
+    greedy tokens (the absorbed MLA decode, einsums).  First, outside
+    the counted run: the prompt's prefill through flash_attention held
+    to the same prefill through the plain attention
+    (``moe_prefill_gate``).  Launch
+    counts are set to 0 just before the turns and read just after; a
+    decode step is profiled after them (device ms, kernels a step)."""
+    import torch
+    from repro_torch.configs import deepseek_v2_lite_16b as DS
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving.engine import (ConversationalSearchEngine,
+                                            ServingConfig)
+    cfg = DS.full_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    lm = TF.init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    q_tok = torch.from_numpy(pad_queries(conv_tok, enc.cfg.max_len)).to(dev)
+    knobs = dict(backend="ivf", strategy="toploc+", fused=True, k=RAG_K,
+                 precision="f32")
+    warm = ConversationalSearchEngine(ServingConfig(**knobs),
+                                      ivf_index=index)
+    rag_turn(enc, warm, lm, "warm", q_tok[0, 0], conv_tok[0, 0], docs_tok)
+    _, ids = warm.query("warm", enc.encode_queries(
+        q_tok[0, 1][None], q_tok[0, 1][None] > 0)[0])
+    prompt = np.concatenate([docs_tok[i] for i in ids[:RAG_K]]
+                            + [conv_tok[0, 1]])
+    t0 = time.perf_counter()
+    gate = moe_prefill_gate(lm, prompt)
+    t_gate = time.perf_counter() - t0
+    eng = ConversationalSearchEngine(ServingConfig(**knobs), ivf_index=index)
+    times = {"encode": [], "prefill": [], "token": []}
+    ops.reset_launches()
+    ok, plen = None, 0
+    for c in range(RAG_CONVS):
+        for t in range(RAG_TURNS):
+            flag, plen = rag_turn(enc, eng, lm, f"c{c}", q_tok[c, t],
+                                  conv_tok[c, t], docs_tok, times)
+            ok = flag if ok is None else ok & flag
+    n = launch_counts()
+    turns = RAG_CONVS * RAG_TURNS
+    if not bool(ok):
+        raise AssertionError(f"{cfg.name}: a logit is not finite")
+    if n["flash_attention"] != (cfg.n_layers + enc.cfg.n_layers) * turns:
+        raise AssertionError(f"{cfg.name}: {n['flash_attention']} "
+                             f"flash_attention launches")
+    if n["flash_decode"] or n["fused_scan"] + n["fused_turn"] == 0:
+        raise AssertionError(f"{cfg.name}: launches {n}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a decode step at B = 1, after the counted run
+    logits, cache, clen = lm.prefill(prompt[None], RAG_MAX_LEN)
+    tok = logits.argmax(-1)
+    prof = profile_device(lambda: lm.decode_step(cache, tok, clen), 5,
+                          (("gemm", GEMM_NAMES),))
+    del logits, cache
+    floor = decode_floor_bytes(cfg, RAG_MAX_LEN)
+    active = cfg.active_param_count() * 2
+    ret = np.asarray([r.latency_s for r in eng.records]) * 1e3
+    pct = {name: np.percentile(v, [50, 95]) for name, v in
+           (("encode", times["encode"]), ("retrieval", ret),
+            ("prefill", times["prefill"]), ("token", times["token"]))}
+    log("rag", f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+        f"H={cfg.n_heads} MLA r={cfg.kv_lora_rank}+{cfg.d_rope} MoE "
+        f"{cfg.n_experts} routed top-{cfg.top_k} + {cfg.n_shared} shared "
+        f"ff={cfg.expert_ff} vocab={cfg.vocab} params="
+        f"{cfg.param_count():,} (active {cfg.active_param_count():,}) "
+        f"{str(cfg.dtype)[6:]} (init_s={t_init:.2f}); the [rag] turns: "
+        f"{RAG_CONVS} x "
+        f"{RAG_TURNS}, prompt {plen} tokens, max_len {RAG_MAX_LEN}, "
+        f"{RAG_GEN} greedy tokens a turn: " + " ".join(
+            f"{name}_p50_ms={v[0]:.3f} {name}_p95_ms={v[1]:.3f}"
+            for name, v in pct.items() if name != "token") +
+        f" ms_per_token_p50={pct['token'][0]:.3f} "
+        f"ms_per_token_p95={pct['token'][1]:.3f} beside the decode's byte "
+        f"floor {floor / 1e9:.2f} GB a token = "
+        f"{floor / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s (every "
+        f"expert's bank: the reference's dense dispatch; the active "
+        f"{active / 1e9:.2f} GB would be "
+        f"{active / HBM_BYTES_PER_S * 1e3:.3f} ms); "
+        f"flash_attention_launches={n['flash_attention']} (prefill "
+        f"{cfg.n_layers * turns} at D=192 Dv=128 + query tower "
+        f"{enc.cfg.n_layers * turns}) fused_scan_launches="
+        f"{n['fused_scan']} fused_turn_launches={n['fused_turn']} logits "
+        f"finite; prefill through flash_attention vs the plain attention: "
+        f"{gate} (gate_s={t_gate:.2f}); max_mem_gb={peak_gb:.2f} "
+        f"phase_s={time.perf_counter() - t_phase:.2f}")
+    log("profile", f"{cfg.name} decode step, B=1, cache_len "
+        f"{prompt.shape[0]} (torch.profiler, {prof.pop('reps')} steps; "
+        f"device ms per step): " + " ".join(
+            f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in prof.items())
+        + f"; kernels a token {prof['kernels']}; host-clock ms a token p50 "
+        f"{pct['token'][0]:.3f}, so the card idles "
+        f"{1 - prof['busy_ms'] / pct['token'][0]:.3f} of it")
+    del lm, q_tok
+    torch.cuda.empty_cache()
+    return n
+
+
 # ---------------------------------------------------------------------------
 # phase 9: two-tower retrieval at full width, served with TopLoc
 # ---------------------------------------------------------------------------
@@ -2602,6 +2825,87 @@ def phase_cand_times(args, dev, index, vecs):
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
             f"share={row['bound_ms'] / row['ms']:.3f} "
             f"kernels_a_call={row['kernels']}")
+
+
+TT_DIST_REQS = 20       # requests of the sharded two-tower serve steps
+
+
+def phase_twotower_dist(args, dev, model, corpus, index):
+    """The two-tower sharded serve steps over S = 2 and 4 shards of the
+    one card (every shard a view): ``dist_topk_step`` at
+    retrieval_cand's shape (the whole item corpus, k = 100) == the brute
+    ``retrieval_step`` (ids ``torch.equal``, scores within TOL) on
+    TT_DIST_REQS requests; ``toploc_ivf_dist_step`` over the item IVF
+    (each request's cache the top-h centroids of its user vector, nprobe
+    32) at S = 1, 2, 4, its ids == S = 1's wherever no shard owned more
+    than its cap.
+    Host ms p50 of each (synchronised)."""
+    import torch
+    from repro_torch.configs import two_tower_retrieval as TT
+    from repro_torch.core.topk import topk
+    from repro_torch.distributed import retrieval as R
+    from repro_torch.kernels import ref
+    k = TT.SHAPE_PARAMS["retrieval_cand"]["k"]
+    h, nprobe = TT.TOPLOC_IVF["h"], TT.TOPLOC_IVF["nprobe"]
+    reqs = recsys_sessions(model.cfg, TT_DIST_REQS // TT_REQS,
+                           corpus.shape[0], args.seed + 9)
+    clock, ms = time.perf_counter, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = clock()
+        got = fn()
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append((clock() - t0) * 1e3)
+        return got
+
+    same, overflow, checked, worst = 0, 0, 0, 0.0
+    for _, uid, hist in reqs:
+        uid_t = torch.from_numpy(uid).to(dev)
+        hist_t = torch.from_numpy(hist).to(dev)
+        want = run("brute", lambda: TT.retrieval_step(model, uid_t, hist_t,
+                                                      corpus, k))
+        for s in SHARD_COUNTS:
+            mesh = R.retrieval_mesh(s, devices=[dev] * s)
+            got = run(f"dist S={s}", lambda: TT.dist_topk_step(
+                model, uid_t, hist_t, corpus, k, mesh))
+            err = float((got[0] - want[0]).abs().max())
+            if not (torch.equal(got[1], want[1]) and err <= TOL):
+                raise AssertionError(f"dist_topk_step at S={s} != the "
+                                     f"brute retrieval_step (score max "
+                                     f"|d| {err})")
+            same += 1
+            worst = max(worst, err)
+        u = model.user_tower(uid_t, hist_t)
+        cache_ids = topk(ref.gemv_rows(index.centroids, u), h)[1][0]
+        cache_vecs = index.centroids[cache_ids]
+        sel = cache_ids[topk(u @ cache_vecs.T, nprobe)[1][0]]
+        outs = {}
+        for s in (1,) + SHARD_COUNTS:
+            mesh = R.retrieval_mesh(s, devices=[dev] * s)
+            outs[s] = run(f"toploc_ivf_dist S={s}",
+                          lambda: TT.toploc_ivf_dist_step(
+                              model, uid_t, hist_t, index.list_vecs,
+                              index.list_ids, cache_vecs, cache_ids, k=k,
+                              nprobe=nprobe, mesh=mesh))
+            per = -(-index.p // s)
+            owned = torch.bincount(sel.long() // per, minlength=s)
+            if s > 1 and int(owned.max()) > TT.shard_cap(nprobe, s):
+                overflow += 1
+            elif s > 1:
+                checked += 1
+                if not torch.equal(outs[s][1], outs[1][1]):
+                    raise AssertionError(f"toploc_ivf_dist_step at S={s} "
+                                         f"!= S=1 with no shard over cap")
+    log("twotower dist", f"dist_topk_step k={k} over {corpus.shape[0]:,} "
+        f"items at S = {', '.join(map(str, SHARD_COUNTS))} on one card: "
+        f"{same} results' ids == the brute retrieval_step's, scores max "
+        f"|d| {worst:.3g} (tol {TOL}; a shard's product is a matrix of "
+        f"other width); "
+        f"toploc_ivf_dist_step h={h} nprobe={nprobe} p={index.p}: {checked} "
+        f"results == S=1's, {overflow} with a shard over its cap; host "
+        f"ms p50: " + " ".join(f"{n.replace(' ', '_')}={np.median(v):.3f}"
+                               for n, v in ms.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -4390,10 +4694,39 @@ def attn_bound(q, k, v, causal=False):
     return nbytes, 2 * b * h * pairs * (d + dv)
 
 
+def sdpa_backend(q, k, v, causal):
+    """The backend scaled_dot_product_attention picks for these inputs
+    (PyTorch's own dispatcher, ``torch._fused_sdp_choice``) and the
+    device kernels one call runs (torch.profiler, host and device
+    activity, taken again up to 3 times while it sees none; each name
+    cut to 48 characters)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+    gqa = q.shape[1] != k.shape[1]
+    name = SDPBackend(torch._fused_sdp_choice(
+        q, k, v, attn_mask=None, dropout_p=0.0, is_causal=causal,
+        scale=None, enable_gqa=gqa)).name
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=gqa)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return (f"{name}: " + (" | ".join(dict.fromkeys(n[:48] for n in names))
+                           or "no kernel traced"))
+
+
 def phase_attn_times(args, dev):
     """flash_attention at dragon's query (B = 1) and doc-batch (B =
     DOC_BATCH) shapes in float32 and at Yi-9B's RAG prefill (B = 1, 32 /
-    4 heads, S = 784, D = 128, causal) in bf16, beside its plain version
+    4 heads, S = 784, D = 128, causal) and DeepSeek-V2-Lite's MLA
+    prefill (16 heads, D = 192, Dv = 128) in bf16, beside its plain version
     (no host sync: device time, as the kernel's) and, timed only,
     PyTorch's ``scaled_dot_product_attention`` on the same tensors.  The
     float32 bound is at the 3xTF32 rate (the f32 FMA bound beside it),
@@ -4409,7 +4742,8 @@ def phase_attn_times(args, dev):
             (DOC_BATCH, (DOC_BATCH, 12, 12, 256, 256, 64, 64, False),
              torch.float32, 5),
             ("yi", (1, 32, 4, 784, 784, 128, 128, True), torch.bfloat16,
-             25)):
+             25),
+            ("mla", MLA_ATTN, torch.bfloat16, 25)):
         causal = shape[-1]
         qkv = [[t.to(dtype) for t in attn_inputs(shape, gen, dev)]
                for _ in range(reps)]
@@ -4430,10 +4764,11 @@ def phase_attn_times(args, dev):
         fma = (f" (f32 FMA bound {bound_ms(*works[0][:2])[0]:.4f})"
                if dtype == torch.float32 else "")
         log("times", f"flash_attention B={shape[0]} H={shape[1]} "
-            f"Hkv={shape[2]} S={shape[3]} D={shape[5]} "
+            f"Hkv={shape[2]} S={shape[3]} D={shape[5]} Dv={shape[6]} "
             f"{'causal ' if causal else ''}{str(dtype)[6:]}: "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"sdpa_ms={row['library_ms']:.4f} "
+            f"sdpa_ms={row['library_ms']:.4f} (sdpa's backend "
+            f"{sdpa_backend(*qkv[0], causal)}) "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){fma} "
             f"share={row['bound_ms'] / row['ms']:.3f} "
             f"kernels_a_call={row['kernels']}")
@@ -4950,7 +5285,7 @@ def main() -> int:
                     help="build, then only the corpus, [hnsw] and the "
                     "[exact] serve (no IVF index)")
     ap.add_argument("--dump-rows", metavar="PATH",
-                    help="build, then only save rows 1-7's and "
+                    help="build, then only save rows 1-8's and "
                     "hnsw_search's outputs on seeded inputs to PATH "
                     "(phase_dump_rows)")
     ap.add_argument("--same-dumps", nargs=2, metavar=("A", "B"),
@@ -5129,7 +5464,9 @@ def main() -> int:
     log("attn", f"{len(ATTN_SHAPES)} shapes (MHA, GQA, causal S == Skv and "
         f"S < Skv, non-causal, ragged S/Skv, Dv != D, dragon B = 1 and "
         f"{DOC_BATCH}, snowflake, yi-9b's RAG prefill H=32 Hkv=4 S=784 "
-        f"D=128 causal bf16): flash_attention max_abs_err="
+        f"D=128 causal bf16, deepseek's MLA prefill H=16 S=784 D=192 "
+        f"Dv=128 causal bf16, heads 256 wide bf16): flash_attention "
+        f"max_abs_err="
         f"{errs['flash_attention']:.3g} (tol {TOL}); bf16 outputs max |d| "
         f"{attn_ulps:.3g} bf16 ulp of the row's largest |out| (tol 1)")
     errs["flash_decode"] = 0.0
@@ -5149,6 +5486,8 @@ def main() -> int:
     enc_index, enc_counts = phase_encode_serve(args, dev, enc, embs, wl,
                                                conv_tok)
     rag_counts = phase_rag(args, dev, enc, enc_index, docs_tok, conv_tok)
+    ds_counts = phase_rag_deepseek(args, dev, enc, enc_index, docs_tok,
+                                   conv_tok)
     enc_launches += enc_counts["flash_attention"]
     del enc, embs, enc_index
     torch.cuda.empty_cache()
@@ -5160,6 +5499,7 @@ def main() -> int:
     rec_counts["embedding_bag"] += phase_pairwise(args, dev, model)
     bag_times = phase_bag_times(args, dev, model)
     phase_cand_times(args, dev, tindex, rec_vecs)
+    phase_twotower_dist(args, dev, model, corpus, tindex)
     del model, corpus, tindex, rec_vecs
     torch.cuda.empty_cache()
 
@@ -5207,7 +5547,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     d32_counts = phase_decode32k(args, dev)
     times[1]["flash_decode"] = phase_decode_times(args, dev)[1]
-    launches["flash_attention"] = enc_launches + rag_counts["flash_attention"]
+    launches["flash_attention"] = (enc_launches + rag_counts["flash_attention"]
+                                   + ds_counts["flash_attention"])
     launches["flash_decode"] = (rag_counts["flash_decode"]
                                 + d32_counts["flash_decode"])
     for name in IVF_KERNELS + REC_KERNELS:

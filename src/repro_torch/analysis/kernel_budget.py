@@ -9,9 +9,10 @@ budget and tile alignment.  Here every ops entry hands its launch plan
 launched.  The probes drive the ops entries on ``meta`` tensors of the
 reference's 11 probe shapes (``kernel_budget.py:205-285``, same labels),
 and of ``port_probes`` (the HNSW search kernel, which has no Pallas
-counterpart), so the pass needs no card, allocates no data and builds
-nothing, as the reference's pass runs under ``eval_shape``.  Each recorded launch is
-checked against the H100's limits, taken from ``tiling`` as the
+counterpart, and flash_attention at MLA's width), so the pass needs no
+card, allocates no data and builds nothing, as the reference's pass runs
+under ``eval_shape``.  Each recorded launch is checked against the
+H100's limits, taken from ``tiling`` as the
 reference takes its budget from its ``tiling``:
 
   PK400  a probe raised, or no launch reached the recorder (the wrapper
@@ -167,9 +168,13 @@ def port_probes() -> List[Probe]:
     on a graph of 20,000 nodes at ef = 64 (the shared bitmap) at a
     request (B = 1) and at the batched engine's largest wave (B = 32);
     on 1,000,000 nodes at ef = 64 (the shared hash) and on 2,000,000 at
-    ef = 256 (the global bitmap), B = 32."""
+    ef = 256 (the global bitmap), B = 32; and ``ops.flash_attention``
+    past the reference's probe widths, at MLA's bf16 prefill
+    (DeepSeek-V2-Lite: H = Hkv = 16, S = 784, D = 192, Dv = 128, causal;
+    a wide instance, its query rows in shared memory)."""
     from repro_torch.kernels import ops
     d, m = 768, 16
+    bf16 = torch.bfloat16
 
     def hnsw(label, b, n, ef):
         return Probe(f"ops.hnsw_search[{label}]",
@@ -180,7 +185,12 @@ def port_probes() -> List[Probe]:
 
     return [hnsw("B=1", 1, 20_000, 64), hnsw("B=32", 32, 20_000, 64),
             hnsw("hash,B=32", 32, 1_000_000, 64),
-            hnsw("global,B=32", 32, 2_000_000, 256)]
+            hnsw("global,B=32", 32, 2_000_000, 256),
+            Probe("ops.flash_attention[mla]",
+                  (Arg((1, 16, 784, 192), bf16),) * 2
+                  + (Arg((1, 16, 784, 128), bf16),),
+                  lambda q, k, v, device: ops.flash_attention(
+                      q, k, v, causal=True, device=device))]
 
 
 def record(probe: Probe, tensors: Optional[Sequence[torch.Tensor]] = None,
@@ -205,49 +215,83 @@ def planned(probe: Probe, tensors: Sequence[torch.Tensor], device
             for r in record(probe, tensors, device) for x in r.plan]
 
 
+def lost_events(seen: Sequence, want: Sequence) -> bool:
+    """Is ``seen`` ``want`` with kernels missing, the rest in order?"""
+    rest = iter(want)
+    return len(seen) < len(want) and all(k in rest for k in seen)
+
+
 def traced(probe: Probe, tensors: Sequence[torch.Tensor], device,
-           tries: int = 3, before: Optional[Callable[[], None]] = None
-           ) -> List[Kernel]:
-    """The same tuples for the kernels ``torch.profiler`` sees when the
-    probe's call runs on the card (after one warm-up call), in launch
-    order, from the Kineto trace's kernel events ("grid", "block",
-    "shared memory": static plus dynamic).  ``before`` runs ahead of
-    each traced call (``kernels.ops.drop_scales``: the call then runs
-    the one-time int8 scale pass as a first call does).  Each session
-    first runs the call in a warm-up step whose events are discarded
-    (``schedule(warmup=1, active=1)``) and records only the second: the
-    activity tracing a session starts can miss the first kernel launched
-    behind it.  A trace with no kernel at all is the profiler missing
-    the session (every probe launches one), so it is taken again, with
-    the host's activity traced too, up to ``tries`` times."""
+           want: Sequence[Kernel], tries: int = 3,
+           before: Optional[Callable[[], None]] = None) -> List[Kernel]:
+    """The (kernel, grid, block, shared memory) tuples of the kernels
+    ``torch.profiler`` sees when the probe's call runs on the card
+    (after one warm-up call), in launch order, from the Kineto trace's
+    kernel events ("grid", "block", "shared memory": static plus
+    dynamic).  ``before`` runs ahead of each traced call
+    (``kernels.ops.drop_scales``: the call then runs the one-time int8
+    scale pass as a first call does).  Each session first runs the call
+    in a warm-up step whose events are discarded (``schedule(warmup=1,
+    active=1)``) and records only the second: the activity tracing a
+    session starts can miss the first kernel launched behind it.
+
+    A session whose trace is ``want`` (the recorded plan) with kernels
+    missing (``lost_events``), while the ops wrappers' launch counts show
+    both of its calls launching as the warm-up call did, is the profiler
+    losing events: it is taken again, with the host's activity traced
+    too, up to ``tries`` times (``traced.retaken`` counts them).  Any
+    other trace, a short one whose launches the counts do not show
+    included, is returned at once for the caller to compare."""
+    from repro_torch.kernels import ops
+
+    def launched(counts):
+        now = ops.launch_counts()
+        return {n: c - counts[n] for n, c in now.items() if c != counts[n]}
+
+    counts = ops.launch_counts()
+    probe.call(*tensors, device=device)
+    torch.cuda.synchronize()
+    session = {n: 2 * c for n, c in launched(counts).items()}
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(tries + 1):
+        counts = ops.launch_counts()
+        out = _trace_session(probe, tensors, device, acts, before)
+        if (attempt == tries or not lost_events(out, want) or not session
+                or launched(counts) != session):
+            return out
+        traced.retaken += 1
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+
+
+traced.retaken = 0
+
+
+def _trace_session(probe: Probe, tensors: Sequence[torch.Tensor], device,
+                   acts, before: Optional[Callable[[], None]]
+                   ) -> List[Kernel]:
+    """One profiler session of ``traced``: a discarded warm-up step and a
+    recorded one, the probe's call in each."""
     import json
     import os
     import re
     import tempfile
-    probe.call(*tensors, device=device)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            with torch.profiler.profile(
-                    activities=acts,
-                    schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                     active=1, repeat=1),
-                    on_trace_ready=lambda p: p.export_chrome_trace(path)
-                    ) as prof:
-                for _ in range(2):
-                    if before is not None:
-                        before()
-                    probe.call(*tensors, device=device)
-                    torch.cuda.synchronize()
-                    prof.step()
-            with open(path) as fh:
-                events = json.load(fh)["traceEvents"]
-        if any(e.get("cat") == "kernel" for e in events):
-            break
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with torch.profiler.profile(
+                activities=acts,
+                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                 active=1, repeat=1),
+                on_trace_ready=lambda p: p.export_chrome_trace(path)
+                ) as prof:
+            for _ in range(2):
+                if before is not None:
+                    before()
+                probe.call(*tensors, device=device)
+                torch.cuda.synchronize()
+                prof.step()
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
     out = []
     for e in sorted((e for e in events if e.get("cat") == "kernel"),
                     key=lambda e: e["ts"]):

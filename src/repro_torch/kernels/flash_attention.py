@@ -9,8 +9,9 @@ launch raises).  The inputs are read in their own dtype, bfloat16 or
 float32, and the output has it.  q, k and v may be strided views (a
 transposed ``v`` from the model's projections is read in place) as long
 as the head dim is contiguous and every row starts on 16 bytes
-(``takes``).  The choice between kernel and plain version belongs to
-``ops.py``.
+(``takes``).  D and Dv go up to 256 (MLA's prefill is D = 192, Dv =
+128), each in a bucket of its own (``tiling.attn_bucket``).  The choice
+between kernel and plain version belongs to ``ops.py``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 from repro_torch.kernels import launcher, tiling
 
 #: widest head dim (D and Dv) the kernel takes (csrc MAX_DIM)
-MAX_DIM = 128
+MAX_DIM = tiling.ATTN_MAX_DIM
 #: input dtypes the kernels read natively, and the C entry of each
 ENTRIES = {torch.float32: "flash_attention_f32",
            torch.bfloat16: "flash_attention_bf16"}

@@ -416,17 +416,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Skv, Dv); Hkv divides H; returns (B, H, S, Dv) in q's dtype.
 
     Causal masking is bottom-right (queries are the last S positions).
-    Unlike the reference, which drops to its plain math when S or Skv is
-    not a multiple of 128, every CUDA call runs the kernel: it masks
-    ragged tails itself.  bfloat16 and float32 inputs are read as they
-    are, strided views included (the layout copy is made only where rows
-    are not 16-byte aligned); other dtypes go through float32.  The
+    The plain version (CPU tensors) is ``ref.plain_attention``: above
+    2048² scores it streams the keys (``ref.chunked_attention``), as the
+    reference's does.  Unlike the reference, which drops to its plain
+    math when S or Skv is not a multiple of 128, every CUDA call runs
+    the kernel: it masks ragged tails itself.  bfloat16 and float32
+    inputs are read as they are, strided views included (the layout
+    copy is made only where rows are not 16-byte aligned); other dtypes
+    go through float32.  The
     kernel has no backward yet, so it refuses inputs that require grad.
     """
     dev = _device.require(device, q, k, v)
     _fa.check_shapes(q, k, v, causal=causal)
     if _mode(mode, dev) == "ref":
-        return ref.mha_attention(q, k, v, causal=causal)
+        return ref.plain_attention(q, k, v, causal=causal)
     refuse_grad("flash_attention", q, k, v)
     dtype = q.dtype if q.dtype in _fa.ENTRIES and (
         k.dtype == v.dtype == q.dtype) else torch.float32
@@ -613,17 +616,19 @@ def hnsw_search_sharded(parts, n_local: int, adj0: torch.Tensor,
 hnsw_search_sharded.launches = 0
 
 
+#: the ops whose launches are counted
+COUNTED = ("centroid_topk", "ivf_scan", "fused_turn", "fused_scan",
+           "pq_adc_scan", "fused_turn_pq", "fused_scan_pq", "flash_attention",
+           "flash_decode", "embedding_bag", "hnsw_search",
+           "hnsw_search_sharded")
+
+
 def reset_launches() -> None:
     """Set every op's launch count to 0."""
-    centroid_topk.launches = 0
-    ivf_scan.launches = 0
-    fused_turn.launches = 0
-    fused_scan.launches = 0
-    pq_adc_scan.launches = 0
-    fused_turn_pq.launches = 0
-    fused_scan_pq.launches = 0
-    flash_attention.launches = 0
-    flash_decode.launches = 0
-    embedding_bag.launches = 0
-    hnsw_search.launches = 0
-    hnsw_search_sharded.launches = 0
+    for name in COUNTED:
+        globals()[name].launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every op's launch count, by name."""
+    return {name: globals()[name].launches for name in COUNTED}

@@ -432,6 +432,63 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, dv).to(q.dtype)
 
 
+#: above CHUNK_THRESHOLD² scores the plain attention streams the keys
+#: (``repro/kernels/ops.py:297-314`` ``_CHUNK_THRESHOLD``)
+CHUNK_THRESHOLD = 2048
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, blk_kv: int = 1024
+                      ) -> torch.Tensor:
+    """``mha_attention`` over tiles of ``blk_kv`` keys with an online
+    softmax, never holding the (S, Skv) score matrix
+    (``repro/kernels/ref.py:368``): the queries scaled by 1 / sqrt(D)
+    before the dot, keys padded to whole tiles and masked, a row with
+    nothing to attend to yet carried as m = -inf, output acc / max(l,
+    1e-30), everything in float32."""
+    b, h, s, d = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    group = h // hkv
+    nblk = -(-skv // blk_kv)
+    pad = nblk * blk_kv - skv
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    qg = q.float().reshape(b, hkv, group, s, d) * (1.0 / d ** 0.5)
+    qpos = torch.arange(s, device=q.device) + (skv - s)
+    m = torch.full((b, hkv, group, s), float("-inf"), device=q.device)
+    l = torch.zeros((b, hkv, group, s), device=q.device)
+    acc = torch.zeros((b, hkv, group, s, dv), device=q.device)
+    for j in range(nblk):
+        kj = kf[:, :, j * blk_kv:(j + 1) * blk_kv]
+        vj = vf[:, :, j * blk_kv:(j + 1) * blk_kv]
+        sco = torch.einsum("bhgsd,bhtd->bhgst", qg, kj)
+        kpos = j * blk_kv + torch.arange(blk_kv, device=q.device)
+        valid = (kpos < skv)[None, :]
+        if causal:
+            valid = valid & (qpos[:, None] >= kpos[None, :])
+        sco = sco.masked_fill(~valid, float("-inf"))
+        m_new = torch.maximum(m, sco.amax(-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(sco - m_safe[..., None]).masked_fill(~valid, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgst,bhtd->bhgsd", p,
+                                                     vj)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, s, dv).to(q.dtype)
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """The plain version of ``flash_attention`` (``repro/kernels/ops.py``
+    ``_ref_attention``): ``chunked_attention`` above CHUNK_THRESHOLD²
+    scores, else ``mha_attention``."""
+    if q.shape[2] * k.shape[2] > CHUNK_THRESHOLD ** 2:
+        return chunked_attention(q, k, v, causal=causal)
+    return mha_attention(q, k, v, causal=causal)
+
+
 # ---------------------------------------------------------------------------
 # embedding_bag
 # ---------------------------------------------------------------------------

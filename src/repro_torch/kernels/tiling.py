@@ -361,6 +361,8 @@ RERANK_THREADS = 512
 ADC_THREADS = 256
 ATTN_BKV = 64              # keys of a flash_attention kv tile
 ATTN_WARP_ROWS = 16        # query rows of one of its warps
+ATTN_NARROW_DIM = 128      # widest D, Dv of the Q-in-registers instances
+ATTN_MAX_DIM = 256         # widest D, Dv it takes
 DECODE_THREADS = 256       # the float32-cache split kernel
 DECODE_MAX_GROUP = 8
 DECODE_MMA_WARPS = 4       # decode_mma_kernel (bfloat16 cache)
@@ -623,16 +625,42 @@ def plan_ivf_scan(b: int, nprobe: int, lmax: int, d: int, kp: int
     return plan_fused_scan_ivf(b, nprobe, lmax, d, "f32", kp)
 
 
-def attn_bucket(d: int, dv: int) -> int:
-    """The head-dim bucket a flash_attention instance is built for: the
-    tiles hold 64 or 128 columns, zero-filled past D and Dv."""
-    return 64 if max(d, dv) <= 64 else 128
+def attn_bucket(d: int, dv: int) -> Tuple[int, int]:
+    """The (key, value) head-dim buckets a flash_attention instance is
+    built for, its tiles zero-filled past D and Dv: narrow (D, Dv <=
+    128) one bucket of 64 or 128 for both; wide, keys 128 / 192 / 256
+    and values 128 / 256 apart (csrc ``by_bucket``)."""
+    if max(d, dv) <= ATTN_NARROW_DIM:
+        db = 64 if max(d, dv) <= 64 else 128
+        return db, db
+    return (128 if d <= 128 else 192 if d <= 192 else 256,
+            128 if dv <= 128 else 256)
 
 
-def attn_warps(b: int, h: int, s: int) -> int:
+def attn_smem(dk: int, dv: int, warps: int, dtype: str) -> Tuple[int, int]:
+    """(stages, dynamic shared memory) of the instance of buckets (dk,
+    dv) at ``warps`` warps (csrc ``Layout``): K rows dk + 8, V rows dv +
+    8 (bf16) or dv + 4 (f32); narrow, bf16 three stages and f32 two;
+    wide, the block's 16 x warps query rows (dk + 8) after two stages,
+    or one stage where two do not fit a block (f32 with dk + dv >
+    320)."""
+    esz = {"bf16": 2, "f32": 4}[dtype]
+    stage = ATTN_BKV * ((dk + 8) + (dv + 8 if dtype == "bf16" else dv + 4))
+    if max(dk, dv) <= ATTN_NARROW_DIM:
+        stages = 3 if dtype == "bf16" else 2
+        return stages, stages * stage * esz
+    q_rows = ATTN_WARP_ROWS * warps * (dk + 8)
+    stages = 2 if (2 * stage + q_rows) * esz <= SMEM_BLOCK_BYTES else 1
+    return stages, (stages * stage + q_rows) * esz
+
+
+def attn_warps(b: int, h: int, s: int, d: int = 0, dv: int = 0) -> int:
     """Warps (16 query rows each) of a flash_attention block: 4 when
     64-row blocks still cover the SMs, else 1 (Dragon at B = 1: 192
-    one-warp blocks rather than 48)."""
+    one-warp blocks rather than 48); always 4 past the narrow heads (the
+    wide instances are built for 4)."""
+    if max(d, dv) > ATTN_NARROW_DIM:
+        return 4
     rows = 4 * ATTN_WARP_ROWS
     return 4 if b * h * -(-s // rows) >= SMS else 1
 
@@ -641,19 +669,18 @@ def plan_flash_attention(b: int, h: int, s: int, d: int, dv: int,
                          dtype: str = "f32") -> List[Launch]:
     """``flash_attention_bf16`` / ``_f32``: one block of 1 or 4 warps
     per (row x head, 16 queries a warp); a ring of 64-key K and V tiles
-    in dynamic shared memory, rows padded (bf16: three stages, D + 8
-    both; f32: two stages, K D + 8, V D + 4, in the bucket's D)."""
+    in dynamic shared memory, rows padded, at the buckets of D and Dv
+    (``attn_bucket`` / ``attn_smem``)."""
     if b * h * s == 0:
         return []
-    db = attn_bucket(d, dv)
     if dtype == "bf16":
-        kernel, smem = "flash_bf16_kernel", 3 * ATTN_BKV * 2 * (db + 8) * 2
+        kernel = "flash_bf16_kernel"
     elif dtype == "f32":
-        kernel, smem = ("flash_tf32_kernel",
-                         2 * ATTN_BKV * ((db + 8) + (db + 4)) * 4)
+        kernel = "flash_tf32_kernel"
     else:
         raise ValueError(f"dtype {dtype!r}: 'f32' or 'bf16'")
-    warps = attn_warps(b, h, s)
+    warps = attn_warps(b, h, s, d, dv)
+    _, smem = attn_smem(*attn_bucket(d, dv), warps, dtype)
     return [_launch(kernel, (b * h, -(-s // (ATTN_WARP_ROWS * warps))),
                     warps * WARP, smem, True)]
 

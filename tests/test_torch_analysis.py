@@ -404,10 +404,26 @@ def test_the_pass_reaches_hnsw_search_at_each_instance(no_build,
 
     monkeypatch.setattr(tiling, "hnsw_visited", spy)
     for probe in kb.port_probes():
+        if not probe.label.startswith("ops.hnsw_search"):
+            continue
         (rec,) = kb.record(probe)
         assert rec.entry == "hnsw_search"
         assert kb.check_smem(rec.plan[0], probe.label) == []
     assert set(chosen) == set(tiling.HNSW_VISITED)
+
+
+def test_the_pass_reaches_flash_attention_at_mla_width(no_build):
+    """The port's MLA probe records one bf16 ``flash_attention`` launch at
+    D = 192, Dv = 128: a wide instance of 4 warps, its two stages and
+    query rows within a block's shared memory."""
+    (probe,) = [p for p in kb.port_probes()
+                if p.label == "ops.flash_attention[mla]"]
+    (rec,) = kb.record(probe)
+    assert rec.entry == "flash_attention_bf16"
+    (launch,) = rec.plan
+    assert launch.kernel == "flash_bf16_kernel" and launch.block == (128, 1, 1)
+    assert launch.dyn_smem_bytes == tiling.attn_smem(192, 128, 4, "bf16")[1]
+    assert kb.check_smem(launch, probe.label) == []
 
 
 # ---------------------------------------------------------------- the CLI

@@ -21,7 +21,6 @@ order), over MHA/GQA, causal with S == Skv and S < Skv, Dv != D, ragged
 S and Skv, and the encoders' shapes.
 """
 import ctypes
-import json
 import subprocess
 
 import numpy as np
@@ -854,6 +853,18 @@ ATTN_SHAPES = [(1, 4, 4, 128, 128, 32, 32, True),
                (1, 2, 2, 16, 16, 128, 128, False),    # widest head
                (1, 12, 12, 256, 256, 64, 64, False),  # dragon, one query
                (1, 16, 16, 256, 256, 64, 64, False)]  # snowflake
+# head dims past 128, the wide instances (keys 128 / 192 / 256 and values
+# 128 / 256 bucketed apart): MLA's prefill (4 warps), 256 / 256 at one
+# warp (f32: one stage) and at four, ragged S and Skv, and the other
+# bucket pairs
+ATTN_WIDE_SHAPES = [(1, 16, 16, 784, 784, 192, 128, True),   # MLA prefill
+                    (1, 4, 4, 256, 256, 256, 256, True),
+                    (4, 16, 8, 256, 256, 256, 256, False),
+                    (1, 4, 2, 100, 200, 192, 128, True),     # ragged
+                    (2, 4, 2, 100, 200, 256, 256, False),
+                    (1, 4, 4, 128, 128, 136, 200, True),     # (192, 256)
+                    (1, 4, 4, 128, 128, 96, 256, False),     # (128, 256)
+                    (1, 4, 4, 128, 128, 256, 64, True)]      # (256, 128)
 
 
 def _attn_inputs(shape, dev="cpu"):
@@ -899,6 +910,37 @@ def test_cuda_flash_attention_equals_plain_version(cuda_device, shape):
     want = ref.mha_attention(q, k, v, causal=shape[-1])
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= ATTN_TOL
+
+
+@pytest.mark.parametrize("shape", [ATTN_WIDE_SHAPES[i] for i in (1, 3, 5)])
+def test_plain_attention_matches_float64_at_wide_heads(shape):
+    q, k, v = _attn_inputs(shape)
+    got = ops.flash_attention(q, k, v, causal=shape[-1], device="cpu")
+    np.testing.assert_allclose(got.numpy(),
+                               _attn_float64(q, k, v, shape[-1]),
+                               rtol=0, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_WIDE_SHAPES)
+def test_cuda_flash_attention_wide_heads_equal_plain_version(
+        cuda_device, shape, dtype):
+    """D, Dv up to 256: one launch; the f32 result within ATTN_TOL of
+    the plain version, the bf16 output within one bf16 ulp of its row's
+    largest |out| (each side rounds its own f32 result)."""
+    q, k, v = (t.to(dtype) for t in _attn_inputs(shape, cuda_device))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=shape[-1])
+    want = ref.mha_attention(q, k, v, causal=shape[-1])
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= ATTN_TOL
+    else:
+        assert bool((diff <= _bf16_row_ulp(want.float())).all())
 
 
 @pytest.mark.cuda_only
@@ -1127,14 +1169,13 @@ def test_cuda_embedding_bag_reads_a_misaligned_table_view(cuda_device,
 
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("b", [1, BAG_THR, BAG_THR + 1])
-def test_cuda_embedding_bag_launches_one_kernel_a_call(cuda_device, b,
-                                                       tmp_path):
+def test_cuda_embedding_bag_launches_one_kernel_a_call(cuda_device, b):
     """One kernel a call under the profiler, the one the plan names."""
     table, ids, w = _bag_edge_inputs((1000, 256, b, 50), cuda_device)
     want = tiling.plan_embedding_bag(b, 256)[0].kernel
     before = ops.embedding_bag.launches
     names = _traced_kernels(lambda: ops.embedding_bag(table, ids, w),
-                            tmp_path)
+                            cuda_device)
     assert len(names) == 1 and want in names[0], names
     assert ops.embedding_bag.launches > before
 
@@ -1260,39 +1301,17 @@ def test_cuda_flash_decode_refuses_grad_and_empty_launches_nothing(
 # ---------------------------------------------------------------------------
 
 
-def _traced_kernels(call, tmp_path, tries=3):
+def _traced_kernels(call, device):
     """Names of the device kernels torch.profiler sees in one ``call()``
-    (after a warm-up call), from the Kineto trace's kernel events, as
-    ``kernel_budget.traced`` reads them.
-
-    Each session first runs the call in a warm-up step whose events are
-    discarded (``schedule(warmup=1, active=1)``), and records only the
-    second: the activity tracing a session starts can miss the first
-    kernel launched behind it (a trace of a two-kernel call then held
-    only the second), and the warm-up step absorbs that.  A trace with
-    no kernel at all is the profiler missing the session (every call
-    here launches one), so it is taken again, up to ``tries`` times; a
-    short trace is returned as it is, for the caller to compare."""
-    call()
-    torch.cuda.synchronize()
-    names = []
-    for attempt in range(tries):
-        path = tmp_path / f"trace{attempt}.json"
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA],
-                schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                 active=1, repeat=1),
-                on_trace_ready=lambda p: p.export_chrome_trace(str(path))
-                ) as prof:
-            for _ in range(2):
-                call()
-                torch.cuda.synchronize()
-                prof.step()
-        events = json.loads(path.read_text())["traceEvents"]
-        names = [e["name"] for e in events if e.get("cat") == "kernel"]
-        if names:
-            return names
-    return names
+    (after a warm-up call), as ``kernel_budget.traced`` reads them: a
+    session whose trace is the call's recorded plan with kernels
+    missing, while the ops wrappers' launch counts show every call
+    launching, is taken again; any other trace is returned as it is,
+    for the caller to compare."""
+    from repro_torch.analysis import kernel_budget
+    probe = kernel_budget.Probe("call", (), lambda device: call())
+    want = kernel_budget.planned(probe, [], device)
+    return [x[0] for x in kernel_budget.traced(probe, [], device, want)]
 
 
 def _transposed(x):
@@ -1339,8 +1358,7 @@ def test_cuda_flash_attention_reads_views_and_ignores_the_batch(
 
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_attention_launches_only_its_kernel(cuda_device, dtype,
-                                                       tmp_path):
+def test_cuda_flash_attention_launches_only_its_kernel(cuda_device, dtype):
     """One ops call on the prefill's layout (v transposed) is one kernel,
     the one its plan names: no casts, no layout copies."""
     shape = (1, 32, 4, 784, 784, 128, 128, True)
@@ -1349,14 +1367,14 @@ def test_cuda_flash_attention_launches_only_its_kernel(cuda_device, dtype,
     plan = tiling.plan_flash_attention(1, 32, 784, 128, 128,
                                        "bf16" if dtype == torch.bfloat16
                                        else "f32")
-    names = _traced_kernels(lambda: ops.flash_attention(q, k, v), tmp_path)
+    names = _traced_kernels(lambda: ops.flash_attention(q, k, v),
+                            cuda_device)
     assert len(names) == len(plan) == 1 and plan[0].kernel in names[0]
 
 
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_decode_bf16_launches_one_kernel(cuda_device, qdtype,
-                                                    tmp_path):
+def test_cuda_flash_decode_bf16_launches_one_kernel(cuda_device, qdtype):
     """On a bf16 cache one ops call is one kernel (the splits folded in
     it, no casts), the output in q's dtype; on a float32 cache two."""
     q, k, v, lens = _decode_inputs(DECODE_SHAPES[3], torch.bfloat16,
@@ -1364,13 +1382,13 @@ def test_cuda_flash_decode_bf16_launches_one_kernel(cuda_device, qdtype,
     q = q.to(qdtype)
     assert ops.flash_decode(q, k, v, lens).dtype == qdtype
     names = _traced_kernels(lambda: ops.flash_decode(q, k, v, lens),
-                            tmp_path)
+                            cuda_device)
     assert len(names) == 1 and "decode_mma_kernel" in names[0]
     plan = tiling.plan_flash_decode(8, 32, 4, 1024, 128, "bf16")
     assert [x.kernel for x in plan] == ["decode_mma_kernel"]
     q, k, v = q.float(), k.float(), v.float()
     names = _traced_kernels(lambda: ops.flash_decode(q, k, v, lens),
-                            tmp_path)
+                            cuda_device)
     assert len(names) == 2
 
 
@@ -1586,6 +1604,36 @@ def test_flash_attention_plans(shape, dtype, grid, warps, smem):
     assert tiling.plan_flash_attention(0, h, s, d, dv, dtype) == []
 
 
+# B, H, S, D, Dv, dtype -> grid, stages, dynamic shared memory of the wide
+# instances (4 warps): MLA's prefill, then (256, 256) (f32 one stage: two
+# need 268 KB), and the f32 bucket pairs on each side of DK + DV = 320
+ATTN_WIDE_PLANS = [((1, 16, 784, 192, 128), "bf16", (16, 13), 2, 111_616),
+                   ((1, 16, 784, 192, 128), "f32", (16, 13), 2, 221_184),
+                   ((1, 4, 256, 256, 256), "bf16", (4, 4), 2, 168_960),
+                   ((1, 4, 256, 256, 256), "f32", (4, 4), 1, 201_728),
+                   ((1, 4, 128, 96, 256), "f32", (4, 2), 1, 136_192),
+                   ((1, 4, 128, 256, 64), "f32", (4, 2), 1, 168_960)]
+
+
+@pytest.mark.parametrize("shape,dtype,grid,stages,smem", ATTN_WIDE_PLANS)
+def test_flash_attention_wide_plans(shape, dtype, grid, stages, smem):
+    """Past 128 one 4-warp block per 64 query rows; the key and value
+    buckets apart ((192, 128) keeps a 128-wide accumulator); the block's
+    query rows staged after two stages of K and V, or one where two do
+    not fit."""
+    b, h, s, d, dv = shape
+    plan = tiling.plan_flash_attention(b, h, s, d, dv, dtype)
+    kernel = {"f32": "flash_tf32_kernel", "bf16": "flash_bf16_kernel"}
+    assert [x.kernel for x in plan] == [kernel[dtype]]
+    assert plan[0].grid == (*grid, 1) and plan[0].block == (128, 1, 1)
+    assert tiling.attn_smem(*tiling.attn_bucket(d, dv), 4, dtype) == \
+        (stages, smem)
+    assert plan[0].dyn_smem_bytes == smem <= tiling.SMEM_BLOCK_BYTES
+    assert tiling.attn_bucket(192, 128) == (192, 128)
+    assert tiling.attn_bucket(128, 128) == (128, 128)
+    assert tiling.attn_bucket(48, 32) == (64, 64)
+
+
 # ---------------------------------------------------------------------------
 # rows 1-2: centroid_topk and ivf_scan, and every entry's launch plan
 # ---------------------------------------------------------------------------
@@ -1680,7 +1728,8 @@ def test_cuda_launch_plans_match_the_profiler(cuda_device, label):
     ops.drop_scales()       # a first call: int8 runs its scale pass
     want = kernel_budget.planned(probe, tensors, cuda_device)
     assert want and kernel_budget.traced(probe, tensors, cuda_device,
-                                         before=ops.drop_scales) == want
+                                         before=ops.drop_scales,
+                                         want=want) == want
 
 
 # ---------------------------------------------------------------------------
@@ -1869,7 +1918,8 @@ def test_cuda_stage_plans_match_the_profiler(cuda_device, name):
     ops.drop_scales()       # a first call: int8 runs its scale pass
     want = kernel_budget.planned(probe, [], cuda_device)
     assert want and kernel_budget.traced(probe, [], cuda_device,
-                                         before=ops.drop_scales) == want
+                                         before=ops.drop_scales,
+                                         want=want) == want
     names = [x[0] for x in want]
     assert ("merge_kernel" in names[names.index("scan_lists_kernel"):]
             ) == ("merged" in name) if "scan" in name else True
@@ -2150,8 +2200,7 @@ def test_cuda_fused_turn_pq_edges_equal_plain_version(cuda_device, shape,
 
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("precision", ("f32",) + QUANT)
-def test_cuda_kernels_a_call_at_the_served_shape(cuda_device, precision,
-                                                 tmp_path):
+def test_cuda_kernels_a_call_at_the_served_shape(cuda_device, precision):
     """Rows 3-7 at the served shape (B = 1, nprobe 64, Lmax 702, d 768,
     k 10, PQ m 48 x 256, re-rank depth 64; 1,024 lists stand for the
     index's 16,384): after an int8 call's first, rows 3, 6 and 7 run one
@@ -2187,7 +2236,7 @@ def test_cuda_kernels_a_call_at_the_served_shape(cuda_device, precision,
         call()                              # the int8 scales, once
         plan = _planned_kernels(call)
         assert len(plan) == SERVED_KERNELS[name], (name, plan)
-        names = _traced_kernels(call, tmp_path)
+        names = _traced_kernels(call, cuda_device)
         assert len(names) == len(plan), (name, names)
         assert all(k in n for k, n in zip(plan, names)), (name, names)
 

@@ -335,14 +335,18 @@ def test_make_ivf_pq_defaults_match_the_reference():
     assert isinstance(port, tbackend.IVFBackend)
 
 
-@pytest.mark.parametrize("unported", [dict(attn_kind="mla"),
-                                      dict(n_experts=8),
-                                      dict(logit_soft_cap=30.0)])
-def test_unported_lm_features_raise(unported):
-    """MLA, MoE and the logit soft cap are ROADMAP Queue 1, item 7: the
-    config is refused before any parameter is drawn or converted."""
-    cfg = dataclasses.replace(tyi.smoke_config(), **unported)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        ttf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        ttf.LM(cfg, {})
+@pytest.mark.parametrize("feature", [dict(attn_kind="mla"),
+                                     dict(n_experts=8, top_k=2),
+                                     dict(logit_soft_cap=30.0)])
+def test_moe_mla_and_soft_cap_configs_count_like_the_reference(feature):
+    """MLA, MoE and the logit soft cap are ported (ROADMAP Queue 1, item
+    7): a config with each builds an LM, and its parameter counts are
+    the reference's."""
+    from repro.configs import yi_9b as ryi
+    from repro.models import transformer as rtf
+    cfg = dataclasses.replace(tyi.smoke_config(), **feature)
+    rcfg = dataclasses.replace(ryi.smoke_config(), **feature)
+    assert cfg.param_count() == rcfg.param_count()
+    assert cfg.active_param_count() == rcfg.active_param_count()
+    lm = ttf.init_params(cfg, device="cpu")
+    assert lm(np.zeros((1, 3), np.int32)).shape == (1, 3, cfg.vocab)
