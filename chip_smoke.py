@@ -31,7 +31,12 @@ depth (``repro/configs/deepseek_v2_lite_16b.py``: MLA, 64 routed experts
 top-6 + 2 shared, bf16, random weights from a seed), its prefill through
 ``flash_attention`` at D = 192, Dv = 128; and the ``decode_32k`` serve
 shape of Yi-9B, cut from B = 128 to B = 8 (at B = 128 the K/V cache
-would be 412 GB).
+would be 412 GB).  After the two-tower path, the ranking models DCN-v2,
+BST (its transformer block through ``flash_attention`` at D = 4) and
+AutoInt at their full published widths (``repro/configs/{dcn_v2,bst,
+autoint}.py``, random weights from a seed) score their three serve
+shapes, and GIN (``repro/configs/gin_tu.py``) runs its forward at its
+four published sizes.
 
 Phases (one line each, [serve] one per path; any failure raises and
 exits non-zero):
@@ -67,7 +72,8 @@ exits non-zero):
               RAG prefill shape (S = 784, D = 128, GQA 8, causal),
               DeepSeek's MLA prefill (H 16, D = 192, Dv = 128) and
               heads 256 wide on bf16 inputs too (the bf16 kernel), its
-              bf16 output within one bf16 ulp
+              bf16 output within one bf16 ulp; BST's block (S = 21, D =
+              4) in f32 and in bf16 (the padded call, D = 8)
   6 decode    flash_decode == its plain version: f32 results within
               1e-5, bf16 outputs within one bf16 ulp of the row's
               largest |out|; GQA groups 1, 5, 8, S = 1,000 / 1,024 /
@@ -93,6 +99,20 @@ exits non-zero):
               dist]: the sharded serve steps at S = 2 and 4 of the one
               card, dist_topk (k = 100 of 10^6 items) == the brute step's
               ids, toploc_ivf_dist == its S = 1 result
+    ctr       DCN-v2, BST and AutoInt at their full configurations (tables
+              of 2.53, 0.74 and 0.65 GB from seeded CUDA generators) at
+              serve_p99 (B = 512), serve_bulk (262,144) and
+              retrieval_cand (10^6; a shape whose activations pass half
+              the card in equal chunks): forward p50 / p95 (CUDA
+              events), rows/s, peak memory; every logit finite, the
+              first 512 rows == the same model on the CPU, BST's block
+              through flash_attention (S = 21, D = 4) == the plain
+              attention
+    gin       GIN (5 layers, d_hidden 64) forward at full_graph_sm,
+              molecule, minibatch_lg (1,024 sampled trees) and
+              ogb_products (2,449,029 nodes, 61,859,140 edges, drawn on
+              the card): p50, peak memory; two forwards torch.equal, the
+              small shapes == the CPU
  10 index     the port's ivf.build at full size + exact top-10
  11 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
  12 serve     per backend: toploc+ / toploc / plain fused, toploc+
@@ -146,7 +166,8 @@ exits non-zero):
               rows 4-7 at f32, bf16 and int8; flash_attention at
               dragon's B = 1 and 64 (float32, 3xTF32 bound), Yi-9B's
               and DeepSeek's MLA bf16 prefill (B = 1, S = 784, causal)
-              beside SDPA (the kernels it picked named)
+              beside SDPA (the kernels it picked named), BST's block at
+              serve_p99 and serve_bulk (f32, S = 21, D = 4)
     segment   the mutable corpus (core.segment), fig6's protocol: fig3's
               32 x 10 through the batched engine at max_batch 32, ingest
               off and on (each wave: add docs, delete a doc it served,
@@ -192,7 +213,9 @@ range of batch sizes ([bag], ``phase_bag_sweep``); ``--adc-times``
 builds and times only the rows that run the ADC scan, rows 3, 5 and 7
 at every precision and B = 1 to 32 with each instance of the scan forced
 ([adc], ``phase_adc_times``), so two checkouts can be compared in one
-call.  The eight may be given together.
+call; ``--models-only`` builds and runs only row 8's [attn] gates at
+BST's shapes, [ctr], [gin] and row 8's [times] at BST's shapes.  The
+nine may be given together.
 """
 from __future__ import annotations
 
@@ -1296,12 +1319,20 @@ ATTN_SHAPES = [(2, 8, 8, 256, 256, 64, 64, True),      # MHA
                (1, 16, 16, 256, 256, 64, 64, False),   # snowflake
                (1, 32, 4, 784, 784, 128, 128, True),   # yi-9b RAG prefill
                (1, 16, 16, 784, 784, 192, 128, True),  # deepseek MLA prefill
-               (1, 8, 4, 256, 256, 256, 256, True)]    # the widest heads
+               (1, 8, 4, 256, 256, 256, 256, True),   # the widest heads
+               (512, 8, 8, 21, 21, 4, 4, False),      # bst serve_p99
+               (64, 8, 8, 21, 21, 4, 4, False)]       # bst, bf16: padded
 # shapes whose inputs are bf16, as the LM's prefill gives them: the op
 # reads them as they are (the bf16 kernel) and writes a bf16 output
 ATTN_BF16 = {(1, 32, 4, 784, 784, 128, 128, True),
              (1, 16, 16, 784, 784, 192, 128, True),
-             (1, 8, 4, 256, 256, 256, 256, True)}
+             (1, 8, 4, 256, 256, 256, 256, True),
+             (64, 8, 8, 21, 21, 4, 4, False)}
+# BST's block (bst.full_config: embed 32, 8 heads, a sequence of 20 + the
+# target): S = Skv = 21, D = Dv = 4, non-causal; the [attn] shapes of
+# this model and the [times] batches, serve_p99 and serve_bulk
+BST_ATTN = [sh for sh in ATTN_SHAPES if sh[3] == 21]
+BST_TIMES = (("bst_p99", 512, 25), ("bst_bulk", 262_144, 3))
 # deepseek-v2-lite's prefill through MLA: H = Hkv = 16, D = d_head +
 # d_rope = 192, Dv = d_head = 128 (a wide instance)
 MLA_ATTN = (1, 16, 16, 784, 784, 192, 128, True)
@@ -1314,18 +1345,19 @@ def attn_inputs(shape, gen, dev):
             ((b, h, s, d), (b, hkv, skv, d), (b, hkv, skv, dv))]
 
 
-def phase_attn(args, dev, errs):
-    """flash_attention against its plain version at every ATTN_SHAPES
-    shape: the kernel's float32 result within TOL; at an ATTN_BF16 shape
-    (bf16 inputs) also the op's bf16 output within one bf16 ulp of its
-    row's largest |out| (each side rounds its own f32 result).  Returns
-    that largest |d| in ulps."""
+def phase_attn(args, dev, errs, shapes=ATTN_SHAPES):
+    """flash_attention against its plain version at every shape of
+    ``shapes`` (ATTN_SHAPES; --models-only: BST_ATTN): the kernel's
+    float32 result within TOL; at an ATTN_BF16 shape (bf16 inputs) also
+    the op's bf16 output within one bf16 ulp of its row's largest |out|
+    (each side rounds its own f32 result).  Returns that largest |d| in
+    ulps."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
     row_ulps = 0.0
-    for shape in ATTN_SHAPES:
+    for shape in shapes:
         causal = shape[-1]
         q, k, v = attn_inputs(shape, gen, dev)
         if shape in ATTN_BF16:
@@ -1808,20 +1840,21 @@ def phase_dump_rows(args, dev, path):
 
 
 def dump_attn(args, dev):
-    """flash_attention (row 8) at every [attn] shape whose heads are at
-    most 128 wide (the instances that predate the wide ones), on float32
-    and bf16 inputs, v contiguous and as the prefill leaves it
-    (transposed): {name: [out]} on the host."""
+    """flash_attention (row 8) at every [attn] shape, narrow and wide, on
+    float32 and bf16 inputs whose rows are a multiple of 16 bytes (the
+    calls a checkout before the padded call takes too), v contiguous and
+    as the prefill leaves it (transposed): {name: [out]} on the host."""
     import torch
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
     out = {}
     for shape in ATTN_SHAPES:
-        if max(shape[5], shape[6]) > 128:
-            continue
         causal = shape[-1]
         x = attn_inputs(shape, gen, dev)
         for dtype in (torch.float32, torch.bfloat16):
+            if (shape[5] * dtype.itemsize) % 16 or \
+                    (shape[6] * dtype.itemsize) % 16:
+                continue
             q, k, v = (t.to(dtype) for t in x)
             vt = v.transpose(1, 2).contiguous().transpose(1, 2)
             out[f"flash_attention {shape} {dtype}"] = [
@@ -2906,6 +2939,327 @@ def phase_twotower_dist(args, dev, model, corpus, index):
         f"results == S=1's, {overflow} with a shard over its cap; host "
         f"ms p50: " + " ".join(f"{n.replace(' ', '_')}={np.median(v):.3f}"
                                for n, v in ms.items()))
+
+
+# ---------------------------------------------------------------------------
+# [ctr] and [gin]: the ranking models and GIN at full width
+# ---------------------------------------------------------------------------
+
+CTR_SHAPES = (("serve_p99", 20), ("serve_bulk", 5), ("retrieval_cand", 3))
+CTR_CHECK_ROWS = 512      # rows held to the same model on the CPU
+CTR_PROBE_ROWS = 8_192    # rows of the forward that sizes a chunk
+# a shape's activations may take half the card; past it, equal chunks
+CTR_MEM_SHARE = 0.5
+
+
+def to_device(tree, dev):
+    """A parameter tree (dicts, lists, tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def field_ids(gen, b, vocabs, dev):
+    """(b, F) int32 ids drawn on the card within each field's vocabulary;
+    row 0 every field's first row, row 1 its last."""
+    import torch
+    v = torch.tensor(vocabs, dtype=torch.int64, device=dev)
+    ids = torch.randint(0, 2 ** 62, (b, len(vocabs)), generator=gen,
+                        device=dev) % v
+    ids[0], ids[1] = 0, v - 1
+    return ids.to(torch.int32)
+
+
+def ctr_inputs(name, cfg, b, gen, dev):
+    """One request batch of b rows of model ``name`` on the card."""
+    import torch
+    if name == "dcn-v2":
+        return (torch.randn((b, cfg.n_dense), generator=gen, device=dev),
+                field_ids(gen, b, cfg.vocab_sizes, dev))
+    if name == "bst":
+        seq = field_ids(gen, b, (cfg.item_vocab,) * (cfg.seq_len + 1), dev)
+        return (seq[:, :-1], seq[:, -1].contiguous(),
+                field_ids(gen, b, (cfg.other_vocab,) * cfg.n_other, dev))
+    return (field_ids(gen, b, cfg.vocab_sizes, dev),)
+
+
+def ctr_models():
+    """(name, config, init, module) of the three ranking models at
+    their full published configurations."""
+    from repro_torch.configs import autoint, bst, dcn_v2
+    from repro_torch.models import recsys as R
+    return (("dcn-v2", dcn_v2, dcn_v2.full_config(), R.dcnv2_init, R.DCNv2),
+            ("bst", bst, bst.full_config(), R.bst_init, R.BST),
+            ("autoint", autoint, autoint.full_config(), R.autoint_init,
+             R.AutoInt))
+
+
+def ctr_chunk(model, name, cfg, b, gen, dev):
+    """(rows a call, bytes a row): the activation bytes a row takes,
+    measured on a CTR_PROBE_ROWS forward, and the largest equal chunk of
+    b (a divisor) whose activations stay within CTR_MEM_SHARE of the
+    card."""
+    import torch
+    probe = ctr_inputs(name, cfg, CTR_PROBE_ROWS, gen, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model(*probe)
+    torch.cuda.synchronize()
+    per_row = (torch.cuda.max_memory_allocated() - base) / CTR_PROBE_ROWS
+    budget = CTR_MEM_SHARE * torch.cuda.get_device_properties(
+        dev).total_memory
+    n = next(n for n in range(1, b + 1)
+             if b % n == 0 and b // n * per_row <= budget)
+    return b // n, per_row
+
+
+def phase_ctr(args, dev):
+    """DCN-v2, BST and AutoInt at their full configurations, weights from
+    a seeded CUDA generator, at serve_p99, serve_bulk and retrieval_cand
+    (ids drawn on the card within each field's vocabulary).  Gates per
+    shape: every logit finite; the first CTR_CHECK_ROWS rows within TOL x
+    max(1, |logit|) of the same model on the CPU (the weights copied);
+    BST's logits through the flash_attention kernel within TOL x max(1,
+    |logit|) of the same model with the plain attention on the card.
+    Returns the flash_attention launches of the phase (every BST forward:
+    the chunk probes, warm-ups and timed runs)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys as R
+    first = ops.flash_attention.launches
+    t_all = time.perf_counter()
+    for k, (name, mod, cfg, init, cls) in enumerate(ctr_models()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed + 40 + k))
+        model = cls(cfg, params)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        cpu = cls(cfg, to_device(params, "cpu"))
+        del params
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 50 + k)
+        for shape, reps in CTR_SHAPES:
+            b = mod.SHAPE_PARAMS[shape]["batch"]
+            x = ctr_inputs(name, cfg, b, gen, dev)
+            chunk, per_row = ctr_chunk(model, name, cfg, b, gen, dev)
+
+            def forward():
+                return R.score_in_chunks(model, b, chunk, *x)
+            forward()                                        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = ops.flash_attention.launches
+            marks = [(torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                     for _ in range(reps)]
+            for start, end in marks:
+                start.record()
+                out = forward()
+                end.record()
+            torch.cuda.synchronize()
+            n = ops.flash_attention.launches - before
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            ms = np.array([s.elapsed_time(e) for s, e in marks])
+            if out.shape != (b,) or out.dtype != torch.float32 or \
+                    not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"[ctr] {name} {shape}: logits "
+                                     f"{tuple(out.shape)} {out.dtype} not "
+                                     f"all finite")
+            want = cpu(*(t[:CTR_CHECK_ROWS].cpu() for t in x))
+            scale = max(1.0, float(want.abs().max()))
+            cpu_err = float((out[:CTR_CHECK_ROWS].cpu() - want).abs().max())
+            if not cpu_err <= TOL * scale:
+                raise AssertionError(f"[ctr] {name} {shape}: card vs CPU "
+                                     f"max |d| {cpu_err} (tol {TOL} x "
+                                     f"{scale:.3g})")
+            plain_err = ""
+            if name == "bst":
+                set_attention(model, ref.mha_attention)
+                plain = forward()
+                set_attention(model, None)
+                err = float((out - plain).abs().max())
+                tol = TOL * max(1.0, float(plain.abs().max()))
+                if not err <= tol or \
+                        ops.flash_attention.launches != before + n:
+                    raise AssertionError(f"[ctr] bst {shape}: kernel vs "
+                                         f"plain attention max |d| {err} "
+                                         f"(tol {tol:.3g})")
+                plain_err = (f" kernel_vs_plain_attention={err:.3g} "
+                             f"(tol {tol:.3g})")
+                del plain
+            log("ctr", f"{name} {shape} B={b:,} chunk={chunk:,} "
+                f"({per_row / 1e3:.1f} kB of activations a row): "
+                f"p50_ms={np.percentile(ms, 50):.3f} "
+                f"p95_ms={np.percentile(ms, 95):.3f} "
+                f"rows_per_s={b / np.percentile(ms, 50) * 1e3:,.0f} "
+                f"kernels_a_forward={n / reps:g} (flash_attention) "
+                f"peak_gb={peak:.2f} init_s={t_init:.2f} "
+                f"card_vs_cpu={cpu_err:.3g} on {CTR_CHECK_ROWS} rows "
+                f"(tol {TOL} x {scale:.3g}){plain_err}; params "
+                f"{cfg.param_count() / 1e6:.1f}M, table_gb="
+                f"{model.table.numel() * 4 / 1e9:.2f}")
+            del x, out
+        del model, cpu
+        torch.cuda.empty_cache()
+    log("ctr", f"phase {time.perf_counter() - t_all:.2f}s on the host clock")
+    return ops.flash_attention.launches - first
+
+
+GIN_REPS = 5
+
+
+def gin_graphs(args, dev):
+    """Each [gin] shape's input at its published size, as (shape, kind,
+    host seconds, inputs, cut): full_graph_sm and molecule from the
+    port's sbm_graph / molecule_batch, their edges padded as the
+    reference's bundle pads them; minibatch_lg's 1,024 trees sampled by
+    the port's NeighborSampler over a graph of Reddit's nodes with fewer
+    edges (the trees are what the forward sees); ogb_products drawn on
+    the card from a torch.Generator (the forward's cost depends on N, E
+    and d, not on the blocks)."""
+    import torch
+    from repro_torch.configs import gin_tu as GT
+    from repro_torch.data import graph as G
+    sp = GT.SHAPE_PARAMS
+    out = []
+    t0 = time.perf_counter()
+    p = sp["full_graph_sm"]
+    src, dst, x, _ = G.sbm_graph(p["n_nodes"], p["n_edges"], p["n_classes"],
+                                 d_feat=p["d_feat"], seed=args.seed)
+    e_pad = GT.pad_to(src.size, p["pad_edges_to"])
+    pad = e_pad - src.size
+    es = np.concatenate([src, np.zeros(pad, np.int32)])
+    ed = np.concatenate([dst, np.zeros(pad, np.int32)])
+    em = np.arange(e_pad) < src.size
+    out.append(("full_graph_sm", "node", time.perf_counter() - t0,
+                (x, es, ed, em), "uncut"))
+    t0 = time.perf_counter()
+    p = sp["molecule"]
+    mol = G.molecule_batch(p["batch"], p["n_nodes"], p["n_edges"],
+                           p["d_feat"], p["n_classes"], seed=args.seed)
+    out.append(("molecule", "graph", time.perf_counter() - t0, mol[:5],
+                "uncut"))
+    t0 = time.perf_counter()
+    p = sp["minibatch_lg"]
+    n_src, e_src = 232_965, 2_329_650
+    src, dst, feats, labels = G.sbm_graph(n_src, e_src, p["n_classes"],
+                                          d_feat=p["d_feat"], seed=args.seed)
+    sampler = G.NeighborSampler(G.edges_to_csr(src, dst, n_src), feats,
+                                labels, fanouts=p["fanouts"], seed=args.seed)
+    seeds = np.random.default_rng(args.seed).choice(
+        n_src, p["batch_nodes"], replace=False)
+    t = sampler.sample_trees(seeds)
+    del src, dst, feats, sampler
+    out.append(("minibatch_lg", "trees", time.perf_counter() - t0,
+                (t["x"], t["edge_src"], t["edge_dst"], t["edge_mask"]),
+                f"trees sampled from {n_src:,} nodes x {e_src:,} edges "
+                f"(Reddit: 114.6M edges)"))
+    t0 = time.perf_counter()
+    p = sp["ogb_products"]
+    n, e = p["n_nodes"], p["n_edges"]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 60)
+    e_pad = GT.pad_to(e, p["pad_edges_to"])
+    es = torch.randint(0, n, (e_pad,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    ed = torch.randint(0, n, (e_pad,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    em = torch.arange(e_pad, device=dev) < e
+    x = torch.randn((n, p["d_feat"]), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    out.append(("ogb_products", "node", time.perf_counter() - t0,
+                (x, es, ed, em), "uncut; drawn on the card (uniform edges)"))
+    return out
+
+
+def gin_aggregate_check(x, es, ed, em, parts=8):
+    """``gnn.aggregate`` of x over these edges against a float64
+    ``index_add_`` (atomics: a check, not a path), the edges in ``parts``
+    slices; returns (max |d|, max(1, max |sum|)) and raises past TOL x
+    that scale."""
+    import torch
+    from repro_torch.models import gnn as N
+    got = N.aggregate(x, es, ed, x.shape[0], em)
+    want = torch.zeros(got.shape, dtype=torch.float64, device=x.device)
+    step = -(-es.numel() // parts)
+    for i in range(0, es.numel(), step):
+        sl = slice(i, i + step)
+        want.index_add_(0, ed[sl].long(), x[es[sl].long()].double()
+                        * em[sl, None].double())
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.double() - want).abs().max())
+    if not err <= TOL * scale:
+        raise AssertionError(f"[gin] aggregate vs index_add_: max |d| {err}")
+    return err, scale
+
+
+def phase_gin(args, dev):
+    """GIN at full_config() (5 layers, d_hidden 64), forward only, at its
+    four shapes (``gin_graphs``).  Gates: finite logits; two forwards
+    ``torch.equal`` (no float atomics); full_graph_sm, molecule and
+    minibatch_lg within TOL x max(1, |logit|) of the same forward on the
+    CPU."""
+    import torch
+    from repro_torch.configs import gin_tu as GT
+    from repro_torch.models import gnn as N
+    t_all = time.perf_counter()
+    for k, (shape, kind, host_s, inputs, cut) in enumerate(
+            gin_graphs(args, dev)):
+        sp = GT.SHAPE_PARAMS[shape]
+        cfg = dataclasses.replace(GT.full_config(), d_in=sp["d_feat"],
+                                  n_classes=sp["n_classes"])
+        params = N.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed + 70 + k))
+        model = N.GIN(cfg, params)
+        run = {"node": model.forward_node, "graph": model.forward_graph,
+               "trees": model.forward_trees}[kind]
+        x = tuple(torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                  else a for a in inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = run(*x)
+        second = run(*x)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(first).all()) or \
+                not torch.equal(first, second):
+            raise AssertionError(f"[gin] {shape}: logits not finite, or two "
+                                 f"forwards differ")
+        del second
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+                 for _ in range(GIN_REPS)]
+        for start, end in marks:
+            start.record()
+            run(*x)
+            end.record()
+        torch.cuda.synchronize()
+        ms = np.array([s.elapsed_time(e) for s, e in marks])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if shape == "ogb_products":
+            err, scale = gin_aggregate_check(*x)
+            check = (f"first layer's aggregate vs float64 index_add_ "
+                     f"max |d| {err:.3g} (tol {TOL} x {scale:.3g}); no CPU "
+                     f"run (61.9M edges)")
+        else:
+            cpu = N.GIN(cfg, to_device(params, "cpu"))
+            want = {"node": cpu.forward_node, "graph": cpu.forward_graph,
+                    "trees": cpu.forward_trees}[kind](*inputs)
+            scale = max(1.0, float(want.abs().max()))
+            err = float((first.cpu() - want).abs().max())
+            if not err <= TOL * scale:
+                raise AssertionError(f"[gin] {shape}: card vs CPU max |d| "
+                                     f"{err} (tol {TOL} x {scale:.3g})")
+            check = f"card_vs_cpu={err:.3g} (tol {TOL} x {scale:.3g})"
+        log("gin", f"{shape} {kind} logits {tuple(first.shape)} d_in="
+            f"{sp['d_feat']} ({cut}): p50_ms={np.percentile(ms, 50):.3f} "
+            f"peak_gb={peak:.2f} host_s={host_s:.2f}; two forwards "
+            f"torch.equal; {check}")
+        del model, params, x, first
+        torch.cuda.empty_cache()
+    log("gin", f"phase {time.perf_counter() - t_all:.2f}s on the host clock")
 
 
 # ---------------------------------------------------------------------------
@@ -4722,11 +5076,29 @@ def sdpa_backend(q, k, v, causal):
                            or "no kernel traced"))
 
 
-def phase_attn_times(args, dev):
+def attn_time_cases(bst_only=False):
+    """(key, shape, dtype, reps) of the [times] rows of flash_attention:
+    dragon's B = 1 and DOC_BATCH (f32), Yi-9B's and DeepSeek's MLA bf16
+    prefills, and BST's block at serve_p99 and serve_bulk (f32)."""
+    import torch
+    bst = [(key, (b, 8, 8, 21, 21, 4, 4, False), torch.float32, reps)
+           for key, b, reps in BST_TIMES]
+    if bst_only:
+        return bst
+    return [(1, (1, 12, 12, 256, 256, 64, 64, False), torch.float32, 25),
+            (DOC_BATCH, (DOC_BATCH, 12, 12, 256, 256, 64, 64, False),
+             torch.float32, 5),
+            ("yi", (1, 32, 4, 784, 784, 128, 128, True), torch.bfloat16, 25),
+            ("mla", MLA_ATTN, torch.bfloat16, 25)] + bst
+
+
+def phase_attn_times(args, dev, bst_only=False):
     """flash_attention at dragon's query (B = 1) and doc-batch (B =
-    DOC_BATCH) shapes in float32 and at Yi-9B's RAG prefill (B = 1, 32 /
+    DOC_BATCH) shapes in float32, at Yi-9B's RAG prefill (B = 1, 32 /
     4 heads, S = 784, D = 128, causal) and DeepSeek-V2-Lite's MLA
-    prefill (16 heads, D = 192, Dv = 128) in bf16, beside its plain version
+    prefill (16 heads, D = 192, Dv = 128) in bf16, and at BST's block
+    (8 heads, S = 21, D = 4, f32) at serve_p99 and serve_bulk
+    (``attn_time_cases``), beside its plain version
     (no host sync: device time, as the kernel's) and, timed only,
     PyTorch's ``scaled_dot_product_attention`` on the same tensors.  The
     float32 bound is at the 3xTF32 rate (the f32 FMA bound beside it),
@@ -4737,13 +5109,7 @@ def phase_attn_times(args, dev):
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for b, shape, dtype, reps in (
-            (1, (1, 12, 12, 256, 256, 64, 64, False), torch.float32, 25),
-            (DOC_BATCH, (DOC_BATCH, 12, 12, 256, 256, 64, 64, False),
-             torch.float32, 5),
-            ("yi", (1, 32, 4, 784, 784, 128, 128, True), torch.bfloat16,
-             25),
-            ("mla", MLA_ATTN, torch.bfloat16, 25)):
+    for b, shape, dtype, reps in attn_time_cases(bst_only):
         causal = shape[-1]
         qkv = [[t.to(dtype) for t in attn_inputs(shape, gen, dev)]
                for _ in range(reps)]
@@ -5298,6 +5664,9 @@ def main() -> int:
     ap.add_argument("--hnsw-graph", metavar="PATH",
                     help="load the [hnsw] graph of --hnsw-times from PATH, "
                     "or build it and save it there (hnsw_graph)")
+    ap.add_argument("--models-only", action="store_true",
+                    help="build, then only row 8's checks at BST's shapes, "
+                    "[ctr], [gin] and row 8's [times] at BST's shapes")
     args = ap.parse_args()
     args.d, args.k, args.nprobe = 768, 10, 64
     args.lmax = math.ceil(1.3 * args.n_docs / args.lists)
@@ -5341,7 +5710,20 @@ def main() -> int:
 
     if (args.stages_only or args.dump_rows or args.bag_times or args.adc_times
             or args.hnsw_only or args.hnsw_times or args.segment_only
-            or args.sharded_only):
+            or args.sharded_only or args.models_only):
+        if args.models_only:
+            errs = {"flash_attention": 0.0}
+            ulps = phase_attn(args, dev, errs, BST_ATTN)
+            log("attn", f"BST's shapes {BST_ATTN}: flash_attention "
+                f"max_abs_err={errs['flash_attention']:.3g} (tol {TOL}); "
+                f"bf16 (padded to D = 8) max |d| {ulps:.3g} bf16 ulp of "
+                f"the row's largest |out| (tol 1)")
+            from repro_torch.kernels import ops
+            ops.reset_launches()
+            n = phase_ctr(args, dev)
+            log("ctr", f"flash_attention launches {n} (BST's forwards)")
+            phase_gin(args, dev)
+            phase_attn_times(args, dev, bst_only=True)
         if args.sharded_only:
             from repro_torch.core import hnsw
             index, docs, convs, _, _ = phase_index(args, dev)
@@ -5465,7 +5847,8 @@ def main() -> int:
         f"S < Skv, non-causal, ragged S/Skv, Dv != D, dragon B = 1 and "
         f"{DOC_BATCH}, snowflake, yi-9b's RAG prefill H=32 Hkv=4 S=784 "
         f"D=128 causal bf16, deepseek's MLA prefill H=16 S=784 D=192 "
-        f"Dv=128 causal bf16, heads 256 wide bf16): flash_attention "
+        f"Dv=128 causal bf16, heads 256 wide bf16, bst's block B=512 H=8 "
+        f"S=21 D=4 f32 and B=64 bf16 (padded to D=8)): flash_attention "
         f"max_abs_err="
         f"{errs['flash_attention']:.3g} (tol {TOL}); bf16 outputs max |d| "
         f"{attn_ulps:.3g} bf16 ulp of the row's largest |out| (tol 1)")
@@ -5502,6 +5885,16 @@ def main() -> int:
     phase_twotower_dist(args, dev, model, corpus, tindex)
     del model, corpus, tindex, rec_vecs
     torch.cuda.empty_cache()
+
+    # the ranking models and GIN: this slice's path, counts from 0
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    ctr_launches = phase_ctr(args, dev)
+    if ops.flash_attention.launches != ctr_launches or not ctr_launches:
+        raise AssertionError(f"[ctr] flash_attention launched "
+                             f"{ops.flash_attention.launches} times, "
+                             f"{ctr_launches} counted on BST's forwards")
+    phase_gin(args, dev)
 
     index, docs, convs, exact, bconvs = phase_index(args, dev)
     pqi = phase_pq(args, index, docs, dev)
@@ -5548,7 +5941,8 @@ def main() -> int:
     d32_counts = phase_decode32k(args, dev)
     times[1]["flash_decode"] = phase_decode_times(args, dev)[1]
     launches["flash_attention"] = (enc_launches + rag_counts["flash_attention"]
-                                   + ds_counts["flash_attention"])
+                                   + ds_counts["flash_attention"]
+                                   + ctr_launches)
     launches["flash_decode"] = (rag_counts["flash_decode"]
                                 + d32_counts["flash_decode"])
     for name in IVF_KERNELS + REC_KERNELS:

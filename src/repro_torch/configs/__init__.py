@@ -1,4 +1,5 @@
 """Model configurations of the port."""
-from repro_torch.configs import (common, deepseek_v2_lite_16b,  # noqa: F401
-                                 encoders, grok_1_314b, qwen3_14b, qwen15_4b,
+from repro_torch.configs import (autoint, bst, common,  # noqa: F401
+                                 dcn_v2, deepseek_v2_lite_16b, encoders,
+                                 gin_tu, grok_1_314b, qwen3_14b, qwen15_4b,
                                  two_tower_retrieval, yi_9b)

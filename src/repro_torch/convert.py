@@ -11,8 +11,10 @@ the same way: its session slab through ``ivf_session_from_numpy`` or
 ``segmented_index_from_numpy`` around its converted base.  The
 bi-encoder's parameter tree converts leaf for leaf, its stacked layers
 unstacked (``encoder_params_from_numpy``); so do the two-tower model's
-(``two_tower_params_from_numpy``) and the LM's
-(``lm_params_from_numpy``, bfloat16 carried bit for bit).
+(``two_tower_params_from_numpy``), the ranking models' (``dcnv2_`` /
+``bst_`` / ``autoint_params_from_numpy``), GIN's
+(``gin_params_from_numpy``) and the LM's (``lm_params_from_numpy``,
+bfloat16 carried bit for bit).
 Nothing here imports the reference: the arrays are the interface.
 """
 from __future__ import annotations
@@ -29,7 +31,10 @@ from repro_torch.core.pq import IVFPQIndex, check_index
 from repro_torch.core.segment import SegmentedIndex
 from repro_torch.core.toploc import HNSWSession, IVFSession, index_tensor
 from repro_torch.models.encoder import DualEncoder, EncoderConfig, Tower
-from repro_torch.models.recsys import TwoTower, TwoTowerConfig
+from repro_torch.models.gnn import GIN, GINConfig
+from repro_torch.models.recsys import (BST, AutoInt, AutoIntConfig,
+                                       BSTConfig, DCNv2, DCNv2Config,
+                                       TwoTower, TwoTowerConfig)
 from repro_torch.models.transformer import LM, LMConfig
 from repro_torch.serving.result_cache import CacheEntry
 
@@ -156,6 +161,43 @@ def two_tower_params_from_numpy(params: Dict[str, Any], cfg: TwoTowerConfig,
     and ``item_mlp`` with their ``layers`` lists of ``w`` / ``b``)."""
     dev = _device.resolve(device)
     return TwoTower(cfg, _tree(lambda a: _f32(a, dev), params))
+
+
+def dcnv2_params_from_numpy(params: Dict[str, Any], cfg: DCNv2Config,
+                            device=None) -> DCNv2:
+    """A ``DCNv2`` on ``device`` (default cuda) from the reference's
+    ``dcnv2_init`` tree as numpy arrays (``emb.table``, ``cross`` [{w,
+    b}], ``deep.layers``, ``head``)."""
+    dev = _device.resolve(device)
+    return DCNv2(cfg, _tree(lambda a: _f32(a, dev), params))
+
+
+def bst_params_from_numpy(params: Dict[str, Any], cfg: BSTConfig,
+                          device=None) -> BST:
+    """A ``BST`` on ``device`` (default cuda) from the reference's
+    ``bst_init`` tree as numpy arrays (``emb``, ``other_emb``, ``pos``,
+    ``blocks`` [{attn, norm1, norm2, ff}], ``deep``, ``head``)."""
+    dev = _device.resolve(device)
+    return BST(cfg, _tree(lambda a: _f32(a, dev), params))
+
+
+def autoint_params_from_numpy(params: Dict[str, Any], cfg: AutoIntConfig,
+                              device=None) -> AutoInt:
+    """An ``AutoInt`` on ``device`` (default cuda) from the reference's
+    ``autoint_init`` tree as numpy arrays (``emb``, ``attn`` [{wq, wk, wv,
+    wres}], ``head``)."""
+    dev = _device.resolve(device)
+    return AutoInt(cfg, _tree(lambda a: _f32(a, dev), params))
+
+
+def gin_params_from_numpy(params: Dict[str, Any], cfg: GINConfig,
+                          device=None) -> GIN:
+    """A ``GIN`` on ``device`` (default cuda) from the reference's
+    ``models.gnn.init_params`` tree as numpy arrays (``layers`` [{mlp:
+    {w1, b1, w2, b2, norm}, eps}], ``heads``); ``cfg`` carries the
+    shape's d_in and n_classes."""
+    dev = _device.resolve(device)
+    return GIN(cfg, _tree(lambda a: _f32(a, dev), params))
 
 
 def _tensor(a, dev) -> torch.Tensor:

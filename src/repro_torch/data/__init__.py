@@ -1,3 +1,3 @@
-"""Synthetic CAsT-like workload, its token view, and the hash tokenizer
-(numpy copies of the reference's recipes)."""
-from repro_torch.data import synthetic, tokenizer  # noqa: F401
+"""Synthetic CAsT-like workload, its token view, the hash tokenizer and
+the graph substrate (numpy copies of the reference's recipes)."""
+from repro_torch.data import graph, synthetic, tokenizer  # noqa: F401

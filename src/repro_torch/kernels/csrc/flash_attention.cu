@@ -110,7 +110,8 @@ extern "C" {
 // last dim contiguous, rows 16-byte aligned); out (B, H, S, Dv) bfloat16
 // contiguous.  Hkv divides H; D, Dv multiples of 8, at most 256; Skv >= 1;
 // warps 1 or 4 (query rows of a block: 16 x warps).  scale is the float32
-// value of 1 / sqrt(D).
+// value of 1 / sqrt(d) for the caller's true head dim d (the binding pads
+// a d whose rows are not a multiple of 16 bytes with zero columns).
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, int B, int H, int Hkv, int S, int Skv,
                          int D, int Dv, int causal, float scale, int warps,

@@ -10,13 +10,18 @@ float32, and the output has it.  q, k and v may be strided views (a
 transposed ``v`` from the model's projections is read in place) as long
 as the head dim is contiguous and every row starts on 16 bytes
 (``takes``).  D and Dv go up to 256 (MLA's prefill is D = 192, Dv =
-128), each in a bucket of its own (``tiling.attn_bucket``).  The choice
-between kernel and plain version belongs to ``ops.py``.
+128), each in a bucket of its own (``tiling.attn_bucket``).  A D or Dv
+whose rows are not a multiple of 16 bytes (BST's D = 4 in bfloat16, f32
+D = 2 or 6) is zero-padded to the next multiple (``padded_dims``): the
+zeros add nothing to a dot product, the scale stays that of the true D,
+and the output is sliced back to Dv.  The choice between kernel and
+plain version belongs to ``ops.py``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -38,16 +43,6 @@ def takes(t: torch.Tensor) -> bool:
     return (t.dim() == 4 and t.stride(-1) == 1
             and all(s % vec == 0 for s in t.stride()[:3])
             and launcher.aligned(t))
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    launcher.check_device(name, t)
-    if t.dtype != dtype or t.dim() != 4:
-        raise ValueError(f"{name}: expected 4-d {dtype}, got {t.dim()}-d "
-                         f"{t.dtype}")
-    if not takes(t):
-        raise ValueError(f"{name}: the head dim must be contiguous and every "
-                         f"row 16-byte aligned (strides {t.stride()})")
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -72,6 +67,21 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"causal attention with S={s} > Skv={skv}")
 
 
+def padded_dims(d: int, dv: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(D, Dv) as the kernel reads them: each rounded up to a multiple of
+    16 bytes of ``dtype`` (rows are read 16 bytes at a time)."""
+    vec = 16 // dtype.itemsize
+    return -(-d // vec) * vec, -(-dv // vec) * vec
+
+
+def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t with its last dim zero-padded to ``width`` (t itself if it has
+    that width)."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool) -> torch.Tensor:
     """Attention forward: (B, H, S, Dv) in the inputs' dtype (float32 or
@@ -81,23 +91,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q: dtype {q.dtype}, the kernels take "
                          f"{sorted(map(str, ENTRIES))}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, q.dtype)
+        launcher.check_device(name, t)
+        if t.dtype != q.dtype or t.dim() != 4:
+            raise ValueError(f"{name}: expected 4-d {q.dtype}, got "
+                             f"{t.dim()}-d {t.dtype}")
     check_shapes(q, k, v, causal=causal)
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k and v lie on different devices")
     b, h, s, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
-    vec = 16 // q.element_size()
-    if d > MAX_DIM or dv > MAX_DIM or d % vec or dv % vec:
-        raise ValueError(f"head dims D={d}, Dv={dv}: at most {MAX_DIM} and "
-                         f"multiples of {vec} ({q.dtype} rows are read 16 "
-                         f"bytes at a time)")
-    out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
-    plan = tiling.plan_flash_attention(b, h, s, d, dv, PLAN_DTYPE[q.dtype])
+    if d > MAX_DIM or dv > MAX_DIM:
+        raise ValueError(f"head dims D={d}, Dv={dv}: at most {MAX_DIM}")
+    dp, dvp = padded_dims(d, dv, q.dtype)
+    q, k, v = _pad(q, dp), _pad(k, dp), _pad(v, dvp)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not takes(t):
+            raise ValueError(f"{name}: the head dim must be contiguous and "
+                             f"every row 16-byte aligned (strides "
+                             f"{t.stride()})")
+    out = torch.empty((b, h, s, dvp), dtype=q.dtype, device=q.device)
+    plan = tiling.plan_flash_attention(b, h, s, dp, dvp, PLAN_DTYPE[q.dtype])
     warps = plan[0].block[0] // tiling.WARP if plan else 1
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
     launcher.run(ENTRIES[q.dtype], plan, q.device, q, k, v, out, b, h, hkv,
-                 s, skv, d, dv, int(causal), 1.0 / math.sqrt(d), warps,
+                 s, skv, dp, dvp, int(causal), 1.0 / math.sqrt(d), warps,
                  strides)
-    return out
+    return out if dvp == dv else out[..., :dv]

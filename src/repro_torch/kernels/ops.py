@@ -422,8 +422,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     math when S or Skv is not a multiple of 128, every CUDA call runs
     the kernel: it masks ragged tails itself.  bfloat16 and float32
     inputs are read as they are, strided views included (the layout
-    copy is made only where rows are not 16-byte aligned); other dtypes
-    go through float32.  The
+    copy is made only where rows are not 16-byte aligned; a head dim
+    whose rows are not a multiple of 16 bytes is zero-padded by the
+    binding); other dtypes go through float32.  The
     kernel has no backward yet, so it refuses inputs that require grad.
     """
     dev = _device.require(device, q, k, v)

@@ -1,13 +1,16 @@
 """Building blocks of the bi-encoder, the recsys towers and the LM, as ``nn.Module``s.
 
 Port of the parts of ``repro/models/layers.py`` the encoder, the
-two-tower model and the dense LMs use: RMSNorm (float32, eps 1e-6,
-``:42-46``), RoPE in the split-halves convention (``:66-79``), GQA
-attention with optional qkv bias and qk-norm (``AttnConfig``,
-``_project_qkv`` + ``attn_apply``, ``:86-146``) and its one-token decode
-against a KV cache (``attn_decode``, ``:149-171``), the SwiGLU MLP
-(``:177-186``) and the plain MLP tower (``mlp_init`` / ``mlp_apply``,
-``:189-210``), the group-local top-k MoE with shared experts (grok-1,
+recsys models and the LMs use: RMSNorm (float32, eps 1e-6,
+``:42-46``), LayerNorm (float32, eps 1e-6, biased variance, ``:49-59``;
+BST's blocks and GIN's update MLP), RoPE in the split-halves convention
+(``:66-79``), GQA attention with optional qkv bias and qk-norm
+(``AttnConfig``, ``_project_qkv`` + ``attn_apply``, ``:86-146``) and its
+one-token decode against a KV cache (``attn_decode``, ``:149-171``), the
+SwiGLU MLP (``:177-186``) and the plain MLP tower (``mlp_init`` /
+``mlp_apply``, ``:189-210``, with the activations the recsys models pass
+it: ReLU, ``jax.nn.gelu``'s default tanh form, leaky ReLU of slope
+0.01), the group-local top-k MoE with shared experts (grok-1,
 deepseek-v2-lite; ``MoEConfig`` / ``moe_init`` / ``_dispatch_group`` /
 ``moe_apply``, ``:218-358``) and MLA, DeepSeek-V2's multi-head latent
 attention (``MLAConfig`` / ``mla_init`` / ``mla_apply`` and the absorbed
@@ -75,6 +78,31 @@ class RMSNorm(nn.Module):
         var = (xf * xf).mean(dim=-1, keepdim=True)
         out = xf * torch.rsqrt(var + self.eps)
         return (out * self.scale.float()).to(x.dtype)
+
+
+def layernorm_init(d: int, device, dtype=torch.float32) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+class LayerNorm(nn.Module):
+    """(x - mean) · rsqrt(var + eps) · scale + bias over the last dim,
+    computed in float32 with the biased variance (``jnp.var``) and
+    returned in x's dtype; eps 1e-6 as the reference's, not torch's
+    1e-5."""
+
+    def __init__(self, params: Params, eps: float = 1e-6):
+        super().__init__()
+        self.scale = frozen(params["scale"])
+        self.bias = frozen(params["bias"])
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        out = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (out * self.scale.float() + self.bias.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -271,12 +299,27 @@ def mlp_init(gen: torch.Generator, dims, dtype=torch.float32,
     return {"layers": layers}
 
 
-class MLP(nn.Module):
-    """x @ w (+ b) per layer, ReLU between layers and, with
-    ``final_act``, after the last."""
+#: the activations ``mlp_apply`` is given in the reference, by name:
+#: ``jax.nn.relu``, ``jax.nn.gelu`` (its default is the tanh form, torch's
+#: the exact one) and ``jax.nn.leaky_relu`` (slope 0.01)
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "relu": torch.relu,
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "leaky_relu": lambda x: torch.nn.functional.leaky_relu(
+        x, negative_slope=0.01),
+}
 
-    def __init__(self, params: Params, final_act: bool = False):
+
+class MLP(nn.Module):
+    """x @ w (+ b) per layer, ``act`` (an ``ACTIVATIONS`` name) between
+    layers and, with ``final_act``, after the last."""
+
+    def __init__(self, params: Params, final_act: bool = False,
+                 act: str = "relu"):
         super().__init__()
+        if act not in ACTIVATIONS:
+            raise ValueError(f"activation {act!r}: one of "
+                             f"{sorted(ACTIVATIONS)}")
         self.weights = nn.ParameterList(frozen(lp["w"])
                                         for lp in params["layers"])
         self.biases = nn.ParameterList(
@@ -284,15 +327,17 @@ class MLP(nn.Module):
         if len(self.biases) not in (0, len(self.weights)):
             raise ValueError("either every layer has a bias or none has")
         self.final_act = final_act
+        self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.weights)
+        act = ACTIVATIONS[self.act]
         for i, w in enumerate(self.weights):
             x = x @ w
             if len(self.biases):
                 x = x + self.biases[i]
             if i < n - 1 or self.final_act:
-                x = torch.relu(x)
+                x = act(x)
         return x
 
 

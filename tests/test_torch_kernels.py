@@ -18,7 +18,9 @@ alone or in a batch.  Flash attention runs on
 float inputs: its plain version is pinned to a float64 numpy softmax
 and the kernel to the plain version, both within 1e-5 (summation
 order), over MHA/GQA, causal with S == Skv and S < Skv, Dv != D, ragged
-S and Skv, and the encoders' shapes.
+S and Skv, the encoders' shapes, and heads narrower than 16 bytes (BST's
+D = 4; in bf16, and f32 D = 2 / 6, through the binding's zero pad, whose
+plan and scale are checked on the CPU).
 """
 import ctypes
 import subprocess
@@ -943,6 +945,55 @@ def test_cuda_flash_attention_wide_heads_equal_plain_version(
         assert bool((diff <= _bf16_row_ulp(want.float())).all())
 
 
+# BST's block (B 4 of serve's rows, H 8, S = Skv = 21, D = Dv = 4,
+# non-causal) and two more narrow rows, f32 and bf16: bf16 at D = 4 and
+# f32 at D = 2 / 6 go through the padded call
+ATTN_NARROW = [((4, 8, 8, 21, 21, 4, 4, False), torch.float32),
+               ((4, 8, 8, 21, 21, 4, 4, False), torch.bfloat16),
+               ((2, 4, 2, 33, 50, 2, 6, True), torch.float32),
+               ((2, 4, 2, 33, 50, 6, 2, False), torch.bfloat16)]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("shape,dtype", ATTN_NARROW)
+def test_cuda_flash_attention_narrow_heads_equal_plain_version(
+        cuda_device, shape, dtype):
+    """Heads narrower than 16 bytes: one launch; the f32 result within
+    ATTN_TOL of the plain version, the bf16 output within one bf16 ulp
+    of its row's largest |out|."""
+    q, k, v = (t.to(dtype) for t in _attn_inputs(shape, cuda_device))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=shape[-1])
+    want = ref.mha_attention(q, k, v, causal=shape[-1])
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= ATTN_TOL
+    else:
+        assert bool((diff <= _bf16_row_ulp(want.float())).all())
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("shape,dtype", ATTN_NARROW[:2])
+def test_cuda_flash_attention_reads_no_stale_shared_memory(
+        cuda_device, shape, dtype):
+    """Blocks that follow a kernel which left NaN in every SM's shared
+    memory (the widest bf16 and f32 instances on NaN inputs) give the
+    same bits as after a clean run: the narrow tiles are written in full
+    (zeros past D, Dv and Skv) before they are read."""
+    q, k, v = (t.to(dtype) for t in _attn_inputs(shape, cuda_device))
+    want = ops.flash_attention(q, k, v, causal=shape[-1])
+    for wide in (torch.bfloat16, torch.float32):
+        nan = torch.full((132, 4, 128, 256), float("nan"), dtype=wide,
+                         device=cuda_device)
+        ops.flash_attention(nan, nan, nan, causal=False)
+        got = ops.flash_attention(q, k, v, causal=shape[-1])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 @pytest.mark.cuda_only
 def test_cuda_flash_attention_refuses_grad_and_empty_launches_nothing(
         cuda_device):
@@ -1632,6 +1683,50 @@ def test_flash_attention_wide_plans(shape, dtype, grid, stages, smem):
     assert tiling.attn_bucket(192, 128) == (192, 128)
     assert tiling.attn_bucket(128, 128) == (128, 128)
     assert tiling.attn_bucket(48, 32) == (64, 64)
+
+
+# (dtype, D, Dv) -> the (D, Dv) the kernel reads: rows of 16 bytes
+ATTN_PADS = [(torch.bfloat16, 4, 4, 8, 8),      # BST's heads in bf16
+             (torch.float32, 4, 4, 4, 4),       # BST's heads: no pad
+             (torch.float32, 2, 2, 4, 4),
+             (torch.float32, 6, 2, 8, 4),
+             (torch.bfloat16, 12, 4, 16, 8),
+             (torch.bfloat16, 250, 60, 256, 64)]
+
+
+@pytest.mark.parametrize("dtype,d,dv,dp,dvp", ATTN_PADS)
+def test_flash_attention_pads_narrow_rows_with_the_true_scale(
+        monkeypatch, dtype, d, dv, dp, dvp):
+    """A D or Dv whose rows are not a multiple of 16 bytes reaches the
+    kernel zero-padded to the next multiple, with the plan of the padded
+    dims and the scale of the true D, 1/sqrt(d); the output is sliced
+    back to Dv.  Recorded on meta tensors: nothing is launched."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import launcher
+    calls = []
+    monkeypatch.setattr(FA.launcher, "run",
+                        lambda *a: calls.append(a))
+    b, h, s = 4, 8, 21
+    q = torch.empty((b, h, s, d), dtype=dtype, device="meta")
+    k = torch.empty((b, h, s, d), dtype=dtype, device="meta")
+    v = torch.empty((b, h, s, dv), dtype=dtype, device="meta")
+    with launcher.record_launches():
+        out = FA.flash_attention(q, k, v, causal=False)
+    (entry, plan, _, qp, kp, vp, o, *rest), = calls
+    assert entry == FA.ENTRIES[dtype] and out.shape == (b, h, s, dv)
+    assert FA.padded_dims(d, dv, dtype) == (dp, dvp)
+    assert qp.shape[-1] == kp.shape[-1] == dp and vp.shape[-1] == dvp
+    assert o.shape == (b, h, s, dvp)
+    assert all(FA.takes(t) for t in (qp, kp, vp))
+    assert plan == tiling.plan_flash_attention(b, h, s, dp, dvp,
+                                               FA.PLAN_DTYPE[dtype])
+    # b, h, hkv, s, skv, D, Dv, causal, scale, warps, strides
+    assert rest[5:7] == [dp, dvp]
+    assert rest[8] == 1.0 / d ** 0.5
+    with launcher.record_launches(), \
+            pytest.raises(ValueError, match="at most 256"):
+        FA.flash_attention(*(torch.empty((1, 1, 4, 264), dtype=dtype,
+                                         device="meta"),) * 3, causal=False)
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.distributed.sharding, "
         "repro_torch.distributed.collectives, "
         "repro_torch.distributed.retrieval, "
-        "repro_torch.serving.router\n"
+        "repro_torch.serving.router, repro_torch.models.gnn, "
+        "repro_torch.data.graph, repro_torch.configs.dcn_v2, "
+        "repro_torch.configs.bst, repro_torch.configs.autoint, "
+        "repro_torch.configs.gin_tu\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n")
