@@ -13,7 +13,7 @@ from a seed after the synthetic workload's recipe, an IVF index of
 rerank = 64) over 25 conversations x 10 turns.  Then the paper's own
 pipeline, text to answers: the dragon dual encoder at full width and
 depth (random weights from a seed; its attention is the hand-written
-``flash_attention`` kernel) encodes a 65,536-doc text corpus, the port
+``flash_attention`` kernel) encodes a 32,768-doc text corpus, the port
 indexes the embeddings, and each served turn encodes its query before
 ``engine.query``.  Then two-tower retrieval at its full published width
 (``repro/configs/two_tower_retrieval.py``: embed 256, MLP 1024-512-256,
@@ -78,16 +78,16 @@ exits non-zero):
               1e-5, bf16 outputs within one bf16 ulp of the row's
               largest |out|; GQA groups 1, 5, 8, S = 1,000 / 1,024 /
               32,768, B = 1 and 8, ragged cache_len with 1, S and S + 1
-  7 encode    dragon encodes 65,536 text docs (snowflake one query
+  7 encode    dragon encodes 32,768 text docs (snowflake one query
               batch); then [serve] encoder lines: IVF over the doc
               embeddings, each turn's query encoded at B = 1
-  8 rag       Yi-9B answers 4 conversations x 4 turns: query tower at
+  8 rag       Yi-9B answers 2 conversations x 4 turns: query tower at
               B = 1, fused toploc+ (k = 3) over the encoder path's IVF,
               prefill of 3 docs x 256 + 16 query tokens (first held
               to a prefill through the plain attention), 32 greedy
               tokens; encode / retrieval / prefill p50 and p95, ms a
-              token, 24,576 flash_decode launches, finite logits; then
-              [rag] deepseek-v2-lite: the same 16 turns (its 784-token
+              token, 12,288 flash_decode launches, finite logits; then
+              [rag] deepseek-v2-lite: the same 8 turns (its 784-token
               prefill first held to the plain attention, routed as the
               plain run: logits, ckv, krope), the absorbed MLA decode; init s, peak memory,
               prefill p50 / p95, ms and kernels a token beside the
@@ -113,6 +113,23 @@ exits non-zero):
               ogb_products (2,449,029 nodes, 61,859,140 edges, drawn on
               the card): p50, peak memory; two forwards torch.equal, the
               small shapes == the CPU
+    train     Dragon (both towers, 12 x 768, 278.4 M parameters) trained
+              60 steps at B = 64 pairs (examples/train_encoder.py's
+              recipe cut from 300 steps), row 8 forward in every layer,
+              its backward the plain VJP; then the example's pipeline
+              (4,000 docs, IVF p = 32, 4 x 6 turns, plain and TopLoc) on
+              the trained and the step-0 towers; two-tower at full
+              width, B = 32,768 (cut from 65,536), 5 steps, row 10
+              forward, a dense table gradient; DCN-v2, BST and AutoInt
+              at full width, B = 65,536, 3 steps; GIN at full_graph_sm,
+              molecule and minibatch_lg, 3 steps (ogb_products not
+              trained); launch.train.run for the ten arch ids at smoke
+              size and two restart drills (yi-9b, dcn-v2) bit-equal to an
+              uninterrupted run; gates: step 1's loss and gradients ==
+              the plain-kernel run within 1e-5 x max(1, |g|), two step-1
+              runs torch.equal, finite losses, Dragon's loss falling;
+              then rows 8 and 10 forward and backward at the training
+              shapes beside SDPA and F.embedding_bag
  10 index     the port's ivf.build at full size + exact top-10
  11 pq        the port's build_ivf_pq at full size (m = 48, 8 iters)
  12 serve     per backend: toploc+ / toploc / plain fused, toploc+
@@ -214,8 +231,9 @@ builds and times only the rows that run the ADC scan, rows 3, 5 and 7
 at every precision and B = 1 to 32 with each instance of the scan forced
 ([adc], ``phase_adc_times``), so two checkouts can be compared in one
 call; ``--models-only`` builds and runs only row 8's [attn] gates at
-BST's shapes, [ctr], [gin] and row 8's [times] at BST's shapes.  The
-nine may be given together.
+BST's shapes, [ctr], [gin] and row 8's [times] at BST's shapes;
+``--train-only`` builds and runs only the [train] phases.  The ten may
+be given together.
 """
 from __future__ import annotations
 
@@ -297,7 +315,9 @@ BAG_TOL = 1e-6                 # embedding_bag on random floats
 # the encoder path: docs of the text corpus, queries of Q_LEN tokens
 # padded to max_len, DOC_BATCH docs per doc-tower call ([attn] and
 # [times] hold and time the kernel at that batch too)
-ENC_DOCS, DOC_BATCH, Q_LEN = 65_536, 64, 16
+# the encoder path cut to 32,768 docs and the RAG loop to 2 x 4 turns
+# (from 65,536 and 4 x 4) to keep the whole run well inside its limit
+ENC_DOCS, DOC_BATCH, Q_LEN = 32_768, 64, 16
 MSMARCO_DOCS = 8_841_823
 
 
@@ -2100,7 +2120,7 @@ def phase_encode_serve(args, dev, enc, embs, wl, conv_tok):
 # Yi-9B at full width and depth
 # ---------------------------------------------------------------------------
 
-RAG_CONVS, RAG_TURNS, RAG_K = 4, 4, 3     # 16 turns; 3 docs a prompt
+RAG_CONVS, RAG_TURNS, RAG_K = 2, 4, 3     # 8 turns; 3 docs a prompt
 RAG_MAX_LEN, RAG_GEN = 1024, 32           # cache positions; greedy steps
 DECODE32K_B, DECODE32K_STEPS = 8, 10      # decode_32k cut from B = 128
 
@@ -2152,7 +2172,7 @@ def phase_rag(args, dev, enc, index, docs_tok, conv_tok):
     within 5e-2 of the plain side's largest |value|), then one decode
     step through the plain decode attention against the kernel's, the
     same 48 layers.  Launch counts
-    are set to 0 just before the 16 turns and read just after."""
+    are set to 0 just before the turns and read just after."""
     import torch
     from repro_torch.configs import yi_9b
     from repro_torch.kernels import ops, ref
@@ -3112,9 +3132,10 @@ def phase_ctr(args, dev):
 GIN_REPS = 5
 
 
-def gin_graphs(args, dev):
-    """Each [gin] shape's input at its published size, as (shape, kind,
-    host seconds, inputs, cut): full_graph_sm and molecule from the
+def gin_graphs(args, dev, shapes=None):
+    """Each [gin] shape's input at its published size (those of
+    ``shapes``, default all four), as (shape, kind, host seconds, inputs,
+    cut, labels; ogb_products has none): full_graph_sm and molecule from the
     port's sbm_graph / molecule_batch, their edges padded as the
     reference's bundle pads them; minibatch_lg's 1,024 trees sampled by
     the port's NeighborSampler over a graph of Reddit's nodes with fewer
@@ -3125,10 +3146,11 @@ def gin_graphs(args, dev):
     from repro_torch.configs import gin_tu as GT
     from repro_torch.data import graph as G
     sp = GT.SHAPE_PARAMS
+    shapes = tuple(sp) if shapes is None else shapes
     out = []
     t0 = time.perf_counter()
     p = sp["full_graph_sm"]
-    src, dst, x, _ = G.sbm_graph(p["n_nodes"], p["n_edges"], p["n_classes"],
+    src, dst, x, y = G.sbm_graph(p["n_nodes"], p["n_edges"], p["n_classes"],
                                  d_feat=p["d_feat"], seed=args.seed)
     e_pad = GT.pad_to(src.size, p["pad_edges_to"])
     pad = e_pad - src.size
@@ -3136,13 +3158,15 @@ def gin_graphs(args, dev):
     ed = np.concatenate([dst, np.zeros(pad, np.int32)])
     em = np.arange(e_pad) < src.size
     out.append(("full_graph_sm", "node", time.perf_counter() - t0,
-                (x, es, ed, em), "uncut"))
+                (x, es, ed, em), "uncut", y))
     t0 = time.perf_counter()
     p = sp["molecule"]
     mol = G.molecule_batch(p["batch"], p["n_nodes"], p["n_edges"],
                            p["d_feat"], p["n_classes"], seed=args.seed)
     out.append(("molecule", "graph", time.perf_counter() - t0, mol[:5],
-                "uncut"))
+                "uncut", mol[5]))
+    if "minibatch_lg" not in shapes:
+        return [g for g in out if g[0] in shapes]
     t0 = time.perf_counter()
     p = sp["minibatch_lg"]
     n_src, e_src = 232_965, 2_329_650
@@ -3157,7 +3181,9 @@ def gin_graphs(args, dev):
     out.append(("minibatch_lg", "trees", time.perf_counter() - t0,
                 (t["x"], t["edge_src"], t["edge_dst"], t["edge_mask"]),
                 f"trees sampled from {n_src:,} nodes x {e_src:,} edges "
-                f"(Reddit: 114.6M edges)"))
+                f"(Reddit: 114.6M edges)", t["labels"]))
+    if "ogb_products" not in shapes:
+        return [g for g in out if g[0] in shapes]
     t0 = time.perf_counter()
     p = sp["ogb_products"]
     n, e = p["n_nodes"], p["n_edges"]
@@ -3171,8 +3197,9 @@ def gin_graphs(args, dev):
     x = torch.randn((n, p["d_feat"]), generator=gen, device=dev)
     torch.cuda.synchronize()
     out.append(("ogb_products", "node", time.perf_counter() - t0,
-                (x, es, ed, em), "uncut; drawn on the card (uniform edges)"))
-    return out
+                (x, es, ed, em), "uncut; drawn on the card (uniform edges)",
+                None))
+    return [g for g in out if g[0] in shapes]
 
 
 def gin_aggregate_check(x, es, ed, em, parts=8):
@@ -3206,8 +3233,8 @@ def phase_gin(args, dev):
     from repro_torch.configs import gin_tu as GT
     from repro_torch.models import gnn as N
     t_all = time.perf_counter()
-    for k, (shape, kind, host_s, inputs, cut) in enumerate(
-            gin_graphs(args, dev)):
+    graphs = gin_graphs(args, dev)
+    for k, (shape, kind, host_s, inputs, cut, _) in enumerate(graphs):
         sp = GT.SHAPE_PARAMS[shape]
         cfg = dataclasses.replace(GT.full_config(), d_in=sp["d_feat"],
                                   n_classes=sp["n_classes"])
@@ -3260,6 +3287,7 @@ def phase_gin(args, dev):
         del model, params, x, first
         torch.cuda.empty_cache()
     log("gin", f"phase {time.perf_counter() - t_all:.2f}s on the host clock")
+    return [g for g in graphs if g[0] in TRAIN_GIN_SHAPES]
 
 
 # ---------------------------------------------------------------------------
@@ -5619,6 +5647,626 @@ def phase_segment(args, docs, bconvs, graph, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [train]: the losses, optimizers and gradients through rows 8 and 10
+# ---------------------------------------------------------------------------
+
+# Dragon at full width and depth, examples/train_encoder.py's recipe cut
+# from 300 steps (warmup 50) to 60 (warmup 6)
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_B, TRAIN_Q = 60, 6, 64, 16
+TRAIN_DOCS, TRAIN_TOPICS, TRAIN_CONVS, TRAIN_TURNS = 4000, 32, 4, 6
+# two-tower train_batch cut from 65,536 to 32,768 (the (B, B) float32
+# logits and their backward pass the card at 65,536)
+TT_TRAIN_B, TT_TRAIN_STEPS = 32_768, 5
+CTR_TRAIN_B, CTR_TRAIN_STEPS = 65_536, 3
+GIN_TRAIN_STEPS = 3
+GRAD_TOL = 1e-5                # |g - g_plain| <= GRAD_TOL x max(1, |g_plain|)
+LAUNCH_STEPS = 2
+
+
+def grads_err(what, got, want, tol=GRAD_TOL):
+    """Largest |got - want| / max(1, |want|) over every leaf; raises past
+    ``tol``."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = float(((a.float() - b.float()).abs()
+                     / b.float().abs().clamp_min(1.0)).max()) if a.numel() \
+            else 0.0
+        worst = max(worst, err)
+        if not err <= tol:
+            raise AssertionError(f"[train] {what}: leaf {i} {tuple(a.shape)} "
+                                 f"off by {err:.3g} (tol {tol})")
+    return worst
+
+
+def step1_gates(what, model, loss_fn, batch, plain=None):
+    """Step 1's gates, before any update: two kernel-path gradient runs
+    from one state ``torch.equal`` leaf for leaf; with ``plain`` (a
+    context that swaps the kernels for their plain versions) the loss
+    and every gradient against that run within GRAD_TOL.  Returns (loss,
+    max error against the plain run, or None)."""
+    import torch
+    from repro_torch.optim import grad as G
+    (loss, _), g1 = G.value_and_grad(loss_fn, model, batch)
+    (loss2, _), g2 = G.value_and_grad(loss_fn, model, batch)
+    if not torch.equal(loss, loss2) or not all(
+            torch.equal(a, b) for a, b in zip(g1, g2)):
+        raise AssertionError(f"[train] {what}: two step-1 gradient runs "
+                             f"differ")
+    del g2
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"[train] {what}: step-1 loss {loss}")
+    err = None
+    if plain is not None:
+        with plain():
+            (lp, _), gp = G.value_and_grad(loss_fn, model, batch)
+        err = max(grads_err(f"{what} loss", [loss], [lp]),
+                  grads_err(f"{what} grads", g1, gp))
+    return float(loss), err
+
+
+class swap:
+    """A context that sets ``obj.name`` to ``value`` and restores it."""
+
+    def __init__(self, obj, name, value):
+        self.obj, self.name, self.value = obj, name, value
+
+    def __enter__(self):
+        self.old = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.old)
+
+
+def plain_attention_ctx(model):
+    """A context running every attention layer of ``model`` through the
+    plain attention (autograd through ``ref.plain_attention``)."""
+    from repro_torch.kernels import ref
+
+    class _Ctx:
+        def __enter__(self):
+            set_attention(model, ref.plain_attention)
+
+        def __exit__(self, *exc):
+            set_attention(model, None)
+    return _Ctx
+
+
+def timed_steps(step, batches):
+    """Run ``step(batch)`` over ``batches`` with a CUDA event pair around
+    each; (per-step ms, the metrics of each step, host seconds)."""
+    import torch
+    marks, metrics = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        metrics.append(step(b))
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return (np.array([s.elapsed_time(e) for s, e in marks]), metrics,
+            time.perf_counter() - t0)
+
+
+def dragon_pipeline(model, cfg, docs_txt, conv_txt, wl, dev, seed):
+    """examples/train_encoder.py's pipeline on ``model``'s towers: encode
+    the corpus, ivf.build(p = 32, iters = 8), then each conversation
+    through IVFBackend(h = 8, nprobe = 4, alpha = 0.1), plain and TopLoc
+    (k = 10).  (topic-precision@1 plain, toploc; centroid work plain,
+    toploc)."""
+    import torch
+    from repro_torch.core import ivf, toploc
+    from repro_torch.core.backend import IVFBackend
+    with torch.no_grad():
+        tok = torch.from_numpy(docs_txt).to(dev)
+        embs = torch.cat([model.encode_docs(t, t > 0)
+                          for t in tok.split(256)])
+        index = ivf.build(embs, p=32, iters=8, seed=seed + 1, device=dev)
+        hits, work = [0, 0], [0, 0]
+        for c in range(conv_txt.shape[0]):
+            qt = torch.from_numpy(pad_queries(conv_txt[c], cfg.max_len)
+                                  ).to(dev)
+            qv = model.encode_queries(qt, qt > 0)
+            bk = IVFBackend(h=8, nprobe=4, alpha=0.1)
+            gold = wl.conv_topics[c]
+            for j, mode in enumerate(("plain", "toploc")):
+                _, ids, st = toploc.conversation(bk, index, qv, k=10,
+                                                 mode=mode, device=dev)
+                top = ids[:, 0].cpu().numpy()
+                hits[j] += int((wl.doc_topic[top] == gold).sum())
+                work[j] += int(st.centroid_dists.sum())
+    turns = conv_txt.shape[0] * conv_txt.shape[1]
+    return hits[0] / turns, hits[1] / turns, work[0], work[1]
+
+
+def phase_train_dragon(args, dev):
+    """The Dragon dual encoder at full width and depth, trained with
+    InfoNCE on the synthetic topic corpus (examples/train_encoder.py's
+    recipe: AdamW on warmup_cosine(3e-4), clip 1.0, temperature 0.05,
+    pairs of a 16-token topic query and a doc), then its pipeline on the
+    trained towers beside the step-0 ones.  Gates: step 1's loss and
+    every gradient == the plain-attention run within GRAD_TOL, two step-1
+    runs torch.equal, every loss finite, the last 10 steps' mean loss
+    below the first 10's.  Returns row 8's launches in training."""
+    import torch
+    from repro_torch.configs import common
+    from repro_torch.configs.encoders import dragon_config
+    from repro_torch.data import synthetic as SY
+    from repro_torch.kernels import ops
+    from repro_torch.models import encoder as E
+    from repro_torch.optim import optimizers as OPT
+    from repro_torch.optim import grad as G
+    from repro_torch.optim import schedules as SCHED
+    cfg = dragon_config()
+    wl = SY.make_workload(SY.WorkloadConfig(
+        n_docs=TRAIN_DOCS, d=32, n_topics=TRAIN_TOPICS,
+        n_conversations=TRAIN_CONVS, turns_per_conversation=TRAIN_TURNS,
+        seed=11))
+    docs_txt, conv_txt = SY.make_text_corpus(wl, vocab=cfg.vocab,
+                                             doc_len=cfg.max_len,
+                                             query_len=TRAIN_Q)
+    t0 = time.perf_counter()
+    model = E.init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    before = dragon_pipeline(model, cfg, docs_txt, conv_txt, wl, dev,
+                             args.seed)
+    model.requires_grad_(True)
+    opt = OPT.AdamW(G.trainable(model),
+                    SCHED.warmup_cosine(3e-4, TRAIN_WARMUP, TRAIN_STEPS))
+    rng = np.random.default_rng(0)
+    n_topics = wl.topic_centers.shape[0]
+
+    def batch():
+        ids = rng.choice(TRAIN_DOCS, TRAIN_B, replace=False)
+        q = np.stack([SY.topic_text(rng, int(wl.doc_topic[i]), n_topics,
+                                    cfg.vocab, TRAIN_Q) for i in ids])
+        q = np.pad(q, ((0, 0), (0, cfg.max_len - TRAIN_Q)))
+        d = docs_txt[ids]
+        b = {"q_tokens": q, "q_mask": q > 0, "d_tokens": d, "d_mask": d > 0}
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    batches = [batch() for _ in range(TRAIN_STEPS)]
+    loss1, err = step1_gates("dragon", model, E.contrastive_loss, batches[0],
+                             plain_attention_ctx(model))
+    step = common.simple_train_step(E.contrastive_loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ms, metrics, host_s = timed_steps(lambda b: step(model, opt, b), batches)
+    launches = ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = np.array([float(m["loss"]) for m in metrics])
+    accs = np.array([float(m["acc"]) for m in metrics])
+    if launches != TRAIN_STEPS * 2 * cfg.n_layers:
+        raise AssertionError(f"[train] dragon: flash_attention launched "
+                             f"{launches} times in {TRAIN_STEPS} steps")
+    if not np.isfinite(losses).all() or \
+            not losses[-10:].mean() < losses[:10].mean():
+        raise AssertionError(f"[train] dragon: losses {losses}")
+    if abs(losses[0] - loss1) > GRAD_TOL * max(1.0, abs(loss1)):
+        raise AssertionError("[train] dragon: step 1's loss moved")
+    log("train", f"dragon L={cfg.n_layers} d={cfg.d_model} H={cfg.n_heads} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab} max_len={cfg.max_len} "
+        f"params={cfg.param_count() / 1e6:.1f}M (init {t_init:.1f}s), "
+        f"B={TRAIN_B} pairs ({TRAIN_Q}-token queries padded to "
+        f"{cfg.max_len}), {TRAIN_STEPS} steps of AdamW on warmup_cosine("
+        f"3e-4, {TRAIN_WARMUP}, {TRAIN_STEPS}) (cut from the example's 300 "
+        f"/ 50), clip 1.0: step_ms p50={np.percentile(ms, 50):.1f} "
+        f"p95={np.percentile(ms, 95):.1f} (CUDA events; step 1 "
+        f"{ms[0]:.1f}) host_s={host_s:.1f} peak_gb={peak:.2f} "
+        f"flash_attention_launches={launches} (= {TRAIN_STEPS} x "
+        f"{2 * cfg.n_layers}, forward; backward the plain VJP); loss first10"
+        f"={losses[:10].mean():.4f} last10={losses[-10:].mean():.4f} "
+        f"(step 1 {losses[0]:.4f}, step {TRAIN_STEPS} {losses[-1]:.4f}); "
+        f"in-batch acc first10={accs[:10].mean():.3f} "
+        f"last10={accs[-10:].mean():.3f}; step 1 vs the plain attention: "
+        f"loss and every gradient max rel err {err:.3g} (tol {GRAD_TOL}); "
+        f"two step-1 runs torch.equal")
+    after = dragon_pipeline(model, cfg, docs_txt, conv_txt, wl, dev,
+                            args.seed)
+    split = profile_device(lambda: G.value_and_grad(
+        E.contrastive_loss, model, batches[0]), 1, STEP_SPLIT)
+    log("train", "dragon gradient step's device split (torch.profiler, ms "
+        "a step, no optimizer): " + " ".join(
+            f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in split.items()))
+    log("train", f"pipeline (examples/train_encoder.py): {TRAIN_DOCS} docs "
+        f"encoded, ivf.build(p=32, iters=8), {TRAIN_CONVS} conversations x "
+        f"{TRAIN_TURNS} turns through IVFBackend(h=8, nprobe=4, alpha=0.1) "
+        f"k=10: topic-precision@1 plain / toploc step 0 = {before[0]:.3f} / "
+        f"{before[1]:.3f}, trained = {after[0]:.3f} / {after[1]:.3f}; "
+        f"centroid work plain -> toploc step 0 = {before[2]} -> {before[3]}, "
+        f"trained = {after[2]} -> {after[3]} (no gate)")
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_twotower(args, dev):
+    """Two-tower retrieval at full width (one 3.22 GB table, history 50)
+    at train_batch B = TT_TRAIN_B, TT_TRAIN_STEPS steps of AdamW at 1e-3,
+    the history bag through row 10 forward and the plain VJP backward (a
+    dense table gradient).  Gates: step 1's loss and gradients == the
+    plain-bag run, two step-1 runs torch.equal (the table gradient
+    included), every loss finite.  Returns row 10's launches."""
+    import torch
+    from repro_torch.configs import common
+    from repro_torch.configs import two_tower_retrieval as TT
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import grad as G
+    cfg = TT.full_config()
+    t0 = time.perf_counter()
+    model = R.two_tower_init(cfg, seed=args.seed + 20, device=dev
+                             ).requires_grad_(True)
+    opt = common.adamw_constant(1e-3)(model)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    b = TT_TRAIN_B
+
+    def batch():
+        hist = torch.randint(0, cfg.item_vocab, (b, cfg.history_len),
+                             generator=gen, device=dev)
+        n = torch.randint(0, cfg.history_len + 1, (b, 1), generator=gen,
+                          device=dev)
+        hist = torch.where(torch.arange(cfg.history_len, device=dev) < n,
+                           hist, -1)
+        return {"user_id": torch.randint(0, cfg.user_vocab, (b,),
+                                         generator=gen, device=dev),
+                "item_id": torch.randint(0, cfg.item_vocab, (b,),
+                                         generator=gen, device=dev),
+                "history": hist.to(torch.int32)}
+
+    def plain_bag(table, offset, ids, agg="mean"):
+        shifted = torch.where(ids >= 0, ids + offset, -1)
+        return ref.embedding_bag(table, shifted, mode=agg)
+
+    batches = [batch() for _ in range(TT_TRAIN_STEPS)]
+    _, err = step1_gates("two-tower", model, R.two_tower_loss, batches[0],
+                         lambda: swap(R, "embed_bag", plain_bag))
+    step = common.simple_train_step(R.two_tower_loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ms, metrics, host_s = timed_steps(lambda bt: step(model, opt, bt),
+                                      batches)
+    launches = ops.embedding_bag.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = np.array([float(m["loss"]) for m in metrics])
+    if launches != TT_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"[train] two-tower: {launches} bag launches, "
+                             f"losses {losses}")
+    log("train", f"two-tower embed={cfg.embed_dim} mlp={cfg.tower_mlp} "
+        f"table={model.table.shape[0]:,} rows "
+        f"({model.table.numel() * 4 / 1e9:.2f} GB) history="
+        f"{cfg.history_len} (init {t_init:.1f}s): train_batch B={b:,} (cut "
+        f"from 65,536), {TT_TRAIN_STEPS} steps of AdamW at 1e-3, clip 1.0: "
+        f"step_ms p50={np.percentile(ms, 50):.1f} p95="
+        f"{np.percentile(ms, 95):.1f} (step 1 {ms[0]:.1f}) peak_gb="
+        f"{peak:.2f} embedding_bag_launches={launches} (forward; backward "
+        f"the plain VJP, a dense table gradient); losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; step 1 vs the plain bag: "
+        f"loss and every gradient max rel err {err:.3g} (tol {GRAD_TOL}); "
+        f"two step-1 runs torch.equal (the table gradient too)")
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_ctr(args, dev):
+    """DCN-v2, BST and AutoInt at their full configurations and
+    train_batch B = 65,536, CTR_TRAIN_STEPS steps of AdamW at 1e-3 each
+    (BCE on clicks drawn at 30 %).  Gates: two step-1 runs torch.equal;
+    BST's step 1 == the plain-attention run (row 8 forward at D = 4, the
+    plain VJP backward); every loss finite.  Returns row 8's launches."""
+    import torch
+    from repro_torch.configs import common
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as R
+    total = 0
+    for k, (name, mod, cfg, init, cls) in enumerate(ctr_models()):
+        t0 = time.perf_counter()
+        model = mod.init_model(cfg, args.seed + 80 + k, dev)
+        opt = common.adamw_constant(1e-3)(model)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 90 + k)
+        keys = {"dcn-v2": ("dense", "sparse"), "bst": ("history", "target",
+                                                        "other"),
+                "autoint": ("sparse",)}[name]
+
+        def batch():
+            out = dict(zip(keys, ctr_inputs(name, cfg, CTR_TRAIN_B, gen,
+                                            dev)))
+            out["labels"] = (torch.rand(CTR_TRAIN_B, generator=gen,
+                                        device=dev) < 0.3).float()
+            return out
+
+        def loss_fn(m, bt):
+            return R.bce_loss(m(*(bt[x] for x in keys)), bt["labels"])
+
+        batches = [batch() for _ in range(CTR_TRAIN_STEPS)]
+        _, err = step1_gates(name, model, loss_fn, batches[0],
+                             plain_attention_ctx(model)
+                             if name == "bst" else None)
+        step = common.simple_train_step(loss_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        ms, metrics, _ = timed_steps(lambda bt: step(model, opt, bt),
+                                     batches)
+        n = ops.flash_attention.launches
+        losses = np.array([float(m["loss"]) for m in metrics])
+        if not np.isfinite(losses).all() or \
+                n != (CTR_TRAIN_STEPS if name == "bst" else 0):
+            raise AssertionError(f"[train] {name}: losses {losses}, "
+                                 f"flash_attention launches {n}")
+        total += n
+        log("train", f"ctr {name} ({cfg.param_count() / 1e6:.1f}M params, "
+            f"table_gb={model.table.numel() * 4 / 1e9:.2f}, init "
+            f"{t_init:.1f}s): train_batch B={CTR_TRAIN_B:,}, "
+            f"{CTR_TRAIN_STEPS} steps of AdamW at 1e-3: step_ms p50="
+            f"{np.percentile(ms, 50):.1f} (step 1 {ms[0]:.1f}) peak_gb="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)}; two step-1 runs "
+            f"torch.equal" + (f"; flash_attention_launches={n} (S = 21, "
+                              f"D = 4); step 1 vs the plain attention max "
+                              f"rel err {err:.3g} (tol {GRAD_TOL})"
+                              if name == "bst" else ""))
+        del model, opt, batches
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_gin(args, dev, graphs):
+    """GIN at full_config() trained GIN_TRAIN_STEPS steps of AdamW at 1e-3
+    on full_graph_sm (node_loss, the SBM graph's labels, every node
+    trained), molecule (graph_loss) and minibatch_lg (tree_loss, the
+    sampled roots' labels) at their published sizes.  Gates: two step-1
+    runs torch.equal (no float atomics), every loss finite."""
+    import torch
+    from repro_torch.configs import common
+    from repro_torch.configs import gin_tu as GT
+    from repro_torch.models import gnn as N
+    for k, (shape, kind, _, inputs, cut, labels) in enumerate(graphs):
+        sp = GT.SHAPE_PARAMS[shape]
+        cfg = GT.shape_config(GT.full_config(), shape)
+        model = GT.init_model(cfg, args.seed + 100 + k, dev)
+        opt = common.adamw_constant(1e-3)(model)
+        x = [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+             for a in inputs]
+        y = torch.from_numpy(np.asarray(labels).astype(np.int64)).to(dev)
+        if kind == "node":
+            mask = torch.ones(x[0].shape[0], dtype=torch.bool, device=dev)
+
+            def loss_fn(m, b):
+                return N.node_loss(m, b[0], b[1], b[2], y, mask, b[3])
+        elif kind == "graph":
+            def loss_fn(m, b):
+                return N.graph_loss(m, b[0], b[1], b[2], b[3], y, b[4])
+        else:
+            def loss_fn(m, b):
+                return N.tree_loss(m, b[0], b[1], b[2], b[3], y)
+        step1_gates(f"gin {shape}", model, loss_fn, x)
+        step = common.simple_train_step(loss_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, metrics, _ = timed_steps(lambda b: step(model, opt, b),
+                                     [x] * GIN_TRAIN_STEPS)
+        losses = np.array([float(m["loss"]) for m in metrics])
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"[train] gin {shape}: losses {losses}")
+        log("train", f"gin {shape} ({kind}, d_in={sp['d_feat']}, "
+            f"{sp['n_classes']} classes; {cut}): {GIN_TRAIN_STEPS} steps of "
+            f"AdamW at 1e-3: step_ms p50={np.percentile(ms, 50):.2f} "
+            f"peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}; two step-1 runs "
+            f"torch.equal")
+        del model, opt, x
+        torch.cuda.empty_cache()
+
+
+def final_ckpt(directory):
+    """The arrays of the latest checkpoint in ``directory``."""
+    from repro_torch.checkpoint import checkpoint as CKPT
+    step = CKPT.latest_step(directory)
+    with np.load(os.path.join(directory, f"ckpt_{step:010d}.npz")) as z:
+        return step, {k: z[k] for k in z.files}
+
+
+def phase_train_launch(args, dev):
+    """``launch.train.run`` on the card for each of the ten arch ids at
+    its smoke config, LAUNCH_STEPS steps each; then the restart drills:
+    yi-9b (4 steps, a failure injected at step 2, a checkpoint every
+    step) and dcn-v2 (the same), each ending with every parameter,
+    moment and step equal to an uninterrupted run's.  Returns (row 8's
+    launches, row 10's launches) of the runs."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import common
+    from repro_torch.distributed import fault
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    ops.reset_launches()
+    rows = []
+    for arch in common.list_archs():
+        losses = []
+        t0 = time.perf_counter()
+        T.run(arch, steps=LAUNCH_STEPS, smoke=True, ckpt_dir=None,
+              ckpt_every=LAUNCH_STEPS, resume=False,
+              injector=fault.FailureInjector([]), device=dev, seed=args.seed,
+              on_step=lambda s, m: losses.append(float(m["loss"])))
+        rows.append(f"{arch} {' '.join(f'{v:.4f}' for v in losses)} "
+                    f"({time.perf_counter() - t0:.1f}s)")
+    launches = (ops.flash_attention.launches, ops.embedding_bag.launches)
+    os.makedirs(os.path.join(ROOT, "archive"), exist_ok=True)
+    drills = []
+    for arch in ("yi-9b", "dcn-v2"):
+        tmp = tempfile.mkdtemp(prefix="train_drill_",
+                               dir=os.path.join(ROOT, "archive"))
+        try:
+            inj = fault.FailureInjector([2])
+            resumed = []
+
+            def attempt(resume, d, injector):
+                resumed.append(resume)
+                return T.run(arch, steps=4, smoke=True, ckpt_dir=d,
+                             ckpt_every=1, resume=resume, injector=injector,
+                             device=dev, seed=args.seed)
+
+            fault.run_with_restarts(lambda r: attempt(
+                r, os.path.join(tmp, "a"), inj))
+            attempt(False, os.path.join(tmp, "b"), fault.FailureInjector([]))
+            (sa, a), (sb, b) = (final_ckpt(os.path.join(tmp, x))
+                                for x in "ab")
+            if (sa, sb) != (4, 4) or sorted(a) != sorted(b) or \
+                    resumed[:2] != [False, True] or not all(
+                        np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"[train] {arch} restart drill: the "
+                                     f"resumed run differs")
+            drills.append(f"{arch} ({len(a)} arrays, "
+                          f"{sum(v.nbytes for v in a.values()) / 1e6:.1f} MB)")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log("train", f"launch: repro_torch.launch.train.run on the card, each "
+        f"arch at its smoke config, {LAUNCH_STEPS} steps (losses; gin-tu's "
+        f"are NaN as the reference's: its synthetic labels pass n_classes): "
+        + "; ".join(rows) + f"; flash_attention_launches={launches[0]} "
+        f"embedding_bag_launches={launches[1]}")
+    log("train", "launch restart drills (4 steps, failure at step 2, a "
+        "checkpoint every step): every parameter, moment and step "
+        "bit-equal to an uninterrupted run: " + ", ".join(drills))
+    return launches
+
+
+def warm_ms(call, reps, flush):
+    """``event_ms`` of ``reps`` calls after one untimed call (the caching
+    allocator and the libraries' plans warm)."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    return event_ms([call] * reps, flush, spin=True)
+
+
+def phase_train_times(args, dev):
+    """Rows 8 and 10 at the training shapes, CUDA events, L2 flushed:
+    row 8 at Dragon's (64, 12, 256, 64) float32 non-causal and row 10 at
+    the two-tower's (3,145,728 x 256 table, 32,768 bags of 50, mean):
+    the kernel forward, the plain VJP backward (``ops.attention_vjp`` /
+    ``ops.bag_vjp``), the plain forward, and the library yardsticks:
+    SDPA's forward + backward, ``F.embedding_bag``'s backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 110)
+    q, k, v, g = (torch.randn(TIMES_ATTN, generator=gen, device=dev)
+                  for _ in range(4))
+    reps = 5
+    fwd = warm_ms(lambda: ops.flash_attention(q, k, v, causal=False,
+                                              device=dev), reps, flush)
+    bwd = warm_ms(lambda: ops.attention_vjp(q, k, v, g, False), reps, flush)
+    plain = warm_ms(lambda: ref.plain_attention(q, k, v, causal=False),
+                    reps, flush)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        torch.autograd.grad(out, (qs, ks, vs), g)
+    sdpa_ms = warm_ms(sdpa, reps, flush)
+    nb, fl = attn_bound(q, k, v)
+    a_bound = bound_ms(nb, fl, TF32X3_FLOP_PER_S)
+    # the backward's bound: q, k, v, g read, dq, dk, dv written; 2.5x the
+    # forward's products (QK^T again, dP, dS·K, dS^T·Q, P^T·dO)
+    b_bound = bound_ms(nb + q.numel() * 4 * 3, fl * 2.5, TF32X3_FLOP_PER_S)
+    log("train", f"times flash_attention at dragon's train shape "
+        f"{TIMES_ATTN} f32 non-causal: kernel fwd_ms={fwd:.4f} (bound "
+        f"{a_bound[0]:.4f}, {a_bound[1]}), plain VJP bwd_ms={bwd:.4f} "
+        f"(bound {b_bound[0]:.4f}), plain fwd_ms={plain:.4f}; SDPA fwd+bwd "
+        f"{sdpa_ms:.4f} ms ({sdpa_backend(q, k, v, False)}); row 8 fwd share "
+        f"of a dragon step = 24 x {fwd:.3f} ms")
+    del q, k, v, g, qs, ks, vs
+    rows, d, b, bag = TIMES_BAG
+    table = torch.randn((rows, d), generator=gen, device=dev) * d ** -0.5
+    ids = torch.randint(0, rows, (b, bag), generator=gen, device=dev)
+    n = torch.randint(0, bag + 1, (b, 1), generator=gen, device=dev)
+    ids = torch.where(torch.arange(bag, device=dev) < n, ids, -1
+                      ).to(torch.int32)
+    g = torch.randn((b, d), generator=gen, device=dev)
+    fwd = warm_ms(lambda: ops.embedding_bag(table, ids, device=dev), reps,
+                  flush)
+    bwd = warm_ms(lambda: ops.bag_vjp(table, ids, None, g, (True, False)),
+                  reps, flush)
+    split = profile_device(lambda: ops.bag_vjp(table, ids, None, g,
+                                               (True, False)), 2, BAG_SPLIT)
+
+    t_lib = table.clone().requires_grad_()
+    valid = (ids >= 0).float()
+    out = F.embedding_bag(ids.clamp_min(0).long(), t_lib,
+                          per_sample_weights=valid, mode="sum")
+    lib = warm_ms(lambda: torch.autograd.grad(out, t_lib, g,
+                                              retain_graph=True), reps, flush)
+    real = int((ids >= 0).sum())
+    fb = bound_ms(*bag_bound(ids, d))
+    # the dense gradient: the (V, d) table written once, each real id's
+    # row of g read and added
+    bb = bound_ms(rows * d * 4 + real * d * 4 + ids.numel() * 4 + b * d * 4,
+                  2 * real * d)
+    log("train", f"times embedding_bag at the two-tower train shape "
+        f"({rows:,} x {d} table, {b:,} bags of {bag}, {real:,} real ids): "
+        f"kernel fwd_ms={fwd:.4f} (bound {fb[0]:.4f}, {fb[1]}), plain VJP "
+        f"bwd_ms={bwd:.4f} (dense table gradient; bound {bb[0]:.4f}, "
+        f"{bb[1]}); F.embedding_bag backward {lib:.4f} ms; the VJP's "
+        f"device split (torch.profiler, ms a call): " + " ".join(
+            f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in split.items()))
+    del table, ids, g, t_lib, out
+    torch.cuda.empty_cache()
+
+
+def phase_train(args, dev, graphs=None):
+    """Every [train] phase; (row 8's launches, row 10's launches)."""
+    import torch
+    t0 = time.perf_counter()
+    attn = phase_train_dragon(args, dev)
+    bag = phase_train_twotower(args, dev)
+    attn += phase_train_ctr(args, dev)
+    if graphs is None:
+        graphs = gin_graphs(args, dev, TRAIN_GIN_SHAPES)
+    phase_train_gin(args, dev, [g for g in graphs
+                                if g[0] in TRAIN_GIN_SHAPES])
+    la, lb = phase_train_launch(args, dev)
+    phase_train_times(args, dev)
+    torch.cuda.empty_cache()
+    log("train", f"phases {time.perf_counter() - t0:.1f}s on the host clock")
+    return attn + la, bag + lb
+
+
+# kernel classes of the bag VJP's device split (``profile_device``)
+BAG_SPLIT = (("sort", ("sort", "Sort", "radix", "Radix")),
+             ("embedding_bwd", ("embedding", "grad_weight", "segment",
+                                "partial", "sum_and_scatter")),
+             ("fill", ("fill", "Fill")))
+# kernel classes of a Dragon gradient step's device split
+STEP_SPLIT = (("gemm", GEMM_NAMES), ("flash_attention", ("flash_",)),
+              ("softmax", ("softmax", "Softmax")))
+# the [train] times shapes: Dragon's attention (B, H, S, D) and the
+# two-tower's bag (table rows, d, bags, bag length)
+TIMES_ATTN = (64, 12, 256, 64)
+TIMES_BAG = (3_145_728, 256, TT_TRAIN_B, 50)
+# ogb_products is not trained: its saved messages (24.7 GB for the first
+# layer, ~15.8 GB for each of the other four) pass the card's 80 GB
+TRAIN_GIN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=8_841_823)
@@ -5667,10 +6315,13 @@ def main() -> int:
     ap.add_argument("--models-only", action="store_true",
                     help="build, then only row 8's checks at BST's shapes, "
                     "[ctr], [gin] and row 8's [times] at BST's shapes")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then only the [train] phases "
+                    "(phase_train)")
     args = ap.parse_args()
     args.d, args.k, args.nprobe = 768, 10, 64
     args.lmax = math.ceil(1.3 * args.n_docs / args.lists)
-    # 16 sqrt(N) lists, FAISS's upper end: 4,096 at 65,536 docs
+    # 16 sqrt(N) lists, FAISS's upper end: 2,896 at 32,768 docs
     args.enc_lists = 16 * math.isqrt(args.enc_docs)
 
     import torch
@@ -5710,7 +6361,9 @@ def main() -> int:
 
     if (args.stages_only or args.dump_rows or args.bag_times or args.adc_times
             or args.hnsw_only or args.hnsw_times or args.segment_only
-            or args.sharded_only or args.models_only):
+            or args.sharded_only or args.models_only or args.train_only):
+        if args.train_only:
+            phase_train(args, dev)
         if args.models_only:
             errs = {"flash_attention": 0.0}
             ulps = phase_attn(args, dev, errs, BST_ATTN)
@@ -5894,7 +6547,10 @@ def main() -> int:
         raise AssertionError(f"[ctr] flash_attention launched "
                              f"{ops.flash_attention.launches} times, "
                              f"{ctr_launches} counted on BST's forwards")
-    phase_gin(args, dev)
+    train_graphs = phase_gin(args, dev)
+    # training: its own counts from 0 in each [train] phase
+    train_attn, train_bag = phase_train(args, dev, train_graphs)
+    del train_graphs
 
     index, docs, convs, exact, bconvs = phase_index(args, dev)
     pqi = phase_pq(args, index, docs, dev)
@@ -5942,11 +6598,12 @@ def main() -> int:
     times[1]["flash_decode"] = phase_decode_times(args, dev)[1]
     launches["flash_attention"] = (enc_launches + rag_counts["flash_attention"]
                                    + ds_counts["flash_attention"]
-                                   + ctr_launches)
+                                   + ctr_launches + train_attn)
     launches["flash_decode"] = (rag_counts["flash_decode"]
                                 + d32_counts["flash_decode"])
     for name in IVF_KERNELS + REC_KERNELS:
         launches[name] = launches.get(name, 0) + rec_counts[name]
+    launches["embedding_bag"] += train_bag
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], ms=times[1][name]["ms"],

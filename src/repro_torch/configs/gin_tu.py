@@ -10,15 +10,21 @@ Four regimes, one per shape:
   ogb_products   full batch, large (2,449,029 nodes, 61,859,140 edges,
                  d 100)
   molecule       128 small graphs of 30 nodes / 64 edges, d 16
-Every shape is ``kind="train"`` in the reference; the port runs the
-forward (``models.gnn.GIN``), which training will differentiate.
-d_in and n_classes are set per shape (``dataclasses.replace``).  No
-``build_bundle``: that is TPU lowering.
+Every shape is ``kind="train"``.  d_in and n_classes are set per shape
+(``dataclasses.replace``).  ``build_bundle`` is the reference's
+(``:79-178``): ``models.gnn.node_loss`` on the full-batch shapes,
+``tree_loss`` on ``minibatch_lg``'s trees, ``graph_loss`` on
+``molecule``'s graphs, AdamW at a constant 1e-3; registered as
+``gin-tu``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
+import torch
+
+from repro_torch.configs import common
 from repro_torch.models import gnn
 
 SHAPE_PARAMS: Dict[str, Dict[str, Any]] = {
@@ -59,3 +65,79 @@ def pad_to(n: int, mult: int) -> int:
     """``n`` rounded up to a multiple of ``mult`` (the padded edge count
     of a full-batch shape, ``pad_edges_to``)."""
     return ((n + mult - 1) // mult) * mult
+
+
+def shape_config(cfg: gnn.GINConfig, shape: str, smoke: bool = False,
+                 shape_overrides=None) -> gnn.GINConfig:
+    """``cfg`` with the shape's d_in and n_classes."""
+    sp = dict(SMOKE_SHAPE_PARAMS[shape] if smoke else SHAPE_PARAMS[shape])
+    sp.update(shape_overrides or {})
+    return dataclasses.replace(cfg, d_in=sp["d_feat"],
+                               n_classes=sp["n_classes"])
+
+
+def init_model(cfg: gnn.GINConfig, seed: int = 0, device=None) -> gnn.GIN:
+    """A seeded ``GIN`` on ``device`` (default cuda) whose parameters
+    require grad (``cfg`` specialised by ``shape_config``)."""
+    return gnn.GIN(cfg, gnn.init_params(cfg, common.seeded(device, seed))
+                   ).requires_grad_(True)
+
+
+def build_bundle(cfg: gnn.GINConfig, shape: str, *, smoke: bool = False,
+                 shape_overrides=None, **kw) -> common.StepBundle:
+    """The train bundle of one of the four shapes."""
+    sp = dict(SMOKE_SHAPE_PARAMS[shape] if smoke else SHAPE_PARAMS[shape])
+    sp.update(shape_overrides or {})
+    cfg = shape_config(cfg, shape, smoke, shape_overrides)
+    st, i32, f32, b8 = common.struct, torch.int32, torch.float32, torch.bool
+    if shape in ("full_graph_sm", "ogb_products"):
+        n, e = sp["n_nodes"], pad_to(sp["n_edges"], sp["pad_edges_to"])
+        structs = {"x": st((n, sp["d_feat"]), f32),
+                   "edge_src": st((e,), i32), "edge_dst": st((e,), i32),
+                   "edge_mask": st((e,), b8), "labels": st((n,), i32),
+                   "train_mask": st((n,), b8)}
+
+        def loss_fn(model, b):
+            return gnn.node_loss(model, b["x"], b["edge_src"],
+                                 b["edge_dst"], b["labels"],
+                                 b["train_mask"], b["edge_mask"])
+        tokens = n
+    elif shape == "minibatch_lg":
+        bsz, tn, te = sp["batch_nodes"], sp["tree_nodes"], sp["tree_edges"]
+        structs = {"x": st((bsz, tn, sp["d_feat"]), f32),
+                   "edge_src": st((bsz, te), i32),
+                   "edge_dst": st((bsz, te), i32),
+                   "edge_mask": st((bsz, te), b8),
+                   "labels": st((bsz,), i32)}
+
+        def loss_fn(model, b):
+            return gnn.tree_loss(model, b["x"], b["edge_src"],
+                                 b["edge_dst"], b["edge_mask"], b["labels"])
+        tokens = bsz
+    else:  # molecule
+        bsz, n, e = sp["batch"], sp["n_nodes"], sp["n_edges"]
+        structs = {"x": st((bsz, n, sp["d_feat"]), f32),
+                   "edge_src": st((bsz, e), i32),
+                   "edge_dst": st((bsz, e), i32),
+                   "node_mask": st((bsz, n), b8),
+                   "edge_mask": st((bsz, e), b8),
+                   "labels": st((bsz,), i32)}
+
+        def loss_fn(model, b):
+            return gnn.graph_loss(model, b["x"], b["edge_src"],
+                                  b["edge_dst"], b["node_mask"],
+                                  b["labels"], b["edge_mask"])
+        tokens = bsz
+    return common.StepBundle(
+        arch="gin-tu", shape=shape, kind="train",
+        step_fn=common.simple_train_step(loss_fn),
+        init_model=lambda seed, device=None: init_model(cfg, seed, device),
+        make_optimizer=common.adamw_constant(1e-3), batch_structs=structs,
+        meta=dict(params=cfg.param_count(), tokens=tokens))
+
+
+ARCH = common.register(common.ArchDef(
+    arch_id="gin-tu", family="gnn", shapes=tuple(SHAPE_PARAMS),
+    make_config=full_config, make_smoke_config=smoke_config,
+    build_bundle=build_bundle,
+    notes="segment-sum message passing; TopLoc does not apply"))

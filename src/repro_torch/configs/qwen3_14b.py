@@ -2,10 +2,12 @@
 
 40L d_model=5120 40H (GQA kv=8) d_head=128 d_ff=17408 vocab=151936,
 qk-norm (per-head RMSNorm on q and k, the qwen3 signature), SwiGLU;
-bfloat16 at full width.
+bfloat16 at full width.  Registered for training as ``qwen3-14b``
+(AdamW).
 """
 import torch
 
+from repro_torch.configs import common
 from repro_torch.models.transformer import LMConfig
 
 
@@ -15,6 +17,7 @@ def full_config() -> LMConfig:
         n_kv_heads=8, d_head=128, d_ff=17408, vocab=151936,
         qk_norm=True,
         param_dtype=torch.bfloat16, dtype=torch.bfloat16,
+        remat=True, loss_chunk=512,
     )
 
 
@@ -22,4 +25,9 @@ def smoke_config() -> LMConfig:
     return LMConfig(
         name="qwen3-14b-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2, d_head=16, d_ff=128, vocab=512, qk_norm=True,
+        remat=False, loss_chunk=16,
     )
+
+
+ARCH = common.lm_archdef(
+    "qwen3-14b", full_config, smoke_config, notes="dense, GQA kv=8, qk_norm")

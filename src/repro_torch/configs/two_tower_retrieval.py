@@ -11,9 +11,11 @@ corpus, one user session per conversation.  The serve steps of the
 reference's ``build_bundle`` (``:114-300``) are plain functions on
 tensors here, the sharded ones (``toploc_ivf_dist``, ``dist_topk``)
 over the shards of a ``distributed.retrieval.RetrievalMesh`` in one
-process, as the port's sharded retrieval runs; its ``ArchDef`` /
-``StepBundle`` / ``PartitionSpec`` machinery is JAX sharding and is not
-ported.
+process, as the port's sharded retrieval runs.  ``build_bundle`` is the
+train branch (``:56-95``): ``train_batch`` of ``user_id``, ``item_id``
+and ``history``, ``models.recsys.two_tower_loss``, AdamW at a constant
+1e-3; registered as ``two-tower-retrieval``.  The reference's
+``PartitionSpec`` machinery is JAX sharding and is not ported.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.configs import common
 from repro_torch.core.topk import distributed_topk, topk
 from repro_torch.distributed.collectives import (on_device,
                                                  sharded_corpus_topk)
@@ -63,6 +66,35 @@ def smoke_config() -> R.TwoTowerConfig:
     return R.TwoTowerConfig(embed_dim=16, tower_mlp=(32, 16),
                             user_vocab=512, item_vocab=1024,
                             history_len=5)
+
+
+def build_bundle(cfg: R.TwoTowerConfig, shape: str, *, smoke: bool = False,
+                 shape_overrides=None, **kw) -> common.StepBundle:
+    """The train bundle of ``train_batch`` (serve shapes are refused)."""
+    sp = dict(SMOKE_SHAPE_PARAMS[shape] if smoke else SHAPE_PARAMS[shape])
+    sp.update(shape_overrides or {})
+    common.train_only("two-tower-retrieval", shape, sp["kind"])
+    b = sp["batch"]
+    i32 = torch.int32
+    return common.StepBundle(
+        arch="two-tower-retrieval", shape=shape, kind="train",
+        step_fn=common.simple_train_step(
+            lambda model, batch: R.two_tower_loss(model, batch)),
+        init_model=lambda seed, device=None: R.two_tower_init(
+            cfg, seed, device).requires_grad_(True),
+        make_optimizer=common.adamw_constant(1e-3),
+        batch_structs={"user_id": common.struct((b,), i32),
+                       "item_id": common.struct((b,), i32),
+                       "history": common.struct((b, cfg.history_len), i32)},
+        meta=dict(params=cfg.param_count(), tokens=b))
+
+
+ARCH = common.register(common.ArchDef(
+    arch_id="two-tower-retrieval", family="recsys",
+    shapes=tuple(SHAPE_PARAMS), make_config=full_config,
+    make_smoke_config=smoke_config, build_bundle=build_bundle,
+    notes="the paper-representative arch: retrieval_cand is TopLoc's "
+          "problem"))
 
 
 def pairwise_step(model: R.TwoTower, user_id, history, item_id

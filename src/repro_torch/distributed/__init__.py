@@ -12,8 +12,14 @@
 The reference runs every shard from one controller (``shard_map`` over
 ``jax.devices()`` of one process); so does the port: a mesh is a grid
 of ``torch.device``s in one process, and a collective is an explicit
-function over the shards' tensors.  The training parts of the
-reference's package (parameter specs, ``elastic``, ``fault``) come with
-training (ROADMAP Queue 1, item 7).
+function over the shards' tensors.
+
+  fault        — ``FailureInjector`` and ``run_with_restarts``, the
+                 training launcher's restart drill
+
+The multi-process parts of the reference's package (the parameter
+specs, ``elastic``) come with ``torch.distributed`` (ROADMAP Queue 1,
+item 7, part 3).
 """
-from repro_torch.distributed import collectives, retrieval, sharding  # noqa: F401
+from repro_torch.distributed import (collectives, fault,  # noqa: F401
+                                     retrieval, sharding)

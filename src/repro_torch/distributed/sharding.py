@@ -9,7 +9,8 @@ device (the reference replicates it over the mesh); the port runs the
 session math and the merges there, so one copy is all it reads.
 
 The model parameter specs of the reference (``:62-293``: LM, GIN,
-recsys, optimizer) come with training (ROADMAP Queue 1, item 7).
+recsys, optimizer) come with multi-process training (ROADMAP Queue 1,
+item 7, part 3); one-card training needs none.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Launch of the flash attention forward kernels (``csrc/flash_attention.cu``).
 
 Counterpart of ``repro/kernels/flash_attention.py`` (``flash_attention``,
-the forward only).  As in ``fused_turn.py``: CUDA tensors only, every
+the forward; its backward is the plain version's VJP, ``ops.Attention``,
+as the reference's is plain math).  As in ``fused_turn.py``: CUDA tensors only, every
 operand checked (device, dtype, shape, layout), the output allocated
 here, and the entry with its launch plan handed to ``launcher.run`` (one
 launch on PyTorch's current stream without synchronising; a refused

@@ -28,10 +28,14 @@ The fused retrieval ops take the reference's ``precision``: "f32", or
 "bf16" / "int8" scoring with a float32 re-rank of the top ``r``
 candidates inside the kernel (``kernels/ref.py`` states the contract);
 any other precision raises ``ValueError``.  ``flash_attention`` and
-``embedding_bag`` port the forward: their backwards come with training
-(ROADMAP Queue 1, item 7), so the kernel path refuses inputs that
-require grad, as ``flash_decode`` (serving only, no backward in the
-reference either) does.
+``embedding_bag`` are differentiable on both paths, as the reference's
+``custom_vjp``s are (``repro/kernels/ops.py:303-329``, ``:362-384``): on
+the kernel path one ``torch.autograd.Function`` each runs the CUDA
+forward and, for its backward, the VJP of the plain version (plain
+torch, as the reference's backward is plain XLA math); on the plain
+path autograd differentiates the plain version itself.
+``flash_decode`` (serving only, no backward in the reference either)
+refuses inputs that require grad.
 """
 from __future__ import annotations
 
@@ -405,15 +409,63 @@ fused_scan_pq.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# flash attention (forward)
+# flash attention (the kernel forward, the plain version's VJP backward)
 # ---------------------------------------------------------------------------
+
+
+def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  g: torch.Tensor, causal: bool, needs=(True,) * 3):
+    """(dq, dk, dv) of ``ref.plain_attention`` at (q, k, v) against the
+    output gradient g, recomputed under ``torch.enable_grad()`` in the
+    inputs' own dtypes (the reference's ``_fa_bwd``: the plain math
+    streams the keys above 2048² scores); None where ``needs`` is
+    false."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(n) for t, n in zip((q, k, v),
+                                                             needs)]
+        out = ref.plain_attention(*qkv, causal=causal)
+        wrt = [t for t in qkv if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class Attention(torch.autograd.Function):
+    """``forward`` runs ``launch(q, k, v, causal)`` (the CUDA kernel on
+    the kernel path) and saves the caller's q, k and v, not the output;
+    ``backward`` is ``attention_vjp``.  ``launch`` is a parameter so that
+    the backward's logic can be checked on the CPU with the plain
+    forward in the kernel's place."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, launch):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_vjp(q, k, v, g, ctx.causal,
+                               ctx.needs_input_grad[:3]), None, None)
+
+
+def _attention_kernel(q, k, v, causal: bool) -> torch.Tensor:
+    """One launch of the CUDA kernel: inputs in a dtype it reads (float32
+    otherwise), in a layout it takes (a contiguous copy otherwise);
+    output in q's dtype."""
+    dtype = q.dtype if q.dtype in _fa.ENTRIES and (
+        k.dtype == v.dtype == q.dtype) else torch.float32
+    qkv = [t.to(dtype) for t in (q, k, v)]
+    out = _fa.flash_attention(
+        *(t if _fa.takes(t) else t.contiguous() for t in qkv), causal=causal)
+    return out.to(q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, mode: Optional[str] = None,
                     device=None) -> torch.Tensor:
-    """Attention forward. q (B, H, S, D), k (B, Hkv, Skv, D), v (B, Hkv,
-    Skv, Dv); Hkv divides H; returns (B, H, S, Dv) in q's dtype.
+    """Attention. q (B, H, S, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv,
+    Dv); Hkv divides H; returns (B, H, S, Dv) in q's dtype.
 
     Causal masking is bottom-right (queries are the last S positions).
     The plain version (CPU tensors) is ``ref.plain_attention``: above
@@ -424,21 +476,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     inputs are read as they are, strided views included (the layout
     copy is made only where rows are not 16-byte aligned; a head dim
     whose rows are not a multiple of 16 bytes is zero-padded by the
-    binding); other dtypes go through float32.  The
-    kernel has no backward yet, so it refuses inputs that require grad.
+    binding); other dtypes go through float32.  On CUDA tensors the call
+    goes through ``Attention``: inputs that require grad get the plain
+    version's VJP as their backward, with the caller's unpadded q, k
+    and v; the forward is the kernel whether or not they do.
     """
     dev = _device.require(device, q, k, v)
     _fa.check_shapes(q, k, v, causal=causal)
     if _mode(mode, dev) == "ref":
         return ref.plain_attention(q, k, v, causal=causal)
-    refuse_grad("flash_attention", q, k, v)
-    dtype = q.dtype if q.dtype in _fa.ENTRIES and (
-        k.dtype == v.dtype == q.dtype) else torch.float32
-    qkv = [t.to(dtype) for t in (q, k, v)]
-    out = _fa.flash_attention(
-        *(t if _fa.takes(t) else t.contiguous() for t in qkv), causal=causal)
+    out = Attention.apply(q, k, v, causal, _attention_kernel)
     _count(flash_attention, out.numel())
-    return out.to(q.dtype)
+    return out
 
 
 flash_attention.launches = 0
@@ -477,17 +526,82 @@ flash_decode.launches = 0
 
 
 def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
-    """The CUDA kernels run forward only: refuse inputs that need grad."""
+    """Refuse inputs that need grad where the kernel has no backward
+    (``flash_decode``: serving only, as in the reference)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what}: the CUDA kernel is forward only; its backward comes "
-            f"with training (ROADMAP Queue 1, item 7)")
+            f"{what}: the CUDA kernel is forward only (serving; the "
+            f"reference's has no backward either)")
 
 
 # ---------------------------------------------------------------------------
-# embedding_bag (forward)
+# embedding_bag (the kernel forward, the plain sum bag's VJP backward)
 # ---------------------------------------------------------------------------
+
+
+def bag_vjp(table: torch.Tensor, ids: torch.Tensor,
+            weights: Optional[torch.Tensor], g: torch.Tensor,
+            needs=(True, True)):
+    """(d table, d weights) of the plain sum bag (``ref.embedding_bag``)
+    against the output gradient g (the reference's ``_eb_bwd``): a dense
+    (V, d) table gradient, each row the sum of g[b] · w[b, l] over the
+    (b, l) that name it (a pad names row 0 with weight 0, as the
+    reference's gather does); d weights[b, l] = (g[b] · table[ids[b,
+    l]]) for real ids, 0 for pads.  Accumulated in float32 (float64 for
+    float64 inputs); None where ``needs`` is false or there are no
+    weights.
+
+    The table gradient is aten's embedding backward over the (b, l)
+    terms (the VJP of a row gather; on the card the ids are sorted and
+    each row's terms summed in a fixed order, no float atomics), so two
+    calls give the same bits.  (``index_put_(accumulate=True)`` took 579 ms and a stable sort
+    with ``torch.segment_reduce`` 87 ms at the two-tower's 1.6 M ids on
+    the card; this 15.6 ms.)"""
+    f = ref.acc_dtype(table.dtype)
+    gf = g.to(f)
+    rows = ids.clamp_min(0).long()
+    d_table = d_w = None
+    if needs[0]:
+        w = ref._bag_weights(ids, weights).to(f)
+        terms = (gf[:, None, :] * w[:, :, None]).reshape(-1, g.shape[-1])
+        d_table = torch.ops.aten.embedding_dense_backward(
+            terms, rows.reshape(-1), table.shape[0], -1, False
+        ).to(table.dtype)
+    if needs[1] and weights is not None:
+        dots = (table[rows].to(f) * gf[:, None, :]).sum(-1)
+        d_w = (dots * (ids >= 0).to(f)).to(weights.dtype)
+    return d_table, d_w
+
+
+class Bag(torch.autograd.Function):
+    """``forward`` runs ``launch(table, ids, weights)`` (the CUDA sum bag
+    on the kernel path) and saves its inputs; ``backward`` is
+    ``bag_vjp`` (no gradient for the ids).  ``launch`` is a parameter for
+    the CPU checks of the backward, as in ``Attention``."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights, launch):
+        ctx.save_for_backward(table, ids, weights)
+        return launch(table, ids, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, ids, weights = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        d_table, d_w = bag_vjp(table, ids, weights, g, (need[0], need[2]))
+        return d_table, None, d_w, None
+
+
+def _bag_kernel(table, ids, weights) -> torch.Tensor:
+    """One launch of the CUDA sum bag (float32 tables only)."""
+    if table.dtype != torch.float32:
+        raise NotImplementedError(
+            f"embedding_bag: the CUDA kernel takes float32 tables, got "
+            f"{table.dtype}")
+    w32 = None if weights is None else weights.to(torch.float32).contiguous()
+    return _eb.embedding_bag(table.contiguous(),
+                             ids.to(torch.int32).contiguous(), w32)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -498,9 +612,11 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     weights (B, L) or None -> (B, d) in the table's dtype.
 
     ``agg="mean"`` divides the bag's sum by max(Σ mask·w, 1), the
-    reference's rule, on both paths.  The kernel takes float32 tables
-    and refuses inputs that require grad.  On CUDA tensors, ids must be
-    < V: the caller checks them on the host, where they come in
+    reference's rule, on both paths, outside the sum's autograd Function
+    as the reference has it.  The kernel takes float32 tables; on CUDA
+    tensors the sum goes through ``Bag``, whose backward is the plain
+    sum bag's VJP (a dense table gradient).  On CUDA tensors, ids must
+    be < V: the caller checks them on the host, where they come in
     (``models/recsys.py``).
     """
     if agg not in ("sum", "mean"):
@@ -513,16 +629,9 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                          f"{tuple(ids.shape)}")
     if _mode(mode, dev) == "ref":
         return ref.embedding_bag(table, ids, weights, mode=agg)
-    refuse_grad("embedding_bag", table, weights)
-    if table.dtype != torch.float32:
-        raise NotImplementedError(
-            f"embedding_bag: the CUDA kernel takes float32 tables, got "
-            f"{table.dtype}")
-    w32 = None if weights is None else weights.to(torch.float32).contiguous()
-    out = _eb.embedding_bag(table.contiguous(),
-                            ids.to(torch.int32).contiguous(), w32)
+    out = Bag.apply(table, ids, weights, _bag_kernel)
     _count(embedding_bag, ids.shape[0])
-    return ref.bag_mean(out, ids, w32) if agg == "mean" else out
+    return ref.bag_mean(out, ids, weights) if agg == "mean" else out
 
 
 embedding_bag.launches = 0

@@ -387,26 +387,35 @@ def fused_turn_pq(queries: torch.Tensor, centroids: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a plain version accumulates in: float32 for float32,
+    bfloat16 and float16 inputs (the reference's), float64 for float64
+    ones (the gradient checks' finite differences need it)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """Plain attention. q (B, H, S, D), k (B, Hkv, Skv, D), v (B, Hkv,
     Skv, Dv); Hkv divides H; returns (B, H, S, Dv) in q's dtype.
 
     ``repro/kernels/ref.py:317-346``: the softmax accumulates in float32
-    whatever the input dtype, and causal masking is bottom-right (the
-    queries are the last S positions of the Skv timeline).
+    whatever the input dtype (float64 inputs in float64, ``acc_dtype``),
+    and causal masking is bottom-right (the queries are the last S
+    positions of the Skv timeline).
     """
     b, h, s, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    qg = q.float().reshape(b, hkv, h // hkv, s, d)
-    logits = torch.einsum("bhgsd,bhtd->bhgst", qg, k.float()) / math.sqrt(d)
+    acc = acc_dtype(q.dtype)
+    qg = q.to(acc).reshape(b, hkv, h // hkv, s, d)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qg, k.to(acc)) / math.sqrt(d)
     if causal:
         qpos = torch.arange(s, device=q.device) + (skv - s)
         kpos = torch.arange(skv, device=q.device)
         logits = logits.masked_fill(qpos[:, None] < kpos[None, :],
                                     float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgst,bhtd->bhgsd", probs, v.float())
+    out = torch.einsum("bhgst,bhtd->bhgsd", probs, v.to(acc))
     return out.reshape(b, h, s, dv).to(q.dtype)
 
 
@@ -445,19 +454,21 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``repro/kernels/ref.py:368``): the queries scaled by 1 / sqrt(D)
     before the dot, keys padded to whole tiles and masked, a row with
     nothing to attend to yet carried as m = -inf, output acc / max(l,
-    1e-30), everything in float32."""
+    1e-30), everything in float32 (float64 for float64 inputs)."""
     b, h, s, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
     group = h // hkv
     nblk = -(-skv // blk_kv)
     pad = nblk * blk_kv - skv
-    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
-    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
-    qg = q.float().reshape(b, hkv, group, s, d) * (1.0 / d ** 0.5)
+    fdt = acc_dtype(q.dtype)
+    kf = torch.nn.functional.pad(k.to(fdt), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.to(fdt), (0, 0, 0, pad))
+    qg = q.to(fdt).reshape(b, hkv, group, s, d) * (1.0 / d ** 0.5)
     qpos = torch.arange(s, device=q.device) + (skv - s)
-    m = torch.full((b, hkv, group, s), float("-inf"), device=q.device)
-    l = torch.zeros((b, hkv, group, s), device=q.device)
-    acc = torch.zeros((b, hkv, group, s, dv), device=q.device)
+    m = torch.full((b, hkv, group, s), float("-inf"), dtype=fdt,
+                   device=q.device)
+    l = torch.zeros((b, hkv, group, s), dtype=fdt, device=q.device)
+    acc = torch.zeros((b, hkv, group, s, dv), dtype=fdt, device=q.device)
     for j in range(nblk):
         kj = kf[:, :, j * blk_kv:(j + 1) * blk_kv]
         vj = vf[:, :, j * blk_kv:(j + 1) * blk_kv]
@@ -501,18 +512,20 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     (negative = pad), weights (B, L) or None; returns (B, d) in the
     table's dtype.  mode "sum" or "mean" (``bag_mean``).
 
-    The sum runs in float32 and in bag order, one product and one sum
-    per step (``embedding_bag.py:28-42``'s ``acc + row * valid``), so it
-    rounds as the Pallas and CUDA kernels do.  A pad adds ``row * 0``
+    The sum runs in float32 (float64 for a float64 table) and in bag
+    order, one product and one sum per step (``embedding_bag.py:28-42``'s
+    ``acc + row * valid``), so it rounds as the Pallas and CUDA kernels
+    do.  A pad adds ``row * 0``
     (±0), which leaves the sum as it is: the kernel skips it.
     """
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
-    w = _bag_weights(ids, weights)
-    acc = torch.zeros((ids.shape[0], table.shape[1]), dtype=torch.float32,
+    f = acc_dtype(table.dtype)
+    w = _bag_weights(ids, weights).to(f)
+    acc = torch.zeros((ids.shape[0], table.shape[1]), dtype=f,
                       device=table.device)
     for l in range(ids.shape[1]):
-        rows = table[ids[:, l].clamp_min(0).long()].to(torch.float32)
+        rows = table[ids[:, l].clamp_min(0).long()].to(f)
         acc = acc + rows * w[:, l, None]
     if mode == "mean":
         acc = bag_mean(acc, ids, weights)
@@ -521,8 +534,10 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
 
 def _bag_weights(ids: torch.Tensor, weights: Optional[torch.Tensor]
                  ) -> torch.Tensor:
-    valid = (ids >= 0).to(torch.float32)
-    return valid if weights is None else valid * weights.to(torch.float32)
+    if weights is None:
+        return (ids >= 0).to(torch.float32)
+    f = acc_dtype(weights.dtype)
+    return (ids >= 0).to(f) * weights.to(f)
 
 
 def bag_mean(total: torch.Tensor, ids: torch.Tensor,

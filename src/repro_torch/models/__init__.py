@@ -8,16 +8,19 @@ answer from retrieved documents.
                  flash attention kernel, and its decode through the flash
                  decode kernel), SwiGLU, the MLP tower, MoE, MLA
   encoder      — ``EncoderConfig``, ``Tower``, ``DualEncoder``,
-                 ``init_params``
+                 ``init_params``, ``contrastive_loss``
   recsys       — the sparse embedding substrate (``embed_bag`` through the
                  EmbeddingBag kernel), ``TwoTowerConfig``, ``TwoTower``,
                  ``two_tower_init``, ``retrieval_topk``; ``DCNv2``,
                  ``BST`` (its block's attention through the flash
-                 attention kernel), ``AutoInt``
+                 attention kernel), ``AutoInt``; ``two_tower_loss``,
+                 ``bce_loss``
   gnn          — ``GINConfig``, ``GIN`` (``forward_node``,
-                 ``forward_graph``, ``forward_trees``), ``init_params``
-  transformer  — ``LMConfig``, ``LM`` (``forward``, ``init_cache``,
-                 ``prefill``, ``decode_step``), ``init_params``
+                 ``forward_graph``, ``forward_trees``), ``init_params``,
+                 ``node_loss``, ``graph_loss``, ``tree_loss``
+  transformer  — ``LMConfig``, ``LM`` (``forward``, ``loss_fn``,
+                 ``init_cache``, ``prefill``, ``decode_step``),
+                 ``init_params``
 """
 from repro_torch.models import (encoder, gnn, layers,  # noqa: F401
                                 recsys, transformer)

@@ -19,11 +19,14 @@ The reference stacks a tower's layers along a leading ``n_layers`` axis
 them into an ``nn.ModuleList`` of ``EncoderLayer``s
 (``convert.encoder_params_from_numpy`` slices the stacked arrays).
 Entry points (``init_params``, the converter) run on cuda unless given
-``device="cpu"``.  Training (``contrastive_loss``) is not ported.
+``device="cpu"``.  ``contrastive_loss`` is the reference's training
+loss (``:129``); a trainer calls ``model.requires_grad_(True)`` first.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Tuple
+
 import numpy as np
 import torch
 from torch import nn
@@ -174,3 +177,19 @@ def init_params(cfg: EncoderConfig, seed: int = 0, device=None
     query = Tower(cfg, tower_init(cfg, gen))
     doc = query if cfg.shared_towers else Tower(cfg, tower_init(cfg, gen))
     return DualEncoder(cfg, query, doc)
+
+
+def contrastive_loss(model: DualEncoder, batch: Dict[str, torch.Tensor],
+                     temperature: float = 0.05
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """InfoNCE with in-batch negatives (``repro/models/encoder.py:129``):
+    the queries' (``q_tokens``, ``q_mask``) and the docs' (``d_tokens``,
+    ``d_mask``) embeddings, logits q dᵀ / temperature, row i's positive
+    doc i.  (mean loss, {"acc": in-batch accuracy})."""
+    q = model.encode_queries(batch["q_tokens"], batch["q_mask"])
+    d = model.encode_docs(batch["d_tokens"], batch["d_mask"])
+    logits = (q @ d.T) / temperature
+    labels = torch.arange(q.shape[0], device=q.device)
+    loss = L.softmax_xent(logits, labels).mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, {"acc": acc}

@@ -4,8 +4,9 @@ Port of ``repro/models/gnn.py:32-120`` (inference): sum aggregation over
 the incoming edges, a learnable ε per layer, a 2-layer MLP update with
 LayerNorm, and a linear head per layer whose logits are summed (node
 classification), or applied to each layer's sum-pooled nodes (graph
-classification, the jumping-knowledge readout).  ``node_loss`` /
-``graph_loss`` wait for training (ROADMAP Queue 1 item 7).
+classification, the jumping-knowledge readout).  ``node_loss``,
+``graph_loss`` (``:122``, ``:135``) and ``tree_loss`` (``minibatch_lg``'s,
+``repro/configs/gin_tu.py:132-145``) are the training losses.
 
 The reference aggregates with ``jax.ops.segment_sum`` (XLA, no Pallas
 kernel), so the port aggregates in plain torch.  It sums without float
@@ -25,7 +26,7 @@ moved to the model's device; tensors are the caller's contract.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -244,3 +245,46 @@ class GIN(nn.Module):
             x.reshape(b * n, -1), (src + base).reshape(-1),
             (dst + base).reshape(-1), mask[0].reshape(-1) if mask else None)
         return logits.reshape(b, n, -1)[:, 0]
+
+
+def _xent(logits: torch.Tensor, labels) -> Tuple[torch.Tensor,
+                                                 torch.Tensor]:
+    """Per-row cross-entropy and correctness of ``labels`` (numpy or a
+    tensor) against logits (R, C)."""
+    if isinstance(labels, np.ndarray):
+        labels = torch.from_numpy(labels.astype(np.int64))
+    labels = labels.to(logits.device)
+    return (L.softmax_xent(logits, labels),
+            (logits.argmax(-1) == labels).float())
+
+
+def node_loss(model: GIN, x, edge_src, edge_dst, labels, train_mask,
+              edge_mask=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Node classification (``repro/models/gnn.py:122``): the mean
+    cross-entropy and accuracy over the nodes of ``train_mask``."""
+    logits = model.forward_node(x, edge_src, edge_dst, edge_mask)
+    nll, hit = _xent(logits, labels)
+    if isinstance(train_mask, np.ndarray):
+        train_mask = torch.from_numpy(train_mask.astype(bool))
+    m = train_mask.to(logits.device).float()
+    cnt = m.sum().clamp_min(1.0)
+    return (nll * m).sum() / cnt, {"acc": (hit * m).sum() / cnt}
+
+
+def graph_loss(model: GIN, x, edge_src, edge_dst, node_mask, labels,
+               edge_mask=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Graph classification of a batch of padded graphs (``:135``): the
+    mean cross-entropy and accuracy of ``forward_graph``'s logits."""
+    nll, hit = _xent(model.forward_graph(x, edge_src, edge_dst, node_mask,
+                                         edge_mask), labels)
+    return nll.mean(), {"acc": hit.mean()}
+
+
+def tree_loss(model: GIN, x, edge_src, edge_dst, edge_mask, labels
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``minibatch_lg``'s loss (``repro/configs/gin_tu.py:132-145``): the
+    mean cross-entropy and accuracy of each sampled tree's root logits
+    (``forward_trees``)."""
+    nll, hit = _xent(model.forward_trees(x, edge_src, edge_dst, edge_mask),
+                     labels)
+    return nll.mean(), {"acc": hit.mean()}

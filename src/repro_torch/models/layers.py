@@ -21,8 +21,11 @@ Parameters keep the reference's layout (``x @ w`` with ``w`` of shape
 Each module is built from a dict of tensors: ``*_init(gen, ...)`` draws
 one from a ``torch.Generator`` at the reference's scales, and
 ``convert.encoder_params_from_numpy`` makes one from the reference's
-arrays.  Parameters do not require grad: these slices serve, and the
-attention and EmbeddingBag kernels have no backward yet.
+arrays.  Parameters do not require grad by default (``frozen``: serving
+builds no graph); training calls ``model.requires_grad_(True)``, and
+the attention and EmbeddingBag kernels differentiate through their
+autograd Functions (``kernels.ops``).  ``take_label`` is the label
+lookup of the reference's cross-entropies (``jnp.take_along_axis``).
 """
 from __future__ import annotations
 
@@ -44,6 +47,24 @@ AttentionFn = Callable[..., torch.Tensor]
 def frozen(t: torch.Tensor) -> nn.Parameter:
     """A parameter that requires no grad."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def take_label(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., label] over the last dim, as the reference's
+    ``jnp.take_along_axis(logits, labels[..., None], -1)[..., 0]``
+    gathers it: a negative label counts from the end, and a label past
+    the last class gives NaN (JAX's fill mode), with no gradient."""
+    c = logits.shape[-1]
+    idx = torch.where(labels < 0, labels + c, labels).long()
+    ok = (idx >= 0) & (idx < c)
+    gold = logits.gather(-1, idx.clamp(0, c - 1)[..., None])[..., 0]
+    return torch.where(ok, gold, torch.full_like(gold, float("nan")))
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-row logsumexp(logits) − logits[label] (``take_label``)."""
+    return torch.logsumexp(logits, -1) - take_label(logits, labels)
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,9 @@ to ``TwoTower.user_tower`` / ``item_tower`` must lie in their vocabulary
 (history ids may be negative: pads) before they move to the device.
 Ids that are already tensors on the card are the caller's contract: the
 kernel and the gather read unchecked.  Entry points run on cuda unless
-given ``device="cpu"``.  The losses (``two_tower_loss``, ``bce_loss``)
-wait for training (ROADMAP Queue 1 item 7).
+given ``device="cpu"``.  The training losses are the reference's:
+``two_tower_loss`` (in-batch sampled softmax, ``:126``) and ``bce_loss``
+(the CTR models', ``:361``).
 """
 from __future__ import annotations
 
@@ -219,6 +220,35 @@ def two_tower_init(cfg: TwoTowerConfig, seed: int = 0, device=None
     dev = _device.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return TwoTower(cfg, two_tower_params(cfg, gen))
+
+
+def two_tower_loss(model: TwoTower, batch: Params
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """In-batch sampled softmax (``repro/models/recsys.py:126``): user
+    (``user_id``, ``history``) and item (``item_id``) towers, logits u iᵀ
+    / temperature, row i's positive item i.  (mean loss, {"acc"})."""
+    u = model.user_tower(batch["user_id"], batch["history"])
+    i = model.item_tower(batch["item_id"])
+    logits = (u @ i.T) / model.cfg.temperature
+    labels = torch.arange(u.shape[0], device=u.device)
+    loss = L.softmax_xent(logits, labels).mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, {"acc": acc}
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Binary cross-entropy on click labels (``:361``), in the stable
+    form max(x, 0) − x y + log1p(exp(−|x|)), in float32.  (mean loss,
+    {"acc": share of (x > 0) == (y > 0.5)}).  |x| is taken as x ≥ 0 ? x
+    : −x, whose gradient at 0 is 1 as ``jnp.abs``'s is (torch's is 0)."""
+    lf = logits.float()
+    y = labels.float()
+    loss = (torch.maximum(lf, torch.zeros_like(lf)) - lf * y
+            + torch.log1p(torch.exp(-torch.where(lf >= 0, lf, -lf)))
+            ).mean()
+    acc = ((lf > 0) == (y > 0.5)).float().mean()
+    return loss, {"acc": acc}
 
 
 def retrieval_topk(user_vec: torch.Tensor, item_corpus: torch.Tensor,

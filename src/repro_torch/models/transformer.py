@@ -25,10 +25,15 @@ and returns the cache, as the reference returns its updated cache.
 bf16 logits are rounded to bf16 before the float32 cast, as
 ``(x @ lm_head.astype(dtype)).astype(f32)`` does.
 
-Not ported: the loss and training (ROADMAP Queue 1, item 7);
-``remat``, ``loss_chunk``, ``unroll``, ``act_spec`` and the MoE's
-``moe_group_axes`` / ``moe_tp_axis`` are training and sharding knobs
-with no counterpart here.  Token ids given and cache fills given as
+Training: ``loss_fn`` is the reference's chunked next-token
+cross-entropy (``:224-259``) plus ``aux_weight`` times the MoE layers'
+mean load-balancing loss, which ``trunk`` returns as the reference's
+does; with ``cfg.remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+scan body), and every ``cfg.loss_chunk`` slice of the sequence is (the
+(B, chunk, V) logits are never kept).  ``unroll``, ``act_spec`` and the
+MoE's ``moe_group_axes`` / ``moe_tp_axis`` are sharding and lowering
+knobs with no counterpart here.  Token ids given and cache fills given as
 numpy arrays are checked on the host where they come in; those already
 on the card are the caller's contract (a greedy step's argmax is valid
 by construction).
@@ -41,6 +46,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.models import layers as L
@@ -81,6 +87,9 @@ class LMConfig:
     # numerics
     param_dtype: torch.dtype = torch.float32
     dtype: torch.dtype = torch.float32
+    # training: per-layer recompute, and the sequence chunk of the loss
+    remat: bool = True
+    loss_chunk: int = 512
 
     def __post_init__(self):
         if self.attn_kind not in ATTN_KINDS:
@@ -163,19 +172,23 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = L.SwiGLU(params["mlp"])
 
-    def _mlp(self, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
+    def _mlp(self, x: torch.Tensor, decode: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the MLP's output, the MoE's load-balancing loss: a float32 0
+        for a dense layer)."""
         if not self.cfg.is_moe:
-            return self.mlp(x)
+            return self.mlp(x), torch.zeros((), device=x.device)
         # a decode step routes its tokens as one group
-        return self.moe(x, groups=1 if decode else None)[0]
+        return self.moe(x, groups=1 if decode else None)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """x (B, S, d) -> (x', a, b): the layer's output and what its
+        """x (B, S, d) -> (x', a, b, aux): the layer's output, what its
         cache keeps, (k, v) each (B, Hkv, S, dh) or MLA's (c_kv (B, S,
-        r), k_rope (B, S, dr))."""
+        r), k_rope (B, S, dr)), and the MoE's aux loss."""
         h, a, b = self.attn.forward_kv(self.norm_attn(x), positions)
         x = x + h
-        return x + self._mlp(self.norm_mlp(x)), a, b
+        h, aux = self._mlp(self.norm_mlp(x))
+        return x + h, a, b, aux
 
     def decode(self, x: torch.Tensor, cache_a: torch.Tensor,
                cache_b: torch.Tensor, cache_len: torch.Tensor
@@ -183,7 +196,7 @@ class DecoderLayer(nn.Module):
         h, _, _ = self.attn.decode(self.norm_attn(x), cache_a, cache_b,
                                    cache_len)
         x = x + h
-        return x + self._mlp(self.norm_mlp(x), decode=True)
+        return x + self._mlp(self.norm_mlp(x), decode=True)[0]
 
 
 class LM(nn.Module):
@@ -226,25 +239,69 @@ class LM(nn.Module):
         return ("ckv", "krope") if self.cfg.attn_kind == "mla" else ("k",
                                                                       "v")
 
-    def trunk(self, tokens):
+    def trunk(self, tokens, keep_kv: bool = True):
         """Embed, every layer, final norm: (hidden (B, S, d), per layer
         what its cache keeps: (k, v) each (B, Hkv, S, dh), or MLA's (c_kv
-        (B, S, r), k_rope (B, S, dr)))."""
+        (B, S, r), k_rope (B, S, dr)), the layers' mean MoE aux loss (a
+        float32 0 for a dense LM)).  Without ``keep_kv`` the cache list
+        is empty, and with ``cfg.remat`` under grad each layer is
+        recomputed in the backward."""
         tokens = self._tokens(tokens)
         b, s = tokens.shape
         x = self._embed(tokens)
         positions = torch.arange(s, device=x.device).expand(b, s)
-        kvs = []
+        remat = (self.cfg.remat and not keep_kv and torch.is_grad_enabled())
+        kvs, auxs = [], []
         for layer in self.layers:
-            x, k, v = layer(x, positions)
-            kvs.append((k, v))
-        return self.final_norm(x), kvs
+            if remat:
+                x, _, _, aux = checkpoint(layer, x, positions,
+                                          use_reentrant=False)
+            else:
+                x, k, v, aux = layer(x, positions)
+                if keep_kv:
+                    kvs.append((k, v))
+            auxs.append(aux)
+        return self.final_norm(x), kvs, torch.stack(auxs).mean()
 
     def forward(self, tokens) -> torch.Tensor:
         """Full logits (B, S, V) in ``cfg.dtype`` (soft-capped there),
         as the reference's ``forward``: for small vocabularies and
         tests."""
-        return self._cap(self._logits(self.trunk(tokens)[0]))
+        return self._cap(self._logits(self.trunk(tokens, False)[0]))
+
+    def _chunk_loss(self, x: torch.Tensor, labels: torch.Tensor):
+        """(Σ nll over the labels >= 0, their count) of one sequence
+        chunk: float32 logits of the ``cfg.dtype`` head product,
+        soft-capped."""
+        logits = self._cap(self._logits(x).float())
+        nll = L.softmax_xent(logits, labels)
+        mask = (labels >= 0).float()
+        return (nll * mask).sum(), mask.sum()
+
+    def loss_fn(self, tokens, labels, aux_weight: float = 0.01
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Chunked next-token cross-entropy (``repro/models/
+        transformer.py:224-259``): the sequence in ``cfg.loss_chunk``
+        slices, each slice's logits recomputed in the backward; labels <
+        0 masked; ce = Σ nll / max(count, 1); loss = ce + aux_weight ·
+        aux.  (loss, {"ce", "aux"})."""
+        x, _, aux = self.trunk(tokens, keep_kv=False)
+        if isinstance(labels, np.ndarray):
+            labels = torch.from_numpy(labels.astype(np.int64)).to(x.device)
+        b, s, _ = x.shape
+        chunk = min(self.cfg.loss_chunk, s)
+        if s % chunk:
+            raise ValueError(f"sequence {s} is not a multiple of the loss "
+                             f"chunk {chunk}")
+        tot = torch.zeros((), device=x.device)
+        cnt = torch.zeros((), device=x.device)
+        for i in range(0, s, chunk):
+            xi, li = x[:, i:i + chunk], labels[:, i:i + chunk]
+            t, c = (checkpoint(self._chunk_loss, xi, li, use_reentrant=False)
+                    if torch.is_grad_enabled() else self._chunk_loss(xi, li))
+            tot, cnt = tot + t, cnt + c
+        ce = tot / cnt.clamp_min(1.0)
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
         """Zeroed caches: K and V, (L, B, Hkv, max_len, dh) each; MLA's
@@ -269,7 +326,7 @@ class LM(nn.Module):
         b, s = tokens.shape
         if s > max_len:
             raise ValueError(f"prompt of {s} tokens > max_len {max_len}")
-        x, kvs = self.trunk(tokens)
+        x, kvs, _ = self.trunk(tokens)
         cache = self.init_cache(b, max_len)
         na, nb = self.cache_names
         for l, (a, c) in enumerate(kvs):

@@ -85,21 +85,30 @@ def test_kernel_mode_on_cpu_tensors_raises():
 
 
 def test_kernel_path_refuses_grad_before_any_launch(monkeypatch):
-    """The CUDA kernel has no backward: on the kernel path, inputs that
-    require grad are refused before the launcher is reached; without
-    grad the launcher is reached (and, given CPU tensors, refuses
-    them)."""
+    """On the kernel path an input that requires grad is no longer
+    refused: it goes through the autograd Function (``ops.Bag``), which
+    reaches the launcher, and the launcher refuses the CPU tensor; with
+    and without grad alike."""
     monkeypatch.setattr(ops, "_mode", lambda mode, dev: "kernel")
+    calls = []
+    real = ops.Bag.forward
+
+    def spy(ctx, *a):
+        calls.append(a[0].requires_grad)
+        return real(ctx, *a)
+
+    monkeypatch.setattr(ops.Bag, "forward", staticmethod(spy))
     table, ids, w = (torch.from_numpy(x) for x in _inputs(SWEEP[0]))
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(ValueError, match="CUDA tensor required"):
         ops.embedding_bag(table.requires_grad_(), ids, device="cpu")
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(ValueError, match="CUDA tensor required"):
         ops.embedding_bag(table.detach(), ids, w.requires_grad_(),
                           device="cpu")
     with pytest.raises(ValueError, match="CUDA tensor required"):
         ops.embedding_bag(table.detach(), ids, device="cpu")
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
         ops.embedding_bag(table, ids, device="cpu")
+    assert calls == [True, False, False, True]
 
 
 def test_launcher_refuses_what_the_kernel_does_not_take():

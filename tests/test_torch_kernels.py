@@ -994,15 +994,57 @@ def test_cuda_flash_attention_reads_no_stale_shared_memory(
         assert torch.equal(got, want)
 
 
+def _attn_grads(fn, q, k, v, causal, g):
+    qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*qkv, causal=causal)
+    out.backward(g)
+    return out.detach(), [t.grad for t in qkv]
+
+
+# the gradient checks: MHA causal, GQA, Dv != D, ragged S / Skv, BST's
+# narrow heads (D = 4, zero-padded by the binding; f32 and bf16)
+ATTN_GRAD = [(ATTN_SHAPES[0], torch.float32), (ATTN_SHAPES[1], torch.float32),
+             (ATTN_SHAPES[3], torch.float32), (ATTN_SHAPES[6], torch.float32),
+             (ATTN_SHAPES[1], torch.bfloat16)] + ATTN_NARROW[:2]
+
+
 @pytest.mark.cuda_only
-def test_cuda_flash_attention_refuses_grad_and_empty_launches_nothing(
-        cuda_device):
-    q, k, v = _attn_inputs(ATTN_SHAPES[0], cuda_device)
+@pytest.mark.parametrize("shape,dtype", ATTN_GRAD)
+def test_cuda_flash_attention_gradients_equal_the_plain_path(
+        cuda_device, shape, dtype):
+    """Inputs that require grad run the kernel forward (one launch) and
+    the plain version's VJP backward: output and dq, dk, dv equal the
+    plain path's (autograd through ``ref.plain_attention`` on the same
+    CUDA tensors) within the forward's tolerance (bf16: a bf16 ulp of
+    the largest |value|), with the caller's unpadded shapes; two
+    backward calls give the same bits.  A strided v (a transposed view)
+    too; an empty batch launches nothing."""
+    causal = shape[-1]
+    q, k, v = (t.to(dtype) for t in _attn_inputs(shape, cuda_device))
+    g = torch.randn(q.shape[:3] + (v.shape[-1],), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1)
+                    ).to(dtype)
     before = ops.flash_attention.launches
-    assert ops.flash_attention(q[:0], k[:0], v[:0]).shape == (0, 4, 128, 32)
+    out, grads = _attn_grads(ops.flash_attention, q, k, v, causal, g)
+    assert ops.flash_attention.launches == before + 1
+    p_out, p_grads = _attn_grads(ref.plain_attention, q, k, v, causal, g)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), [out] + grads,
+                          [p_out] + p_grads):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        tol = (ATTN_TOL if dtype == torch.float32 else
+               2.0 ** -7 * b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    again = _attn_grads(ops.flash_attention, q, k, v, causal, g)[1]
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    vt = v.transpose(2, 3).contiguous().transpose(2, 3)   # strided view
+    assert not vt.is_contiguous()
+    got = _attn_grads(ops.flash_attention, q, k, vt, causal, g)[1]
+    assert all(torch.equal(a, b) for a, b in zip(got, grads))
+    before = ops.flash_attention.launches
+    assert ops.flash_attention(q[:0], k[:0], v[:0], causal=causal
+                               ).shape[0] == 0
     assert ops.flash_attention.launches == before
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.flash_attention(q.requires_grad_(), k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -1082,16 +1124,39 @@ def test_cuda_embedding_bag_equals_plain_version(cuda_device, shape,
 
 
 @pytest.mark.cuda_only
-def test_cuda_embedding_bag_refuses_grad_and_empty_launches_nothing(
-        cuda_device):
-    table, ids, w = _bag_inputs(BAG_SHAPES[0], True, cuda_device)
+@pytest.mark.parametrize("agg", ["sum", "mean"])
+@pytest.mark.parametrize("shape", BAG_SHAPES)
+def test_cuda_embedding_bag_gradients_equal_the_plain_path(cuda_device,
+                                                           shape, agg):
+    """A table and weights that require grad run the kernel forward (one
+    launch) and the plain sum bag's VJP backward: the dense table
+    gradient and the weights' equal the plain path's within 1e-5 x
+    max(1, the leaf's largest |value|) (a row sums up to ~25 terms of
+    g · w, in another order than autograd's), and two backward calls
+    give the same bits (no float atomics).  An empty batch launches
+    nothing."""
+    table, ids, w = _bag_inputs(shape, False, cuda_device)
+    g = torch.randn(ids.shape[0], table.shape[1], device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2))
+
+    def grads(fn):
+        t, ww = (x.detach().clone().requires_grad_() for x in (table, w))
+        fn(t, ids, ww).backward(g)
+        return t.grad, ww.grad
+
     before = ops.embedding_bag.launches
-    assert ops.embedding_bag(table, ids[:0]).shape == (0, 256)
+    got = grads(lambda t, i, ww: ops.embedding_bag(t, i, ww, agg=agg))
+    assert ops.embedding_bag.launches == before + 1
+    want = grads(lambda t, i, ww: ref.embedding_bag(t, i, ww, mode=agg))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= 1e-5 * max(
+            1.0, b.abs().max().item())
+    again = grads(lambda t, i, ww: ops.embedding_bag(t, i, ww, agg=agg))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    before = ops.embedding_bag.launches
+    assert ops.embedding_bag(table, ids[:0]).shape == (0, table.shape[1])
     assert ops.embedding_bag.launches == before
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.embedding_bag(table.requires_grad_(), ids)
-    with torch.no_grad():
-        ops.embedding_bag(table, ids)
 
 
 # The two kernels of csrc/embedding_bag.cu: bag_rows_kernel (a block a
@@ -1483,16 +1548,21 @@ def test_cuda_flash_decode_bf16_refuses_grad_and_empty_launches_nothing(
 
 
 @pytest.mark.cuda_only
-def test_cuda_flash_attention_bf16_refuses_grad_and_empty_launches_nothing(
+def test_cuda_flash_attention_bf16_gradients_and_empty_launches_nothing(
         cuda_device):
+    """bf16 inputs that require grad: the kernel forward in bf16, the
+    plain VJP's gradients in bf16, equal to the plain path's."""
     q, k, v = (t.to(torch.bfloat16)
                for t in _attn_inputs(ATTN_SHAPES[0], cuda_device))
     before = ops.flash_attention.launches
     out = ops.flash_attention(q[:0], k[:0], v[:0])
     assert out.shape == (0, 4, 128, 32) and out.dtype == torch.bfloat16
     assert ops.flash_attention.launches == before
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.flash_attention(q.requires_grad_(), k, v)
+    g = torch.ones(q.shape, dtype=torch.bfloat16, device=cuda_device)
+    _, got = _attn_grads(ops.flash_attention, q, k, v, True, g)
+    _, want = _attn_grads(ref.plain_attention, q, k, v, True, g)
+    assert all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+               for a, b in zip(got, want))
 
 
 # csrc/attn_mma.cuh on the card: one warp's m16n8k16 product of a bf16 A

@@ -28,7 +28,10 @@ from repro_torch.core import ivf as tivf
 from repro_torch.core import pq as tpq
 from repro_torch.core import segment as tsegment
 from repro_torch.core import toploc as ttl
+from repro_torch.configs import common as tcommon
+from repro_torch.distributed import fault as tfault
 from repro_torch.distributed import retrieval as tretrieval
+from repro_torch.launch import train as ttrain
 from repro_torch.kernels import ops as tops
 from repro_torch.models import encoder as tenc
 from repro_torch.configs import yi_9b as tyi
@@ -64,7 +67,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.serving.router, repro_torch.models.gnn, "
         "repro_torch.data.graph, repro_torch.configs.dcn_v2, "
         "repro_torch.configs.bst, repro_torch.configs.autoint, "
-        "repro_torch.configs.gin_tu\n"
+        "repro_torch.configs.gin_tu, repro_torch.optim, "
+        "repro_torch.optim.schedules, repro_torch.optim.optimizers, "
+        "repro_torch.optim.grad, repro_torch.checkpoint, "
+        "repro_torch.checkpoint.checkpoint, repro_torch.distributed.fault, "
+        "repro_torch.launch, repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n")
@@ -194,6 +201,17 @@ ENTRY_POINTS = {
         teng.ServingConfig(shards=2), ivf_index=idx),
     "router": lambda idx, q: trouter.ReplicatedSearchEngine(
         teng.ServingConfig(), replicas=2, ivf_index=idx),
+    "train.run": lambda idx, q: ttrain.run(
+        "dcn-v2", steps=1, smoke=True, ckpt_dir=None, ckpt_every=1,
+        resume=False, injector=tfault.FailureInjector([])),
+    "train.main": lambda idx, q: ttrain.main(["--arch", "dcn-v2",
+                                              "--smoke", "--steps", "1"]),
+    "train.synth_batch": lambda idx, q: ttrain.synth_batch(
+        {"x": tcommon.struct((2,), torch.int32)},
+        np.random.default_rng(0), 4),
+    "bundle.init_model": lambda idx, q: tcommon.get("gin-tu").build_bundle(
+        tcommon.get("gin-tu").make_smoke_config(), "molecule",
+        smoke=True).init_model(0),
 }
 
 
