@@ -153,6 +153,16 @@ exits non-zero):
               longest search x the round trip)
     exact     serve: ExactBackend through the sequential engine over the
               whole corpus, ids == [index]'s exact top-10
+    aliases   the 18 deprecated toploc.* aliases (ivf_*, ivf_pq_*,
+              hnsw_*) on the full IVF and IVF-PQ indexes and the [hnsw]
+              graph, 5 conversations x 10 turns sequential and B = 25
+              batched: each torch.equal to its registry call (scores,
+              ids, sessions, TurnStats), one DeprecationWarning a call
+              site; ivf_start / ivf_step and ivf_pq_start / ivf_pq_step
+              with scan= the S = 2 sharded plug (rows 6 / 7 a shard) ==
+              the unsharded alias's ids and TurnStats; hnsw_start past
+              the kernel's cap raises; launches of rows 3, 6, 7 and
+              hnsw_search
     sharded   the corpus split over S = 2 and 4 shards of the one card
               (distributed.retrieval, every shard a view): per-shard
               list work and bytes placed; each shard's row 6 / 7 call
@@ -201,7 +211,15 @@ exits non-zero):
               / int8) and hnsw_search bit-equal to their plain versions
               on lists with holes, dead slices and lists, and on
               tombstoned graphs
- 15 decode32k once the retrieval objects are freed: Yi-9B at decode_32k
+    launch serve  once the retrieval objects are freed: the serve
+              launcher (launch.serve.run) at d = 768, ivf toploc+ and
+              plain and exact over 200,000 docs (p 2,048, nprobe 64,
+              h 256), hnsw toploc+ over 4,000 (ef 32), 25 x 10 turns:
+              MRR@10 / NDCG@3 / NDCG@10, ms a turn, the work counters;
+              each run == its replay through the aliases on its own index
+              (ids, TurnStats; Exact: ivf.exact_search), the printed
+              metrics == evaluate_run; toploc+ / plain ratios (not gated)
+ 15 decode32k Yi-9B at decode_32k
               (S = 32,768) cut from B = 128 to B = 8 (412 GB of cache
               at B = 128; 25.8 GB at B = 8), ragged cache_len; step ms
               and tokens/s against the step's bytes over 3.35 TB/s;
@@ -232,8 +250,10 @@ at every precision and B = 1 to 32 with each instance of the scan forced
 ([adc], ``phase_adc_times``), so two checkouts can be compared in one
 call; ``--models-only`` builds and runs only row 8's [attn] gates at
 BST's shapes, [ctr], [gin] and row 8's [times] at BST's shapes;
-``--train-only`` builds and runs only the [train] phases.  The ten may
-be given together.
+``--train-only`` builds and runs only the [train] phases;
+``--launch-only`` builds the corpus, the IVF and IVF-PQ indexes and the
+[hnsw] graph at the size flags, then runs only [aliases] and [launch
+serve].  The eleven may be given together.
 """
 from __future__ import annotations
 
@@ -4318,6 +4338,341 @@ def phase_exact_serve(docs, convs, exact):
 
 
 # ---------------------------------------------------------------------------
+# [aliases] / [launch serve]: the deprecated toploc.* aliases on the full
+# indexes, and the serve launcher (launch/serve.py)
+# ---------------------------------------------------------------------------
+
+ALIAS_K = 10
+ALIAS_CONVS = 5               # conversations of the sequential aliases
+ALIAS_KERNELS = ("pq_adc_scan", "fused_scan", "fused_scan_pq", "hnsw_search")
+ALIAS_SHARDS = 2
+ALIAS_MODES = {"ivf": ("toploc", "plain"), "ivf_pq": ("toploc", "plain"),
+               "hnsw": ("toploc", "adaptive", "plain")}
+
+
+def alias_calls(k, h, nprobe, alpha, ef):
+    """The 18 aliases with [serve]'s knobs (IVF-PQ's ``rerank`` and HNSW's
+    ``up`` at the aliases' defaults, 32 and 2), each called from a line of
+    its own: a call site each, so each warns once."""
+    from repro_torch.core import toploc as T
+    ivf = dict(nprobe=nprobe, k=k)
+    return {"ivf": {
+        "start": lambda ix, q, **kw: T.ivf_start(ix, q, h=h, **ivf, **kw),
+        "step": lambda ix, s, q, **kw: T.ivf_step(ix, s, q, alpha=alpha,
+                                                  **ivf, **kw),
+        "start_batch": lambda ix, q: T.ivf_start_batch(ix, q, h=h, **ivf),
+        "step_batch": lambda ix, s, q, f: T.ivf_step_batch(
+            ix, s, q, alpha=alpha, is_first=f, **ivf),
+        "plain_batch": lambda ix, q: T.ivf_plain_batch(ix, q, **ivf),
+        "conversation": lambda ix, u, mode: T.ivf_conversation(
+            ix, u, h=h, alpha=alpha, mode=mode, **ivf),
+    }, "ivf_pq": {
+        "start": lambda ix, q, **kw: T.ivf_pq_start(ix, q, h=h, **ivf, **kw),
+        "step": lambda ix, s, q, **kw: T.ivf_pq_step(ix, s, q, alpha=alpha,
+                                                     **ivf, **kw),
+        "start_batch": lambda ix, q: T.ivf_pq_start_batch(ix, q, h=h, **ivf),
+        "step_batch": lambda ix, s, q, f: T.ivf_pq_step_batch(
+            ix, s, q, alpha=alpha, is_first=f, **ivf),
+        "plain_batch": lambda ix, q: T.ivf_pq_plain_batch(ix, q, **ivf),
+        "conversation": lambda ix, u, mode: T.ivf_pq_conversation(
+            ix, u, h=h, alpha=alpha, mode=mode, **ivf),
+    }, "hnsw": {
+        "start": lambda ix, q, **kw: T.hnsw_start(ix, q, ef=ef, k=k, **kw),
+        "step": lambda ix, s, q: T.hnsw_step(ix, s, q, ef=ef, k=k),
+        "start_batch": lambda ix, q: T.hnsw_start_batch(ix, q, ef=ef, k=k),
+        "step_batch": lambda ix, s, q, f: T.hnsw_step_batch(
+            ix, s, q, ef=ef, k=k, is_first=f),
+        "plain_batch": lambda ix, q: T.hnsw_plain_batch(ix, q, ef=ef, k=k),
+        "conversation": lambda ix, u, mode: T.hnsw_conversation(
+            ix, u, ef=ef, k=k, mode=mode),
+    }}
+
+
+def registry_calls(backend):
+    """The drivers each alias forwards to, with the backend it builds."""
+    from repro_torch.core import toploc as T
+    k = ALIAS_K
+
+    def conversation(ix, u, mode):
+        be = (dataclasses.replace(backend, adaptive=True)
+              if mode == "adaptive" else backend)
+        return T.conversation(be, ix, u, k=k,
+                              mode="plain" if mode == "plain" else "toploc")
+    return {
+        "start": lambda ix, q: T.start(backend, ix, q, k=k),
+        "step": lambda ix, s, q: T.step(backend, ix, s, q, k=k),
+        "start_batch": lambda ix, q: T.start_batch(backend, ix, q, k=k),
+        "step_batch": lambda ix, s, q, f: T.step_batch(backend, ix, s, q,
+                                                       k=k, is_first=f),
+        "plain_batch": lambda ix, q: T.plain_batch(backend, ix, q, k=k),
+        "conversation": conversation}
+
+
+def drive_aliases(fns, index, convs, firsts, modes):
+    """One family's six entry points on [serve]'s conversations: start /
+    step over the first ``ALIAS_CONVS``, the batched pair and plain_batch
+    at B = all of them (a first turn mixed into each wave), conversation
+    in each mode.  Returns {kind: [outputs, ...]}."""
+    out = {kind: [] for kind in fns}
+    for c in range(ALIAS_CONVS):
+        res = fns["start"](index, convs[c, 0])
+        out["start"].append(res)
+        sess = res[2]
+        for t in range(1, convs.shape[1]):
+            res = fns["step"](index, sess, convs[c, t])
+            out["step"].append(res)
+            sess = res[2]
+    res = fns["start_batch"](index, convs[:, 0])
+    out["start_batch"].append(res)
+    sess = res[2]
+    for t in range(1, convs.shape[1]):
+        res = fns["step_batch"](index, sess, convs[:, t], firsts[t])
+        out["step_batch"].append(res)
+        sess = res[2]
+    for t in range(convs.shape[1]):
+        out["plain_batch"].append(fns["plain_batch"](index, convs[:, t]))
+    for mode in modes:
+        for c in range(ALIAS_CONVS):
+            out["conversation"].append(fns["conversation"](index, convs[c],
+                                                           mode))
+    return out
+
+
+def phase_aliases(args, indexes, graph, convs, dev):
+    """The 18 deprecated ``toploc.*`` aliases on the full IVF and IVF-PQ
+    indexes and the [hnsw] graph: each alias's outputs (scores, ids,
+    every session field and TurnStats counter) torch.equal to its
+    registry call, one warning a call site; ivf_start / ivf_step and
+    ivf_pq_start / ivf_pq_step again with ``scan=`` the S = 2 sharded
+    plug of ``shard_backend`` (rows 6 / 7 a shard) == the unsharded
+    alias's ids and counters; an HNSW alias past the kernel's cap raises.
+    Launch counts from 0.  Returns them for ALIAS_KERNELS."""
+    import warnings
+    import torch
+    from repro_torch.core import backend as B
+    from repro_torch.core import toploc as T
+    from repro_torch.distributed import retrieval as R
+    from repro_torch.kernels import ops
+    k, h, nprobe, alpha, ef, up = ALIAS_K, 1024, args.nprobe, 0.1, 32, 2
+    q = torch.from_numpy(convs).to(dev)
+    firsts = [None] + [torch.arange(q.shape[0], device=dev) == t
+                       for t in range(1, q.shape[1])]
+    backends = {"ivf": B.IVFBackend(h=h, nprobe=nprobe, alpha=alpha),
+                "ivf_pq": B.IVFPQBackend(h=h, nprobe=nprobe, alpha=alpha,
+                                         rerank=32),
+                "hnsw": B.HNSWBackend(ef=ef, up=up)}
+    index_of = {"ivf": indexes["ivf"], "ivf_pq": indexes["ivf_pq"],
+                "hnsw": graph}
+    calls = alias_calls(k, h, nprobe, alpha, ef)
+    sites = {fn.__code__.co_firstlineno for fam in calls.values()
+             for fn in fam.values()}
+    T._warned_sites.clear()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    n_calls, alias_out = 0, {}
+    with warnings.catch_warnings(record=True) as caught_all:
+        warnings.simplefilter("always")
+        for fam, fns in calls.items():
+            got = drive_aliases(fns, index_of[fam], q, firsts,
+                                ALIAS_MODES[fam])
+            want = drive_aliases(registry_calls(backends[fam]),
+                                 index_of[fam], q, firsts, ALIAS_MODES[fam])
+            for kind in fns:
+                for n, (a, b) in enumerate(zip(got[kind], want[kind])):
+                    la, lb = seg_leaves(a), seg_leaves(b)
+                    if len(la) != len(lb) or not all(
+                            torch.equal(x, y) for x, y in zip(la, lb)):
+                        raise AssertionError(f"[aliases] {fam}_{kind} call "
+                                             f"{n} differs from its registry "
+                                             f"call")
+                n_calls += len(got[kind])
+            alias_out[fam] = got
+        # the sharded plug through scan=: rows 6 / 7 on each shard
+        mesh = R.retrieval_mesh(ALIAS_SHARDS, devices=[dev] * ALIAS_SHARDS)
+        for fam in ("ivf", "ivf_pq"):
+            be, placed = R.shard_backend(
+                mesh, dataclasses.replace(backends[fam],
+                                          fused=T.FusedTurn()),
+                indexes[fam])
+            fns = calls[fam]
+            for c in range(ALIAS_CONVS):
+                res = fns["start"](placed, q[c, 0], scan=be.scan)
+                sharded = [res]
+                for t in range(1, q.shape[1]):
+                    res = fns["step"](placed, res[2], q[c, t], scan=be.scan)
+                    sharded.append(res)
+                n_calls += len(sharded)
+                plain = (alias_out[fam]["start"][c:c + 1]
+                         + alias_out[fam]["step"][c * (q.shape[1] - 1):
+                                                  (c + 1) * (q.shape[1] - 1)])
+                for t, (a, b) in enumerate(zip(sharded, plain)):
+                    if not (torch.equal(a[1], b[1]) and all(
+                            torch.equal(x, y) for x, y in zip(a[3], b[3]))):
+                        raise AssertionError(
+                            f"[aliases] {fam} conversation {c} turn {t}: the "
+                            f"S = {ALIAS_SHARDS} scan= plug differs from the "
+                            f"unsharded alias (ids or TurnStats)")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(ops, name).launches for name in ALIAS_KERNELS}
+    caught = [w for w in caught_all if w.category is DeprecationWarning
+              and "is deprecated; use the core.backend registry" in
+              str(w.message)]
+    at = {(w.filename, w.lineno) for w in caught}
+    if len(caught) != len(at) or len(at) != len(sites):
+        raise AssertionError(f"[aliases] {len(caught)} warnings from "
+                             f"{len(at)} call sites, {len(sites)} expected "
+                             f"(one a site)")
+    missing = [n for n, v in launches.items() if not v]
+    if missing:
+        raise AssertionError(f"[aliases] no launch of {missing}")
+    try:
+        calls["hnsw"]["start"](graph, q[0, 0], up=128)
+    except ValueError as e:
+        if "ROADMAP Queue 3, item 4" not in str(e):
+            raise
+        cap = str(e)
+    else:
+        raise AssertionError("[aliases] hnsw_start past the kernel's cap "
+                             "ran")
+    log("aliases", f"18 aliases x their registry calls on the full indexes "
+        f"(IVF p={indexes['ivf'].p}, IVF-PQ, HNSW N={graph.n}; k={k} h={h} "
+        f"nprobe={nprobe} alpha={alpha} ef={ef} up={up} rerank=32), "
+        f"{ALIAS_CONVS} conversations x {q.shape[1]} turns sequential, "
+        f"B = {q.shape[0]} batched: {n_calls} alias calls torch.equal "
+        f"(scores, ids, sessions, TurnStats); ivf_start / ivf_step and "
+        f"ivf_pq_start / ivf_pq_step with scan= the S = {ALIAS_SHARDS} "
+        f"sharded plug == the unsharded alias (ids, TurnStats); "
+        f"{len(caught)} DeprecationWarnings from {len(sites)} call sites "
+        f"(one a site); hnsw_start past the cap raises ({cap}); "
+        f"{wall:.1f}s; launches " + " ".join(
+            f"{n}={v}" for n, v in launches.items()))
+    return launches
+
+
+LAUNCH_FLAGS = ["--d", "768", "--n-topics", "256", "--conversations", "25",
+                "--turns", "10", "--device", "cuda"]
+LAUNCH_IVF = ["--n-docs", "200000", "--partitions", "2048", "--nprobe",
+              "64", "--h", "256"]
+LAUNCH_RUNS = (("ivf", "toploc+", LAUNCH_IVF),
+               ("ivf", "plain", LAUNCH_IVF),
+               ("exact", "plain", LAUNCH_IVF),
+               ("hnsw", "toploc+", ["--n-docs", "4000", "--ef", "32"]))
+
+
+def launch_replay(args, res, dev):
+    """The launcher's run replayed through the deprecated aliases on its
+    own index and queries: (ids (C, T, k), per-turn TurnStats rows);
+    Exact through ``ivf.exact_search``."""
+    import warnings
+    import torch
+    from repro_torch.core import ivf
+    from repro_torch.core import toploc as T
+    q = torch.from_numpy(res.workload.conversations).to(dev)
+    ids = np.zeros(res.run.shape, np.int64)
+    stats = []
+    alpha = args.alpha if args.strategy == "toploc+" else -1.0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for c in range(q.shape[0]):
+            if args.backend == "exact":
+                ids[c] = ivf.exact_search(res.index, q[c], args.k)[1].cpu()
+                continue
+            for t in range(q.shape[1]):
+                if args.strategy == "plain":
+                    _, i, st = T.ivf_plain_batch(res.index, q[c, t:t + 1],
+                                                 nprobe=args.nprobe, k=args.k)
+                    i, st = i[0], T.TurnStats(*(x[0] for x in st))
+                elif args.backend == "hnsw" and t == 0:
+                    _, i, sess, st = T.hnsw_start(res.index, q[c, 0],
+                                                  ef=args.ef, k=args.k,
+                                                  up=args.up)
+                elif args.backend == "hnsw":
+                    _, i, sess, st = T.hnsw_step(res.index, sess, q[c, t],
+                                                 ef=args.ef, k=args.k)
+                elif t == 0:
+                    _, i, sess, st = T.ivf_start(res.index, q[c, 0],
+                                                 h=args.h, nprobe=args.nprobe,
+                                                 k=args.k)
+                else:
+                    _, i, sess, st = T.ivf_step(res.index, sess, q[c, t],
+                                                nprobe=args.nprobe, k=args.k,
+                                                alpha=alpha)
+                ids[c, t] = i.cpu().numpy()
+                stats.append([int(getattr(st, f)) for f in STAT_FIELDS])
+    return ids, stats
+
+
+def phase_launch_serve(args, dev):
+    """``launch.serve.run`` in-process at d = 768 for LAUNCH_RUNS, each
+    run held to its alias replay (ids, TurnStats) on its own index and
+    queries, its printed metrics to ``evaluate_run`` on the returned
+    run; toploc+ against plain as ratios (reported, not gated).  The
+    three 200,000-doc runs share one workload, and the two IVF runs one
+    index (the first run's build).  Returns the launch counts."""
+    import torch
+    from repro_torch.data import synthetic as SY
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as LS
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    wl, ivf_index, rows = None, None, {}
+    for backend, strategy, flags in LAUNCH_RUNS:
+        a = LS.parser().parse_args(LAUNCH_FLAGS + flags + [
+            "--backend", backend, "--strategy", strategy])
+        big = flags is LAUNCH_IVF
+        built = []
+        t0 = time.perf_counter()
+        res = LS.run(a, workload=wl if big else None,
+                     index=ivf_index if backend == "ivf" else None,
+                     out=built.append)
+        t_run = time.perf_counter() - t0
+        if big:
+            wl = res.workload
+        if backend == "ivf":
+            ivf_index = res.index
+        lines = LS.report(a, res)
+        m = SY.evaluate_run(res.run, res.workload, k=a.k)
+        want = (f"[serve] {backend}/{strategy}: MRR@10={m['mrr@10']:.3f} "
+                f"NDCG@3={m['ndcg@3']:.3f} NDCG@10={m['ndcg@10']:.3f}")
+        if lines[0] != want:
+            raise AssertionError(f"[launch serve] printed {lines[0]!r}, "
+                                 f"evaluate_run gives {want!r}")
+        ids, stats = launch_replay(a, res, dev)
+        recs = [[getattr(r, f) for f in STAT_FIELDS] for r in res.records]
+        if not np.array_equal(ids, res.run) or (
+                backend != "exact" and stats != recs):
+            raise AssertionError(f"[launch serve] {backend}/{strategy}: the "
+                                 f"run differs from its alias replay")
+        n = a.conversations * a.turns
+        s = res.summary
+        rows[(backend, strategy)] = dict(
+            ms=1e3 * res.wall_s / n,
+            dists=s["mean_centroid_dists"] + s["mean_list_dists"]
+            + s["mean_graph_dists"])
+        log("launch serve", " | ".join(built + lines) + f" | ms/turn="
+            f"{1e3 * res.wall_s / n:.4f} mean centroid/list/graph dists "
+            f"{s['mean_centroid_dists']:.1f} / {s['mean_list_dists']:.1f} / "
+            f"{s['mean_graph_dists']:.1f} refresh_rate="
+            f"{s['refresh_rate']:.3f}; run {t_run:.1f}s; == the alias "
+            f"replay (ids{', TurnStats' if backend != 'exact' else ''}), "
+            f"metrics == evaluate_run")
+    del wl, ivf_index, res
+    plus, plain = rows[("ivf", "toploc+")], rows[("ivf", "plain")]
+    launches = {name: getattr(ops, name).launches for name in HNSW_KERNELS}
+    if not launches["hnsw_search"]:
+        raise AssertionError("[launch serve] hnsw: no hnsw_search launch")
+    torch.cuda.empty_cache()
+    log("launch serve", f"ivf toploc+ / plain: ms a turn "
+        f"{plus['ms'] / plain['ms']:.3f}x, distances a turn "
+        f"{plus['dists'] / plain['dists']:.3f}x (the paper's claim; "
+        f"reported, not gated); hnsw_search launches "
+        f"{launches['hnsw_search']}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # [sharded] / [router]: the corpus split over shards of one card, and two
 # replicas behind the router
 # ---------------------------------------------------------------------------
@@ -6318,6 +6673,10 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="build, then only the [train] phases "
                     "(phase_train)")
+    ap.add_argument("--launch-only", action="store_true",
+                    help="build, then only [aliases] on an index of "
+                    "--n-docs / --lists / --hnsw-docs built here, and "
+                    "[launch serve]")
     args = ap.parse_args()
     args.d, args.k, args.nprobe = 768, 10, 64
     args.lmax = math.ceil(1.3 * args.n_docs / args.lists)
@@ -6361,9 +6720,25 @@ def main() -> int:
 
     if (args.stages_only or args.dump_rows or args.bag_times or args.adc_times
             or args.hnsw_only or args.hnsw_times or args.segment_only
-            or args.sharded_only or args.models_only or args.train_only):
+            or args.sharded_only or args.models_only or args.train_only
+            or args.launch_only):
         if args.train_only:
             phase_train(args, dev)
+        if args.launch_only:
+            from repro_torch.core import hnsw
+            index, docs, convs, _, _ = phase_index(args, dev)
+            pqi = phase_pq(args, index, docs, dev)
+            t0 = time.perf_counter()
+            graph = hnsw.build(docs[:min(args.hnsw_docs, docs.shape[0])],
+                               m=HNSW_M, ef_construction=HNSW_EFC,
+                               seed=args.seed)
+            log("hnsw", f"build N={graph.n}: "
+                f"{time.perf_counter() - t0:.1f}s on the host")
+            phase_aliases(args, {"ivf": index, "ivf_pq": pqi}, graph, convs,
+                          dev)
+            del index, pqi, docs, graph
+            torch.cuda.empty_cache()
+            phase_launch_serve(args, dev)
         if args.models_only:
             errs = {"flash_attention": 0.0}
             ulps = phase_attn(args, dev, errs, BST_ATTN)
@@ -6562,6 +6937,8 @@ def main() -> int:
         args, docs, convs, bconvs, dev)
     launches["hnsw_search"] = hnsw_launches
     phase_exact_serve(docs, convs, exact)
+    for name, n in phase_aliases(args, indexes, graph, convs, dev).items():
+        launches[name] = launches.get(name, 0) + n
     sh_launches, errs["hnsw_search_sharded"], sh_times = phase_sharded(
         args, indexes, docs, convs, graph, dev, errs,
         {b: row["steps"] for b, row in hnsw_times.items()})
@@ -6591,9 +6968,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, n in phase_segment(args, docs, bconvs, graph, dev).items():
         launches[name] = launches.get(name, 0) + n
-    # the LM at decode_32k runs once the retrieval objects are freed
+    # the launcher and the LM at decode_32k run once the retrieval objects
+    # are freed
     del docs, graph
     torch.cuda.empty_cache()
+    for name, n in phase_launch_serve(args, dev).items():
+        launches[name] = launches.get(name, 0) + n
     d32_counts = phase_decode32k(args, dev)
     times[1]["flash_decode"] = phase_decode_times(args, dev)[1]
     launches["flash_attention"] = (enc_launches + rag_counts["flash_attention"]

@@ -3,7 +3,8 @@
 Exit codes, as the reference's CLI (``repro/analysis/__main__.py``): 0
 clean (no findings, or all suppressed), 1 active findings, 2 an unknown
 pass, or (``--strict`` only) stale baseline entries.  The baseline is
-read, never written.  No pass needs a card or builds a kernel.
+read, never written.  No pass needs a card or builds a kernel.  The
+``kernels`` probes are listed only when that pass ran.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from repro_torch.analysis.project import repo_root
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="launch-plan checks of the port's CUDA kernels")
+        description="registry, kernel launch-plan, sharding, deprecation "
+                    "and locking checks of the port")
     ap.add_argument("--strict", action="store_true",
                     help="also fail on stale baseline entries")
     ap.add_argument("--baseline", default=None,
@@ -50,8 +52,9 @@ def main(argv=None) -> int:
 
     patterns = load_baseline(args.baseline
                              or str(repo_root() / "analysis-baseline.txt"))
-    active, suppressed, stale = apply_baseline(run_all(args.select),
-                                               patterns)
+    kernel_budget.last_report.clear()
+    active, suppressed, stale = apply_baseline(
+        run_all(select=args.select), patterns)
     if args.as_json:
         print(json.dumps({"active": [vars(f) for f in active],
                           "suppressed": [vars(f) for f in suppressed],

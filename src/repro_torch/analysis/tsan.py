@@ -1,10 +1,9 @@
 """Dynamic concurrency sanitizer: instrumented ``threading`` shim.
 
 Port of ``repro/analysis/tsan.py`` (framework-free: the port keeps its
-own copy).  The reference's static passes (``lock_order`` /
-``guarded_fields``, ROADMAP Queue 1 item 8) reason about the AST; this
-module checks the same invariants on a *live* schedule, the way TSan
-does for native code:
+own copy).  The static passes (``lock_order`` / ``guarded_fields``,
+in both packages) reason about the AST; this module checks the same
+invariants on a *live* schedule, the way TSan does for native code:
 
   * ``instrument(runtime)`` monkeypatches ``threading.Lock`` /
     ``RLock`` / ``Event`` / ``Thread`` with recording wrappers (the

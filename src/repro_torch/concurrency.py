@@ -8,9 +8,9 @@ small set of locking conventions.  This module makes those conventions
 (``repro_torch.analysis.tsan``) can read ``__guarded_fields__`` off the
 live class and check, at runtime, that every access to a guarded field
 of a *shared* object happens while the owning lock is held — on top of
-its vector-clock race detection.  (The reference's static
-``guarded_fields`` / ``lock_order`` passes read the same decorators
-from the AST; their port is ROADMAP Queue 1, item 8.)
+its vector-clock race detection.  The static ``guarded-fields`` and
+``lock-order`` passes (``repro_torch.analysis.guarded_fields`` /
+``lock_order``) read the same decorators from the AST.
 
 The decorators are deliberately inert at runtime: they only attach
 metadata (``__guarded_fields__`` on classes, ``__holds_locks__`` on

@@ -13,7 +13,10 @@ Port of ``repro/core/toploc.py``:
   * ``FusedTurn``, the plugin that routes IVF / IVF-PQ turns through the
     fused CUDA kernels (``kernels.ops.fused_turn`` / ``fused_scan`` /
     ``fused_turn_pq`` / ``fused_scan_pq``);
-  * the drivers ``start / step / plain (+_batch) / conversation``.
+  * the drivers ``start / step / plain (+_batch) / conversation``;
+  * the reference's 18 deprecated prefixed aliases (``ivf_start``,
+    ``ivf_pq_step_batch``, ``hnsw_conversation``, …), each a thin
+    forward to a driver that warns once per call site.
 
 PyTorch runs eagerly, so the drivers are plain functions (the
 reference jit-compiles one program per backend); ``lax.scan`` becomes a
@@ -25,6 +28,9 @@ type: IVF, IVF-PQ, HNSW and Exact's bare corpus).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import sys
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -300,3 +306,185 @@ def conversation(backend, index, utterances: torch.Tensor, *, k: int,
         is_.append(i)
         sts.append(st)
     return torch.stack(vs), torch.stack(is_), stack_stats(sts)
+
+
+# ---------------------------------------------------------------------------
+# deprecated prefixed aliases (pre-registry API)
+#
+# Every alias forwards to the registry driver above with the backend it
+# names, so its outputs are the driver's bit for bit, and warns so
+# downstream callers migrate.  New code builds a ``core.backend``
+# dataclass once and calls the drivers.  The signatures are the
+# reference's, plus the drivers' ``device`` (default cuda).
+#
+# Warning policy: once per *call site* (caller filename:lineno), with
+# ``stacklevel=2`` so the warning points at the caller.  The
+# ``__deprecated_alias__`` marker is what the analysis's
+# ``deprecated`` pass keys on (``repro_torch.analysis.deprecation``).
+# ---------------------------------------------------------------------------
+
+_warned_sites: set = set()
+
+
+def _deprecated_alias(repl: str):
+    """Mark a legacy ``toploc.*`` entry point; warn once per call site."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            frame = sys._getframe(1)
+            site = (frame.f_code.co_filename, frame.f_lineno)
+            if site not in _warned_sites:
+                _warned_sites.add(site)
+                warnings.warn(
+                    f"toploc.{fn.__name__} is deprecated; use the "
+                    f"core.backend registry: {repl}",
+                    DeprecationWarning, stacklevel=2)
+            return fn(*args, **kwargs)
+        wrapper.__deprecated_alias__ = True
+        return wrapper
+    return deco
+
+
+def _ivf_backend(**knobs):
+    from repro_torch.core import backend as _backend
+    return _backend.IVFBackend(**knobs)
+
+
+def _pq_backend(**knobs):
+    from repro_torch.core import backend as _backend
+    return _backend.IVFPQBackend(**knobs)
+
+
+def _hnsw_backend(**knobs):
+    from repro_torch.core import backend as _backend
+    return _backend.HNSWBackend(**knobs)
+
+
+@_deprecated_alias("start(IVFBackend(h=…, nprobe=…), …)")
+def ivf_start(index, q0, *, h, nprobe, k, scan=None, device=None):
+    return start(_ivf_backend(h=h, nprobe=nprobe, scan=scan), index, q0,
+                 k=k, device=device)
+
+
+@_deprecated_alias("step(IVFBackend(…, alpha=…), …)")
+def ivf_step(index, sess, q, *, nprobe, k, alpha=-1.0, scan=None,
+             device=None):
+    return step(_ivf_backend(h=sess.cache_ids.shape[0], nprobe=nprobe,
+                             alpha=alpha, scan=scan), index, sess, q, k=k,
+                device=device)
+
+
+@_deprecated_alias("start_batch(IVFBackend(…), …)")
+def ivf_start_batch(index, q0, *, h, nprobe, k, scan=None, device=None):
+    return start_batch(_ivf_backend(h=h, nprobe=nprobe, scan=scan), index,
+                       q0, k=k, device=device)
+
+
+@_deprecated_alias("step_batch(IVFBackend(…), …)")
+def ivf_step_batch(index, sess, q, *, nprobe, k, alpha=-1.0, is_first=None,
+                   scan=None, device=None):
+    return step_batch(_ivf_backend(h=sess.cache_ids.shape[1], nprobe=nprobe,
+                                   alpha=alpha, scan=scan), index, sess, q,
+                      k=k, is_first=is_first, device=device)
+
+
+@_deprecated_alias("plain_batch(IVFBackend(…), …)")
+def ivf_plain_batch(index, q, *, nprobe, k, scan=None, device=None):
+    return plain_batch(_ivf_backend(nprobe=nprobe, scan=scan), index, q,
+                       k=k, device=device)
+
+
+@_deprecated_alias("conversation(IVFBackend(…), …)")
+def ivf_conversation(index, utterances, *, h, nprobe, k, alpha=-1.0,
+                     mode="toploc", scan=None, device=None):
+    return conversation(_ivf_backend(h=h, nprobe=nprobe, alpha=alpha,
+                                     scan=scan), index, utterances, k=k,
+                        mode=mode, device=device)
+
+
+@_deprecated_alias("start(IVFPQBackend(…), …)")
+def ivf_pq_start(index, q0, *, h, nprobe, k, rerank=32, scan=None,
+                 device=None):
+    return start(_pq_backend(h=h, nprobe=nprobe, rerank=rerank, scan=scan),
+                 index, q0, k=k, device=device)
+
+
+@_deprecated_alias("step(IVFPQBackend(…), …)")
+def ivf_pq_step(index, sess, q, *, nprobe, k, alpha=-1.0, rerank=32,
+                scan=None, device=None):
+    return step(_pq_backend(h=sess.cache_ids.shape[0], nprobe=nprobe,
+                            alpha=alpha, rerank=rerank, scan=scan), index,
+                sess, q, k=k, device=device)
+
+
+@_deprecated_alias("start_batch(IVFPQBackend(…), …)")
+def ivf_pq_start_batch(index, q0, *, h, nprobe, k, rerank=32, scan=None,
+                       device=None):
+    return start_batch(_pq_backend(h=h, nprobe=nprobe, rerank=rerank,
+                                   scan=scan), index, q0, k=k, device=device)
+
+
+@_deprecated_alias("step_batch(IVFPQBackend(…), …)")
+def ivf_pq_step_batch(index, sess, q, *, nprobe, k, alpha=-1.0, rerank=32,
+                      is_first=None, scan=None, device=None):
+    return step_batch(_pq_backend(h=sess.cache_ids.shape[1], nprobe=nprobe,
+                                  alpha=alpha, rerank=rerank, scan=scan),
+                      index, sess, q, k=k, is_first=is_first, device=device)
+
+
+@_deprecated_alias("plain_batch(IVFPQBackend(…), …)")
+def ivf_pq_plain_batch(index, q, *, nprobe, k, rerank=32, scan=None,
+                       device=None):
+    return plain_batch(_pq_backend(nprobe=nprobe, rerank=rerank, scan=scan),
+                       index, q, k=k, device=device)
+
+
+@_deprecated_alias("conversation(IVFPQBackend(…), …)")
+def ivf_pq_conversation(index, utterances, *, h, nprobe, k, alpha=-1.0,
+                        rerank=32, mode="toploc", scan=None, device=None):
+    return conversation(_pq_backend(h=h, nprobe=nprobe, alpha=alpha,
+                                    rerank=rerank, scan=scan), index,
+                        utterances, k=k, mode=mode, device=device)
+
+
+@_deprecated_alias("start(HNSWBackend(ef=…, up=…), …)")
+def hnsw_start(index, q0, *, ef, k, up=2, search=None, device=None):
+    return start(_hnsw_backend(ef=ef, up=up, search=search), index, q0,
+                 k=k, device=device)
+
+
+@_deprecated_alias("step(HNSWBackend(…), …)")
+def hnsw_step(index, sess, q, *, ef, k, adaptive=False, search=None,
+              device=None):
+    return step(_hnsw_backend(ef=ef, adaptive=adaptive, search=search),
+                index, sess, q, k=k, device=device)
+
+
+@_deprecated_alias("start_batch(HNSWBackend(…), …)")
+def hnsw_start_batch(index, q0, *, ef, k, up=2, search=None, device=None):
+    return start_batch(_hnsw_backend(ef=ef, up=up, search=search), index,
+                       q0, k=k, device=device)
+
+
+@_deprecated_alias("step_batch(HNSWBackend(…), …)")
+def hnsw_step_batch(index, sess, q, *, ef, k, up=2, adaptive=False,
+                    is_first=None, search=None, device=None):
+    return step_batch(_hnsw_backend(ef=ef, up=up, adaptive=adaptive,
+                                    search=search), index, sess, q, k=k,
+                      is_first=is_first, device=device)
+
+
+@_deprecated_alias("plain_batch(HNSWBackend(…), …)")
+def hnsw_plain_batch(index, q, *, ef, k, search=None, device=None):
+    return plain_batch(_hnsw_backend(ef=ef, search=search), index, q, k=k,
+                       device=device)
+
+
+@_deprecated_alias("conversation(HNSWBackend(…), …)")
+def hnsw_conversation(index, utterances, *, ef, k, up=2, mode="toploc",
+                      search=None, device=None):
+    adaptive = mode == "adaptive"
+    return conversation(
+        _hnsw_backend(ef=ef, up=up, adaptive=adaptive, search=search),
+        index, utterances, k=k, mode="plain" if mode == "plain" else
+        "toploc", device=device)

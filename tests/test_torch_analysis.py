@@ -443,8 +443,10 @@ def test_cli_unknown_pass_exits_2(capsys):
 
 def test_cli_lists_its_passes(capsys):
     assert cli.main(["--list-passes"]) == 0
-    assert capsys.readouterr().out.split() == ["kernels"]
-    assert sorted(analysis.all_passes()) == ["kernels"]
+    names = ["contract", "deprecated", "guarded-fields", "kernels",
+             "lock-order", "shard"]
+    assert capsys.readouterr().out.split() == names
+    assert sorted(analysis.all_passes()) == names
 
 
 def test_cli_json(no_build, capsys):
@@ -484,7 +486,7 @@ def test_cli_strict_fails_on_a_stale_entry(no_build, tmp_path, capsys):
 
 def test_run_all_rejects_unknown_passes():
     with pytest.raises(ValueError, match="unknown pass"):
-        analysis.run_all(["nope"])
+        analysis.run_all(select=["nope"])
 
 
 def test_the_repository_baseline_is_read_and_empty(no_build):

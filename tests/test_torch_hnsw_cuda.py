@@ -19,7 +19,8 @@ repository's conftest imports JAX).  On graphs the port builds:
   agree, and at most 1 % of the queries take another path (a near tie
   resolved by the other summation order);
 * a query alone equals it in a batch of 32, bit for bit;
-* each cap raises ``ValueError`` naming ROADMAP Queue 3, item 4;
+* each cap raises ``ValueError`` naming ROADMAP Queue 3, item 4, and so
+  does a deprecated ``toploc.hnsw_*`` alias past it (no fallback);
 * a zero-query pad row neither faults nor makes a NaN;
 * a call plans and launches one kernel and, past its first, syncs
   nothing with the host (its plan is held to the profiler in
@@ -278,6 +279,24 @@ def test_cuda_caps_raise(dev, int_graph, what):
     with pytest.raises(ValueError, match=match):
         ops.hnsw_search(vec, adj0, index.upper_adj, index.entry_point, q,
                         ef=ef, k=k)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("alias", ["hnsw_start", "hnsw_start_batch",
+                                   "hnsw_plain_batch"])
+def test_cuda_hnsw_alias_past_the_cap_raises(dev, float_graph, alias):
+    """The first turn's beam is up·ef = 2 x 200, past the kernel's 256;
+    the plain turn's is ef = 257."""
+    import warnings
+    from repro_torch.core import toploc
+    index, x = float_graph
+    q = _queries(x, 2, 3, dev, integer=False)
+    ef = 257 if alias == "hnsw_plain_batch" else 200
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        with pytest.raises(ValueError, match="Queue 3, item 4"):
+            getattr(toploc, alias)(index, q[0] if alias == "hnsw_start"
+                                   else q, ef=ef, k=10)
 
 
 @pytest.mark.cuda_only

@@ -31,6 +31,7 @@ from repro_torch.core import toploc as ttl
 from repro_torch.configs import common as tcommon
 from repro_torch.distributed import fault as tfault
 from repro_torch.distributed import retrieval as tretrieval
+from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.kernels import ops as tops
 from repro_torch.models import encoder as tenc
@@ -71,7 +72,13 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.optim.schedules, repro_torch.optim.optimizers, "
         "repro_torch.optim.grad, repro_torch.checkpoint, "
         "repro_torch.checkpoint.checkpoint, repro_torch.distributed.fault, "
-        "repro_torch.launch, repro_torch.launch.train\n"
+        "repro_torch.launch, repro_torch.launch.train, "
+        "repro_torch.launch.serve, repro_torch.analysis.project, "
+        "repro_torch.analysis.deprecation, "
+        "repro_torch.analysis.static_contract, "
+        "repro_torch.analysis.lock_order, "
+        "repro_torch.analysis.guarded_fields, "
+        "repro_torch.analysis.shard_specs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n")
@@ -158,6 +165,10 @@ ENTRY_POINTS = {
         tbackend.IVFBackend(h=2, nprobe=1), idx, q[0], k=2),
     "toploc.plain_batch": lambda idx, q: ttl.plain_batch(
         tbackend.IVFBackend(nprobe=1), idx, q, k=2),
+    "toploc.ivf_start": lambda idx, q: ttl.ivf_start(
+        idx, q[0], h=2, nprobe=1, k=2),
+    "toploc.ivf_pq_plain_batch": lambda idx, q: ttl.ivf_pq_plain_batch(
+        idx, q, nprobe=1, k=2),
     "ops.fused_turn": lambda idx, q: tops.fused_turn(
         q, idx.centroids, idx.list_vecs, idx.list_ids, nprobe=1, k=2),
     "ops.fused_scan": lambda idx, q: tops.fused_scan(
@@ -206,6 +217,9 @@ ENTRY_POINTS = {
         resume=False, injector=tfault.FailureInjector([])),
     "train.main": lambda idx, q: ttrain.main(["--arch", "dcn-v2",
                                               "--smoke", "--steps", "1"]),
+    "serve.main": lambda idx, q: tserve.main(["--n-docs", "100"]),
+    "serve.run": lambda idx, q: tserve.run(
+        tserve.parser().parse_args(["--backend", "exact"])),
     "train.synth_batch": lambda idx, q: ttrain.synth_batch(
         {"x": tcommon.struct((2,), torch.int32)},
         np.random.default_rng(0), 4),
