@@ -99,6 +99,23 @@ exits non-zero):
               dist]: the sharded serve steps at S = 2 and 4 of the one
               card, dist_topk (k = 100 of 10^6 items) == the brute step's
               ids, toploc_ivf_dist == its S = 1 result
+    dryrun    launch.dryrun.main in-process on meta: every registry cell
+              (35 (arch, shape) pairs x the (16, 16) and (2, 16, 16)
+              production meshes), full size, LMs calibrated from 1- and
+              2-layer traces; each cell's dominant roofline term, its
+              compute / memory / collective seconds, model_flops_ratio
+              and args / temp a device against 80 GB; yi-9b train_4k
+              traced at full depth == its calibrated record (FLOPs and
+              bytes exactly)
+    bundles   every registry (arch, shape) bundle's step on the card
+              under launch.analysis's counter, held to a meta trace of
+              the same bundle: the recsys serve cells at their published
+              batch, Yi-9B's and DeepSeek-V2-Lite's prefill_32k (B = 1)
+              and decode_32k (B = 8 / 16) at full width, the rest at
+              smoke size; card FLOPs == meta FLOPs, rows 8 / 9 / 10
+              launches == the trace's, predicted temp >= measured,
+              decode bytes >= the floor; a second step timed beside the
+              one-card roofline bound
     ctr       DCN-v2, BST and AutoInt at their full configurations (tables
               of 2.53, 0.74 and 0.65 GB from seeded CUDA generators) at
               serve_p99 (B = 512), serve_bulk (262,144) and
@@ -253,7 +270,8 @@ BST's shapes, [ctr], [gin] and row 8's [times] at BST's shapes;
 ``--train-only`` builds and runs only the [train] phases;
 ``--launch-only`` builds the corpus, the IVF and IVF-PQ indexes and the
 [hnsw] graph at the size flags, then runs only [aliases] and [launch
-serve].  The eleven may be given together.
+serve]; ``--dryrun-only`` builds and runs only [dryrun] and [bundles].
+The twelve may be given together.
 """
 from __future__ import annotations
 
@@ -274,9 +292,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+# the kernels' work and the card's rates (kernels/cost.py): the
+# data-aware forms give [times]' bounds
+from repro_torch.kernels.cost import (  # noqa: E402
+    BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S, TF32X3_FLOP_PER_S,
+    adc_bound, attn_bound, bag_bound, bound_ms, ck_bound, decode_bound,
+    hnsw_bound, scan_bound)
+
 TOL = 1e-5                     # |score| agreement across summation orders
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SCAN_SRC = "src/repro_torch/kernels/csrc/fused_turn.cu"
 PQ_SRC = "src/repro_torch/kernels/csrc/pq_adc.cu"
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -285,10 +308,6 @@ FD_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
 CK_SRC = "src/repro_torch/kernels/csrc/centroid_topk.cu"
 IV_SRC = "src/repro_torch/kernels/csrc/ivf_scan.cu"
 HS_SRC = "src/repro_torch/kernels/csrc/hnsw_search.cu"
-BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
-# float32 products in 3xTF32: three tf32 tensor-core passes (495 TFLOP/s
-# dense) per product
-TF32X3_FLOP_PER_S = 495e12 / 3
 # the tensor-core kernels: cuobjdump -sass must show HMMA in each
 MMA_KERNELS = ("flash_bf16_kernel", "flash_tf32_kernel", "decode_mma_kernel")
 PQ_M, PQ_ITERS, RERANK = 48, 8, 64
@@ -1017,14 +1036,6 @@ def phase_plans(dev):
     if bad:
         raise AssertionError("plans: " + "; ".join(bad))
     return len(probes), n
-
-
-def ck_bound(c, q, kp):
-    """(bytes, flops) of a centroid top-k: the table and the queries read
-    once, the (B, kp) values and ids written once; 2 p d a query."""
-    p, d = c.shape
-    return (c.numel() * 4 + q.numel() * 4 + q.shape[0] * kp * 8,
-            2 * q.shape[0] * p * d)
 
 
 def phase_classic_times(args, index, convs, dev):
@@ -2730,15 +2741,6 @@ def phase_pairwise(args, dev, model):
     return total
 
 
-def bag_bound(ids, d):
-    """(bytes, flops) of an unweighted bag sum over these ids: each real
-    id's row read once, the ids read once, the (B, d) output written
-    once; a product and a sum per element of a real row."""
-    rows = int((ids >= 0).sum())
-    return (rows * d * 4 + ids.numel() * 4 + ids.shape[0] * d * 4,
-            2 * rows * d)
-
-
 # the batch sizes of [bag]: a request, powers of 4 up to serve_p99's 512,
 # past it, and serve_bulk
 BAG_SWEEP = (1, 8, 32, 128, 512, 2048, 8192, 262_144)
@@ -3916,15 +3918,6 @@ def hnsw_check(index, q, ef, k, entry, what):
     return err, q.shape[0], int((~same).sum())
 
 
-def hnsw_bound(index, nd, b, k):
-    """(bytes, flops) of a search with these distance counts: each scored
-    row's vector and at least its adjacency entry, the queries and the
-    outputs; 2 d flops a scored row."""
-    d = index.vectors.shape[1]
-    n = int(nd.sum())
-    return n * (d + 1) * 4 + b * d * 4 + b * (k * 8 + 4), 2 * n * d
-
-
 def hnsw_steps(index, q, ef, k):
     """The dependent steps of the search of one query ``q`` (1, d): the
     descent's and level 0's, counted by the plain version, whose scorer
@@ -5072,46 +5065,6 @@ def event_ms(calls, flush, *, spin):
     return float(np.mean([s.elapsed_time(e) for s, e in marks]))
 
 
-def scan_bound(index, q, sel, r_pad):
-    """(bytes, flops) fused_scan must move and do for these inputs: the
-    real rows of the probed lists, their ids, the query, the selection
-    and the (B, r_pad) outputs."""
-    b, nprobe = sel.shape
-    rows = int(index.list_sizes[sel.long()].sum())
-    nbytes = (rows * index.d * 4 + b * nprobe * index.lmax * 4
-              + q.numel() * 4 + sel.numel() * 4 + b * r_pad * 12)
-    return nbytes, 2 * rows * index.d
-
-
-def adc_bound(pqi, q, sel, r, out_w, rerank):
-    """(bytes, flops) of the ADC scan of these inputs: the code rows of
-    the probed lists' real docs, their ids, the (B, m, 256) LUTs, the
-    selection and the (B, out_w) outputs; ``m`` adds per real row.  With
-    ``rerank``, the query and the corpus rows of each query's min(r,
-    real rows) candidates, and their dot products."""
-    b, nprobe = sel.shape
-    real = pqi.list_sizes[sel.long()].sum(-1)
-    rows = int(real.sum())
-    nbytes = (rows * pqi.m + b * nprobe * pqi.lmax * 4
-              + b * pqi.codewords.shape[:2].numel() * 4 + sel.numel() * 4
-              + b * out_w * 12)
-    flops = rows * pqi.m
-    if rerank:
-        cand = int(real.clamp(max=r).sum())
-        nbytes += q.numel() * 4 + cand * pqi.d * 4
-        flops += 2 * cand * pqi.d
-    return nbytes, flops
-
-
-def bound_ms(nbytes, flops, flop_rate=F32_FLOP_PER_S):
-    """The least time for this work: bytes over the memory rate or
-    operations over the peak rate of the inputs' type, the larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / flop_rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def kernels_a_call(call):
     """The kernels one call launches, from the launch plan the recorder
     records for it (``tiling.plan_*``; ``[plans]`` holds the plans to
@@ -5278,19 +5231,6 @@ def quant_extra(op, prec, index, sel, q, r_q):
     return b * r_q * index.d * 4 if op in ("fused_scan", "fused_turn") else 0
 
 
-def decode_bound(q, k, lens):
-    """(bytes, flops) of decode attention over these inputs: each row's
-    first min(cache_len, S) rows of K and V read once, q and cache_len
-    read once, the output written once; 4 FLOP per cache element per
-    query head of the group."""
-    b, h, d = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    rows = int(lens.clamp(max=s).sum())
-    nbytes = (2 * rows * hkv * d * k.element_size() + 2 * q.numel()
-              * q.element_size() + lens.numel() * 4)
-    return nbytes, 4 * rows * h * d
-
-
 def phase_decode_times(args, dev):
     """flash_decode at the RAG shape (B = 1, S = 1,024) and the
     decode_32k shape cut to B = 8 (S = 32,768), Yi-9B's heads (32 query,
@@ -5414,21 +5354,6 @@ def phase_decode32k(args, dev):
     del lm, cache, logits
     torch.cuda.empty_cache()
     return n
-
-
-def attn_bound(q, k, v, causal=False):
-    """(bytes, flops) of attention over these inputs: q, k, v read once,
-    the output written once, in their dtype; the QK^T and PV products
-    (causal: only the unmasked half, bottom-right, that the work
-    needs)."""
-    b, h, s, d = q.shape
-    skv, dv = k.shape[2], v.shape[3]
-    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
-                                 + b * h * s * dv)
-    pairs = s * skv
-    if causal:   # query i (of S, the last of Skv) sees skv - s + i + 1 keys
-        pairs = s * (skv - s) + s * (s + 1) // 2
-    return nbytes, 2 * b * h * pairs * (d + dv)
 
 
 def sdpa_backend(q, k, v, causal):
@@ -6605,6 +6530,219 @@ def phase_train(args, dev, graphs=None):
     return attn + la, bag + lb
 
 
+# ---------------------------------------------------------------------------
+# [dryrun] and [bundles]: the dry-run's cost model, and held to the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_PAIRS = 35             # registry (arch, shape) outside skip_shapes
+CARD_GB = 80.0
+# the serve cells run at full width (published widths, random weights):
+# the four recsys archs' at their published batch, and Yi-9B's and
+# DeepSeek-V2-Lite's with the batch cut to what one card holds
+BUNDLE_FULL_LM = {
+    ("yi-9b", "prefill_32k"): dict(global_batch=1),
+    ("yi-9b", "decode_32k"): dict(global_batch=DECODE32K_B),
+    ("deepseek-v2-lite-16b", "prefill_32k"): dict(global_batch=1),
+    ("deepseek-v2-lite-16b", "decode_32k"): dict(global_batch=16),
+}
+BUNDLE_MEM_SHARE = 0.85       # of the free memory a cell's predicted peak
+BUNDLE_ROWS = ("flash_attention", "flash_decode", "embedding_bag")
+
+
+def phase_dryrun(args):
+    """``launch.dryrun.main`` in-process: every registry cell on both
+    production meshes, full size, calibrated, on ``meta``; then yi-9b
+    train_4k single traced at full depth (``--no-calibration``), whose
+    FLOPs and bytes must equal the calibrated record's exactly.  Prints
+    each cell's dominant term, compute / memory / collective seconds,
+    model_flops_ratio and args / temp a device against 80 GB.  Returns
+    the host seconds."""
+    from repro_torch.launch import dryrun
+    out = os.path.join(ROOT, "archive", "dryrun.jsonl")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--arch", "all", "--mesh", "both", "--out", out])
+    host_s = time.perf_counter() - t0
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    ok = [r for r in recs if r["status"] == "ok"]
+    pairs = {}
+    for r in ok:
+        pairs.setdefault((r["arch"], r["shape"]), set()).add(r["mesh"])
+    bad = [p for p, m in pairs.items() if m != {"single", "multi"}]
+    if rc or len(pairs) != DRYRUN_PAIRS or bad or len(ok) != 2 * len(pairs):
+        raise AssertionError(f"dryrun: rc {rc}, {len(pairs)} (arch, shape) "
+                             f"pairs ok of {DRYRUN_PAIRS}, incomplete {bad}")
+    t1 = time.perf_counter()
+    full = dryrun.run_cell("yi-9b", "train_4k", "single", calibrate=False)
+    full_s = time.perf_counter() - t1
+    cal = next(r for r in ok if (r["arch"], r["shape"], r["mesh"])
+               == ("yi-9b", "train_4k", "single"))
+    same = {k: full["cost"][k] == cal["cost"][k]
+            for k in ("flops", "hbm_bytes")}
+    if not cal["calibrated"] or full["status"] != "ok" or not all(
+            same.values()):
+        raise AssertionError(f"dryrun: calibrated yi-9b train_4k != full "
+                             f"depth: {same} (calibrated "
+                             f"{cal['calibrated']}, {full.get('error')})")
+    for r in ok:
+        c, ro = r["cost"], r["roofline"]
+        log("dryrun", f"{r['arch']} {r['shape']} {r['mesh']}: dominant "
+            f"{ro['dominant']} compute_s={ro['compute_s']:.4e} "
+            f"memory_s={ro['memory_s']:.4e} collective_s="
+            f"{ro['collective_s']:.4e} model_flops_ratio="
+            f"{ro['model_flops_ratio']:.4f} args_gb={c['mem_args'] / 1e9:.3f}"
+            f" temp_gb={c['mem_temp'] / 1e9:.3f} (of {CARD_GB:.0f} GB: "
+            f"{'fits' if c['peak_memory'] <= CARD_GB * 1e9 else 'over'}) "
+            f"share={r['share']} trace_s={r['trace_s']}")
+    slow = sorted(ok, key=lambda r: -r["trace_s"])[:3]
+    log("dryrun", f"{len(ok)} cells ok ({len(pairs)} (arch, shape) x 2 "
+        f"meshes), dry-run complete; 0 failures; host {host_s:.1f}s "
+        f"(slowest: " + ", ".join(f"{r['arch']} {r['shape']} {r['mesh']} "
+                                  f"{r['trace_s']}s" for r in slow) +
+        f"); yi-9b train_4k single at full depth ({full_s:.1f}s): FLOPs "
+        f"{full['cost']['flops']:.6e} and bytes "
+        f"{full['cost']['hbm_bytes']:.6e} == the calibrated record's")
+    return host_s
+
+
+def bundle_cells():
+    """(arch, shape, smoke, shape_overrides, the cut) of every registry
+    cell [bundles] runs."""
+    from repro_torch.configs import get, list_archs
+    cells = []
+    for a in list_archs():
+        arch = get(a)
+        for shape in arch.shapes:
+            if (a, shape) in BUNDLE_FULL_LM:
+                ov = BUNDLE_FULL_LM[(a, shape)]
+                cells.append((a, shape, False, ov,
+                              f"global_batch cut to {ov['global_batch']}"))
+            elif arch.family == "recsys" and shape != "train_batch":
+                cells.append((a, shape, False, {}, "published batch"))
+            else:
+                cells.append((a, shape, True, {}, "smoke size"))
+    return cells
+
+
+def bundle_floor(arch, cfg, bundle, shape):
+    """The least bytes a decode step must move (``decode_floor_bytes``:
+    every weight but the embedding and each row's cache to S), or 0."""
+    if arch.family != "lm" or not shape.startswith(("decode", "long")):
+        return 0
+    b = bundle.arg_structs[1].shape[0]
+    s = bundle.arg_structs[0][next(iter(bundle.arg_structs[0]))].shape[
+        2 if cfg.attn_kind == "mla" else 3]
+    return decode_floor_bytes(cfg, s) + (b - 1) * cfg.kv_bytes_per_token() * s
+
+
+def fit_batch(arch, cfg, shape, smoke, ov, dev):
+    """The cell's overrides with the batch halved until the meta trace's
+    predicted peak fits BUNDLE_MEM_SHARE of the card's free memory (the
+    dry-run's fit proof, used): (overrides, meta trace, bundle)."""
+    import torch
+    from repro_torch.launch import dryrun, mesh
+    free = torch.cuda.mem_get_info(dev)[0]
+    one_card = mesh.Mesh(("data", "model"), (1, 1))
+    while True:
+        bundle = arch.build_bundle(cfg, shape, smoke=smoke,
+                                   shape_overrides=ov)
+        model, _, _, mtr = dryrun.trace(bundle, device="meta")
+        need = (mtr.peak_live + dryrun.arg_bytes(bundle, one_card)
+                + sum(p.numel() * p.element_size()
+                      for p in model.parameters()))
+        key = "global_batch" if arch.family == "lm" else "batch"
+        cur = ov.get(key, dryrun._struct_leaves(bundle.arg_structs)[0]
+                     .shape[0] if arch.family != "lm" else None)
+        if need <= BUNDLE_MEM_SHARE * free or not cur or cur <= 1:
+            return ov, mtr, bundle
+        ov = dict(ov, **{key: cur // 2})
+
+
+def phase_bundles(args, dev):
+    """Every registry (arch, shape) bundle: one step on the card under
+    ``launch.analysis``'s counter, held to a ``meta`` trace of the same
+    bundle at the same sizes.  Gates per cell: the card's FLOPs == the
+    trace's; rows 8 / 9 / 10's launches == the trace's recorded calls;
+    the predicted temporaries (the trace's peak) >= the step's measured
+    ones (max_memory_allocated from a reset, less what was alive
+    before); a decode step's eager bytes >= its floor.  A
+    second step is timed with CUDA events beside the one-card roofline
+    bound, max(Σ FLOPs / peak of their type, bytes / 3.35 TB/s).
+    Returns the launches of rows 8, 9, 10 over the phase."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import cost, ops
+    from repro_torch.launch import analysis, dryrun
+    ops.reset_launches()
+    t_all = time.perf_counter()
+    # cuBLAS's workspaces come with a handle's first products, forward
+    # and backward: make them here, so that no cell's measured
+    # temporaries hold them
+    for dt in (torch.float32, torch.bfloat16):
+        w = torch.ones((2, 64, 64), dtype=dt, device=dev, requires_grad=True)
+        (torch.bmm(w, w).sum() + (w[0] @ w[1]).sum()
+         + torch.nn.functional.linear(w[0], w[1], w[0, 0]).sum()
+         ).backward()
+    del w
+    torch.cuda.synchronize()
+    bad, n = [], 0
+    for a, shape, smoke, ov, cut in bundle_cells():
+        arch = get(a)
+        cfg = arch.make_smoke_config() if smoke else arch.make_config()
+        t0 = time.perf_counter()
+        ov2, mtr, bundle = fit_batch(arch, cfg, shape, smoke, ov, dev)
+        if ov2 != ov:
+            cut += f"; fit to the card: {ov2}"
+        model, opt, _, ctr = dryrun.trace(bundle, device=dev, seed=args.seed,
+                                          measure=True)
+        m = ctr.measured
+        temp, ms = m["temp_bytes"], m["step_ms"]
+        card = {k: m["launches"].get(k, 0) for k in BUNDLE_ROWS}
+        want = analysis.kernel_launches(mtr)
+        want = {k: want.get(k, 0) for k in card}
+        t_ops = sum(f / cost.RATES[r] for r, f in ctr.flops_by_rate.items())
+        t_bytes = ctr.nbytes / cost.HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        floor = bundle_floor(arch, cfg, bundle, shape)
+        gates = {"flops": ctr.flops == mtr.flops, "launches": card == want,
+                 "peak": mtr.peak_live >= temp,
+                 "floor": ctr.nbytes >= floor, "finite": m["finite"]}
+        if not all(gates.values()):
+            bad.append(f"{a} {shape}: {[k for k, v in gates.items() if not v]}"
+                       f" (flops card {ctr.flops} meta {mtr.flops}, "
+                       f"launches card {card} meta {want}, temp predicted "
+                       f"{mtr.peak_live} measured {temp}, bytes {ctr.nbytes}"
+                       f" floor {floor})")
+        diff = {k: (v, ctr.bytes_by_op.get(k, 0)) for k, v in
+                mtr.bytes_by_op.items() if ctr.bytes_by_op.get(k, 0) != v}
+        log("bundles", f"{a} {shape} ({'smoke' if smoke else 'full width'}"
+            f", {cut}): flops={ctr.flops:.6e} (meta {mtr.flops:.6e}) "
+            f"launches {card} (meta {want}) bytes card={ctr.nbytes:.6e} "
+            f"meta={mtr.nbytes:.6e}"
+            + (f" (ops differing: {diff})" if diff else "")
+            + (f" floor={floor:.4e}" if floor else "")
+            + f" temp predicted={mtr.peak_live / 1e9:.4f} GB measured="
+            f"{temp / 1e9:.4f} GB (ratio {mtr.peak_live / max(temp, 1):.4f})"
+            f" step_ms={ms:.4f} bound_ms={bound:.4f} "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}) "
+            f"ms/bound={ms / max(bound, 1e-9):.2f} "
+            f"host {time.perf_counter() - t0:.1f}s")
+        n += 1
+        del model, opt
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("bundles: " + "; ".join(bad))
+    counts = {k: getattr(ops, k).launches for k in BUNDLE_ROWS}
+    log("bundles", f"{n} cells: card FLOPs == meta FLOPs, rows 8/9/10 "
+        f"launches == the trace's, predicted temp >= measured, decode "
+        f"bytes >= floor; launches over the phase "
+        f"{counts}; phase {time.perf_counter() - t_all:.1f}s")
+    return counts
+
+
 # kernel classes of the bag VJP's device split (``profile_device``)
 BAG_SPLIT = (("sort", ("sort", "Sort", "radix", "Radix")),
              ("embedding_bwd", ("embedding", "grad_weight", "segment",
@@ -6673,6 +6811,10 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="build, then only the [train] phases "
                     "(phase_train)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="build, then only [dryrun] (the dry-run of every "
+                    "registry cell on meta) and [bundles] (every bundle's "
+                    "step on the card against its meta trace)")
     ap.add_argument("--launch-only", action="store_true",
                     help="build, then only [aliases] on an index of "
                     "--n-docs / --lists / --hnsw-docs built here, and "
@@ -6721,7 +6863,10 @@ def main() -> int:
     if (args.stages_only or args.dump_rows or args.bag_times or args.adc_times
             or args.hnsw_only or args.hnsw_times or args.segment_only
             or args.sharded_only or args.models_only or args.train_only
-            or args.launch_only):
+            or args.launch_only or args.dryrun_only):
+        if args.dryrun_only:
+            phase_dryrun(args)
+            phase_bundles(args, dev)
         if args.train_only:
             phase_train(args, dev)
         if args.launch_only:
@@ -6914,6 +7059,11 @@ def main() -> int:
     del model, corpus, tindex, rec_vecs
     torch.cuda.empty_cache()
 
+    # the dry-run's cost model, then every registry bundle on the card
+    # under its counter: counts from 0 in [bundles]
+    phase_dryrun(args)
+    bundle_counts = phase_bundles(args, dev)
+
     # the ranking models and GIN: this slice's path, counts from 0
     from repro_torch.kernels import ops
     ops.reset_launches()
@@ -6984,6 +7134,8 @@ def main() -> int:
     for name in IVF_KERNELS + REC_KERNELS:
         launches[name] = launches.get(name, 0) + rec_counts[name]
     launches["embedding_bag"] += train_bag
+    for name, n in bundle_counts.items():
+        launches[name] += n
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], ms=times[1][name]["ms"],

@@ -2,7 +2,7 @@
 
 Importing this package populates the architecture registry
 (``configs.common``): the ten arch ids of the reference, each with its
-train bundles.  ``encoders`` holds the paper's own encoder configs.
+train and serve bundles.  ``encoders`` holds the paper's own encoder configs.
 """
 from repro_torch.configs import (autoint, bst, common,  # noqa: F401
                                  dcn_v2, deepseek_v2_lite_16b, encoders,

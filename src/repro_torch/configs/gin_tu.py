@@ -14,8 +14,10 @@ Every shape is ``kind="train"``.  d_in and n_classes are set per shape
 (``dataclasses.replace``).  ``build_bundle`` is the reference's
 (``:79-178``): ``models.gnn.node_loss`` on the full-batch shapes,
 ``tree_loss`` on ``minibatch_lg``'s trees, ``graph_loss`` on
-``molecule``'s graphs, AdamW at a constant 1e-3; registered as
-``gin-tu``.
+``molecule``'s graphs, AdamW at a constant 1e-3; the parameters and
+the optimizer state replicated, the full-batch shapes' edges split over
+every mesh axis (node states replicated), the other shapes' batches
+over the data axes; registered as ``gin-tu``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs import common
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import P
 from repro_torch.models import gnn
 
 SHAPE_PARAMS: Dict[str, Dict[str, Any]] = {
@@ -83,13 +87,17 @@ def init_model(cfg: gnn.GINConfig, seed: int = 0, device=None) -> gnn.GIN:
                    ).requires_grad_(True)
 
 
-def build_bundle(cfg: gnn.GINConfig, shape: str, *, smoke: bool = False,
-                 shape_overrides=None, **kw) -> common.StepBundle:
+def build_bundle(cfg: gnn.GINConfig, shape: str, axes: SH.Axes = None, *,
+                 n_dp: int = 1, smoke: bool = False, shape_overrides=None,
+                 **kw) -> common.StepBundle:
     """The train bundle of one of the four shapes."""
+    axes = axes or SH.Axes()
     sp = dict(SMOKE_SHAPE_PARAMS[shape] if smoke else SHAPE_PARAMS[shape])
     sp.update(shape_overrides or {})
     cfg = shape_config(cfg, shape, smoke, shape_overrides)
     st, i32, f32, b8 = common.struct, torch.int32, torch.float32, torch.bool
+    flat = axes.data + (axes.model,)
+    d_h = cfg.d_hidden
     if shape in ("full_graph_sm", "ogb_products"):
         n, e = sp["n_nodes"], pad_to(sp["n_edges"], sp["pad_edges_to"])
         structs = {"x": st((n, sp["d_feat"]), f32),
@@ -102,6 +110,14 @@ def build_bundle(cfg: gnn.GINConfig, shape: str, *, smoke: bool = False,
                                  b["edge_dst"], b["labels"],
                                  b["train_mask"], b["edge_mask"])
         tokens = n
+        bspecs = {"x": P(), "edge_src": P(flat), "edge_dst": P(flat),
+                  "edge_mask": P(flat), "labels": P(), "train_mask": P()}
+        # fwd ~ Σ_l 2·N·d_in·d_h + 2·N·d_h² + E·d_h; train ~ 3x fwd
+        n_e = sp["n_edges"]
+        fwd = (2 * n * sp["d_feat"] * d_h + 2 * n * d_h * d_h
+               + (cfg.n_layers - 1) * (4 * n * d_h * d_h + n_e * d_h)
+               + n_e * sp["d_feat"])
+        bounds = {"edge_src": n, "edge_dst": n, "labels": cfg.n_classes}
     elif shape == "minibatch_lg":
         bsz, tn, te = sp["batch_nodes"], sp["tree_nodes"], sp["tree_edges"]
         structs = {"x": st((bsz, tn, sp["d_feat"]), f32),
@@ -114,6 +130,10 @@ def build_bundle(cfg: gnn.GINConfig, shape: str, *, smoke: bool = False,
             return gnn.tree_loss(model, b["x"], b["edge_src"],
                                  b["edge_dst"], b["edge_mask"], b["labels"])
         tokens = bsz
+        bspecs = {k: P(axes.dp) for k in structs}
+        fwd = bsz * (2 * tn * sp["d_feat"] * d_h
+                     + cfg.n_layers * (4 * tn * d_h * d_h + te * d_h))
+        bounds = {"edge_src": tn, "edge_dst": tn, "labels": cfg.n_classes}
     else:  # molecule
         bsz, n, e = sp["batch"], sp["n_nodes"], sp["n_edges"]
         structs = {"x": st((bsz, n, sp["d_feat"]), f32),
@@ -128,12 +148,25 @@ def build_bundle(cfg: gnn.GINConfig, shape: str, *, smoke: bool = False,
                                   b["edge_dst"], b["node_mask"],
                                   b["labels"], b["edge_mask"])
         tokens = bsz
+        bspecs = {k: P(axes.dp) for k in structs}
+        fwd = bsz * (2 * n * sp["d_feat"] * d_h
+                     + cfg.n_layers * (4 * n * d_h * d_h + e * d_h))
+        bounds = {"edge_src": n, "edge_dst": n, "labels": cfg.n_classes}
+    # GIN's parameters are tiny: replicated, and so is their state
+    pspecs = SH.gin_param_specs(gnn.init_params(cfg, common.seeded(
+        "meta", 0)))
+    ospecs = common.replicate_specs(SH.lm_opt_specs("adamw", pspecs))
     return common.StepBundle(
         arch="gin-tu", shape=shape, kind="train",
         step_fn=common.simple_train_step(loss_fn),
         init_model=lambda seed, device=None: init_model(cfg, seed, device),
         make_optimizer=common.adamw_constant(1e-3), batch_structs=structs,
-        meta=dict(params=cfg.param_count(), tokens=tokens))
+        in_specs=(pspecs, ospecs, bspecs), out_specs=(pspecs, ospecs, None),
+        donate_argnums=(0, 1),
+        make_args=lambda seed, device=None: common.synth_args(
+            structs, bounds, seed, device),
+        meta=dict(model_flops=3.0 * fwd, scan_trip_count=1,
+                  params=cfg.param_count(), tokens=tokens))
 
 
 ARCH = common.register(common.ArchDef(

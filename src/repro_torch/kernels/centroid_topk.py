@@ -14,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import launcher, tiling
+from repro_torch.kernels import cost, launcher, tiling
 from repro_torch.kernels.fused_turn import _check, fold_counters
 
 #: operand dtypes the kernels read, and their codes in the C entries
@@ -61,7 +61,10 @@ def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *,
     _, counters = fold_counters(
         dev, 0, tiling.select_counters(b, p, d)
         if tiling.select_fold(b, p, d, kp) else 0)
-    launcher.run("centroid_topk", tiling.plan_centroid_topk(b, p, d, kp), dev,
+    plan = tiling.plan_centroid_topk(b, p, d, kp)
+    launcher.count("centroid_topk", plan, cost.ck_cost(
+        centroids.shape, queries.shape, kp, queries.dtype))
+    launcher.run("centroid_topk", plan, dev,
                  queries, centroids, DTYPE_CODE[queries.dtype], p, b, d, kp,
                  s1_v, s1_i, counters, out_v, out_i)
     return out_v, out_i

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import launcher, tiling
+from repro_torch.kernels import cost, launcher, tiling
 
 #: the kernels of ``csrc/embedding_bag.cu`` a call may force: a block a
 #: (bag, column slice) with the rows staged in shared memory, or a warp a
@@ -56,6 +56,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
     plan = tiling.plan_embedding_bag(b, d, kernel)
     rows = bool(plan) and plan[0].kernel == "bag_rows_kernel"
+    launcher.count("embedding_bag_f32", plan,
+                   cost.bag_cost(ids.shape, d, weights is not None))
     launcher.run("embedding_bag_f32", plan, table.device, table, d, ids,
                  weights, b, bag, out, int(rows))
     return out

@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import launcher, tiling
+from repro_torch.kernels import cost, launcher, tiling
 
 #: widest head dim (D and Dv) the kernel takes (csrc MAX_DIM)
 MAX_DIM = tiling.ATTN_MAX_DIM
@@ -103,6 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     if d > MAX_DIM or dv > MAX_DIM:
         raise ValueError(f"head dims D={d}, Dv={dv}: at most {MAX_DIM}")
+    work = cost.attn_cost(q.shape, k.shape, v.shape, q.dtype, causal)
     dp, dvp = padded_dims(d, dv, q.dtype)
     q, k, v = _pad(q, dp), _pad(k, dp), _pad(v, dvp)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -115,6 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     warps = plan[0].block[0] // tiling.WARP if plan else 1
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
+    launcher.count(ENTRIES[q.dtype], plan, work)
     launcher.run(ENTRIES[q.dtype], plan, q.device, q, k, v, out, b, h, hkv,
                  s, skv, dp, dvp, int(causal), 1.0 / math.sqrt(d), warps,
                  strides)

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import launcher, tiling
+from repro_torch.kernels import cost, launcher, tiling
 from repro_torch.kernels.tiling import MAX_GRID_Y, decode_split
 
 #: widest head dim the kernel takes (csrc MAX_DIM), and the widest GQA
@@ -113,6 +113,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_l = torch.empty(part, dtype=torch.float32, device=q.device)
     part_acc = torch.empty(part * d, dtype=torch.float32, device=q.device)
     scale = 1.0 / math.sqrt(d)
+    launcher.count(ENTRIES[k.dtype], plan,
+                   cost.decode_cost(q.shape, k.shape, q.dtype, k.dtype))
     if not bf16:
         launcher.run(ENTRIES[k.dtype], plan, q.device, q, k, v, cache_len, b,
                      h, hkv, s, d, chunk, nsplit, scale, part_m, part_l,

@@ -14,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import launcher, tiling
+from repro_torch.kernels import cost, launcher, tiling
 from repro_torch.kernels.centroid_topk import DTYPE_CODE, check_dtype
 from repro_torch.kernels.fused_turn import _check, scan_lists
 from repro_torch.kernels.sorting import PAD_POS
@@ -52,7 +52,10 @@ def ivf_scan(queries: torch.Tensor, list_vecs: torch.Tensor,
     out_v = torch.empty((b, kp), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, kp), dtype=torch.int32, device=dev)
     lists, _ = scan_lists(b, nprobe, lmax, kp, dev)
-    launcher.run("ivf_scan", tiling.plan_ivf_scan(b, nprobe, lmax, d, kp),
+    plan = tiling.plan_ivf_scan(b, nprobe, lmax, d, kp)
+    launcher.count("ivf_scan", plan,
+                   cost.scan_cost(b, nprobe, lmax, d, kp, queries.dtype, 8))
+    launcher.run("ivf_scan", plan,
                  dev, queries, list_vecs, DTYPE_CODE[queries.dtype], list_ids,
                  p, sel, b, nprobe, lmax, d, kp, *lists, out_v, out_i)
     return out_v, out_i

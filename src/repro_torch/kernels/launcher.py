@@ -13,6 +13,14 @@ nothing: tensors on the ``meta`` device then pass the bindings' checks
 drive the ops entries on meta tensors, as the reference's pass drives
 its wrappers under ``eval_shape``, with no card and no build.  Outside
 the recorder a meta tensor is refused like any other non-CUDA tensor.
+
+Under ``count_costs()`` every call of a binding that hands ``count`` its
+work just before ``run`` (rows 1, 2, 8, 9 and 10: the entries the
+registry's steps reach), launched or recorded, also adds (entry,
+``cost.Cost``) to the yielded list: the shape-only form of
+``kernels/cost.py``, so a count taken on ``meta`` tensors and one taken
+on the card agree.  The dry-run (``launch.analysis``) reads the
+kernels' FLOPs and bytes from it.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import Cost
 from repro_torch.kernels.tiling import Launch
 
 
@@ -35,6 +44,7 @@ class Record:
 
 
 _records: Optional[List[Record]] = None
+_costs: Optional[List[Tuple[str, Cost]]] = None
 
 
 @contextlib.contextmanager
@@ -53,6 +63,18 @@ def recording() -> bool:
     return _records is not None
 
 
+@contextlib.contextmanager
+def count_costs() -> Iterator[List[Tuple[str, Cost]]]:
+    """Add (entry, cost) of every ``count``-ed entry call, launched or
+    recorded, to the yielded list until the block ends."""
+    global _costs
+    outer, _costs = _costs, []
+    try:
+        yield _costs
+    finally:
+        _costs = outer
+
+
 def check_device(name: str, t: torch.Tensor) -> None:
     """A kernel operand lies on a CUDA device, or on ``meta`` while
     recording."""
@@ -65,6 +87,15 @@ def aligned(t: torch.Tensor) -> bool:
     """The tensor's data starts on a 16-byte boundary (a meta tensor has
     no data and passes)."""
     return t.device.type == "meta" or t.data_ptr() % 16 == 0
+
+
+def count(entry: str, plan: Sequence[Launch], cost: Cost) -> None:
+    """A binding's call of ``entry`` about to ``run`` with this launch
+    plan: its shape-only work ``cost`` goes to an active
+    ``count_costs`` (nothing for an empty plan, which launches
+    nothing)."""
+    if _costs is not None and plan:
+        _costs.append((entry, cost))
 
 
 def run(entry: str, plan: Sequence[Launch], device: torch.device,

@@ -159,8 +159,8 @@ def tower_init(cfg: EncoderConfig, gen: torch.Generator) -> Params:
     return {
         "embed": L.dense_init(gen, cfg.vocab, cfg.d_model, cfg.dtype,
                               scale=1.0),
-        "pos": (torch.randn((cfg.max_len, cfg.d_model), generator=gen,
-                            device=dev) * 0.02).to(cfg.dtype),
+        "pos": (L.randn((cfg.max_len, cfg.d_model), gen) * 0.02
+                ).to(cfg.dtype),
         "layers": [one_layer() for _ in range(cfg.n_layers)],
         "final_norm": L.rmsnorm_init(cfg.d_model, dev, cfg.dtype),
         "proj": L.dense_init(gen, cfg.d_model, cfg.d_out, cfg.dtype),
@@ -172,8 +172,7 @@ def init_params(cfg: EncoderConfig, seed: int = 0, device=None
     """A randomly initialised ``DualEncoder`` on ``device`` (default
     cuda), drawn from a ``torch.Generator`` seeded with ``seed`` (other
     numbers than the reference's ``jax.random`` key gives)."""
-    dev = _device.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = L.generator(_device.resolve(device), seed)
     query = Tower(cfg, tower_init(cfg, gen))
     doc = query if cfg.shared_towers else Tower(cfg, tower_init(cfg, gen))
     return DualEncoder(cfg, query, doc)

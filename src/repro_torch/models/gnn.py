@@ -94,12 +94,17 @@ def edge_order(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                n_nodes: int, edge_mask: Optional[torch.Tensor] = None
                ) -> EdgeOrder:
     """Sort the edges by destination, stably (each node's edges keep
-    their order); integer work only, no host sync."""
+    their order); integer work only, no host sync.  On ``meta`` (the
+    dry-run's trace: ``bincount`` has no meta kernel) the counts are an
+    empty (N,) tensor, the shape ``bincount`` gives for ids < N."""
     dst = edge_dst.long()
     order = torch.sort(dst, stable=True).indices
+    lengths = (torch.empty(n_nodes, dtype=torch.int64, device=dst.device)
+               if dst.device.type == "meta"
+               else torch.bincount(dst, minlength=n_nodes))
     return EdgeOrder(edge_src.long()[order],
                      None if edge_mask is None else edge_mask[order],
-                     torch.bincount(dst, minlength=n_nodes))
+                     lengths)
 
 
 def aggregate(h: torch.Tensor, edge_src: torch.Tensor,

@@ -21,7 +21,10 @@ Parameters keep the reference's layout (``x @ w`` with ``w`` of shape
 Each module is built from a dict of tensors: ``*_init(gen, ...)`` draws
 one from a ``torch.Generator`` at the reference's scales, and
 ``convert.encoder_params_from_numpy`` makes one from the reference's
-arrays.  Parameters do not require grad by default (``frozen``: serving
+arrays.  On the ``meta`` device (``generator(device="meta")``, the
+dry-run's shapes without data) the same tree is built with the same
+names, shapes and dtypes, and nothing is drawn: torch has no generator
+there.  Parameters do not require grad by default (``frozen``: serving
 builds no graph); training calls ``model.requires_grad_(True)``, and
 the attention and EmbeddingBag kernels differentiate through their
 autograd Functions (``kernels.ops``).  ``take_label`` is the label
@@ -72,14 +75,36 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+class MetaGenerator:
+    """What ``generator`` gives on ``meta``: a device and no state (torch
+    has no ``Generator`` on meta); ``randn`` draws nothing from it."""
+    device = torch.device("meta")
+
+
+def generator(device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``, or on
+    ``meta`` a ``MetaGenerator``."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def randn(shape, gen) -> torch.Tensor:
+    """Standard normal float32 of ``shape`` drawn from ``gen`` on its
+    device; on ``meta`` an empty tensor of that shape (no draw)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, scale: Optional[float] = None
                ) -> torch.Tensor:
     """Normal times (1 / d_in)^½ unless ``scale`` is given, on the
     generator's device."""
     scale = scale if scale is not None else (1.0 / d_in) ** 0.5
-    return (torch.randn((d_in, d_out), generator=gen, device=gen.device)
-            * scale).to(dtype)
+    return (randn((d_in, d_out), gen) * scale).to(dtype)
 
 
 def rmsnorm_init(d: int, device, dtype=torch.float32) -> Params:
@@ -394,8 +419,7 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig, dtype=torch.float32
     scale = (1.0 / d) ** 0.5
 
     def bank(n, din, dout):
-        return (torch.randn((n, din, dout), generator=gen, device=gen.device)
-                * scale).to(dtype)
+        return (randn((n, din, dout), gen) * scale).to(dtype)
 
     p: Params = {"router": dense_init(gen, d, e, torch.float32),
                  "w_gate": bank(e, d, f), "w_up": bank(e, d, f),

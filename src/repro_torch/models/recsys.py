@@ -64,7 +64,7 @@ def embed_table_init(gen: torch.Generator, vocab_sizes: Sequence[int],
     """The concatenated table, normal × dim^-½, on the generator's
     device."""
     total = int(sum(vocab_sizes))
-    table = torch.randn((total, dim), generator=gen, device=gen.device)
+    table = L.randn((total, dim), gen)
     return {"table": table.mul_(dim ** -0.5).to(dtype)}
 
 
@@ -217,8 +217,7 @@ def two_tower_init(cfg: TwoTowerConfig, seed: int = 0, device=None
     """A randomly initialised ``TwoTower`` on ``device`` (default cuda),
     drawn from a ``torch.Generator`` seeded with ``seed`` (other numbers
     than the reference's ``jax.random`` key gives)."""
-    dev = _device.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = L.generator(_device.resolve(device), seed)
     return TwoTower(cfg, two_tower_params(cfg, gen))
 
 
@@ -404,8 +403,7 @@ def bst_init(cfg: BSTConfig, gen: torch.Generator) -> Params:
         "emb": embed_table_init(gen, (cfg.item_vocab,), e, cfg.dtype),
         "other_emb": embed_table_init(gen, (cfg.other_vocab,) * cfg.n_other,
                                       e, cfg.dtype),
-        "pos": (torch.randn((cfg.seq_len + 1, e), generator=gen, device=dev)
-                * 0.02).to(cfg.dtype),
+        "pos": (L.randn((cfg.seq_len + 1, e), gen) * 0.02).to(cfg.dtype),
         "blocks": blocks,
         "deep": L.mlp_init(gen, (d_in,) + cfg.mlp, cfg.dtype),
         "head": L.dense_init(gen, cfg.mlp[-1], 1, cfg.dtype),

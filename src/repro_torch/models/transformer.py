@@ -373,9 +373,10 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> LM:
     """A randomly initialised ``LM`` on ``device`` (default cuda), drawn
     from a ``torch.Generator`` seeded with ``seed`` at the reference's
     scales: dense normal x (1/d_in)^½, the embedding at 1.0, norms ones
-    (other numbers than the reference's ``jax.random`` key gives)."""
+    (other numbers than the reference's ``jax.random`` key gives).  On
+    ``meta`` the same module with nothing drawn (``L.generator``)."""
     dev = _device.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = L.generator(dev, seed)
     params = {"embed": L.dense_init(gen, cfg.vocab, cfg.d_model,
                                     cfg.param_dtype, scale=1.0),
               "layers": [layer_init(cfg, gen) for _ in range(cfg.n_layers)],

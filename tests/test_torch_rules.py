@@ -29,8 +29,11 @@ from repro_torch.core import pq as tpq
 from repro_torch.core import segment as tsegment
 from repro_torch.core import toploc as ttl
 from repro_torch.configs import common as tcommon
+from repro_torch.data import pipeline as tpipeline
+from repro_torch.distributed import elastic as telastic
 from repro_torch.distributed import fault as tfault
 from repro_torch.distributed import retrieval as tretrieval
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.kernels import ops as tops
@@ -226,6 +229,13 @@ ENTRY_POINTS = {
     "bundle.init_model": lambda idx, q: tcommon.get("gin-tu").build_bundle(
         tcommon.get("gin-tu").make_smoke_config(), "molecule",
         smoke=True).init_model(0),
+    "bundle.make_args": lambda idx, q: tcommon.get("bst").build_bundle(
+        tcommon.get("bst").make_smoke_config(), "serve_p99",
+        smoke=True).make_args(0),
+    "mesh.make_debug_mesh": lambda idx, q: tmesh.make_debug_mesh(),
+    "elastic.make_elastic_mesh": lambda idx, q: telastic.make_elastic_mesh(),
+    "pipeline.shard_batch": lambda idx, q: tpipeline.shard_batch(
+        {"x": np.zeros(2)}, None),
 }
 
 

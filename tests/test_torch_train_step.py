@@ -211,9 +211,11 @@ def test_simple_train_step_returns_the_metrics():
 
 
 def test_serve_shapes_are_not_bundled():
-    arch = TC.get("yi-9b")
-    with pytest.raises(NotImplementedError, match="serve shape"):
-        arch.build_bundle(arch.make_smoke_config(), "decode_32k", smoke=True)
-    with pytest.raises(NotImplementedError, match="serve shape"):
-        TC.get("bst").build_bundle(TC.get("bst").make_smoke_config(),
-                                   "serve_p99", smoke=True)
+    """A serve shape is not bundled as a train step: its bundle is kind
+    "serve", with no optimizer and no batch of labels (its steps are
+    held to the reference's in ``tests/test_torch_serve_bundles.py``)."""
+    for arch_id, shape in (("yi-9b", "decode_32k"), ("bst", "serve_p99")):
+        arch = TC.get(arch_id)
+        b = arch.build_bundle(arch.make_smoke_config(), shape, smoke=True)
+        assert b.kind == "serve"
+        assert b.make_optimizer is None and b.batch_structs == {}
